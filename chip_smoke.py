@@ -6,21 +6,38 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the port's CUDA kernels from `csrc/` with nvcc;
-3. kernel parity: the ragged paged-decode kernel against its plain
+2. build: compiles the port's CUDA kernels from `csrc/` with nvcc, one
+   process per source, all started together;
+3. kernel parity (K4): the ragged paged-decode kernel against its plain
    PyTorch version over head_dim x GQA group x window/cap x page size, in
-   fp32 and bf16, with ragged lengths (1, a page boundary, ~2000) and an
-   idle trash-block row;
-4. serving: `ServingEngine` on a full-width, full-depth Llama-3.1-8B in
+   fp32 and bf16, with ragged lengths and an idle trash-block row;
+4. flash parity (K1-K3): the flash forward (O, LSE) and backward (dq, dk,
+   dv, d_sinks) kernels against their plain versions over head_dim x GQA
+   group x {causal, window, cap, sinks} x {one document, packed, padding
+   tail}, in fp32 and bf16, at a length that is not a tile multiple, and
+   at q_offset > 0; every case has fully masked rows (O = 0, LSE = -inf or
+   the sink, dq = 0);
+5. serving: `ServingEngine` on a full-width, full-depth Llama-3.1-8B in
    bf16 (random weights drawn on the card from a seed) answers 16
    requests, half of them admitted while decode is running; all complete,
-   the pool ends leak-free, all logits are finite, and the kernel ran
-   once per layer on every decode step;
-5. engine-level parity: a 2-layer model of the same width runs one decode
-   step from one pool state through the kernel and through the plain path;
-6. timing: the kernel against its plain version at the serving shape, in
-   bf16 and in fp32, then both timed there (device time from CUDA events,
-   cold L2); and the serving metrics of phase 4.
+   the pool ends leak-free, all logits are finite, and K4 ran once per
+   layer on every decode step;
+6. engine-level parity: a 2-layer model of the same width runs one decode
+   step from one pool state through K4 and through the plain path;
+7. K4 timing at the serving shape (device time from CUDA events, cold L2);
+8. training: the CLM `Trainer` fits a Llama-3.1-8B of 8 layers at full
+   width (fp32 params, bf16 compute, selective recompute, AdamW with clip
+   and cosine warmup, random weights from seed 0) for 8 optimizer steps of
+   2 micro-batches of one packed 8192-token row; losses and grad norms are
+   finite and the loss falls, K1 ran once and K2/K3 once per layer per
+   micro-step, the plain attention path never; then one traced step;
+9. train-step parity: a 2-layer full-width model runs one forward and
+   backward on one packed row through the kernels in bf16, the plain path
+   in bf16 and the plain path in fp32 (the truth): the kernel path is no
+   further from fp32 than the plain bf16 path (within 1.5x);
+10. flash timing: K1, K2 and K3 at the training shape and at S 2048, the
+   plain versions and `scaled_dot_product_attention` (the yardstick) at
+   S 2048, and SDPA at the training shape.
 
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -28,6 +45,7 @@ and as its last line `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -39,8 +57,16 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "llm_training_tpu_torch/ops/kernels/csrc/paged_decode.cu"
-KERNEL_REPLACES = "llm_training_tpu/ops/pallas/paged_attention.py:48"
+CSRC = "llm_training_tpu_torch/ops/kernels/csrc/"
+PALLAS = "llm_training_tpu/ops/pallas/"
+KERNEL_SOURCE = CSRC + "paged_decode.cu"
+KERNEL_REPLACES = PALLAS + "paged_attention.py:48"
+# flash kernels: launcher name, source, the Pallas kernel it replaces
+FLASH_KERNELS = (
+    ("flash_fwd_kernel", CSRC + "flash_fwd.cu", PALLAS + "flash_attention.py:372"),
+    ("flash_dq_kernel", CSRC + "flash_bwd.cu", PALLAS + "flash_attention.py:481"),
+    ("flash_dkv_kernel", CSRC + "flash_bwd.cu", PALLAS + "flash_attention.py:563"),
+)
 FP32_ATOL = 1e-4  # summation order only
 # bf16 against the plain version in bf16, which also rounds its
 # probabilities to bf16: each row's error over that row's largest |value|
@@ -52,6 +78,26 @@ BF16_ROW_RTOL = 1e-2
 BF16_VS_FP32_RTOL, BF16_VS_FP32_ATOL = 2.0**-8, 1e-5
 # bf16 logits round at 2^-8 of their size: allow eight such steps of the largest
 ENGINE_LOGITS_RTOL = 8 * 2.0**-8
+# flash, bf16 O against the fp32 plain version on the same values, per row
+# over the row's largest |value|: O's rounding to bf16 (up to 2^-8 of a
+# value) plus P's, which the kernel rounds to bf16 before P V as the Pallas
+# kernel does
+FLASH_OUT_VS_FP32 = 4 * 2.0**-8
+# flash, bf16 gradients: the backward takes delta = rowsum(dO * O) from the
+# bf16 O, as the Pallas kernels and FlashAttention-2 do, and the plain bf16
+# path rounds dP to bf16; two bf16 approximations of one gradient differ
+# per element by more than either is off the fp32 truth, so the gradients
+# are held per tensor: within 1e-2 x max|ref| of the plain bf16 version
+# (d_sinks, a sum of cancelling row terms, against fp32 only) and within
+# 4 x 2^-8 x max|ref| of the fp32 plain version. The plain bf16 version's
+# own distance from fp32 is printed beside them.
+FLASH_GRAD_VS_BF16 = 1e-2
+FLASH_GRAD_VS_FP32 = 4 * 2.0**-8
+# train-step parity: the kernel path's distance from the fp32 truth over the
+# plain bf16 path's
+NO_FURTHER = 1.5
+TRAIN_LAYERS = 8
+TRAIN_SEQ = 8192
 
 
 class SmokeFailure(RuntimeError):
@@ -94,15 +140,20 @@ def kernel_vs_plain(kernels, case: dict, **opts) -> dict:
 # ------------------------------------------------------------------ phases
 
 
-def phase_build(kernels) -> float:
+def phase_build() -> float:
+    from llm_training_tpu_torch.ops.kernels import build
+
     t0 = time.perf_counter()
-    path = kernels.build_library()
-    kernels._load()
+    path = build.build_library()
+    build.load()
     seconds = time.perf_counter() - t0
-    print(f"build: {path.name} in {seconds:.2f} s")
-    for line in kernels.build_info.get("log", "").splitlines():
+    print(f"build: {path.name} in {seconds:.2f} s (nvcc {build.build_info.get('seconds', 0):.2f} s)")
+    function = ""
+    for line in build.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            function = line.split("'")[1][:90]
         if "registers" in line or "spill" in line:
-            print(f"build: {line.strip()}")
+            print(f"build: {function}: {line.strip()}")
     return seconds
 
 
@@ -242,12 +293,53 @@ def phase_serve(kernels, card: str) -> dict:
     return result
 
 
+def device_profile(step, steps: int) -> tuple[float, float, list]:
+    """`steps` calls of `step()` traced with torch.profiler: device-busy ms
+    per call, kernels per call, and (us, count, name) by kernel. Only
+    device-side events count (operators on the host side also carry their
+    kernels' time, which would count it twice)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+
+    def device_us(event) -> float:
+        return float(getattr(event, "self_device_time_total", 0.0)
+                     or getattr(event, "self_cuda_time_total", 0.0))
+
+    kernels_by_name = sorted(
+        (
+            (device_us(e), e.count, e.key) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+        ),
+        reverse=True,
+    )
+    busy_ms = sum(t for t, _, _ in kernels_by_name) / 1e3 / steps
+    launches = sum(n for _, n, _ in kernels_by_name) / steps
+    return busy_ms, launches, kernels_by_name
+
+
+def check_busy(name: str, busy_ms: float, wall_ms: float) -> None:
+    check(busy_ms > 0, f"{name}: the trace shows no device time")
+    # a step cannot keep the device busy longer than it lasts: more busy
+    # time than wall time means the trace counted some kernels twice
+    check(busy_ms <= wall_ms,
+          f"{name}: device busy {busy_ms:.3f} ms/step exceeds the step wall {wall_ms:.3f} ms")
+
+
+def top_kernels(kernels_by_name: list, steps: int, n: int = 6) -> str:
+    return "; ".join(
+        f"{key[:60]} {t / 1e3 / steps:.3f} ms x{n_calls // steps}"
+        for t, n_calls, key in kernels_by_name[:n]
+    )
+
+
 def profile_decode(engine, card: str, rng) -> dict:
     """Pure decode steps of 8 rows at ~512 tokens, after the counted run:
     4 untraced (wall time of each, synchronised), then 4 traced with
     torch.profiler (device-busy time per step by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
     for i in range(8):
         engine.submit(f"p{i}", rng.integers(0, 1000, 512).tolist(), max_new_tokens=16)
     engine.step()  # admits all 8
@@ -262,40 +354,14 @@ def profile_decode(engine, card: str, rng) -> dict:
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t))
     wall_ms = percentile(walls, 50)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-
-    def device_us(event) -> float:
-        return float(getattr(event, "self_device_time_total", 0.0)
-                     or getattr(event, "self_cuda_time_total", 0.0))
-
-    # device-side events only: the kernels (operators on the host side
-    # also carry their kernels' time, which would count it twice)
-    kernels_by_name = sorted(
-        (
-            (device_us(e), e.count, e.key) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and device_us(e) > 0
-        ),
-        reverse=True,
-    )
-    busy_ms = sum(t for t, _, _ in kernels_by_name) / 1e3 / steps
-    launches = sum(n for _, n, _ in kernels_by_name) / steps
+    busy_ms, launches, kernels_by_name = device_profile(engine.step, steps)
     while not engine.scheduler.idle:
         engine.step()
-    check(busy_ms > 0, "profile: the trace shows no device time")
-    # a step cannot keep the device busy longer than it lasts: more busy
-    # time than wall time means the trace counted some kernels twice
-    check(busy_ms <= wall_ms,
-          f"profile: device busy {busy_ms:.3f} ms/step exceeds the step wall {wall_ms:.3f} ms")
-    top = "; ".join(
-        f"{key[:60]} {t / 1e3 / steps:.3f} ms x{n // steps}"
-        for t, n, key in kernels_by_name[:6]
-    )
+    check_busy("decode profile", busy_ms, wall_ms)
     print(f"decode profile [{card}]: device busy {busy_ms:.3f} ms/step in "
           f"{launches:.0f} kernels; untraced step wall p50 {wall_ms:.3f} ms; "
-          f"device idle share {100 * (1 - busy_ms / wall_ms):.1f}% of that p50; top: {top}")
+          f"device idle share {100 * (1 - busy_ms / wall_ms):.1f}% of that p50; "
+          f"top: {top_kernels(kernels_by_name, steps)}")
     return dict(profile_busy_ms_per_step=busy_ms, profile_kernels_per_step=launches,
                 profile_step_wall_ms=wall_ms)
 
@@ -418,6 +484,416 @@ def phase_timing(kernels, card: str) -> dict:
                 max_abs_err=err["abs"])
 
 
+# ------------------------------------------------------------ flash phases
+
+
+def _max_rel(a: torch.Tensor, r: torch.Tensor) -> float:
+    """max |a - r| over max |r|, on the entries where r is finite."""
+    finite = torch.isfinite(r)
+    a, r = a[finite].float(), r[finite].float()
+    return float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+
+
+def _row_rel(a: torch.Tensor, r: torch.Tensor) -> float:
+    """The worst row's max |a - r| over that row's max |r| (last dim)."""
+    a, r = a.float().flatten(0, -2), r.float().flatten(0, -2)
+    diff = (a - r).abs().amax(-1)
+    scale = r.abs().amax(-1)
+    # a row whose reference is all zero must be all zero
+    return float(torch.where(scale > 0, diff / scale.clamp_min(1e-30), diff * 1e30).max())
+
+
+def flash_case_errors(got: dict, ref: dict, ref32: dict | None, case: dict,
+                      sinks: torch.Tensor | None) -> tuple[dict, list[str]]:
+    """Errors of one flash case against the limits of the module header;
+    returns (errors by name, the limits it broke)."""
+    errors, broken = {}, []
+    finite = torch.isfinite(ref["lse"])
+    if not torch.equal(torch.isfinite(got["lse"]), finite):
+        broken.append("LSE is -inf on other rows than the plain version's")
+    errors["lse"] = _max_rel(got["lse"], ref["lse"])
+    if errors["lse"] > FP32_ATOL:
+        broken.append(f"lse {errors['lse']:.3e}")
+    padding = case["q_segment_ids"] == 0  # [B, Sq]: fully masked q rows
+    if not bool((got["out"][padding] == 0).all() and (got["dq"][padding] == 0).all()):
+        broken.append("a fully masked row has O or dq != 0")
+    pad_lse = got["lse"].transpose(1, 2)[padding]  # [rows, Hq]
+    expect = torch.full_like(pad_lse, -math.inf) if sinks is None else sinks.float().expand_as(pad_lse)
+    if not torch.equal(pad_lse, expect):
+        broken.append("a fully masked row's LSE is not -inf (or its sink)")
+    grads = [n for n in got if n.startswith("d")]
+    if ref32 is None:  # fp32
+        for name in ["out", *grads]:
+            errors[name] = _max_rel(got[name], ref[name])
+            if errors[name] > FP32_ATOL:
+                broken.append(f"{name} {errors[name]:.3e} > {FP32_ATOL} x max|ref|")
+        return errors, broken
+    errors["out_row"] = _row_rel(got["out"], ref["out"])
+    errors["out_row_vs_fp32"] = _row_rel(got["out"], ref32["out"])
+    if errors["out_row"] > BF16_ROW_RTOL:
+        broken.append(f"out row {errors['out_row']:.3e} > {BF16_ROW_RTOL}")
+    if errors["out_row_vs_fp32"] > FLASH_OUT_VS_FP32:
+        broken.append(f"out vs fp32 row {errors['out_row_vs_fp32']:.3e} > {FLASH_OUT_VS_FP32:.3e}")
+    for name in grads:
+        errors[name] = _max_rel(got[name], ref[name])
+        errors[name + "_vs_fp32"] = _max_rel(got[name], ref32[name])
+        errors[name + "_plain_vs_fp32"] = _max_rel(ref[name], ref32[name])
+        # d_sinks sums row terms that cancel: the plain bf16 version's own
+        # error there is above 1e-2, so it is held against fp32 only
+        if name != "dsinks" and errors[name] > FLASH_GRAD_VS_BF16:
+            broken.append(f"{name} {errors[name]:.3e} > {FLASH_GRAD_VS_BF16} x max|ref|")
+        if errors[name + "_vs_fp32"] > FLASH_GRAD_VS_FP32:
+            broken.append(f"{name} vs fp32 {errors[name + '_vs_fp32']:.3e} > {FLASH_GRAD_VS_FP32:.3e}")
+    return errors, broken
+
+
+def phase_flash_parity() -> dict:
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+
+    worst = {"float32": {}, "bfloat16": {}}
+    cases, failures = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for head_dim in (64, 128):
+            for group in (1, 4, 8):
+                for variant in ("causal", "window", "cap", "sinks"):
+                    for layout in ("one_doc", "packed", "padding_tail"):
+                        cases.append((dtype, head_dim, group, variant, layout, None))
+        for variant in ("causal", "window", "cap", "sinks"):  # a chunk at q_offset 200
+            cases.append((dtype, 128, 4, variant, "packed", 100))
+    for n, (dtype, head_dim, group, variant, layout, q_len) in enumerate(cases):
+        rng = np.random.default_rng(n)
+        other = "packed" if layout != "packed" else "one_doc"
+        # 300 tokens: not a multiple of the 64-row tile
+        case = bench_flash.flash_case(
+            300, 2 * group, 2, head_dim, dtype,
+            [bench_flash.layout(layout, 300, rng), bench_flash.layout(other, 300, rng)],
+            seed=n, q_len=q_len,
+        )
+        opts = dict(causal=True)
+        sinks = None
+        if variant == "window":
+            opts["sliding_window"] = 100
+        elif variant == "cap":
+            opts["logits_soft_cap"] = 30.0
+        elif variant == "sinks":
+            sinks = torch.randn(2 * group, generator=torch.Generator("cuda").manual_seed(n),
+                                device="cuda")
+            opts["sinks"] = sinks
+        got = bench_flash.run_case(case, kernel=True, **dict(opts))
+        ref = bench_flash.run_case(case, kernel=False, **dict(opts))
+        ref32 = (bench_flash.run_case(case, kernel=False, upcast=True, **dict(opts))
+                 if dtype == torch.bfloat16 else None)
+        torch.cuda.synchronize()
+        errors, broken = flash_case_errors(got, ref, ref32, case, sinks)
+        name = str(dtype).removeprefix("torch.")
+        if broken:
+            failures.append(f"{name} D={head_dim} G={group} {variant} {layout} "
+                            f"q_len={q_len or 300}: {broken}")
+        for key, value in errors.items():
+            worst[name][key] = max(worst[name].get(key, 0.0), value)
+    fp32 = ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst["float32"].items()))
+    bf16 = ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst["bfloat16"].items()))
+    check(not failures, f"flash parity: {len(failures)} of {len(cases)} cases fail: "
+                        f"{failures[:6]}; worst fp32 {fp32}; worst bf16 {bf16}")
+    print(f"flash parity: {len(cases)} cases pass (D 64/128 x G 1/4/8 x causal/window 100/"
+          f"cap 30/sinks x one_doc/packed/padding_tail, S 300, and q_offset 200; fully masked "
+          f"rows exact); fp32 worst error over max|ref| (limit {FP32_ATOL}): {fp32}")
+    print(f"flash parity: bf16 worst (out_row limit {BF16_ROW_RTOL}, out_row_vs_fp32 "
+          f"{FLASH_OUT_VS_FP32:.3e}, grads {FLASH_GRAD_VS_BF16} / vs fp32 "
+          f"{FLASH_GRAD_VS_FP32:.3e} x max|ref|): {bf16}")
+    return worst
+
+
+@contextlib.contextmanager
+def count_plain_attention():
+    """Count calls of the plain attention path (`_xla_attention` as
+    `dot_product_attention` reaches it)."""
+    from llm_training_tpu_torch.ops import attention
+
+    real = attention._xla_attention
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    attention._xla_attention = counted
+    try:
+        yield calls
+    finally:
+        attention._xla_attention = real
+
+
+def packed_batches(seed: int, seq: int, rows: int, vocab: int, max_doc: int = 4096) -> list[dict]:
+    """Collated batches of one row each: seeded documents of 256..max_doc
+    random tokens, best-fit-decreasing packed into `seq - 64` tokens by the
+    port's packer, padded to `seq` (segment id 0) by its collator; rows
+    spread over the packed set."""
+    import types
+
+    from llm_training_tpu_torch.data.pre_training import packing
+    from llm_training_tpu_torch.data.pre_training.collator import PreTrainingDataCollator
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(256, max_doc + 1, size=rows * 2 * seq // 1024).tolist()
+    docs = {"source": ["s"] * len(lengths), "length": lengths,
+            "input_ids": [rng.integers(0, vocab, n).tolist() for n in lengths]}
+    packed = packing.best_fit_decreasing(docs, seq - 64)
+    config = types.SimpleNamespace(
+        tokenizer=types.SimpleNamespace(pad_token_id=0, bos_token_id=None), pad_to_multiple_of=seq,
+    )
+    collate = PreTrainingDataCollator(config)
+    n = len(packed["input_ids"])
+    return [
+        collate([{"input_ids": packed["input_ids"][i], "segment_ids": packed["segment_ids"][i]}])
+        for i in (n * (j + 1) // (rows + 1) for j in range(rows))
+    ]
+
+
+def phase_train(card: str) -> dict:
+    """The CLM Trainer at Llama-3.1-8B widths, 8 layers (see the header)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset("llama-3.1-8b", num_hidden_layers=TRAIN_LAYERS, param_dtype="float32",
+                    compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                    recompute_granularity="selective")
+    batches = packed_batches(0, TRAIN_SEQ, 4, config.vocab_size)
+    steps, accumulate = 8, 2
+
+    class Repeated(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            for i in range(start_step, 10**9):
+                yield batches[i % len(batches)]
+
+    class StepClock:
+        def __init__(self):
+            self.step_s, self.losses, self.grad_norms, self.t = [], [], [], None
+
+        def on_fit_start(self, trainer, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+            self.grad_norms.append(metrics["grad_norm"])
+
+    clock = StepClock()
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, seed=0, accumulate_grad_batches=accumulate,
+                      log_every_n_steps=1),
+        callbacks=[clock], device="cuda",
+    )
+    # the example's AdamW, clip and cosine/warmup, with the schedule cut to 8 steps
+    optim = OptimConfig(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine",
+                        warmup_steps=2, min_lr_ratio=0.1, grad_clip_norm=1.0)
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)), optim=optim))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Repeated(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    micro = steps * accumulate
+    check(all(math.isfinite(x) for x in clock.losses + clock.grad_norms),
+          f"train: non-finite loss or grad norm: {clock.losses}, {clock.grad_norms}")
+    check(len(clock.losses) == steps and clock.losses[-1] < clock.losses[0],
+          f"train: the loss did not fall: {clock.losses}")
+    expected_k1 = TRAIN_LAYERS * micro  # selective recompute saves K1's outputs
+    check(launches == [expected_k1, TRAIN_LAYERS * micro, TRAIN_LAYERS * micro],
+          f"train: K1/K2/K3 launched {launches} times; expected {expected_k1} / "
+          f"{TRAIN_LAYERS * micro} / {TRAIN_LAYERS * micro} ({TRAIN_LAYERS} layers x {micro} "
+          f"micro-steps, selective recompute)")
+    check(plain[0] == 0, f"train: the plain attention path ran {plain[0]} times")
+
+    model = state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.model.embed_tokens.weight.numel()
+    head_dim, hq = config.resolved_head_dim, config.num_attention_heads
+    flops_batch = []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        pairs = bench_flash.visible_pairs(seg, seg)
+        tokens = int((batch["segment_ids"] > 0).sum())
+        # 6 N per token for the products (N without the input embedding,
+        # a lookup), 12 D per visible pair per head per layer for attention
+        # (QK^T and PV forward, twice that backward); recompute not counted
+        flops_batch.append((tokens, 6 * n_matmul * tokens + 12 * head_dim * hq * TRAIN_LAYERS * pairs))
+    timed = clock.step_s[1:]  # step 1 carries the warm-up
+    step_ids = range(1, steps)
+    tokens = sum(flops_batch[(s * accumulate + m) % 4][0] for s in step_ids for m in range(accumulate))
+    flops = sum(flops_batch[(s * accumulate + m) % 4][1] for s in step_ids for m in range(accumulate))
+    result = dict(
+        layers=TRAIN_LAYERS, params=n_params, seq=TRAIN_SEQ, micro_steps=micro,
+        launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+        losses=clock.losses, grad_norms=clock.grad_norms, wall_s=wall,
+        step_ms_p50=1e3 * percentile(timed, 50), step_ms=[1e3 * t for t in clock.step_s],
+        tokens_per_s=tokens / sum(timed), mfu=flops / sum(timed) / bench_flash.BF16_FLOPS_PER_S,
+        peak_memory_gb=peak_gb,
+    )
+    print(f"train [{card}]: llama-3.1-8b widths x {TRAIN_LAYERS} layers ({n_params} params, fp32 "
+          f"master, bf16 compute, selective recompute), {steps} steps x {accumulate} micro-batches "
+          f"of 1 x {TRAIN_SEQ} packed tokens; loss {clock.losses[0]:.4f} -> {clock.losses[-1]:.4f}; "
+          f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain path 0; "
+          f"optimizer step p50 {result['step_ms_p50']:.1f} ms, {result['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {100 * result['mfu']:.2f}% of 989 TFLOPS, peak memory {peak_gb:.2f} GB")
+
+    # one more optimizer step twice untraced (wall), then once traced
+    def optimizer_step():
+        for m in range(accumulate):
+            trainer.train_micro_step(objective, state, batches[m])
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        optimizer_step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    wall_ms = percentile(walls, 50)
+    busy_ms, kernels, by_name = device_profile(optimizer_step, 1)
+    check_busy("train profile", busy_ms, wall_ms)
+    result.update(profile_busy_ms=busy_ms, profile_step_wall_ms=wall_ms,
+                  profile_kernels=kernels, profile_idle_share=1 - busy_ms / wall_ms,
+                  profile_top=[(key[:80], t / 1e3, n) for t, n, key in by_name[:8]])
+    print(f"train profile [{card}]: one optimizer step ({accumulate} micro-batches): device busy "
+          f"{busy_ms:.1f} ms in {kernels:.0f} kernels; untraced wall p50 {wall_ms:.1f} ms; device "
+          f"idle share {100 * (1 - busy_ms / wall_ms):.1f}%; top: {top_kernels(by_name, 1, 8)}")
+    del objective, state, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_parity() -> dict:
+    """One forward and backward of a 2-layer full-width model on one packed
+    2048-token row: kernels in bf16, plain in bf16, plain in fp32."""
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    kw = dict(num_hidden_layers=2, param_dtype="float32")
+    model = Llama(preset("llama-3.1-8b", **kw), device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(1))
+    host = packed_batches(5, 2048, 1, model.config.vocab_size, max_doc=1000)[0]
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    names = ("model.layers.0.self_attn.q_proj.weight", "model.layers.1.self_attn.k_proj.weight",
+             "model.embed_tokens.weight")
+    results = {}
+    for name, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
+        if name == "fp32":
+            weights = model.state_dict()
+            model = Llama(preset("llama-3.1-8b", compute_dtype="float32", **kw), device="cuda")
+            model.load_state_dict(weights)
+            del weights
+        model.config.attention_impl = impl
+        before = fa.flash_fwd_kernel.launches + fa.flash_dq_kernel.launches + fa.flash_dkv_kernel.launches
+        model.zero_grad(set_to_none=True)
+        loss = CLM(CLMConfig(), model=model).loss_and_metrics(batch, train=False)[0]
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = fa.flash_fwd_kernel.launches + fa.flash_dq_kernel.launches + fa.flash_dkv_kernel.launches - before
+        check(ran == (6 if name == "kernel" else 0), f"train parity: {name} ran {ran} flash kernels")
+        params = dict(model.named_parameters())
+        results[name] = dict(loss=float(loss.detach()), **{n: params[n].grad.float() for n in names})
+    del model
+    truth = results["fp32"]
+    errors = {}
+    for path in ("kernel", "plain"):
+        errors[path] = {"loss": abs(results[path]["loss"] - truth["loss"])}
+        for n in names:
+            errors[path][n] = _max_rel(results[path][n], truth[n])
+    for key in errors["kernel"]:
+        # the scalar loss's plain error can vanish by chance: a floor of
+        # 2^-8 of the loss there
+        floor = 2.0**-8 * abs(truth["loss"]) if key == "loss" else 0.0
+        check(errors["kernel"][key] <= max(NO_FURTHER * errors["plain"][key], floor),
+              f"train parity: {key}: the kernel path is further from fp32 "
+              f"({errors['kernel'][key]:.3e}) than the plain bf16 path ({errors['plain'][key]:.3e})")
+    print("train parity: 2-layer full width, 1 x 2048 packed tokens, vs fp32 (loss: |error|, grads: "
+          "max error over max|fp32|): " + "; ".join(
+              f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
+              f"{errors['plain'][key]:.3e}" for key in errors["kernel"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errors
+
+
+def phase_flash_timing(card: str) -> dict:
+    """K1, K2, K3 at the training shape (B 1, S 8192, Hq 32, Hkv 8, D 128,
+    bf16, one packed row): held against the plain versions (one kv head at
+    a time), then timed with them and with SDPA, beside the bound."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+
+    cases = bench_flash.training_case(seq=TRAIN_SEQ)
+    case = cases[0]
+    got = bench_flash.run_case(case, kernel=True, causal=True)
+    ref = bench_flash.run_plain_by_kv_head(case, causal=True)
+    ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, causal=True)
+    torch.cuda.synchronize()
+    errors, broken = flash_case_errors(got, ref, ref32, case, None)
+    check(not broken, f"flash timing shape: kernels vs plain: {broken}")
+    abs_err = {
+        "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
+        "dq": float((got["dq"].float() - ref["dq"].float()).abs().max()),
+        "dkv": max(float((got[n].float() - ref[n].float()).abs().max()) for n in ("dk", "dv")),
+    }
+    del got, ref, ref32
+    flat = bench_flash.flat_inputs(case)
+    pairs = bench_flash.visible_pairs(flat["seg_q"], flat["seg_kv"])
+    kernel = bench_flash.time_kernels(cases)
+    plain = bench_flash.time_plain(cases)
+    library = bench_flash.time_sdpa(cases)
+    hq, head_dim = flat["q"].shape[2], flat["q"].shape[3]
+    out = {}
+    for kind in ("fwd", "dq", "dkv"):
+        bound, by = bench_flash.bound_ms(kind, pairs, hq, head_dim, bench_flash.io_bytes(flat, kind))
+        side = "fwd_ms" if kind == "fwd" else "bwd_ms"
+        out[kind] = dict(ms=kernel[f"{kind}_ms"], plain_ms=plain[side], library_ms=library[side],
+                         bound_ms=bound, bound_by=by, max_abs_err=abs_err[kind])
+    print(f"flash parity at the training shape: bf16 vs plain (one kv head at a time): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errors.items())))
+    print(
+        f"flash timing [{card}]: B1 S{TRAIN_SEQ} Hq{hq} Hkv{flat['k'].shape[2]} D{head_dim} bf16, "
+        f"causal packed ({pairs} visible pairs per head), cold L2: "
+        + "; ".join(
+            f"{kind} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f} ms by {v['bound_by']}, "
+            f"{100 * v['bound_ms'] / v['ms']:.1f}%)" for kind, v in out.items()
+        )
+        + f"; plain fwd {plain['fwd_ms']:.3f} ms, bwd {plain['bwd_ms']:.3f} ms (one kv head at a "
+        f"time); SDPA (bool mask, enable_gqa) fwd {library['fwd_ms']:.3f} ms, bwd "
+        f"{library['bwd_ms']:.3f} ms"
+    )
+    del cases, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -433,16 +909,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build(kernels)
+    phase_build()
     phase_kernel_parity(kernels)
+    phase_flash_parity()
     serve = phase_serve(kernels, card)
     gc.collect()  # the engine's timing wrappers form a reference cycle
     torch.cuda.empty_cache()
     phase_engine_parity(kernels)
     torch.cuda.empty_cache()
     timing = phase_timing(kernels, card)
+    train = phase_train(card)
+    phase_train_parity()
+    flash = phase_flash_timing(card)
     print(f"serve summary [{card}]: " + json.dumps(serve))
-    print(json.dumps({"kernels": [{
+    print(f"train summary [{card}]: " + json.dumps(train))
+    rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -454,7 +935,11 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]}))
+    }]
+    for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": train["launches"][kind], **flash[kind]})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,14 @@
-"""Console entry: `python -m llm_training_tpu_torch serve`.
+"""Console entry: `python -m llm_training_tpu_torch {fit,serve}`.
 
-Counterpart of `_run_serve` in `llm_training_tpu/cli/main.py`: a
-continuous-batching server over a JSONL stdin/stdout protocol. One request
+`fit --config file.json [key.path=value ...]` trains: the counterpart of
+the JAX `fit` command on a JSON config with the YAML examples' node layout
+(`trainer` / `model` / `data`, components as `class_path` + `init_args`).
+The `trainer` node's `loggers` and `callbacks` lists are components too;
+checkpointing and the other trainer fields of the JAX package are not
+ported yet and raise.
+
+`serve` is the counterpart of `_run_serve` in `llm_training_tpu/cli/main.py`:
+a continuous-batching server over a JSONL stdin/stdout protocol. One request
 per input line (`{"id", "prompt": [ids], "max_new_tokens"?, "priority"?}`);
 the engine streams `{"type": "token"}` chunks and one `{"type": "done"}`
 per request as they land, admitting new requests between decode steps. A
@@ -18,7 +25,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import queue
+import random
 import sys
 import threading
 from typing import TextIO
@@ -27,12 +36,15 @@ import numpy as np
 import torch
 
 from llm_training_tpu_torch import resolve_device
+from llm_training_tpu_torch.cli.config import instantiate_from_config, load_config
+from llm_training_tpu_torch.dataclass_config import build_dataclass
 from llm_training_tpu_torch.infer.sampling import SamplingConfig
 from llm_training_tpu_torch.models.llama.config import PRESETS, LlamaConfig, preset
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax, tree_from_flat
 from llm_training_tpu_torch.models.llama.model import Llama
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
+from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 
 
 def build_model(args) -> Llama:
@@ -134,9 +146,42 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
     return 0
 
 
+def build_fit(config: dict, device: str | None) -> tuple[Trainer, object, object]:
+    """(trainer, objective, datamodule) of a loaded config."""
+    trainer_node = dict(config.get("trainer", {}))
+    components = trainer_node.pop("callbacks", []) + trainer_node.pop("loggers", [])
+    callbacks = [instantiate_from_config(node) for node in components]
+    trainer = Trainer(
+        build_dataclass(TrainerConfig, trainer_node, "trainer"), callbacks=callbacks,
+        device=device, run_config=config,
+    )
+    objective = instantiate_from_config(config["model"], default_class="llm_training_tpu.lms.CLM")
+    datamodule = instantiate_from_config(config["data"])
+    return trainer, objective, datamodule
+
+
+def run_fit(args) -> int:
+    config = load_config(args.config, args.overrides)
+    logging.basicConfig(
+        level=getattr(logging, str(config.get("logging_level", "INFO")).upper()),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s", stream=sys.stdout,
+    )
+    seed = int(config.get("seed_everything", 42))
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    trainer, objective, datamodule = build_fit(config, args.device)
+    trainer.fit(objective, datamodule)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="llm_training_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    fit = sub.add_parser("fit", help="train an objective from a JSON config")
+    fit.add_argument("--config", required=True, help="JSON config file")
+    fit.add_argument("overrides", nargs="*", help="key.path=value (value parsed as JSON)")
+    fit.add_argument("--device", default=None, help="cuda (default) or cpu")
     serve = sub.add_parser(
         "serve",
         help="continuous-batching generation server: JSONL requests on stdin, "
@@ -173,6 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "fit":
+        return run_fit(args)
     if args.command == "serve":
         return run_serve(args)
     raise SystemExit(f"unknown command {args.command!r}")

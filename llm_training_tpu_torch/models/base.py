@@ -2,7 +2,7 @@
 
 Counterpart of `llm_training_tpu/models/base.py`: `resolve_dtype`,
 `PagedDecodeState` and `CausalLMOutput`, with only the fields the serving
-path reads.
+and training paths read.
 """
 
 from __future__ import annotations
@@ -45,5 +45,9 @@ class PagedDecodeState:
 
 @dataclass
 class CausalLMOutput:
+    """`logits` is None when the caller asks for the hidden states only
+    (the fused-linear cross-entropy consumes the pre-head activations)."""
+
     logits: torch.Tensor | None = None
+    last_hidden_states: torch.Tensor | None = None
     decode_state: PagedDecodeState | None = None

@@ -52,6 +52,12 @@ class LlamaConfig:
     sliding_window: int | None = None
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # training: activation checkpointing per decoder layer (models/remat.py)
+    # and the attention path (ops/attention.py: 'auto' = the flash kernels
+    # on CUDA; JAX's 'xla' / 'pallas' name the plain path / the kernels)
+    enable_gradient_checkpointing: bool = False
+    recompute_granularity: str = "full"
+    attention_impl: str = "auto"
     # architecture selectors of the JAX config; only the Llama values are ported
     num_experts: int | None = None
     norm_scheme: str = "pre"
@@ -76,6 +82,13 @@ class LlamaConfig:
                 f"num_attention_heads ({self.num_attention_heads}) must be divisible "
                 f"by num_key_value_heads ({self.num_key_value_heads})"
             )
+        if self.recompute_granularity not in ("full", "selective"):
+            raise ValueError(
+                f"recompute_granularity must be 'full' or 'selective', got "
+                f"{self.recompute_granularity!r}"
+            )
+        if self.attention_impl not in ("auto", "xla", "pallas", "torch", "kernel"):
+            raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
         resolve_dtype(self.compute_dtype)
         resolve_dtype(self.param_dtype)
         self.rope_config  # construct to validate the rope fields
@@ -100,15 +113,19 @@ class LlamaConfig:
         )
 
     @classmethod
-    def from_json(cls, path: str) -> "LlamaConfig":
-        """A config file is a JSON object of this dataclass's fields."""
-        with open(path) as f:
-            data = json.load(f)
+    def from_dict(cls, data: dict[str, Any], where: str = "config") -> "LlamaConfig":
+        """From a mapping of this dataclass's fields; unknown keys raise."""
         known = {f.name for f in fields(cls)}
         unknown = sorted(set(data) - known)
         if unknown:
-            raise ValueError(f"unknown LlamaConfig fields {unknown} in {path}")
+            raise ValueError(f"unknown LlamaConfig fields {unknown} in {where}")
         return cls(**data)
+
+    @classmethod
+    def from_json(cls, path: str) -> "LlamaConfig":
+        """A config file is a JSON object of this dataclass's fields."""
+        with open(path) as f:
+            return cls.from_dict(json.load(f), path)
 
 
 # meta-llama/Llama-3.1-8B config.json widths

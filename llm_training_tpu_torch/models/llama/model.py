@@ -1,4 +1,4 @@
-"""Llama 3.x decoder for serving.
+"""Llama 3.x decoder for training and serving.
 
 Counterpart of `llm_training_tpu/models/llama/model.py`: `RMSNorm`,
 `LlamaAttention`, `LlamaMLP` (SwiGLU), `LlamaDecoderLayer` (pre-norm) and
@@ -6,9 +6,11 @@ Counterpart of `llm_training_tpu/models/llama/model.py`: `RMSNorm`,
 (`model.layers.{i}.self_attn.q_proj.weight`, ...), so an HF checkpoint maps
 straight onto them.
 
-`Llama.forward` runs either a plain causal forward over packed sequences
-(segment ids) or a step against a paged KV cache (`PagedDecodeState`),
-which it updates in place and returns with advanced lengths.
+`Llama.forward` runs either the training forward over packed sequences
+(segment ids; attention through `dot_product_attention`, each layer under
+the config's activation checkpointing) or a step against a paged KV cache
+(`PagedDecodeState`), which it updates in place and returns with advanced
+lengths.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from torch import nn
 
 from llm_training_tpu_torch.models.base import CausalLMOutput, PagedDecodeState
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
-from llm_training_tpu_torch.ops.attention import _xla_attention, make_attention_mask
+from llm_training_tpu_torch.models.remat import remat_policy, run_layer
+from llm_training_tpu_torch.ops.attention import dot_product_attention
 from llm_training_tpu_torch.ops.paged_attention import paged_cached_attention
 from llm_training_tpu_torch.ops.rms_norm import rms_norm
 from llm_training_tpu_torch.ops.rope import apply_rope
@@ -46,8 +49,8 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention: q/k/v projections, RoPE, then either the causal
-    reference attention or the paged cache (append + ragged attention)."""
+    """GQA attention: q/k/v projections, RoPE, then either causal attention
+    over packed segments or the paged cache (append + ragged attention)."""
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
@@ -86,11 +89,10 @@ class LlamaAttention(nn.Module):
                 scale=scale, impl=paged_impl,
             )
         else:
-            mask = make_attention_mask(
-                segment_ids, segment_ids, seq, seq, causal=True,
-                sliding_window=cfg.sliding_window, device=hidden.device,
+            out = dot_product_attention(
+                q, k, v, segment_ids=segment_ids, causal=True,
+                sliding_window=cfg.sliding_window, scale=scale, impl=cfg.attention_impl,
             )
-            out = _xla_attention(q, k, v, mask, scale, None)
         out = out.to(hidden.dtype).reshape(batch, seq, cfg.num_attention_heads * head_dim)
         return _linear(out, self.o_proj)
 
@@ -176,31 +178,42 @@ class Llama(nn.Module):
 
     def forward(
         self,
-        input_ids: torch.Tensor,
+        input_ids: torch.Tensor | None = None,
         segment_ids: torch.Tensor | None = None,
         position_ids: torch.Tensor | None = None,
         decode_state: PagedDecodeState | None = None,
         paged_impl: str = "auto",
+        inputs_embeds: torch.Tensor | None = None,
+        compute_logits: bool = True,
+        return_last_hidden_states: bool = False,
     ) -> CausalLMOutput:
         cfg = self.config
-        hidden = self.model.embed_tokens(input_ids).to(cfg.compute_torch_dtype)
-        batch, seq = input_ids.shape
+        if inputs_embeds is None:
+            if input_ids is None:
+                raise ValueError("one of input_ids / inputs_embeds is required")
+            inputs_embeds = self.model.embed_tokens(input_ids)
+        hidden = inputs_embeds.to(cfg.compute_torch_dtype)
+        batch, seq = hidden.shape[:2]
+        device = hidden.device
         if position_ids is None:
-            position_ids = torch.arange(seq, device=input_ids.device)[None, :]
+            position_ids = torch.arange(seq, device=device)[None, :]
         cos, sin = compute_rope_cos_sin(self.inv_freq, position_ids, self._rope_scaling)
 
         if decode_state is not None and segment_ids is None:
-            segment_ids = torch.ones((batch, seq), dtype=torch.int32, device=input_ids.device)
+            segment_ids = torch.ones((batch, seq), dtype=torch.int32, device=device)
+        # activation checkpointing applies to the training forward only
+        wrap = remat_policy(cfg) if decode_state is None else None
         for i, layer in enumerate(self.model.layers):
-            cache = {}
-            if decode_state is not None:
-                cache = dict(
-                    layer_kv=(decode_state.k[i], decode_state.v[i]),
-                    lengths=decode_state.lengths,
-                    block_tables=decode_state.block_tables,
-                    paged_impl=paged_impl,
-                )
-            hidden = layer(hidden, segment_ids, cos, sin, **cache)
+            if decode_state is None:
+                hidden = run_layer(wrap, layer, hidden, segment_ids, cos, sin)
+                continue
+            hidden = layer(
+                hidden, segment_ids, cos, sin,
+                layer_kv=(decode_state.k[i], decode_state.v[i]),
+                lengths=decode_state.lengths,
+                block_tables=decode_state.block_tables,
+                paged_impl=paged_impl,
+            )
 
         new_state = None
         if decode_state is not None:
@@ -213,8 +226,16 @@ class Llama(nn.Module):
                 + (segment_ids > 0).sum(dim=1).to(torch.int32),
             )
         hidden = self.model.norm(hidden)
-        if self.lm_head is None:
-            logits = hidden @ self.model.embed_tokens.weight.to(hidden.dtype).T
-        else:
-            logits = _linear(hidden, self.lm_head)
-        return CausalLMOutput(logits=logits, decode_state=new_state)
+        logits = None
+        if compute_logits:
+            logits = _linear(hidden, self.output_embeddings())
+        return CausalLMOutput(
+            logits=logits,
+            last_hidden_states=hidden if return_last_hidden_states else None,
+            decode_state=new_state,
+        )
+
+    def output_embeddings(self) -> nn.Module:
+        """The module whose `weight [vocab, hidden]` is the head: `lm_head`,
+        or the embedding table when they are tied."""
+        return self.model.embed_tokens if self.lm_head is None else self.lm_head

@@ -1,0 +1,96 @@
+"""Cross-entropy losses, including the chunked fused-linear cross-entropy.
+
+Counterpart of `llm_training_tpu/ops/cross_entropy.py`: `shift_labels`,
+`cross_entropy` and `fused_linear_cross_entropy`. The last one chunks the
+tokens and runs each chunk under `torch.utils.checkpoint`, so forward and
+backward peak at `chunk_size x vocab` fp32 logits instead of the whole
+`tokens x vocab`. The head product is a plain matrix product (the JAX
+package left it to XLA), so it is `torch.matmul`. In bf16 the port's
+product rounds the logits to bf16 before the fp32 logsumexp, where XLA
+accumulates them straight into fp32 (ROADMAP C).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+
+def shift_labels(labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Next-token shift: labels[i] = input[i+1]; the final position is ignored."""
+    shifted = torch.roll(labels, -1, dims=-1)
+    shifted[..., -1] = ignore_index
+    return shifted
+
+
+def _token_nll(logits32: torch.Tensor, labels: torch.Tensor, ignore_index: int):
+    """Per-token negative log-likelihood (fp32) and validity mask."""
+    valid = labels != ignore_index
+    safe_labels = torch.where(valid, labels, 0)
+    lse = torch.logsumexp(logits32, dim=-1)
+    label_logits = torch.gather(logits32, -1, safe_labels[..., None].long())[..., 0]
+    return torch.where(valid, lse - label_logits, 0.0), valid
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: int = -100,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Cross-entropy over the last dim of `logits`, fp32 accumulation.
+    reduction: 'mean' (over non-ignored tokens), 'sum', or 'none'."""
+    nll, valid = _token_nll(logits.float(), labels, ignore_index)
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return nll.sum()
+    if reduction == "mean":
+        return nll.sum() / valid.sum().clamp_min(1).float()
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index):
+    logits = torch.matmul(h, weight).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    nll, valid = _token_nll(logits, labels, ignore_index)
+    return nll.sum(), valid.sum()
+
+
+def fused_linear_cross_entropy(
+    hidden: torch.Tensor,
+    weight: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: int = -100,
+    chunk_size: int = 1024,
+    logits_soft_cap: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """CE of `hidden @ weight (+ bias)` against `labels` without the full
+    logits. hidden `[tokens, embed]` (any leading shape is flattened),
+    weight `[embed, vocab]`, bias `[vocab]`. Returns (sum of the NLL as an
+    fp32 scalar, number of counted tokens); callers divide for the mean."""
+    embed = hidden.shape[-1]
+    hidden = hidden.reshape(-1, embed)
+    labels = labels.reshape(-1)
+    chunk_size = min(chunk_size, hidden.shape[0])
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    # the uneven last chunk runs as it is: padding it with ignored labels, as
+    # the JAX scan does for its static shapes, adds nothing to either sum
+    for start in range(0, hidden.shape[0], chunk_size):
+        h = hidden[start:start + chunk_size]
+        l = labels[start:start + chunk_size]
+        if torch.is_grad_enabled():
+            s, c = checkpoint(
+                _chunk_loss, h, weight, l, bias, logits_soft_cap, ignore_index,
+                use_reentrant=False,
+            )
+        else:
+            s, c = _chunk_loss(h, weight, l, bias, logits_soft_cap, ignore_index)
+        total = total + s
+        count = count + c
+    return total, count

@@ -295,6 +295,8 @@ extern "C" int paged_decode_launch(int q_dtype, int kv_dtype, int head_dim, cons
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" const char* paged_decode_error_string(int code) {
+// The error string of a code that a launch function of this library returned
+// (every kernel module of the port reads it through `build.check_launch`).
+extern "C" const char* port_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

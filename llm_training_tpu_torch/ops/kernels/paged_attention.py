@@ -22,84 +22,33 @@ it through `ops/paged_attention.py`, whose `impl` chooses between decode
 through this wrapper and the gather path for chunks.
 `paged_decode_attention.launches` counts kernel launches.
 
-Build: `nvcc` compiles `csrc/*.cu` for sm_90a into a shared library with a
-plain C interface, at the first launch, into `_build/` (keyed by a hash of
-the sources and flags, under a file lock), loaded with `ctypes`. Nothing is
-built or imported from CUDA when this module is imported.
+Build: `build.py` compiles every `csrc/*.cu` for sm_90a into one shared
+library with a plain C interface at the first launch, loaded with
+`ctypes`. Nothing is built or imported from CUDA when this module is
+imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from llm_training_tpu_torch.ops.attention import _xla_attention
+from llm_training_tpu_torch.ops.kernels import build
 
-_CSRC = Path(__file__).parent / "csrc"
-_BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
 
-_lib: ctypes.CDLL | None = None
-# what the last build printed (ptxas register/shared-memory report) and
-# how long it took; empty until a build ran in this process
-build_info: dict = {}
-
-
-def _nvcc() -> str:
-    for candidate in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if candidate and os.path.exists(candidate):
-            return candidate
-    raise RuntimeError("nvcc not found: the paged-decode kernel cannot be built")
-
-
-def build_library() -> Path:
-    """Compile `csrc/*.cu` (once per source hash) and return the library
-    path. Raises with the compiler's output when the build fails."""
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = _BUILD_DIR / f"libpaged_decode_{digest.hexdigest()[:16]}.so"
-    with open(_BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not lib_path.exists():
-                tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-                t0 = time.perf_counter()
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                seconds = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                    )
-                os.replace(tmp, lib_path)
-                build_info.update(seconds=seconds, log=proc.stdout + proc.stderr)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return lib_path
+_declared = False
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+    """The port's kernel library with this kernel's entry point declared."""
+    global _declared
+    lib = build.load()
+    if not _declared:
         lib.paged_decode_launch.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # q dtype, kv dtype, head_dim
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k pool, v pool
@@ -110,10 +59,8 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p,  # stream
         ]
         lib.paged_decode_launch.restype = ctypes.c_int
-        lib.paged_decode_error_string.argtypes = [ctypes.c_int]
-        lib.paged_decode_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _declared = True
+    return lib
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths) -> int:
@@ -199,10 +146,7 @@ def paged_decode_attention(
             float(scale), float(logits_soft_cap or 0.0), int(sliding_window or 0),
             stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"paged-decode kernel launch failed: {lib.paged_decode_error_string(err).decode()}"
-        )
+    build.check_launch(err, "paged-decode")
     paged_decode_attention.launches += 1
     return out
 

@@ -1,0 +1,217 @@
+"""Optimizer and learning-rate schedule construction from config.
+
+Counterpart of `llm_training_tpu/optim/builder.py`, which builds an optax
+chain: clip by global norm -> adamw / adam / sgd under a warmup-composed
+schedule [-> freeze mask], wrapped by the trainer in `optax.MultiSteps`
+for gradient accumulation. The port implements those semantics itself on
+the model's parameters, because torch's optimizers differ from optax's:
+
+- `optax.adamw` decays by 1e-4 when `optimizer_kwargs` is empty
+  (`torch.optim.AdamW` by 1e-2), scales the decay by the learning rate,
+  and decays every trainable parameter, norms and embeddings included;
+- optax puts eps outside the square root (`eps_root` inside) and
+  bias-corrects mu and nu;
+- the schedule is read at the optimizer's count BEFORE it increments, so
+  the first update after warmup starts uses schedule(0) (0 with warmup);
+- clipping rescales `g / norm * max_norm` when norm >= max_norm, over the
+  trainable parameters only (the freeze mask wraps the clip too);
+- accumulation keeps the running mean of k micro-batch gradients
+  (`acc + (g - acc) / (n + 1)`) and runs the inner update on every k-th
+  call; the schedule's count advances once per k micro-steps.
+
+`lion` and `adafactor` are not ported yet (ROADMAP A.2).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+_OPTIMIZERS = ("adamw", "adam", "sgd")
+_NOT_PORTED = ("adafactor", "lion")
+_SCHEDULES = ("constant", "cosine", "linear")
+_KWARGS = {
+    "adamw": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0, "weight_decay": 1e-4},
+    "adam": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0},
+    "sgd": {"momentum": None, "nesterov": False},
+}
+
+
+@dataclass
+class OptimConfig:
+    """Mirrors the JAX `OptimConfig`: which optimizer and its kwargs, which
+    warmup schedule and its kwargs, plus grad clipping."""
+
+    optimizer: str = "adamw"
+    learning_rate: float = 1e-4
+    optimizer_kwargs: dict[str, Any] = field(default_factory=dict)
+    lr_scheduler: str | None = "cosine"
+    warmup_steps: int = 0
+    min_lr_ratio: float = 0.0  # cosine/linear floor as a fraction of peak lr
+    lr_scheduler_kwargs: dict[str, Any] = field(default_factory=dict)
+    grad_clip_norm: float | None = 1.0
+
+
+def _linear(init: float, end: float, steps: int, transition_begin: int = 0) -> Callable[[int], float]:
+    """optax.linear_schedule (a polynomial schedule of power 1)."""
+
+    def schedule(count: int) -> float:
+        c = min(max(count - transition_begin, 0), steps)
+        return (init - end) * (1 - c / steps) + end
+
+    return schedule
+
+
+def _cosine(peak: float, steps: int, alpha: float, exponent: float = 1.0) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(peak, steps, alpha=alpha)."""
+
+    def schedule(count: int) -> float:
+        c = min(count, steps)
+        decay = 0.5 * (1 + math.cos(math.pi * c / steps))
+        return peak * ((1 - alpha) * decay**exponent + alpha)
+
+    return schedule
+
+
+def build_lr_schedule(config: OptimConfig, num_total_steps: int) -> Callable[[int], float]:
+    """Warmup (linear from 0 to the peak over `warmup_steps`) joined with
+    the inner schedule over the remaining `num_total_steps - warmup_steps`."""
+    peak = config.learning_rate
+    decay_steps = max(num_total_steps - config.warmup_steps, 1)
+    name = config.lr_scheduler or "constant"
+    if name == "constant":
+        inner = lambda count: peak  # noqa: E731
+    elif name == "cosine":
+        inner = _cosine(peak, decay_steps, config.min_lr_ratio, **config.lr_scheduler_kwargs)
+    elif name == "linear":
+        inner = _linear(peak, peak * config.min_lr_ratio, decay_steps,
+                        **config.lr_scheduler_kwargs)
+    else:
+        raise ValueError(f"unknown lr_scheduler {name!r}; expected one of {_SCHEDULES}")
+    if config.warmup_steps <= 0:
+        return inner
+    warmup = _linear(0.0, peak, config.warmup_steps)
+    boundary = config.warmup_steps
+    return lambda count: warmup(count) if count < boundary else inner(count - boundary)
+
+
+def _frozen(name: str, patterns: list[re.Pattern]) -> bool:
+    """A parameter is frozen when a pattern matches its name, dotted
+    (`model.embed_tokens.weight`) or joined by '/' like a JAX path."""
+    return any(p.search(name) or p.search(name.replace(".", "/")) for p in patterns)
+
+
+class Optimizer:
+    """The optax chain of `build_optimizer` over named parameters, updated
+    in place. Call `update()` once per micro-step after the backward; it
+    applies the inner update on every `accumulate`-th call."""
+
+    def __init__(
+        self,
+        named_params: list[tuple[str, torch.nn.Parameter]],
+        config: OptimConfig,
+        schedule: Callable[[int], float],
+        frozen_modules: list[str] | None = None,
+        accumulate: int = 1,
+    ):
+        if config.optimizer in _NOT_PORTED:
+            raise NotImplementedError(
+                f"optimizer {config.optimizer!r} is not ported yet (ROADMAP A.2); "
+                f"use one of {_OPTIMIZERS}"
+            )
+        if config.optimizer not in _OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {config.optimizer!r}; expected one of "
+                f"{sorted(_OPTIMIZERS + _NOT_PORTED)}"
+            )
+        unknown = set(config.optimizer_kwargs) - set(_KWARGS[config.optimizer])
+        if unknown:
+            raise TypeError(f"{config.optimizer} got unexpected kwargs {sorted(unknown)}")
+        self.kind = config.optimizer
+        self.hyper = {**_KWARGS[self.kind], **config.optimizer_kwargs}
+        self.clip = config.grad_clip_norm
+        self.schedule = schedule
+        self.accumulate = accumulate
+        patterns = [re.compile(p) for p in frozen_modules or []]
+        self.params = [p for _, p in named_params]
+        self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
+        self.count = 0  # inner updates done
+        self.mini_step = 0
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
+        self.acc = zeros() if accumulate > 1 else None
+        if self.kind in ("adamw", "adam"):
+            self.mu, self.nu = zeros(), zeros()
+        elif self.hyper["momentum"] is not None:
+            self.trace = zeros()
+
+    @torch.no_grad()
+    def update(self) -> bool:
+        """Consume the parameters' `.grad` (clipped in place, or folded into
+        the running mean and released); returns whether the parameters
+        changed (every `accumulate`-th call)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.acc is not None:
+            for acc, g in zip(self.acc, grads):
+                acc.add_((g - acc) / (self.mini_step + 1))
+            for p in self.params:
+                p.grad = None
+            self.mini_step += 1
+            if self.mini_step < self.accumulate:
+                return False
+            self.mini_step = 0
+            grads = self.acc  # zeroed below, after the inner update
+        self._inner_update(grads)
+        if self.acc is not None:
+            for acc in self.acc:
+                acc.zero_()
+        return True
+
+    def _inner_update(self, grads: list[torch.Tensor]) -> None:
+        live = [i for i, t in enumerate(self.trainable) if t]
+        if self.clip is not None and live:
+            norm = global_norm([grads[i] for i in live])
+            if not bool(norm < self.clip):
+                for i in live:
+                    grads[i].div_(norm).mul_(self.clip)
+        lr = self.schedule(self.count)
+        self.count += 1
+        h = self.hyper
+        for i in live:
+            p, g = self.params[i], grads[i]
+            if self.kind == "sgd":
+                u = g
+                if h["momentum"] is not None:
+                    self.trace[i].mul_(h["momentum"]).add_(g)
+                    u = (g + h["momentum"] * self.trace[i]) if h["nesterov"] else self.trace[i]
+                p.add_(u, alpha=-lr)
+                continue
+            mu, nu = self.mu[i], self.nu[i]
+            mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
+            nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
+            u = mu / (1 - h["b1"] ** self.count)
+            u.div_((nu / (1 - h["b2"] ** self.count) + h["eps_root"]).sqrt_().add_(h["eps"]))
+            if self.kind == "adamw":
+                u.add_(p, alpha=h["weight_decay"])
+            p.add_(u, alpha=-lr)
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+
+
+def build_optimizer(
+    config: OptimConfig,
+    num_total_steps: int,
+    named_params: list[tuple[str, torch.nn.Parameter]],
+    frozen_modules: list[str] | None = None,
+    accumulate: int = 1,
+) -> tuple[Optimizer, Callable[[int], float]]:
+    """The full chain (clip -> optimizer(schedule) [-> freeze mask]) over
+    `named_params`, and its schedule."""
+    schedule = build_lr_schedule(config, num_total_steps)
+    return Optimizer(named_params, config, schedule, frozen_modules, accumulate), schedule

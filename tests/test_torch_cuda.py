@@ -1,4 +1,4 @@
-"""Tests of the port that need an NVIDIA card: the CUDA kernel has no CPU
+"""Tests of the port that need an NVIDIA card: the CUDA kernels have no CPU
 mode, so these skip elsewhere. This file imports no JAX, so it also runs on
 a machine without it:
 
@@ -64,3 +64,65 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     case["q"] = case["q"][:, ::2]  # a strided view
     with pytest.raises(ValueError, match="contiguous"):
         kernels.paged_decode_attention(**case)
+
+
+# ---------------------------------------------------------------- flash attention (K1-K3)
+
+
+def _flash_case(dtype, head_dim, group, q_len=None):
+    import numpy as np
+
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+
+    rng = np.random.default_rng(head_dim + group)
+    rows = [bench_flash.layout("packed", 300, rng), bench_flash.layout("padding_tail", 300, rng)]
+    return bench_flash.flash_case(300, 2 * group, 2, head_dim, dtype, rows, seed=group, q_len=q_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,group", [(64, 1), (128, 4), (128, 8)])
+@pytest.mark.parametrize("variant", ["causal", "window", "cap", "sinks", "q_offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_kernels_match_plain(cuda, dtype, head_dim, group, variant):
+    """K1 (O, LSE) and K2/K3 (dq, dk, dv, d_sinks) against the plain
+    version in the same dtype, per tensor over max|ref|: fp32 within 1e-4
+    (summation order only); bf16 within 1e-2 (P and dS rounded to bf16 at
+    other points; d_sinks, a sum of cancelling row terms, is left to
+    chip_smoke.py's fp32 check). LSE is fp32 in both: 1e-4."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    case = _flash_case(dtype, head_dim, group, q_len=100 if variant == "q_offset" else None)
+    opts = {"window": dict(sliding_window=100), "cap": dict(logits_soft_cap=30.0),
+            "sinks": dict(sinks=torch.randn(2 * group, device=cuda))}.get(variant, {})
+    before = (fa.flash_fwd_kernel.launches, fa.flash_dq_kernel.launches,
+              fa.flash_dkv_kernel.launches)
+    got = bench_flash.run_case(case, kernel=True, causal=True, **dict(opts))
+    ref = bench_flash.run_case(case, kernel=False, causal=True, **dict(opts))
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_kernel.launches == before[0] + 2  # the autograd call and the LSE call
+    assert fa.flash_dq_kernel.launches == before[1] + 1
+    assert fa.flash_dkv_kernel.launches == before[2] + 1
+    limit = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, value in got.items():
+        if name == "dsinks" and dtype == torch.bfloat16:
+            continue
+        finite = torch.isfinite(ref[name])
+        assert torch.equal(torch.isfinite(value), finite), name
+        scale = float(ref[name][finite].abs().max())
+        err = float((value[finite].float() - ref[name][finite].float()).abs().max())
+        assert err <= (1e-4 if name == "lse" else limit) * scale, (name, err, scale)
+    padding = case["q_segment_ids"] == 0
+    assert bool((got["out"][padding] == 0).all()) and bool((got["dq"][padding] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    q = torch.zeros((1, 64, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.flash_attention(q, q, q)

@@ -1,6 +1,6 @@
 """The port's boundary: `llm_training_tpu_torch` and `chip_smoke.py` import
-nothing of JAX and nothing of the JAX package, and the kernel module
-imports on a machine with no `nvcc`."""
+nothing of JAX and nothing of the JAX package, and the kernel modules
+import on a machine with no `nvcc` and build nothing when they do."""
 
 import ast
 import json
@@ -61,6 +61,7 @@ print(json.dumps(sorted(set(sys.modules) - before)))
     assert proc.returncode == 0, proc.stderr
     added = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "llm_training_tpu_torch.ops.kernels.paged_attention" in added
+    assert "llm_training_tpu_torch.ops.kernels.flash_attention" in added
     bad = [name for name in added if _forbidden(name)]
     assert not bad, f"the port pulled in {bad}"
 
@@ -82,7 +83,16 @@ def test_source_imports_nothing_of_jax(path):
 
 
 def test_kernel_module_builds_nothing_on_import():
-    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+    from llm_training_tpu_torch.ops.kernels import build, flash_attention, paged_attention
 
-    assert kernels._lib is None and kernels.build_info == {}
-    assert kernels.paged_decode_attention.launches >= 0
+    assert build._lib is None and build.build_info == {}
+    assert paged_attention.paged_decode_attention.launches >= 0
+    for launcher in (flash_attention.flash_fwd_kernel, flash_attention.flash_dq_kernel,
+                     flash_attention.flash_dkv_kernel):
+        assert launcher.launches >= 0
+    # the library's file name depends only on the sources, headers and flags
+    sources = sorted(build.CSRC.glob("*.cu"))
+    assert {s.name for s in sources} >= {"paged_decode.cu", "flash_fwd.cu", "flash_bwd.cu"}
+    assert build._digest(sources, sorted(build.CSRC.glob("*.cuh"))) == build._digest(
+        sources, sorted(build.CSRC.glob("*.cuh"))
+    )
