@@ -14,9 +14,12 @@ Phases, each of which must pass (any failure exits non-zero):
 4. flash parity (K1-K3): the flash forward (O, LSE) and backward (dq, dk,
    dv, d_sinks) kernels against their plain versions over head_dim x GQA
    group x {causal, window, cap, sinks} x {one document, packed, padding
-   tail}, in fp32 and bf16, at a length that is not a tile multiple, and
-   at q_offset > 0; every case has fully masked rows (O = 0, LSE = -inf or
-   the sink, dq = 0);
+   tail}, in fp32 and bf16, at S 300, and at S 64 and 257 (lengths that
+   cross the backward kernels' 128-row block, with a packed boundary at row
+   64 inside a block), and as q_offset chunks of 100 and 170 rows (Sq != Skv,
+   not block multiples); every case has fully masked rows (O = 0, LSE =
+   -inf or the sink, dq = 0); then K2 and K3 launched twice on one input
+   give the same bits;
 5. serving: `ServingEngine` on a full-width, full-depth Llama-3.1-8B in
    bf16 (random weights drawn on the card from a seed) answers 16
    requests, half of them admitted while decode is running; all complete,
@@ -35,9 +38,10 @@ Phases, each of which must pass (any failure exits non-zero):
    backward on one packed row through the kernels in bf16, the plain path
    in bf16 and the plain path in fp32 (the truth): the kernel path is no
    further from fp32 than the plain bf16 path (within 1.5x);
-10. flash timing: K1, K2 and K3 at the training shape and at S 2048, the
-   plain versions and `scaled_dot_product_attention` (the yardstick) at
-   S 2048, and SDPA at the training shape.
+10. flash timing: K1, K2 and K3 at the training shape, held against the
+   plain versions (and K2, K3 twice for identical bits), then timed beside
+   their bound, the plain versions and `scaled_dot_product_attention` (the
+   yardstick); then the kernels and their bounds at S 2048.
 
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
@@ -552,21 +556,33 @@ def phase_flash_parity() -> dict:
 
     worst = {"float32": {}, "bfloat16": {}}
     cases, failures = [], []
+    variants = ("causal", "window", "cap", "sinks")
     for dtype in (torch.float32, torch.bfloat16):
         for head_dim in (64, 128):
             for group in (1, 4, 8):
-                for variant in ("causal", "window", "cap", "sinks"):
+                for variant in variants:
+                    # 300 tokens: not a multiple of the tile nor of the block
                     for layout in ("one_doc", "packed", "padding_tail"):
-                        cases.append((dtype, head_dim, group, variant, layout, None))
-        for variant in ("causal", "window", "cap", "sinks"):  # a chunk at q_offset 200
-            cases.append((dtype, 128, 4, variant, "packed", 100))
-    for n, (dtype, head_dim, group, variant, layout, q_len) in enumerate(cases):
+                        cases.append((dtype, head_dim, group, variant, layout, 300, None))
+        for variant in variants:  # a chunk at q_offset 200: Sq != Skv
+            cases.append((dtype, 128, 4, variant, "packed", 300, 100))
+    # after those (a case's number seeds its inputs): lengths that cross the
+    # backward kernels' 128-row block
+    for dtype in (torch.float32, torch.bfloat16):
+        for head_dim in (64, 128):
+            for group in (1, 4, 8):
+                # half a block, and two blocks and a row; the variants in turn
+                for seq in (64, 257):
+                    cases.append((dtype, head_dim, group, variants[len(cases) % 4], "packed", seq,
+                                  None))
+        for variant in variants:  # a chunk at q_offset 130, no block multiple
+            cases.append((dtype, 64, 8, variant, "packed", 300, 170))
+    for n, (dtype, head_dim, group, variant, layout, seq, q_len) in enumerate(cases):
         rng = np.random.default_rng(n)
         other = "packed" if layout != "packed" else "one_doc"
-        # 300 tokens: not a multiple of the 64-row tile
         case = bench_flash.flash_case(
-            300, 2 * group, 2, head_dim, dtype,
-            [bench_flash.layout(layout, 300, rng), bench_flash.layout(other, 300, rng)],
+            seq, 2 * group, 2, head_dim, dtype,
+            [bench_flash.layout(layout, seq, rng), bench_flash.layout(other, seq, rng)],
             seed=n, q_len=q_len,
         )
         opts = dict(causal=True)
@@ -587,17 +603,25 @@ def phase_flash_parity() -> dict:
         errors, broken = flash_case_errors(got, ref, ref32, case, sinks)
         name = str(dtype).removeprefix("torch.")
         if broken:
-            failures.append(f"{name} D={head_dim} G={group} {variant} {layout} "
-                            f"q_len={q_len or 300}: {broken}")
+            failures.append(f"{name} D={head_dim} G={group} {variant} {layout} S={seq} "
+                            f"q_len={q_len or seq}: {broken}")
         for key, value in errors.items():
             worst[name][key] = max(worst[name].get(key, 0.0), value)
     fp32 = ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst["float32"].items()))
     bf16 = ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst["bfloat16"].items()))
     check(not failures, f"flash parity: {len(failures)} of {len(cases)} cases fail: "
                         f"{failures[:6]}; worst fp32 {fp32}; worst bf16 {bf16}")
+    # the same bits twice: a packed row with a window, two blocks and a row long
+    rng = np.random.default_rng(len(cases))
+    twice = bench_flash.flash_case(
+        257, 8, 2, 128, torch.bfloat16,
+        [bench_flash.layout("packed", 257, rng), bench_flash.layout("one_doc", 257, rng)], seed=1)
+    check(bench_flash.backward_twice_identical(twice),
+          "flash determinism: K2 or K3 gave other bits on a second launch (S 257)")
     print(f"flash parity: {len(cases)} cases pass (D 64/128 x G 1/4/8 x causal/window 100/"
-          f"cap 30/sinks x one_doc/packed/padding_tail, S 300, and q_offset 200; fully masked "
-          f"rows exact); fp32 worst error over max|ref| (limit {FP32_ATOL}): {fp32}")
+          f"cap 30/sinks x one_doc/packed/padding_tail at S 300; S 64 and 257; q_offset chunks "
+          f"of 100 and 170 rows; fully masked rows exact; K2 and K3 twice: identical bits); "
+          f"fp32 worst error over max|ref| (limit {FP32_ATOL}): {fp32}")
     print(f"flash parity: bf16 worst (out_row limit {BF16_ROW_RTOL}, out_row_vs_fp32 "
           f"{FLASH_OUT_VS_FP32:.3e}, grads {FLASH_GRAD_VS_BF16} / vs fp32 "
           f"{FLASH_GRAD_VS_FP32:.3e} x max|ref|): {bf16}")
@@ -776,12 +800,19 @@ def phase_train(card: str) -> dict:
     wall_ms = percentile(walls, 50)
     busy_ms, kernels, by_name = device_profile(optimizer_step, 1)
     check_busy("train profile", busy_ms, wall_ms)
+    # the port's own flash kernels in that step, by name: (ms, launches)
+    flash = {key.split("flash_")[1].split("(")[0]: (t / 1e3, n) for t, n, key in by_name
+             if "flash_" in key}
     result.update(profile_busy_ms=busy_ms, profile_step_wall_ms=wall_ms,
                   profile_kernels=kernels, profile_idle_share=1 - busy_ms / wall_ms,
+                  profile_flash_ms=sum(t for t, _ in flash.values()), profile_flash=flash,
                   profile_top=[(key[:80], t / 1e3, n) for t, n, key in by_name[:8]])
     print(f"train profile [{card}]: one optimizer step ({accumulate} micro-batches): device busy "
           f"{busy_ms:.1f} ms in {kernels:.0f} kernels; untraced wall p50 {wall_ms:.1f} ms; device "
-          f"idle share {100 * (1 - busy_ms / wall_ms):.1f}%; top: {top_kernels(by_name, 1, 8)}")
+          f"idle share {100 * (1 - busy_ms / wall_ms):.1f}%; flash kernels "
+          f"{result['profile_flash_ms']:.1f} ms ("
+          + ", ".join(f"{name} {t:.1f} ms x{n}" for name, (t, n) in sorted(flash.items()))
+          + f"); top: {top_kernels(by_name, 1, 8)}")
     del objective, state, trainer, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -863,6 +894,8 @@ def phase_flash_timing(card: str) -> dict:
         "dkv": max(float((got[n].float() - ref[n].float()).abs().max()) for n in ("dk", "dv")),
     }
     del got, ref, ref32
+    check(bench_flash.backward_twice_identical(case),
+          "flash determinism: K2 or K3 gave other bits on a second launch (training shape)")
     flat = bench_flash.flat_inputs(case)
     pairs = bench_flash.visible_pairs(flat["seg_q"], flat["seg_kv"])
     kernel = bench_flash.time_kernels(cases)
@@ -889,6 +922,14 @@ def phase_flash_timing(card: str) -> dict:
         f"{library['bwd_ms']:.3f} ms"
     )
     del cases, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    short = bench_flash.kernel_record(2048)
+    print(f"flash timing [{card}]: the same row cut to S 2048 ({short['visible_pairs_per_head']} "
+          f"visible pairs per head), cold L2: " + "; ".join(
+              f"{kind} {short[kind + '_ms']:.3f} ms (bound {short[kind + '_bound_ms']:.3f} ms, "
+              f"{100 * short[kind + '_bound_ms'] / short[kind + '_ms']:.1f}%)"
+              for kind in ("fwd", "dq", "dkv")))
     gc.collect()
     torch.cuda.empty_cache()
     return out

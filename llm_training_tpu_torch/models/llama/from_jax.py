@@ -35,17 +35,62 @@ def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return tree
 
 
-def _layer_params(params: Mapping[str, Any], i: int) -> Mapping[str, Any]:
-    if "layers" in params:
-        stacked = params["layers"]["layer"]
+def parameter_names(config: LlamaConfig) -> list[str]:
+    """The port's `Llama` parameter names (HF names)."""
+    names = ["model.embed_tokens.weight", "model.norm.weight"]
+    if not config.tie_word_embeddings:
+        names.append("lm_head.weight")
+    for i in range(config.num_hidden_layers):
+        prefix = f"model.layers.{i}."
+        names += [f"{prefix}{block}.{name}.weight" for block, dense in _DENSE.items()
+                  for name in dense]
+        names += [f"{prefix}{norm}.weight" for norm in _NORMS]
+    return names
 
-        def take(node):
-            if isinstance(node, Mapping):
-                return {k: take(v) for k, v in node.items()}
-            return node[i]
 
-        return take(stacked)
-    return params[f"layers_{i}"]
+def jax_leaf(name: str) -> tuple[int | None, tuple[str, ...]]:
+    """Where the port's parameter `name` lives in a JAX `Llama` tree: its
+    decoder layer (None outside the layers) and the keys below that layer
+    (below `params` outside the layers). A Dense `kernel` is stored
+    `[in, out]`, the transpose of torch's `weight`. Raises KeyError for a
+    name that is not a `Llama` parameter."""
+    parts = name.split(".")
+    if parts[:2] == ["model", "layers"] and len(parts) in (5, 6) and parts[-1] == "weight":
+        keys = parts[3:-1]
+        if (len(keys) == 2 and keys[1] in _DENSE.get(keys[0], ())) or keys[0] in _NORMS:
+            return int(parts[2]), (*keys, "kernel" if len(keys) == 2 else "weight")
+    top = {
+        "model.embed_tokens.weight": ("embed_tokens", "embedding"),
+        "model.norm.weight": ("norm", "weight"),
+        "lm_head.weight": ("lm_head", "kernel"),
+    }
+    return None, top[name]
+
+
+def jax_paths(name: str) -> list[str]:
+    """The '/'-joined paths of the port's parameter `name` in a JAX `Llama`
+    tree: `params/...` outside the layers; for a layer's parameter both the
+    scanned form (`params/layers/layer/...`, one leaf for all layers) and
+    the looped form (`params/layers_{i}/...`). Empty for any other name."""
+    try:
+        layer, keys = jax_leaf(name)
+    except KeyError:
+        return []
+    tail = "/".join(keys)
+    if layer is None:
+        return [f"params/{tail}"]
+    return [f"params/layers/layer/{tail}", f"params/layers_{layer}/{tail}"]
+
+
+def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> np.ndarray:
+    scanned = layer is not None and "layers" in params
+    if layer is None:
+        node = params
+    else:
+        node = params["layers"]["layer"] if scanned else params[f"layers_{layer}"]
+    for key in keys:
+        node = node[key]
+    return np.asarray(node[layer] if scanned else node)
 
 
 def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[str, torch.Tensor]:
@@ -54,23 +99,11 @@ def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[
     if set(params) == {"params"}:
         params = params["params"]
     dtype = config.param_torch_dtype
-
-    def tensor(array) -> torch.Tensor:
-        return torch.tensor(np.asarray(array, np.float32), dtype=dtype)
-
-    out = {
-        "model.embed_tokens.weight": tensor(params["embed_tokens"]["embedding"]),
-        "model.norm.weight": tensor(params["norm"]["weight"]),
-    }
-    if not config.tie_word_embeddings:
-        out["lm_head.weight"] = tensor(np.asarray(params["lm_head"]["kernel"]).T)
-    for i in range(config.num_hidden_layers):
-        layer = _layer_params(params, i)
-        prefix = f"model.layers.{i}."
-        for block, names in _DENSE.items():
-            for name in names:
-                kernel = np.asarray(layer[block][name]["kernel"])
-                out[f"{prefix}{block}.{name}.weight"] = tensor(kernel.T)
-        for norm in _NORMS:
-            out[f"{prefix}{norm}.weight"] = tensor(layer[norm]["weight"])
+    out = {}
+    for name in parameter_names(config):
+        layer, keys = jax_leaf(name)
+        array = _leaf(params, layer, keys)
+        if keys[-1] == "kernel":
+            array = array.T
+        out[name] = torch.tensor(np.asarray(array, np.float32), dtype=dtype)
     return out

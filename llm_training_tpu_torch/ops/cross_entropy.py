@@ -5,9 +5,9 @@ Counterpart of `llm_training_tpu/ops/cross_entropy.py`: `shift_labels`,
 tokens and runs each chunk under `torch.utils.checkpoint`, so forward and
 backward peak at `chunk_size x vocab` fp32 logits instead of the whole
 `tokens x vocab`. The head product is a plain matrix product (the JAX
-package left it to XLA), so it is `torch.matmul`. In bf16 the port's
-product rounds the logits to bf16 before the fp32 logsumexp, where XLA
-accumulates them straight into fp32 (ROADMAP C).
+package left it to XLA), so it is `torch.mm`. In bf16 the logits are the
+product's fp32 accumulator, never rounded to bf16, as with JAX's
+`preferred_element_type=float32`.
 """
 
 from __future__ import annotations
@@ -50,8 +50,41 @@ def cross_entropy(
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
+class _HeadProduct(torch.autograd.Function):
+    """`h @ weight` of low-precision CUDA operands as fp32 logits, straight
+    from the product's fp32 accumulator (`torch.mm(..., out_dtype=)`, which
+    only the CUDA build has). The backward rounds the logits' gradient to
+    the operands' type and takes the two products in it, so `h` and
+    `weight` get gradients of their own types."""
+
+    @staticmethod
+    def forward(ctx, h, weight):
+        ctx.save_for_backward(h, weight)
+        return torch.mm(h, weight, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, weight = ctx.saved_tensors
+        grad = grad.to(h.dtype)
+        d_h = torch.mm(grad, weight.t()) if ctx.needs_input_grad[0] else None
+        d_weight = torch.mm(h.t(), grad) if ctx.needs_input_grad[1] else None
+        return d_h, d_weight
+
+
+def _head_logits(h: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """fp32 logits `[chunk, vocab]` of `h @ weight`, accumulated in fp32
+    and never rounded to the operands' type. On the CPU the operands are
+    upcast: products of bf16 values are exact in fp32, so it is the same
+    arithmetic."""
+    if h.dtype == torch.float32:
+        return torch.mm(h, weight)
+    if h.device.type == "cuda":
+        return _HeadProduct.apply(h, weight)
+    return torch.mm(h.float(), weight.float())
+
+
 def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index):
-    logits = torch.matmul(h, weight).float()
+    logits = _head_logits(h, weight)
     if bias is not None:
         logits = logits + bias.float()
     if logits_soft_cap is not None:

@@ -4,7 +4,8 @@
 
 times K1 (forward) and K2 + K3 (backward) at the training shape of
 Llama-3.1-8B (B 1, S 8192, Hq 32, Hkv 8, D 128, bf16, one row packed from
-documents of 256-4096 tokens with a padding tail) and prints one JSON line.
+documents of 256-4096 tokens with a padding tail) and at S 2048, and prints
+one JSON line for each.
 `chip_smoke.py` uses the same helpers for its parity and timing phases.
 
 Device time comes from CUDA events around calls enqueued behind a
@@ -92,16 +93,10 @@ def flash_case(seq, hq, hkv, head_dim, dtype, seg_rows, seed, q_len=None) -> dic
 
 
 def flat_inputs(case: dict) -> dict:
-    """The kernels' own inputs: sequences padded to the tile."""
-    sq = fa._round_up(case["q"].shape[1], fa.TILE)
-    skv = fa._round_up(case["k"].shape[1], fa.TILE)
-    return dict(
-        q=fa._pad_to(case["q"], 1, sq).contiguous(),
-        k=fa._pad_to(case["k"], 1, skv).contiguous(),
-        v=fa._pad_to(case["v"], 1, skv).contiguous(),
-        seg_q=fa._pad_to(case["q_segment_ids"], 1, sq).contiguous(),
-        seg_kv=fa._pad_to(case["segment_ids"], 1, skv).contiguous(),
-    )
+    """The kernels' own inputs: sequences padded to the 128-row block."""
+    padded = fa.pad_inputs(case["q"], case["k"], case["v"], case["q_segment_ids"],
+                           case["segment_ids"])
+    return dict(zip(("q", "k", "v", "seg_q", "seg_kv"), padded))
 
 
 def run_case(case: dict, *, kernel: bool, upcast: bool = False, **opts) -> dict:
@@ -212,22 +207,44 @@ def training_case(seq: int = 8192) -> list[dict]:
             for seed in range(copies)]
 
 
+HYPER = dict(causal=True, window=0, cap=0.0, q_offset=0)  # the timed calls: causal, packed
+
+
+def kernel_inputs(case: dict) -> tuple[dict, dict, dict]:
+    """The direct inputs of K1 and of K2/K3 for a case at q_offset 0: the
+    flat padded tensors with their tile ranges; those plus dO, and LSE and
+    delta from one run of K1; and the launchers' own 128-row block ranges."""
+    flat = flat_inputs(case)
+    flat["q_ranges"] = fa.tile_ranges(flat["seg_q"])
+    flat["k_ranges"] = fa.tile_ranges(flat["seg_kv"])
+    out, lse = fa.flash_fwd_kernel(**flat, sinks=None, **HYPER)
+    dout = fa._pad_to(case["dout"], 1, flat["q"].shape[1]).contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    blocks = dict(q_blocks=fa.tile_ranges(flat["seg_q"], fa.BLOCK),
+                  k_blocks=fa.tile_ranges(flat["seg_kv"], fa.BLOCK))
+    return flat, dict(**flat, dout=dout, lse=lse, delta=delta), blocks
+
+
+def backward_twice_identical(case: dict) -> bool:
+    """K2 and K3 launched twice on one input: dq, dk and dv must come out
+    with the same bits (each block sums its own rows in a fixed order)."""
+    _, bwd, blocks = kernel_inputs(case)
+    runs = [(fa.flash_dq_kernel(**bwd, q_blocks=blocks["q_blocks"], **HYPER),
+             *fa.flash_dkv_kernel(**bwd, k_blocks=blocks["k_blocks"], **HYPER))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def time_kernels(cases: list[dict]) -> dict:
     """Device ms of K1, K2 and K3 on the cases' flat inputs (causal, packed)."""
-    flats = [flat_inputs(c) for c in cases]
-    for flat in flats:
-        flat["q_ranges"] = fa.tile_ranges(flat["seg_q"])
-        flat["k_ranges"] = fa.tile_ranges(flat["seg_kv"])
-    hyper = dict(causal=True, window=0, cap=0.0, q_offset=0)
-    bwd = []
-    for flat, case in zip(flats, cases):
-        out, lse = fa.flash_fwd_kernel(**flat, sinks=None, **hyper)
-        dout = fa._pad_to(case["dout"], 1, flat["q"].shape[1]).contiguous()
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        bwd.append(dict(**flat, dout=dout, lse=lse, delta=delta))
-    fwd_ms = device_ms([lambda f=f: fa.flash_fwd_kernel(**f, sinks=None, **hyper) for f in flats])
-    dq_ms = device_ms([lambda b=b: fa.flash_dq_kernel(**b, **hyper) for b in bwd], reps=10)
-    dkv_ms = device_ms([lambda b=b: fa.flash_dkv_kernel(**b, **hyper) for b in bwd], reps=10)
+    inputs = [kernel_inputs(c) for c in cases]
+    fwd_ms = device_ms([lambda f=f: fa.flash_fwd_kernel(**f, sinks=None, **HYPER)
+                        for f, _, _ in inputs])
+    dq_ms = device_ms([lambda b=b, r=r: fa.flash_dq_kernel(**b, q_blocks=r["q_blocks"], **HYPER)
+                       for _, b, r in inputs], reps=10)
+    dkv_ms = device_ms([lambda b=b, r=r: fa.flash_dkv_kernel(**b, k_blocks=r["k_blocks"], **HYPER)
+                        for _, b, r in inputs], reps=10)
     return dict(fwd_ms=fwd_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
 
 
@@ -286,10 +303,9 @@ def time_sdpa(cases: list[dict], reps: int = 10) -> dict:
     return _fwd_bwd_ms(forward, cases, reps)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_flash needs a CUDA card")
-    cases = training_case()
+def kernel_record(seq: int) -> dict:
+    """Times and bounds of K1-K3 at the training shape cut to `seq` tokens."""
+    cases = training_case(seq)
     flat = flat_inputs(cases[0])
     pairs = visible_pairs(flat["seg_q"], flat["seg_kv"])
     times = time_kernels(cases)
@@ -300,7 +316,14 @@ def main() -> int:
         bound, by = bound_ms(kind, pairs, hq, head_dim, io_bytes(flat, kind))
         record.update({f"{kind}_ms": times[f"{kind}_ms"], f"{kind}_bound_ms": bound,
                        f"{kind}_bound_by": by})
-    print(json.dumps(record))
+    return record
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_flash needs a CUDA card")
+    for seq in (8192, 2048):
+        print(json.dumps(kernel_record(seq)))
     return 0
 
 

@@ -4,9 +4,11 @@
 // (the model's own layout, no transposes); seg_q [B, Sq], seg_kv [B, Skv]
 // int32 (0 = padding); lse, delta: [B, Hq, Sq] fp32. q heads are kv-major:
 // q head h reads kv head h / (Hq / Hkv). Sq and Skv are multiples of the
-// 64-row tile (the wrapper pads with segment id 0). D is 64 or 128.
+// 64-row tile, and of the 128-row block for the bf16 backward kernels (the
+// wrapper pads to 128 with segment id 0). D is 64 or 128.
 //
-// Work split of the fp32 kernels (the bf16 ones: flash_mma.cuh). A block of
+// Work split of the fp32 kernels (the bf16 ones: flash_mma.cuh for the
+// forward, flash_wgmma.cuh for the backward). A block of
 // 256 threads owns a 64 x 64 score tile at a time.
 // Thread (ty, tx) = (tid / 16, tid % 16) holds rows ty + 16 i (i < 4) and
 // columns tx + 16 j of every tile it computes: 4 x 4 scores, 4 x D/16 of an

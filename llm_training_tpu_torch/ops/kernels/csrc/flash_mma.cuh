@@ -1,19 +1,25 @@
-// bf16 tensor-core pieces of the flash-attention kernels: warp-level
-// mma.sync.m16n8k16 (bf16 inputs, fp32 accumulation) and the fragment
-// loads from shared memory that feed it.
+// bf16 tensor-core pieces of the flash-attention forward kernel
+// (flash_fwd.cu, replacing the Pallas `_fwd_kernel`): warp-level
+// mma.sync.m16n8k16 (bf16 inputs, fp32 accumulation) and the fragment loads
+// from shared memory that feed it. The backward kernels no longer use this
+// file: they are built on wgmma and TMA (flash_wgmma.cuh).
 //
-// Work split of the bf16 kernels. A block of 4 warps owns 64 rows (q rows
-// in the forward and dQ kernels, kv rows in the dK/dV kernel); warp w owns
-// rows 16 w .. 16 w + 15 of every 64 x 64 score tile and of the 64 x D
-// output tile. Within a warp, lane = 4 g + t holds, of a 16 x 8 fp32
-// accumulator, rows g and g + 8 and columns 2 t, 2 t + 1 (PTX's m16n8
-// C layout). That layout is also the m16n8k16 A layout of two adjacent
-// score tiles, so P (or dS) goes from the score product into the next
-// product in registers, rounded to bf16 as the Pallas kernels round it.
+// Work split. A block of 4 warps owns 64 q rows; warp w owns rows
+// 16 w .. 16 w + 15 of every 64 x 64 score tile and of the 64 x D output
+// tile. Within a warp, lane = 4 g + t holds, of a 16 x 8 fp32 accumulator,
+// rows g and g + 8 and columns 2 t, 2 t + 1 (PTX's m16n8 C layout). That
+// layout is also the m16n8k16 A layout of two adjacent score tiles, so P
+// goes from the score product into P V in registers, rounded to bf16 as
+// the Pallas kernel rounds it.
 //
 // Shared tiles are 64 x D bf16, row-major, rows D + 8 elements apart: 16
 // bytes of padding keep rows 16-byte aligned and put the rows g = 0..7 of a
 // fragment load on distinct banks.
+//
+// Bound: the forward is bound by tensor-core operations (4 D flops per
+// visible pair per q head); mma.sync from one shared-memory stage reaches
+// under a tenth of that rate (PERF.md), and the forward is next in line
+// for the backward kernels' design.
 
 #pragma once
 

@@ -8,12 +8,13 @@ Replaces the three Pallas TPU kernels of
 rowsum(dO * O) in fp32 and the sink gradient. `flash_attention` is the
 counterpart of the JAX wrapper of the same name: it folds the softmax scale
 into q (rounded to q's type, as there), pads head_dim to 64 or 128 and the
-sequences to the 64-row tile with segment id 0, and slices the outputs
+sequences to the 128-row block with segment id 0, and slices the outputs
 back.
 
-What bounds the kernels on an H100, and what this version leaves on the
-table, is in the sources' notes: they are bound by operations; bf16 runs on
-tensor cores (mma.sync), fp32 on FMA from shared memory.
+What bounds the kernels on an H100 is in the sources' notes: they are bound
+by operations. In bf16 the forward runs on tensor cores through mma.sync
+over 64-row tiles; the backward kernels are built for Hopper (wgmma fed by
+a TMA ring, a block of 128 rows); fp32 runs on FMA from shared memory.
 
 Routing. `flash_attention` launches the kernels for CUDA tensors and
 raises on what they cannot take; it takes the plain version only for
@@ -37,7 +38,8 @@ import torch.nn.functional as F
 from llm_training_tpu_torch.ops.attention import _xla_attention, make_attention_mask
 from llm_training_tpu_torch.ops.kernels import build
 
-TILE = 64  # rows of a q or kv tile; the kernels take multiples of it
+TILE = 64  # rows of a q or kv tile: what the kernels stream and skip by
+BLOCK = 128  # rows a bf16 backward block owns; the wrapper pads sequences to it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _NO_SEGMENT = 2**30  # a tile range's smallest id when the tile is all padding
@@ -63,24 +65,23 @@ def _load() -> ctypes.CDLL:
         ]
         lib.flash_fwd_launch.argtypes = [*common, ctypes.c_void_p, ctypes.c_void_p,
                                          ctypes.c_void_p, *shape]  # sinks, out, lse
-        lib.flash_dq_launch.argtypes = [*common, ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_void_p, ctypes.c_void_p, *shape]  # dout lse delta dq
-        lib.flash_dkv_launch.argtypes = [*common, ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                         *shape]  # dout lse delta dk dv
+        # the launcher's own 128-row block ranges, then dout lse delta and the outputs
+        lib.flash_dq_launch.argtypes = [*common, *[ctypes.c_void_p] * 5, *shape]
+        lib.flash_dkv_launch.argtypes = [*common, *[ctypes.c_void_p] * 6, *shape]
         for fn in (lib.flash_fwd_launch, lib.flash_dq_launch, lib.flash_dkv_launch):
             fn.restype = ctypes.c_int
         _declared = True
     return lib
 
 
-def tile_ranges(segment_ids: torch.Tensor) -> torch.Tensor:
-    """`[B, S/64, 2]` int32: each tile's smallest nonzero segment id
-    (`2**30` for an all-padding tile) and its largest id. The kernels skip
-    a (q tile, kv tile) pair whose ranges do not meet, which makes packed
-    attention cost the sum of the documents' squares, as the Pallas
-    kernels' `_segment_block_bounds` did."""
-    tiles = segment_ids.reshape(segment_ids.shape[0], -1, TILE)
+def tile_ranges(segment_ids: torch.Tensor, rows: int = TILE) -> torch.Tensor:
+    """`[B, S/rows, 2]` int32: the smallest nonzero segment id of each span
+    of `rows` rows (`2**30` for an all-padding span) and its largest id. The
+    kernels skip a (q span, kv span) pair whose ranges do not meet, which
+    makes packed attention cost the sum of the documents' squares, as the
+    Pallas kernels' `_segment_block_bounds` did. A 128-row block's range is
+    the smallest and largest over its two 64-row tiles' ranges."""
+    tiles = segment_ids.reshape(segment_ids.shape[0], -1, rows)
     low = torch.where(tiles > 0, tiles, _NO_SEGMENT).amin(-1)
     return torch.stack([low, tiles.amax(-1)], -1).to(torch.int32).contiguous()
 
@@ -142,18 +143,32 @@ def flash_fwd_kernel(
     return out, lse
 
 
+def _check_blocks(what: str, rows: torch.Tensor, blocks: torch.Tensor) -> None:
+    """The bf16 backward kernels own 128-row blocks of `rows` (q for dq, k
+    for dk/dv) and read those blocks' segment-id ranges."""
+    batch, length = rows.shape[:2]
+    if rows.dtype == torch.bfloat16 and length % BLOCK:
+        raise ValueError(f"{what}: in bfloat16 the sequence ({length}) must be a multiple of {BLOCK}")
+    if (blocks.dtype != torch.int32 or not blocks.is_contiguous() or blocks.device != rows.device
+            or blocks.shape != (batch, -(-length // BLOCK), 2)):
+        raise ValueError(f"{what}: block ranges must be tile_ranges(segment ids, {BLOCK}) "
+                         f"on {rows.device}; got {tuple(blocks.shape)} {blocks.dtype}")
+
+
 def flash_dq_kernel(
-    q, k, v, seg_q, seg_kv, q_ranges, k_ranges, dout, lse, delta, *, causal, window, cap,
-    q_offset,
+    q, k, v, seg_q, seg_kv, q_ranges, k_ranges, dout, lse, delta, *, q_blocks, causal, window,
+    cap, q_offset,
 ) -> torch.Tensor:
-    """K2: dQ (of the scaled q) from dO, LSE and delta `[B, Hq, Sq]` fp32."""
+    """K2: dQ (of the scaled q) from dO, LSE and delta `[B, Hq, Sq]` fp32.
+    `q_blocks` is `tile_ranges(seg_q, BLOCK)`."""
+    _check_blocks("flash dq", q, q_blocks)
     lib = _load()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.flash_dq_launch(
             _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             seg_q.data_ptr(), seg_kv.data_ptr(), q_ranges.data_ptr(), k_ranges.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            q_blocks.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_shape_args(q, k, causal, window, cap, q_offset),
         )
     build.check_launch(err, "flash dq")
@@ -162,17 +177,20 @@ def flash_dq_kernel(
 
 
 def flash_dkv_kernel(
-    q, k, v, seg_q, seg_kv, q_ranges, k_ranges, dout, lse, delta, *, causal, window, cap,
-    q_offset,
+    q, k, v, seg_q, seg_kv, q_ranges, k_ranges, dout, lse, delta, *, k_blocks, causal, window,
+    cap, q_offset,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: dK and dV, each kv head summed over the q heads of its group."""
+    """K3: dK and dV, each kv head summed over the q heads of its group.
+    `k_blocks` is `tile_ranges(seg_kv, BLOCK)`. In bf16 the one call runs
+    the kernel twice, for dV and for dK; it counts as one launch of K3."""
+    _check_blocks("flash dkv", k, k_blocks)
     lib = _load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.flash_dkv_launch(
             _DTYPE_CODES[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             seg_q.data_ptr(), seg_kv.data_ptr(), q_ranges.data_ptr(), k_ranges.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            k_blocks.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_shape_args(q, k, causal, window, cap, q_offset),
         )
     build.check_launch(err, "flash dkv")
@@ -215,18 +233,21 @@ class FlashAttention(torch.autograd.Function):
         out, lse = flash_fwd(
             q, k, v, seg_q, seg_kv, q_ranges, k_ranges, sinks, causal, window, cap, q_offset
         )
-        ctx.save_for_backward(q, k, v, seg_q, seg_kv, q_ranges, k_ranges, sinks, out, lse)
+        q_blocks, k_blocks = tile_ranges(seg_q, BLOCK), tile_ranges(seg_kv, BLOCK)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, q_ranges, k_ranges, q_blocks, k_blocks,
+                              sinks, out, lse)
         ctx.hyper = dict(causal=causal, window=window, cap=cap, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, seg_q, seg_kv, q_ranges, k_ranges, sinks, out, lse = ctx.saved_tensors
+        (q, k, v, seg_q, seg_kv, q_ranges, k_ranges, q_blocks, k_blocks, sinks, out,
+         lse) = ctx.saved_tensors
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         flat = (q, k, v, seg_q, seg_kv, q_ranges, k_ranges, dout, lse, delta)
-        dq = flash_dq_kernel(*flat, **ctx.hyper)
-        dk, dv = flash_dkv_kernel(*flat, **ctx.hyper)
+        dq = flash_dq_kernel(*flat, q_blocks=q_blocks, **ctx.hyper)
+        dk, dv = flash_dkv_kernel(*flat, k_blocks=k_blocks, **ctx.hyper)
         d_sinks = None if sinks is None else sink_grad(sinks, lse, delta)
         return dq, dk, dv, None, None, d_sinks, None, None, None, None
 
@@ -299,6 +320,21 @@ def flash_attention(
         raise ValueError(f"head_dim {head_dim} not supported by the kernels (at most 128)")
     if sinks is not None and sinks.shape != (num_q_heads,):
         raise ValueError(f"sinks must be [{num_q_heads}], got {tuple(sinks.shape)}")
+    return _through_kernels(
+        q, k, v, segment_ids, q_segment_ids, causal, int(sliding_window or 0),
+        float(logits_soft_cap or 0.0), scale, int(q_offset), sinks,
+    )
+
+
+def _through_kernels(q, k, v, segment_ids, q_segment_ids, causal, window, cap, scale, q_offset,
+                     sinks, attend=None) -> torch.Tensor:
+    """The CUDA route of `flash_attention` around the kernels: scale folded
+    into q, default segment ids, padding to what the kernels take, the
+    autograd function, and the output sliced back to the caller's lengths.
+    `attend` (same arguments as `FlashAttention.apply`) stands in for the
+    kernels where there is no card, as the CPU tests do."""
+    batch, q_len, _, head_dim = q.shape
+    kv_len = k.shape[1]
     orig_dtype = q.dtype
     # fold the scale into q, rounded to q's type as the JAX wrapper does
     if scale != 1.0:
@@ -308,22 +344,25 @@ def flash_attention(
              else q_segment_ids.to(torch.int32))
     seg_kv = (torch.ones((batch, kv_len), **ones) if segment_ids is None
               else segment_ids.to(torch.int32))
-    # pad the sequences to the tile (padding gets segment id 0, so it is
-    # masked, not attended) and head_dim to 64 or 128 (zeros change no score)
-    d_pad = 64 if head_dim <= 64 else 128
-    sq, skv = _round_up(q_len, TILE), _round_up(kv_len, TILE)
+    q, k, v, seg_q, seg_kv = pad_inputs(q, k, v, seg_q, seg_kv)
+    if sinks is not None:
+        sinks = sinks.float().contiguous()
+    out = (attend or FlashAttention.apply)(
+        q, k, v, seg_q, seg_kv, sinks, causal, window, cap, q_offset
+    )
+    return out[:, :q_len, :, :head_dim].to(orig_dtype)
+
+
+def pad_inputs(q, k, v, seg_q, seg_kv):
+    """What the kernels take: the sequences padded to the 128-row block
+    (padding gets segment id 0, so it is masked, not attended) and head_dim
+    to 64 or 128 (zeros change no score), all contiguous."""
+    d_pad = 64 if q.shape[3] <= 64 else 128
+    sq, skv = _round_up(q.shape[1], BLOCK), _round_up(k.shape[1], BLOCK)
     q = _pad_to(_pad_to(q, 1, sq), 3, d_pad).contiguous()
     k = _pad_to(_pad_to(k, 1, skv), 3, d_pad).contiguous()
     v = _pad_to(_pad_to(v, 1, skv), 3, d_pad).contiguous()
-    seg_q = _pad_to(seg_q, 1, sq).contiguous()
-    seg_kv = _pad_to(seg_kv, 1, skv).contiguous()
-    if sinks is not None:
-        sinks = sinks.float().contiguous()
-    out = FlashAttention.apply(
-        q, k, v, seg_q, seg_kv, sinks, causal, int(sliding_window or 0),
-        float(logits_soft_cap or 0.0), int(q_offset),
-    )
-    return out[:, :q_len, :, :head_dim].to(orig_dtype)
+    return q, k, v, _pad_to(seg_q, 1, sq).contiguous(), _pad_to(seg_kv, 1, skv).contiguous()
 
 
 def flash_fwd_torch(

@@ -31,6 +31,8 @@ from typing import Any, Callable
 
 import torch
 
+from llm_training_tpu_torch.models.llama.from_jax import jax_paths
+
 _OPTIMIZERS = ("adamw", "adam", "sgd")
 _NOT_PORTED = ("adafactor", "lion")
 _SCHEDULES = ("constant", "cosine", "linear")
@@ -101,8 +103,12 @@ def build_lr_schedule(config: OptimConfig, num_total_steps: int) -> Callable[[in
 
 def _frozen(name: str, patterns: list[re.Pattern]) -> bool:
     """A parameter is frozen when a pattern matches its name, dotted
-    (`model.embed_tokens.weight`) or joined by '/' like a JAX path."""
-    return any(p.search(name) or p.search(name.replace(".", "/")) for p in patterns)
+    (`model.embed_tokens.weight`) or joined by '/', or its path in the JAX
+    package's parameter tree (`params/layers/layer/mlp/up_proj/kernel`,
+    `params/layers_0/...`), which is what `_freeze_mask` matches there: a
+    config written for the JAX package freezes the same parameters."""
+    forms = [name, name.replace(".", "/"), *jax_paths(name)]
+    return any(p.search(form) for p in patterns for form in forms)
 
 
 class Optimizer:

@@ -302,3 +302,119 @@ def test_tile_ranges():
     seg = torch.tensor([[1] * 64 + [2] * 30 + [0] * 34 + [0] * 64 + [3] * 10 + [4] * 54])
     ranges = fa.tile_ranges(seg).tolist()
     assert ranges == [[[1, 1], [2, 2], [2**30, 0], [3, 4]]]
+
+
+# ------------------------------------------------ the 128-row block of the bf16 backward
+
+
+def _ids(kind: str, seq: int, seed: int) -> torch.Tensor:
+    """Segment ids `[2, seq]` for the range and padding tests."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(2):
+        if kind == "packed":
+            row = _packed_segments(rng, 1, seq, max_docs=6)[0]
+        elif kind == "boundary_64":  # a document boundary inside a 128-row block
+            row = np.ones(seq, np.int32)
+            row[64:] = 2
+            row[seq - 3:] = 0
+        elif kind == "padding_block":  # a whole 64-row tile of padding in a block
+            row = np.ones(seq, np.int32)
+            row[64:128] = 0
+            row[128:] = 3
+        else:
+            row = np.zeros(seq, np.int32)
+        rows.append(np.asarray(row, np.int32))
+    return torch.from_numpy(np.stack(rows))
+
+
+@pytest.mark.parametrize("kind", ["packed", "boundary_64", "padding_block", "all_padding"])
+@pytest.mark.parametrize("seq", [128, 384, 1024])
+def test_block_ranges_merge_tile_ranges(kind, seq):
+    """A 128-row block's range is the smallest and largest over its two
+    64-row tiles' ranges (an all-padding tile's 2**30 never wins the
+    smallest unless both are padding)."""
+    seg = _ids(kind, seq, seq)
+    tiles = fa.tile_ranges(seg)
+    blocks = fa.tile_ranges(seg, fa.BLOCK)
+    assert tiles.shape == (2, seq // fa.TILE, 2) and blocks.shape == (2, seq // fa.BLOCK, 2)
+    pairs = tiles.reshape(2, -1, 2, 2)
+    assert torch.equal(blocks[..., 0], pairs[..., 0].amin(-1))
+    assert torch.equal(blocks[..., 1], pairs[..., 1].amax(-1))
+    assert blocks.dtype == torch.int32 and blocks.is_contiguous()
+
+
+@pytest.mark.parametrize("head_dim", [16, 64, 100, 128])
+@pytest.mark.parametrize("q_len,kv_len", [(64, 64), (257, 257), (300, 300), (100, 300)])
+def test_pad_inputs_pads_to_the_block(q_len, kv_len, head_dim):
+    """Sequences go to the next multiple of 128 and head_dim to 64 or 128;
+    the caller's values stay where they were, padded rows carry segment id 0
+    and zeros."""
+    rng = np.random.default_rng(q_len + head_dim)
+    q = _t(rng.standard_normal((2, q_len, 4, head_dim)).astype(np.float32))
+    k = _t(rng.standard_normal((2, kv_len, 2, head_dim)).astype(np.float32))
+    v = _t(rng.standard_normal((2, kv_len, 2, head_dim)).astype(np.float32))
+    seg_kv = _ids("packed", kv_len, kv_len).clamp_min(1)
+    seg_q = seg_kv[:, kv_len - q_len:]
+    pq, pk, pv, psq, pskv = fa.pad_inputs(q, k, v, seg_q, seg_kv)
+    d_pad = 64 if head_dim <= 64 else 128
+    for padded, orig, ids, n in ((pq, q, psq, q_len), (pk, k, pskv, kv_len), (pv, v, pskv, kv_len)):
+        assert padded.shape[1] % fa.BLOCK == 0 and 0 <= padded.shape[1] - n < fa.BLOCK
+        assert padded.shape[3] == d_pad and padded.is_contiguous() and ids.is_contiguous()
+        assert torch.equal(padded[:, :n, :, :head_dim], orig)
+        assert not padded[:, n:].any() and not padded[..., head_dim:].any()
+        assert ids.shape == padded.shape[:2] and not ids[:, n:].any()
+    assert torch.equal(psq[:, :q_len], seg_q) and torch.equal(pskv[:, :kv_len], seg_kv)
+
+
+@pytest.mark.parametrize("q_len,kv_len", [(64, 64), (257, 257), (300, 300), (100, 300)])
+@pytest.mark.parametrize("head_dim", [32, 128])
+def test_kernel_route_pads_and_slices_back(q_len, kv_len, head_dim):
+    """The wrapper's CUDA route with the plain version standing in for the
+    kernels: what reaches them is padded to the block with segment id 0,
+    and what comes back is sliced to the caller's lengths and equals the
+    plain attention on the unpadded inputs (O and the gradients)."""
+    rng = np.random.default_rng(q_len + kv_len + head_dim)
+    q, k, v = _qkv(rng, 2, q_len, kv_len, 4, 2, head_dim)
+    cot = rng.standard_normal(q.shape).astype(np.float32)
+    seg_kv = _ids("packed", kv_len, kv_len)
+    seg_q = seg_kv[:, kv_len - q_len:].contiguous()
+    q_offset = kv_len - q_len
+    seen = {}
+
+    def attend(q, k, v, seg_q, seg_kv, sinks, causal, window, cap, q_offset):
+        seen.update(q=q.shape, k=k.shape, seg_q=seg_q, seg_kv=seg_kv)
+        return fa.flash_fwd_torch(q, k, v, seg_q, seg_kv, sinks, causal=causal, window=window,
+                                  cap=cap, q_offset=q_offset)[0]
+
+    def run(fn):
+        leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(_t(cot))
+        return [out.detach(), *[leaf.grad for leaf in leaves]]
+
+    got = run(lambda q, k, v: fa._through_kernels(
+        q, k, v, seg_kv, seg_q, True, 50, 0.0, head_dim**-0.5, q_offset, None, attend=attend))
+    expected = run(lambda q, k, v: fa.flash_attention_torch(
+        q, k, v, seg_kv, seg_q, causal=True, sliding_window=50, q_offset=q_offset))
+    assert seen["q"][1] % fa.BLOCK == 0 and seen["k"][1] % fa.BLOCK == 0
+    assert seen["q"][3] == seen["k"][3] == (64 if head_dim <= 64 else 128)
+    assert not seen["seg_q"][:, q_len:].any() and not seen["seg_kv"][:, kv_len:].any()
+    assert got[0].shape == (2, q_len, 4, head_dim)
+    for a, b in zip(got, expected):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **XLA_TOL)
+
+
+def test_backward_launchers_want_whole_blocks():
+    """In bf16 the backward launchers refuse a sequence that is not a
+    multiple of the 128-row block, before anything is built."""
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16)
+    seg = torch.ones((1, 64), dtype=torch.int32)
+    ranges = fa.tile_ranges(seg)
+    row = torch.zeros((1, 2, 64))
+    for launcher, blocks in ((fa.flash_dq_kernel, "q_blocks"), (fa.flash_dkv_kernel, "k_blocks")):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            launcher(q, q, q, seg, seg, ranges, ranges, q, row, row, causal=True, window=0,
+                     cap=0.0, q_offset=0, **{blocks: ranges})
+        assert launcher.launches == 0

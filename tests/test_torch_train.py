@@ -113,6 +113,79 @@ def test_fused_linear_cross_entropy_matches_jax(chunk):
     np.testing.assert_allclose(w.grad.numpy(), np.asarray(jgrads[1]), **TOL)
 
 
+def _bf16_step_error(got, ref) -> float:
+    """max |got - ref| over max |ref|, in bf16 steps (2^-8)."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max() / 2.0**-8)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("cap", [None, 30.0], ids=["nocap", "cap30"])
+def test_fused_linear_cross_entropy_bf16_matches_jax(cap, bias):
+    """bf16 hidden and weight: the logits are the product's fp32 accumulator
+    in both packages (JAX: `preferred_element_type=float32`), never rounded
+    to bf16. The loss sum differs only by the order of its fp32 sums (rtol
+    1e-5); the bf16 gradients of hidden and weight are within one bf16 step
+    (2^-8 of max|ref|)."""
+    rng = np.random.default_rng(11)
+    tokens, embed, vocab, chunk = 96, 64, 512, 32
+    hidden = rng.standard_normal((tokens, embed)).astype(np.float32)
+    weight = (0.5 * rng.standard_normal((embed, vocab))).astype(np.float32)
+    b = rng.standard_normal(vocab).astype(np.float32) if bias else None
+    labels = rng.integers(0, vocab, tokens)
+    labels[::7] = -100
+
+    def jax_total(h, w):
+        return jax_ce.fused_linear_cross_entropy(
+            h, w, jnp.asarray(labels), chunk_size=chunk, logits_soft_cap=cap,
+            bias=None if b is None else jnp.asarray(b, jnp.bfloat16),
+        )[0]
+
+    jtotal, jgrads = jax.value_and_grad(jax_total, argnums=(0, 1))(
+        jnp.asarray(hidden, jnp.bfloat16), jnp.asarray(weight, jnp.bfloat16)
+    )
+    h = _t(hidden).bfloat16().requires_grad_()
+    w = _t(weight).bfloat16().requires_grad_()
+    total, _ = ce.fused_linear_cross_entropy(
+        h, w, _t(labels), chunk_size=chunk, logits_soft_cap=cap,
+        bias=None if b is None else _t(b).bfloat16(),
+    )
+    total.backward()
+    assert total.dtype == torch.float32 and h.grad.dtype == w.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(float(total.detach()), float(jtotal), rtol=1e-5)
+    steps = {
+        "hidden": _bf16_step_error(h.grad.float().numpy(), jgrads[0].astype(jnp.float32)),
+        "weight": _bf16_step_error(w.grad.float().numpy(), jgrads[1].astype(jnp.float32)),
+    }
+    print(f"bf16 fused CE gradients vs JAX, in bf16 steps of max|ref|: {steps}")
+    assert max(steps.values()) <= 1.0, steps
+
+
+def test_swiglu_bf16_matches_jax():
+    """bf16 `silu_mul` against `llm_training_tpu/ops/swiglu.py` on the same
+    inputs. `F.silu` computes in fp32 and rounds once; `jax.nn.silu` in bf16
+    rounds after each primitive of x * logistic(x), so single elements
+    differ by a few bf16 steps of their own value. Held to 2 x 2^-8 of
+    max|ref|."""
+    from llm_training_tpu.ops.swiglu import silu_mul as jax_silu_mul
+    from llm_training_tpu_torch.ops.swiglu import silu_mul
+
+    rng = np.random.default_rng(12)
+    gate = (3 * rng.standard_normal((96, 256))).astype(np.float32)
+    up = rng.standard_normal((96, 256)).astype(np.float32)
+    ours = silu_mul(_t(gate).bfloat16(), _t(up).bfloat16()).float().numpy()
+    theirs = np.asarray(
+        jax_silu_mul(jnp.asarray(gate, jnp.bfloat16), jnp.asarray(up, jnp.bfloat16))
+        .astype(jnp.float32)
+    )
+    per_element = float((np.abs(ours - theirs) / np.maximum(np.abs(theirs), 1e-30)).max())
+    worst = _bf16_step_error(ours, theirs)
+    print(f"bf16 silu_mul vs JAX: worst difference {worst:.3f} x 2^-8 of max|ref|, "
+          f"{per_element / 2.0**-8:.3f} x 2^-8 of a single element's own value, "
+          f"{float((ours != theirs).mean()):.3f} of the elements differ")
+    assert worst <= 2.0
+
+
 # ---------------------------------------------------------------- the model and objective
 
 
@@ -283,6 +356,57 @@ def test_accumulation_matches_optax_multisteps():
                                    None, accumulate=3, updates=7)
     for name in PARAM_SHAPES:
         np.testing.assert_allclose(ours[name], theirs[name], rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scanned", "looped"])
+@pytest.mark.parametrize("jax_pattern,port_pattern", [
+    ("mlp/up_proj/kernel", None),
+    ("params/layers/layer/self_attn", None),
+    ("layers_0/", None),
+    (r"layers_1/self_attn/(q|k)_proj/kernel", None),
+    ("embed_tokens|(^|/)norm/weight", None),
+    ("layers_0/mlp/", r"model\.layers\.0\.mlp\."),
+    ("no_such_module", None),
+], ids=["kernel_path", "scanned_path", "layers_0", "looped_regex", "embed_and_norm",
+        "port_dotted_name", "matches_nothing"])
+def test_frozen_modules_match_jax(scan, jax_pattern, port_pattern):
+    """`frozen_modules` written for the JAX package freezes the same
+    parameters in the port: the JAX side is `_freeze_mask` over the tiny
+    Llama's tree (scanned: one leaf for all layers; looped: `layers_{i}`),
+    the port side the optimizer's `trainable` flags. A pattern in the port's
+    own dotted names is held against its JAX spelling."""
+    from llm_training_tpu.optim.builder import _freeze_mask
+    from llm_training_tpu_torch.models.llama.from_jax import jax_leaf
+
+    jax_model = JaxLlama(JaxLlamaConfig(**TINY, scan_layers=scan, attention_impl="xla"))
+    variables = nn.meta.unbox(
+        jax.eval_shape(jax_model.init, jax.random.key(0), np.zeros((1, 4), np.int32))
+    )
+    trainable = _freeze_mask(variables, [jax_pattern])["params"]
+    model = Llama(LlamaConfig(**TINY), device="meta")
+    named = list(model.named_parameters())
+    expected = set()
+    for name, _ in named:
+        layer, keys = jax_leaf(name)
+        if layer is not None:
+            node = trainable["layers"]["layer"] if scan else trainable[f"layers_{layer}"]
+        else:
+            node = trainable
+        for key in keys:
+            node = node[key]
+        if not node:
+            expected.add(name)
+    pattern = port_pattern or jax_pattern
+    opt, _ = build_optimizer(OptimConfig(optimizer="sgd"), 4, named, [pattern])
+    frozen = {name for (name, _), flag in zip(named, opt.trainable) if not flag}
+    # a path of the other layout matches nothing in this JAX tree, by design of
+    # the layouts; the port has one layout and takes a path of either
+    other_layout = ("layers_" in jax_pattern) if scan else ("layers/layer" in jax_pattern)
+    if other_layout:
+        assert not expected and frozen
+    else:
+        assert frozen == expected, (sorted(frozen), sorted(expected))
+    assert bool(frozen) == (jax_pattern != "no_such_module")
 
 
 @pytest.mark.parametrize("name", ["lion", "adafactor"])
