@@ -47,7 +47,26 @@ Phases, each of which must pass (any failure exits non-zero):
    yardstick); then the kernels and their bounds at S 2048;
 11. random streams: the kernels of `prng.py` (NEFTune's uniform, the
    sampler's Gumbel draw) against their plain versions at the fit's and
-   the serving shapes (uniform bits equal, tokens equal), then timed.
+   the serving shapes (uniform bits equal, tokens equal), then timed;
+12. lifecycle (run after the training phase freed its memory): at
+   Llama-3.1-8B widths cut to 2 layers (fp32 params, bf16 compute; the
+   fit phase's data, AdamW with clip, cosine/warmup over 4 steps, 2
+   micro-batches a step), through the CLI's own builders and commands: an
+   uninterrupted 4-step fit; the same run checkpointed (async, every 2
+   steps, keeping 1) and stopped after step 2, then resumed by a new
+   Trainer to step 4 -- every restored tensor, the counters and the data
+   cursor equal the saved ones bit for bit, and steps 3-4 follow the
+   uninterrupted losses within 1e-3 relative, K1-K3 launched in both legs;
+   then `validate` and `evaluate` from the checkpoint (the same batches:
+   `eval/nll_per_token` equals `val_loss` within 1e-6 relative; K1 only),
+   `generate` (4 left-padded prompts of 64-512 tokens, 32 new, greedy, bf16
+   cache; the prefill's last-column logits against the full forward within
+   1e-2 of max |logit| on the same batch and plain attention path, and the
+   engine-parity limit through K1) and `serve --config` (the same prompts: every
+   request done, the pool empty, K4 launched once per layer per decode
+   step; the share of tokens equal to `generate`'s is printed). It prints
+   the checkpoint's bytes, the save's blocking and commit seconds, the
+   restore's seconds and the decode rate.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -56,10 +75,15 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
+import logging
 import math
+import os
+import shutil
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -107,6 +131,21 @@ FLASH_GRAD_VS_FP32 = 4 * 2.0**-8
 NO_FURTHER = 1.5
 TRAIN_LAYERS = 8
 TRAIN_SEQ = 8192
+# the lifecycle phase: its depth, steps, and where its checkpoints go
+LIFE_LAYERS = 2
+LIFE_STEPS = 4
+LIFE_DIR = ROOT / ".smoke_lifecycle"
+LIFE_DEVICE = "cuda"
+# the resumed losses against the uninterrupted ones: the embedding's
+# backward (a CUDA scatter-add) is not bit-stable from run to run
+RESUME_RTOL = 1e-3
+# eval NLL against val_loss: the same kernel on the same batches
+EVAL_RTOL = 1e-6
+# generate's bf16 prefill logits against the model's full forward on the
+# same batch and the same plain attention path, over max |logit|. Against
+# the full forward through K1 the limit is ENGINE_LOGITS_RTOL, bf16 kernel
+# against plain
+PREFILL_RTOL = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -1059,6 +1098,352 @@ def phase_random_streams(card: str) -> dict:
     return out
 
 
+@dataclass
+class PackedRowsConfig:
+    """The fit phase's data as a config node: `seed` picks the documents,
+    `rows` training rows of `seq` tokens (one a micro-batch) and
+    `val_rows` validation rows from the next seed."""
+
+    seq: int = TRAIN_SEQ
+    rows: int = 4
+    val_rows: int = 2
+    vocab: int = 128256
+    seed: int = 0
+    batch_size: int = 1
+
+
+class PackedRows:
+    """A datamodule the CLI builds from `{"class_path":
+    "chip_smoke.PackedRows"}`: `packed_batches` rows, the training stream
+    cycling over them from any micro-step."""
+
+    def __init__(self, config: PackedRowsConfig):
+        self.config = config
+        self.train, self.val = None, None
+
+    def setup(self):
+        if self.train is None:
+            c = self.config
+            self.train = packed_batches(c.seed, c.seq, c.rows, c.vocab)
+            self.val = packed_batches(c.seed + 1, c.seq, c.val_rows, c.vocab)
+
+    def train_batches(self, start_step=0):
+        for i in range(start_step, 10**9):
+            yield self.train[i % len(self.train)]
+
+    def val_batches(self):
+        yield from self.val
+
+
+def lifecycle_config(model_kwargs: dict, checkpoint: bool) -> dict:
+    trainer = {"max_steps": LIFE_STEPS, "seed": 0, "accumulate_grad_batches": 2,
+               "log_every_n_steps": 1, "limit_val_batches": 2}
+    if checkpoint:
+        trainer.update(checkpoint_every_n_steps=2, checkpoint={
+            "dirpath": str(LIFE_DIR / "ckpt"), "async_save": True, "max_to_keep": 1})
+    return {
+        "seed_everything": 0,
+        "trainer": trainer,
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": model_kwargs},
+            # the example's AdamW, clip and cosine/warmup, cut to 4 steps
+            "optim": {"optimizer": "adamw", "learning_rate": 3e-4, "lr_scheduler": "cosine",
+                      "warmup_steps": 1, "min_lr_ratio": 0.1, "grad_clip_norm": 1.0}}},
+        "data": {"class_path": "chip_smoke.PackedRows",
+                 "init_args": {"vocab": model_kwargs["vocab_size"]}},
+    }
+
+
+class LossLog:
+    def __init__(self):
+        self.losses = {}
+
+    def on_step_end(self, trainer, step, metrics):
+        self.losses[step] = metrics["loss"]
+
+
+def fit_leg(config: dict, callbacks=()) -> tuple[dict, object, list[int], int]:
+    """One `fit` through the CLI's builder: (losses by step, trainer, K1/K2/K3
+    launches, plain-attention calls), the counts set to 0 just before."""
+    from llm_training_tpu_torch.cli.main import build_fit
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    trainer, objective, datamodule = build_fit(config, LIFE_DEVICE)
+    log = LossLog()
+    trainer.callbacks += [log, *callbacks]
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        trainer.fit(objective, datamodule)
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    return log.losses, trainer, launches, plain[0]
+
+
+def run_command(argv: list[str]) -> list[dict]:
+    """A CLI command as a user runs it; its JSON records from stdout."""
+    from llm_training_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main([*argv, "--device", LIFE_DEVICE])
+    check(rc == 0, f"lifecycle: {argv[0]} exited {rc}")
+    return [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+
+
+def free_bytes(path: Path) -> int:
+    st = os.statvfs(path)
+    return st.f_bavail * st.f_frsize
+
+
+def phase_lifecycle(card: str) -> dict:
+    """Checkpoint, loss-exact resume, and validate / evaluate / generate /
+    serve from the checkpoint (see the header)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.cli.main import build_parser, run_serve
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.ops.kernels import paged_attention as k4
+
+    # the CLI configures logging once per process: keep its INFO records
+    # off the smoke's stdout
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    model_config = preset("llama-3.1-8b", num_hidden_layers=LIFE_LAYERS, param_dtype="float32",
+                          compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                          recompute_granularity="selective")
+    kwargs = asdict(model_config)
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in Llama(model_config).parameters())
+    # fp32 parameters, AdamW's mu and nu, the accumulator of 2 micro-batches
+    expected_bytes = 4 * 4 * n_params
+    shutil.rmtree(LIFE_DIR, ignore_errors=True)
+    LIFE_DIR.mkdir()
+    config_path = LIFE_DIR / "config.json"
+    config_path.write_text(json.dumps(lifecycle_config(kwargs, checkpoint=True)))
+    result = dict(layers=LIFE_LAYERS, params=n_params)
+    try:
+        free = free_bytes(LIFE_DIR)
+        print(f"lifecycle: {n_params} params, a checkpoint of ~{expected_bytes / 1e9:.2f} GB; "
+              f"{free / 1e9:.2f} GB free in {LIFE_DIR}")
+        # with max_to_keep 1 the second step is written before the first goes
+        check(free >= 2 * expected_bytes,
+              f"lifecycle: {free} bytes free in {LIFE_DIR}, the phase needs twice the "
+              f"checkpoint's {expected_bytes}")
+
+        full, trainer, launches, plain = fit_leg(lifecycle_config(kwargs, checkpoint=False))
+        check(min(launches) > 0 and plain == 0,
+              f"lifecycle: the uninterrupted fit launched K1/K2/K3 {launches}, plain path {plain}")
+        full = {step: float(loss) for step, loss in full.items()}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        class StopAfter2:
+            def on_train_step(self, trainer, step):
+                trainer.should_stop = step == 2
+
+        config = lifecycle_config(kwargs, checkpoint=True)
+        first, saver, launches_a, plain_a = fit_leg(config, [StopAfter2()])
+        save_a = dict(saver.checkpointer.last_save)
+        saver.checkpointer.close()  # releases the pinned staging buffers
+        saved = saver.state.state_dict()
+        saved_counters = dict(saver.counters)
+        check(sorted(first) == [1, 2] and saver.checkpointer.all_steps() == [2],
+              f"lifecycle: the interrupted run logged {sorted(first)}, committed "
+              f"{saver.checkpointer.all_steps()}")
+
+        compared = {}
+
+        class CompareRestored:
+            """Right after the restore: the live state against the saved one."""
+
+            def on_fit_start(self, trainer, objective, datamodule, start_step):
+                restored = trainer.state.state_dict()
+                check(restored.keys() == saved.keys(), "lifecycle: restored keys differ")
+                differ = [k for k in saved if not torch.equal(saved[k], restored[k])]
+                meta = trainer.checkpointer.read_meta(2)
+                compared.update(tensors=len(saved), differ=differ, start_step=start_step,
+                                counters=trainer.counters == saved_counters,
+                                cursor=meta["data_state"]["sample_cursor"])
+                saved.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        del saver
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed, trainer, launches_b, plain_b = fit_leg(config, [CompareRestored()])
+        restore = dict(trainer.checkpointer.last_restore)
+        save_b = dict(trainer.checkpointer.last_save)
+        trainer.checkpointer.close()
+        check(not compared["differ"] and compared["counters"] and compared["start_step"] == 2
+              and compared["cursor"] == 2 * 2,
+              f"lifecycle: the restore differs from the save: {compared}")
+        check(sorted(resumed) == [3, 4], f"lifecycle: the resumed run logged {sorted(resumed)}")
+        rel = {s: abs(float(resumed[s]) - full[s]) / abs(full[s]) for s in (3, 4)}
+        rel.update({s: abs(float(first[s]) - full[s]) / abs(full[s]) for s in (1, 2)})
+        check(max(rel.values()) <= RESUME_RTOL,
+              f"lifecycle: losses {first} + {resumed} against uninterrupted {full}")
+        check(min(launches_a) > 0 and min(launches_b) > 0 and plain_a == plain_b == 0,
+              f"lifecycle: K1/K2/K3 launched {launches_a} before and {launches_b} after the "
+              f"restore (plain path {plain_a}, {plain_b})")
+        check(save_b.get("pruned") == [2] and trainer.checkpointer.all_steps() == [4],
+              f"lifecycle: step 4's save pruned {save_b.get('pruned')}, left "
+              f"{trainer.checkpointer.all_steps()}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        result.update(losses=full, resumed=resumed, max_rel_loss_diff=max(rel.values()),
+                      launches_before=launches_a, launches_after=launches_b,
+                      restored_tensors=compared["tensors"], save_step2=save_a, save_step4=save_b,
+                      restore=restore)
+        print(f"lifecycle: resume restored {compared['tensors']} tensors bit for bit (parameters, "
+              f"mu, nu, acc, count, mini_step, key, step), counters and cursor equal; losses "
+              f"uninterrupted {[round(full[s], 6) for s in sorted(full)]}, interrupted + resumed "
+              f"{[round(float(first[s]), 6) for s in (1, 2)]} + "
+              f"{[round(float(resumed[s]), 6) for s in (3, 4)]}, largest relative difference "
+              f"{max(rel.values()):.3e} (limit {RESUME_RTOL}); K1/K2/K3 {launches_a} before, "
+              f"{launches_b} after the restore")
+        print(f"lifecycle timing [{card}]: checkpoint {save_a['bytes']} bytes on disk "
+              f"({save_a['tensor_bytes']} tensor bytes); save of step 2: blocking (device -> "
+              f"pinned host, first save) {save_a['blocking_s']:.3f} s, committed after "
+              f"{save_a['commit_s']:.3f} s; save of step 4: blocking {save_b['blocking_s']:.3f} "
+              f"s, committed after {save_b['commit_s']:.3f} s, pruned {save_b['pruned']}; "
+              f"restore {restore['seconds']:.3f} s")
+
+        # validate and evaluate from the checkpoint, through the CLI
+        for launcher in (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel):
+            launcher.launches = 0
+        (val,) = run_command(["validate", "--config", str(config_path)])
+        (evaluation,) = run_command(["evaluate", "--config", str(config_path),
+                                     "--limit-batches", "2"])
+        eval_launches = [fa.flash_fwd_kernel.launches, fa.flash_dq_kernel.launches,
+                         fa.flash_dkv_kernel.launches]
+        nll = evaluation["eval/nll_per_token"]
+        check(abs(nll - val["val_loss"]) <= EVAL_RTOL * abs(val["val_loss"]),
+              f"lifecycle: eval/nll_per_token {nll} against val_loss {val['val_loss']}")
+        check(eval_launches[0] > 0 and eval_launches[1:] == [0, 0],
+              f"lifecycle: validate + evaluate launched K1/K2/K3 {eval_launches}")
+        result.update(val_loss=val["val_loss"], eval=evaluation, eval_launches=eval_launches)
+        print(f"lifecycle: validate val_loss {val['val_loss']:.6f}, evaluate nll/token "
+              f"{nll:.6f} (perplexity {evaluation['eval/perplexity']:.2f}) over 2 packed rows; "
+              f"K1/K2/K3 {eval_launches}")
+
+        # generate from the checkpoint: 4 left-padded prompts, greedy, bf16 cache
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(0, model_config.vocab_size, n).tolist() for n in (64, 200, 380, 512)]
+        *rows, stats = run_command(
+            ["generate", "--config", str(config_path), "--max-new-tokens", "32",
+             "--cache-dtype", "bfloat16"]
+            + [f"--prompt-tokens={','.join(map(str, p))}" for p in prompts])
+        stats = stats["stats"]
+        check(len(rows) == 4 and all(r["prompt"] == p for r, p in zip(rows, prompts)),
+              "lifecycle: generate did not answer every prompt")
+        check(all(r["n_tokens"] == len(r["tokens"]) and r["stop_reason"] in ("eos", "max_tokens")
+                  for r in rows), f"lifecycle: generate rows {[r['stop_reason'] for r in rows]}")
+        prefill_err, prefill_vs_k1, prefill_scale = prefill_vs_full_forward(config_path, prompts)
+        check(prefill_err <= PREFILL_RTOL * prefill_scale,
+              f"lifecycle: prefill logits {prefill_err} from the full forward on the plain path "
+              f"(limit {PREFILL_RTOL} x {prefill_scale})")
+        check(prefill_vs_k1 <= ENGINE_LOGITS_RTOL * prefill_scale,
+              f"lifecycle: prefill logits {prefill_vs_k1} from the full forward through K1 "
+              f"(limit {ENGINE_LOGITS_RTOL} x {prefill_scale})")
+        result.update(generate=stats, prefill_err=prefill_err, prefill_vs_k1=prefill_vs_k1,
+                      prefill_scale=prefill_scale)
+        print(f"lifecycle: generate, 4 prompts of 64-512 tokens, 32 new, greedy, bf16 cache; "
+              f"prefill last-column logits max err {prefill_err:.4f} against the full forward on "
+              f"the same plain attention path (limit {PREFILL_RTOL} x max |logit| "
+              f"{prefill_scale:.3f}), {prefill_vs_k1:.4f} against it through K1 (limit "
+              f"{ENGINE_LOGITS_RTOL:.4f} x max |logit|)")
+        print(f"lifecycle timing [{card}]: generate decode/prefill_time_s "
+              f"{stats['decode/prefill_time_s']:.4f}, decode/tokens_per_sec "
+              f"{stats['decode/tokens_per_sec']:.1f}, decode/cache_bytes "
+              f"{stats['decode/cache_bytes']}")
+
+        # serve --config: the same prompts as JSONL requests
+        args = build_parser().parse_args(
+            ["serve", "--config", str(config_path), "--max-new-tokens", "32", "--max-batch", "4",
+             "--max-model-len", "1024", "--prefill-chunk", "256", "--block-size", "16",
+             "--device", LIFE_DEVICE])
+        requests = "".join(json.dumps({"id": f"r{i}", "prompt": p}) + "\n"
+                           for i, p in enumerate(prompts))
+        out = io.StringIO()
+        k4.paged_decode_attention.launches = 0
+        check(run_serve(args, stdin=io.StringIO(requests), stdout=out) == 0,
+              "lifecycle: serve failed")
+        serve_launches = k4.paged_decode_attention.launches
+        events = [json.loads(line) for line in out.getvalue().splitlines()]
+        done = {e["id"]: e for e in events if e["type"] == "done"}
+        serve_stats = events[-1]["stats"]
+        check(sorted(done) == [f"r{i}" for i in range(4)]
+              and serve_stats["decode/cache_blocks_in_use"] == 0,
+              f"lifecycle: serve answered {sorted(done)}, blocks in use "
+              f"{serve_stats['decode/cache_blocks_in_use']}")
+        steps = int(serve_stats["serve/decode_steps"])
+        check(serve_launches == steps * LIFE_LAYERS and serve_launches > 0,
+              f"lifecycle: serve launched K4 {serve_launches} times for {steps} decode steps")
+        pairs = [(a, b) for i, row in enumerate(rows)
+                 for a, b in zip(done[f"r{i}"]["tokens"], row["tokens"])]
+        share = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+        result.update(serve_launches=serve_launches, serve_decode_steps=steps,
+                      serve_tokens_equal_share=share)
+        print(f"lifecycle: serve --config, 4 requests done, pool empty, K4 {serve_launches} "
+              f"launches ({steps} decode steps x {LIFE_LAYERS} layers); {100 * share:.1f}% of "
+              f"tokens equal generate's (bf16 paths may part at a near tie)")
+    finally:
+        shutil.rmtree(LIFE_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
+@torch.no_grad()
+def prefill_vs_full_forward(config_path: Path, prompts: list[list[int]]):
+    """The restored model's left-padded prefill through a bf16 dense cache
+    against its full (training) forward on the same batch, on the plain
+    attention path (the cache's own) and through K1: (max |difference| of
+    the last-column logits for each, max |logit|)."""
+    from llm_training_tpu_torch.cli.config import load_config
+    from llm_training_tpu_torch.cli.main import build_fit
+    from llm_training_tpu_torch.infer.cache import init_decode_state
+    from llm_training_tpu_torch.infer.engine import _left_pad
+
+    trainer, objective, _ = build_fit(load_config(config_path), LIFE_DEVICE)
+    model = trainer.restore_for_inference(objective).model
+    ids, pad_lens = _left_pad(prompts, 0)
+    width = ids.shape[1]
+    state = init_decode_state(model.config, len(prompts), width, "bfloat16", device=LIFE_DEVICE)
+    columns = np.arange(width)[None, :]
+
+    def tensor(array):
+        return torch.as_tensor(np.asarray(array), device=LIFE_DEVICE)
+
+    inputs = dict(
+        input_ids=tensor(ids).long(),
+        segment_ids=tensor((columns >= pad_lens[:, None]).astype(np.int32)),
+        position_ids=tensor(np.maximum(columns - pad_lens[:, None], 0)).long(),
+    )
+    out = model(**inputs, decode_state=state)
+    prefill = out.logits[:, -1].float()
+    check(bool(torch.isfinite(prefill).all()), "lifecycle: non-finite prefill logits")
+    errors = {}
+    for impl in ("torch", "auto"):  # the plain path, as the cache's; then K1
+        model.config.attention_impl = impl
+        # the same left-padded batch as a training forward: pads are
+        # segment 0, so every product has the prefill's shapes
+        full = model(input_ids=inputs["input_ids"], segment_ids=inputs["segment_ids"],
+                     position_ids=inputs["position_ids"]).logits[:, -1].float()
+        errors[impl] = float((prefill - full).abs().max())
+    scale = float(full.abs().max())
+    del model, state, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errors["torch"], errors["auto"], scale
+
+
 def main() -> int:
     if len(sys.argv) != 1:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -1087,11 +1472,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing = phase_timing(kernels, card)
     train = phase_train(card)
+    lifecycle = phase_lifecycle(card)
     phase_train_parity()
     flash = phase_flash_timing(card)
     phase_random_streams(card)
     print(f"serve summary [{card}]: " + json.dumps(serve))
     print(f"train summary [{card}]: " + json.dumps(train))
+    print(f"lifecycle summary [{card}]: " + json.dumps(lifecycle))
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",

@@ -5,11 +5,15 @@ Counterpart of `llm_training_tpu/cli/config.py` on JSON instead of YAML
 `model`, `data`; components as `{class_path, init_args}`), `key.path=value`
 overrides and `${...}` interpolation. Class paths are looked up in a
 port-side table that maps the JAX package's names onto the port's classes;
-each class `Foo` is built as `Foo(FooConfig(**init_args))`.
+any other path outside the JAX package is imported by name, as the JAX
+config imports every path (a user's own datamodule or callback). Each
+class `Foo` is built as `Foo(FooConfig(**init_args))`, its config class
+found beside it in its module.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import re
 from pathlib import Path
@@ -81,10 +85,17 @@ def instantiate_from_config(node: dict, default_class: str | None = None) -> Any
     class_path = node.get("class_path", default_class)
     if class_path is None:
         raise ValueError(f"config node needs class_path: {node}")
-    try:
+    if class_path in CLASS_PATHS:
         cls, config_cls = CLASS_PATHS[class_path]
-    except KeyError:
+    elif class_path.split(".")[0] == "llm_training_tpu" or "." not in class_path:
         raise NotImplementedError(
             f"{class_path!r} is not ported; the port has {sorted(CLASS_PATHS)}"
-        ) from None
+        )
+    else:
+        module_name, _, name = class_path.rpartition(".")
+        module = importlib.import_module(module_name)
+        cls = getattr(module, name)
+        config_cls = getattr(module, name + "Config", None)
+        if config_cls is None:
+            raise ValueError(f"{class_path!r} has no {name}Config beside it in {module_name}")
     return cls(build_dataclass(config_cls, node.get("init_args", {}), class_path))

@@ -1,14 +1,15 @@
-"""KV-cache sizing and dtype policy.
+"""KV-cache sizing, dtype policy and construction.
 
-Counterpart of `cache_dims` and `resolve_cache_dtype` in
-`llm_training_tpu/infer/cache.py`.
+Counterpart of `cache_dims`, `resolve_cache_dtype`, `init_decode_state`
+and `cache_bytes` in `llm_training_tpu/infer/cache.py`. The port has no
+mesh: the cache is allocated whole on the engine's device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from llm_training_tpu_torch.models.base import resolve_dtype
+from llm_training_tpu_torch.models.base import DecodeState, resolve_dtype
 
 
 def cache_dims(config) -> tuple[int, int, int]:
@@ -23,3 +24,28 @@ def resolve_cache_dtype(config, cache_dtype: str | None) -> torch.dtype:
     if cache_dtype in (None, "param"):
         return config.param_torch_dtype
     return resolve_dtype(cache_dtype)
+
+
+def init_decode_state(
+    config,
+    batch_size: int,
+    max_length: int,
+    cache_dtype: str | None = None,
+    device: torch.device | str | None = None,
+) -> DecodeState:
+    """A fresh all-zeros dense cache on `device`: index 0, no slot filled."""
+    num_layers, kv_heads, head_dim = cache_dims(config)
+    dtype = resolve_cache_dtype(config, cache_dtype)
+    shape = (num_layers, batch_size, max_length, kv_heads, head_dim)
+    return DecodeState(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        index=0,
+        segment_ids=torch.zeros((batch_size, max_length), dtype=torch.int32, device=device),
+    )
+
+
+def cache_bytes(state: DecodeState) -> int:
+    """Device footprint of the cache buffers (the `decode/cache_bytes`
+    gauge)."""
+    return sum(t.numel() * t.element_size() for t in (state.k, state.v))

@@ -1,8 +1,9 @@
 """Dtype names and the model output / paged decode-state records.
 
 Counterpart of `llm_training_tpu/models/base.py`: `resolve_dtype`,
-`PagedDecodeState` and `CausalLMOutput`, with only the fields the serving
-and training paths read.
+`DecodeState` (the dense cache of `generate`), `PagedDecodeState` (the
+serving pool) and `CausalLMOutput`, with only the fields the inference,
+serving and training paths read.
 """
 
 from __future__ import annotations
@@ -21,6 +22,34 @@ def resolve_dtype(name: str) -> torch.dtype:
         raise ValueError(
             f"unknown dtype {name!r}; expected one of {sorted(_DTYPE_MAP)}"
         ) from None
+
+
+@dataclass
+class DecodeState:
+    """Static-shape dense KV cache threaded through the decoder stack for
+    batched generation (`infer/engine.py`).
+
+    `k`/`v` are `[num_layers, batch, max_length, num_kv_heads, head_dim]`
+    buffers in the cache dtype. `index` is the number of tokens already
+    written: the position the incoming chunk appends at, SHARED across the
+    batch (prompts are left-padded to a common width). `segment_ids
+    [batch, max_length]` marks which slots hold real tokens (1) and which
+    are left-pad or not yet written (0); the attention mask's `seg > 0` term
+    makes the latter unreachable and its causal term (`q_offset = index`)
+    hides slots written after the chunk.
+
+    As with the paged pool, the layers write `k`, `v` and `segment_ids` IN
+    PLACE (the JAX engine donates the buffers to its jitted programs); the
+    model returns a state whose `index` has advanced by the chunk width."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int
+    segment_ids: torch.Tensor
+
+    @property
+    def max_length(self) -> int:
+        return self.k.shape[2]
 
 
 @dataclass
@@ -50,4 +79,4 @@ class CausalLMOutput:
 
     logits: torch.Tensor | None = None
     last_hidden_states: torch.Tensor | None = None
-    decode_state: PagedDecodeState | None = None
+    decode_state: DecodeState | PagedDecodeState | None = None

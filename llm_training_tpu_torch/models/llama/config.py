@@ -46,6 +46,7 @@ class LlamaConfig:
     initializer_range: float = 0.02
     rms_norm_eps: float = 1e-6
     eos_token_id: int | list[int] | None = 2
+    pad_token_id: int | None = None  # generate's left-pad id (0 when None)
     tie_word_embeddings: bool = False
     rope_theta: float = 10000.0
     rope_scaling: dict[str, Any] | None = None

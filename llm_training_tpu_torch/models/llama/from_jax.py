@@ -1,10 +1,14 @@
-"""Carry a JAX `Llama` parameter tree across into the port's state dict.
+"""Carry a JAX `Llama` parameter tree -- or a whole JAX `TrainState` --
+across into the port.
 
-The tree is nested dicts of numpy arrays (the caller unboxes and fetches it
-from the device first). Both JAX layouts are read: scanned
+The trees are nested dicts of numpy arrays (the caller unboxes and fetches
+them from the device first). Both JAX layouts are read: scanned
 (`layers/layer/...` with a leading `[L, ...]` axis) and looped
 (`layers_{i}/...`). Flax `Dense.kernel [in, out]` becomes torch
-`weight [out, in]`.
+`weight [out, in]`. `train_state_dict_from_jax` maps a training state
+(params, optax's moments and count, `MultiSteps`' accumulator, the key
+and the step) onto the port's `TrainState.state_dict()`, so a run started
+in the JAX package resumes in the port.
 """
 
 from __future__ import annotations
@@ -106,4 +110,42 @@ def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[
         if keys[-1] == "kernel":
             array = array.T
         out[name] = torch.tensor(np.asarray(array, np.float32), dtype=dtype)
+    return out
+
+
+def train_state_dict_from_jax(
+    config: LlamaConfig,
+    *,
+    params: Mapping[str, Any],
+    step: int,
+    rng: Any,
+    count: int,
+    mu: Mapping[str, Any] | None = None,
+    nu: Mapping[str, Any] | None = None,
+    trace: Mapping[str, Any] | None = None,
+    acc_grads: Mapping[str, Any] | None = None,
+    mini_step: int = 0,
+) -> dict[str, torch.Tensor]:
+    """The port's `TrainState.state_dict()` entries from a JAX `TrainState`'s
+    arrays: `step` (micro-steps), `rng` (`jax.random.key_data`, two 32-bit
+    words), the parameter tree, the optimizer's `count` (its inner updates:
+    `ScaleByAdamState.count`), its per-parameter trees (`mu`/`nu` of adam,
+    `trace` of sgd with momentum) and, with accumulation, `MultiSteps`'
+    `acc_grads` and `mini_step`. Each tree has the parameter tree's layout.
+    Load it with `TrainState.load_state_dict` into a state built for the
+    same run (`Trainer.init_state`), then `Checkpointer.save` it."""
+    words = [int(w) for w in np.asarray(rng).reshape(-1)]
+    if len(words) != 2:
+        raise ValueError(f"rng: expected the two words of a threefry key's data, got {words}")
+    out = {
+        "step": torch.tensor(int(step), dtype=torch.int64),
+        "rng": torch.tensor(words, dtype=torch.int64),
+        "optimizer.count": torch.tensor(int(count), dtype=torch.int64),
+        "optimizer.mini_step": torch.tensor(int(mini_step), dtype=torch.int64),
+    }
+    out.update({f"model.{k}": v for k, v in state_dict_from_jax(params, config).items()})
+    for kind, tree in (("mu", mu), ("nu", nu), ("trace", trace), ("acc", acc_grads)):
+        if tree is not None:
+            out.update({f"optimizer.{kind}.{k}": v
+                        for k, v in state_dict_from_jax(tree, config).items()})
     return out

@@ -8,9 +8,10 @@ straight onto them.
 
 `Llama.forward` runs either the training forward over packed sequences
 (segment ids; attention through `dot_product_attention`, each layer under
-the config's activation checkpointing) or a step against a paged KV cache
-(`PagedDecodeState`), which it updates in place and returns with advanced
-lengths.
+the config's activation checkpointing) or a chunk against a KV cache,
+which it updates in place: the dense cache of `generate` (`DecodeState`,
+returned with an advanced `index`) or the serving pool
+(`PagedDecodeState`, returned with advanced lengths).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llm_training_tpu_torch.models.base import CausalLMOutput, PagedDecodeState
+from llm_training_tpu_torch.models.base import CausalLMOutput, DecodeState, PagedDecodeState
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.remat import remat_policy, run_layer
 from llm_training_tpu_torch.ops.attention import dot_product_attention
@@ -49,8 +50,10 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention: q/k/v projections, RoPE, then either causal attention
-    over packed segments or the paged cache (append + ragged attention)."""
+    """GQA attention: q/k/v projections, RoPE, then causal attention over
+    packed segments, or a cache: the dense one (append at `kv_index`, then
+    attention over the whole buffer) or the paged pool (append + ragged
+    attention)."""
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
@@ -73,6 +76,8 @@ class LlamaAttention(nn.Module):
         lengths: torch.Tensor | None = None,
         block_tables: torch.Tensor | None = None,
         paged_impl: str = "auto",
+        kv_index: int | None = None,
+        kv_segment_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         cfg = self.config
         head_dim = cfg.resolved_head_dim
@@ -82,7 +87,20 @@ class LlamaAttention(nn.Module):
         v = _linear(hidden, self.v_proj).reshape(batch, seq, cfg.num_key_value_heads, head_dim)
         q, k = apply_rope(q, k, cos, sin)
         scale = head_dim**-0.5
-        if layer_kv is not None:
+        if kv_index is not None:
+            # the dense cache: write this chunk's k/v at the shared index,
+            # attend over the whole buffer (unwritten and pad slots carry
+            # segment id 0; the causal term hides slots after the chunk).
+            # Always the plain einsum path, as in the reference
+            ck, cv = layer_kv
+            ck[:, kv_index:kv_index + seq] = k.to(ck.dtype)
+            cv[:, kv_index:kv_index + seq] = v.to(cv.dtype)
+            out = dot_product_attention(
+                q, ck.to(k.dtype), cv.to(v.dtype), segment_ids=kv_segment_ids,
+                q_segment_ids=segment_ids, causal=True, sliding_window=cfg.sliding_window,
+                scale=scale, q_offset=kv_index, impl="xla",
+            )
+        elif layer_kv is not None:
             out = paged_cached_attention(
                 q, k, v, layer_kv, lengths, block_tables,
                 segment_ids=segment_ids, sliding_window=cfg.sliding_window,
@@ -181,7 +199,7 @@ class Llama(nn.Module):
         input_ids: torch.Tensor | None = None,
         segment_ids: torch.Tensor | None = None,
         position_ids: torch.Tensor | None = None,
-        decode_state: PagedDecodeState | None = None,
+        decode_state: DecodeState | PagedDecodeState | None = None,
         paged_impl: str = "auto",
         inputs_embeds: torch.Tensor | None = None,
         compute_logits: bool = True,
@@ -201,22 +219,37 @@ class Llama(nn.Module):
 
         if decode_state is not None and segment_ids is None:
             segment_ids = torch.ones((batch, seq), dtype=torch.int32, device=device)
+        paged = isinstance(decode_state, PagedDecodeState)
+        if decode_state is not None and not paged:
+            index = decode_state.index
+            if index + seq > decode_state.max_length:
+                raise ValueError(
+                    f"a {seq}-token chunk at index {index} overflows the cache "
+                    f"({decode_state.max_length} slots)"
+                )
+            # the chunk's segment ids (pads 0, real tokens 1) mark the slots
+            # it writes, before the layers: every layer masks the same view
+            decode_state.segment_ids[:, index:index + seq] = segment_ids
+            cache = dict(kv_index=index, kv_segment_ids=decode_state.segment_ids)
+        elif paged:
+            cache = dict(lengths=decode_state.lengths, block_tables=decode_state.block_tables,
+                         paged_impl=paged_impl)
         # activation checkpointing applies to the training forward only
         wrap = remat_policy(cfg) if decode_state is None else None
         for i, layer in enumerate(self.model.layers):
             if decode_state is None:
                 hidden = run_layer(wrap, layer, hidden, segment_ids, cos, sin)
                 continue
-            hidden = layer(
-                hidden, segment_ids, cos, sin,
-                layer_kv=(decode_state.k[i], decode_state.v[i]),
-                lengths=decode_state.lengths,
-                block_tables=decode_state.block_tables,
-                paged_impl=paged_impl,
-            )
+            hidden = layer(hidden, segment_ids, cos, sin,
+                           layer_kv=(decode_state.k[i], decode_state.v[i]), **cache)
 
         new_state = None
-        if decode_state is not None:
+        if decode_state is not None and not paged:
+            new_state = DecodeState(
+                k=decode_state.k, v=decode_state.v, index=decode_state.index + seq,
+                segment_ids=decode_state.segment_ids,
+            )
+        elif paged:
             # rows advance by the chunk's REAL token count: padded tail
             # positions of a final prefill chunk occupy no cache slot
             new_state = PagedDecodeState(

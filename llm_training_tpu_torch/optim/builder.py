@@ -143,6 +143,7 @@ class Optimizer:
         self.schedule = schedule
         self.accumulate = accumulate
         patterns = [re.compile(p) for p in frozen_modules or []]
+        self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
         self.count = 0  # inner updates done
@@ -153,6 +154,88 @@ class Optimizer:
             self.mu, self.nu = zeros(), zeros()
         elif self.hyper["momentum"] is not None:
             self.trace = zeros()
+
+    def _buffers(self) -> dict[str, list[torch.Tensor]]:
+        """The per-parameter state lists this optimizer holds, by optax's
+        names: `mu`/`nu` (adam, adamw), `trace` (sgd with momentum) and
+        `acc` (MultiSteps' running mean, with accumulation)."""
+        out = {}
+        for name in ("mu", "nu", "trace", "acc"):
+            buffers = getattr(self, name, None)
+            if buffers is not None:
+                out[name] = buffers
+        return out
+
+    def layout(self) -> dict:
+        """What the state's shape depends on: the optimizer, the
+        accumulation factor, and each parameter's shape, dtype and
+        trainability (the freeze mask). A checkpoint restores only into
+        the same layout."""
+        return {
+            "kind": self.kind,
+            "accumulate": self.accumulate,
+            "state": sorted(self._buffers()),
+            "params": {
+                name: {"shape": list(p.shape), "dtype": str(p.dtype).removeprefix("torch."),
+                       "trainable": trainable}
+                for name, p, trainable in zip(self.names, self.params, self.trainable)
+            },
+        }
+
+    def check_layout(self, saved: dict) -> None:
+        """Raise ValueError naming the first difference between a
+        checkpoint's `layout()` and this optimizer's."""
+        live = self.layout()
+        for key in ("kind", "accumulate", "state"):
+            if saved.get(key) != live[key]:
+                raise ValueError(
+                    f"optimizer {key}: checkpoint has {saved.get(key)!r}, this run {live[key]!r}"
+                )
+        saved_params = saved.get("params", {})
+        if list(saved_params) != list(live["params"]):
+            missing = sorted(set(live["params"]) - set(saved_params))
+            extra = sorted(set(saved_params) - set(live["params"]))
+            raise ValueError(
+                f"optimizer parameters differ: missing from the checkpoint {missing}, "
+                f"not in this run {extra}"
+            )
+        for name, entry in live["params"].items():
+            if saved_params[name] != entry:
+                raise ValueError(
+                    f"optimizer parameter {name}: checkpoint has {saved_params[name]}, "
+                    f"this run {entry}"
+                )
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The optax state as named tensors: `count` (inner updates),
+        `mini_step` (MultiSteps), and `{mu,nu,trace,acc}.<parameter>`. The
+        per-parameter tensors are the live buffers, not copies."""
+        out = {
+            "count": torch.tensor(self.count, dtype=torch.int64),
+            "mini_step": torch.tensor(self.mini_step, dtype=torch.int64),
+        }
+        for kind, buffers in self._buffers().items():
+            out.update({f"{kind}.{name}": t for name, t in zip(self.names, buffers)})
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict[str, torch.Tensor]) -> None:
+        """Take `state_dict()`'s tensors back (copied into the live
+        buffers unless they are those buffers). Raises KeyError on a
+        missing or unexpected key."""
+        expected = set(self.state_dict())
+        if set(state) != expected:
+            raise KeyError(
+                f"optimizer state keys differ: missing {sorted(expected - set(state))}, "
+                f"unexpected {sorted(set(state) - expected)}"
+            )
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for kind, buffers in self._buffers().items():
+            for name, buffer in zip(self.names, buffers):
+                source = state[f"{kind}.{name}"]
+                if source.data_ptr() != buffer.data_ptr():
+                    buffer.copy_(source)
 
     @torch.no_grad()
     def update(self) -> bool:

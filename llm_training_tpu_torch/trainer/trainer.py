@@ -8,8 +8,16 @@ validation loss. `max_steps` counts optimizer steps: the loop runs
 `max_steps * accumulate_grad_batches` micro-steps, and the schedule
 advances once per optimizer step.
 
-Mesh, offload, health, resilience, checkpointing and telemetry are not
-ported yet (ROADMAP A.2).
+The run lifecycle: with a `Checkpointer`, `fit` restores the newest (or a
+given) step before its loop -- state, consumed counters, callback state --
+and restarts the data stream at the restored micro-step, saves every
+`checkpoint_every_n_steps` optimizer steps (never a state whose loss is
+not finite) and once at the end, then waits for the write.
+`restore_for_inference` is the read-only restore of the inference and
+validation commands.
+
+Mesh, offload, health, resilience and telemetry are not ported yet
+(ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from llm_training_tpu_torch import prng, resolve_device
 from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm
+from llm_training_tpu_torch.trainer.checkpoint import Checkpointer
 from llm_training_tpu_torch.trainer.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -37,6 +46,7 @@ class TrainerConfig:
     log_every_n_steps: int = 10
     val_check_interval: int | None = None
     limit_val_batches: int | None = None
+    checkpoint_every_n_steps: int | None = None
 
 
 def _to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -54,7 +64,10 @@ class Trainer:
     """Drives an objective over a datamodule: `Trainer(config).fit(objective,
     datamodule)`. Callbacks may define `on_fit_start`, `on_train_step`
     (every optimizer step), `on_step_end` (log steps, with host metrics),
-    `on_validation_end` and `on_fit_end`."""
+    `on_validation_end` and `on_fit_end`, and `state_dict` /
+    `load_state_dict` for state that a checkpoint carries. A callback stops
+    the loop early by setting `trainer.should_stop`; `trainer.state` is the
+    live `TrainState` from the fit's start (after any restore)."""
 
     def __init__(
         self,
@@ -62,41 +75,93 @@ class Trainer:
         callbacks: list[Any] | None = None,
         device: torch.device | str | None = None,
         run_config: dict | None = None,
+        checkpointer: Checkpointer | None = None,
     ):
         self.config = config
         self.callbacks = callbacks or []
         self.device = resolve_device(device)
         self.run_config = run_config
+        self.checkpointer = checkpointer
         self.counters = {"consumed_samples": 0, "consumed_tokens": 0}
+        self.state: TrainState | None = None
+        self.should_stop = False
+        # the last optimizer step of a fit, its metrics, and its interval save
+        self.last_step: int | None = None
+        self.last_metrics: dict | None = None
+        self._last_interval_save: int | None = None
+        self._global_batch_size: int | None = None
 
     def _callbacks(self, hook: str, *args) -> None:
         for cb in self.callbacks:
             if hasattr(cb, hook):
                 getattr(cb, hook)(self, *args)
 
-    def fit(self, objective, datamodule) -> TrainState:
+    def init_state(self, objective, with_optimizer: bool = True):
+        """The model on the device (random from the seed, or the objective's
+        own) and, for training, its optimizer chain: the state a fresh fit
+        starts from and a restore loads into (and what a state carried from
+        the JAX package loads into: `models/llama/from_jax.py`). Returns
+        (state, schedule); both optimizer and schedule are None without the
+        optimizer."""
+        cfg = self.config
+        init = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        model = objective.configure_model(self.device, init)
+        optimizer = schedule = None
+        if with_optimizer:
+            optimizer, schedule = build_optimizer(
+                objective.config.optim, cfg.max_steps, list(model.named_parameters()),
+                frozen_modules=objective.config.frozen_modules,
+                accumulate=cfg.accumulate_grad_batches,
+            )
+        state = TrainState(step=0, model=model, optimizer=optimizer, rng=prng.key(cfg.seed + 1))
+        return state, schedule
+
+    def _restore(self, state: TrainState, resume_step: int | None) -> dict | None:
+        try:
+            meta = self.checkpointer.maybe_restore(state, resume_step)
+        except Exception as e:
+            # the optimizer state's layout depends on run settings, so
+            # changing them across a resume cannot restore
+            raise RuntimeError(
+                "checkpoint restore failed — note the optimizer-state layout depends on "
+                "the optimizer, accumulate_grad_batches and frozen_modules; resume with the "
+                "same settings the checkpoint was written with"
+            ) from e
+        return meta
+
+    def fit(self, objective, datamodule, resume_step: int | None = None) -> TrainState:
+        """Train to `max_steps` optimizer steps: from the newest checkpoint
+        (or `resume_step`) when the checkpointer has one, else from the seed."""
         cfg = self.config
         datamodule.setup()
-        device = self.device
-        init = torch.Generator(device=device).manual_seed(cfg.seed)
-        model = objective.configure_model(device, init)
-        model.train()
-        optimizer, schedule = build_optimizer(
-            objective.config.optim, cfg.max_steps, list(model.named_parameters()),
-            frozen_modules=objective.config.frozen_modules,
-            accumulate=cfg.accumulate_grad_batches,
-        )
-        state = TrainState(
-            step=0, model=model, optimizer=optimizer,
-            rng=prng.key(cfg.seed + 1),
-        )
-        self._callbacks("on_fit_start", objective, datamodule, 0)
+        state, schedule = self.init_state(objective, with_optimizer=True)
+        state.model.train()
+        saved_data_state = None
+        if self.checkpointer is not None:
+            meta = self._restore(state, resume_step)
+            if meta is not None:
+                self.counters.update(meta.get("counters", {}))
+                saved_data_state = meta.get("data_state")
+                self._load_callback_state(meta)
+        self.state = state
+        start_micro = state.step
+        self._callbacks("on_fit_start", objective, datamodule,
+                        start_micro // cfg.accumulate_grad_batches)
 
-        batches = datamodule.train_batches(start_step=0)
+        self.should_stop = False
+        self.last_step = self.last_metrics = self._last_interval_save = None
+        self._global_batch_size = None
+        # the stream is a pure function of (seed, micro-step): a resume
+        # continues it where the checkpoint stopped
+        batches = datamodule.train_batches(start_step=start_micro)
         micro_steps = cfg.max_steps * cfg.accumulate_grad_batches
-        window_time, window_step = time.perf_counter(), 0
-        for micro in range(micro_steps):
+        first_step = start_micro // cfg.accumulate_grad_batches + 1
+        window_time, window_step = time.perf_counter(), first_step - 1
+        for micro in range(start_micro, micro_steps):
             host_batch = next(batches)
+            if self._global_batch_size is None:
+                self._global_batch_size = int(host_batch["input_ids"].shape[0])
+                self._check_data_continuity(saved_data_state)
             metrics = self.train_micro_step(objective, state, host_batch)
             samples, tokens = _batch_counts(host_batch)
             self.counters["consumed_samples"] += samples
@@ -105,6 +170,7 @@ class Trainer:
             if (micro + 1) % cfg.accumulate_grad_batches:
                 continue
             step = (micro + 1) // cfg.accumulate_grad_batches
+            self.last_step, self.last_metrics = step, metrics
             self._callbacks("on_train_step", step)
             if step % cfg.log_every_n_steps == 0 or step == cfg.max_steps:
                 host = {k: float(v) for k, v in metrics.items()}
@@ -116,11 +182,34 @@ class Trainer:
                 logger.info("step %d | loss %.4f | grad_norm %.3f | %.2f steps/s",
                             step, host["loss"], host["grad_norm"], host["steps_per_sec"])
                 self._callbacks("on_step_end", step, host)
-            if step == 1:
+            if step == first_step:
                 # the first step's warm-up stays out of the throughput window
                 window_time, window_step = time.perf_counter(), step
             if cfg.val_check_interval and step % cfg.val_check_interval == 0:
                 self._run_validation(objective, datamodule, step)
+            if (
+                self.checkpointer is not None
+                and cfg.checkpoint_every_n_steps
+                and step % cfg.checkpoint_every_n_steps == 0
+                and self._loss_finite(metrics, step)
+            ):
+                self.checkpointer.save(step, state, counters=dict(self.counters),
+                                       extra=self._save_extra(step))
+                self._last_interval_save = step
+            if self.should_stop:
+                logger.info("stopping at step %d (callback request)", step)
+                break
+
+        if self.checkpointer is not None:
+            last = self.last_step
+            if (last is not None and last != self._last_interval_save
+                    and self._loss_finite(self.last_metrics, last)):
+                # the step reached, early stop or not; force: the step may
+                # collide with a stale entry of a previous run of the directory
+                self.checkpointer.save(last, state, counters=dict(self.counters), force=True,
+                                       extra=self._save_extra(last))
+            # the barrier: after this the newest save is durable
+            self.checkpointer.wait()
         self._callbacks("on_fit_end")
         return state
 
@@ -143,17 +232,132 @@ class Trainer:
         return metrics
 
     @torch.no_grad()
-    def _run_validation(self, objective, datamodule, step: int) -> float | None:
+    def _val_loss(self, objective, datamodule, limit: int | None) -> float | None:
+        """The validation batches' losses averaged by their target tokens;
+        None when there are none."""
         losses, weights = [], []
         for i, host_batch in enumerate(datamodule.val_batches()):
-            if self.config.limit_val_batches and i >= self.config.limit_val_batches:
+            if limit and i >= limit:
                 break
             _, metrics = objective.loss_and_metrics(_to_device(host_batch, self.device), train=False)
             losses.append(float(metrics["loss"]))
             weights.append(float(metrics["target_tokens"]))
         if not losses:
             return None
-        val_loss = float(np.average(losses, weights=weights))
+        return float(np.average(losses, weights=weights))
+
+    def _run_validation(self, objective, datamodule, step: int) -> float | None:
+        val_loss = self._val_loss(objective, datamodule, self.config.limit_val_batches)
+        if val_loss is None:
+            return None
         logger.info("step %d | val_loss %.4f", step, val_loss)
         self._callbacks("on_validation_end", step, {"val_loss": val_loss})
         return val_loss
+
+    @staticmethod
+    def _loss_finite(metrics, step) -> bool:
+        """True when this step's loss can be persisted. Syncs with the
+        device, so it runs on checkpoint steps only: a diverged state never
+        becomes the newest checkpoint."""
+        if metrics is None or "loss" not in metrics:
+            return True
+        loss = float(metrics["loss"])
+        if np.isfinite(loss):
+            return True
+        logger.warning("skipping checkpoint at step %d: non-finite loss %s", step, loss)
+        return False
+
+    def _save_extra(self, step: int) -> dict:
+        """JSON riders of a checkpoint: the data-stream cursor (samples
+        drawn so far and the global batch it is keyed to) and every
+        callback's `state_dict`."""
+        extra: dict = {}
+        if self._global_batch_size:
+            micro = step * self.config.accumulate_grad_batches
+            extra["data_state"] = {
+                "global_batch_size": self._global_batch_size,
+                "sample_cursor": micro * self._global_batch_size,
+                # one process serves the whole global batch
+                "replica_stride": self._global_batch_size,
+            }
+        cb_state: dict = {}
+        for cb in self.callbacks:
+            fn = getattr(cb, "state_dict", None)
+            if callable(fn):
+                try:
+                    cb_state[type(cb).__name__] = fn()
+                except Exception:
+                    logger.exception("callback %s state_dict failed (not persisted)",
+                                     type(cb).__name__)
+        if cb_state:
+            extra["callbacks"] = cb_state
+        return extra
+
+    def _check_data_continuity(self, data_state: dict | None) -> None:
+        """Warn when a resume changes the global batch: the stream's cursor
+        is keyed to it, so the restored micro-step would address other
+        samples (the reference's legacy, non-elastic path warns too)."""
+        saved = int((data_state or {}).get("global_batch_size", 0) or 0)
+        current = self._global_batch_size
+        if saved and saved != current:
+            logger.warning(
+                "resume changes the GLOBAL batch size %d -> %d: the checkpoint's sample "
+                "cursor (%s samples) no longer addresses the same data", saved, current,
+                data_state.get("sample_cursor", "?"),
+            )
+
+    def _load_callback_state(self, meta: dict | None) -> None:
+        """Callback state from checkpoint metadata, by class name; absent
+        entries and failures leave the callback as constructed."""
+        states = (meta or {}).get("callbacks") or {}
+        for cb in self.callbacks:
+            data = states.get(type(cb).__name__)
+            if data is not None and hasattr(cb, "load_state_dict"):
+                try:
+                    cb.load_state_dict(data)
+                except Exception:
+                    logger.exception("callback %s load_state_dict failed (starting fresh)",
+                                     type(cb).__name__)
+
+    # ------------------------------------------------------------ validate
+
+    def restore_for_inference(self, objective, resume_step: int | None = None) -> TrainState:
+        """Read-only restore for `validate`, `generate`, `evaluate` and
+        `serve`: builds the objective's model on the device and loads the
+        newest (or given) step's parameters, step and key into it. Never
+        deletes, prunes or rewrites anything in the directory; raises when
+        it holds no step."""
+        if self.checkpointer is None:
+            raise ValueError("restore_for_inference requires a checkpointer")
+        state, _ = self.init_state(objective, with_optimizer=False)
+        if self.checkpointer.maybe_restore(state, resume_step) is None:
+            raise ValueError(f"no checkpoint found in {self.checkpointer.directory}")
+        state.model.eval()
+        self.state = state
+        return state
+
+    def validate_from_checkpoint(
+        self, objective, datamodule, resume_step: int | None = None
+    ) -> dict[str, float]:
+        """Restore the newest (or given) checkpoint and run validation over
+        `limit_val_batches` batches (the `validate` command)."""
+        datamodule.setup()
+        self.restore_for_inference(objective, resume_step)
+        val_loss = self._val_loss(objective, datamodule, self.config.limit_val_batches)
+        if val_loss is None:
+            raise ValueError("datamodule produced no validation batches")
+        result = {"val_loss": val_loss}
+        logger.info("validate: %s", result)
+        return result
+
+    def validate(self, objective, datamodule, state: TrainState) -> dict[str, float]:
+        """Validation of `state`'s model over every validation batch."""
+        datamodule.setup()
+        objective.model = state.model
+        val_loss = self._val_loss(objective, datamodule, None)
+        if val_loss is None:
+            raise ValueError(
+                "datamodule produced no validation batches "
+                "(set validation_split or provide a val dataset)"
+            )
+        return {"val_loss": val_loss}
