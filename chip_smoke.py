@@ -66,7 +66,32 @@ Phases, each of which must pass (any failure exits non-zero):
    request done, the pool empty, K4 launched once per layer per decode
    step; the share of tokens equal to `generate`'s is printed). It prints
    the checkpoint's bytes, the save's blocking and commit seconds, the
-   restore's seconds and the decode rate.
+   restore's seconds and the decode rate;
+13. preference tuning (run after the lifecycle phase freed its memory):
+   DPO, then ORPO, each built from a JSON model node by the CLI's
+   `instantiate_from_config` and driven by the `Trainer` at Llama-3.1-8B
+   widths cut to 8 layers (fp32 params, bf16 compute, selective recompute,
+   random weights from seed 0) for 6 steps of 8 synthetic pairs (prompts
+   of 64-1024 tokens, responses of 32-1024, pairs over 2048 tokens
+   dropped, collated by the port's collator to a multiple of 128), both at
+   a peak learning rate of 5e-5 (the examples' 5e-7 and 8e-6 move no bf16
+   product in 6 steps). DPO
+   (beta 0.1, AdamW with clip, linear schedule with warmup): step 1's loss
+   is ln 2 (policy == reference) with reward accuracy 0, the loss falls
+   below ln 2, the reference ends bit-equal to its initial weights while
+   the policy moved, the optimizer holds 0 bytes for the reference, K1 ran
+   4 x layers times a step and K2/K3 2 x layers, the plain path never.
+   ORPO (beta 0.1, cosine with warmup): the loss is or_loss + ce_loss,
+   finite and falling, K1/K2/K3 2 x layers a step. Each prints step p50,
+   tokens/s, peak memory and MFU. Then a parity step on the first batch at
+   its width (8 right-padded rows a side): DPO's loss and backward with a
+   2-layer full-width policy (the reference plus seeded noise) and
+   reference, through the kernels in bf16 (K1 4 x layers, K2/K3 2 x
+   layers, the plain path never), the plain path in bf16 and in fp32; the
+   per-row log-probs of both models, DPO's per-row logits and policy
+   gradients of the kernel path are no further from fp32 than 1.5 x the
+   plain bf16 path's, and the loss no further than 1.5 x the plain path's
+   row errors of DPO's logits carried through the loss's weights.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
@@ -141,6 +166,28 @@ LIFE_DEVICE = "cuda"
 RESUME_RTOL = 1e-3
 # eval NLL against val_loss: the same kernel on the same batches
 EVAL_RTOL = 1e-6
+# the preference phase: depth, steps, pairs a batch, the longest pair, and
+# the collator's padding multiple
+PREF_LAYERS = 8
+PREF_STEPS = 6
+PREF_PAIRS = 8
+PREF_MAX_LENGTH = 2048
+PREF_MULTIPLE = 128
+PREF_DEVICE = "cuda"
+PREF_BAND = 512  # token ids a response side draws from
+# the peak learning rate of both, raised from the examples' 5e-7 (DPO) and 8e-6
+# (ORPO), which suit pretrained weights over 1000 steps: an AdamW step of
+# 5e-7 moves a fp32 weight of ~0.02 by 1/240 of a bf16 step (8e-6: 1/15),
+# so the bf16 products barely change in 6 steps; DPO's loss then drifts
+# above ln 2 on rounding noise and ORPO's does not fall
+PREF_PEAK_LR = 5e-5
+# the loss against ln 2 at step 1, where the policy is the reference
+LN2_RTOL = 1e-4
+# the preference parity step: its depth, and the policy's seeded offset from
+# the reference (a tenth of the initialiser's std), so that the two differ
+PREF_PARITY_LAYERS = 2
+PREF_PARITY_NOISE = 0.1
+PREF_BETA = 0.1  # the examples' beta, of both objectives
 # generate's bf16 prefill logits against the model's full forward on the
 # same batch and the same plain attention path, over max |logit|. Against
 # the full forward through K1 the limit is ENGINE_LOGITS_RTOL, bf16 kernel
@@ -1400,6 +1447,331 @@ def phase_lifecycle(card: str) -> dict:
     return result
 
 
+def preference_batches(seed: int, steps: int, vocab: int) -> list[dict]:
+    """`steps` batches of PREF_PAIRS synthetic pairs from `seed`: a prompt of
+    64-1024 random tokens (labels -100) and two responses of 32-1024; the
+    chosen one draws from one set of PREF_BAND token ids and the rejected one
+    from another, so each id recurs across batches and the preference
+    generalises from one batch to the next (responses over the whole
+    vocabulary would share almost no id, and an unseen batch's DPO logits
+    would follow the responses' lengths instead). Pairs whose
+    longer side exceeds PREF_MAX_LENGTH are dropped, as the JAX data module
+    drops them; the rest are collated by the port's collator to a multiple
+    of PREF_MULTIPLE."""
+    import types
+
+    from llm_training_tpu_torch.data.preference_tuning.collator import (
+        PreferenceTuningDataCollator,
+    )
+
+    rng = np.random.default_rng(seed)
+    collate = PreferenceTuningDataCollator(types.SimpleNamespace(
+        tokenizer=types.SimpleNamespace(pad_token_id=0), pad_to_multiple_of=PREF_MULTIPLE))
+    pairs = []
+    while len(pairs) < steps * PREF_PAIRS:
+        prompt = rng.integers(1, vocab, int(rng.integers(64, 1025)))
+        pair = {}
+        for side, low in (("chosen", 1000), ("rejected", 1000 + PREF_BAND)):
+            high = low + PREF_BAND
+            ids = np.concatenate([prompt, rng.integers(low, high, int(rng.integers(32, 1025)))])
+            labels = ids.copy()
+            labels[:len(prompt)] = -100
+            pair.update({f"{side}_input_ids": ids, f"{side}_labels": labels,
+                         f"{side}_length": len(ids)})
+        if max(pair["chosen_length"], pair["rejected_length"]) <= PREF_MAX_LENGTH:
+            pairs.append(pair)
+    return [collate(pairs[i:i + PREF_PAIRS]) for i in range(0, len(pairs), PREF_PAIRS)]
+
+
+def preference_node(kind: str, model_kwargs: dict) -> dict:
+    """The objective's model node as a JSON config holds it: the examples'
+    beta (and DPO's label smoothing), AdamW with clip, DPO's linear and
+    ORPO's cosine schedule (peak PREF_PEAK_LR), warmup cut to 1 of 6
+    steps; the log-prob chunk of 128 positions of each of the 8 rows (1024 tokens
+    of fp32 logits at a time, the fit phase's CE chunk)."""
+    optim = {"optimizer": "adamw", "grad_clip_norm": 1.0, "warmup_steps": 1}
+    if kind == "DPO":
+        optim.update(learning_rate=PREF_PEAK_LR, lr_scheduler="linear")
+        extra = {"label_smoothing": 0.0}
+    else:
+        optim.update(learning_rate=PREF_PEAK_LR, lr_scheduler="cosine")
+        extra = {}
+    return json.loads(json.dumps({
+        "class_path": f"llm_training_tpu.lms.{kind}",
+        "init_args": {"model": {"model_class": "Llama", "model_kwargs": model_kwargs},
+                      "beta": PREF_BETA, "logps_chunk_size": 128, "optim": optim, **extra},
+    }))
+
+
+def phase_preference(card: str) -> dict:
+    """DPO and ORPO through the Trainer at Llama-3.1-8B widths (see the
+    header)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.cli.config import instantiate_from_config
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    class PreferenceData(BaseDataModule):
+        """The phase's batches, in order, from any micro-step (the smoke's
+        harness, not a data module of the package)."""
+
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    config = preset("llama-3.1-8b", num_hidden_layers=PREF_LAYERS, param_dtype="float32",
+                    compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                    recompute_granularity="selective")
+    batches = preference_batches(0, PREF_STEPS, config.vocab_size)
+    head_dim, hq = config.resolved_head_dim, config.num_attention_heads
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    out = {}
+    for kind in ("DPO", "ORPO"):
+        objective = instantiate_from_config(preference_node(kind, asdict(config)))
+
+        class Watch:
+            """Step clock, host metrics, and the reference's initial weights
+            (host copies) with a slice of the policy's, taken at fit start."""
+
+            def __init__(self):
+                self.step_s, self.metrics, self.t = [], [], None
+                self.ref0, self.policy0 = None, None
+
+            def on_fit_start(self, trainer, *args):
+                model = trainer.state.model
+                policy = model.policy if kind == "DPO" else model
+                self.policy0 = policy.lm_head.weight[:64].detach().to("cpu", copy=True)
+                if kind == "DPO":
+                    self.ref0 = {n: p.detach().to("cpu", copy=True)
+                                 for n, p in model.ref.named_parameters()}
+                torch.cuda.synchronize()
+                self.t = time.perf_counter()
+
+            def on_train_step(self, trainer, step):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                self.step_s.append(now - self.t)
+                self.t = now
+
+            def on_step_end(self, trainer, step, metrics):
+                self.metrics.append(metrics)
+
+        watch = Watch()
+        trainer = Trainer(
+            TrainerConfig(max_steps=PREF_STEPS, seed=0, log_every_n_steps=1),
+            callbacks=[watch], device=PREF_DEVICE,
+        )
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with count_plain_attention() as plain:
+            for launcher in launchers:
+                launcher.launches = 0
+            state = trainer.fit(objective, PreferenceData(BaseDataModuleConfig()))
+            torch.cuda.synchronize()
+            launches = [launcher.launches for launcher in launchers]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [m["loss"] for m in watch.metrics]
+        name = kind.lower()
+        model = state.model
+        policy = model.policy if kind == "DPO" else model
+
+        # 6 N per policy token (N without the input embedding table), 2 N per
+        # reference token; attention 12 D per visible pair per head per layer
+        # for the policy (forward and backward), 4 D for the reference's
+        # forward; recompute not counted
+        n_matmul = sum(p.numel() for p in policy.parameters()) - policy.model.embed_tokens.weight.numel()
+        per_token = 6 * n_matmul + (2 * n_matmul if kind == "DPO" else 0)
+        per_pair = (12 + (4 if kind == "DPO" else 0)) * head_dim * hq * PREF_LAYERS
+        tokens, flops = [], []
+        for batch in batches:
+            n, f = 0, 0
+            for side in ("chosen", "rejected"):
+                seg = torch.as_tensor(batch[f"{side}_segment_ids"], device=PREF_DEVICE)
+                side_tokens = int((batch[f"{side}_segment_ids"] > 0).sum())
+                n += side_tokens
+                f += per_token * side_tokens + per_pair * bench_flash.visible_pairs(seg, seg)
+            tokens.append(n)
+            flops.append(f)
+        timed = watch.step_s[1:]  # step 1 carries the warm-up
+        result = dict(
+            layers=PREF_LAYERS, steps=PREF_STEPS, pairs=PREF_PAIRS,
+            widths=[b["chosen_input_ids"].shape[1] for b in batches], tokens=tokens,
+            launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+            losses=losses, metrics_first=watch.metrics[0], metrics_last=watch.metrics[-1],
+            step_ms_p50=1e3 * percentile(timed, 50), step_ms=[1e3 * t for t in watch.step_s],
+            tokens_per_s=sum(tokens[1:]) / sum(timed),
+            mfu=sum(flops[1:]) / sum(timed) / bench_flash.BF16_FLOPS_PER_S,
+            peak_memory_gb=peak_gb,
+        )
+        print(f"{name} [{card}]: llama-3.1-8b widths x {PREF_LAYERS} layers, {PREF_STEPS} steps "
+              f"of {PREF_PAIRS} pairs (widths {result['widths']}); losses "
+              + ", ".join(f"{x:.6f}" for x in losses)
+              + f"; launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain path "
+              f"{plain[0]}; step p50 {result['step_ms_p50']:.1f} ms, "
+              f"{result['tokens_per_s']:.0f} tokens/s (non-padding, both sides), MFU "
+              f"{100 * result['mfu']:.2f}% of 989 TFLOPS (6N a policy token"
+              + (", 2N a reference token" if kind == "DPO" else "")
+              + f", attention {per_pair // (head_dim * hq * PREF_LAYERS)} D a visible pair a head "
+              f"a layer), peak memory {peak_gb:.2f} GB", flush=True)
+
+        check(len(losses) == PREF_STEPS and all(math.isfinite(x) for x in losses),
+              f"{name}: losses {losses}")
+        forwards = 4 if kind == "DPO" else 2  # K1 per layer a step: policy (and reference) x 2 sides
+        expected = [forwards * PREF_LAYERS * PREF_STEPS] + [2 * PREF_LAYERS * PREF_STEPS] * 2
+        check(launches == expected and plain[0] == 0,
+              f"{name}: K1/K2/K3 launched {launches} times, expected {expected}; plain path "
+              f"{plain[0]} times")
+        moved = not torch.equal(policy.lm_head.weight[:64].detach().cpu(), watch.policy0)
+        check(moved, f"{name}: the policy did not move")
+        if kind == "DPO":
+            check(abs(losses[0] - math.log(2)) <= LN2_RTOL * math.log(2)
+                  and watch.metrics[0]["reward_accuracy"] == 0.0,
+                  f"dpo: step 1 loss {losses[0]} (ln 2 = {math.log(2)}), reward accuracy "
+                  f"{watch.metrics[0]['reward_accuracy']}")
+            check(losses[-1] < math.log(2), f"dpo: the loss did not fall below ln 2: {losses}")
+            changed = [n for n, p in model.ref.named_parameters()
+                       if not torch.equal(p.detach().cpu(), watch.ref0[n])]
+            check(not changed, f"dpo: reference parameters changed: {changed[:4]}")
+            ref_state = sum(t.numel() * t.element_size()
+                            for k, t in state.optimizer.state_dict().items() if ".ref." in k)
+            check(ref_state == 0, f"dpo: {ref_state} bytes of optimizer state for the reference")
+        else:
+            sums = [m["or_loss"] + m["ce_loss"] for m in watch.metrics]
+            check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(losses, sums)),
+                  f"orpo: loss {losses} is not or_loss + ce_loss {sums}")
+            check(losses[-1] < losses[0], f"orpo: the loss did not fall: {losses}")
+        out[name] = result
+        del objective, state, trainer, model, policy, watch
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["parity"] = preference_parity(batches[0])
+    return out
+
+
+def preference_parity(host: dict) -> dict:
+    """DPO's loss and backward on one preference batch at its own width
+    (PREF_PAIRS right-padded rows a side) with a PREF_PARITY_LAYERS-layer
+    full-width policy and reference: kernels in bf16, plain in bf16, plain
+    in fp32. The per-row log-probs of both models, the loss and policy
+    gradients of the kernel path may be no further from fp32 than
+    NO_FURTHER x the plain bf16 path's."""
+    from llm_training_tpu_torch.lms.dpo import DPO, DPOConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    layers = PREF_PARITY_LAYERS
+    kw = dict(num_hidden_layers=layers, param_dtype="float32", enable_gradient_checkpointing=True,
+              recompute_granularity="selective")
+    ref = Llama(preset("llama-3.1-8b", **kw), device=PREF_DEVICE)
+    ref.init_weights(torch.Generator(device=PREF_DEVICE).manual_seed(1))
+    policy = Llama(preset("llama-3.1-8b", **kw), device=PREF_DEVICE)
+    policy.load_state_dict(ref.state_dict())
+    noise = torch.Generator(device=PREF_DEVICE).manual_seed(2)
+    with torch.no_grad():
+        for p in policy.parameters():
+            p.add_(torch.randn(p.shape, generator=noise, device=p.device),
+                   alpha=PREF_PARITY_NOISE * policy.config.initializer_range)
+    ref.requires_grad_(False)
+    batch = {k: torch.as_tensor(v, device=PREF_DEVICE) for k, v in host.items()}
+    width = batch["chosen_input_ids"].shape[1]
+    rows = ("policy_chosen", "policy_rejected", "ref_chosen", "ref_rejected")
+    names = ("model.layers.0.self_attn.q_proj.weight", "model.layers.1.self_attn.k_proj.weight",
+             "model.layers.1.self_attn.v_proj.weight", "model.embed_tokens.weight")
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    results = {}
+    for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
+        if path == "fp32":
+            fp32 = []
+            for model in (policy, ref):
+                twin = Llama(preset("llama-3.1-8b", compute_dtype="float32", **kw), device=PREF_DEVICE)
+                twin.load_state_dict(model.state_dict())
+                fp32.append(twin)
+            policy, ref = fp32
+            ref.requires_grad_(False)
+            del fp32, twin, model
+        for model in (policy, ref):
+            model.config.attention_impl = impl
+        objective = DPO(DPOConfig(beta=PREF_BETA, logps_chunk_size=128), model=policy, ref_model=ref)
+        logps, real = [], objective._logps
+
+        def recorded(model, batch, side, real=real, logps=logps):
+            out = real(model, batch, side)
+            logps.append(out[0].detach())
+            return out
+
+        objective._logps = recorded  # in the order of `rows`
+        before = [launcher.launches for launcher in launchers]
+        policy.zero_grad(set_to_none=True)
+        with count_plain_attention() as plain:
+            loss = objective.loss_and_metrics(batch)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+        ran = [launcher.launches - b for launcher, b in zip(launchers, before)]
+        expected = [4 * layers, 2 * layers, 2 * layers] if path == "kernel" else [0, 0, 0]
+        check(ran == expected and (plain[0] == 0) == (path == "kernel"),
+              f"preference parity: {path} launched K1/K2/K3 {ran} (expected {expected}) and "
+              f"the plain path {plain[0]} times")
+        check(all(p.grad is None for p in ref.parameters()),
+              f"preference parity: {path}: the reference got gradients")
+        params = dict(policy.named_parameters())
+        results[path] = dict(loss=float(loss.detach()), **dict(zip(rows, logps)),
+                             **{n: params[n].grad for n in names})
+        policy.zero_grad(set_to_none=True)
+        del objective, recorded, logps, real, loss, params
+    del policy, ref
+    for result in results.values():
+        # DPO's logits: the policy's log-ratio of chosen over rejected less
+        # the reference's, per row
+        result["margin"] = (result["policy_chosen"] - result["policy_rejected"]
+                            - result["ref_chosen"] + result["ref_rejected"])
+    truth = results["fp32"]
+    errors, row_errors = {}, {}
+    for path in ("kernel", "plain"):
+        errors[path] = {"loss": abs(results[path]["loss"] - truth["loss"])}
+        for key in (*rows, "margin", *names):
+            errors[path][key] = _max_rel(results[path][key], truth[key])
+        row_errors[path] = {key: (results[path][key] - truth[key]).abs().tolist()
+                            for key in (*rows, "margin")}
+    # the loss is a signed mean of per-row terms whose rounding errors are
+    # independent between the two bf16 paths, so one path's scalar error
+    # may cancel by chance where the other's does not: the loss is held to
+    # the plain path's row errors of DPO's logits, propagated with the
+    # loss's weights |dL/d logit| (beta sigmoid(-beta m) / rows) and no
+    # cancellation; every other quantity to its own plain error
+    weight = PREF_BETA * torch.sigmoid(-PREF_BETA * truth["margin"]) / PREF_PAIRS
+    plain_rows = torch.tensor(row_errors["plain"]["margin"], device=weight.device)
+    errors["plain"]["loss_budget"] = float((weight * plain_rows).sum())
+    print(f"preference parity: DPO, {layers}-layer full width, {PREF_PAIRS} pairs x {width} "
+          f"tokens a side, loss fp32 {truth['loss']:.6f}, vs fp32 (loss: |error|; log-probs and "
+          "DPO's logits (margin) per row, grads: max error over max|fp32|): " + "; ".join(
+              f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
+              f"{errors['plain'][key]:.3e}" for key in errors["kernel"])
+          + "; |error| of DPO's logits per row: kernel "
+          + " ".join(f"{x:.3f}" for x in row_errors["kernel"]["margin"]) + ", plain "
+          + " ".join(f"{x:.3f}" for x in row_errors["plain"]["margin"])
+          + f"; the loss's limit, the plain rows propagated: {errors['plain']['loss_budget']:.3e}",
+          flush=True)
+    for key in errors["kernel"]:
+        limit = errors["plain"]["loss_budget" if key == "loss" else key]
+        check(errors["kernel"][key] <= NO_FURTHER * limit,
+              f"preference parity: {key}: the kernel path is further from fp32 "
+              f"({errors['kernel'][key]:.3e}) than {NO_FURTHER} x the plain bf16 path's "
+              f"({limit:.3e})")
+    loss_fp32 = truth["loss"]
+    del results, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=layers, width=width, loss_fp32=loss_fp32, errors=errors,
+                row_errors=row_errors)
+
+
 @torch.no_grad()
 def prefill_vs_full_forward(config_path: Path, prompts: list[list[int]]):
     """The restored model's left-padded prefill through a bf16 dense cache
@@ -1473,12 +1845,14 @@ def main() -> int:
     timing = phase_timing(kernels, card)
     train = phase_train(card)
     lifecycle = phase_lifecycle(card)
+    preference = phase_preference(card)
     phase_train_parity()
     flash = phase_flash_timing(card)
     phase_random_streams(card)
     print(f"serve summary [{card}]: " + json.dumps(serve))
     print(f"train summary [{card}]: " + json.dumps(train))
     print(f"lifecycle summary [{card}]: " + json.dumps(lifecycle))
+    print(f"preference summary [{card}]: " + json.dumps(preference))
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",

@@ -22,13 +22,15 @@ from typing import Any
 from llm_training_tpu_torch.callbacks.loggers import JsonlLogger, JsonlLoggerConfig
 from llm_training_tpu_torch.data.dummy import DummyDataModule, DummyDataModuleConfig
 from llm_training_tpu_torch.dataclass_config import build_dataclass
-from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+from llm_training_tpu_torch.lms import CLM, DPO, ORPO, CLMConfig, DPOConfig, ORPOConfig
 
 _INTERP = re.compile(r"\$\{([^}]+)\}")
 
 # the JAX package's class paths -> (the port's class, its config dataclass)
 CLASS_PATHS: dict[str, tuple[type, type]] = {
     "llm_training_tpu.lms.CLM": (CLM, CLMConfig),
+    "llm_training_tpu.lms.DPO": (DPO, DPOConfig),
+    "llm_training_tpu.lms.ORPO": (ORPO, ORPOConfig),
     "llm_training_tpu.data.DummyDataModule": (DummyDataModule, DummyDataModuleConfig),
     "llm_training_tpu.callbacks.JsonlLogger": (JsonlLogger, JsonlLoggerConfig),
 }

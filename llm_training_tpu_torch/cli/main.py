@@ -19,7 +19,9 @@ the `decode/*` keys; `evaluate` prints the `eval/*` result.
 
 `serve` is the counterpart of `_run_serve` in `llm_training_tpu/cli/main.py`:
 a continuous-batching server over a JSONL stdin/stdout protocol. One request
-per input line (`{"id", "prompt": [ids], "max_new_tokens"?, "priority"?}`);
+per input line (`{"id", "prompt": [ids], "max_new_tokens"?, "priority"?,
+"deadline_ms"?}`; a request past its deadline ends with `stop_reason`
+`deadline`);
 the engine streams `{"type": "token"}` chunks and one `{"type": "done"}`
 per request as they land, admitting new requests between decode steps. A
 malformed line answers a `{"type": "error"}` chunk and the server keeps
@@ -87,12 +89,15 @@ def _resume_step(args) -> int | None:
 
 
 def _require_single_model_objective(objective, command: str) -> None:
-    """validate/generate/evaluate/serve drive ONE causal LM over CLM-keyed
-    batches: fail up front for any other objective."""
+    """generate/evaluate/serve drive ONE causal LM over CLM-keyed batches;
+    a preference objective (DPO's policy and reference, ORPO's chosen_ and
+    rejected_ batch keys) fails up front with the JAX command's message."""
     if not isinstance(objective, CLM):
         raise SystemExit(
-            f"{command} supports the CLM objective only; the config's model node builds "
-            f"{type(objective).__name__}"
+            f"{command} supports the CLM objective only; the config's model "
+            f"node builds {type(objective).__name__} — point {command} at a "
+            "config whose model node is llm_training_tpu.lms.CLM wrapping "
+            "the (policy) model"
         )
 
 
@@ -154,6 +159,7 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
         max_batch=args.max_batch,
         max_model_len=args.max_model_len,
         block_size=args.block_size,
+        num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk,
         cache_dtype=args.cache_dtype,
         seed=args.seed,
@@ -195,10 +201,12 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
             record = json.loads(item)
             if not isinstance(record, dict):
                 raise ValueError("request line must be a JSON object")
+            deadline_ms = record.get("deadline_ms")
             emit(engine.submit(
                 id=record["id"], prompt=record["prompt"],
                 max_new_tokens=int(record.get("max_new_tokens", args.max_new_tokens)),
                 priority=int(record.get("priority", 0)),
+                deadline_ms=float(deadline_ms) if deadline_ms is not None else None,
             ))
         except (KeyError, TypeError, ValueError) as e:  # JSONDecodeError is a ValueError
             emit([{"type": "error", "error": f"bad request line: {e}"}])
@@ -405,6 +413,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     serve.add_argument("--prefill-chunk", type=int, default=32)
     serve.add_argument("--block-size", type=int, default=DEFAULT_BLOCK_SIZE)
+    serve.add_argument(
+        "--num-blocks", type=int, default=None,
+        help="KV-pool capacity in blocks (default: max_batch full-length "
+        "requests — no block pressure)",
+    )
     serve.add_argument(
         "--max-new-tokens", type=int, default=32,
         help="generation budget for requests that omit it",

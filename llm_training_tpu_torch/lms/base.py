@@ -6,6 +6,14 @@ model_kwargs}` config node that builds a model. The JAX provider imports
 the class by name from `llm_training_tpu.models`; the port maps the names
 of the model classes it has onto its own classes and imports nothing of
 the JAX package.
+
+The objective contract the `Trainer` drives (the JAX objective's
+`init_params` becomes a module): `configure_model(device, generator)`
+returns the module whose parameters are the train state -- the model of
+CLM and ORPO (`SingleModelObjective`), DPO's `PolicyAndReference` -- and
+points the objective at it; `bind(module)` points the objective at such a
+module restored elsewhere; `loss_and_metrics(batch, rng, train)` computes
+with it; `config.optim` and `config.frozen_modules` build its optimizer.
 """
 
 from __future__ import annotations
@@ -61,3 +69,42 @@ class ModelProvider:
     def get_model(self, device: torch.device | str | None = None) -> torch.nn.Module:
         model_cls, _ = self._resolve()
         return model_cls(self.get_config(), device=device)
+
+
+def build_model(
+    provider: ModelProvider | None, init_weights: bool, device: torch.device,
+    generator: torch.Generator, where: str,
+) -> torch.nn.Module:
+    """A model from a config node on `device`, with random weights from
+    `generator` when `init_weights`."""
+    if provider is None:
+        raise ValueError(f"{where} is required when no model is given")
+    model = provider.get_model(device)
+    if init_weights:
+        model.init_weights(generator)
+    return model
+
+
+class SingleModelObjective:
+    """The objective contract over one causal LM (CLM, ORPO): a model
+    handed in keeps its weights; one built from `config.model` is made by
+    `configure_model` on the trainer's device."""
+
+    def __init__(self, config: Any, model: torch.nn.Module | None = None):
+        self.config = config
+        self.model = model
+
+    def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
+        """The model on `device`: the one given, or one built from the
+        config with random weights from `generator` (on `device`)."""
+        if self.model is None:
+            name = f"{type(self.config).__name__}.model"
+            self.model = build_model(self.config.model, self.config.init_weights, device,
+                                     generator, name)
+        self.model = self.model.to(device)
+        return self.model
+
+    def bind(self, module: torch.nn.Module) -> None:
+        """Compute with `module` (a state built by `configure_model` and
+        restored)."""
+        self.model = module

@@ -4,7 +4,8 @@ Counterpart of `llm_training_tpu/lms/clm.py`: the label shift, masking of
 labels that would cross a packed document boundary or land on padding,
 NEFTune noise on the input embeddings during training, the fused-linear
 cross-entropy (full logits never materialise), and the metrics `loss`,
-`target_tokens` and `perplexity`.
+`target_tokens` and `perplexity`; `head_and_bias`, the head of the fused
+objectives (CLM, DPO, ORPO).
 
 NEFTune draws its noise with `prng.uniform` under the key it is given, in
 the compute dtype, as the JAX CLM draws `jax.random.uniform`: the same key
@@ -19,8 +20,17 @@ from dataclasses import dataclass
 import torch
 
 from llm_training_tpu_torch import prng
-from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider
+from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider, SingleModelObjective
 from llm_training_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy, shift_labels
+
+
+def head_and_bias(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(lm-head matrix `[embed, vocab]`, optional bias `[vocab]`) of a
+    causal LM, for the fused cross-entropy and log-prob objectives: the
+    head's weight transposed, which is the embedding table when the two
+    are tied; the bias of a head that has one."""
+    head = model.output_embeddings()
+    return head.weight.t(), getattr(head, "bias", None)
 
 
 @dataclass
@@ -32,25 +42,8 @@ class CLMConfig(BaseLMConfig):
     ce_chunk_size: int = 1024
 
 
-class CLM:
+class CLM(SingleModelObjective):
     """The CLM objective: owns the loss and metrics of a causal LM."""
-
-    def __init__(self, config: CLMConfig, model: torch.nn.Module | None = None):
-        self.config = config
-        # a model handed in keeps its weights; one built from the config is
-        # made by `configure_model` on the trainer's device
-        self.model = model
-
-    def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
-        """The model on `device`: the one given, or one built from the
-        config with random weights from `generator` (on `device`)."""
-        if self.model is None:
-            if self.config.model is None:
-                raise ValueError("CLMConfig.model is required when no model is given")
-            self.model = self.config.model.get_model(device)
-            if self.config.init_weights:
-                self.model.init_weights(generator)
-        return self.model.to(device)
 
     def loss_and_metrics(
         self,
@@ -94,9 +87,11 @@ class CLM:
             return_last_hidden_states=True,
         )
         hidden = out.last_hidden_states
-        head = model.output_embeddings().weight.to(hidden.dtype).t()
+        head, bias = head_and_bias(model)
         total, count = fused_linear_cross_entropy(
-            hidden, head, labels, ignore_index=cfg.ignore_index, chunk_size=cfg.ce_chunk_size,
+            hidden, head.to(hidden.dtype), labels, ignore_index=cfg.ignore_index,
+            chunk_size=cfg.ce_chunk_size, bias=bias,
+            logits_soft_cap=getattr(model.config, "final_logit_softcapping", None),
         )
         loss = total / count.clamp_min(1).float()
         metrics = {"loss": loss.detach(), "target_tokens": count}

@@ -9,6 +9,12 @@ them from the device first). Both JAX layouts are read: scanned
 (params, optax's moments and count, `MultiSteps`' accumulator, the key
 and the step) onto the port's `TrainState.state_dict()`, so a run started
 in the JAX package resumes in the port.
+
+A preference objective's tree `{"policy": ..., "ref": ...}` (DPO) maps onto
+the names of the port's `PolicyAndReference` module, `policy.<name>` and
+`ref.<name>`. Optimizer-state trees hold `optax.masked`'s placeholder (an
+empty named tuple, `MaskedNode`) where a frozen parameter has no state:
+such leaves are left out, as the port's optimizer holds nothing there.
 """
 
 from __future__ import annotations
@@ -71,11 +77,19 @@ def jax_leaf(name: str) -> tuple[int | None, tuple[str, ...]]:
     return None, top[name]
 
 
+PAIR = ("policy", "ref")
+
+
 def jax_paths(name: str) -> list[str]:
     """The '/'-joined paths of the port's parameter `name` in a JAX `Llama`
     tree: `params/...` outside the layers; for a layer's parameter both the
     scanned form (`params/layers/layer/...`, one leaf for all layers) and
-    the looped form (`params/layers_{i}/...`). Empty for any other name."""
+    the looped form (`params/layers_{i}/...`). A name of a policy and
+    reference pair (`policy.<name>`, `ref.<name>`) is prefixed as the JAX
+    DPO tree nests it (`policy/params/...`). Empty for any other name."""
+    part, _, rest = name.partition(".")
+    if part in PAIR:
+        return [f"{part}/{path}" for path in jax_paths(rest)]
     try:
         layer, keys = jax_leaf(name)
     except KeyError:
@@ -86,7 +100,12 @@ def jax_paths(name: str) -> list[str]:
     return [f"params/layers/layer/{tail}", f"params/layers_{layer}/{tail}"]
 
 
-def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> np.ndarray:
+def _masked(node: Any) -> bool:
+    """`optax.MaskedNode`, the state of a frozen leaf: an empty tuple."""
+    return isinstance(node, tuple) and not node
+
+
+def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> np.ndarray | None:
     scanned = layer is not None and "layers" in params
     if layer is None:
         node = params
@@ -94,12 +113,22 @@ def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -
         node = params["layers"]["layer"] if scanned else params[f"layers_{layer}"]
     for key in keys:
         node = node[key]
+    if _masked(node):
+        return None
     return np.asarray(node[layer] if scanned else node)
 
 
 def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[str, torch.Tensor]:
-    """The port's `Llama` state dict (HF names) from a JAX parameter tree,
-    in the config's param dtype on the CPU."""
+    """The port's `Llama` state dict (HF names) from a JAX parameter tree
+    (or a tree of optimizer state in its layout), in the config's param
+    dtype on the CPU; masked leaves are left out. A DPO tree `{"policy",
+    "ref"}` gives `policy.<name>` and `ref.<name>`, both in `config`."""
+    if set(params) == set(PAIR):
+        out = {}
+        for part in PAIR:
+            out.update({f"{part}.{k}": v
+                        for k, v in state_dict_from_jax(params[part], config).items()})
+        return out
     if set(params) == {"params"}:
         params = params["params"]
     dtype = config.param_torch_dtype
@@ -107,6 +136,8 @@ def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[
     for name in parameter_names(config):
         layer, keys = jax_leaf(name)
         array = _leaf(params, layer, keys)
+        if array is None:
+            continue
         if keys[-1] == "kernel":
             array = array.T
         out[name] = torch.tensor(np.asarray(array, np.float32), dtype=dtype)
@@ -131,8 +162,9 @@ def train_state_dict_from_jax(
     words), the parameter tree, the optimizer's `count` (its inner updates:
     `ScaleByAdamState.count`), its per-parameter trees (`mu`/`nu` of adam,
     `trace` of sgd with momentum) and, with accumulation, `MultiSteps`'
-    `acc_grads` and `mini_step`. Each tree has the parameter tree's layout.
-    Load it with `TrainState.load_state_dict` into a state built for the
+    `acc_grads` and `mini_step`. Each tree has the parameter tree's layout
+    (a DPO pair's too; `mu`, `nu` and `trace` masked where a parameter
+    is frozen). Load it with `TrainState.load_state_dict` into a state built for the
     same run (`Trainer.init_state`), then `Checkpointer.save` it."""
     words = [int(w) for w in np.asarray(rng).reshape(-1)]
     if len(words) != 2:
@@ -143,7 +175,8 @@ def train_state_dict_from_jax(
         "optimizer.count": torch.tensor(int(count), dtype=torch.int64),
         "optimizer.mini_step": torch.tensor(int(mini_step), dtype=torch.int64),
     }
-    out.update({f"model.{k}": v for k, v in state_dict_from_jax(params, config).items()})
+    out.update({f"model.{k}": v
+                for k, v in state_dict_from_jax(params, config).items()})
     for kind, tree in (("mu", mu), ("nu", nu), ("trace", trace), ("acc", acc_grads)):
         if tree is not None:
             out.update({f"optimizer.{kind}.{k}": v

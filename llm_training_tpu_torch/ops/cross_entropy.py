@@ -1,9 +1,10 @@
 """Cross-entropy losses, including the chunked fused-linear cross-entropy.
 
 Counterpart of `llm_training_tpu/ops/cross_entropy.py`: `shift_labels`,
-`cross_entropy` and `fused_linear_cross_entropy`. The last one chunks the
-tokens and runs each chunk under `torch.utils.checkpoint`, so forward and
-backward peak at `chunk_size x vocab` fp32 logits instead of the whole
+`cross_entropy`, `fused_linear_cross_entropy` and `fused_linear_log_probs`
+(the per-row label log-probs of DPO and ORPO). The fused ones chunk the
+tokens and run each chunk under `torch.utils.checkpoint`, so forward and
+backward peak at one chunk's fp32 logits instead of the whole
 `tokens x vocab`. The head product is a plain matrix product (the JAX
 package left it to XLA), so it is `torch.mm`. In bf16 the logits are the
 product's fp32 accumulator, never rounded to bf16, as with JAX's
@@ -83,12 +84,26 @@ def _head_logits(h: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.mm(h.float(), weight.float())
 
 
-def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index):
+def _chunk_logits(h, weight, bias, logits_soft_cap):
+    """fp32 logits `[chunk, vocab]` of one chunk: the head product, the
+    bias, the soft cap."""
     logits = _head_logits(h, weight)
     if bias is not None:
         logits = logits + bias.float()
     if logits_soft_cap is not None:
         logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    return logits
+
+
+def _checkpointed(fn, *args):
+    """`fn(*args)`, recomputed in the backward when gradients flow."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index):
+    logits = _chunk_logits(h, weight, bias, logits_soft_cap)
     nll, valid = _token_nll(logits, labels, ignore_index)
     return nll.sum(), valid.sum()
 
@@ -117,13 +132,46 @@ def fused_linear_cross_entropy(
     for start in range(0, hidden.shape[0], chunk_size):
         h = hidden[start:start + chunk_size]
         l = labels[start:start + chunk_size]
-        if torch.is_grad_enabled():
-            s, c = checkpoint(
-                _chunk_loss, h, weight, l, bias, logits_soft_cap, ignore_index,
-                use_reentrant=False,
-            )
-        else:
-            s, c = _chunk_loss(h, weight, l, bias, logits_soft_cap, ignore_index)
+        s, c = _checkpointed(_chunk_loss, h, weight, l, bias, logits_soft_cap, ignore_index)
         total = total + s
         count = count + c
     return total, count
+
+
+def _chunk_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
+    """Per-row sums of label log-probs and valid counts of one sequence
+    chunk: h `[batch, chunk, embed]`, labels `[batch, chunk]`."""
+    rows, width, embed = h.shape
+    logits = _chunk_logits(h.reshape(-1, embed), weight, bias, logits_soft_cap)
+    nll, valid = _token_nll(logits, labels.reshape(-1), ignore_index)
+    return -nll.reshape(rows, width).sum(-1), valid.reshape(rows, width).sum(-1)
+
+
+def fused_linear_log_probs(
+    hidden: torch.Tensor,
+    weight: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: int = -100,
+    chunk_size: int = 1024,
+    logits_soft_cap: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-sequence label log-probs of `hidden @ weight (+ bias)` without
+    the full logits. hidden `[batch, seq, embed]`, labels `[batch, seq]`.
+    Returns (sum of log p per row `[batch]` fp32, valid-token counts
+    `[batch]`). Chunked over the sequence axis, `chunk_size` positions of
+    every row at a time, each chunk recomputed in the backward, so memory
+    peaks at `batch x chunk_size x vocab` fp32 logits."""
+    batch, seq, _ = hidden.shape
+    chunk_size = min(chunk_size, seq)
+    logps = torch.zeros((batch,), dtype=torch.float32, device=hidden.device)
+    counts = torch.zeros((batch,), dtype=torch.int64, device=hidden.device)
+    # an uneven last chunk runs as it is (the JAX scan pads it with ignored
+    # labels, which add nothing)
+    for start in range(0, seq, chunk_size):
+        h = hidden[:, start:start + chunk_size]
+        l = labels[:, start:start + chunk_size]
+        s, c = _checkpointed(_chunk_logps, h, weight, l, bias, logits_soft_cap, ignore_index)
+        logps = logps + s
+        counts = counts + c
+    return logps, counts

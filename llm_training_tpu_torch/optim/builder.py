@@ -17,7 +17,12 @@ the model's parameters, because torch's optimizers differ from optax's:
   trainable parameters only (the freeze mask wraps the clip too);
 - accumulation keeps the running mean of k micro-batch gradients
   (`acc + (g - acc) / (n + 1)`) and runs the inner update on every k-th
-  call; the schedule's count advances once per k micro-steps.
+  call; the schedule's count advances once per k micro-steps;
+- the freeze mask is structural, as `optax.masked` makes it: a frozen
+  parameter has no `mu`, `nu` or `trace`, while the accumulator covers
+  every parameter, as `MultiSteps` wraps the whole tree. A parameter with
+  no gradient (one that does not require it, as DPO's reference) counts
+  as a zero gradient without one being allocated.
 
 `lion` and `adafactor` are not ported yet (ROADMAP A.2).
 """
@@ -148,22 +153,28 @@ class Optimizer:
         self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
         self.count = 0  # inner updates done
         self.mini_step = 0
-        zeros = lambda: [torch.zeros_like(p) for p in self.params]  # noqa: E731
-        self.acc = zeros() if accumulate > 1 else None
+        # the moments of trainable parameters only (index-aligned with
+        # `self.live`), as optax.masked allocates them
+        self.live = [i for i, t in enumerate(self.trainable) if t]
+        zeros = lambda idx: [torch.zeros_like(self.params[i]) for i in idx]  # noqa: E731
+        self.acc = zeros(range(len(self.params))) if accumulate > 1 else None
         if self.kind in ("adamw", "adam"):
-            self.mu, self.nu = zeros(), zeros()
+            self.mu, self.nu = zeros(self.live), zeros(self.live)
         elif self.hyper["momentum"] is not None:
-            self.trace = zeros()
+            self.trace = zeros(self.live)
 
-    def _buffers(self) -> dict[str, list[torch.Tensor]]:
+    def _buffers(self) -> dict[str, tuple[list[str], list[torch.Tensor]]]:
         """The per-parameter state lists this optimizer holds, by optax's
-        names: `mu`/`nu` (adam, adamw), `trace` (sgd with momentum) and
-        `acc` (MultiSteps' running mean, with accumulation)."""
+        names, each with the names of the parameters it covers: `mu`/`nu`
+        (adam, adamw) and `trace` (sgd with momentum) over the trainable
+        parameters, `acc` (MultiSteps' running mean, with accumulation)
+        over all of them."""
+        live_names = [self.names[i] for i in self.live]
         out = {}
         for name in ("mu", "nu", "trace", "acc"):
             buffers = getattr(self, name, None)
             if buffers is not None:
-                out[name] = buffers
+                out[name] = (self.names if name == "acc" else live_names, buffers)
         return out
 
     def layout(self) -> dict:
@@ -214,8 +225,8 @@ class Optimizer:
             "count": torch.tensor(self.count, dtype=torch.int64),
             "mini_step": torch.tensor(self.mini_step, dtype=torch.int64),
         }
-        for kind, buffers in self._buffers().items():
-            out.update({f"{kind}.{name}": t for name, t in zip(self.names, buffers)})
+        for kind, (names, buffers) in self._buffers().items():
+            out.update({f"{kind}.{name}": t for name, t in zip(names, buffers)})
         return out
 
     @torch.no_grad()
@@ -231,8 +242,8 @@ class Optimizer:
             )
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        for kind, buffers in self._buffers().items():
-            for name, buffer in zip(self.names, buffers):
+        for kind, (names, buffers) in self._buffers().items():
+            for name, buffer in zip(names, buffers):
                 source = state[f"{kind}.{name}"]
                 if source.data_ptr() != buffer.data_ptr():
                     buffer.copy_(source)
@@ -242,10 +253,13 @@ class Optimizer:
         """Consume the parameters' `.grad` (clipped in place, or folded into
         the running mean and released); returns whether the parameters
         changed (every `accumulate`-th call)."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads = [p.grad for p in self.params]
         if self.acc is not None:
             for acc, g in zip(self.acc, grads):
-                acc.add_((g - acc) / (self.mini_step + 1))
+                if g is None:  # a zero gradient: acc + (0 - acc) / (n + 1)
+                    acc.sub_(acc / (self.mini_step + 1))
+                else:
+                    acc.add_((g - acc) / (self.mini_step + 1))
             for p in self.params:
                 p.grad = None
             self.mini_step += 1
@@ -259,26 +273,29 @@ class Optimizer:
                 acc.zero_()
         return True
 
-    def _inner_update(self, grads: list[torch.Tensor]) -> None:
-        live = [i for i, t in enumerate(self.trainable) if t]
+    def _inner_update(self, grads: list[torch.Tensor | None]) -> None:
+        # a trainable parameter without a gradient takes a zero one, as the
+        # unmasked optax chain sees it
+        live = [(j, i, grads[i] if grads[i] is not None else torch.zeros_like(self.params[i]))
+                for j, i in enumerate(self.live)]
         if self.clip is not None and live:
-            norm = global_norm([grads[i] for i in live])
+            norm = global_norm([g for _, _, g in live])
             if not bool(norm < self.clip):
-                for i in live:
-                    grads[i].div_(norm).mul_(self.clip)
+                for _, _, g in live:
+                    g.div_(norm).mul_(self.clip)
         lr = self.schedule(self.count)
         self.count += 1
         h = self.hyper
-        for i in live:
-            p, g = self.params[i], grads[i]
+        for j, i, g in live:
+            p = self.params[i]
             if self.kind == "sgd":
                 u = g
                 if h["momentum"] is not None:
-                    self.trace[i].mul_(h["momentum"]).add_(g)
-                    u = (g + h["momentum"] * self.trace[i]) if h["nesterov"] else self.trace[i]
+                    self.trace[j].mul_(h["momentum"]).add_(g)
+                    u = (g + h["momentum"] * self.trace[j]) if h["nesterov"] else self.trace[j]
                 p.add_(u, alpha=-lr)
                 continue
-            mu, nu = self.mu[i], self.nu[i]
+            mu, nu = self.mu[j], self.nu[j]
             mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
             nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
             u = mu / (1 - h["b1"] ** self.count)

@@ -1,8 +1,10 @@
 """Continuous-batching serving engine.
 
-Counterpart of `llm_training_tpu/serve/engine.py` (without the journal,
-chaos, tracing, weight reload and device-attribution layers). Two model
-calls run against the paged pool, which they update in place:
+Counterpart of `llm_training_tpu/serve/engine.py` (without load shedding,
+the journal, chaos, tracing, weight reload and device-attribution layers).
+Every step first expires deadlines, so a `deadline` terminal is never more
+than one step late. Two model calls run against the paged pool, which they
+update in place:
 
 - a prefill chunk: ONE request's next prompt chunk (batch 1, fixed chunk
   width) written into its own blocks; it samples the first new token when
@@ -136,17 +138,23 @@ class ServingEngine:
     # -------------------------------------------------------------- intake
 
     def submit(
-        self, id: str, prompt: Sequence[int], max_new_tokens: int = 32, priority: int = 0
+        self, id: str, prompt: Sequence[int], max_new_tokens: int = 32, priority: int = 0,
+        deadline_ms: float | None = None,
     ) -> list[dict]:
         """Queue one request; returns the events submission itself produced
         (a rejection completes synchronously). Every prompt token is coerced
-        to int here, so a junk prompt fails at submit, not inside a step."""
+        to int here, so a junk prompt fails at submit, not inside a step.
+        `deadline_ms` is a latency budget anchored at arrival; a
+        non-positive one ends the request with stop_reason='deadline' at
+        the next step."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
         request = ServeRequest(
             id=str(id), prompt=[int(t) for t in prompt],
             max_new_tokens=int(max_new_tokens), priority=int(priority),
         )
+        if deadline_ms is not None:
+            request.deadline_s = request.arrival_s + float(deadline_ms) / 1000.0
         if self.scheduler.submit(request) is not None:
             return [self._done_event(request)]
         return []
@@ -154,11 +162,15 @@ class ServingEngine:
     # ---------------------------------------------------------------- step
 
     def step(self) -> list[dict]:
-        """One scheduler round: admissions, at most one prefill chunk, one
-        decode step over every decoding row. Returns the streamed events."""
+        """One scheduler round: deadline expiry, admissions, at most one
+        prefill chunk, one decode step over every decoding row. Returns the
+        streamed events."""
         events: list[dict] = []
         self.step_index += 1
         before = len(self.scheduler.completed)
+        # deadlines first: expired queued work never costs a prefill, and an
+        # expired running row frees its blocks before admission looks
+        self.scheduler.expire_deadlines()
         self.scheduler.admit()
         for request in self.scheduler.completed[before:]:
             events.append(self._done_event(request))
@@ -288,7 +300,8 @@ class ServingEngine:
 
     def run(self, requests: Sequence[dict], max_steps: int = 100_000) -> list[dict]:
         """Submit a closed request set and step until drained. Each dict:
-        {'id', 'prompt', 'max_new_tokens'?, 'priority'?}."""
+        {'id', 'prompt', 'max_new_tokens'?, 'priority'?,
+        'deadline_ms'?}."""
         events: list[dict] = []
         for request in requests:
             events.extend(self.submit(**request))
@@ -308,6 +321,8 @@ class ServingEngine:
         completed = [
             r for r in self.scheduler.completed if r.stop_reason in ("eos", "max_tokens")
         ]
+        # shed load (deadline) is the engine keeping its budget, not a failure
+        shed = sum(r.stop_reason == "deadline" for r in self.scheduler.completed)
         ttft = [
             1000.0 * (r.first_token_s - r.arrival_s)
             for r in completed if r.first_token_s is not None
@@ -320,8 +335,12 @@ class ServingEngine:
         wall = (time.perf_counter() - self._t0) if self._t0 is not None else 0.0
         stats = {
             "serve/requests_completed": float(len(completed)),
-            "serve/requests_failed": float(len(self.scheduler.completed) - len(completed)),
+            "serve/requests_failed": float(
+                len(self.scheduler.completed) - len(completed) - shed
+            ),
+            "serve/requests_shed": float(shed),
             "serve/requests_evicted": float(self.scheduler.evictions),
+            "serve/deadline_total": float(self.scheduler.deadline_total),
             "serve/tokens_generated": float(self.tokens_generated),
             "serve/tokens_per_sec": self.tokens_generated / wall if wall > 0 else 0.0,
             "serve/peak_running": float(self.peak_running),

@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler. Pure host logic.
 
-Counterpart of `llm_training_tpu/serve/scheduler.py` (without deadlines,
-load shedding and tracing). Per engine step the scheduler decides:
+Counterpart of `llm_training_tpu/serve/scheduler.py` (without load
+shedding and tracing). Per engine step the scheduler decides:
 
 - **admission**: the head of the waiting queue joins when a decode slot is
   free AND the pool has blocks for its whole (re)prefill plus one decode
@@ -14,7 +14,13 @@ load shedding and tracing). Per engine step the scheduler decides:
   dry, the lowest-priority running request (ties: youngest) is evicted,
   its blocks freed, and it is requeued at the FRONT with its progress
   folded into the prompt, so on re-admission it re-prefills and continues
-  (token-identically under greedy decoding).
+  (token-identically under greedy decoding);
+- **deadlines**: a request may carry a completion deadline (`deadline_s`,
+  the protocol's `deadline_ms` anchored at arrival). `expire_deadlines`,
+  called at the top of every engine step, ends past-deadline work with
+  `stop_reason='deadline'` wherever it sits: still queued, or running
+  (its blocks freed, the tokens already streamed standing as the partial
+  result).
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ class ServeRequest:
     max_new_tokens: int
     priority: int = 0  # higher = more important (evicted last)
     arrival_s: float = field(default_factory=time.perf_counter)
+    # absolute (arrival-anchored, perf_counter clock) completion deadline;
+    # None = no deadline
+    deadline_s: float | None = None
 
     generated: list[int] = field(default_factory=list)
     logprobs: list[float] = field(default_factory=list)  # parallel to generated
@@ -85,6 +94,7 @@ class Scheduler:
         self._free_slots = list(range(config.max_batch - 1, -1, -1))
         self.completed: list[ServeRequest] = []
         self.evictions = 0
+        self.deadline_total = 0  # 'deadline' terminations (queued + running)
 
     def submit(self, request: ServeRequest) -> ServeRequest | None:
         """Queue a request; returns it REJECTED (stop_reason='rejected')
@@ -107,6 +117,25 @@ class Scheduler:
 
     def _blocks_for(self, tokens: int) -> int:
         return math.ceil(tokens / self.config.block_size)
+
+    def expire_deadlines(self, now: float | None = None) -> None:
+        """End past-deadline requests with stop_reason='deadline': queued
+        ones before they cost a prefill, running ones with their blocks
+        freed. Callers emit the terminals from the `completed` diff."""
+        if now is None:
+            now = time.perf_counter()
+
+        def expired(request: ServeRequest) -> bool:
+            return request.deadline_s is not None and now >= request.deadline_s
+
+        for request in [r for r in self.waiting if expired(r)]:
+            self.waiting.remove(request)
+            request.stop_reason = "deadline"
+            self.completed.append(request)
+            self.deadline_total += 1
+        for request in [r for r in self.running.values() if expired(r)]:
+            self.finish(request, "deadline")
+            self.deadline_total += 1
 
     def admit(self) -> list[ServeRequest]:
         """Admit waiting requests while a slot is free and the pool covers

@@ -54,10 +54,15 @@ def _to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, 
 
 
 def _batch_counts(batch: dict[str, np.ndarray]) -> tuple[int, int]:
-    """(samples, tokens) of a host batch: tokens are the non-padding ones."""
-    seg = batch.get("segment_ids")
-    tokens = int((seg > 0).sum()) if seg is not None else int(batch["input_ids"].size)
-    return int(batch["input_ids"].shape[0]), tokens
+    """(samples, tokens) of a host batch, CLM (`input_ids`) or preference
+    (`chosen_input_ids`, `rejected_input_ids`): tokens are the non-padding
+    ones of every `*input_ids` key, by its `*segment_ids`."""
+    id_keys = [k for k in batch if k == "input_ids" or k.endswith("_input_ids")]
+    tokens = 0
+    for key in id_keys:
+        seg = batch.get(key[: -len("input_ids")] + "segment_ids")
+        tokens += int((seg > 0).sum()) if seg is not None else int(batch[key].size)
+    return int(batch[id_keys[0]].shape[0]), tokens
 
 
 class Trainer:
@@ -159,11 +164,11 @@ class Trainer:
         window_time, window_step = time.perf_counter(), first_step - 1
         for micro in range(start_micro, micro_steps):
             host_batch = next(batches)
+            samples, tokens = _batch_counts(host_batch)
             if self._global_batch_size is None:
-                self._global_batch_size = int(host_batch["input_ids"].shape[0])
+                self._global_batch_size = samples
                 self._check_data_continuity(saved_data_state)
             metrics = self.train_micro_step(objective, state, host_batch)
-            samples, tokens = _batch_counts(host_batch)
             self.counters["consumed_samples"] += samples
             self.counters["consumed_tokens"] += tokens
 
@@ -226,6 +231,8 @@ class Trainer:
         step_rng = prng.fold_in(state.rng, state.step)
         loss, metrics = objective.loss_and_metrics(batch, rng=step_rng, train=True)
         loss.backward()
+        # over the gradients there are: a parameter that requires none (DPO's
+        # reference) adds the zero that JAX's stop_gradient gives it
         metrics["grad_norm"] = global_norm([p.grad for p in params if p.grad is not None])
         state.optimizer.update()
         state.step += 1
@@ -353,7 +360,7 @@ class Trainer:
     def validate(self, objective, datamodule, state: TrainState) -> dict[str, float]:
         """Validation of `state`'s model over every validation batch."""
         datamodule.setup()
-        objective.model = state.model
+        objective.bind(state.model)
         val_loss = self._val_loss(objective, datamodule, None)
         if val_loss is None:
             raise ValueError(

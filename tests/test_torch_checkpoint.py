@@ -9,6 +9,7 @@ import hashlib
 import json
 import pickle
 import shutil
+import types
 
 import flax.linen as nn
 import jax
@@ -366,3 +367,117 @@ def test_checkpoint_index_refuses_code(tmp_path):
     (tmp_path / "step_1" / ".metadata").write_bytes(pickle.dumps(Payload()))
     with pytest.raises((RuntimeError, pickle.UnpicklingError), match="never holds"):
         _trainer(tmp_path).restore_for_inference(_objective())
+
+
+# ---------------------------------------------------------------- DPO
+
+
+class _Pairs:
+    """Seeded preference batches (2 pairs, collated by the port's
+    collator), batch n drawn from seed n: a pure function of the
+    micro-step, as a resumable stream must be."""
+
+    def setup(self):
+        pass
+
+    def train_batches(self, start_step=0):
+        from llm_training_tpu_torch.data.preference_tuning.collator import (
+            PreferenceTuningDataCollator,
+        )
+
+        config = types.SimpleNamespace(tokenizer=types.SimpleNamespace(pad_token_id=0),
+                                       pad_to_multiple_of=8)
+        collate = PreferenceTuningDataCollator(config)
+        for step in range(start_step, 10**6):
+            rng = np.random.default_rng(step % 4)
+            examples = []
+            for _ in range(2):
+                prompt = rng.integers(1, 256, 5).tolist()
+                example = {}
+                for side in ("chosen", "rejected"):
+                    ids = prompt + rng.integers(1, 256, int(rng.integers(2, 8))).tolist()
+                    example.update({f"{side}_input_ids": ids, f"{side}_length": len(ids),
+                                    f"{side}_labels": [-100] * 5 + ids[5:]})
+                examples.append(example)
+            yield collate(examples)
+
+
+def _dpo():
+    from llm_training_tpu_torch.lms import DPO, DPOConfig
+
+    return DPO(DPOConfig(model=ModelProvider("Llama", TINY), optim=OptimConfig(**OPTIM)))
+
+
+def test_dpo_resume_is_bit_exact(tmp_path, deterministic):
+    """DPO with accumulation 2: 3 steps, a checkpoint, then a fresh Trainer
+    resumes to step 6. Losses and every tensor equal the uninterrupted
+    run's bit for bit; the reference equals its initial weights (the
+    policy's); the state holds no moments for the reference and a zero
+    accumulator for it."""
+    def fit(trainer):
+        recorder = _Losses()
+        trainer.callbacks.append(recorder)
+        state = trainer.fit(_dpo(), _Pairs())
+        if trainer.checkpointer is not None:
+            trainer.checkpointer.close()
+        return recorder.losses, state
+
+    full, full_state = fit(_trainer(None))
+    first, _ = fit(_trainer(tmp_path, max_steps=3))
+    resumed, state = fit(_trainer(tmp_path))
+    assert sorted(resumed) == [4, 5, 6]
+    assert {**first, **resumed} == full
+    assert abs(full[1] - np.log(2.0)) < 1e-6
+    full_tensors, tensors = full_state.state_dict(), state.state_dict()
+    assert full_tensors.keys() == tensors.keys()
+    for name in full_tensors:
+        assert torch.equal(full_tensors[name], tensors[name]), name
+    assert not [k for k in tensors if k.startswith(("optimizer.mu.ref.", "optimizer.nu.ref."))]
+    assert [k for k in tensors if k.startswith("optimizer.mu.")] == [
+        f"optimizer.mu.{n}" for n, _ in state.model.policy.named_parameters(prefix="policy")]
+    initial, _ = _trainer(None).init_state(_dpo())
+    for name, p in state.model.ref.named_parameters(prefix="ref"):
+        assert torch.equal(p, initial.model.get_parameter(name)), name
+        assert not tensors[f"optimizer.acc.{name}"].any(), name
+
+
+def test_jax_dpo_state_carried_into_port(devices):
+    """A JAX DPO state (`{policy, ref}` parameters; AdamW moments masked for
+    the reference by `^ref/`; MultiSteps' accumulator over both) becomes
+    the port's DPO TrainState: its per-parameter tensors, counted as
+    tensors and as elements, are the optax leaves; the keys are exactly the
+    port's; the values carry across."""
+    import optax
+
+    from llm_training_tpu.lms import DPO as JaxDPO
+    from llm_training_tpu.lms import DPOConfig as JaxDPOConfig
+    from llm_training_tpu.optim.builder import build_optimizer as jax_optimizer
+
+    # the looped layout: one leaf per parameter, as the port has
+    jax_objective = JaxDPO(JaxDPOConfig(model=JaxProvider(
+        model_class="llm_training_tpu.models.Llama", model_kwargs={**TINY, "scan_layers": False})))
+    batch = next(_Pairs().train_batches())
+    params = jax.device_get(nn.meta.unbox(jax_objective.init_params(jax.random.key(0), batch)))
+    tx = optax.MultiSteps(jax_optimizer(JaxOptimConfig(**OPTIM), STEPS,
+                                        jax_objective.config.frozen_modules)[0], ACCUMULATE)
+    opt_state = tx.init(params)
+    grads = jax.tree.map(lambda x: np.full(x.shape, 1e-3, x.dtype), params)
+    _, opt_state = tx.update(grads, opt_state, params)
+    adam = next(x for x in jax.tree.leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(x, optax.ScaleByAdamState))
+    opt_state = jax.device_get(opt_state)
+    carried = train_state_dict_from_jax(
+        LlamaConfig.from_dict(TINY), params=params, step=1, rng=np.asarray([0, 1], np.uint32),
+        count=int(adam.count), mu=jax.device_get(adam.mu), nu=jax.device_get(adam.nu),
+        acc_grads=opt_state.acc_grads, mini_step=int(opt_state.mini_step))
+    state, _ = _trainer(None).init_state(_dpo())
+    port = state.state_dict()
+    assert set(carried) == set(port)
+    leaves = [np.asarray(x) for x in jax.tree.leaves(opt_state) if np.ndim(x) > 0]
+    ours = [t for k, t in port.items() if k.startswith("optimizer.") and t.ndim > 0]
+    assert len(ours) == len(leaves)
+    assert sum(t.numel() for t in ours) == sum(x.size for x in leaves)
+    state.load_state_dict(carried)
+    for name, tensor in state.state_dict().items():
+        assert torch.equal(tensor, carried[name]), name

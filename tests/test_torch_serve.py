@@ -218,3 +218,68 @@ def test_sampling_greedy_draws_nothing_and_seeded_draws_repeat():
     assert all(int(t) in kept[row].tolist() for row, t in enumerate(draws[0]))
     with pytest.raises(ValueError):
         sampling.SamplingConfig(top_p=1.5)
+
+
+def test_deadlines_match_jax_engine():
+    """`deadline_ms`: a request whose deadline has passed while it is queued
+    ends with stop_reason 'deadline' and no token; one whose deadline
+    passes mid-decode (its deadline moved into the past after 3 tokens, on
+    both engines at the same step) ends with 'deadline' and the tokens
+    streamed so far, its blocks back in the pool. The JAX engine and the
+    port's give the same stop reasons, token counts and tokens."""
+    results = []
+    for engine in _engines():
+        events = list(engine.submit("long", PROMPTS[0], max_new_tokens=8))
+        events += engine.submit("late", PROMPTS[1], max_new_tokens=8, deadline_ms=0)
+        events += engine.submit("cut", PROMPTS[2], max_new_tokens=8, deadline_ms=3_600_000)
+        while True:
+            events.extend(engine.step())
+            cut = next((r for r in engine.scheduler.running.values() if r.id == "cut"), None)
+            if cut is not None and len(cut.generated) == 3:
+                break
+        cut.deadline_s = 0.0  # the hour has passed
+        while not engine.scheduler.idle:
+            events.extend(engine.step())
+        assert engine.allocator.blocks_in_use == 0
+        assert engine.stats()["serve/deadline_total"] == 2
+        results.append({k: (v["stop_reason"], v["n_tokens"], v["tokens"])
+                        for k, v in _done(events).items()})
+    assert results[1] == results[0]
+    assert results[1]["late"] == ("deadline", 0, [])
+    assert results[1]["cut"][:2] == ("deadline", 3)
+    assert results[1]["long"][:2] == ("max_tokens", 8)
+
+
+def _serve_cli(tmp_path, lines, *flags):
+    (tmp_path / "model.json").write_text(json.dumps(TINY))
+    args = build_parser().parse_args([
+        "serve", "--model-config", str(tmp_path / "model.json"), "--max-batch", "2",
+        "--max-model-len", "48", "--block-size", "8", "--prefill-chunk", "4",
+        "--max-new-tokens", "5", "--eos-token-id", "-1", "--device", "cpu", *flags,
+    ])
+    stdout = io.StringIO()
+    assert run_serve(args, stdin=io.StringIO("".join(json.dumps(x) + "\n" for x in lines)),
+                     stdout=stdout) == 0
+    return [json.loads(line) for line in stdout.getvalue().splitlines()]
+
+
+def test_cli_serve_passes_deadline_ms(tmp_path):
+    """The protocol's `deadline_ms` reaches the engine: a request already
+    past its deadline ends with stop_reason 'deadline' and no token."""
+    records = _serve_cli(tmp_path, [{"id": "a", "prompt": [1, 2], "deadline_ms": 0},
+                                    {"id": "b", "prompt": [1, 2]}])
+    done = _done(records)
+    assert done["a"]["stop_reason"] == "deadline" and done["a"]["n_tokens"] == 0
+    assert done["b"]["stop_reason"] == "max_tokens" and done["b"]["n_tokens"] == 5
+    assert records[-1]["stats"]["serve/deadline_total"] == 1
+
+
+@pytest.mark.parametrize("num_blocks", [None, 5], ids=["default", "five"])
+def test_cli_serve_num_blocks_sets_the_pool(tmp_path, num_blocks):
+    """`serve --num-blocks N` sizes the pool at N blocks (the JAX flag);
+    without it, max_batch full-length requests (2 x 48 / 8 = 12)."""
+    flags = [] if num_blocks is None else ["--num-blocks", str(num_blocks)]
+    records = _serve_cli(tmp_path, [{"id": "a", "prompt": [1, 2, 3]}], *flags)
+    stats = records[-1]["stats"]
+    assert stats["decode/cache_blocks_total"] == (num_blocks or 12)
+    assert stats["serve/requests_completed"] == 1

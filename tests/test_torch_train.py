@@ -334,9 +334,10 @@ PARAM_SHAPES = {
 }
 
 
-def _run_optimizers(optim: dict, frozen, accumulate=1, updates=6):
+def _run_optimizers(optim: dict, frozen, accumulate=1, updates=6, with_state=False):
     """`updates` micro-steps of seeded gradients (large enough to clip)
-    through the port's optimizer and the JAX chain; returns both params."""
+    through the port's optimizer and the JAX chain; returns both params
+    (and, `with_state`, the port's optimizer and the optax state)."""
     rng = np.random.default_rng(6)
     init = {n: rng.standard_normal(s).astype(np.float32) for n, s in PARAM_SHAPES.items()}
     grads = [{n: (3 * rng.standard_normal(s)).astype(np.float32) for n, s in PARAM_SHAPES.items()}
@@ -354,7 +355,22 @@ def _run_optimizers(optim: dict, frozen, accumulate=1, updates=6):
         opt.update()
         upd, state = tx.update({n: jnp.asarray(v) for n, v in g.items()}, state, params)
         params = optax.apply_updates(params, upd)
-    return {n: p.detach().numpy() for n, p in named}, {n: np.asarray(v) for n, v in params.items()}
+    out = {n: p.detach().numpy() for n, p in named}, {n: np.asarray(v) for n, v in params.items()}
+    return (*out, opt, state) if with_state else out
+
+
+def _assert_state_is_optax_leaves(opt, jax_state, frozen) -> None:
+    """The port's per-parameter optimizer state, counted as tensors and as
+    elements, equals optax's parameter-shaped leaves: `optax.masked` holds
+    an empty `MaskedNode` where a parameter is frozen, so no `mu`, `nu` or
+    `trace` exists for it; `MultiSteps`' accumulator covers every one."""
+    leaves = [np.asarray(x) for x in jax.tree.leaves(jax_state) if np.ndim(x) > 0]
+    ours = {k: t for k, t in opt.state_dict().items() if k not in ("count", "mini_step")}
+    assert len(ours) == len(leaves)
+    assert sum(t.numel() for t in ours.values()) == sum(x.size for x in leaves)
+    for name in PARAM_SHAPES:
+        if frozen and frozen[0] in name:
+            assert not [k for k in ours if k.endswith(name) and not k.startswith("acc.")], name
 
 
 @pytest.mark.parametrize("optim,frozen", [
@@ -370,12 +386,86 @@ def _run_optimizers(optim: dict, frozen, accumulate=1, updates=6):
 ], ids=["adamw", "adamw_warmup_frozen", "adamw_kwargs_noclip", "adam_linear_frozen",
         "sgd_frozen", "sgd_momentum", "sgd_nesterov"])
 def test_optimizer_matches_optax(optim, frozen):
-    ours, theirs = _run_optimizers(optim, frozen)
+    ours, theirs, opt, jax_state = _run_optimizers(optim, frozen, with_state=True)
+    _assert_state_is_optax_leaves(opt, jax_state, frozen)
     for name in PARAM_SHAPES:
         np.testing.assert_allclose(ours[name], theirs[name], rtol=1e-5, atol=1e-6, err_msg=name)
     if frozen:
         frozen_name = next(n for n in PARAM_SHAPES if frozen[0] in n)
         np.testing.assert_array_equal(ours[frozen_name], _run_optimizers(optim, frozen, updates=0)[0][frozen_name])
+
+
+@pytest.mark.parametrize("optim", [
+    dict(optimizer="adamw", learning_rate=1e-2, warmup_steps=1),
+    dict(optimizer="sgd", learning_rate=5e-2, optimizer_kwargs={"momentum": 0.9}),
+], ids=["adamw", "sgd_momentum"])
+def test_frozen_accumulation_state_matches_optax_leaves(optim):
+    """With accumulation and a frozen parameter: the parameters follow
+    optax.MultiSteps over the masked chain, the moments cover the trainable
+    parameters only and the accumulator all of them, as optax's leaves."""
+    frozen = ["embed_tokens"]
+    ours, theirs, opt, jax_state = _run_optimizers(optim, frozen, accumulate=3, updates=7,
+                                                   with_state=True)
+    _assert_state_is_optax_leaves(opt, jax_state, frozen)
+    assert sorted(k.split(".")[0] for k in opt.state_dict() if "embed_tokens" in k) == ["acc"]
+    for name in PARAM_SHAPES:
+        np.testing.assert_allclose(ours[name], theirs[name], rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_update_allocates_no_gradient_for_a_parameter_without_one():
+    """A frozen parameter that requires no gradient (DPO's reference) gets
+    no zero gradient from `update()`, with or without accumulation: its
+    accumulator stays zero and no state or `.grad` is made for it."""
+    for accumulate in (1, 2):
+        live = torch.nn.Parameter(torch.ones(3))
+        frozen = torch.nn.Parameter(torch.ones(4), requires_grad=False)
+        opt, _ = build_optimizer(OptimConfig(lr_scheduler="constant"), 4,
+                                 [("policy.w", live), ("ref.w", frozen)], ["^ref/"], accumulate)
+        for _ in range(2 * accumulate):
+            live.grad = torch.full((3,), 0.5)
+            opt.update()
+            assert frozen.grad is None
+        assert torch.equal(frozen, torch.ones(4)) and not torch.equal(live, torch.ones(3))
+        keys = set(opt.state_dict())
+        assert {"mu.policy.w", "nu.policy.w"} <= keys and not {"mu.ref.w", "nu.ref.w"} & keys
+        assert ("acc.ref.w" in keys) == (accumulate > 1)
+        if accumulate > 1:
+            assert not opt.state_dict()["acc.ref.w"].any()
+
+
+def test_jax_masked_state_carried_into_port():
+    """A JAX state of a tiny Llama with `frozen_modules` under MultiSteps
+    (moments masked for the frozen embedding) becomes the port's
+    TrainState: exactly its keys, the same values."""
+    from llm_training_tpu_torch.models.llama.from_jax import train_state_dict_from_jax
+
+    _, params = _jax_llama()
+    frozen = ["embed_tokens"]
+    tx = optax.MultiSteps(jax_optimizer(JaxOptimConfig(**OPTIM), STEPS, frozen)[0], 2)
+    state = tx.init(params)
+    rng = np.random.default_rng(13)
+    for _ in range(3):
+        grads = jax.tree.map(lambda x: jnp.asarray(rng.standard_normal(x.shape), x.dtype), params)
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    adam = next(x for x in jax.tree.leaves(
+        state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(x, optax.ScaleByAdamState))
+    params, adam, acc = jax.device_get((params, adam, state.acc_grads))
+    config = LlamaConfig(**TINY)
+    carried = train_state_dict_from_jax(
+        config, params=params, step=3, rng=np.asarray([0, 7], np.uint32), count=int(adam.count),
+        mu=adam.mu, nu=adam.nu, acc_grads=acc, mini_step=int(state.mini_step))
+    trainer = Trainer(TrainerConfig(max_steps=STEPS, accumulate_grad_batches=2), device="cpu")
+    objective = CLM(CLMConfig(optim=OptimConfig(**OPTIM), frozen_modules=frozen),
+                    model=Llama(config, device="cpu"))
+    port_state, _ = trainer.init_state(objective)
+    assert set(carried) == set(port_state.state_dict())
+    port_state.load_state_dict(carried)
+    assert not any(k.startswith(("optimizer.mu.model.embed", "optimizer.nu.model.embed"))
+                   for k in carried)
+    for name, tensor in port_state.state_dict().items():
+        assert torch.equal(tensor, carried[name]), name
 
 
 def test_accumulation_matches_optax_multisteps():
