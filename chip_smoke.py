@@ -92,11 +92,40 @@ Phases, each of which must pass (any failure exits non-zero):
    gradients of the kernel path are no further from fp32 than 1.5 x the
    plain bf16 path's, and the loss no further than 1.5 x the plain path's
    row errors of DPO's logits carried through the loss's weights.
+14. optimizer (run after the preference phase freed its memory): the CLM
+   `Trainer` at Llama-3.1-8B widths (fp32 params, bf16 compute, selective
+   recompute, random weights from seed 0) on the fit phase's first two
+   packed 8192-token rows in turn, the example's AdamW (cosine, clip 1.0,
+   accumulation 1) at the fit phase's peak. First it reads MemAvailable
+   and fails if the pinned state would not fit, and times a plain 1 GiB
+   pinned copy each way. At 8 layers, 3 steps each: AdamW with its state
+   on the card, prefetching 2 batches and 0 (losses equal; the device idle
+   share of one traced step of each); AdamW with its state offloaded to
+   pinned host memory as float32 (parameters and losses bit-equal to the
+   on-card run), bfloat16 and int8 (blocks of 256), within the stated
+   limits of the on-card run. Then at full depth (32 layers), 4 steps:
+   AdamW with int8 state offloaded, and Adafactor with its state on the
+   card; step 1's loss near ln(vocab), the loss on each row lower at its
+   second visit. Then Lion at 8 layers. Every run: K1, K2 and K3 once a
+   layer a step (128 each at full depth), the plain path never, peak
+   memory under the card's; it prints step and update ms, tokens/s, MFU,
+   peak memory, pinned host bytes and, offloaded, the update's split
+   into copy-in, update and codec, and copy-out (CUDA events) with the
+   link's rate beside the plain copy's.
+The allocator runs with expandable segments (set before torch is
+imported) for phase 14's full-depth runs.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and as its last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
+
+import os
+
+# phase 14 holds 64 GB of float32 parameters and gradients of the full-depth
+# model beside activations and the optimizer's staging buffers: segments
+# that grow in place keep the allocator's fragmentation from failing it
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import contextlib
 import gc
@@ -104,7 +133,6 @@ import io
 import json
 import logging
 import math
-import os
 import shutil
 import sys
 import time
@@ -193,6 +221,56 @@ PREF_BETA = 0.1  # the examples' beta, of both objectives
 # the full forward through K1 the limit is ENGINE_LOGITS_RTOL, bf16 kernel
 # against plain
 PREFILL_RTOL = 1e-2
+
+# the optimizer phase: placement parity, prefetch and Lion at OPT_LAYERS for
+# OPT_STEPS steps; AdamW with int8 state offloaded, and Adafactor, at full
+# depth for OPT_FULL_STEPS steps; one packed 8192-token row a step
+OPT_LAYERS = 8
+OPT_STEPS = 3
+OPT_FULL_LAYERS = 32
+OPT_FULL_STEPS = 4
+OPT_BLOCK = 256  # the int8 codec's block (JAX's default)
+# rows of the fit phase's data the steps cycle over: step 3 sees step 1's
+# row again, so "the loss falls" compares the same row
+OPT_ROWS = 2
+OPT_DEVICE = "cuda"
+# the example's optimizer (config/examples/llama-3.1/llama-3.1-8b_pt.yaml:
+# AdamW, cosine to 0.1 of the peak, clip 1.0, accumulation 1); its warmup
+# of 10% of the run is 0 steps of 3-4. Its peak of 1e-5 suits pretrained
+# weights over 10,000 steps: an AdamW step of 1e-5 moves a fp32 weight of
+# ~0.02 by 1/8 of a bf16 step, so the bf16 products barely change in 4
+# steps (phase 13 found the same at 8e-6); the peak is the fit phase's
+# 3e-4, for Lion too (its first steps move each weight by lr, as AdamW's
+# do). Adafactor scales its step by the weights' RMS (~0.02 here), so its
+# peak is 1e-2, a step of ~2e-4 a weight
+OPT_ADAMW = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine",
+                 warmup_steps=0, min_lr_ratio=0.1, grad_clip_norm=1.0)
+OPT_LION = {**OPT_ADAMW, "optimizer": "lion"}
+OPT_ADAFACTOR = {**OPT_ADAMW, "optimizer": "adafactor", "learning_rate": 1e-2}
+# step 1's loss against ln(vocab) at random init: logits of a random head
+# spread by ~1 nat (phase 13's ORPO started 0.86 above it)
+OPT_LN_V_ATOL = 1.5
+# bfloat16 and int8 offload against the state on the card after OPT_STEPS
+# steps, as the JAX tests hold compressed state against float32 state
+# (tests/test_quantized_state.py: one step, within atol 2e-4 and rtol 1e-3).
+# The first update reads the zero initial state, which every codec stores
+# exactly, so it is the float32 update: the parameters after it, hence the
+# losses of steps 1 and 2, are bit-equal to the on-card run's. After that,
+# step 3's loss within `loss` relative, and the parameters' distance from
+# the on-card run's within `params` of that run's travel from the start
+# (Euclidean, all parameters). The bf16 cast rounds mu and nu at 2^-9
+# relative: a step's error ~2^-9 of the step. The int8 codec's error is at
+# most half a grid step of its block's largest |value| (1/254 of it), and
+# the sqrt codec's ceil floors a nu far under its block's largest at the
+# grid's first step, which shrinks that element's step: in lm_head, whose
+# blocks run along the vocabulary, a block of 256 rows holds ~16 of an
+# 8192-token row's tokens, and the other rows' gradients are tiny. The
+# int8 limits were 1e-3 and 0.1 before the first chip run, from a CPU
+# rehearsal at hidden 256 and vocabulary 2,048 (1.3e-2 of the travel),
+# where the blocks hold no such sparse rows; that run measured 1.70e-3
+# and 0.130 (PERF.md, PR 7)
+OFFLOAD_LIMITS = {"bfloat16": {"loss": 1e-3, "params": 1e-2},
+                  "int8": {"loss": 5e-3, "params": 0.3}}
 
 
 class SmokeFailure(RuntimeError):
@@ -1815,6 +1893,321 @@ def prefill_vs_full_forward(config_path: Path, prompts: list[list[int]]):
     torch.cuda.empty_cache()
     return errors["torch"], errors["auto"], scale
 
+# ------------------------------------------------------------ optimizer phase
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SmokeFailure("optimizer: /proc/meminfo has no MemAvailable")
+
+
+def offload_bytes(config, dtype: str) -> int:
+    """Host bytes of AdamW's offloaded mu and nu for a model of `config`:
+    4, 2 or 1 byte an element, and int8's float32 scales (one a block)."""
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    n = sum(p.numel() for p in Llama(config, device="meta").parameters())
+    per = {"float32": 4, "bfloat16": 2, "int8": 1 + 4 / OPT_BLOCK}[dtype]
+    return int(2 * n * per)
+
+
+def pinned_copy_rate(nbytes: int = 1 << 30) -> dict:
+    """A plain copy of 1 GiB between pinned host memory and the card, each
+    way (device time, CUDA events): the yardstick of the offloaded round
+    trip's rate."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=OPT_DEVICE)
+    out = {}
+    for name, (dst, src) in (("h2d", (dev, host)), ("d2h", (host, dev))):
+        dst.copy_(src, non_blocking=True)  # warm
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(4):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[f"{name}_gb_s"] = 4 * nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+    del host, dev
+    return out
+
+
+def optimizer_run(card: str, name: str, layers: int, steps: int, optim: dict,
+                  prefetch: int = 2, profile: bool = False, inspect=None, **offload) -> dict:
+    """One fit of the optimizer phase through the Trainer: Llama-3.1-8B
+    widths at `layers` layers, bf16 compute, selective recompute, random
+    weights from seed 0, one packed 8192-token row a step. Times each step
+    (synchronized) and each optimizer update (CUDA events), and with
+    offload the update's split (copy in, update and codec, copy out).
+    `inspect(state, start)` reads what a check needs from the final state
+    (`start`: host copies of the initial parameters) before the run's
+    objects are freed."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset("llama-3.1-8b", num_hidden_layers=layers, param_dtype="float32",
+                    compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                    recompute_granularity="selective")
+    batches = packed_batches(0, TRAIN_SEQ, 4, config.vocab_size)[:OPT_ROWS]
+
+    class Repeated(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            for i in range(start_step, 10**9):
+                yield batches[i % OPT_ROWS]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.update_ms, self.splits, self.t = [], [], [], [], None
+
+        def on_fit_start(self, trainer, *args):
+            if inspect is not None:
+                self.start = {n: p.detach().to("cpu", copy=True)
+                              for n, p in trainer.state.model.named_parameters()}
+            optimizer = trainer.state.optimizer
+            optimizer.store.timing = True
+            update = optimizer.update
+
+            def timed_update():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                changed = update()
+                end.record()
+                end.synchronize()
+                self.update_ms.append(start.elapsed_time(end))
+                if optimizer.store.split is not None:
+                    self.splits.append(dict(optimizer.store.split))
+                return changed
+
+            optimizer.update = timed_update
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    clock = Clock()
+    trainer = Trainer(
+        TrainerConfig(max_steps=steps, seed=0, log_every_n_steps=1, prefetch_batches=prefetch,
+                      **offload),
+        callbacks=[clock], device=OPT_DEVICE,
+    )
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**optim)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Repeated(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = n_params - model.model.embed_tokens.weight.numel()
+    head_dim, hq = config.resolved_head_dim, config.num_attention_heads
+    work = []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device=OPT_DEVICE)
+        tokens = int((batch["segment_ids"] > 0).sum())
+        work.append((tokens, 6 * n_matmul * tokens
+                     + 12 * head_dim * hq * layers * bench_flash.visible_pairs(seg, seg)))
+    timed = range(1, steps)  # step 1 carries the warm-up
+    seconds = sum(clock.step_s[s] for s in timed)
+    split = {}
+    if clock.splits:
+        for key in clock.splits[0]:
+            split[key] = percentile([s[key] for s in clock.splits[1:] or clock.splits], 50)
+        moved = split["bytes_in"] + split["bytes_out"]
+        split["link_gb_s"] = moved / ((split["copy_in_ms"] + split["copy_out_ms"]) / 1e3) / 1e9
+    result = dict(
+        name=name, layers=layers, steps=steps, params=n_params, optimizer=optim["optimizer"],
+        offload=state.optimizer.offload, prefetch_batches=prefetch,
+        launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+        losses=clock.losses, step_ms=[1e3 * t for t in clock.step_s],
+        step_ms_p50=1e3 * percentile([clock.step_s[s] for s in timed], 50),
+        update_ms_p50=percentile(clock.update_ms[1:], 50),
+        tokens_per_s=sum(work[s % OPT_ROWS][0] for s in timed) / seconds,
+        mfu=sum(work[s % OPT_ROWS][1] for s in timed) / seconds / bench_flash.BF16_FLOPS_PER_S,
+        peak_memory_gb=peak_gb, host_bytes=state.optimizer.store.host_bytes(), split=split,
+    )
+    if inspect is not None:  # the state after the fit, before the traced steps
+        result["inspect"] = inspect(state, clock.start)
+    if profile:
+        stream = trainer.train_stream(Repeated(BaseDataModuleConfig()), steps)
+
+        def step():
+            batch, _ = next(stream)
+            trainer.train_micro_step(objective, state, batch)
+
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+        wall_ms = percentile(walls, 50)
+        busy_ms, kernels, _ = device_profile(step, 1)
+        if hasattr(stream, "close"):
+            stream.close()
+        check_busy(f"optimizer {name} profile", busy_ms, wall_ms)
+        result.update(profile_busy_ms=busy_ms, profile_wall_ms=wall_ms,
+                      profile_idle_share=1 - busy_ms / wall_ms, profile_kernels=kernels)
+    print(f"optimizer {name} [{card}]: {layers} layers ({n_params} params), {steps} steps of 1 x "
+          f"{TRAIN_SEQ} packed tokens, {optim['optimizer']} lr {optim['learning_rate']}, "
+          f"offload {state.optimizer.offload}, prefetch {prefetch}; losses "
+          + ", ".join(f"{x:.6f}" for x in clock.losses)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain {plain[0]}; step p50 "
+          f"{result['step_ms_p50']:.1f} ms, update p50 {result['update_ms_p50']:.1f} ms, "
+          f"{result['tokens_per_s']:.0f} tokens/s, MFU {100 * result['mfu']:.2f}%, peak "
+          f"{peak_gb:.2f} GB, pinned host {result['host_bytes']} bytes"
+          + (f"; split (p50 over steps 2-{steps}) copy in {split['copy_in_ms']:.1f} ms, update "
+             f"and codec {split['update_ms']:.1f} ms, copy out {split['copy_out_ms']:.1f} ms, "
+             f"{split['bytes_in'] + split['bytes_out']} bytes at {split['link_gb_s']:.2f} GB/s"
+             if split else "")
+          + (f"; traced step: busy {result['profile_busy_ms']:.1f} of {result['profile_wall_ms']:.1f}"
+             f" ms, idle {100 * result['profile_idle_share']:.2f}%" if profile else ""),
+          flush=True)
+    check(len(clock.losses) == steps and all(math.isfinite(x) for x in clock.losses),
+          f"optimizer {name}: losses {clock.losses}")
+    expected = [layers * steps] * 3  # selective recompute: K1 once a layer a step
+    check(launches == expected and plain[0] == 0,
+          f"optimizer {name}: K1/K2/K3 launched {launches}, expected {expected}; plain path "
+          f"{plain[0]} times")
+    check(peak_gb * 1e9 < torch.cuda.get_device_properties(0).total_memory,
+          f"optimizer {name}: peak {peak_gb:.2f} GB")
+    del state, trainer, objective, model, clock
+    release()
+    return result
+
+
+def release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    empty_host = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host is not None:  # the pinned blocks the previous run cached
+        empty_host()
+
+
+def phase_optimizer(card: str) -> dict:
+    """Optimizer placement, full depth, Lion and prefetch (see the header)."""
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    full = preset("llama-3.1-8b", num_hidden_layers=OPT_FULL_LAYERS)
+    needed = max(offload_bytes(preset("llama-3.1-8b", num_hidden_layers=OPT_LAYERS), "float32"),
+                 offload_bytes(full, "int8"))
+    available = mem_available()
+    print(f"optimizer: MemAvailable {available} bytes; the largest pinned state {needed} bytes "
+          f"(x2 for the pinned allocator's power-of-two blocks)", flush=True)
+    check(available >= 2 * needed,
+          f"optimizer: MemAvailable {available} bytes, the phase pins up to {needed} bytes")
+    rate = pinned_copy_rate()
+    print(f"optimizer [{card}]: plain 1 GiB pinned copy: host to card {rate['h2d_gb_s']:.2f} GB/s, "
+          f"card to host {rate['d2h_gb_s']:.2f} GB/s", flush=True)
+    out = {"pinned_copy": rate}
+
+    # 1. placement parity at OPT_LAYERS, and prefetch 2 against 0
+    def keep(state, start):
+        """The final parameters (host copies) and their travel from the start."""
+        final = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
+        travel = sum(float((final[n].double() - start[n].double()).pow(2).sum())
+                     for n in final) ** 0.5
+        return final, travel
+
+    ref = optimizer_run(card, "adamw_card", OPT_LAYERS, OPT_STEPS, OPT_ADAMW, profile=True,
+                        inspect=keep)
+    p_ref, travel = ref.pop("inspect")
+    out["adamw_card"] = ref
+    run = optimizer_run(card, "adamw_card_prefetch0", OPT_LAYERS, OPT_STEPS, OPT_ADAMW,
+                        prefetch=0, profile=True)
+    check(run["losses"] == ref["losses"],
+          f"optimizer: prefetch 0 losses {run['losses']} != prefetch 2 {ref['losses']}")
+    out["adamw_card_prefetch0"] = run
+
+    def against_ref(state, start):
+        """The parameters that differ from the on-card run's; the distance
+        from them over that run's travel, in all and by parameter."""
+        differ, by_name = [], {}
+        for n, p in state.model.named_parameters():
+            p = p.detach().to("cpu")
+            if not torch.equal(p, p_ref[n]):
+                differ.append(n)
+            by_name[n] = float((p.double() - p_ref[n].double()).pow(2).sum())
+        worst = sorted(by_name, key=by_name.get, reverse=True)[:3]
+        return differ, sum(by_name.values()) ** 0.5 / travel, {
+            n: by_name[n] ** 0.5 / travel for n in worst}
+
+    for dtype in ("float32", "bfloat16", "int8"):
+        name = f"adamw_offload_{dtype}"
+        run = optimizer_run(card, name, OPT_LAYERS, OPT_STEPS, OPT_ADAMW, inspect=against_ref,
+                            offload_optimizer_state=True, offload_state_dtype=dtype,
+                            offload_quant_block=OPT_BLOCK)
+        differ, run["param_rel_err"], run["param_rel_err_worst"] = run.pop("inspect")
+        run["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+        out[name] = run
+        if dtype == "float32":
+            check(run["losses"] == ref["losses"] and not differ,
+                  f"optimizer: float32 offload is not bit-equal to the state on the card: "
+                  f"losses {run['losses']} vs {ref['losses']}, parameters differ {differ[:4]}")
+            continue
+        limit = OFFLOAD_LIMITS[dtype]
+        print(f"optimizer {name}: against the state on the card, losses of steps 1-2 "
+              f"{'bit-equal' if run['losses'][:2] == ref['losses'][:2] else 'DIFFERENT'}, "
+              f"within {run['loss_rel_err']:.3e} (limit {limit['loss']}); parameters "
+              f"{run['param_rel_err']:.3e} of the update's travel (limit {limit['params']}), "
+              "largest shares " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                            run["param_rel_err_worst"].items()), flush=True)
+        check(run["losses"][:2] == ref["losses"][:2] and run["loss_rel_err"] <= limit["loss"]
+              and run["param_rel_err"] <= limit["params"],
+              f"optimizer: {dtype} offload left its limits")
+    del p_ref
+    release()
+
+    # 2-3. full depth: AdamW with int8 state in pinned host memory; Adafactor on the card
+    for name, optim, offload in (
+        ("adamw_int8_full", OPT_ADAMW, dict(offload_optimizer_state=True,
+                                            offload_state_dtype="int8",
+                                            offload_quant_block=OPT_BLOCK)),
+        ("adafactor_full", OPT_ADAFACTOR, {}),
+    ):
+        run = optimizer_run(card, name, OPT_FULL_LAYERS, OPT_FULL_STEPS, optim, **offload)
+        losses = run["losses"]
+        check(abs(losses[0] - math.log(full.vocab_size)) <= OPT_LN_V_ATOL
+              and losses[2] < losses[0] and losses[3] < losses[1],
+              f"optimizer {name}: losses {losses} (ln V = {math.log(full.vocab_size):.4f})")
+        check((run["host_bytes"] > 0) == bool(offload),
+              f"optimizer {name}: {run['host_bytes']} bytes of state in host memory")
+        out[name] = run
+
+    # 4. Lion with its state on the card
+    run = optimizer_run(card, "lion_card", OPT_LAYERS, OPT_STEPS, OPT_LION)
+    check(run["losses"][2] < run["losses"][0], f"optimizer lion: losses {run['losses']}")
+    out["lion_card"] = run
+    return out
+
 
 def main() -> int:
     if len(sys.argv) != 1:
@@ -1846,6 +2239,7 @@ def main() -> int:
     train = phase_train(card)
     lifecycle = phase_lifecycle(card)
     preference = phase_preference(card)
+    optimizer = phase_optimizer(card)
     phase_train_parity()
     flash = phase_flash_timing(card)
     phase_random_streams(card)
@@ -1853,6 +2247,7 @@ def main() -> int:
     print(f"train summary [{card}]: " + json.dumps(train))
     print(f"lifecycle summary [{card}]: " + json.dumps(lifecycle))
     print(f"preference summary [{card}]: " + json.dumps(preference))
+    print(f"optimizer summary [{card}]: " + json.dumps(optimizer))
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1867,8 +2262,9 @@ def main() -> int:
         "library_ms": None,
     }]
     for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
+        # launches on this slice's path: full-depth AdamW with int8 state offloaded
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": train["launches"][kind], **flash[kind]})
+                     "launches": optimizer["adamw_int8_full"]["launches"][kind], **flash[kind]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -279,7 +279,7 @@ def _parse_prompts(args, config: dict) -> list[list[int]]:
             )
         raise NotImplementedError(
             "--prompt: tokenizers come with the HF data modules, not ported yet (ROADMAP "
-            "A.2); use --prompt-tokens"
+            "A.5); use --prompt-tokens"
         )
     if not prompts:
         raise SystemExit("generate needs --prompt-tokens and/or --prompt")

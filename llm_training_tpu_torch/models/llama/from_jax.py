@@ -6,9 +6,10 @@ them from the device first). Both JAX layouts are read: scanned
 (`layers/layer/...` with a leading `[L, ...]` axis) and looped
 (`layers_{i}/...`). Flax `Dense.kernel [in, out]` becomes torch
 `weight [out, in]`. `train_state_dict_from_jax` maps a training state
-(params, optax's moments and count, `MultiSteps`' accumulator, the key
-and the step) onto the port's `TrainState.state_dict()`, so a run started
-in the JAX package resumes in the port.
+(params, optax's moments and count -- adam's, lion's and adafactor's, as
+stored by an offloaded run too -- `MultiSteps`' accumulator, the key and
+the step) onto the port's `TrainState.state_dict()`, so a run started in
+the JAX package resumes in the port.
 
 A preference objective's tree `{"policy": ..., "ref": ...}` (DPO) maps onto
 the names of the port's `PolicyAndReference` module, `policy.<name>` and
@@ -78,6 +79,8 @@ def jax_leaf(name: str) -> tuple[int | None, tuple[str, ...]]:
 
 
 PAIR = ("policy", "ref")
+# Adafactor's state fields, kept per JAX leaf
+ADAFACTOR_FIELDS = ("v_row", "v_col", "v", "ema")
 
 
 def jax_paths(name: str) -> list[str]:
@@ -100,19 +103,36 @@ def jax_paths(name: str) -> list[str]:
     return [f"params/layers/layer/{tail}", f"params/layers_{layer}/{tail}"]
 
 
+def jax_layout(name: str) -> tuple[str, int | None, bool]:
+    """How the port's parameter `name` sits in the JAX package's default
+    (scanned) tree: the name of its JAX leaf -- a decoder layer's parameter
+    shares one `[L, ...]` leaf with its namesakes in the other layers,
+    named here with `*` for the layer (`model.layers.*.mlp.up_proj.weight`)
+    -- its layer in that leaf (None outside the layers), and whether the
+    JAX array is the transpose of the port's (a Dense `kernel`). A name
+    that is not a `Llama` parameter is a leaf of its own, as the port keeps
+    it."""
+    part, _, rest = name.partition(".")
+    if part in PAIR:
+        leaf, layer, transposed = jax_layout(rest)
+        return f"{part}.{leaf}", layer, transposed
+    try:
+        layer, keys = jax_leaf(name)
+    except KeyError:
+        return name, None, False
+    if layer is None:
+        return name, None, keys[-1] == "kernel"
+    parts = name.split(".")
+    return ".".join(parts[:2] + ["*"] + parts[3:]), layer, keys[-1] == "kernel"
+
+
 def _masked(node: Any) -> bool:
     """`optax.MaskedNode`, the state of a frozen leaf: an empty tuple."""
     return isinstance(node, tuple) and not node
 
 
 def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> np.ndarray | None:
-    scanned = layer is not None and "layers" in params
-    if layer is None:
-        node = params
-    else:
-        node = params["layers"]["layer"] if scanned else params[f"layers_{layer}"]
-    for key in keys:
-        node = node[key]
+    node, scanned = _node(params, layer, keys)
     if _masked(node):
         return None
     return np.asarray(node[layer] if scanned else node)
@@ -144,6 +164,76 @@ def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[
     return out
 
 
+def _is_quant(node: Any) -> bool:
+    """A JAX `QuantArray` leaf of the int8 codec (codes `q`, scales `scale`)."""
+    return hasattr(node, "q") and hasattr(node, "scale")
+
+
+def _stored(array: Any) -> torch.Tensor:
+    """A stored state array as a tensor of its own dtype (bfloat16 through
+    float32, exactly)."""
+    a = np.asarray(array)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def _node(tree: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> tuple[Any, bool]:
+    """The leaf below `keys` and whether it is the scanned `[L, ...]` one."""
+    scanned = layer is not None and "layers" in tree
+    if layer is None:
+        node = tree
+    else:
+        node = tree["layers"]["layer"] if scanned else tree[f"layers_{layer}"]
+    for key in keys:
+        node = node[key]
+    return node, scanned
+
+
+def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field: str,
+                             per_leaf: bool = False) -> dict[str, torch.Tensor]:
+    """The port's optimizer-state entries (`<field>.<name>`, and
+    `<field>.<name>.q` / `.scale` for a `QuantArray` of the int8 codec)
+    from one JAX state tree in the parameter tree's layout, each in its
+    stored dtype (bfloat16-cast leaves stay bfloat16). Per parameter
+    (`mu`, `nu`, `trace`, `acc`): a scanned leaf is split by layer and a
+    Dense kernel's arrays are transposed, codes and scales alike.
+    `per_leaf` (Adafactor's `v_row`, `v_col`, `v`, `ema`): one entry per
+    JAX leaf (`jax_layout`), copied as it is, optax's (1,) placeholders
+    included; the looped JAX layout raises, as the port keeps Adafactor's
+    state per scanned leaf. Masked (frozen) leaves are left out."""
+    if set(tree) == set(PAIR):
+        out = {}
+        for part in PAIR:
+            out.update({f"{field}.{part}.{k.split('.', 1)[1]}": v for k, v in
+                        optimizer_state_from_jax(tree[part], config, field, per_leaf).items()})
+        return out
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for name in parameter_names(config):
+        layer, keys = jax_leaf(name)
+        node, scanned = _node(tree, layer, keys)
+        if _masked(node):
+            continue
+        parts = {"q": node.q, "scale": node.scale} if _is_quant(node) else {"": node}
+        if per_leaf:
+            if layer is not None and not scanned:
+                raise ValueError(
+                    "Adafactor state of the looped JAX layout (scan_layers=False) has no "
+                    "counterpart in the port, which keeps it per scanned leaf"
+                )
+            key = f"{field}.{jax_layout(name)[0]}"
+        else:
+            key = f"{field}.{name}"
+            parts = {s: np.asarray(a)[layer] if scanned else a for s, a in parts.items()}
+            if keys[-1] == "kernel":
+                parts = {s: np.asarray(a).T for s, a in parts.items()}
+        for suffix, array in parts.items():
+            out[f"{key}.{suffix}" if suffix else key] = _stored(array)
+    return out
+
+
 def train_state_dict_from_jax(
     config: LlamaConfig,
     *,
@@ -151,21 +241,25 @@ def train_state_dict_from_jax(
     step: int,
     rng: Any,
     count: int,
-    mu: Mapping[str, Any] | None = None,
-    nu: Mapping[str, Any] | None = None,
-    trace: Mapping[str, Any] | None = None,
-    acc_grads: Mapping[str, Any] | None = None,
     mini_step: int = 0,
+    acc_grads: Mapping[str, Any] | None = None,
+    **state: Mapping[str, Any] | None,
 ) -> dict[str, torch.Tensor]:
     """The port's `TrainState.state_dict()` entries from a JAX `TrainState`'s
     arrays: `step` (micro-steps), `rng` (`jax.random.key_data`, two 32-bit
     words), the parameter tree, the optimizer's `count` (its inner updates:
-    `ScaleByAdamState.count`), its per-parameter trees (`mu`/`nu` of adam,
-    `trace` of sgd with momentum) and, with accumulation, `MultiSteps`'
-    `acc_grads` and `mini_step`. Each tree has the parameter tree's layout
-    (a DPO pair's too; `mu`, `nu` and `trace` masked where a parameter
-    is frozen). Load it with `TrainState.load_state_dict` into a state built for the
+    `ScaleByAdamState.count`, `ScaleByLionState.count`, `FactoredState.count`),
+    with accumulation `MultiSteps`' `acc_grads` and `mini_step`, and the
+    optimizer's state trees by optax's field names: `mu`/`nu` (adam, adamw),
+    `mu` (lion), `trace` (sgd with momentum), `v_row`/`v_col`/`v` and `ema`
+    (adafactor). Each tree has the parameter tree's layout (a DPO pair's
+    too; masked where a parameter is frozen); its leaves may be the int8
+    codec's `QuantArray`s or bfloat16-cast arrays of an offloaded run.
+    Load it with `TrainState.load_state_dict` into a state built for the
     same run (`Trainer.init_state`), then `Checkpointer.save` it."""
+    unknown = set(state) - {"mu", "nu", "trace", *ADAFACTOR_FIELDS}
+    if unknown:
+        raise TypeError(f"unknown optimizer state fields {sorted(unknown)}")
     words = [int(w) for w in np.asarray(rng).reshape(-1)]
     if len(words) != 2:
         raise ValueError(f"rng: expected the two words of a threefry key's data, got {words}")
@@ -177,8 +271,9 @@ def train_state_dict_from_jax(
     }
     out.update({f"model.{k}": v
                 for k, v in state_dict_from_jax(params, config).items()})
-    for kind, tree in (("mu", mu), ("nu", nu), ("trace", trace), ("acc", acc_grads)):
+    for field, tree in {**state, "acc": acc_grads}.items():
         if tree is not None:
-            out.update({f"optimizer.{kind}.{k}": v
-                        for k, v in state_dict_from_jax(tree, config).items()})
+            entries = optimizer_state_from_jax(tree, config, field,
+                                               per_leaf=field in ADAFACTOR_FIELDS)
+            out.update({f"optimizer.{k}": v for k, v in entries.items()})
     return out

@@ -22,9 +22,17 @@ the model's parameters, because torch's optimizers differ from optax's:
   parameter has no `mu`, `nu` or `trace`, while the accumulator covers
   every parameter, as `MultiSteps` wraps the whole tree. A parameter with
   no gradient (one that does not require it, as DPO's reference) counts
-  as a zero gradient without one being allocated.
+  as a zero gradient without one being allocated;
+- `lion` is `optax.lion` (b1 0.9, b2 0.99, weight decay 1e-3): u =
+  sign((1 - b1) g + b1 mu) with sign(0) = 0, then mu <- (1 - b2) g +
+  b2 mu, u += wd p, p -= lr u; its state is `mu`;
+- `adafactor` is `optax.adafactor` over the JAX layout of each parameter
+  (`adafactor.py`).
 
-`lion` and `adafactor` are not ported yet (ROADMAP A.2).
+The offloaded state (`offload_optimizer_state`, `offload_state_dtype`,
+`offload_quant_block` of the trainer) is a placement of this same state
+(`offload.py`, `quantized_state.py`): the update is the same math, the
+global-norm clip first, then one parameter (or JAX leaf) at a time.
 """
 
 from __future__ import annotations
@@ -36,16 +44,24 @@ from typing import Any, Callable
 
 import torch
 
-from llm_training_tpu_torch.models.llama.from_jax import jax_paths
+from llm_training_tpu_torch.models.llama.from_jax import jax_layout, jax_paths
+from llm_training_tpu_torch.optim import adafactor
+from llm_training_tpu_torch.optim.offload import StateStore
+from llm_training_tpu_torch.optim.quantized_state import DEFAULT_BLOCK
 
-_OPTIMIZERS = ("adamw", "adam", "sgd")
-_NOT_PORTED = ("adafactor", "lion")
 _SCHEDULES = ("constant", "cosine", "linear")
+# each optimizer's kwargs and their optax defaults
 _KWARGS = {
     "adamw": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0, "weight_decay": 1e-4},
     "adam": {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0},
     "sgd": {"momentum": None, "nesterov": False},
+    "lion": {"b1": 0.9, "b2": 0.99, "weight_decay": 1e-3},
+    "adafactor": adafactor.KWARGS,
 }
+_OFFLOAD_DEFAULTS = {"offload_optimizer_state": False, "offload_state_dtype": "float32",
+                     "offload_quant_block": DEFAULT_BLOCK}
+# elements of one unit of the elementwise update: bounds its temporaries
+_CHUNK = 1 << 26
 
 
 @dataclass
@@ -119,7 +135,16 @@ def _frozen(name: str, patterns: list[re.Pattern]) -> bool:
 class Optimizer:
     """The optax chain of `build_optimizer` over named parameters, updated
     in place. Call `update()` once per micro-step after the backward; it
-    applies the inner update on every `accumulate`-th call."""
+    applies the inner update on every `accumulate`-th call.
+
+    The state lives in a `StateStore` (`offload.py`): on the parameters'
+    device, or offloaded to pinned host memory through a storage codec. The
+    update walks it unit by unit -- a row chunk of one parameter for the
+    elementwise optimizers, one JAX leaf (`adafactor.Group`) for Adafactor
+    -- after the global-norm clip, and frees each gradient once its
+    parameter is updated. Per-parameter state keys are `<field>.<name>`;
+    Adafactor's are `<field>.<JAX leaf>` in the JAX leaf's orientation
+    (`from_jax.jax_layout`)."""
 
     def __init__(
         self,
@@ -128,16 +153,13 @@ class Optimizer:
         schedule: Callable[[int], float],
         frozen_modules: list[str] | None = None,
         accumulate: int = 1,
+        offload: bool = False,
+        state_dtype: str = "float32",
+        quant_block: int = DEFAULT_BLOCK,
     ):
-        if config.optimizer in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {config.optimizer!r} is not ported yet (ROADMAP A.2); "
-                f"use one of {_OPTIMIZERS}"
-            )
-        if config.optimizer not in _OPTIMIZERS:
+        if config.optimizer not in _KWARGS:
             raise ValueError(
-                f"unknown optimizer {config.optimizer!r}; expected one of "
-                f"{sorted(_OPTIMIZERS + _NOT_PORTED)}"
+                f"unknown optimizer {config.optimizer!r}; expected one of {sorted(_KWARGS)}"
             )
         unknown = set(config.optimizer_kwargs) - set(_KWARGS[config.optimizer])
         if unknown:
@@ -147,45 +169,54 @@ class Optimizer:
         self.clip = config.grad_clip_norm
         self.schedule = schedule
         self.accumulate = accumulate
+        self.offload = {"offload_optimizer_state": offload, "offload_state_dtype": state_dtype,
+                        "offload_quant_block": quant_block}
         patterns = [re.compile(p) for p in frozen_modules or []]
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
         self.count = 0  # inner updates done
         self.mini_step = 0
-        # the moments of trainable parameters only (index-aligned with
-        # `self.live`), as optax.masked allocates them
+        # the state covers the trainable parameters only, as optax.masked
+        # allocates it; the accumulator covers all of them
         self.live = [i for i, t in enumerate(self.trainable) if t]
-        zeros = lambda idx: [torch.zeros_like(self.params[i]) for i in idx]  # noqa: E731
-        self.acc = zeros(range(len(self.params))) if accumulate > 1 else None
-        if self.kind in ("adamw", "adam"):
-            self.mu, self.nu = zeros(self.live), zeros(self.live)
-        elif self.hyper["momentum"] is not None:
-            self.trace = zeros(self.live)
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.store = StateStore(device, offload, state_dtype, quant_block)
+        layouts = [jax_layout(n) for n in self.names]
+        # the JAX array's last axis, where the codec's blocks run
+        self._axis = [0 if transposed and p.ndim == 2 else -1
+                      for p, (_, _, transposed) in zip(self.params, layouts)]
+        zeros = lambda i: torch.zeros_like(self.params[i])  # noqa: E731
+        if accumulate > 1:
+            for i, name in enumerate(self.names):
+                self.store.add(f"acc.{name}", zeros(i))
+        if self.kind == "adafactor":
+            self.groups = _groups(self.live, self.names, layouts)
+            for group in self.groups:
+                state = adafactor.init_state(group.shape(self.params), self.hyper, device)
+                for field, value in state.items():
+                    self.store.add(f"{field}.{group.name}", value)
+                self.fields = tuple(state)
+        else:
+            momentum = self.kind == "sgd" and self.hyper["momentum"] is not None
+            self.fields = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"), "lion": ("mu",),
+                           "sgd": ("trace",) if momentum else ()}[self.kind]
+            for i in self.live:
+                for field in self.fields:
+                    self.store.add(f"{field}.{self.names[i]}", zeros(i), self._axis[i])
 
-    def _buffers(self) -> dict[str, tuple[list[str], list[torch.Tensor]]]:
-        """The per-parameter state lists this optimizer holds, by optax's
-        names, each with the names of the parameters it covers: `mu`/`nu`
-        (adam, adamw) and `trace` (sgd with momentum) over the trainable
-        parameters, `acc` (MultiSteps' running mean, with accumulation)
-        over all of them."""
-        live_names = [self.names[i] for i in self.live]
-        out = {}
-        for name in ("mu", "nu", "trace", "acc"):
-            buffers = getattr(self, name, None)
-            if buffers is not None:
-                out[name] = (self.names if name == "acc" else live_names, buffers)
-        return out
+    # ------------------------------------------------------------ layout
 
     def layout(self) -> dict:
         """What the state's shape depends on: the optimizer, the
-        accumulation factor, and each parameter's shape, dtype and
-        trainability (the freeze mask). A checkpoint restores only into
-        the same layout."""
+        accumulation factor, the offload placement and codec, and each
+        parameter's shape, dtype and trainability (the freeze mask). A
+        checkpoint restores only into the same layout."""
         return {
             "kind": self.kind,
             "accumulate": self.accumulate,
-            "state": sorted(self._buffers()),
+            **self.offload,
+            "state": sorted({key.split(".", 1)[0] for key in self.store.entries}),
             "params": {
                 name: {"shape": list(p.shape), "dtype": str(p.dtype).removeprefix("torch."),
                        "trainable": trainable}
@@ -195,9 +226,11 @@ class Optimizer:
 
     def check_layout(self, saved: dict) -> None:
         """Raise ValueError naming the first difference between a
-        checkpoint's `layout()` and this optimizer's."""
+        checkpoint's `layout()` and this optimizer's (a checkpoint written
+        before the offload keys existed holds their defaults)."""
         live = self.layout()
-        for key in ("kind", "accumulate", "state"):
+        saved = {**_OFFLOAD_DEFAULTS, **saved}
+        for key in ("kind", "accumulate", *_OFFLOAD_DEFAULTS, "state"):
             if saved.get(key) != live[key]:
                 raise ValueError(
                     f"optimizer {key}: checkpoint has {saved.get(key)!r}, this run {live[key]!r}"
@@ -219,90 +252,171 @@ class Optimizer:
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """The optax state as named tensors: `count` (inner updates),
-        `mini_step` (MultiSteps), and `{mu,nu,trace,acc}.<parameter>`. The
-        per-parameter tensors are the live buffers, not copies."""
+        `mini_step` (MultiSteps), and the stored state by key (`<key>.q`
+        and `<key>.scale` where the int8 codec encoded it). The
+        per-parameter tensors are the live storage, not copies."""
+        if self.mini_step == 0:  # between optimizer steps the accumulator is zero
+            self.store.synchronize()
+            for key, entry in self.store.entries.items():
+                if key.startswith("acc."):
+                    entry.parts[""].zero_()
         out = {
             "count": torch.tensor(self.count, dtype=torch.int64),
             "mini_step": torch.tensor(self.mini_step, dtype=torch.int64),
         }
-        for kind, (names, buffers) in self._buffers().items():
-            out.update({f"{kind}.{name}": t for name, t in zip(names, buffers)})
+        out.update(self.store.state_dict())
         return out
 
     @torch.no_grad()
     def load_state_dict(self, state: dict[str, torch.Tensor]) -> None:
         """Take `state_dict()`'s tensors back (copied into the live
-        buffers unless they are those buffers). Raises KeyError on a
+        storage unless they are that storage). Raises KeyError on a
         missing or unexpected key."""
-        expected = set(self.state_dict())
-        if set(state) != expected:
+        live = self.state_dict()
+        if set(state) != set(live):
             raise KeyError(
-                f"optimizer state keys differ: missing {sorted(expected - set(state))}, "
-                f"unexpected {sorted(set(state) - expected)}"
+                f"optimizer state keys differ: missing {sorted(set(live) - set(state))}, "
+                f"unexpected {sorted(set(state) - set(live))}"
             )
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        for kind, (names, buffers) in self._buffers().items():
-            for name, buffer in zip(names, buffers):
-                source = state[f"{kind}.{name}"]
-                if source.data_ptr() != buffer.data_ptr():
-                    buffer.copy_(source)
+        for key, buffer in live.items():
+            if key not in ("count", "mini_step") and state[key].data_ptr() != buffer.data_ptr():
+                buffer.copy_(state[key])
+
+    # ------------------------------------------------------------ the update
+
+    def _chunks(self, indices) -> list[tuple[int, tuple[int, int] | None]]:
+        """(parameter, row range) units of at most `_CHUNK` elements; a
+        range along a blocked dim 0 covers whole blocks."""
+        out = []
+        for i in indices:
+            p = self.params[i]
+            if p.ndim < 2 or p.numel() <= _CHUNK:
+                out.append((i, None))
+                continue
+            step = max(1, _CHUNK // (p.numel() // p.shape[0]))
+            if self._axis[i] == 0:
+                block = self.offload["offload_quant_block"]
+                step = max(block, step // block * block)
+            out += [(i, (r, min(r + step, p.shape[0]))) for r in range(0, p.shape[0], step)]
+        return out
 
     @torch.no_grad()
     def update(self) -> bool:
-        """Consume the parameters' `.grad` (clipped in place, or folded into
-        the running mean and released); returns whether the parameters
+        """Consume the parameters' `.grad` (folded into the running mean,
+        or clipped in place, and released); returns whether the parameters
         changed (every `accumulate`-th call)."""
         grads = [p.grad for p in self.params]
-        if self.acc is not None:
-            for acc, g in zip(self.acc, grads):
-                if g is None:  # a zero gradient: acc + (0 - acc) / (n + 1)
-                    acc.sub_(acc / (self.mini_step + 1))
+        for p in self.params:
+            p.grad = None
+        if self.accumulate > 1:
+            n = self.mini_step
+            final = n + 1 == self.accumulate
+            # the final micro-step folds the mean into the trainable
+            # parameters' gradients; a frozen one's is never read
+            units = self._chunks(self.live if final else range(len(self.params)))
+            keys = [([f"acc.{self.names[i]}"], rows) for i, rows in units]
+            # the first micro-step's mean is its gradient: nothing to fetch
+            stream = self.store.stream(keys, fetch=n > 0, write=not final)
+            # iterate the stream itself: its write-back runs on each next()
+            for u, work in enumerate(stream):
+                i, rows = units[u]
+                acc = work[f"acc.{self.names[i]}"]
+                if final and grads[i] is None:
+                    grads[i] = torch.zeros_like(self.params[i])
+                g = grads[i] if rows is None or grads[i] is None else grads[i][rows[0]:rows[1]]
+                if final:  # acc + (g - acc) / k, in the gradient's own memory
+                    g.sub_(acc).div_(n + 1).add_(acc)
+                elif n == 0:
+                    acc.copy_(g) if g is not None else acc.zero_()
+                elif g is None:  # a zero gradient: acc + (0 - acc) / (n + 1)
+                    acc.sub_(acc / (n + 1))
                 else:
-                    acc.add_((g - acc) / (self.mini_step + 1))
-            for p in self.params:
-                p.grad = None
-            self.mini_step += 1
-            if self.mini_step < self.accumulate:
+                    acc.add_((g - acc) / (n + 1))
+            if not final:
+                self.mini_step += 1
                 return False
             self.mini_step = 0
-            grads = self.acc  # zeroed below, after the inner update
         self._inner_update(grads)
-        if self.acc is not None:
-            for acc in self.acc:
-                acc.zero_()
         return True
 
     def _inner_update(self, grads: list[torch.Tensor | None]) -> None:
         # a trainable parameter without a gradient takes a zero one, as the
         # unmasked optax chain sees it
-        live = [(j, i, grads[i] if grads[i] is not None else torch.zeros_like(self.params[i]))
-                for j, i in enumerate(self.live)]
-        if self.clip is not None and live:
-            norm = global_norm([g for _, _, g in live])
+        for i in self.live:
+            if grads[i] is None:
+                grads[i] = torch.zeros_like(self.params[i])
+        if self.clip is not None and self.live:
+            norm = global_norm([grads[i] for i in self.live])
             if not bool(norm < self.clip):
-                for _, _, g in live:
-                    g.div_(norm).mul_(self.clip)
+                for i in self.live:
+                    grads[i].div_(norm).mul_(self.clip)
         lr = self.schedule(self.count)
+        count = self.count
         self.count += 1
+        if self.kind == "adafactor":
+            units = [([f"{f}.{g.name}" for f in self.fields], None) for g in self.groups]
+            for g, work in enumerate(self.store.stream(units)):
+                group = self.groups[g]
+                state = {k.split(".", 1)[0]: t for k, t in work.items()}
+                adafactor.update(group, self.params, grads, state, count, lr, self.hyper)
+                for i in group.members:
+                    grads[i] = None
+            return
+        units = self._chunks(self.live)
+        keys = [([f"{f}.{self.names[i]}" for f in self.fields], rows) for i, rows in units]
+        for u, work in enumerate(self.store.stream(keys)):
+            i, rows = units[u]
+            p, g = self.params[i], grads[i]
+            if rows is not None:
+                p, g = p[rows[0]:rows[1]], g[rows[0]:rows[1]]
+            state = [work[f"{f}.{self.names[i]}"] for f in self.fields]
+            self._step(p, g, state, lr)
+            if rows is None or rows[1] == self.params[i].shape[0]:
+                grads[i] = None
+
+    def _step(self, p: torch.Tensor, g: torch.Tensor, state: list[torch.Tensor],
+              lr: float) -> None:
+        """The elementwise optimizers' update of one parameter (or chunk)."""
         h = self.hyper
-        for j, i, g in live:
-            p = self.params[i]
-            if self.kind == "sgd":
-                u = g
-                if h["momentum"] is not None:
-                    self.trace[j].mul_(h["momentum"]).add_(g)
-                    u = (g + h["momentum"] * self.trace[j]) if h["nesterov"] else self.trace[j]
-                p.add_(u, alpha=-lr)
-                continue
-            mu, nu = self.mu[j], self.nu[j]
-            mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
-            nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
-            u = mu / (1 - h["b1"] ** self.count)
-            u.div_((nu / (1 - h["b2"] ** self.count) + h["eps_root"]).sqrt_().add_(h["eps"]))
-            if self.kind == "adamw":
-                u.add_(p, alpha=h["weight_decay"])
+        if self.kind == "sgd":
+            u = g
+            if h["momentum"] is not None:
+                (trace,) = state
+                trace.mul_(h["momentum"]).add_(g)
+                u = (g + h["momentum"] * trace) if h["nesterov"] else trace
             p.add_(u, alpha=-lr)
+            return
+        if self.kind == "lion":
+            (mu,) = state
+            # sign((1 - b1) g + b1 mu), then mu <- (1 - b2) g + b2 mu
+            u = torch.sign((1 - h["b1"]) * g + h["b1"] * mu)
+            mu.copy_((1 - h["b2"]) * g + h["b2"] * mu)
+            u.add_(p, alpha=h["weight_decay"])
+            p.add_(u, alpha=-lr)
+            return
+        mu, nu = state
+        mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
+        nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
+        u = mu / (1 - h["b1"] ** self.count)
+        u.div_((nu / (1 - h["b2"] ** self.count) + h["eps_root"]).sqrt_().add_(h["eps"]))
+        if self.kind == "adamw":
+            u.add_(p, alpha=h["weight_decay"])
+        p.add_(u, alpha=-lr)
+
+
+def _groups(live: list[int], names: list[str], layouts) -> list[adafactor.Group]:
+    """The JAX leaves of the trainable parameters, in first-seen order;
+    a scanned stack's members in layer order."""
+    by_leaf: dict[str, list[tuple[int, int]]] = {}
+    info = {}
+    for i in live:
+        leaf, layer, transposed = layouts[i]
+        by_leaf.setdefault(leaf, []).append((-1 if layer is None else layer, i))
+        info[leaf] = (layer is not None, transposed)
+    return [adafactor.Group(leaf, [i for _, i in sorted(members)], *info[leaf])
+            for leaf, members in by_leaf.items()]
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -316,8 +430,10 @@ def build_optimizer(
     named_params: list[tuple[str, torch.nn.Parameter]],
     frozen_modules: list[str] | None = None,
     accumulate: int = 1,
+    **offload,
 ) -> tuple[Optimizer, Callable[[int], float]]:
     """The full chain (clip -> optimizer(schedule) [-> freeze mask]) over
-    `named_params`, and its schedule."""
+    `named_params`, and its schedule. `offload` takes `Optimizer`'s
+    `offload`, `state_dtype` and `quant_block`."""
     schedule = build_lr_schedule(config, num_total_steps)
-    return Optimizer(named_params, config, schedule, frozen_modules, accumulate), schedule
+    return Optimizer(named_params, config, schedule, frozen_modules, accumulate, **offload), schedule

@@ -23,7 +23,7 @@ Counterpart of `CheckpointConfig` and `Checkpointer` in
 
 The durability plane of the JAX checkpointer (integrity manifests and
 `verify`, the mirror daemon and scrubber, `.stale/` promotion, save
-retries, restore fallback to older steps) is not ported yet (ROADMAP A.2);
+retries, restore fallback to older steps) is not ported yet (ROADMAP A.4);
 its config keys raise.
 """
 
@@ -90,7 +90,7 @@ class CheckpointConfig:
             raise NotImplementedError(
                 f"trainer.checkpoint keys {durability} belong to the checkpoint durability "
                 "plane (manifests and verify, mirror, scrubber, save retries), which is not "
-                "ported yet (ROADMAP A.2)"
+                "ported yet (ROADMAP A.4)"
             )
         return build_dataclass(cls, node, "trainer.checkpoint")
 

@@ -16,8 +16,16 @@ not finite) and once at the end, then waits for the write.
 `restore_for_inference` is the read-only restore of the inference and
 validation commands.
 
-Mesh, offload, health, resilience and telemetry are not ported yet
-(ROADMAP A.2).
+`prefetch_batches` (default 2, as JAX's) places batches on the device a
+few steps ahead on a worker thread (`data/prefetch.py`); 0 places each
+batch when the step takes it. `offload_optimizer_state` keeps the
+optimizer's state in pinned host memory between updates, stored through
+`offload_state_dtype` (float32, bfloat16, or int8 blocks of
+`offload_quant_block` elements; `optim/offload.py`), with JAX's defaults
+and validation errors.
+
+Mesh, health, resilience and telemetry are not ported yet (ROADMAP A.3,
+A.4, A.9).
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ import numpy as np
 import torch
 
 from llm_training_tpu_torch import prng, resolve_device
+from llm_training_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm
+from llm_training_tpu_torch.optim.offload import check_offload_keys
 from llm_training_tpu_torch.trainer.checkpoint import Checkpointer
 from llm_training_tpu_torch.trainer.state import TrainState
 
@@ -47,10 +57,22 @@ class TrainerConfig:
     val_check_interval: int | None = None
     limit_val_batches: int | None = None
     checkpoint_every_n_steps: int | None = None
+    # batches placed on the device ahead of the step by a worker thread; 0
+    # places each batch when the step takes it
+    prefetch_batches: int = 2
+    # keep the optimizer state in pinned host memory between updates,
+    # copied through the device around each update
+    offload_optimizer_state: bool = False
+    # its storage: float32 (exact), bfloat16 (cast), or int8 (block codec:
+    # optim/quantized_state.py)
+    offload_state_dtype: str = "float32"
+    # the int8 codec's block (elements of the JAX array's last axis that
+    # share one scale)
+    offload_quant_block: int = 256
 
-
-def _to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    def __post_init__(self):
+        check_offload_keys(self.offload_optimizer_state, self.offload_state_dtype,
+                           self.offload_quant_block)
 
 
 def _batch_counts(batch: dict[str, np.ndarray]) -> tuple[int, int]:
@@ -117,6 +139,8 @@ class Trainer:
                 objective.config.optim, cfg.max_steps, list(model.named_parameters()),
                 frozen_modules=objective.config.frozen_modules,
                 accumulate=cfg.accumulate_grad_batches,
+                offload=cfg.offload_optimizer_state, state_dtype=cfg.offload_state_dtype,
+                quant_block=cfg.offload_quant_block,
             )
         state = TrainState(step=0, model=model, optimizer=optimizer, rng=prng.key(cfg.seed + 1))
         return state, schedule
@@ -129,8 +153,9 @@ class Trainer:
             # changing them across a resume cannot restore
             raise RuntimeError(
                 "checkpoint restore failed — note the optimizer-state layout depends on "
-                "the optimizer, accumulate_grad_batches and frozen_modules; resume with the "
-                "same settings the checkpoint was written with"
+                "the optimizer, offload_optimizer_state, offload_state_dtype, "
+                "offload_quant_block, accumulate_grad_batches and frozen_modules; resume "
+                "with the same settings the checkpoint was written with"
             ) from e
         return meta
 
@@ -156,19 +181,54 @@ class Trainer:
         self.should_stop = False
         self.last_step = self.last_metrics = self._last_interval_save = None
         self._global_batch_size = None
-        # the stream is a pure function of (seed, micro-step): a resume
-        # continues it where the checkpoint stopped
-        batches = datamodule.train_batches(start_step=start_micro)
+        batches = self.train_stream(datamodule, start_micro)
+        try:
+            self._loop(objective, datamodule, state, batches, start_micro, schedule,
+                       saved_data_state)
+        finally:
+            if isinstance(batches, DevicePrefetcher):
+                batches.close()
+
+        if self.checkpointer is not None:
+            last = self.last_step
+            if (last is not None and last != self._last_interval_save
+                    and self._loss_finite(self.last_metrics, last)):
+                # the step reached, early stop or not; force: the step may
+                # collide with a stale entry of a previous run of the directory
+                self.checkpointer.save(last, state, counters=dict(self.counters), force=True,
+                                       extra=self._save_extra(last))
+            # the barrier: after this the newest save is durable
+            self.checkpointer.wait()
+        self._callbacks("on_fit_end")
+        return state
+
+    def train_stream(self, datamodule, start_micro: int):
+        """The fit's batches from micro-step `start_micro` as `(batch,
+        (samples, tokens))` pairs: a `DevicePrefetcher` (close it) with
+        `prefetch_batches` > 0, else host batches placed as they are taken.
+        The stream is a pure function of (seed, micro-step): a resume
+        continues it where the checkpoint stopped."""
+        depth = self.config.prefetch_batches
+        if depth > 0:
+            return DevicePrefetcher(
+                lambda produced: datamodule.train_batches(start_step=start_micro + produced),
+                self.device, depth=depth, host_aux_fn=_batch_counts,
+            )
+        return ((to_device(b, self.device), _batch_counts(b))
+                for b in datamodule.train_batches(start_step=start_micro))
+
+    def _loop(self, objective, datamodule, state, batches, start_micro, schedule,
+              saved_data_state):
+        cfg = self.config
         micro_steps = cfg.max_steps * cfg.accumulate_grad_batches
         first_step = start_micro // cfg.accumulate_grad_batches + 1
         window_time, window_step = time.perf_counter(), first_step - 1
         for micro in range(start_micro, micro_steps):
-            host_batch = next(batches)
-            samples, tokens = _batch_counts(host_batch)
+            batch, (samples, tokens) = next(batches)
             if self._global_batch_size is None:
                 self._global_batch_size = samples
                 self._check_data_continuity(saved_data_state)
-            metrics = self.train_micro_step(objective, state, host_batch)
+            metrics = self.train_micro_step(objective, state, batch)
             self.counters["consumed_samples"] += samples
             self.counters["consumed_tokens"] += tokens
 
@@ -205,28 +265,16 @@ class Trainer:
                 logger.info("stopping at step %d (callback request)", step)
                 break
 
-        if self.checkpointer is not None:
-            last = self.last_step
-            if (last is not None and last != self._last_interval_save
-                    and self._loss_finite(self.last_metrics, last)):
-                # the step reached, early stop or not; force: the step may
-                # collide with a stale entry of a previous run of the directory
-                self.checkpointer.save(last, state, counters=dict(self.counters), force=True,
-                                       extra=self._save_extra(last))
-            # the barrier: after this the newest save is durable
-            self.checkpointer.wait()
-        self._callbacks("on_fit_end")
-        return state
-
-    def train_micro_step(self, objective, state: TrainState, host_batch) -> dict:
+    def train_micro_step(self, objective, state: TrainState, batch) -> dict:
         """One train-step call (`_make_step` in JAX): forward and backward on
-        one micro-batch, the gradients' global norm, and the optimizer chain
-        (which updates the parameters on every k-th call). Returns the
-        micro-batch's metrics, on the device."""
+        one micro-batch (host arrays, or tensors already on the device), the
+        gradients' global norm, and the optimizer chain (which updates the
+        parameters on every k-th call). Returns the micro-batch's metrics,
+        on the device."""
         params = [p for p in state.model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        batch = _to_device(host_batch, self.device)
+        batch = to_device(batch, self.device)
         # micro-step n's key, as JAX's fold_in(state.rng, state.step)
         step_rng = prng.fold_in(state.rng, state.step)
         loss, metrics = objective.loss_and_metrics(batch, rng=step_rng, train=True)
@@ -246,7 +294,7 @@ class Trainer:
         for i, host_batch in enumerate(datamodule.val_batches()):
             if limit and i >= limit:
                 break
-            _, metrics = objective.loss_and_metrics(_to_device(host_batch, self.device), train=False)
+            _, metrics = objective.loss_and_metrics(to_device(host_batch, self.device), train=False)
             losses.append(float(metrics["loss"]))
             weights.append(float(metrics["target_tokens"]))
         if not losses:

@@ -314,3 +314,85 @@ def test_prng_wrappers_reject_what_they_cannot_take(cuda):
         prng.categorical(prng.key(0), torch.zeros((2, 5), dtype=torch.bfloat16, device=cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         prng.uniform(prng.key(0), (3,), torch.float64, device=cuda)
+
+
+# ---------------------------------------------------------------- offloaded optimizer state
+
+
+def _offload_params(device, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = {"model.embed_tokens.weight": (512, 256), "lm_head.weight": (512, 256),
+              "model.layers.0.mlp.up_proj.weight": (768, 256),
+              "model.layers.0.input_layernorm.weight": (256,)}
+    return [(n, torch.nn.Parameter(torch.randn(s, generator=gen).to(device)))
+            for n, s in shapes.items()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer,accumulate", [("adamw", 1), ("adamw", 2), ("lion", 1),
+                                                  ("adafactor", 2)])
+def test_offload_on_the_card_is_placement_only(cuda, optimizer, accumulate, monkeypatch):
+    """float32 state in pinned host memory, staged through the copy
+    streams in row chunks, updates the parameters bit for bit as the state
+    on the card does; the host tensors are pinned; with timing on, the
+    split counts every byte moved."""
+    from llm_training_tpu_torch.optim import builder
+    from llm_training_tpu_torch.optim.builder import OptimConfig, build_optimizer
+
+    monkeypatch.setattr(builder, "_CHUNK", 1 << 14)
+    kwargs = {"min_dim_size_to_factor": 8} if optimizer == "adafactor" else {}
+    runs = []
+    for offload in (False, True):
+        named = _offload_params(cuda)
+        opt, _ = build_optimizer(OptimConfig(optimizer=optimizer, learning_rate=1e-2,
+                                             optimizer_kwargs=kwargs), 10, named,
+                                 accumulate=accumulate, offload=offload)
+        opt.store.timing = True
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        for _ in range(3 * accumulate):
+            for _, p in named:
+                p.grad = torch.randn(p.shape, generator=gen).to(cuda)
+            opt.update()
+        state = opt.state_dict()
+        if offload:
+            assert all(t.is_pinned() for k, t in state.items() if k not in ("count", "mini_step"))
+            split = opt.store.split
+            assert split["bytes_in"] > 0 and split["bytes_in"] == split["bytes_out"]
+        runs.append(({n: p.detach().clone() for n, p in named}, state))
+    (p0, s0), (p1, s1) = runs
+    for name in p0:
+        assert torch.equal(p0[name], p1[name]), name
+    for key in s0:
+        assert torch.equal(s0[key].cpu(), s1[key].cpu()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sym", "sqrt"])
+def test_codec_on_the_card_equals_the_cpu(cuda, kind):
+    """The int8 codec's codes and scales on the card equal the CPU's (the
+    CPU tests hold the CPU's to JAX's) bit for bit."""
+    from llm_training_tpu_torch.optim import quantized_state as tq
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    x = torch.randn((512, 1024), generator=gen)
+    x = x if kind == "sym" else x.square() * 10.0 ** torch.empty(512, 1).uniform_(-8, 0,
+                                                                                  generator=gen)
+    for axis in (0, -1):
+        ref = tq.quantize_array(x, kind, 256, axis)
+        got = tq.quantize_array(x.to(cuda), kind, 256, axis)
+        assert torch.equal(got.q.cpu(), ref.q) and torch.equal(got.scale.cpu(), ref.scale)
+        assert torch.equal(tq.dequantize_array(got).cpu(), tq.dequantize_array(ref))
+
+
+@pytest.mark.cuda
+def test_prefetcher_places_batches_on_the_card(cuda):
+    """Batches come out on the card, in order, equal to the host arrays."""
+    import numpy as np
+
+    from llm_training_tpu_torch.data.prefetch import DevicePrefetcher
+
+    batches = [{"input_ids": np.full((2, 8192), i, dtype=np.int32)} for i in range(5)]
+    prefetcher = DevicePrefetcher(iter(batches), cuda, depth=2)
+    got = [batch["input_ids"] for batch, _ in prefetcher]
+    assert [int(t[0, 0]) for t in got] == list(range(5))
+    assert all(t.is_cuda and bool((t == i).all()) for i, t in enumerate(got))
