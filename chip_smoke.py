@@ -112,6 +112,30 @@ Phases, each of which must pass (any failure exits non-zero):
    peak memory, pinned host bytes and, offloaded, the update's split
    into copy-in, update and codec, and copy-out (CUDA events) with the
    link's rate beside the plain copy's.
+15. telemetry and resilience around `fit` (run after phase 14 freed its
+   memory), in three legs. a: the `Trainer` at Llama-3.1-8B widths cut to 8
+   layers on phase 14's two packed rows, AdamW on the card, accumulation 1,
+   6 steps, once with health on every step, `NanGuard(spike_zscore=6)`,
+   `TrainingTimeEstimator`, `JsonlLogger` and a 300 s watchdog, once with
+   all of them off: losses and final parameters bit-equal, the health keys
+   JAX's set for this layout (`telemetry/health_keys.json`, which the CPU
+   tests hold to JAX's), every norm finite, the goodput phases summing to
+   the total within 1% of the fit's wall time, `hbm/peak_bytes_in_use`
+   equal to `torch.cuda.max_memory_allocated` within 1%, K1-K3 once a
+   layer a step, the plain path never; it prints step p50 with and without
+   health, the overhead, and the estimator's tokens/s and MFU beside the
+   smoke's own. b: the lifecycle's 2-layer full-width model under plain SGD
+   (a checkpoint of the parameters only), one committed save at step 2;
+   chaos NaN at step 3 and spike at step 4: NanGuard raises, the trainer
+   rolls back in-process twice, skips both windows and finishes, its
+   losses bit-equal step for step to a clean run configured with the same
+   skip windows; with `max_rollbacks` 1 the CLI exits 76. c: the CLI's
+   `fit` in processes of its own (three at once, then a relaunch), 2
+   layers, 4 steps: SIGTERM at step 2 exits 75 after the emergency save
+   and the relaunch resumes bit-equal to the uninterrupted run; a 20 s
+   stall against a 15 s watchdog writes a hang dump naming the open phase
+   and the main thread's stack while the run completes; a data error at
+   batch 2 with `data_retries` 2 counts `data/retries` 1, losses equal.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
@@ -271,6 +295,25 @@ OPT_LN_V_ATOL = 1.5
 # and 0.130 (PERF.md, PR 7)
 OFFLOAD_LIMITS = {"bfloat16": {"loss": 1e-3, "params": 1e-2},
                   "int8": {"loss": 5e-3, "params": 0.3}}
+# phase 15: telemetry and resilience around fit
+RES_LAYERS = 8  # leg a: health at phase 14's 8-layer width
+RES_STEPS = 6
+RES_DIR = ROOT / ".smoke_resilience"
+RES_DEVICE = "cuda"
+# legs b and c: the lifecycle's 2-layer model; plain SGD keeps a checkpoint to
+# the parameters (5.9 GB): AdamW's moments would triple every save and restore
+# of these legs at the ~0.7 GB/s the card's disk commits (phase 12 measures it)
+RES_SGD = dict(optimizer="sgd", learning_rate=3e-4, lr_scheduler="constant",
+               grad_clip_norm=1.0)
+# NanGuard of leg b: warm after 2 log steps; only the injected x1000 spike
+# trips it (z ~ 1e5 at the std floor of 1% of the mean; a natural 10x swing
+# of the grad norm scores ~900)
+RES_SPIKE_Z = 1000.0
+# leg c: the watchdog's timeout above the warm-up step, the injected stall
+# above the timeout
+RES_WATCHDOG_S = 15.0
+RES_STALL_S = 20.0
+RES_MAX_DOC = 4096  # the packed rows' longest document (packed_batches' default)
 
 
 class SmokeFailure(RuntimeError):
@@ -2209,6 +2252,456 @@ def phase_optimizer(card: str) -> dict:
     return out
 
 
+@dataclass
+class SkipRowsConfig:
+    seq: int = TRAIN_SEQ
+    rows: int = 4
+    vocab: int = 128256
+    seed: int = 0
+    max_doc: int = RES_MAX_DOC
+
+
+class SkipRows:
+    """The packed rows through the port's seeded `BaseDataModule` stream,
+    one row a batch, so a fit under recovery can hand it its skip list (a
+    config node builds it: `{"class_path": "chip_smoke.SkipRows"}`)."""
+
+    def __init__(self, config: SkipRowsConfig | None = None):
+        self.config = config or SkipRowsConfig()
+        self.module = None
+
+    def setup(self):
+        if self.module is None:
+            from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+
+            c = self.config
+            self.module = BaseDataModule(BaseDataModuleConfig(batch_size=1, seed=c.seed))
+            self.module.train_dataset = packed_batches(c.seed, c.seq, c.rows, c.vocab, c.max_doc)
+            self.module.collate = lambda examples: examples[0]
+
+    def train_batches(self, start_step=0, skip_list=None):
+        return self.module.train_batches(start_step, skip_list)
+
+    def val_batches(self):
+        return iter(())
+
+
+class FitClock:
+    """Synchronized step times, losses and health of a fit."""
+
+    def __init__(self):
+        self.step_s, self.losses, self.health, self.t = [], {}, [], None
+
+    def on_fit_start(self, trainer, *args):
+        torch.cuda.synchronize()
+        self.t = time.perf_counter()
+
+    def on_train_step(self, trainer, step):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.step_s.append(now - self.t)
+        self.t = now
+        if trainer.last_health is not None:
+            self.health.append(dict(trainer.last_health))
+
+    def on_step_end(self, trainer, step, metrics):
+        self.losses[step] = metrics["loss"]
+
+
+def res_model_kwargs(layers: int) -> dict:
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    return asdict(preset("llama-3.1-8b", num_hidden_layers=layers, param_dtype="float32",
+                         compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                         recompute_granularity="selective"))
+
+
+def res_rows(rows: int = 4) -> dict:
+    """SkipRows' config node for this run's row length and vocabulary."""
+    return dict(seq=TRAIN_SEQ, rows=rows, vocab=res_model_kwargs(LIFE_LAYERS)["vocab_size"],
+                max_doc=RES_MAX_DOC)
+
+
+def res_fit(trainer_config, callbacks, layers: int, optim: dict, data, checkpointer=None):
+    """One `Trainer.fit` with the K1/K2/K3 counts set to 0 just before:
+    (trainer, state, launches, plain calls, wall seconds)."""
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer
+
+    trainer = Trainer(trainer_config, callbacks=callbacks, device=RES_DEVICE,
+                      checkpointer=checkpointer)
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", res_model_kwargs(layers)),
+                              optim=OptimConfig(**optim)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.fit(objective, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [launcher.launches for launcher in launchers]
+    return trainer, state, launches, plain[0], wall
+
+
+def res_health(card: str) -> dict:
+    """Leg a: health every step, NanGuard, the time estimator, the JSONL
+    logger and the watchdog on, against all of them off (see the header)."""
+    from llm_training_tpu_torch.callbacks.loggers import JsonlLogger, JsonlLoggerConfig
+    from llm_training_tpu_torch.callbacks.nan_guard import NanGuard, NanGuardConfig
+    from llm_training_tpu_torch.callbacks.time_estimator import (
+        TrainingTimeEstimator,
+        TrainingTimeEstimatorConfig,
+    )
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.resilience import ResilienceConfig
+    from llm_training_tpu_torch.telemetry import PHASES, HealthConfig
+    from llm_training_tpu_torch.trainer.trainer import TrainerConfig
+
+    keys_file = ROOT / "llm_training_tpu_torch" / "telemetry" / "health_keys.json"
+    expected_keys = json.loads(keys_file.read_text())[f"llama-3.1-8b, {RES_LAYERS} layers"]
+    rows = SkipRowsConfig(**res_rows(OPT_ROWS))  # phase 14's two rows
+    runs = {}
+    for name in ("health", "plain"):
+        on = name == "health"
+        clock = FitClock()
+        callbacks = [clock]
+        estimator = None
+        if on:
+            estimator = TrainingTimeEstimator(TrainingTimeEstimatorConfig(
+                num_steps=RES_STEPS - 2, skip_first_n_steps=1))
+            callbacks += [NanGuard(NanGuardConfig(spike_zscore=6.0)), estimator,
+                          JsonlLogger(JsonlLoggerConfig(save_dir=str(RES_DIR), project="a",
+                                                        name="health"))]
+        config = TrainerConfig(
+            max_steps=RES_STEPS, seed=0, log_every_n_steps=1,
+            health=HealthConfig(every_n_steps=1 if on else None),
+            resilience=ResilienceConfig(watchdog_timeout_s=300.0 if on else None))
+        trainer, state, launches, plain, wall = res_fit(config, callbacks, RES_LAYERS, OPT_ADAMW,
+                                                        SkipRows(rows))
+        peak = torch.cuda.max_memory_allocated()
+        params = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
+        runs[name] = dict(clock=clock, launches=launches, plain=plain, wall=wall, peak=peak,
+                          params=params, record=trainer.last_telemetry,
+                          estimator=estimator.result if estimator else None,
+                          n_params=sum(p.numel() for p in params.values()),
+                          n_embed=state.model.model.embed_tokens.weight.numel())
+        expected = [RES_LAYERS * RES_STEPS] * 3
+        check(launches == expected and plain == 0,
+              f"resilience health ({name}): K1/K2/K3 launched {launches}, expected {expected}; "
+              f"plain path {plain}")
+        del trainer, state
+        release()
+    on, off = runs["health"], runs["plain"]
+    losses_on = [on["clock"].losses[s] for s in sorted(on["clock"].losses)]
+    losses_off = [off["clock"].losses[s] for s in sorted(off["clock"].losses)]
+    differ = [n for n in on["params"] if not torch.equal(on["params"][n], off["params"][n])]
+    check(losses_on == losses_off and not differ,
+          f"resilience health: health on changed the math: losses {losses_on} vs {losses_off}, "
+          f"parameters differ {differ[:4]}")
+    n_tensors = len(on["params"])
+    del on["params"], off["params"]
+    health = on["clock"].health
+    check(len(health) == RES_STEPS and all(sorted(h) == expected_keys for h in health),
+          f"resilience health: {len(health)} health steps; keys "
+          f"{sorted(set(health[-1]) ^ set(expected_keys)) if health else 'none'} differ from "
+          f"JAX's set ({keys_file.name})")
+    check(all(math.isfinite(v) for h in health for v in h.values()),
+          "resilience health: a norm is not finite")
+    record = on["record"]
+    phases = {p: record[f"goodput/{p}_s"] for p in (*PHASES, "other")}
+    total = record["goodput/total_s"]
+    check(abs(sum(phases.values()) - total) <= 1e-6 * total
+          and abs(total - on["wall"]) <= 0.01 * on["wall"],
+          f"resilience health: goodput phases {phases} sum {sum(phases.values()):.3f} s, total "
+          f"{total:.3f} s, the fit's wall {on['wall']:.3f} s")
+    hbm_peak = record["hbm/peak_bytes_in_use"]
+    check(abs(hbm_peak - on["peak"]) <= 0.01 * on["peak"],
+          f"resilience health: hbm/peak_bytes_in_use {hbm_peak} against "
+          f"torch.cuda.max_memory_allocated {on['peak']}")
+    # the smoke's own MFU: N without the embedding table, attention over the
+    # visible (q, k) pairs; the two rows alternate, so a step is their mean
+    batches = packed_batches(0, rows.seq, rows.rows, rows.vocab, rows.max_doc)
+    kw = res_model_kwargs(RES_LAYERS)
+    tokens = [int((b["segment_ids"] > 0).sum()) for b in batches]
+    flops = [6 * (on["n_params"] - on["n_embed"]) * t
+             + 12 * kw["num_attention_heads"] * kw["head_dim"] * RES_LAYERS
+             * bench_flash.visible_pairs(
+                 *(torch.as_tensor(b["segment_ids"], device=RES_DEVICE),) * 2)
+             for b, t in zip(batches, tokens)]
+    out = {f"step_ms_p50_{name}": 1e3 * percentile(run["clock"].step_s[1:], 50)
+           for name, run in runs.items()}
+    step_s = out["step_ms_p50_plain"] / 1e3
+    out.update(
+        overhead_pct=100 * (out["step_ms_p50_health"] / out["step_ms_p50_plain"] - 1),
+        smoke_tokens_per_s=sum(tokens) / len(tokens) / step_s,
+        smoke_mfu=sum(flops) / len(flops) / step_s / bench_flash.BF16_FLOPS_PER_S,
+        estimator=on["estimator"], goodput=phases, goodput_pct=record["goodput/goodput_pct"],
+        wall_s=on["wall"], hbm_peak=hbm_peak, losses=losses_on, launches=on["launches"],
+        health_keys=len(expected_keys),
+        health_last={k: v for k, v in health[-1].items() if "layers_00" in k or "lm_head" in k},
+    )
+    est = on["estimator"] or {}
+    print(f"resilience health [{card}]: {RES_LAYERS} layers ({on['n_params']} params), "
+          f"{RES_STEPS} steps of 1 x {TRAIN_SEQ} packed tokens, AdamW on the card; health every "
+          f"step + NanGuard + TrainingTimeEstimator + JsonlLogger + watchdog 300 s against all "
+          f"off: losses and {n_tensors} parameters bit-equal; {len(expected_keys)} health keys = "
+          f"JAX's, all finite; K1/K2/K3 {on['launches']}, plain 0; step p50 "
+          f"{out['step_ms_p50_health']:.1f} ms with health, {out['step_ms_p50_plain']:.1f} ms "
+          f"without (overhead {out['overhead_pct']:.2f}%)", flush=True)
+    print(f"resilience goodput [{card}]: wall {on['wall']:.3f} s, total {total:.3f} s; "
+          + ", ".join(f"{p} {v:.3f} s" for p, v in phases.items())
+          + f"; goodput {record['goodput/goodput_pct']:.2f}%; hbm/peak {hbm_peak:.0f} B, "
+          f"max_memory_allocated {on['peak']} B", flush=True)
+    print(f"resilience MFU [{card}]: TrainingTimeEstimator {est.get('tokens_per_sec', 0):.0f} "
+          f"tokens/s, MFU {100 * est.get('mfu', float('nan')):.2f}% (6 N T with N every "
+          f"parameter, the embedding table included, plus 12 L H S T: every (q, k) pair of the "
+          f"full row); the smoke's own {out['smoke_tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['smoke_mfu']:.2f}% (N without the embedding table, attention over the "
+          f"visible pairs of the packed rows, the health-off step)", flush=True)
+    return out
+
+
+def res_rollback(card: str) -> dict:
+    """Leg b: NaN then spike injected, rolled back in-process and skipped,
+    against a clean run with the same skip windows; then the CLI's exit 76
+    (see the header)."""
+    from llm_training_tpu_torch.callbacks.nan_guard import NanGuard, NanGuardConfig
+    from llm_training_tpu_torch.cli.main import main as cli_main
+    from llm_training_tpu_torch.resilience import ChaosConfig, RecoveryConfig, ResilienceConfig
+    from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
+    from llm_training_tpu_torch.trainer.trainer import TrainerConfig
+
+    class SaveOnce:
+        """Veto every save after step 2's (the rollback target)."""
+
+        def on_train_step(self, trainer, step):
+            if step > 2:
+                trainer.abort_final_save = True
+
+    def guard():
+        return NanGuard(NanGuardConfig(spike_zscore=RES_SPIKE_Z, spike_warmup_steps=2))
+
+    steps = 6
+    faulty = FitClock()
+    checkpointer = Checkpointer(CheckpointConfig(dirpath=str(RES_DIR / "b"), async_save=False))
+    config = TrainerConfig(
+        max_steps=steps, seed=0, log_every_n_steps=1, checkpoint_every_n_steps=2,
+        resilience=ResilienceConfig(chaos=ChaosConfig(nan_step=3, spike_step=4),
+                                    recovery=RecoveryConfig(max_rollbacks=2)))
+    trainer, state, launches, plain, _ = res_fit(
+        config, [faulty, guard(), SaveOnce()], LIFE_LAYERS, RES_SGD,
+        SkipRows(SkipRowsConfig(**res_rows())), checkpointer)
+    checkpointer.close()
+    rollbacks = [dict(r) for r in trainer.rollbacks]
+    windows = list(trainer._recovery.skip_list.windows)
+    snapshot = trainer.telemetry.snapshot()
+    check(state.step == steps and [(r["failed_step"], r["failure"], r["restored_micro"])
+                                   for r in rollbacks]
+          == [(3, "NonFiniteLossError", 2), (4, "LossSpikeError", 2)]
+          and windows == [(2, 1), (3, 1)] and checkpointer.all_steps() == [2],
+          f"resilience rollback: step {state.step}, rollbacks {rollbacks}, windows {windows}, "
+          f"committed {checkpointer.all_steps()}")
+    check(min(launches) > 0 and plain == 0,
+          f"resilience rollback: K1/K2/K3 launched {launches}, plain path {plain}")
+    del trainer, state
+    release()
+    clean = FitClock()
+    config = TrainerConfig(max_steps=steps, seed=0, log_every_n_steps=1, resilience=(
+        ResilienceConfig(recovery=RecoveryConfig(max_rollbacks=2, skip_windows=tuple(windows)))))
+    trainer, state, launches_clean, plain_clean, _ = res_fit(
+        config, [clean, guard()], LIFE_LAYERS, RES_SGD, SkipRows(SkipRowsConfig(**res_rows())))
+    del trainer, state
+    release()
+    check(faulty.losses == clean.losses and sorted(clean.losses) == list(range(1, steps + 1)),
+          f"resilience rollback: healed losses {faulty.losses} against the clean run's with the "
+          f"same skip windows {clean.losses}")
+    check(launches_clean == [LIFE_LAYERS * steps] * 3 and plain_clean == 0,
+          f"resilience rollback: the clean run launched K1/K2/K3 {launches_clean}")
+
+    # the CLI: max_rollbacks 1 and a second fault exits 76 (no checkpointer: the
+    # rollback rebuilds the model from the seed, nothing goes to disk)
+    cli_config = {
+        "seed_everything": 0,
+        "trainer": {"max_steps": 5, "seed": 0, "log_every_n_steps": 1,
+                    "callbacks": [{"class_path": "llm_training_tpu.callbacks.NanGuard",
+                                   "init_args": {"spike_zscore": RES_SPIKE_Z,
+                                                 "spike_warmup_steps": 2}}],
+                    "resilience": {"chaos": {"nan_step": 3, "spike_step": 4},
+                                   "recovery": {"max_rollbacks": 1}}},
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": res_model_kwargs(LIFE_LAYERS)},
+            "optim": RES_SGD}},
+        "data": {"class_path": "chip_smoke.SkipRows", "init_args": res_rows()},
+    }
+    path = RES_DIR / "exhaust.json"
+    path.write_text(json.dumps(cli_config))
+    release()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main(["fit", "--config", str(path), "--device", RES_DEVICE])
+    check(rc == 76, f"resilience rollback: the CLI exited {rc} with its budget spent, expected 76")
+    release()
+    out = dict(rollbacks=rollbacks, windows=[list(w) for w in windows], losses=faulty.losses,
+               rollback_s=[r["seconds"] for r in rollbacks],
+               chaos_injections=snapshot.get("resilience/chaos_injections"), exhaust_rc=rc)
+    print(f"resilience rollback [{card}]: {LIFE_LAYERS} layers at full width, SGD, {steps} steps, "
+          f"one committed save (step 2); chaos NaN at step 3 and spike at step 4: NanGuard raised "
+          f"{[r['failure'] for r in rollbacks]}, rolled back in-process to micro-step "
+          f"{[r['restored_micro'] for r in rollbacks]}, skipped windows {windows}, finished; "
+          f"losses bit-equal to a clean run with the same skip windows; rollback seconds "
+          f"(restore included) " + ", ".join(f"{s:.3f}" for s in out["rollback_s"])
+          + f"; with max_rollbacks 1 the CLI exited {rc}", flush=True)
+    return out
+
+
+def res_run_config(name: str, trainer: dict) -> Path:
+    """A JSON config of leg c: the 2-layer model, SGD, the packed rows, a
+    JSONL logger into `RES_DIR/c/<name>/run`."""
+    node = {"max_steps": 4, "seed": 0, "log_every_n_steps": 1,
+            "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
+                         "init_args": {"save_dir": str(RES_DIR / "c"), "project": name,
+                                       "name": "run"}}]}
+    node.update(trainer)
+    config = {
+        "seed_everything": 0, "trainer": node,
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": res_model_kwargs(LIFE_LAYERS)},
+            "optim": RES_SGD}},
+        "data": {"class_path": "chip_smoke.SkipRows", "init_args": res_rows()},
+    }
+    path = RES_DIR / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def res_launch(path: Path, log: Path):
+    """`python -m llm_training_tpu_torch fit --config path` in a process of
+    its own, its output into `log`: (process, log handle)."""
+    import subprocess
+
+    handle = open(log, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "llm_training_tpu_torch", "fit", "--config",
+                             str(path), "--device", RES_DEVICE], cwd=ROOT, stdout=handle,
+                            stderr=subprocess.STDOUT)
+    return proc, handle
+
+
+def res_wait(launched, timeout: float = 300) -> int:
+    """The process's exit code; killed (and waited for) on the timeout."""
+    proc, handle = launched
+    try:
+        return proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        handle.close()
+
+
+def res_losses(name: str) -> dict[int, float]:
+    rows = (RES_DIR / "c" / name / "run" / "metrics.jsonl").read_text().splitlines()
+    return {r["step"]: r["loss"] for r in map(json.loads, rows) if "loss" in r}
+
+
+def res_processes(card: str) -> dict:
+    """Leg c: preemption (exit 75, the relaunch resumes bit-equal), the
+    watchdog's hang dump and a retried data error, through the CLI in
+    processes of their own (see the header)."""
+    logs = RES_DIR / "c" / "logs"
+    logs.mkdir(parents=True)
+    clean = res_run_config("clean", {})
+    preempt = res_run_config("preempt", {
+        "checkpoint": {"dirpath": str(RES_DIR / "c" / "ckpt"), "async_save": False},
+        "resilience": {"chaos": {"sigterm_step": 2}}})
+    faults = res_run_config("faults", {"resilience": {
+        "watchdog_timeout_s": RES_WATCHDOG_S, "data_retries": 2, "data_retry_backoff_s": 0.1,
+        "chaos": {"data_error_steps": [2], "slow_step_s": RES_STALL_S, "slow_step_from": 4}}})
+    t0 = time.perf_counter()
+    # three processes at once on the card (~20 GB each), then the relaunch
+    procs = {name: res_launch(path, logs / f"{name}.log")
+             for name, path in (("clean", clean), ("preempt", preempt), ("faults", faults))}
+    try:
+        rcs = {name: res_wait(launched) for name, launched in procs.items()}
+    finally:
+        for proc, handle in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            handle.close()
+    text = {name: (logs / f"{name}.log").read_text() for name in procs}
+    expected_rcs = {"clean": 0, "preempt": 75, "faults": 0}
+    check(rcs == expected_rcs, f"resilience processes: exit codes {rcs}, expected "
+          f"{expected_rcs}; tails: " + "; ".join(f"{n}: {text[n][-800:]}" for n in rcs
+                                                 if rcs[n] != expected_rcs[n]))
+    committed = sorted(p.name for p in (RES_DIR / "c" / "ckpt").iterdir())
+    check("resumable code 75" in text["preempt"] and committed == ["step_2"],
+          f"resilience processes: the preempted run committed {committed}")
+    rc = res_wait(res_launch(preempt, logs / "relaunch.log"))
+    check(rc == 0, f"resilience processes: the relaunch exited {rc}: "
+          f"{(logs / 'relaunch.log').read_text()[-800:]}")
+    seconds = time.perf_counter() - t0
+    want = res_losses("clean")
+    preempted = res_losses("preempt")
+    check(sorted(want) == [1, 2, 3, 4] and preempted == want,
+          f"resilience processes: interrupted + resumed losses {preempted} against "
+          f"uninterrupted {want}")
+    telemetry = (RES_DIR / "c" / "preempt" / "run" / "telemetry.jsonl").read_text().splitlines()
+    emergency = [json.loads(line) for line in telemetry if "resilience/emergency_saves" in line]
+    check(bool(emergency) and emergency[0]["resilience/preemptions"] == 1,
+          "resilience processes: no emergency-save record in the preempted run's telemetry")
+    dumps = sorted((RES_DIR / "c" / "faults" / "run").glob("hang-dump-*.txt"))
+    # the stall is step 4's boundary: the loop's last beat was micro-step 3
+    stall = [d.read_text() for d in dumps]
+    stall = [t for t in stall if "(step 3)" in t and "--- thread MainThread" in t
+             and "goodput phase open at stall:" in t]
+    check(bool(stall), f"resilience processes: no hang dump of the stall among "
+          f"{[d.name for d in dumps]}")
+    dump = stall[0]
+    faults_telemetry = json.loads(
+        (RES_DIR / "c" / "faults" / "run" / "telemetry.jsonl").read_text().splitlines()[-1])
+    check(faults_telemetry.get("data/retries") == 1 and res_losses("faults") == want
+          and faults_telemetry.get("resilience/watchdog_dumps", 0) >= 1,
+          f"resilience processes: data/retries {faults_telemetry.get('data/retries')}, watchdog "
+          f"dumps {faults_telemetry.get('resilience/watchdog_dumps')}, losses "
+          f"{res_losses('faults')} against {want}")
+    phase_line = next(line for line in dump.splitlines() if line.startswith("goodput phase"))
+    out = dict(exit_codes={**rcs, "relaunch": rc}, losses=want, seconds=seconds,
+               hang_dumps=[d.name for d in dumps], dump_phase=phase_line,
+               data_retries=faults_telemetry["data/retries"])
+    print(f"resilience processes [{card}]: fit in processes of its own, {LIFE_LAYERS} layers, 4 "
+          f"steps: SIGTERM at step 2 -> emergency save, exit 75, the relaunch resumed at step 3 "
+          f"and its losses equal the uninterrupted run's bit for bit; a {RES_STALL_S} s stall "
+          f"against a {RES_WATCHDOG_S} s watchdog wrote a hang dump ('{phase_line}', the "
+          f"main thread's stack) and the run completed; a data error at batch 2 retried once "
+          f"(data/retries 1), losses equal the clean run's; {seconds:.1f} s", flush=True)
+    return out
+
+
+def phase_resilience(card: str) -> dict:
+    """Telemetry and resilience around fit (see the header)."""
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    shutil.rmtree(RES_DIR, ignore_errors=True)
+    RES_DIR.mkdir()
+    out = {}
+    try:
+        for name, leg in (("health", res_health), ("rollback", res_rollback),
+                          ("processes", res_processes)):
+            t0 = time.perf_counter()
+            out[name] = leg(card)
+            out[name]["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(RES_DIR, ignore_errors=True)
+        release()
+    return out
+
+
 def main() -> int:
     if len(sys.argv) != 1:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2240,6 +2733,7 @@ def main() -> int:
     lifecycle = phase_lifecycle(card)
     preference = phase_preference(card)
     optimizer = phase_optimizer(card)
+    resilience = phase_resilience(card)
     phase_train_parity()
     flash = phase_flash_timing(card)
     phase_random_streams(card)
@@ -2248,6 +2742,7 @@ def main() -> int:
     print(f"lifecycle summary [{card}]: " + json.dumps(lifecycle))
     print(f"preference summary [{card}]: " + json.dumps(preference))
     print(f"optimizer summary [{card}]: " + json.dumps(optimizer))
+    print(f"resilience summary [{card}]: " + json.dumps(resilience))
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",

@@ -2,9 +2,12 @@
 
 Counterpart of `JsonlLogger` in `llm_training_tpu/callbacks/loggers.py`:
 one JSON object per logged step in `<save_dir>/<project>/<name>/metrics.jsonl`
-(the keys the trainer logs: `step`, `loss`, `grad_norm`, `lr`, ...), and
-the validation loss as its own row. The run's config and metadata land
-beside it at fit start.
+(every metric the trainer logs: `step`, `loss`, `grad_norm`, `lr`, ... and
+the telemetry that rides the log steps), the validation loss as its own
+row, and the telemetry subset (`goodput/`, `hbm/`, `health/`, `nan_guard/`,
+`resilience/`, `data/`, `perf/`, ...) also in `telemetry.jsonl`, with one
+final record from the fit's epilogue (`on_telemetry`). The run's config
+and metadata land beside them at fit start.
 """
 
 from __future__ import annotations
@@ -16,6 +19,29 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+# metric keys routed (additionally) to telemetry.jsonl, as JAX's
+TELEMETRY_PREFIXES = (
+    "goodput/", "hbm/", "xla/", "data/", "checkpoint/", "perf/",
+    "health/", "nan_guard/", "resilience/", "decode/", "eval/", "serve/",
+    "elastic/", "flash/", "trace/", "slo/", "exporter/", "attr/",
+    "profile/", "hbm_timeline/", "router/", "rl/", "ckpt/",
+)
+TELEMETRY_KEYS = ("compile_time_s",)
+
+
+def _is_telemetry_key(key: str) -> bool:
+    return key in TELEMETRY_KEYS or key.startswith(TELEMETRY_PREFIXES)
+
+
+def _floats(record: dict) -> dict:
+    out = {}
+    for key, value in record.items():
+        try:
+            out[key] = float(value)
+        except (TypeError, ValueError):
+            out[key] = str(value)
+    return out
 
 
 @dataclass
@@ -57,18 +83,26 @@ class JsonlLogger:
             )
 
     def on_step_end(self, trainer, step, metrics) -> None:
-        record = {"step": step}
-        for key, value in metrics.items():
-            try:
-                record[key] = float(value)
-            except (TypeError, ValueError):
-                record[key] = str(value)
+        record = {"step": step, **_floats(metrics)}
         self._write("metrics.jsonl", record)
+        telemetry = {k: v for k, v in record.items() if _is_telemetry_key(k)}
+        if telemetry:
+            self._write("telemetry.jsonl", {"step": step, **telemetry})
 
     def on_validation_end(self, trainer, step, metrics) -> None:
         self.on_step_end(trainer, step, metrics)
 
-    def on_fit_end(self, trainer) -> None:
+    def on_telemetry(self, trainer, step, record) -> None:
+        """The fit epilogue's telemetry record: the final save and its wait
+        land after the last log step, and this record carries them."""
+        telemetry = {k: v for k, v in _floats(record).items() if _is_telemetry_key(k)}
+        if telemetry:
+            self._write("telemetry.jsonl", {"step": step, **telemetry})
+
+    def on_fit_end(self, trainer, state) -> None:
+        self.teardown()
+
+    def teardown(self) -> None:
         for f in self._files.values():
             f.close()
         self._files = {}

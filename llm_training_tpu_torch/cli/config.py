@@ -20,6 +20,17 @@ from pathlib import Path
 from typing import Any
 
 from llm_training_tpu_torch.callbacks.loggers import JsonlLogger, JsonlLoggerConfig
+from llm_training_tpu_torch.callbacks.nan_guard import NanGuard, NanGuardConfig
+from llm_training_tpu_torch.callbacks.output_redirection import (
+    OutputRedirection,
+    OutputRedirectionConfig,
+)
+from llm_training_tpu_torch.callbacks.profiler import ProfilerCallback, ProfilerCallbackConfig
+from llm_training_tpu_torch.callbacks.progress import ProgressBar, ProgressBarConfig
+from llm_training_tpu_torch.callbacks.time_estimator import (
+    TrainingTimeEstimator,
+    TrainingTimeEstimatorConfig,
+)
 from llm_training_tpu_torch.data.dummy import DummyDataModule, DummyDataModuleConfig
 from llm_training_tpu_torch.dataclass_config import build_dataclass
 from llm_training_tpu_torch.lms import CLM, DPO, ORPO, CLMConfig, DPOConfig, ORPOConfig
@@ -33,6 +44,12 @@ CLASS_PATHS: dict[str, tuple[type, type]] = {
     "llm_training_tpu.lms.ORPO": (ORPO, ORPOConfig),
     "llm_training_tpu.data.DummyDataModule": (DummyDataModule, DummyDataModuleConfig),
     "llm_training_tpu.callbacks.JsonlLogger": (JsonlLogger, JsonlLoggerConfig),
+    "llm_training_tpu.callbacks.NanGuard": (NanGuard, NanGuardConfig),
+    "llm_training_tpu.callbacks.TrainingTimeEstimator": (
+        TrainingTimeEstimator, TrainingTimeEstimatorConfig),
+    "llm_training_tpu.callbacks.ProgressBar": (ProgressBar, ProgressBarConfig),
+    "llm_training_tpu.callbacks.ProfilerCallback": (ProfilerCallback, ProfilerCallbackConfig),
+    "llm_training_tpu.callbacks.OutputRedirection": (OutputRedirection, OutputRedirectionConfig),
 }
 
 

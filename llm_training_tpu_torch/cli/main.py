@@ -7,8 +7,11 @@ examples' node layout (`trainer` / `model` / `data`, components as
 `class_path` + `init_args`). The `trainer` node's `loggers` and
 `callbacks` lists are components too, and its `checkpoint` node builds the
 `Checkpointer`: `fit` then resumes from the newest step (or `--ckpt-path`),
-saves every `checkpoint_every_n_steps` and at the end. The other trainer
-fields of the JAX package are not ported yet and raise.
+saves every `checkpoint_every_n_steps` and at the end. Its `health` and
+`resilience` nodes are JAX's; the `mesh` node is not ported yet and raises.
+`fit` exits as JAX's does: 75 after a preemption's emergency save (relaunch
+the same command to resume), 76 when in-process recovery gave up, 77 on a
+loss spike and 78 on a non-finite loss that NanGuard raised.
 
 `validate`, `generate` and `evaluate` restore the run's checkpoint
 read-only (`Trainer.restore_for_inference`) and print the JAX commands'
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from llm_training_tpu_torch import resolve_device
+from llm_training_tpu_torch.callbacks.nan_guard import LossSpikeError, NonFiniteLossError
 from llm_training_tpu_torch.cli.config import instantiate_from_config, load_config
 from llm_training_tpu_torch.dataclass_config import build_dataclass
 from llm_training_tpu_torch.infer.engine import GenerateConfig, InferenceEngine
@@ -62,6 +66,14 @@ from llm_training_tpu_torch.lms.clm import CLM
 from llm_training_tpu_torch.models.llama.config import PRESETS, LlamaConfig, preset
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax, tree_from_flat
 from llm_training_tpu_torch.models.llama.model import Llama
+from llm_training_tpu_torch.resilience import (
+    LOSS_SPIKE_EXIT_CODE,
+    NON_FINITE_EXIT_CODE,
+    RECOVERY_EXHAUSTED_EXIT_CODE,
+    RESUMABLE_EXIT_CODE,
+    PreemptionInterrupt,
+    RecoveryExhaustedError,
+)
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
@@ -249,9 +261,28 @@ def build_fit(config: dict, device: str | None) -> tuple[Trainer, object, object
 
 
 def run_fit(args) -> int:
+    """`fit`, with JAX's exit codes for the failures a supervisor tells
+    apart: 75 (resumable), 76 (recovery exhausted), 77 (loss spike), 78
+    (non-finite loss)."""
     trainer, objective, datamodule = build_fit(_load(args), args.device)
+    log = logging.getLogger(__name__)
     try:
         trainer.fit(objective, datamodule, resume_step=_resume_step(args))
+    except PreemptionInterrupt as e:
+        # the run was preempted after committing a resumable checkpoint:
+        # relaunch this same command to continue
+        log.warning("%s — exiting with resumable code %d", e, RESUMABLE_EXIT_CODE)
+        return RESUMABLE_EXIT_CODE
+    except RecoveryExhaustedError as e:
+        # a blind relaunch would reproduce the failure
+        log.error("%s — exiting %d", e, RECOVERY_EXHAUSTED_EXIT_CODE)
+        return RECOVERY_EXHAUSTED_EXIT_CODE
+    except LossSpikeError as e:
+        log.error("%s — exiting %d", e, LOSS_SPIKE_EXIT_CODE)
+        return LOSS_SPIKE_EXIT_CODE
+    except NonFiniteLossError as e:
+        log.error("%s — exiting %d", e, NON_FINITE_EXIT_CODE)
+        return NON_FINITE_EXIT_CODE
     finally:
         if trainer.checkpointer is not None:
             trainer.checkpointer.close()

@@ -95,10 +95,13 @@ def _f32(x: float) -> float:
 
 
 def update(group: Group, params: list[torch.Tensor], grads: list[torch.Tensor],
-           state: dict[str, torch.Tensor], count: int, lr: float, h: dict) -> None:
+           state: dict[str, torch.Tensor], count: int, lr: float, h: dict,
+           record=None) -> None:
     """One optax update of the group: the state in place, then each
     member parameter in place. `grads` are float32, index-aligned with
-    `params`; `count` is the number of updates before this one."""
+    `params`; `count` is the number of updates before this one.
+    `record(i, u)`, when given, sees each member's update (the tensor
+    subtracted from parameter i) before it is applied."""
     views = [group.view(params[i]) for i in group.members]
     gviews = [group.view(grads[i]) for i in group.members]
     shape = group.shape(params)
@@ -177,7 +180,11 @@ def update(group: Group, params: list[torch.Tensor], grads: list[torch.Tensor],
         if h["weight_decay_rate"] is not None:
             u = u + h["weight_decay_rate"] * take(views, idx)
         if idx is None:
+            if record is not None:
+                record(group.members[0], u)
             views[0].sub_(u)
         else:
             for k, i in enumerate(idx):
+                if record is not None:
+                    record(group.members[i], u[k])
                 views[i].sub_(u[k])

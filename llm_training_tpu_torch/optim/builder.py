@@ -177,6 +177,10 @@ class Optimizer:
         self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
         self.count = 0  # inner updates done
         self.mini_step = 0
+        # set to {} before an update to collect, per parameter index, the
+        # squared L2 norms (float32, on the device) of what the update adds
+        # to it: the health metrics' update norms (telemetry/health.py)
+        self.update_sq: dict[int, list[torch.Tensor]] | None = None
         # the state covers the trainable parameters only, as optax.masked
         # allocates it; the accumulator covers all of them
         self.live = [i for i, t in enumerate(self.trainable) if t]
@@ -360,7 +364,8 @@ class Optimizer:
             for g, work in enumerate(self.store.stream(units)):
                 group = self.groups[g]
                 state = {k.split(".", 1)[0]: t for k, t in work.items()}
-                adafactor.update(group, self.params, grads, state, count, lr, self.hyper)
+                adafactor.update(group, self.params, grads, state, count, lr, self.hyper,
+                                 record=self._record if self.update_sq is not None else None)
                 for i in group.members:
                     grads[i] = None
             return
@@ -372,13 +377,19 @@ class Optimizer:
             if rows is not None:
                 p, g = p[rows[0]:rows[1]], g[rows[0]:rows[1]]
             state = [work[f"{f}.{self.names[i]}"] for f in self.fields]
-            self._step(p, g, state, lr)
+            self._step(p, g, state, lr, i)
             if rows is None or rows[1] == self.params[i].shape[0]:
                 grads[i] = None
 
+    def _record(self, i: int, update: torch.Tensor, scale: float = 1.0) -> None:
+        """Collect the squared norm of `scale * update` for parameter i."""
+        sq = torch.linalg.vector_norm(update, dtype=torch.float32).square()
+        self.update_sq.setdefault(i, []).append(sq * (scale * scale) if scale != 1.0 else sq)
+
     def _step(self, p: torch.Tensor, g: torch.Tensor, state: list[torch.Tensor],
-              lr: float) -> None:
-        """The elementwise optimizers' update of one parameter (or chunk)."""
+              lr: float, i: int) -> None:
+        """The elementwise optimizers' update of one parameter (or chunk of
+        parameter i): p -= lr * u."""
         h = self.hyper
         if self.kind == "sgd":
             u = g
@@ -386,23 +397,22 @@ class Optimizer:
                 (trace,) = state
                 trace.mul_(h["momentum"]).add_(g)
                 u = (g + h["momentum"] * trace) if h["nesterov"] else trace
-            p.add_(u, alpha=-lr)
-            return
-        if self.kind == "lion":
+        elif self.kind == "lion":
             (mu,) = state
             # sign((1 - b1) g + b1 mu), then mu <- (1 - b2) g + b2 mu
             u = torch.sign((1 - h["b1"]) * g + h["b1"] * mu)
             mu.copy_((1 - h["b2"]) * g + h["b2"] * mu)
             u.add_(p, alpha=h["weight_decay"])
-            p.add_(u, alpha=-lr)
-            return
-        mu, nu = state
-        mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
-        nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
-        u = mu / (1 - h["b1"] ** self.count)
-        u.div_((nu / (1 - h["b2"] ** self.count) + h["eps_root"]).sqrt_().add_(h["eps"]))
-        if self.kind == "adamw":
-            u.add_(p, alpha=h["weight_decay"])
+        else:
+            mu, nu = state
+            mu.mul_(h["b1"]).add_(g, alpha=1 - h["b1"])
+            nu.mul_(h["b2"]).add_(g * g, alpha=1 - h["b2"])
+            u = mu / (1 - h["b1"] ** self.count)
+            u.div_((nu / (1 - h["b2"] ** self.count) + h["eps_root"]).sqrt_().add_(h["eps"]))
+            if self.kind == "adamw":
+                u.add_(p, alpha=h["weight_decay"])
+        if self.update_sq is not None:
+            self._record(i, u, lr)
         p.add_(u, alpha=-lr)
 
 

@@ -1,0 +1,284 @@
+"""Fault injection: deterministic and probabilistic failures at the
+recovery sites of `fit`.
+
+Counterpart of the part of `llm_training_tpu/resilience/chaos.py` that the
+port's fit runs: data-source errors in the prefetcher (`data_error_steps`,
+`data_error_prob`), a real SIGTERM at an optimizer step (`sigterm_step`),
+divergence poisoned into the host metrics (`nan_step`, `spike_step`,
+`spike_scale`) and a sustained slow regime (`slow_step_s` from
+`slow_step_from`), all seeded by `seed`. Injected I/O faults raise
+`ChaosError`, an `OSError`, so they take the production retry path.
+
+The harness is a process global the trainer installs at fit start
+(`install_chaos`) and removes in its fit's `finally`; call sites poll
+`chaos_point(site, step)`, a no-op when nothing is installed.
+`config_from_env` overlays `LLMT_CHAOS_*` variables with JAX's names.
+
+JAX's other triggers raise `NotImplementedError` here, naming the queue
+that brings their site: the checkpoint's errors and corruption and
+`sigkill_step` (the supervisor's path) with ROADMAP A.4, the serving
+tier's and the router's with A.7.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import random
+import signal
+import threading
+import time
+from dataclasses import dataclass
+
+logger = logging.getLogger(__name__)
+
+# injection sites the port polls: the data-source pull
+SITES = ("data",)
+
+# JAX's triggers whose sites the port does not have yet -> the queue that
+# brings them, and their environment names
+NOT_PORTED = {
+    "checkpoint_error_steps": ("A.4", "LLMT_CHAOS_CHECKPOINT_ERROR_STEPS"),
+    "checkpoint_error_prob": ("A.4", "LLMT_CHAOS_CHECKPOINT_ERROR_PROB"),
+    "sigkill_step": ("A.4", "LLMT_CHAOS_SIGKILL_STEP"),
+    "ckpt_corrupt": ("A.4", "LLMT_CHAOS_CKPT_CORRUPT"),
+    "ckpt_kill_in_swap": ("A.4", "LLMT_CHAOS_CKPT_KILL_IN_SWAP"),
+    "serve_stall_step": ("A.7", "LLMT_CHAOS_SERVE_STALL_STEP"),
+    "serve_sigterm_step": ("A.7", "LLMT_CHAOS_SERVE_SIGTERM_STEP"),
+    "serve_malformed_flood": ("A.7", "LLMT_CHAOS_SERVE_MALFORMED_FLOOD"),
+    "router_kill_replica_at": ("A.7", "LLMT_CHAOS_ROUTER_KILL_REPLICA"),
+    "router_blackhole_at": ("A.7", "LLMT_CHAOS_ROUTER_BLACKHOLE"),
+}
+
+
+def _not_ported(key: str) -> NotImplementedError:
+    queue, _ = NOT_PORTED[key]
+    return NotImplementedError(
+        f"chaos.{key} is not ported yet: its injection site comes with ROADMAP {queue}"
+    )
+
+
+class ChaosError(OSError):
+    """An injected transient fault (OSError so retry policies treat it as
+    they would a real storage/network error)."""
+
+
+@dataclass
+class ChaosConfig:
+    seed: int = 0
+    # fire exactly once at these prefetcher production indices
+    data_error_steps: tuple[int, ...] = ()
+    # per-pull probability in [0, 1]
+    data_error_prob: float = 0.0
+    # deliver a real SIGTERM to this process at this optimizer step
+    sigterm_step: int | None = None
+    # at the first log step >= the trigger, poison the host loss/grad_norm:
+    # nan_step makes them non-finite, spike_step scales them by spike_scale
+    # (host-side only: the device state stays healthy)
+    nan_step: int | None = None
+    spike_step: int | None = None
+    spike_scale: float = 1e3
+    # sleep this long at every optimizer-step boundary from slow_step_from on
+    slow_step_s: float = 0.0
+    slow_step_from: int = 0
+    # JAX's other triggers: accepted unset, NotImplementedError when set
+    # (NOT_PORTED names the queue that brings each one's site)
+    checkpoint_error_steps: tuple[int, ...] = ()
+    checkpoint_error_prob: float = 0.0
+    sigkill_step: int | None = None
+    ckpt_corrupt: str | None = None
+    ckpt_kill_in_swap: int | None = None
+    serve_stall_step: int | None = None
+    serve_sigterm_step: int | None = None
+    serve_malformed_flood: int = 0
+    router_kill_replica_at: int | None = None
+    router_blackhole_at: int | None = None
+
+    def __post_init__(self):
+        for key in NOT_PORTED:
+            if getattr(self, key) not in (None, (), [], 0, 0.0, ""):
+                raise _not_ported(key)
+        self.data_error_steps = tuple(int(s) for s in self.data_error_steps)
+        checks = (
+            (0 <= self.data_error_prob <= 1, "data_error_prob must be in [0, 1]"),
+            (self.spike_scale > 0, "spike_scale must be > 0"),
+            (self.slow_step_s >= 0, "slow_step_s must be >= 0"),
+            (self.slow_step_from >= 0, "slow_step_from must be >= 0"),
+        )
+        for ok, message in checks:
+            if not ok:
+                raise ValueError(f"chaos: {message} ({self})")
+
+    def any_active(self) -> bool:
+        return bool(
+            self.data_error_steps
+            or self.data_error_prob
+            or self.sigterm_step is not None
+            or self.nan_step is not None
+            or self.spike_step is not None
+            or self.slow_step_s > 0
+        )
+
+
+def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
+    """Overlay `LLMT_CHAOS_*` environment variables on `base`:
+    LLMT_CHAOS_DATA_ERROR_STEPS (comma-separated ints),
+    LLMT_CHAOS_DATA_ERROR_PROB / LLMT_CHAOS_SPIKE_SCALE /
+    LLMT_CHAOS_SLOW_STEP_S (floats), LLMT_CHAOS_SIGTERM_STEP /
+    LLMT_CHAOS_NAN_STEP / LLMT_CHAOS_SPIKE_STEP / LLMT_CHAOS_SLOW_STEP_FROM /
+    LLMT_CHAOS_SEED (ints). A set variable of a trigger the port does not
+    have raises NotImplementedError."""
+    for key, (_, env_name) in NOT_PORTED.items():
+        if os.environ.get(env_name):
+            raise _not_ported(key)
+    update: dict = {}
+    for field, env_name, cast in (
+        ("data_error_steps", "LLMT_CHAOS_DATA_ERROR_STEPS", _int_tuple),
+        ("data_error_prob", "LLMT_CHAOS_DATA_ERROR_PROB", float),
+        ("sigterm_step", "LLMT_CHAOS_SIGTERM_STEP", int),
+        ("nan_step", "LLMT_CHAOS_NAN_STEP", int),
+        ("spike_step", "LLMT_CHAOS_SPIKE_STEP", int),
+        ("spike_scale", "LLMT_CHAOS_SPIKE_SCALE", float),
+        ("slow_step_s", "LLMT_CHAOS_SLOW_STEP_S", float),
+        ("slow_step_from", "LLMT_CHAOS_SLOW_STEP_FROM", int),
+        ("seed", "LLMT_CHAOS_SEED", int),
+    ):
+        raw = os.environ.get(env_name)
+        if raw is not None and raw != "":
+            update[field] = cast(raw)
+    base = base or ChaosConfig()
+    return dataclasses.replace(base, **update) if update else base
+
+
+def _int_tuple(raw: str) -> tuple[int, ...]:
+    return tuple(int(part) for part in raw.split(",") if part.strip())
+
+
+class Chaos:
+    """Live harness: tracks which deterministic triggers already fired (each
+    fires exactly once, so a retried operation succeeds on its second
+    attempt)."""
+
+    def __init__(self, config: ChaosConfig, registry=None):
+        self.config = config
+        self._rng = random.Random(config.seed)
+        self._fired: set[tuple] = set()  # guarded by: _lock
+        self._lock = threading.Lock()
+        self._registry = registry
+
+    def _count(self) -> None:
+        registry = self._registry
+        if registry is None:
+            from llm_training_tpu_torch.telemetry.registry import get_registry
+
+            registry = get_registry()
+        registry.counter("resilience/chaos_injections").inc()
+
+    def maybe_raise(self, site: str, step: int | None = None) -> None:
+        """Raise ChaosError if a trigger for `site` fires at `step`."""
+        if site not in SITES:
+            raise ValueError(f"unknown chaos site {site!r}; expected one of {SITES}")
+        steps, prob = self.config.data_error_steps, self.config.data_error_prob
+        with self._lock:
+            deterministic = step is not None and step in steps and (site, step) not in self._fired
+            if deterministic:
+                self._fired.add((site, step))
+            fire = deterministic or (prob > 0 and self._rng.random() < prob)
+        if fire:
+            self._count()
+            logger.warning("chaos: injecting %s failure at step %s", site, step)
+            raise ChaosError(f"chaos: injected {site} failure at step {step}")
+
+    def maybe_sigterm(self, step: int) -> bool:
+        """Deliver SIGTERM to this process when `step` hits the trigger
+        (once). Returns True when the signal was sent."""
+        if self.config.sigterm_step is None:
+            return False
+        with self._lock:
+            if step != self.config.sigterm_step or ("sigterm", step) in self._fired:
+                return False
+            self._fired.add(("sigterm", step))
+        self._count()
+        logger.warning("chaos: delivering SIGTERM to self at step %d", step)
+        os.kill(os.getpid(), signal.SIGTERM)
+        return True
+
+    def maybe_slow_step(self, step: int, sleep=None) -> bool:
+        """Inject `slow_step_s` of dead time at this optimizer-step boundary
+        (every step >= `slow_step_from`; counted once, as one regime).
+        Returns True when the sleep fired."""
+        if self.config.slow_step_s <= 0 or step < self.config.slow_step_from:
+            return False
+        with self._lock:
+            first = ("slow_step",) not in self._fired
+            if first:
+                self._fired.add(("slow_step",))
+        if first:
+            self._count()
+            logger.warning("chaos: slowing every step from %d on by %.2fs", step,
+                           self.config.slow_step_s)
+        (sleep or time.sleep)(self.config.slow_step_s)
+        return True
+
+    def maybe_poison_metrics(self, step: int, metrics: dict, fresh_start: bool = True) -> list[str]:
+        """At the first log step >= each armed trigger, poison the host
+        metrics in place: `nan_step` makes loss/grad_norm non-finite,
+        `spike_step` multiplies them by `spike_scale`. Each fires once per
+        process, and only in a run that started from step 0 (a relaunch
+        resuming past a checkpoint must not re-fire its predecessor's
+        trigger). Returns the kinds fired."""
+        if not fresh_start:
+            return []
+        fired: list[str] = []
+        for kind, trigger in (("nan", self.config.nan_step), ("spike", self.config.spike_step)):
+            if trigger is None or step < trigger:
+                continue
+            with self._lock:
+                if (kind, trigger) in self._fired:
+                    continue
+                self._fired.add((kind, trigger))
+            self._count()
+            logger.warning("chaos: injecting %s into loss/grad_norm at step %d (trigger %d)",
+                           kind, step, trigger)
+            for name in ("loss", "grad_norm"):
+                if name not in metrics:
+                    continue
+                if kind == "nan":
+                    metrics[name] = float("nan")
+                else:
+                    metrics[name] = float(metrics[name]) * self.config.spike_scale
+            fired.append(kind)
+        return fired
+
+
+# ---------------------------------------------------------------- current
+_active: Chaos | None = None  # guarded by: _active_lock
+_active_lock = threading.Lock()
+
+
+def install_chaos(config: ChaosConfig | None, registry=None) -> Chaos | None:
+    """Install the process-global harness (None or an all-default config
+    uninstalls). Returns the installed Chaos, or None."""
+    global _active
+    with _active_lock:
+        if config is None or not config.any_active():
+            _active = None
+        else:
+            _active = Chaos(config, registry=registry)
+        return _active
+
+
+def uninstall_chaos() -> None:
+    install_chaos(None)
+
+
+def get_chaos() -> Chaos | None:
+    return _active
+
+
+def chaos_point(site: str, step: int | None = None) -> None:
+    """Call-site hook: no-op unless a harness is installed."""
+    chaos = _active
+    if chaos is not None:
+        chaos.maybe_raise(site, step)

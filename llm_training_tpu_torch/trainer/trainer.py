@@ -9,12 +9,12 @@ validation loss. `max_steps` counts optimizer steps: the loop runs
 advances once per optimizer step.
 
 The run lifecycle: with a `Checkpointer`, `fit` restores the newest (or a
-given) step before its loop -- state, consumed counters, callback state --
-and restarts the data stream at the restored micro-step, saves every
-`checkpoint_every_n_steps` optimizer steps (never a state whose loss is
-not finite) and once at the end, then waits for the write.
-`restore_for_inference` is the read-only restore of the inference and
-validation commands.
+given) step before its loop -- state, consumed counters, callback state,
+recovery riders -- and restarts the data stream at the restored
+micro-step, saves every `checkpoint_every_n_steps` optimizer steps (never
+a state whose loss is not finite, nor one a guard flagged) and once at the
+end, then waits for the write. `restore_for_inference` is the read-only
+restore of the inference and validation commands.
 
 `prefetch_batches` (default 2, as JAX's) places batches on the device a
 few steps ahead on a worker thread (`data/prefetch.py`); 0 places each
@@ -24,28 +24,86 @@ optimizer's state in pinned host memory between updates, stored through
 `offload_quant_block` elements; `optim/offload.py`), with JAX's defaults
 and validation errors.
 
-Mesh, health, resilience and telemetry are not ported yet (ROADMAP A.3,
-A.4, A.9).
+Telemetry, health and resilience around the loop, as JAX's `fit` wires
+them: a fresh `TelemetryRegistry` installed as the process's current one
+and a `GoodputLedger` bracketing compile (the first micro-step: the
+kernels' build and warm-up), data_wait, step_compute, validation and
+checkpoint_save; the log steps' metrics gain the ledger's summary, the
+`hbm/*` gauges and the registry's snapshot, and the epilogue hands one
+last record to `on_telemetry`. `health.every_n_steps` adds the per-layer
+norms of `telemetry/health.py` (no change to the step's math).
+`resilience` installs the fault-injection harness, SIGTERM/SIGINT
+handling (an emergency save at the next step boundary, then
+`PreemptionInterrupt`), the hang watchdog fed by the loop and the
+prefetcher, data retries, and with `resilience.recovery` the in-process
+rollback-and-skip driver around NanGuard's errors. Every one of these is
+restored when `fit` returns or raises, and every callback's `teardown()`
+runs then.
+
+The callback hooks are JAX's: `on_fit_start(trainer, objective,
+datamodule, start_step)`, `on_train_step(trainer, step)` (every optimizer
+step), `on_step_end(trainer, step, metrics)` (log steps, host metrics),
+`on_validation_end(trainer, step, metrics)`, `on_rollback(trainer,
+step)`, `on_telemetry(trainer, step, record)`, `on_fit_end(trainer,
+state)` and `teardown()`, plus `state_dict` / `load_state_dict` for state
+that a checkpoint carries. A callback stops the loop by setting
+`trainer.should_stop`, and vetoes the final save with
+`trainer.abort_final_save`.
+
+The mesh is not ported yet (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
+import gc
+import inspect
 import logging
 import time
-from dataclasses import dataclass
+import traceback
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
 
 from llm_training_tpu_torch import prng, resolve_device
+from llm_training_tpu_torch.callbacks.nan_guard import LossSpikeError, NonFiniteLossError
 from llm_training_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm
 from llm_training_tpu_torch.optim.offload import check_offload_keys
+from llm_training_tpu_torch.resilience import (
+    GracefulShutdown,
+    HangWatchdog,
+    PreemptionInterrupt,
+    RecoveryExhaustedError,
+    RecoveryManager,
+    ResilienceConfig,
+    config_from_env,
+    get_chaos,
+    install_chaos,
+    uninstall_chaos,
+)
+from llm_training_tpu_torch.telemetry import (
+    GoodputLedger,
+    HBMTimeline,
+    HealthConfig,
+    TelemetryRegistry,
+    build_param_groups,
+    hbm_gauges,
+    layer_health_metrics,
+    layer_health_tensor,
+    resolve_run_dir,
+    set_registry,
+)
+from llm_training_tpu_torch.telemetry.health import sq_norm
 from llm_training_tpu_torch.trainer.checkpoint import Checkpointer
 from llm_training_tpu_torch.trainer.state import TrainState
 
 logger = logging.getLogger(__name__)
+
+# the objective attributes that hold its modules: captured at fit start so a
+# rollback with no committed checkpoint can rebuild them from the seed
+_MODEL_ATTRS = ("model", "ref_model", "pair")
 
 
 @dataclass
@@ -69,6 +127,13 @@ class TrainerConfig:
     # the int8 codec's block (elements of the JAX array's last axis that
     # share one scale)
     offload_quant_block: int = 256
+    # per-layer grad/param/update norms every `health.every_n_steps`
+    # optimizer steps (telemetry/health.py); unset computes none
+    health: HealthConfig = field(default_factory=HealthConfig)
+    # preemption handling (on by default: free until a signal arrives),
+    # the hang watchdog (off by default), data retries, recovery and fault
+    # injection (resilience/)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
 
     def __post_init__(self):
         check_offload_keys(self.offload_optimizer_state, self.offload_state_dtype,
@@ -87,14 +152,35 @@ def _batch_counts(batch: dict[str, np.ndarray]) -> tuple[int, int]:
     return int(batch[id_keys[0]].shape[0]), tokens
 
 
+def _objective_supports_health(objective) -> bool:
+    """Whether the objective reports health extras (MoE router statistics)
+    through a `with_health` flag, as JAX's MoE objectives do."""
+    try:
+        return "with_health" in inspect.signature(objective.loss_and_metrics).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def _host_metrics(metrics: dict) -> dict[str, float]:
+    """The step's metrics on the host in one transfer: the device scalars
+    stacked (in float64, which holds every float32 and every count
+    exactly) and copied once."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    host = {k: float(v) for k, v in metrics.items() if k not in keys}
+    if keys:
+        values = torch.stack([metrics[k].detach().reshape(()).to(torch.float64) for k in keys])
+        host.update(zip(keys, values.tolist()))
+    return {k: host[k] for k in metrics}
+
+
 class Trainer:
     """Drives an objective over a datamodule: `Trainer(config).fit(objective,
-    datamodule)`. Callbacks may define `on_fit_start`, `on_train_step`
-    (every optimizer step), `on_step_end` (log steps, with host metrics),
-    `on_validation_end` and `on_fit_end`, and `state_dict` /
-    `load_state_dict` for state that a checkpoint carries. A callback stops
-    the loop early by setting `trainer.should_stop`; `trainer.state` is the
-    live `TrainState` from the fit's start (after any restore)."""
+    datamodule)`. `trainer.state` is the live `TrainState` from the fit's
+    start (after any restore); `trainer.telemetry` and `trainer.ledger`
+    the fit's registry and goodput ledger; `trainer.last_health` the newest
+    health step's host metrics; `trainer.rollbacks` one record per
+    in-process rollback (failed step, restored micro-step, skipped window,
+    seconds)."""
 
     def __init__(
         self,
@@ -112,11 +198,29 @@ class Trainer:
         self.counters = {"consumed_samples": 0, "consumed_tokens": 0}
         self.state: TrainState | None = None
         self.should_stop = False
+        # callbacks set this when the state must NOT be persisted (the NaN
+        # guard stopping on divergence: saving would poison a resume)
+        self.abort_final_save = False
         # the last optimizer step of a fit, its metrics, and its interval save
         self.last_step: int | None = None
         self.last_metrics: dict | None = None
+        self.last_seq_len: int | None = None
+        self.last_health: dict[str, float] | None = None
+        # the fit epilogue's telemetry record (what on_telemetry received)
+        self.last_telemetry: dict | None = None
         self._last_interval_save: int | None = None
         self._global_batch_size: int | None = None
+        self._param_groups = None
+        # per fit: the registry (the prefetcher records into it from its
+        # thread) and the goodput ledger
+        self.telemetry = TelemetryRegistry()
+        self.ledger = GoodputLedger()
+        self._shutdown: GracefulShutdown | None = None
+        self._watchdog: HangWatchdog | None = None
+        self._hbm_timeline: HBMTimeline | None = None
+        self._preempted = False
+        self._recovery: RecoveryManager | None = None
+        self.rollbacks: list[dict] = []
 
     def _callbacks(self, hook: str, *args) -> None:
         for cb in self.callbacks:
@@ -159,118 +263,398 @@ class Trainer:
             ) from e
         return meta
 
+    # ------------------------------------------------------------ fit
+
     def fit(self, objective, datamodule, resume_step: int | None = None) -> TrainState:
         """Train to `max_steps` optimizer steps: from the newest checkpoint
-        (or `resume_step`) when the checkpointer has one, else from the seed."""
+        (or `resume_step`) when the checkpointer has one, else from the
+        seed. Raises `PreemptionInterrupt` after the emergency save of a
+        signalled fit, and NanGuard's errors (or `RecoveryExhaustedError`
+        under recovery) on divergence."""
+        resil = self.config.resilience
+        # fresh telemetry per fit, installed as the process-current registry
+        # so components built elsewhere (the prefetcher) find it
+        self.telemetry = TelemetryRegistry()
+        self.ledger.start()
+        previous_registry = set_registry(self.telemetry)
+        self._preempted = False
+        try:
+            # fault injection first (the environment overlays the config),
+            # so every other layer sees the harness
+            install_chaos(config_from_env(resil.chaos), registry=self.telemetry)
+            self._shutdown = GracefulShutdown().install() if resil.handle_signals else None
+            self._watchdog = None
+            run_dir = resolve_run_dir(self)
+            if resil.watchdog_timeout_s:
+                self._watchdog = HangWatchdog(
+                    resil.watchdog_timeout_s, run_dir=run_dir, ledger=self.ledger,
+                    registry=self.telemetry, action=resil.watchdog_action,
+                ).start()
+            # per-card memory timeline: sampled on log steps into the
+            # hbm/* gauges and a logger's <run_dir>/hbm.jsonl (never into the
+            # checkpoint directory, which holds steps only)
+            log_dir = next((cb.run_dir for cb in self.callbacks
+                            if getattr(cb, "run_dir", None)), None)
+            self._hbm_timeline = HBMTimeline(run_dir=log_dir, registry=self.telemetry,
+                                             device=self.device)
+            return self._fit_inner(objective, datamodule, resume_step)
+        finally:
+            self._hbm_timeline = None
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+            if self._shutdown is not None:
+                self._shutdown.uninstall()
+                self._shutdown = None
+            uninstall_chaos()
+            set_registry(previous_registry)
+            # callbacks that alter process state (output tees, profiler
+            # traces) restore it even when fit raises
+            for cb in self.callbacks:
+                if hasattr(cb, "teardown"):
+                    cb.teardown()
+
+    def _fit_inner(self, objective, datamodule, resume_step) -> TrainState:
         cfg = self.config
+        acc = cfg.accumulate_grad_batches
         datamodule.setup()
-        state, schedule = self.init_state(objective, with_optimizer=True)
+        built = {a: getattr(objective, a) for a in _MODEL_ATTRS if hasattr(objective, a)}
+        state, base_schedule = self.init_state(objective, with_optimizer=True)
         state.model.train()
-        saved_data_state = None
+        meta = None
         if self.checkpointer is not None:
             meta = self._restore(state, resume_step)
             if meta is not None:
                 self.counters.update(meta.get("counters", {}))
-                saved_data_state = meta.get("data_state")
                 self._load_callback_state(meta)
+        saved_data_state = (meta or {}).get("data_state")
         self.state = state
+
+        # rollback-and-skip recovery: the persisted skip list and cooldowns
+        # come back with the checkpoint, so a resume replays the same skips
+        recovery = None
+        self._recovery = None
+        self.rollbacks = []
+        if cfg.resilience.recovery is not None:
+            recovery = RecoveryManager(cfg.resilience.recovery, registry=self.telemetry,
+                                       metadata=(meta or {}).get("recovery"))
+            self._recovery = recovery
+        schedule = self._wrap_schedule(state, base_schedule)
+
+        health_every = cfg.health.every_n_steps
+        self._param_groups = None
+        if health_every:
+            if _objective_supports_health(objective):
+                raise NotImplementedError(
+                    "the objective reports MoE router statistics; their health metrics "
+                    "(moe_router_health) wait for the MoE stack (ROADMAP A.8)"
+                )
+            self._param_groups = build_param_groups(
+                zip(state.optimizer.names, state.optimizer.params))
+
         start_micro = state.step
-        self._callbacks("on_fit_start", objective, datamodule,
-                        start_micro // cfg.accumulate_grad_batches)
+        micro_steps = cfg.max_steps * acc
+        # chaos divergence fires only in runs that started from scratch, so
+        # a relaunch resuming past a checkpoint survives the trigger
+        fresh_start = start_micro == 0
+        self._callbacks("on_fit_start", objective, datamodule, start_micro // acc)
 
         self.should_stop = False
-        self.last_step = self.last_metrics = self._last_interval_save = None
+        self.abort_final_save = False
+        self.last_step = self.last_metrics = self.last_health = self.last_telemetry = None
+        self.last_seq_len = None
+        self._last_interval_save = None
         self._global_batch_size = None
-        batches = self.train_stream(datamodule, start_micro)
-        try:
-            self._loop(objective, datamodule, state, batches, start_micro, schedule,
-                       saved_data_state)
-        finally:
-            if isinstance(batches, DevicePrefetcher):
-                batches.close()
+        warmed = False
 
-        if self.checkpointer is not None:
-            last = self.last_step
-            if (last is not None and last != self._last_interval_save
-                    and self._loss_finite(self.last_metrics, last)):
-                # the step reached, early stop or not; force: the step may
-                # collide with a stale entry of a previous run of the directory
-                self.checkpointer.save(last, state, counters=dict(self.counters), force=True,
-                                       extra=self._save_extra(last))
-            # the barrier: after this the newest save is durable
-            self.checkpointer.wait()
-        self._callbacks("on_fit_end")
+        def run_segment(state: TrainState, seg_start: int) -> TrainState:
+            """One recoverable stretch of the micro-step loop, from
+            `seg_start` to the end (or a guard's raise, or a stop). With
+            recovery unset there is exactly one segment."""
+            nonlocal warmed
+            skip_list = recovery.skip_list if recovery is not None else None
+            batches = self.train_stream(datamodule, seg_start, skip_list)
+            first_step = seg_start // acc + 1
+            window_time, window_step = time.perf_counter(), seg_start // acc
+            try:
+                for micro in range(seg_start, micro_steps):
+                    if self._watchdog is not None:
+                        self._watchdog.beat("train_loop", step=micro)
+                    with self.ledger.measure("data_wait"):
+                        batch, (samples, tokens) = next(batches)
+                    if self._global_batch_size is None:
+                        self._global_batch_size = samples
+                        ids = batch.get("input_ids")
+                        self.last_seq_len = int(ids.shape[1]) if ids is not None else None
+                        self._check_data_continuity(saved_data_state)
+                    boundary = (micro + 1) % acc == 0
+                    use_health = bool(health_every and boundary
+                                      and ((micro + 1) // acc) % health_every == 0)
+                    # the fit's first micro-step builds and loads the kernels
+                    # and warms the allocator: the port's stand-in for compile
+                    phase = "step_compute" if warmed else "compile"
+                    t_step = time.perf_counter()
+                    with self.ledger.measure(phase):
+                        metrics = self.train_micro_step(objective, state, batch, health=use_health)
+                    if not warmed:
+                        self.telemetry.gauge("compile_time_s").set(time.perf_counter() - t_step)
+                        warmed = True
+                    self.counters["consumed_samples"] += samples
+                    self.counters["consumed_tokens"] += tokens
+
+                    if not boundary:
+                        continue
+                    step = (micro + 1) // acc
+                    self.last_step = step
+                    health = metrics.pop("health", None)
+                    self.last_metrics = metrics
+                    if health is not None:
+                        # one host copy of the [4, groups] tensor; the sync
+                        # drains the launch queue, so it bills to step_compute
+                        with self.ledger.measure("step_compute"):
+                            host_health = health.cpu().tolist()
+                        self.last_health = layer_health_metrics(self._param_groups, host_health)
+                        for key, value in self.last_health.items():
+                            self.telemetry.gauge(key).set(value)
+                    self._callbacks("on_train_step", step)
+
+                    if step % cfg.log_every_n_steps == 0 or step == cfg.max_steps:
+                        # one transfer; it waits for the device's queued work,
+                        # which goodput bills to step_compute
+                        with self.ledger.measure("step_compute"):
+                            host = _host_metrics(metrics)
+                        # divergence injection poisons the host metrics the
+                        # guards read; the device state stays healthy
+                        chaos = get_chaos()
+                        if chaos is not None:
+                            chaos.maybe_poison_metrics(step, host, fresh_start=fresh_start)
+                        now = time.perf_counter()
+                        host["lr"] = float(schedule(step))
+                        host["steps_per_sec"] = (step - window_step) / max(now - window_time, 1e-9)
+                        host.update(self.counters)
+                        window_time, window_step = now, step
+                        host.update(self.ledger.summary())
+                        host.update(self._hbm_timeline.sample(step))
+                        host.update(self.telemetry.snapshot())
+                        logger.info("step %d | loss %.4f | grad_norm %.3f | %.2f steps/s | "
+                                    "goodput %.1f%%", step, host["loss"], host["grad_norm"],
+                                    host["steps_per_sec"], host["goodput/goodput_pct"])
+                        self._callbacks("on_step_end", step, host)
+                        metrics = host
+                    if step == first_step:
+                        # the first step's warm-up stays out of the throughput window
+                        window_time, window_step = time.perf_counter(), step
+                    if cfg.val_check_interval and step % cfg.val_check_interval == 0:
+                        with self.ledger.measure("validation"):
+                            self._run_validation(objective, datamodule, step)
+                    if (
+                        self.checkpointer is not None
+                        and cfg.checkpoint_every_n_steps
+                        and step % cfg.checkpoint_every_n_steps == 0
+                        # a guard may have flagged this step's state as diverged
+                        and not self.abort_final_save
+                        and self._loss_finite(metrics, step)
+                    ):
+                        with self.ledger.measure("checkpoint_save"):
+                            self.checkpointer.save(step, state, counters=dict(self.counters),
+                                                   extra=self._save_extra(step))
+                        self._last_interval_save = step
+
+                    # simulated failures: a real SIGTERM to this process, so
+                    # the handler -> boundary check -> emergency save path
+                    # below is the one exercised; slow steps first
+                    chaos = get_chaos()
+                    if chaos is not None:
+                        chaos.maybe_slow_step(step)
+                        chaos.maybe_sigterm(step)
+                    if self._shutdown is not None and self._shutdown.should_stop(
+                        step, cfg.resilience.preemption_sync_every_n_steps
+                    ):
+                        logger.warning("preemption (%s) at step %d: committing an emergency "
+                                       "checkpoint, then exiting resumable",
+                                       self._shutdown.reason, step)
+                        self.telemetry.counter("resilience/preemptions").inc()
+                        self._preempted = True
+                        self.should_stop = True
+                    if self.should_stop:
+                        logger.info("stopping at step %d (callback request)", step)
+                        break
+                return state
+            finally:
+                if isinstance(batches, DevicePrefetcher):
+                    batches.close()
+
+        try:
+            # the recovery driver: a NanGuard raise rolls the state back to
+            # the last committed checkpoint, registers the poisoned data
+            # window, optionally cools the LR, and re-enters in-process;
+            # budget exhaustion raises RecoveryExhaustedError (CLI exit 76)
+            while True:
+                try:
+                    state = run_segment(state, start_micro)
+                    break
+                except (NonFiniteLossError, LossSpikeError) as failure:
+                    if recovery is None:
+                        raise
+                    plan = recovery.on_failure(failure, self.last_step or 0)
+                    t0 = time.perf_counter()
+                    # the traceback's frames pin the diverged step's tensors
+                    traceback.clear_frames(failure.__traceback__)
+                    state, start_micro, base_schedule = self._rollback_state(
+                        objective, state, built, base_schedule)
+                    win_start, win_len = recovery.register_skip(plan.failed_step * acc, start_micro)
+                    logger.warning(
+                        "recovery rollback %d/%d after %s at step %d: restored micro-step %d, "
+                        "skipping data window [%d, %d), resuming in-process",
+                        plan.rollback_index, recovery.config.max_rollbacks,
+                        type(failure).__name__, plan.failed_step, start_micro,
+                        win_start, win_start + win_len,
+                    )
+                    self._callbacks("on_rollback", start_micro // acc)
+                    recovery.register_cooldown(start_micro // acc)
+                    # the cooldown re-wraps the schedule only: the restored
+                    # optimizer state drops straight in
+                    schedule = self._wrap_schedule(state, base_schedule)
+                    self.rollbacks.append({
+                        "failed_step": plan.failed_step, "failure": type(failure).__name__,
+                        "restored_micro": start_micro, "window": [win_start, win_len],
+                        "seconds": time.perf_counter() - t0,
+                    })
+        finally:
+            # the watchdog patrols the loop; the epilogue legitimately blocks
+            # on the final save for as long as it takes
+            if self._watchdog is not None:
+                self._watchdog.stop()
+
+        final_save_committed = False
+        if (
+            self.checkpointer is not None
+            and self.last_step is not None
+            and not self.abort_final_save
+            and self._loss_finite(self.last_metrics, self.last_step)
+        ):
+            with self.ledger.measure("checkpoint_save"):
+                # force: the step may collide with a stale entry of a previous
+                # run of the directory (the emergency-save case); but a step
+                # this fit's interval save wrote is not written twice
+                if self.last_step != self._last_interval_save:
+                    if self._preempted:
+                        self.telemetry.counter("resilience/emergency_saves").inc()
+                    self.checkpointer.save(self.last_step, state, counters=dict(self.counters),
+                                           force=True, extra=self._save_extra(self.last_step))
+                # the barrier: after this the newest save is durable
+                self.checkpointer.wait()
+                final_save_committed = True
+        elif self.checkpointer is not None:
+            # the final save was vetoed: an in-flight interval save still
+            # becomes durable before the fit returns (or exits resumable)
+            with self.ledger.measure("checkpoint_save"):
+                self.checkpointer.wait()
+        # one last telemetry record: the final save landed after the last
+        # log step
+        if self.last_step is not None:
+            self.last_telemetry = {**self.ledger.summary(), **hbm_gauges(self.device),
+                                   **self.telemetry.snapshot()}
+            self._callbacks("on_telemetry", self.last_step, self.last_telemetry)
+        self._callbacks("on_fit_end", state)
+        if self._preempted:
+            reason = self._shutdown.reason if self._shutdown else "signal"
+            raise PreemptionInterrupt(
+                self.last_step,
+                f"preempted ({reason}) at step {self.last_step}; "
+                + ("emergency checkpoint committed — relaunch fit with the same config to resume"
+                   if final_save_committed else
+                   "NO resumable checkpoint written by this fit — a relaunch resumes from the "
+                   "newest previous one, if any"),
+            )
         return state
 
-    def train_stream(self, datamodule, start_micro: int):
+    def _wrap_schedule(self, state: TrainState, base_schedule):
+        """The schedule of this fit: the base one, re-wrapped by the
+        recovery's LR cooldowns when it has any (the optimizer reads it at
+        its count; the log steps' `lr` too)."""
+        transform = self._recovery.schedule_transform() if self._recovery is not None else None
+        schedule = transform(base_schedule) if transform is not None else base_schedule
+        state.optimizer.schedule = schedule
+        return schedule
+
+    def _rollback_state(self, objective, state: TrainState, built: dict, base_schedule):
+        """Rewind to the last committed checkpoint (counters and callback
+        state included: replayed steps must not count twice), loaded in
+        place into the diverged state's own tensors, so no second copy is
+        ever allocated. With nothing committed, the diverged state is freed
+        first and a fresh one built from the seed, as JAX re-initializes;
+        an objective whose model was handed in cannot be rebuilt that way
+        and escalates. Returns (state, micro-step to resume from, base
+        schedule)."""
+        if self.checkpointer is not None:
+            with self.ledger.measure("checkpoint_save"):
+                self.checkpointer.wait()
+            meta = self.checkpointer.maybe_restore(state)
+            if meta is not None:
+                self.counters = {"consumed_samples": 0, "consumed_tokens": 0}
+                self.counters.update(meta.get("counters", {}))
+                self._load_callback_state(meta)
+                return state, state.step, base_schedule
+        handed = sorted(a for a, module in built.items() if module is not None)
+        if handed:
+            raise RecoveryExhaustedError(
+                f"recovery: no committed checkpoint to roll back to, and the objective's "
+                f"{handed} were handed in, so no fresh init reproduces the fit's start; "
+                "give the trainer a checkpointer"
+            )
+        logger.warning("recovery: no committed checkpoint to roll back to — "
+                       "re-initializing from step 0")
+        state.model = state.optimizer = None
+        self.state = None
+        for attr in built:
+            setattr(objective, attr, None)
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.counters = {"consumed_samples": 0, "consumed_tokens": 0}
+        fresh, base_schedule = self.init_state(objective, with_optimizer=True)
+        fresh.model.train()
+        self.state = fresh
+        return fresh, 0, base_schedule
+
+    def train_stream(self, datamodule, start_micro: int, skip_list=None):
         """The fit's batches from micro-step `start_micro` as `(batch,
         (samples, tokens))` pairs: a `DevicePrefetcher` (close it) with
         `prefetch_batches` > 0, else host batches placed as they are taken.
-        The stream is a pure function of (seed, micro-step): a resume
-        continues it where the checkpoint stopped."""
-        depth = self.config.prefetch_batches
-        if depth > 0:
-            return DevicePrefetcher(
-                lambda produced: datamodule.train_batches(start_step=start_micro + produced),
-                self.device, depth=depth, host_aux_fn=_batch_counts,
-            )
-        return ((to_device(b, self.device), _batch_counts(b))
-                for b in datamodule.train_batches(start_step=start_micro))
-
-    def _loop(self, objective, datamodule, state, batches, start_micro, schedule,
-              saved_data_state):
+        The stream is a pure function of (seed, micro-step), and of the
+        recovery's skip list when one is given (then passed to the
+        datamodule's `train_batches`): a resume continues it where the
+        checkpoint stopped."""
         cfg = self.config
-        micro_steps = cfg.max_steps * cfg.accumulate_grad_batches
-        first_step = start_micro // cfg.accumulate_grad_batches + 1
-        window_time, window_step = time.perf_counter(), first_step - 1
-        for micro in range(start_micro, micro_steps):
-            batch, (samples, tokens) = next(batches)
-            if self._global_batch_size is None:
-                self._global_batch_size = samples
-                self._check_data_continuity(saved_data_state)
-            metrics = self.train_micro_step(objective, state, batch)
-            self.counters["consumed_samples"] += samples
-            self.counters["consumed_tokens"] += tokens
 
-            if (micro + 1) % cfg.accumulate_grad_batches:
-                continue
-            step = (micro + 1) // cfg.accumulate_grad_batches
-            self.last_step, self.last_metrics = step, metrics
-            self._callbacks("on_train_step", step)
-            if step % cfg.log_every_n_steps == 0 or step == cfg.max_steps:
-                host = {k: float(v) for k, v in metrics.items()}
-                now = time.perf_counter()
-                host["lr"] = float(schedule(step))
-                host["steps_per_sec"] = (step - window_step) / max(now - window_time, 1e-9)
-                host.update(self.counters)
-                window_time, window_step = now, step
-                logger.info("step %d | loss %.4f | grad_norm %.3f | %.2f steps/s",
-                            step, host["loss"], host["grad_norm"], host["steps_per_sec"])
-                self._callbacks("on_step_end", step, host)
-            if step == first_step:
-                # the first step's warm-up stays out of the throughput window
-                window_time, window_step = time.perf_counter(), step
-            if cfg.val_check_interval and step % cfg.val_check_interval == 0:
-                self._run_validation(objective, datamodule, step)
-            if (
-                self.checkpointer is not None
-                and cfg.checkpoint_every_n_steps
-                and step % cfg.checkpoint_every_n_steps == 0
-                and self._loss_finite(metrics, step)
-            ):
-                self.checkpointer.save(step, state, counters=dict(self.counters),
-                                       extra=self._save_extra(step))
-                self._last_interval_save = step
-            if self.should_stop:
-                logger.info("stopping at step %d (callback request)", step)
-                break
+        def stream(from_micro: int):
+            if skip_list is not None:
+                return datamodule.train_batches(start_step=from_micro, skip_list=skip_list)
+            return datamodule.train_batches(start_step=from_micro)
 
-    def train_micro_step(self, objective, state: TrainState, batch) -> dict:
+        if cfg.prefetch_batches > 0:
+            watchdog = self._watchdog
+            return DevicePrefetcher(
+                lambda produced: stream(start_micro + produced),
+                self.device, depth=cfg.prefetch_batches, host_aux_fn=_batch_counts,
+                registry=self.telemetry, retries=cfg.resilience.data_retries,
+                retry_backoff_s=cfg.resilience.data_retry_backoff_s,
+                heartbeat=(lambda: watchdog.beat("prefetcher")) if watchdog else None,
+            )
+        return ((to_device(b, self.device), _batch_counts(b)) for b in stream(start_micro))
+
+    def train_micro_step(self, objective, state: TrainState, batch, health: bool = False) -> dict:
         """One train-step call (`_make_step` in JAX): forward and backward on
         one micro-batch (host arrays, or tensors already on the device), the
         gradients' global norm, and the optimizer chain (which updates the
         parameters on every k-th call). Returns the micro-batch's metrics,
-        on the device."""
+        on the device. With `health` (a boundary micro-step) the metrics
+        also hold `health`, the [4, groups] tensor of
+        `telemetry.health.layer_health_tensor`: the parameters' norms before
+        the update, the gradients' before the clip, and the update's,
+        collected inside the optimizer; nothing the step computes changes."""
+        optimizer = state.optimizer
         params = [p for p in state.model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
@@ -282,7 +666,21 @@ class Trainer:
         # over the gradients there are: a parameter that requires none (DPO's
         # reference) adds the zero that JAX's stop_gradient gives it
         metrics["grad_norm"] = global_norm([p.grad for p in params if p.grad is not None])
-        state.optimizer.update()
+        if health:
+            if self._param_groups is None:
+                self._param_groups = build_param_groups(zip(optimizer.names, optimizer.params))
+            p_sq = [sq_norm(p.detach(), self.device) for p in optimizer.params]
+            g_sq = [sq_norm(p.grad, self.device) for p in optimizer.params]
+            optimizer.update_sq = {}
+        try:
+            optimizer.update()
+            if health:
+                zero = torch.zeros((), dtype=torch.float32, device=self.device)
+                u_sq = [sum(optimizer.update_sq.get(i, ()), zero)
+                        for i in range(len(optimizer.params))]
+                metrics["health"] = layer_health_tensor(self._param_groups, p_sq, g_sq, u_sq)
+        finally:
+            optimizer.update_sq = None
         state.step += 1
         return metrics
 
@@ -294,6 +692,10 @@ class Trainer:
         for i, host_batch in enumerate(datamodule.val_batches()):
             if limit and i >= limit:
                 break
+            if self._watchdog is not None:
+                # a validation epoch can outlast the no-progress timeout;
+                # each batch is progress
+                self._watchdog.beat("train_loop")
             _, metrics = objective.loss_and_metrics(to_device(host_batch, self.device), train=False)
             losses.append(float(metrics["loss"]))
             weights.append(float(metrics["target_tokens"]))
@@ -323,10 +725,13 @@ class Trainer:
         return False
 
     def _save_extra(self, step: int) -> dict:
-        """JSON riders of a checkpoint: the data-stream cursor (samples
-        drawn so far and the global batch it is keyed to) and every
-        callback's `state_dict`."""
+        """JSON riders of a checkpoint: the recovery's skip list and
+        cooldowns (a resume replays the same skips), the data-stream cursor
+        (samples drawn so far and the global batch it is keyed to) and
+        every callback's `state_dict` (NanGuard's trackers)."""
         extra: dict = {}
+        if self._recovery is not None:
+            extra["recovery"] = self._recovery.metadata()
         if self._global_batch_size:
             micro = step * self.config.accumulate_grad_batches
             extra["data_state"] = {

@@ -713,6 +713,6 @@ def test_fit_without_cuda_raises(tmp_path):
 
 def test_config_rejects_unknown_fields(tmp_path):
     # a trainer field of the JAX package that the port does not have yet
-    with pytest.raises(ValueError, match="resilience"):
+    with pytest.raises(ValueError, match="mesh"):
         cli_main(["fit", "--config", CONFIG_FILE, "--device", "cpu", f"run_root={tmp_path}",
-                  "trainer.resilience={}"])
+                  "trainer.mesh={}"])
