@@ -136,6 +136,28 @@ Phases, each of which must pass (any failure exits non-zero):
    stall against a 15 s watchdog writes a hang dump naming the open phase
    and the main thread's stack while the run completes; a data error at
    batch 2 with `data_retries` 2 counts `data/retries` 1, losses equal.
+16. checkpoint durability, `supervise` and the `ckpt` command (run after
+   phase 15 freed its memory), on phase 15's 2-layer full-width model under
+   SGD (checkpoints of 5.95 GB), 4 steps, saves at 2 and 4 with `verify:
+   full`, in three legs. a: in one process, the clean fit commits steps 2
+   and 4 with manifests, the mirror (on the same disk) drains and both
+   copies verify in full; one flipped byte in the primary step 4 is healed
+   from the mirror by a new `Trainer`'s restore, every tensor bit-equal to
+   the saved one; with both copies of step 4 rotten the fit falls back to
+   step 2, deletes step 4 and re-runs steps 3-4, their losses within 1e-3
+   relative of the clean run's (bit-equal where the scatter-add allows);
+   each time the ladder's counters are checked. b: `supervise` in processes
+   of its own with `LLMT_CHAOS_SIGKILL_STEP=3`: the child dies on SIGKILL,
+   the relaunch restores step 2 and exits 0, `supervisor.jsonl` shows
+   launch, exit (SIGKILL), restart, launch, exit, complete, and the final
+   parameters equal the clean run's; then a forced final save killed inside
+   its swap (`LLMT_CHAOS_CKPT_KILL_IN_SWAP`) is promoted from `.stale/` by
+   the relaunch, its bytes unchanged. c: `ckpt verify --mode full` exits 0,
+   `ls`, `gc --dry-run` and `mirror` run, a flipped byte makes `verify`
+   exit 1 naming the step and the file, a missing root exits 2. K1-K3
+   launch in leg a's fits. It prints the manifest seconds and hashing rate,
+   the mirror, verify, heal and fallback seconds, and each process's wall
+   time and restarts.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
@@ -314,6 +336,17 @@ RES_SPIKE_Z = 1000.0
 RES_WATCHDOG_S = 15.0
 RES_STALL_S = 20.0
 RES_MAX_DOC = 4096  # the packed rows' longest document (packed_batches' default)
+# phase 16: durability, supervise and the ckpt command, on phase 15's 2-layer
+# model under SGD (a checkpoint of the parameters, 5.95 GB)
+DUR_DIR = ROOT / ".smoke_durability"
+DUR_STEPS = 4
+DUR_COUNTERS = ("checkpoint/verify_failures", "checkpoint/mirror_restores",
+                "resilience/restore_fallbacks")
+# the supervised run's final parameters against the clean run's, per tensor
+# over its largest |value|, where they are not bit-equal: the embedding's
+# backward (a CUDA scatter-add) sums in no fixed order (RESUME_RTOL's
+# reason), which moves a 3e-4 SGD step in its last bits
+DUR_PARAM_RTOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -2641,7 +2674,7 @@ def res_processes(card: str) -> dict:
           f"{expected_rcs}; tails: " + "; ".join(f"{n}: {text[n][-800:]}" for n in rcs
                                                  if rcs[n] != expected_rcs[n]))
     committed = sorted(p.name for p in (RES_DIR / "c" / "ckpt").iterdir())
-    check("resumable code 75" in text["preempt"] and committed == ["step_2"],
+    check("resumable code 75" in text["preempt"] and committed == ["manifest-2.json", "step_2"],
           f"resilience processes: the preempted run committed {committed}")
     rc = res_wait(res_launch(preempt, logs / "relaunch.log"))
     check(rc == 0, f"resilience processes: the relaunch exited {rc}: "
@@ -2702,6 +2735,358 @@ def phase_resilience(card: str) -> dict:
     return out
 
 
+
+# ------------------------------------------------------ phase 16: durability
+
+
+def dur_config(name: str, trainer: dict | None = None, checkpoint: dict | None = None) -> dict:
+    """Phase 15's 2-layer full-width model, SGD and packed rows for 4 steps,
+    saving every 2 steps (`verify: full`, three kept) into
+    `DUR_DIR/<name>/ckpt`, a JSONL logger into `DUR_DIR/<name>/run/log`."""
+    node = {"max_steps": DUR_STEPS, "seed": 0, "log_every_n_steps": 1,
+            "checkpoint_every_n_steps": 2,
+            "checkpoint": {"dirpath": str(DUR_DIR / name / "ckpt"), "max_to_keep": 3,
+                           "verify": "full", **(checkpoint or {})},
+            "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
+                         "init_args": {"save_dir": str(DUR_DIR / name), "project": "run",
+                                       "name": "log"}}]}
+    node.update(trainer or {})
+    return {
+        "seed_everything": 0, "trainer": node,
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": res_model_kwargs(LIFE_LAYERS)},
+            "optim": RES_SGD}},
+        "data": {"class_path": "chip_smoke.SkipRows", "init_args": res_rows()},
+    }
+
+
+def dur_compare(got: dict, want: dict) -> dict:
+    """Tensors of two state dicts: how many differ in any bit, and the
+    largest |difference| over the largest |value| of a tensor."""
+    differ, worst = [], 0.0
+    for name, ref in want.items():
+        value = got[name].detach().to("cpu")
+        if not torch.equal(value, ref):
+            differ.append(name)
+            scale = float(ref.abs().max()) or 1.0
+            worst = max(worst, float((value.float() - ref.float()).abs().max()) / scale)
+    return dict(tensors=len(want), differ=len(differ), max_rel=worst)
+
+
+def dur_losses(name: str) -> dict[int, float]:
+    rows = (DUR_DIR / name / "run" / "log" / "metrics.jsonl").read_text().splitlines()
+    return {r["step"]: r["loss"] for r in map(json.loads, rows) if "loss" in r}
+
+
+def dur_in_process(card: str) -> dict:
+    """Leg a: the clean fit (manifests, mirror, both copies verify); a
+    flipped byte in the primary step 4 healed from the mirror at restore;
+    both copies of step 4 rotten, the fit falls back to step 2 and re-runs
+    steps 3-4 (see the header)."""
+    from llm_training_tpu_torch.cli.main import build_fit
+    from llm_training_tpu_torch.resilience import durability
+    from llm_training_tpu_torch.telemetry.registry import TelemetryRegistry, set_registry
+
+    root, mirror = DUR_DIR / "a" / "ckpt", DUR_DIR / "a" / "mirror"
+    config = dur_config("a", checkpoint={"mirror_dir": str(mirror), "mirror_interval_s": 0.5,
+                                         "scrub_interval_s": 0})
+    t0 = time.perf_counter()
+    losses, trainer, launches, plain = fit_leg(config)
+    fit_s = time.perf_counter() - t0
+    clean = {k: v.detach().to("cpu", copy=True) for k, v in trainer.state.state_dict().items()}
+    snap = trainer.telemetry.snapshot()
+    manifest = dict(trainer.checkpointer.last_manifest)
+    t1 = time.perf_counter()
+    trainer.checkpointer.close()  # drains the mirror
+    close_s = time.perf_counter() - t1
+    del trainer
+    release()
+    losses = {s: float(v) for s, v in losses.items()}
+    check(sorted(losses) == [1, 2, 3, 4] and min(launches) > 0 and plain == 0,
+          f"durability: the clean fit logged {sorted(losses)}, K1/K2/K3 {launches}, plain {plain}")
+    check(durability.committed_steps(root) == [2, 4] == durability.manifested_steps(root)
+          and durability.committed_steps(mirror) == [2, 4],
+          f"durability: primary {durability.committed_steps(root)} (manifested "
+          f"{durability.manifested_steps(root)}), mirror {durability.committed_steps(mirror)}")
+    verify_s = {}
+    for label, where in (("primary", root), ("mirror", mirror)):
+        t1 = time.perf_counter()
+        result = durability.verify_step(where, 4, mode="full")
+        verify_s[label] = time.perf_counter() - t1
+        check(result.ok and durability.verify_step(where, 2, mode="fast").ok,
+              f"durability: the {label} copy of step 4 does not verify: {result.findings}")
+    step_bytes = durability.load_manifest(root, 4)["total_bytes"]
+
+    # heal: one flipped byte in the primary step 4, a new Trainer restores it
+    victim = durability.corrupt_step(root, 4, "flip")
+    trainer, objective, _ = build_fit(config, LIFE_DEVICE)
+    state, _ = trainer.init_state(objective)
+    registry = TelemetryRegistry()
+    previous = set_registry(registry)
+    try:
+        t1 = time.perf_counter()
+        meta = trainer.checkpointer.maybe_restore(state)
+        torch.cuda.synchronize()
+        heal_s = time.perf_counter() - t1
+    finally:
+        set_registry(previous)
+    healed = dur_compare(state.state_dict(), clean)
+    heal_counts = {k: registry.snapshot().get(k, 0) for k in DUR_COUNTERS}
+    trainer.checkpointer.close()
+    del trainer, objective, state
+    release()
+    check(meta["step"] == 4 and healed["differ"] == 0
+          and heal_counts == {"checkpoint/verify_failures": 1, "checkpoint/mirror_restores": 1,
+                              "resilience/restore_fallbacks": 0},
+          f"durability heal: restored step {meta['step']}, {healed}, counters {heal_counts}")
+    check(durability.verify_step(root, 4, mode="full").ok, "durability heal: step 4 not whole")
+
+    # fall back: both copies of step 4 rotten; the fit restores step 2, deletes
+    # step 4 and re-runs steps 3-4
+    durability.corrupt_step(root, 4, "flip")
+    durability.corrupt_step(mirror, 4, "flip")
+    ladder = {}
+
+    class TimeRestore:
+        def on_fit_start(self, trainer, objective, datamodule, start_step):
+            ladder["start_step"] = start_step
+
+    def timed(restore):
+        def run(*args, **kwargs):
+            t1 = time.perf_counter()
+            meta = restore(*args, **kwargs)
+            torch.cuda.synchronize()
+            ladder["seconds"] = time.perf_counter() - t1
+            ladder["steps_after"] = durability.committed_steps(root)
+            return meta
+        return run
+
+    from llm_training_tpu_torch.cli import main as cli
+
+    build = cli.build_fit
+
+    def build_timed(*args, **kwargs):
+        trainer, objective, datamodule = build(*args, **kwargs)
+        trainer.checkpointer.maybe_restore = timed(trainer.checkpointer.maybe_restore)
+        return trainer, objective, datamodule
+
+    cli.build_fit = build_timed
+    try:
+        resumed, trainer, launches_b, plain_b = fit_leg(config, [TimeRestore()])
+    finally:
+        cli.build_fit = build
+    fallback_counts = {k: trainer.telemetry.snapshot().get(k, 0) for k in DUR_COUNTERS}
+    trainer.checkpointer.close()
+    del trainer
+    release()
+    resumed = {s: float(v) for s, v in resumed.items()}
+    rel = {s: abs(resumed[s] - losses[s]) / abs(losses[s]) for s in (3, 4)}
+    check(ladder.get("start_step") == 2 and ladder["steps_after"] == [2]
+          and sorted(resumed) == [3, 4] and max(rel.values()) <= RESUME_RTOL
+          and fallback_counts == {"checkpoint/verify_failures": 1,
+                                  "checkpoint/mirror_restores": 0,
+                                  "resilience/restore_fallbacks": 1}
+          and min(launches_b) > 0 and plain_b == 0,
+          f"durability fallback: {ladder}, losses {resumed} against {losses}, counters "
+          f"{fallback_counts}, K1/K2/K3 {launches_b}, plain {plain_b}")
+    out = dict(
+        losses=losses, fit_s=fit_s, close_s=close_s, launches=launches, step_bytes=step_bytes,
+        manifest_s=snap.get("checkpoint/manifest_s"), manifests=snap.get("checkpoint/manifest_n"),
+        last_manifest=manifest, manifest_gbps=manifest["bytes"] / manifest["seconds"] / 1e9,
+        mirror_drain_s=snap.get("checkpoint/mirror_drain_s"), wait_s=snap.get("checkpoint/wait_s"),
+        verify_full_s=verify_s, victim=victim, heal_s=heal_s, heal_counts=heal_counts,
+        fallback_s=ladder["seconds"], fallback_counts=fallback_counts, resumed=resumed,
+        resumed_bit_equal=all(resumed[s] == losses[s] for s in (3, 4)),
+        resumed_max_rel=max(rel.values()), launches_fallback=launches_b)
+    print(f"durability in process [{card}]: {LIFE_LAYERS} layers at full width, SGD, "
+          f"{DUR_STEPS} steps, saves at 2 and 4 of {step_bytes / 1e9:.3f} GB each, "
+          f"verify full, a mirror on the same disk: {out['manifests']:.0f} manifests in "
+          f"{out['manifest_s']:.3f} s on the training thread (the last: "
+          f"{manifest['seconds']:.3f} s, {out['manifest_gbps']:.3f} GB/s hashed); the fit "
+          f"{fit_s:.1f} s (its wait {out['wait_s']:.3f} s, mirror drain "
+          f"{out['mirror_drain_s']:.3f} s), close {close_s:.3f} s; full verify of step 4 "
+          f"{verify_s['primary']:.3f} s (primary), {verify_s['mirror']:.3f} s (mirror); a "
+          f"flipped byte in {victim} healed from the mirror in {heal_s:.3f} s, every tensor "
+          f"bit-equal, counters {heal_counts}; both copies rotten: the fit fell back to step 2 "
+          f"in {ladder['seconds']:.3f} s, deleted step 4, re-ran steps 3-4 with losses "
+          + ("bit-equal" if out["resumed_bit_equal"] else
+             f"within {out['resumed_max_rel']:.2e} relative") + f", counters {fallback_counts}",
+          flush=True)
+    return out, clean
+
+
+def dur_supervise(name: str, config: dict, env: dict, args: list[str], timeout: float = 420):
+    """`python -m llm_training_tpu_torch supervise` in a session of its own
+    (its children with it, all killed on the timeout): (exit code, wall
+    seconds, the supervisor's events, its output)."""
+    import signal
+    import subprocess
+
+    path = DUR_DIR / f"{name}.json"
+    path.write_text(json.dumps(config))
+    log = DUR_DIR / f"{name}-supervisor.jsonl"
+    out_path = DUR_DIR / f"{name}.log"
+    cmd = [sys.executable, "-m", "llm_training_tpu_torch", "supervise", "--config", str(path),
+           "--backoff-base-s", "0", "--max-restarts", "2", "--log", str(log), *args]
+    t0 = time.perf_counter()
+    with open(out_path, "w") as handle:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env}, stdout=handle,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.perf_counter() - t0
+    events = [json.loads(line) for line in log.read_text().splitlines()] if log.exists() else []
+    return rc, wall, events, out_path.read_text()
+
+
+def dur_lifecycle(events: list[dict]) -> list[tuple]:
+    return [(e["event"], e.get("signal")) for e in events if e["event"] != "segment_topology"]
+
+
+HEALED = [("launch", None), ("exit", "SIGKILL"), ("restart", None), ("launch", None),
+          ("exit", None), ("complete", None)]
+
+
+def dur_processes(card: str, clean: dict, clean_losses: dict) -> dict:
+    """Leg b: a chaos SIGKILL at step 3 under `supervise`, healed by the
+    relaunch; then a SIGKILL inside a forced final save's swap, healed by
+    promoting `.stale/step_4` (see the header)."""
+    from llm_training_tpu_torch.cli.main import build_fit
+    from llm_training_tpu_torch.resilience import durability
+
+    root = DUR_DIR / "b" / "ckpt"
+    config = dur_config("b", checkpoint={"async_save": False})
+    rc, wall, events, text = dur_supervise(
+        "sigkill", config, {"LLMT_CHAOS_SIGKILL_STEP": "3"},
+        ["--child-args", f"--device {LIFE_DEVICE}"])
+    check(rc == 0 and dur_lifecycle(events) == HEALED
+          and [e["attempt"] for e in events if e["event"] == "segment_topology"] == [1, 2],
+          f"durability supervise: exit {rc}, events {dur_lifecycle(events)}: {text[-1500:]}")
+    runtimes = [e["runtime_s"] for e in events if e["event"] == "exit"]
+    losses = {s: float(v) for s, v in dur_losses("b").items()}
+    rel = max(abs(losses[s] - clean_losses[s]) / abs(clean_losses[s]) for s in clean_losses)
+    trainer, objective, _ = build_fit(config, LIFE_DEVICE)
+    state = trainer.restore_for_inference(objective)
+    final = dur_compare({f"model.{k}": v for k, v in state.model.state_dict().items()},
+                        {k: v for k, v in clean.items() if k.startswith("model.")})
+    trainer.checkpointer.close()
+    del trainer, objective, state
+    release()
+    check(sorted(losses) == [1, 2, 3, 4] and rel <= RESUME_RTOL
+          and (final["differ"] == 0 or final["max_rel"] <= DUR_PARAM_RTOL),
+          f"durability supervise: losses {losses} against {clean_losses}, final parameters "
+          f"{final}")
+
+    # a forced final save killed inside its swap: the first launch resumes
+    # step 2 (--ckpt-path), runs steps 3-4 with no interval save, and its final
+    # save over the committed step 4 dies on SIGKILL between the renames; the
+    # relaunch promotes .stale/step_4 and finds nothing left to do
+    before = durability.load_manifest(root, 4)
+    rc_swap, wall_swap, swap_events, swap_text = dur_supervise(
+        "swap", config, {"LLMT_CHAOS_CKPT_KILL_IN_SWAP": "4"},
+        ["--ckpt-path", "2", "--child-args",
+         f"--device {LIFE_DEVICE} trainer.checkpoint_every_n_steps=null"])
+    promoted = "promoted staged checkpoint step 4" in swap_text
+    check(rc_swap == 0 and dur_lifecycle(swap_events) == HEALED and promoted
+          and durability.committed_steps(root) == [2, 4]
+          and durability.load_manifest(root, 4) == before
+          and durability.verify_step(root, 4, mode="full").ok
+          and not (root / durability.STALE_DIR).exists(),
+          f"durability kill-in-swap: exit {rc_swap}, events {dur_lifecycle(swap_events)}, "
+          f"promoted {promoted}, steps {durability.committed_steps(root)}: {swap_text[-1500:]}")
+    swap_runtimes = [e["runtime_s"] for e in swap_events if e["event"] == "exit"]
+    out = dict(rc=rc, wall_s=wall, runtimes=runtimes,
+               restarts=sum(e["event"] == "restart" for e in events), losses=losses,
+               losses_bit_equal=losses == clean_losses, max_rel_loss=rel, final=final,
+               swap_rc=rc_swap, swap_wall_s=wall_swap, swap_runtimes=swap_runtimes,
+               swap_restarts=sum(e["event"] == "restart" for e in swap_events))
+    print(f"durability processes [{card}]: supervise with LLMT_CHAOS_SIGKILL_STEP=3: the child "
+          f"died on SIGKILL after {runtimes[0]:.1f} s, the relaunch restored step 2 and "
+          f"completed in {runtimes[1]:.1f} s ({out['restarts']} restart, {wall:.1f} s wall); "
+          f"losses " + ("bit-equal to" if out["losses_bit_equal"] else
+                        f"within {rel:.2e} relative of") + " the clean run's, final parameters "
+          + ("bit-equal" if final["differ"] == 0 else
+             f"{final['differ']} of {final['tensors']} tensors within {final['max_rel']:.2e}")
+          + f"; a forced final save killed inside its swap after {swap_runtimes[0]:.1f} s, the "
+          f"relaunch promoted .stale/step_4 (bytes unchanged, full verify clean) and exited 0 "
+          f"in {swap_runtimes[1]:.1f} s ({wall_swap:.1f} s wall)", flush=True)
+    return out
+
+
+def dur_cli(card: str) -> dict:
+    """Leg c: `ckpt verify`, `ls`, `gc --dry-run` and `mirror` on leg b's
+    root; one flipped byte makes `verify` exit 1 naming the step and file;
+    a missing root exits 2."""
+    from llm_training_tpu_torch.cli.main import main as cli_main
+    from llm_training_tpu_torch.resilience import durability
+
+    root = DUR_DIR / "b" / "ckpt"
+
+    def ckpt(*argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["ckpt", *map(str, argv)])
+        return rc, time.perf_counter() - t0, out.getvalue()
+
+    verify = ckpt("verify", root, "--mode", "full")
+    listed = ckpt("ls", root)
+    gc_dry = ckpt("gc", root, "--keep-last", "1", "--dry-run")
+    mirror = ckpt("mirror", root, "--mirror-dir", DUR_DIR / "c-mirror")
+    victim = durability.corrupt_step(root, 4, "flip")
+    finding = ckpt("verify", root, "--mode", "full", "--step", "4")
+    missing = ckpt("verify", DUR_DIR / "missing", "--mode", "full")
+    codes = [r[0] for r in (verify, listed, gc_dry, mirror, finding, missing)]
+    check(codes == [0, 0, 0, 0, 1, 2] and "step 4" in finding[2] and victim in finding[2]
+          and "would delete steps [2]" in gc_dry[2]
+          and durability.committed_steps(DUR_DIR / "c-mirror") == [2, 4],
+          f"durability ckpt: exit codes {codes} (want [0, 0, 0, 0, 1, 2]): "
+          + " | ".join(r[2][-400:] for r in (verify, gc_dry, mirror, finding, missing)))
+    out = dict(codes=codes, verify_full_s=verify[1], mirror_s=mirror[1], finding_s=finding[1],
+               finding=[line for line in finding[2].splitlines() if line.startswith("FINDING")])
+    print(f"durability ckpt [{card}]: verify --mode full of 2 steps {verify[1]:.3f} s (exit 0), "
+          f"ls, gc --dry-run (would delete [2]), mirror of 2 steps {mirror[1]:.3f} s (exit 0); "
+          f"a flipped byte: verify exit 1 in {finding[1]:.3f} s ({out['finding'][0]}); a "
+          f"missing root exit 2", flush=True)
+    return out
+
+
+def phase_durability(card: str) -> dict:
+    """Checkpoint durability, supervise and the ckpt command (see the
+    header)."""
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    shutil.rmtree(DUR_DIR, ignore_errors=True)
+    DUR_DIR.mkdir()
+    out = {}
+    try:
+        free = free_bytes(DUR_DIR)
+        # leg a holds two steps, two mirror copies and a healing copy at once
+        check(free >= 40e9, f"durability: {free} bytes free in {DUR_DIR}, the phase needs 40 GB")
+        t0 = time.perf_counter()
+        out["in_process"], clean = dur_in_process(card)
+        out["in_process"]["leg_s"] = time.perf_counter() - t0
+        shutil.rmtree(DUR_DIR / "a", ignore_errors=True)
+        t0 = time.perf_counter()
+        out["processes"] = dur_processes(card, clean, out["in_process"]["losses"])
+        out["processes"]["leg_s"] = time.perf_counter() - t0
+        del clean
+        t0 = time.perf_counter()
+        out["ckpt"] = dur_cli(card)
+        out["ckpt"]["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(DUR_DIR, ignore_errors=True)
+        release()
+    return out
+
+
 def main() -> int:
     if len(sys.argv) != 1:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2734,6 +3119,7 @@ def main() -> int:
     preference = phase_preference(card)
     optimizer = phase_optimizer(card)
     resilience = phase_resilience(card)
+    durability = phase_durability(card)
     phase_train_parity()
     flash = phase_flash_timing(card)
     phase_random_streams(card)
@@ -2743,6 +3129,7 @@ def main() -> int:
     print(f"preference summary [{card}]: " + json.dumps(preference))
     print(f"optimizer summary [{card}]: " + json.dumps(optimizer))
     print(f"resilience summary [{card}]: " + json.dumps(resilience))
+    print(f"durability summary [{card}]: " + json.dumps(durability))
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",

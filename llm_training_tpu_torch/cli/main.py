@@ -1,5 +1,5 @@
 """Console entry: `python -m llm_training_tpu_torch
-{fit,validate,generate,evaluate,serve}`.
+{fit,validate,generate,evaluate,serve,supervise,ckpt}`.
 
 `fit --config file.json [--ckpt-path STEP] [key.path=value ...]` trains:
 the counterpart of the JAX `fit` command on a JSON config with the YAML
@@ -38,6 +38,15 @@ dtype), a named preset (`--preset llama-3.1-8b`) or a JSON config file
 JAX parameter tree (`--weights`, keys joined by '/') or are drawn from
 `--seed`.
 
+`supervise --config file.json` runs `fit` as a child process and
+relaunches it on exit 75 and on hard deaths (SIGKILL, segfault, the
+watchdog's SIGABRT) with JAX's flags, budget and backoff, logging every
+lifecycle event to `supervisor.jsonl` (the config's run directory by
+default); it never initializes CUDA. Flags for the child (`--device cpu`)
+ride in `--child-args`. `ckpt {verify,ls,gc,mirror} DIR` checks, lists,
+prunes and mirrors a checkpoint root by its integrity manifests: exit 0
+clean, 1 findings, 2 unusable.
+
 Every command runs on `cuda` unless `--device cpu` is given.
 """
 
@@ -48,8 +57,10 @@ import json
 import logging
 import queue
 import random
+import shlex
 import sys
 import threading
+from pathlib import Path
 from typing import TextIO
 
 import numpy as np
@@ -73,6 +84,12 @@ from llm_training_tpu_torch.resilience import (
     RESUMABLE_EXIT_CODE,
     PreemptionInterrupt,
     RecoveryExhaustedError,
+)
+from llm_training_tpu_torch.resilience.durability import ckpt_main
+from llm_training_tpu_torch.resilience.supervisor import (
+    Supervisor,
+    SupervisorConfig,
+    build_fit_argv,
 )
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
@@ -289,6 +306,56 @@ def run_fit(args) -> int:
     return 0
 
 
+def _jsonl_run_dir(config: dict) -> Path | None:
+    """The run directory a `JsonlLogger` node of the config names (its
+    defaults are `JsonlLoggerConfig`'s), or None."""
+    for node in config.get("trainer", {}).get("loggers", []) or []:
+        if str(node.get("class_path", "")).endswith("JsonlLogger"):
+            init = node.get("init_args", {}) or {}
+            if init.get("name"):
+                return (Path(init.get("save_dir", "runs"))
+                        / str(init.get("project", "llm-training-tpu")) / str(init["name"]))
+    return None
+
+
+def run_supervise(args) -> int:
+    """`supervise`: relaunch `fit` on exit 75 and hard deaths. Subprocesses
+    only: this process never initializes CUDA."""
+    if args.child == "serve":
+        raise NotImplementedError(
+            "supervise --child serve relaunches into a replay of the serve request journal, "
+            "which is not ported yet (ROADMAP A.7)"
+        )
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+                        stream=sys.stdout)
+    child_args = list(args.overrides) + shlex.split(args.child_args or "")
+    log_path = args.log
+    if log_path is None:
+        # no explicit --log: the churn log lands in the config's run directory
+        # when it names one, else the working directory
+        log_path = "supervisor.jsonl"
+        try:
+            overrides = [t for t in child_args if "=" in t and not t.startswith("-")]
+            run_dir = _jsonl_run_dir(load_config(args.config, overrides))
+            if run_dir is not None:
+                log_path = str(run_dir / "supervisor.jsonl")
+        except Exception:
+            pass  # an unparseable config: the child reports it
+    config = SupervisorConfig(
+        max_restarts=args.max_restarts, backoff_base_s=args.backoff_base_s,
+        backoff_max_s=args.backoff_max_s, log_path=log_path or None,
+        min_devices=args.min_devices, probe_backoff_s=args.probe_backoff_s,
+        probe_max_wait_s=args.probe_max_wait_s,
+    )
+    supervisor = Supervisor(
+        build_fit_argv(args.config, child_args, ckpt_path=args.ckpt_path), config=config,
+        # relaunches drop an explicit --ckpt-path: they restore the newest step
+        relaunch_argv=build_fit_argv(args.config, child_args),
+    )
+    return supervisor.run()
+
+
 def run_validate(args) -> int:
     trainer, objective, datamodule = build_fit(_load(args), args.device)
     result = trainer.validate_from_checkpoint(objective, datamodule,
@@ -455,13 +522,95 @@ def build_parser() -> argparse.ArgumentParser:
     )
     _sampling_args(serve)
     _run_args(serve, device_default="cuda")
+
+    supervise = sub.add_parser(
+        "supervise",
+        help="run fit (or, with --child serve, the serving tier) as a "
+        "supervised child process; restart it on preemption (exit 75) and "
+        "hard deaths (SIGKILL/segfault/SIGABRT)",
+    )
+    supervise.add_argument("--config", required=True)
+    supervise.add_argument(
+        "--child", default="fit", choices=("fit", "serve"),
+        help="the supervised subcommand; a relaunched serve child replays "
+        "its request journal before reading stdin (serve: not ported yet)",
+    )
+    supervise.add_argument(
+        "--child-args", default="",
+        help="extra flags/overrides for the child, as one shell-quoted "
+        "string (e.g. --child-args '--device cpu run_root=/tmp/x') — the "
+        "channel for flags the supervise parser does not know",
+    )
+    supervise.add_argument(
+        "--ckpt-path", default=None,
+        help="explicit resume step for the FIRST launch only (relaunches "
+        "always restore the newest checkpoint)",
+    )
+    supervise.add_argument("--max-restarts", type=int, default=10)
+    supervise.add_argument("--backoff-base-s", type=float, default=1.0)
+    supervise.add_argument("--backoff-max-s", type=float, default=300.0)
+    supervise.add_argument(
+        "--min-devices", type=int, default=None,
+        help="elastic capacity gate: before each relaunch, probe the "
+        "visible device count (in a subprocess) and wait while it is below "
+        "this minimum; default: relaunch blind",
+    )
+    supervise.add_argument(
+        "--probe-backoff-s", type=float, default=5.0,
+        help="sleep between capacity probes while below --min-devices",
+    )
+    supervise.add_argument(
+        "--probe-max-wait-s", type=float, default=300.0,
+        help="give up (propagating the child's exit code) after waiting "
+        "this long for --min-devices",
+    )
+    supervise.add_argument(
+        "--log", default=None,
+        help="supervisor event log path ('' disables). Default: "
+        "supervisor.jsonl in the config's run directory when it names one, "
+        "else the cwd; an explicit path — including './supervisor.jsonl' — "
+        "is used as given",
+    )
+    supervise.add_argument("overrides", nargs="*")
+
+    ckpt = sub.add_parser(
+        "ckpt",
+        help="checkpoint durability operations over a checkpoint root "
+        "(and its mirror): verify manifests, list steps, retention GC, "
+        "force a mirror pass",
+    )
+    ckpt_sub = ckpt.add_subparsers(dest="ckpt_command", required=True)
+    for name, help_text in (
+        ("verify", "check every committed step against its integrity "
+         "manifest; exit 1 with each offending file named on findings"),
+        ("ls", "list committed steps and their manifest status"),
+        ("gc", "apply the retention policy (keep-last-N + keep-every-K; "
+         "never the newest step, never the last intact copy)"),
+        ("mirror", "mirror every manifested step now (tmp-then-rename + "
+         "manifest re-verification on the copy)"),
+    ):
+        p = ckpt_sub.add_parser(name, help=help_text)
+        p.add_argument("dir", help="checkpoint root (the step_N parent)")
+        p.add_argument("--mirror-dir", default=None,
+                       help="mirror root (default: LLMT_CKPT_MIRROR_DIR)")
+        if name == "verify":
+            p.add_argument("--mode", default="fast", choices=("fast", "full"),
+                           help="fast = file set + sizes; full = re-hash every file")
+            p.add_argument("--step", type=int, default=None,
+                           help="verify only this step (default: every committed step)")
+        if name == "gc":
+            p.add_argument("--keep-last", type=int, default=3)
+            p.add_argument("--keep-every", type=int, default=None,
+                           help="also keep every step divisible by K")
+            p.add_argument("--dry-run", action="store_true")
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     commands = {"fit": run_fit, "validate": run_validate, "generate": run_generate,
-                "evaluate": run_evaluate, "serve": run_serve}
+                "evaluate": run_evaluate, "serve": run_serve, "supervise": run_supervise,
+                "ckpt": ckpt_main}
     return commands[args.command](args)
 
 

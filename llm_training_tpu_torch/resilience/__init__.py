@@ -1,5 +1,6 @@
 """Resilience around `fit`: preemption, retries, the hang watchdog,
-rollback-and-skip recovery and fault injection.
+rollback-and-skip recovery, checkpoint durability, crash-restart
+supervision, elastic planning and fault injection.
 
 Counterpart of the part of `llm_training_tpu/resilience/` that the
 trainer's fit runs:
@@ -17,17 +18,25 @@ trainer's fit runs:
   window, optional LR cooldown, escalate when the budget runs out
   (`RecoveryExhaustedError` -> exit 76; a guard's own raise exits 77 for a
   spike and 78 for a non-finite loss).
-- **Fault injection** (`chaos.py`): the triggers of the sites above.
-
-Not ported yet: checkpoint durability, the supervisor, elastic resume and
-the rest of the chaos triggers (ROADMAP A.4); `ResilienceConfig.elastic`
-raises `NotImplementedError` when set.
+- **Crash-restart supervision** (`supervisor.py` + the `supervise`
+  command): relaunch `fit` on exit 75 and on hard deaths (SIGKILL/OOM,
+  segfault, the watchdog's SIGABRT) with a restart budget, exponential
+  backoff and a `supervisor.jsonl` event log.
+- **Elastic planning** (`elastic.py`): the topology planner, the data
+  continuity check at resume, each segment's `segment_topology` event and
+  the goodput ledger's cost basis; on the port's one card (a mesh is
+  ROADMAP A.9).
+- **Checkpoint durability** (`durability.py`): sha256 integrity manifests
+  beside every committed step, verify-before-restore, an async mirror
+  daemon with retention GC and a scrubber, `.stale/` staging of forced
+  saves, and the `ckpt` command.
+- **Fault injection** (`chaos.py`): the triggers of the sites above; the
+  serving tier's wait for ROADMAP A.7.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
 
 from llm_training_tpu_torch.resilience.chaos import (
     Chaos,
@@ -38,6 +47,29 @@ from llm_training_tpu_torch.resilience.chaos import (
     get_chaos,
     install_chaos,
     uninstall_chaos,
+)
+from llm_training_tpu_torch.resilience.durability import (
+    MirrorDaemon,
+    VerifyResult,
+    build_manifest,
+    committed_steps,
+    corrupt_step,
+    mirror_step,
+    retention_victims,
+    verify_step,
+    write_manifest,
+)
+from llm_training_tpu_torch.resilience.elastic import (
+    ElasticConfig,
+    ElasticTopologyError,
+    TopologyPlan,
+    chaos_device_limit,
+    check_data_continuity,
+    log_segment_topology,
+    plan_topology,
+    resolve_chip_price,
+    segment_attempt,
+    visible_device_count,
 )
 from llm_training_tpu_torch.resilience.recovery import (
     LOSS_SPIKE_EXIT_CODE,
@@ -59,6 +91,11 @@ from llm_training_tpu_torch.resilience.shutdown import (
     RESUMABLE_EXIT_CODE,
     GracefulShutdown,
     PreemptionInterrupt,
+)
+from llm_training_tpu_torch.resilience.supervisor import (
+    Supervisor,
+    SupervisorConfig,
+    build_fit_argv,
 )
 from llm_training_tpu_torch.resilience.watchdog import HangWatchdog
 
@@ -87,18 +124,17 @@ class ResilienceConfig:
     # in-process rollback-and-skip recovery; None (default) fails fast, the
     # data stream byte-identical to a recovery-less run
     recovery: RecoveryConfig | None = None
-    # elastic resume: not ported yet (ROADMAP A.4)
-    elastic: Any = None
+    # elastic planning: with this block set, fit plans its topology against
+    # the visible device count (the port runs one card: a plan for more
+    # raises, ROADMAP A.9). None (default) = the one card, as before
+    elastic: ElasticConfig | None = None
     # fault injection (off unless a trigger is set); LLMT_CHAOS_* env vars
     # overlay it at fit start
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
 
     def __post_init__(self):
-        if self.elastic is not None:
-            raise NotImplementedError(
-                "resilience.elastic is not ported yet (ROADMAP A.4): the port's fit runs "
-                "on the mesh its config names"
-            )
+        if isinstance(self.elastic, dict):
+            self.elastic = ElasticConfig(**self.elastic)
         if self.watchdog_action not in ("dump", "abort"):
             raise ValueError(f"watchdog_action must be dump or abort, got {self.watchdog_action!r}")
         checks = (
@@ -121,20 +157,42 @@ __all__ = [
     "ChaosConfig",
     "ChaosError",
     "DataSkipList",
+    "ElasticConfig",
+    "ElasticTopologyError",
     "GracefulShutdown",
     "HangWatchdog",
+    "MirrorDaemon",
     "PreemptionInterrupt",
     "RecoveryConfig",
     "RecoveryExhaustedError",
     "RecoveryManager",
     "ResilienceConfig",
     "RetryPolicy",
+    "Supervisor",
+    "SupervisorConfig",
+    "TopologyPlan",
+    "VerifyResult",
+    "build_fit_argv",
+    "build_manifest",
+    "chaos_device_limit",
     "chaos_point",
+    "check_data_continuity",
+    "committed_steps",
     "config_from_env",
     "cooldown_schedule",
+    "corrupt_step",
     "get_chaos",
     "install_chaos",
     "is_transient",
+    "log_segment_topology",
+    "mirror_step",
+    "plan_topology",
+    "resolve_chip_price",
+    "retention_victims",
     "retry_call",
+    "segment_attempt",
     "uninstall_chaos",
+    "verify_step",
+    "visible_device_count",
+    "write_manifest",
 ]

@@ -3,11 +3,15 @@ recovery sites of `fit`.
 
 Counterpart of the part of `llm_training_tpu/resilience/chaos.py` that the
 port's fit runs: data-source errors in the prefetcher (`data_error_steps`,
-`data_error_prob`), a real SIGTERM at an optimizer step (`sigterm_step`),
-divergence poisoned into the host metrics (`nan_step`, `spike_step`,
-`spike_scale`) and a sustained slow regime (`slow_step_s` from
-`slow_step_from`), all seeded by `seed`. Injected I/O faults raise
-`ChaosError`, an `OSError`, so they take the production retry path.
+`data_error_prob`), checkpoint-save errors (`checkpoint_error_steps`,
+`checkpoint_error_prob`), a real SIGTERM or SIGKILL at an optimizer step
+(`sigterm_step`, `sigkill_step`), divergence poisoned into the host
+metrics (`nan_step`, `spike_step`, `spike_scale`), a sustained slow regime
+(`slow_step_s` from `slow_step_from`), byte-level corruption of a
+committed checkpoint (`ckpt_corrupt`) and a SIGKILL inside a forced
+save's swap (`ckpt_kill_in_swap`), all seeded by `seed`. Injected I/O
+faults raise `ChaosError`, an `OSError`, so they take the production retry
+path.
 
 The harness is a process global the trainer installs at fit start
 (`install_chaos`) and removes in its fit's `finally`; call sites poll
@@ -15,9 +19,8 @@ The harness is a process global the trainer installs at fit start
 `config_from_env` overlays `LLMT_CHAOS_*` variables with JAX's names.
 
 JAX's other triggers raise `NotImplementedError` here, naming the queue
-that brings their site: the checkpoint's errors and corruption and
-`sigkill_step` (the supervisor's path) with ROADMAP A.4, the serving
-tier's and the router's with A.7.
+that brings their site: the serving tier's and the router's with ROADMAP
+A.7.
 """
 
 from __future__ import annotations
@@ -33,17 +36,12 @@ from dataclasses import dataclass
 
 logger = logging.getLogger(__name__)
 
-# injection sites the port polls: the data-source pull
-SITES = ("data",)
+# injection sites: data-source pull / checkpoint save I/O
+SITES = ("data", "checkpoint_save")
 
 # JAX's triggers whose sites the port does not have yet -> the queue that
 # brings them, and their environment names
 NOT_PORTED = {
-    "checkpoint_error_steps": ("A.4", "LLMT_CHAOS_CHECKPOINT_ERROR_STEPS"),
-    "checkpoint_error_prob": ("A.4", "LLMT_CHAOS_CHECKPOINT_ERROR_PROB"),
-    "sigkill_step": ("A.4", "LLMT_CHAOS_SIGKILL_STEP"),
-    "ckpt_corrupt": ("A.4", "LLMT_CHAOS_CKPT_CORRUPT"),
-    "ckpt_kill_in_swap": ("A.4", "LLMT_CHAOS_CKPT_KILL_IN_SWAP"),
     "serve_stall_step": ("A.7", "LLMT_CHAOS_SERVE_STALL_STEP"),
     "serve_sigterm_step": ("A.7", "LLMT_CHAOS_SERVE_SIGTERM_STEP"),
     "serve_malformed_flood": ("A.7", "LLMT_CHAOS_SERVE_MALFORMED_FLOOD"),
@@ -67,12 +65,19 @@ class ChaosError(OSError):
 @dataclass
 class ChaosConfig:
     seed: int = 0
-    # fire exactly once at these prefetcher production indices
+    # fire exactly once at these step numbers (data: prefetcher production
+    # index; checkpoint_save: optimizer step)
     data_error_steps: tuple[int, ...] = ()
-    # per-pull probability in [0, 1]
+    checkpoint_error_steps: tuple[int, ...] = ()
+    # per-call probability in [0, 1]
     data_error_prob: float = 0.0
+    checkpoint_error_prob: float = 0.0
     # deliver a real SIGTERM to this process at this optimizer step
     sigterm_step: int | None = None
+    # deliver SIGKILL at this optimizer step: a hard death only `supervise`
+    # survives. Fires only in a run that STARTED from step 0, so the
+    # supervisor's relaunch (resuming past a checkpoint) survives it
+    sigkill_step: int | None = None
     # at the first log step >= the trigger, poison the host loss/grad_norm:
     # nan_step makes them non-finite, spike_step scales them by spike_scale
     # (host-side only: the device state stays healthy)
@@ -82,13 +87,17 @@ class ChaosConfig:
     # sleep this long at every optimizer-step boundary from slow_step_from on
     slow_step_s: float = 0.0
     slow_step_from: int = 0
+    # byte-level checkpoint corruption: `{flip,truncate,delete}[:step]`.
+    # With `:step` it fires right after that step's manifest lands (before
+    # the mirror copies it: the mirror's re-verification must reject the
+    # copy); without a step, on the newest committed step at the final
+    # wait() barrier (after the mirror drained: the restore must heal)
+    ckpt_corrupt: str | None = None
+    # SIGKILL this process inside a forced save's swap at this step: the
+    # staged `.stale/` copy must be promotable on relaunch
+    ckpt_kill_in_swap: int | None = None
     # JAX's other triggers: accepted unset, NotImplementedError when set
     # (NOT_PORTED names the queue that brings each one's site)
-    checkpoint_error_steps: tuple[int, ...] = ()
-    checkpoint_error_prob: float = 0.0
-    sigkill_step: int | None = None
-    ckpt_corrupt: str | None = None
-    ckpt_kill_in_swap: int | None = None
     serve_stall_step: int | None = None
     serve_sigterm_step: int | None = None
     serve_malformed_flood: int = 0
@@ -100,8 +109,10 @@ class ChaosConfig:
             if getattr(self, key) not in (None, (), [], 0, 0.0, ""):
                 raise _not_ported(key)
         self.data_error_steps = tuple(int(s) for s in self.data_error_steps)
+        self.checkpoint_error_steps = tuple(int(s) for s in self.checkpoint_error_steps)
         checks = (
             (0 <= self.data_error_prob <= 1, "data_error_prob must be in [0, 1]"),
+            (0 <= self.checkpoint_error_prob <= 1, "checkpoint_error_prob must be in [0, 1]"),
             (self.spike_scale > 0, "spike_scale must be > 0"),
             (self.slow_step_s >= 0, "slow_step_s must be >= 0"),
             (self.slow_step_from >= 0, "slow_step_from must be >= 0"),
@@ -113,33 +124,46 @@ class ChaosConfig:
     def any_active(self) -> bool:
         return bool(
             self.data_error_steps
+            or self.checkpoint_error_steps
             or self.data_error_prob
+            or self.checkpoint_error_prob
             or self.sigterm_step is not None
+            or self.sigkill_step is not None
             or self.nan_step is not None
             or self.spike_step is not None
+            or self.ckpt_corrupt is not None
+            or self.ckpt_kill_in_swap is not None
             or self.slow_step_s > 0
         )
 
 
 def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
     """Overlay `LLMT_CHAOS_*` environment variables on `base`:
-    LLMT_CHAOS_DATA_ERROR_STEPS (comma-separated ints),
-    LLMT_CHAOS_DATA_ERROR_PROB / LLMT_CHAOS_SPIKE_SCALE /
+    LLMT_CHAOS_DATA_ERROR_STEPS / LLMT_CHAOS_CHECKPOINT_ERROR_STEPS
+    (comma-separated ints), LLMT_CHAOS_DATA_ERROR_PROB /
+    LLMT_CHAOS_CHECKPOINT_ERROR_PROB / LLMT_CHAOS_SPIKE_SCALE /
     LLMT_CHAOS_SLOW_STEP_S (floats), LLMT_CHAOS_SIGTERM_STEP /
-    LLMT_CHAOS_NAN_STEP / LLMT_CHAOS_SPIKE_STEP / LLMT_CHAOS_SLOW_STEP_FROM /
-    LLMT_CHAOS_SEED (ints). A set variable of a trigger the port does not
-    have raises NotImplementedError."""
+    LLMT_CHAOS_SIGKILL_STEP / LLMT_CHAOS_NAN_STEP / LLMT_CHAOS_SPIKE_STEP /
+    LLMT_CHAOS_CKPT_KILL_IN_SWAP / LLMT_CHAOS_SLOW_STEP_FROM /
+    LLMT_CHAOS_SEED (ints), LLMT_CHAOS_CKPT_CORRUPT
+    ({flip,truncate,delete}[:step]). A set variable of a trigger the port
+    does not have raises NotImplementedError."""
     for key, (_, env_name) in NOT_PORTED.items():
         if os.environ.get(env_name):
             raise _not_ported(key)
     update: dict = {}
     for field, env_name, cast in (
         ("data_error_steps", "LLMT_CHAOS_DATA_ERROR_STEPS", _int_tuple),
+        ("checkpoint_error_steps", "LLMT_CHAOS_CHECKPOINT_ERROR_STEPS", _int_tuple),
         ("data_error_prob", "LLMT_CHAOS_DATA_ERROR_PROB", float),
+        ("checkpoint_error_prob", "LLMT_CHAOS_CHECKPOINT_ERROR_PROB", float),
         ("sigterm_step", "LLMT_CHAOS_SIGTERM_STEP", int),
+        ("sigkill_step", "LLMT_CHAOS_SIGKILL_STEP", int),
         ("nan_step", "LLMT_CHAOS_NAN_STEP", int),
         ("spike_step", "LLMT_CHAOS_SPIKE_STEP", int),
         ("spike_scale", "LLMT_CHAOS_SPIKE_SCALE", float),
+        ("ckpt_corrupt", "LLMT_CHAOS_CKPT_CORRUPT", str),
+        ("ckpt_kill_in_swap", "LLMT_CHAOS_CKPT_KILL_IN_SWAP", int),
         ("slow_step_s", "LLMT_CHAOS_SLOW_STEP_S", float),
         ("slow_step_from", "LLMT_CHAOS_SLOW_STEP_FROM", int),
         ("seed", "LLMT_CHAOS_SEED", int),
@@ -179,7 +203,9 @@ class Chaos:
         """Raise ChaosError if a trigger for `site` fires at `step`."""
         if site not in SITES:
             raise ValueError(f"unknown chaos site {site!r}; expected one of {SITES}")
-        steps, prob = self.config.data_error_steps, self.config.data_error_prob
+        kind = site.split("_")[0]
+        steps = getattr(self.config, f"{kind}_error_steps")
+        prob = getattr(self.config, f"{kind}_error_prob")
         with self._lock:
             deterministic = step is not None and step in steps and (site, step) not in self._fired
             if deterministic:
@@ -203,6 +229,68 @@ class Chaos:
         logger.warning("chaos: delivering SIGTERM to self at step %d", step)
         os.kill(os.getpid(), signal.SIGTERM)
         return True
+
+    def maybe_sigkill(self, step: int, fresh_start: bool) -> None:
+        """SIGKILL this process at the trigger step, but only in a run that
+        started from step 0 (`fresh_start`): SIGKILL leaves no chance to
+        record the shot, so a supervisor's relaunch (which resumes past a
+        checkpoint) must survive re-crossing the trigger step."""
+        if self.config.sigkill_step is None or not fresh_start:
+            return
+        if step != self.config.sigkill_step:
+            return
+        self._count()
+        logger.warning("chaos: delivering SIGKILL to self at step %d", step)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def _ckpt_corrupt_parsed(self) -> tuple[str, int | None] | None:
+        """(mode, target_step|None) from `ckpt_corrupt`, or None."""
+        raw = self.config.ckpt_corrupt
+        if not raw:
+            return None
+        mode, _, rest = raw.partition(":")
+        return mode, (int(rest) if rest else None)
+
+    def maybe_corrupt_checkpoint(self, root, step: int,
+                                 at_final_barrier: bool = False) -> str | None:
+        """Damage one payload file of the just-committed checkpoint `step`
+        (once). The targeted form (`mode:step`) fires when that step's
+        manifest lands; the untargeted form fires on the newest committed
+        step at the final wait() barrier (`at_final_barrier`), after the
+        mirror drained. Returns the damaged file's relative path."""
+        parsed = self._ckpt_corrupt_parsed()
+        if parsed is None:
+            return None
+        mode, target = parsed
+        if target is not None:
+            if step != target:
+                return None
+        elif not at_final_barrier:
+            return None
+        with self._lock:
+            if ("ckpt_corrupt",) in self._fired:
+                return None
+            self._fired.add(("ckpt_corrupt",))
+        from llm_training_tpu_torch.resilience.durability import corrupt_step
+
+        victim = corrupt_step(root, step, mode)
+        self._count()
+        logger.warning("chaos: %s-corrupted checkpoint step %d payload file %s in %s",
+                       mode, step, victim, root)
+        return victim
+
+    def maybe_ckpt_kill_in_swap(self, step: int) -> None:
+        """SIGKILL this process inside a forced save's swap (the committed
+        step moved aside, its replacement not yet in place) at the trigger
+        step: the staged `.stale/` copy is then the step's only durable
+        copy and a relaunch must promote it. Meant for single-shot
+        processes: a relaunch that re-crosses the trigger with the variable
+        still set dies again."""
+        if self.config.ckpt_kill_in_swap is None or step != self.config.ckpt_kill_in_swap:
+            return
+        self._count()
+        logger.warning("chaos: delivering SIGKILL inside force-save swap at step %d", step)
+        os.kill(os.getpid(), signal.SIGKILL)
 
     def maybe_slow_step(self, step: int, sleep=None) -> bool:
         """Inject `slow_step_s` of dead time at this optimizer-step boundary

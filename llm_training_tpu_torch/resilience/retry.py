@@ -4,8 +4,8 @@ Counterpart of `llm_training_tpu/resilience/retry.py` (a dataclass where
 JAX's policy is a pydantic model). Remote storage (fuse mounts, NFS
 scratch, object stores) throws transient `OSError`s under load; every
 durable-I/O call site opts in explicitly via `retry_call` -- in the port
-the prefetcher's data-source pulls (the checkpointer's retries come with
-ROADMAP A.4). The policy is deliberately conservative: only exception types
+the prefetcher's data-source pulls and the checkpointer's save and
+restore. The policy is deliberately conservative: only exception types
 listed in `TRANSIENT_EXCEPTIONS` (plus anything the caller adds) are
 retried — a programming error must surface on the first throw.
 """

@@ -46,6 +46,22 @@ class GoodputLedger:
         # stack of currently-open measure() phases: the hang watchdog reads
         # the innermost one to say what the loop was stuck inside
         self._open: list[str] = []  # guarded by: _lock
+        # cost basis (elastic accounting): the chip count this segment runs
+        # on and its $/chip-hour; None keeps summary() to the phases
+        self._chip_count: int | None = None  # guarded by: _lock
+        self._price_per_chip_hour: float | None = None  # guarded by: _lock
+
+    def set_cost_basis(self, chip_count: int | None = None,
+                       price_per_chip_hour: float | None = None) -> None:
+        """Tag this ledger segment with its topology cost: `chip_count`
+        adds chip-hour gauges to summary(); a price also adds cost_dollars
+        and goodput_per_dollar (productive chip-hours bought per dollar).
+        The trainer calls this once per fit with its device count."""
+        with self._lock:
+            self._chip_count = int(chip_count) if chip_count else None
+            self._price_per_chip_hour = (
+                float(price_per_chip_hour) if price_per_chip_hour else None
+            )
 
     def start(self) -> None:
         """Begin (or restart) accounting; zeroes all phases."""
@@ -96,4 +112,19 @@ class GoodputLedger:
             out["goodput/goodput_pct"] = (
                 100.0 * self._phase_s["step_compute"] / total if total > 0 else 0.0
             )
+            if self._chip_count:
+                chips = self._chip_count
+                out["goodput/chip_count"] = float(chips)
+                out["goodput/chip_hours"] = total * chips / 3600.0
+                out["goodput/productive_chip_hours"] = (
+                    self._phase_s["step_compute"] * chips / 3600.0
+                )
+                if self._price_per_chip_hour:
+                    out["goodput/price_per_chip_hour"] = self._price_per_chip_hour
+                    cost = out["goodput/chip_hours"] * self._price_per_chip_hour
+                    out["goodput/cost_dollars"] = cost
+                    # weights each segment by what it cost when aggregated
+                    out["goodput/goodput_per_dollar"] = (
+                        out["goodput/productive_chip_hours"] / cost if cost > 0 else 0.0
+                    )
             return out

@@ -36,9 +36,18 @@ norms of `telemetry/health.py` (no change to the step's math).
 handling (an emergency save at the next step boundary, then
 `PreemptionInterrupt`), the hang watchdog fed by the loop and the
 prefetcher, data retries, and with `resilience.recovery` the in-process
-rollback-and-skip driver around NanGuard's errors. Every one of these is
-restored when `fit` returns or raises, and every callback's `teardown()`
-runs then.
+rollback-and-skip driver around NanGuard's errors; chaos SIGKILL at a
+step boundary of a fresh start (the `supervise` path). Every one of these
+is restored when `fit` returns or raises, and every callback's
+`teardown()` runs then.
+
+The elastic front door of JAX's `fit`, on the port's one card: each fit
+tags its ledger with its chip count and price (`set_cost_basis`), sets the
+`elastic/*` gauges and, under a supervisor, appends a `segment_topology`
+event to `supervisor.jsonl`; with `resilience.elastic` set it runs the
+topology planner over the visible device count (a plan for more than one
+device raises: ROADMAP A.9) and refuses a resume that changes the global
+batch (warned about otherwise). Checkpoints carry the `topology` rider.
 
 The callback hooks are JAX's: `on_fit_start(trainer, objective,
 datamodule, start_step)`, `on_train_step(trainer, step)` (every optimizer
@@ -82,6 +91,17 @@ from llm_training_tpu_torch.resilience import (
     get_chaos,
     install_chaos,
     uninstall_chaos,
+)
+from llm_training_tpu_torch.resilience.elastic import (
+    TopologyPlan,
+    chaos_device_limit,
+    check_data_continuity,
+    log_segment_topology,
+    plan_single_device,
+    resolve_chip_price,
+    segment_attempt,
+    single_device_mesh,
+    verify_restored_topology,
 )
 from llm_training_tpu_torch.telemetry import (
     GoodputLedger,
@@ -221,6 +241,8 @@ class Trainer:
         self._preempted = False
         self._recovery: RecoveryManager | None = None
         self.rollbacks: list[dict] = []
+        # the elastic plan this fit ran on (None with resilience.elastic unset)
+        self.topology_plan: TopologyPlan | None = None
 
     def _callbacks(self, hook: str, *args) -> None:
         for cb in self.callbacks:
@@ -263,6 +285,45 @@ class Trainer:
             ) from e
         return meta
 
+    # ------------------------------------------------------------ topology
+
+    def _resolve_topology(self, resume_step: int | None) -> TopologyPlan | None:
+        """The elastic front door of fit: with `resilience.elastic` set, the
+        planner over the visible device count (CUDA's, after the chaos
+        clamp; 1 on the CPU) against the checkpoint's recorded topology and
+        global batch. None when unset."""
+        elastic = self.config.resilience.elastic
+        if elastic is None:
+            return None
+        available = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        limit = chaos_device_limit()
+        if limit is not None and limit < available:
+            logger.warning("chaos: shrinking visible devices %d -> %d (LLMT_CHAOS_DEVICES)",
+                           available, limit)
+            available = limit
+        checkpoint_mesh = checkpoint_batch = None
+        if self.checkpointer is not None:
+            meta = self.checkpointer.read_meta(resume_step) or {}
+            checkpoint_mesh = (meta.get("topology") or {}).get("mesh")
+            checkpoint_batch = (meta.get("data_state") or {}).get("global_batch_size")
+        plan = plan_single_device(available, checkpoint_mesh, checkpoint_batch)
+        logger.info("elastic topology: %s over %d device(s) [%s, from %s]",
+                    plan.axis_sizes, plan.device_count, plan.decision, plan.source)
+        return plan
+
+    def _publish_topology(self, plan: TopologyPlan | None) -> None:
+        """Tag this segment with its world: the goodput cost basis (chip
+        count and $/chip-hour), the `elastic/*` gauges and, under a
+        supervisor, a `segment_topology` event keyed by the attempt."""
+        price = resolve_chip_price(self.config.resilience.elastic)
+        self.ledger.set_cost_basis(1, price)
+        self.telemetry.gauge("elastic/segment").set(segment_attempt())
+        self.telemetry.gauge("elastic/device_count").set(1)
+        self.telemetry.gauge("elastic/data_parallel_size").set(1)
+        log_segment_topology(single_device_mesh(), 1,
+                             decision=plan.decision if plan is not None else "static mesh",
+                             price_per_chip_hour=price)
+
     # ------------------------------------------------------------ fit
 
     def fit(self, objective, datamodule, resume_step: int | None = None) -> TrainState:
@@ -272,10 +333,13 @@ class Trainer:
         signalled fit, and NanGuard's errors (or `RecoveryExhaustedError`
         under recovery) on divergence."""
         resil = self.config.resilience
+        self.topology_plan = self._resolve_topology(resume_step)
         # fresh telemetry per fit, installed as the process-current registry
-        # so components built elsewhere (the prefetcher) find it
+        # so components built elsewhere (the prefetcher, the checkpointer)
+        # find it
         self.telemetry = TelemetryRegistry()
         self.ledger.start()
+        self._publish_topology(self.topology_plan)
         previous_registry = set_registry(self.telemetry)
         self._preempted = False
         try:
@@ -327,6 +391,10 @@ class Trainer:
             if meta is not None:
                 self.counters.update(meta.get("counters", {}))
                 self._load_callback_state(meta)
+                if self.topology_plan is not None:
+                    # a restore that fell back to a step of another topology
+                    # must not go on as if it were the plan's
+                    verify_restored_topology(self.topology_plan, meta.get("topology"))
         saved_data_state = (meta or {}).get("data_state")
         self.state = state
 
@@ -354,8 +422,8 @@ class Trainer:
 
         start_micro = state.step
         micro_steps = cfg.max_steps * acc
-        # chaos divergence fires only in runs that started from scratch, so
-        # a relaunch resuming past a checkpoint survives the trigger
+        # chaos divergence and SIGKILL fire only in runs that started from
+        # scratch, so a relaunch resuming past a checkpoint survives them
         fresh_start = start_micro == 0
         self._callbacks("on_fit_start", objective, datamodule, start_micro // acc)
 
@@ -386,7 +454,10 @@ class Trainer:
                         self._global_batch_size = samples
                         ids = batch.get("input_ids")
                         self.last_seq_len = int(ids.shape[1]) if ids is not None else None
-                        self._check_data_continuity(saved_data_state)
+                        # the (seed, step) stream is keyed to the global batch:
+                        # refused under elastic, warned about otherwise
+                        check_data_continuity(saved_data_state, samples,
+                                              elastic=cfg.resilience.elastic is not None)
                     boundary = (micro + 1) % acc == 0
                     use_health = bool(health_every and boundary
                                       and ((micro + 1) // acc) % health_every == 0)
@@ -462,11 +533,13 @@ class Trainer:
 
                     # simulated failures: a real SIGTERM to this process, so
                     # the handler -> boundary check -> emergency save path
-                    # below is the one exercised; slow steps first
+                    # below is the one exercised, or a SIGKILL, the hard
+                    # death only `supervise` survives; slow steps first
                     chaos = get_chaos()
                     if chaos is not None:
                         chaos.maybe_slow_step(step)
                         chaos.maybe_sigterm(step)
+                        chaos.maybe_sigkill(step, fresh_start)
                     if self._shutdown is not None and self._shutdown.should_stop(
                         step, cfg.resilience.preemption_sync_every_n_steps
                     ):
@@ -726,12 +799,14 @@ class Trainer:
 
     def _save_extra(self, step: int) -> dict:
         """JSON riders of a checkpoint: the recovery's skip list and
-        cooldowns (a resume replays the same skips), the data-stream cursor
-        (samples drawn so far and the global batch it is keyed to) and
-        every callback's `state_dict` (NanGuard's trackers)."""
+        cooldowns (a resume replays the same skips), the topology (what an
+        elastic relaunch plans against: one device, every axis 1), the
+        data-stream cursor (samples drawn so far and the global batch it is
+        keyed to) and every callback's `state_dict` (NanGuard's trackers)."""
         extra: dict = {}
         if self._recovery is not None:
             extra["recovery"] = self._recovery.metadata()
+        extra["topology"] = {"device_count": 1, "mesh": single_device_mesh()}
         if self._global_batch_size:
             micro = step * self.config.accumulate_grad_batches
             extra["data_state"] = {
@@ -752,19 +827,6 @@ class Trainer:
         if cb_state:
             extra["callbacks"] = cb_state
         return extra
-
-    def _check_data_continuity(self, data_state: dict | None) -> None:
-        """Warn when a resume changes the global batch: the stream's cursor
-        is keyed to it, so the restored micro-step would address other
-        samples (the reference's legacy, non-elastic path warns too)."""
-        saved = int((data_state or {}).get("global_batch_size", 0) or 0)
-        current = self._global_batch_size
-        if saved and saved != current:
-            logger.warning(
-                "resume changes the GLOBAL batch size %d -> %d: the checkpoint's sample "
-                "cursor (%s samples) no longer addresses the same data", saved, current,
-                data_state.get("sample_cursor", "?"),
-            )
 
     def _load_callback_state(self, meta: dict | None) -> None:
         """Callback state from checkpoint metadata, by class name; absent
@@ -790,7 +852,8 @@ class Trainer:
         if self.checkpointer is None:
             raise ValueError("restore_for_inference requires a checkpointer")
         state, _ = self.init_state(objective, with_optimizer=False)
-        if self.checkpointer.maybe_restore(state, resume_step) is None:
+        # an observation must not delete steps from the directory
+        if self.checkpointer.maybe_restore(state, resume_step, repair=False) is None:
             raise ValueError(f"no checkpoint found in {self.checkpointer.directory}")
         state.model.eval()
         self.state = state

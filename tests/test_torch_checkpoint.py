@@ -284,7 +284,9 @@ def test_max_to_keep_prunes_oldest(tmp_path):
     _fit(trainer, _objective())
     assert trainer.checkpointer.all_steps() == [5, 6]
     assert trainer.checkpointer.last_save["pruned"] == [4]
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_5", "step_6"]
+    # the pruned steps' manifests go with them
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "manifest-5.json", "manifest-6.json", "step_5", "step_6"]
 
 
 def test_restore_for_inference_is_read_only(tmp_path):
@@ -317,7 +319,7 @@ def test_save_of_existing_step_is_a_noop_unless_forced(tmp_path):
     assert _tree_bytes(tmp_path) != before
     restored = _trainer(tmp_path).restore_for_inference(_objective())
     assert torch.equal(restored.model.model.norm.weight, state.model.model.norm.weight)
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["manifest-2.json", "step_2"]
 
 
 # ---------------------------------------------------------------- no fallback
@@ -330,13 +332,34 @@ def test_resume_with_another_optimizer_layout_raises(tmp_path):
     assert "accumulate" in str(info.value.__cause__)
 
 
+def test_save_on_exit_false_is_accepted_and_unused(tmp_path, devices):
+    """R3: a `trainer.checkpoint` node with `save_on_exit: false` builds in
+    both packages, and both fits still leave their last step (JAX never
+    reads the key)."""
+    node = {"dirpath": str(tmp_path / "port"), "async_save": False, "save_on_exit": False}
+    _fit(Trainer(TrainerConfig(max_steps=2, log_every_n_steps=1), device="cpu",
+                 checkpointer=Checkpointer(CheckpointConfig.from_node(node))), _objective())
+    jax_node = {**node, "dirpath": str(tmp_path / "jax")}
+    jax_trainer = JaxTrainer(JaxTrainerConfig(max_steps=2, log_every_n_steps=1),
+                             checkpointer=JaxCheckpointer(JaxCheckpointConfig(**jax_node)))
+    jax_trainer.fit(_jax_objective(), JaxDummy(JaxDummyConfig(**DATA)))
+    jax_trainer.checkpointer.close()
+    assert Checkpointer(CheckpointConfig(dirpath=node["dirpath"])).all_steps() == [2]
+    assert jax_trainer.checkpointer.manager.all_steps() == [2]
+
+
 def test_durability_keys_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CheckpointConfig.from_node({"dirpath": "x", "verify": "fast"})
+    """The durability keys build now, with JAX's defaults
+    (`tests/test_torch_durability.py` holds every key to JAX's); unknown
+    keys and a verify mode JAX refuses still raise, and `save_on_exit:
+    false` is accepted and unused, as JAX's is."""
+    config = CheckpointConfig.from_node({"dirpath": "x", "verify": "full"})
+    assert (config.verify, config.save_retries, config.mirror_dir) == ("full", 3, None)
     with pytest.raises(ValueError, match="unknown field"):
         CheckpointConfig.from_node({"dirpath": "x", "keep": 1})
-    with pytest.raises(ValueError, match="save_on_exit"):
-        CheckpointConfig(dirpath="x", save_on_exit=False)
+    with pytest.raises(ValueError, match="verify"):
+        CheckpointConfig.from_node({"dirpath": "x", "verify": "slow"})
+    assert CheckpointConfig(dirpath="x", save_on_exit=False).save_on_exit is False
 
 
 def test_async_save_failure_surfaces(tmp_path):
@@ -357,7 +380,9 @@ def test_async_save_failure_surfaces(tmp_path):
 
 def test_checkpoint_index_refuses_code(tmp_path):
     """DCP's pickled index is read by an unpickler that admits DCP's own
-    metadata classes only: an index naming any other callable raises."""
+    metadata classes only: an index naming any other callable raises. The
+    step's manifest catches the rewritten index first; without a manifest
+    (a legacy step) the unpickler refuses it."""
     _fit(_trainer(tmp_path, max_steps=1), _objective())
 
     class Payload:
@@ -365,6 +390,9 @@ def test_checkpoint_index_refuses_code(tmp_path):
             return (print, ("unpickled code ran",))
 
     (tmp_path / "step_1" / ".metadata").write_bytes(pickle.dumps(Payload()))
+    with pytest.raises(RuntimeError, match="failed to restore"):
+        _trainer(tmp_path).restore_for_inference(_objective())
+    (tmp_path / "manifest-1.json").unlink()
     with pytest.raises((RuntimeError, pickle.UnpicklingError), match="never holds"):
         _trainer(tmp_path).restore_for_inference(_objective())
 

@@ -250,7 +250,7 @@ def test_cli_lifecycle_on_cpu(tmp_path, capsys):
     assert cli_main(["fit", "--config", path, "--device", "cpu"]) == 0
     assert cli_main(["fit", "--config", path, "--device", "cpu", "trainer.max_steps=4"]) == 0
     steps = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
-    assert steps == ["step_2", "step_4"]
+    assert steps == ["manifest-2.json", "manifest-4.json", "step_2", "step_4"]
     meta = json.loads((tmp_path / "ckpt" / "step_4" / "meta.json").read_text())
     assert meta["counters"]["consumed_samples"] == 4 * 8
     capsys.readouterr()

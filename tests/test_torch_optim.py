@@ -382,3 +382,49 @@ def test_state_dtypes_store_what_jax_stores():
                              state_dtype="bfloat16")
     dtypes = {k.split(".")[0]: t.dtype for k, t in opt.state_dict().items() if t.ndim}
     assert dtypes == {"mu": torch.bfloat16, "nu": torch.bfloat16, "acc": torch.float32}
+
+
+# ---------------------------------------------------------------- AdamW's bias correction
+
+
+@pytest.mark.parametrize("decay", [0.9, 0.999])
+def test_bias_correction_is_optax_float32(decay):
+    """R2: `1 - decay**t` as optax's `scale_by_adam` computes it, in float32
+    from the float32 decay, for t = 1..2000: bit for bit JAX's factor.
+    (JAX's float32 `pow` itself differs from the correctly rounded power in
+    the last bit at some t, e.g. 0.999**873; `1 -` the power absorbs it.)"""
+    from llm_training_tpu_torch.optim.builder import bias_correction
+
+    t = jnp.arange(1, 2001, dtype=jnp.int32)
+    want = np.asarray(1 - jnp.float32(decay) ** t)
+    got = np.array([bias_correction(decay, int(i)) for i in range(1, 2001)], dtype=np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert all(float(np.float32(g)) == g for g in map(float, got[:5]))
+
+
+def test_adamw_default_b2_update_norms_match_optax():
+    """R2, C.19's smallest input: AdamW with the default b2 0.999, two
+    updates. Each update's global norm is within 1e-6 relative of optax's
+    (with the float64 bias correction the second differed by 1.0e-5)."""
+    optim = dict(optimizer="adamw", learning_rate=1e-2, lr_scheduler="constant")
+    rng = np.random.default_rng(5)
+    init = {n: rng.standard_normal(s).astype(np.float32) for n, s in PORT_SHAPES.items()}
+    grads = [{n: (0.1 * rng.standard_normal(s)).astype(np.float32) for n, s in PORT_SHAPES.items()}
+             for _ in range(2)]
+    named = [(n, torch.nn.Parameter(torch.from_numpy(v.copy()))) for n, v in init.items()]
+    opt, _ = build_optimizer(OptimConfig(**optim), 10, named)
+    assert opt.hyper["b2"] == 0.999
+    tx, _ = jax_optimizer(JaxOptimConfig(**optim), 10)
+    params = jax.tree.map(jnp.asarray, _jax_tree(init))
+    state = tx.init(params)
+    for g in grads:
+        for name, p in named:
+            p.grad = torch.from_numpy(g[name].copy())
+        opt.update_sq = {}
+        opt.update()
+        ours = float(sum(float(sq) for sqs in opt.update_sq.values() for sq in sqs)) ** 0.5
+        opt.update_sq = None
+        updates, state = tx.update(jax.tree.map(jnp.asarray, _jax_tree(g)), state, params)
+        params = optax.apply_updates(params, updates)
+        want = float(optax.global_norm(updates))
+        assert abs(ours - want) <= 1e-6 * want, (ours, want)

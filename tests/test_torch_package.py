@@ -63,6 +63,8 @@ print(json.dumps(sorted(set(sys.modules) - before)))
     added = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "llm_training_tpu_torch.ops.kernels.paged_attention" in added
     assert "llm_training_tpu_torch.ops.kernels.flash_attention" in added
+    for module in ("durability", "supervisor", "elastic"):
+        assert f"llm_training_tpu_torch.resilience.{module}" in added
     bad = [name for name in added if _forbidden(name)]
     assert not bad, f"the port pulled in {bad}"
 
@@ -98,3 +100,50 @@ def test_kernel_module_builds_nothing_on_import():
     assert build._digest(sources, sorted(build.CSRC.glob("*.cuh"))) == build._digest(
         sources, sorted(build.CSRC.glob("*.cuh"))
     )
+
+
+def test_supervisor_and_mirror_never_touch_cuda(tmp_path):
+    """In a fresh interpreter whose CUDA initialization raises: a Supervisor
+    over a real child that dies on SIGKILL and then completes, a
+    MirrorDaemon mirroring, draining and scrubbing a step, and the `ckpt`
+    command leave `torch.cuda.is_initialized()` False and never call it."""
+    script = f"""
+import json, os, signal, sys, threading
+sys.path.insert(0, {str(ROOT)!r})
+import torch
+calls = []
+def refuse(*args, **kwargs):
+    calls.append(threading.current_thread().name)
+    raise RuntimeError("CUDA initialized")
+torch.cuda._lazy_init = refuse
+torch.cuda.init = refuse
+from pathlib import Path
+from llm_training_tpu_torch.cli.main import main
+from llm_training_tpu_torch.resilience import MirrorDaemon, Supervisor, SupervisorConfig
+from llm_training_tpu_torch.resilience import durability
+root = Path({str(tmp_path)!r})
+child = ("import os, signal, sys; a = int(os.environ['LLMT_SUPERVISOR_ATTEMPT']); "
+         "os.kill(os.getpid(), signal.SIGKILL) if a == 1 else sys.exit(0)")
+sup = Supervisor([sys.executable, "-c", child],
+                 SupervisorConfig(log_path=str(root / "supervisor.jsonl"), backoff_base_s=0.0))
+rc = sup.run()
+step = root / "p" / "step_1"
+step.mkdir(parents=True)
+(step / "data.bin").write_bytes(b"x" * 4096)
+durability.write_manifest(root / "p", 1, durability.build_manifest(step, 1))
+daemon = MirrorDaemon(root / "p", root / "m", interval_s=0.05, scrub_interval_s=0.01).start()
+drained = daemon.drain(timeout_s=30.0)
+daemon._maybe_scrub(durability.get_registry())
+daemon.stop()
+codes = [main(["ckpt", "verify", str(root / "p"), "--mode", "full"]),
+         main(["ckpt", "mirror", str(root / "p"), "--mirror-dir", str(root / "m2")])]
+print(json.dumps(dict(rc=rc, drained=drained, codes=codes, calls=calls,
+                      initialized=torch.cuda.is_initialized(),
+                      mirrored=durability.committed_steps(root / "m"))))
+"""
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(rc=0, drained=True, codes=[0, 0], calls=[], initialized=False,
+                       mirrored=[1])
