@@ -158,10 +158,37 @@ Phases, each of which must pass (any failure exits non-zero):
    launch in leg a's fits. It prints the manifest seconds and hashing rate,
    the mirror, verify, heal and fallback seconds, and each process's wall
    time and restarts.
+17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
+   engine through the `rl-fit` command, in legs. a: in a process of its
+   own, Llama-3.1-8B widths cut to 8 layers (fp32 params, bf16 compute,
+   selective recompute, random weights from seed 0), AdamW, beta 0.04,
+   clip_eps 0.2, fused sync, no checkpointer; 3 rounds of 4 prompts x 8
+   rollouts of 256 + 256 tokens (temperature 1, eos off, `max_batch` 32,
+   bf16 KV cache) scored by a `regex` reward over the rendered ids: every
+   round's collect (decode steps, prefill chunks, rollout tokens/s), update
+   (ms, MFU), sync and round wall are printed with the peak memory; K1 ran
+   twice a layer an update (policy and reference), K2/K3 once, K4 once a
+   layer a decode step, the plain attention path never; the engine's
+   generation is 3 and a policy weight moved. parity: one GRPO batch (8
+   rows of 512 tokens) at 2 layers of full width through K1-K3 against the
+   plain path, in fp32 (token log-probs, per-token loss terms, gradients
+   within 1e-4 of max|plain|) and bf16 (no further from fp32 than 1.5 x the
+   plain bf16 path; the loss within 1.5 x the plain path's per-token term
+   errors). sync: a greedy request in flight across a `fused` and a `host`
+   sync at 2 layers: bit-equal engine tensors, the same continuation, which
+   a fresh engine over the new weights fed prompt + tokens so far also
+   gives. cast: the decode step from fp32 parameters against a bf16 copy,
+   in turns. c: in processes of their own, 2 layers under SGD with a
+   checkpointer (11.9 GB of policy and reference a round) and the rollout
+   journal: a real SIGTERM 40 engine steps into round 2 exits 75 with the
+   rollouts in flight journaled and the round cursor checkpointed; the
+   relaunch (host sync) adopts every journaled rollout, submits none again,
+   drops none as stale, and exits 0 with the journal retired.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
-It prints one `{"kernels": [...]}` line, the card's name and power limit,
-and as its last line `{"ok": true, "device": {...}}`.
+Every phase prints its wall time. It prints one `{"kernels": [...]}` line
+(launches from phase 17a, which runs all four kernels), the card's name and
+power limit, and as its last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -3087,6 +3114,585 @@ def phase_durability(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 17: rl-fit
+
+RL_DIR = ROOT / ".smoke_rl"
+RL_DEVICE = "cuda"
+RL_LAYERS = 8  # leg a: 8 layers at Llama-3.1-8B widths
+RL_SMALL_LAYERS = 2  # legs b and c
+RL_ROUNDS = 3
+RL_PROMPTS = 4  # prompts a round, x RL_GROUP rollouts each
+RL_GROUP = 8
+RL_PROMPT_LEN = 256
+RL_NEW = 256
+RL_PREFILL = 256  # prefill chunk width: one prompt a chunk
+RL_LR = 5e-5  # phase 13's peak: the examples' rates move no bf16 product in a few steps
+# fused CE positions a chunk: 32 rows x 128 x 128256 fp32 logits = 2.1 GB
+RL_LOGPS_CHUNK = 128
+RL_FP32_RTOL = 1e-4  # fp32 kernel path against the plain path, of max|plain|
+RL_SIGTERM_STEP = 40  # leg c: engine steps into round 2 when SIGTERM lands
+RL_RESUME_ROUNDS = 2
+# the reward: `length` is constant here (eos is off, so every completion has
+# RL_NEW tokens), its advantages 0 and no weight would move; `regex` over the
+# rendered ids matches ids 100000-100399, which ~55% of 256 near-uniform
+# draws from 128256 ids contain: groups with spread rewards
+RL_REWARD = "regex"
+RL_REWARD_ENV = {"LLMT_RL_REWARD_PATTERN": r"\b100[0-3]\d\d\b"}
+
+# leg a and c's child: `rl-fit` through the CLI, with its kernels counted, a
+# probe of the policy's weights, and (SMOKE_RL_SIGTERM) a real SIGTERM sent
+# to itself that many engine steps into round 2; one `SMOKE_RL {...}` line
+_RL_CHILD = r"""
+import json, os, signal, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from llm_training_tpu_torch.cli import main as cli
+from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+from llm_training_tpu_torch.ops.kernels import paged_attention as pa
+from llm_training_tpu_torch.serve.engine import ServingEngine
+
+loops = []
+real_setup = cli.RLLoop.setup
+
+def setup(self):
+    real_setup(self)
+    loops.append(self)
+    sync()
+    self.probe = self.state.model.policy.lm_head.weight[:64].detach().clone()
+    self.t_setup = time.perf_counter()
+
+cuda = torch.cuda.is_available()
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+cli.RLLoop.setup = setup
+sigterm_at = int(os.environ.get("SMOKE_RL_SIGTERM", "0"))
+if sigterm_at:
+    real_step = ServingEngine.step
+    steps = [0]
+
+    def step(self):
+        if self.weights_generation == 1:
+            steps[0] += 1
+            if steps[0] == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return real_step(self)
+
+    ServingEngine.step = step
+launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel, pa.paged_decode_attention)
+for launcher in launchers:
+    launcher.launches = 0
+if cuda:
+    torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+with chip_smoke.count_plain_attention() as plain:
+    rc = cli.main(sys.argv[1:])
+    sync()
+t1 = time.perf_counter()
+loop = loops[-1]
+policy = loop.state.model.policy
+out = dict(
+    rc=rc, wall_s=t1 - t0, setup_s=loop.t_setup - t0, launches=[l.launches for l in launchers],
+    plain_calls=plain[0], peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0,
+    timings=loop.timings, generation=loop.engine.weights_generation,
+    decode_steps=loop.engine.decode_steps, layers=policy.config.num_hidden_layers,
+    updates=loop.state.step,
+    params=sum(p.numel() for p in policy.parameters()),
+    embed=policy.model.embed_tokens.weight.numel(),
+    probe_delta=float((policy.lm_head.weight[:64].detach() - loop.probe).abs().max()),
+)
+print("SMOKE_RL " + json.dumps(out), flush=True)
+sys.exit(rc)
+"""
+
+
+def rl_config(name: str, layers: int, optim: dict, checkpoint: bool) -> Path:
+    """A GRPO config at Llama-3.1-8B widths (fp32 params, bf16 compute,
+    selective recompute), random weights from seed 0, into
+    `RL_DIR/<name>.json`; with `checkpoint`, a checkpointer and a JSONL
+    logger (whose run directory holds the rollout journal)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    model = asdict(preset("llama-3.1-8b", num_hidden_layers=layers, param_dtype="float32",
+                          compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                          recompute_granularity="selective"))
+    trainer = {"max_steps": RL_ROUNDS, "seed": 0}
+    if checkpoint:
+        trainer["checkpoint"] = {"dirpath": str(RL_DIR / name / "ckpt"), "async_save": False}
+        trainer["loggers"] = [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
+                               "init_args": {"save_dir": str(RL_DIR / name), "project": "run",
+                                             "name": "log"}}]
+    config = {
+        "seed_everything": 0, "trainer": trainer,
+        "model": {"class_path": "llm_training_tpu.lms.GRPO", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": model},
+            "beta": 0.04, "clip_eps": 0.2, "group_size": RL_GROUP,
+            "logps_chunk_size": RL_LOGPS_CHUNK, "optim": optim}},
+        "data": {"class_path": "llm_training_tpu.data.DummyDataModule",
+                 "init_args": {"batch_size": 1, "max_length": 16, "vocab_size": 128256}},
+    }
+    path = RL_DIR / f"{name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def rl_argv(path: Path, rounds: int, *flags: str) -> list[str]:
+    return ["rl-fit", "--config", str(path), "--device", RL_DEVICE, "--rounds", str(rounds),
+            "--prompts-per-round", str(RL_PROMPTS), "--prompt-len", str(RL_PROMPT_LEN),
+            "--max-new-tokens", str(RL_NEW), "--max-batch", str(RL_PROMPTS * RL_GROUP),
+            "--max-model-len", str(RL_PROMPT_LEN + RL_NEW), "--prefill-chunk", str(RL_PREFILL),
+            "--temperature", "1.0", "--reward", RL_REWARD, "--eos-token-id", "-1",
+            "--cache-dtype", "bfloat16", *flags]
+
+
+def rl_child(name: str, argv: list[str], env: dict | None = None, timeout: float = 600):
+    """`_RL_CHILD` in a process of its own: (exit code, wall seconds, its
+    `SMOKE_RL` summary or None, its rl_round and stats records, output)."""
+    import subprocess
+
+    log = RL_DIR / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as handle:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _RL_CHILD, *argv], cwd=ROOT, stdout=handle,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, **RL_REWARD_ENV, **(env or {})})
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    text = log.read_text()
+    summary, records = None, []
+    for line in text.splitlines():
+        if line.startswith("SMOKE_RL "):
+            summary = json.loads(line.removeprefix("SMOKE_RL "))
+        elif line.startswith("{"):
+            records.append(json.loads(line))
+    return rc, wall, summary, records, text
+
+
+def rl_update_flops(summary: dict) -> float:
+    """One update's operations: 6 N a trained token (N without the input
+    embedding table) and 2 N a reference token, attention 12 D a visible
+    pair a head a layer for the policy and 4 D for the reference (PERF.md
+    section 2; recompute not counted). Every row holds prompt + completion
+    tokens, all causal within the row."""
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    config = preset("llama-3.1-8b")
+    rows, seq = RL_PROMPTS * RL_GROUP, RL_PROMPT_LEN + RL_NEW
+    n = summary["params"] - summary["embed"]
+    pairs = rows * seq * (seq + 1) // 2
+    return (8 * n * rows * seq + 16 * config.resolved_head_dim * config.num_attention_heads
+            * summary["layers"] * pairs)
+
+
+def rl_leg_a(card: str) -> dict:
+    """GRPO through `rl-fit` at 8 layers of Llama-3.1-8B widths, AdamW,
+    fused sync, no checkpointer (see the header)."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+
+    optim = {"optimizer": "adamw", "learning_rate": RL_LR, "lr_scheduler": "constant",
+             "warmup_steps": 0, "grad_clip_norm": 1.0}
+    path = rl_config("a", RL_LAYERS, optim, checkpoint=False)
+    rc, wall, summary, records, text = rl_child("a", rl_argv(path, RL_ROUNDS))
+    check(rc == 0 and summary is not None, f"rl-fit: exit {rc}: {text[-3000:]}")
+    rounds = [r for r in records if r.get("type") == "rl_round"]
+    stats = next((r["stats"] for r in records if r.get("type") == "stats"), {})
+    layers, updates = summary["layers"], summary["updates"]
+    k1, k2, k3, k4 = summary["launches"]
+    expected = [2 * layers * updates, layers * updates, layers * updates,
+                summary["decode_steps"] * layers]
+    flops = rl_update_flops(summary)
+    for timing in summary["timings"]:
+        timing["tokens_per_s"] = timing["tokens"] / timing["collect_s"]
+        timing["mfu"] = flops / timing["update_s"] / bench_flash.BF16_FLOPS_PER_S
+    timings = summary["timings"]
+    out = dict(layers=layers, rounds=len(rounds), updates=updates, launches=dict(
+        zip(("fwd", "dq", "dkv", "decode"), summary["launches"])),
+        plain_calls=summary["plain_calls"], peak_memory_gb=summary["peak_bytes"] / 1e9,
+        timings=timings, generation=summary["generation"], probe_delta=summary["probe_delta"],
+        wall_s=wall, setup_s=summary["setup_s"], flops_per_update=flops,
+        mean_rewards=[r["mean_reward"] for r in rounds], losses=[r.get("loss") for r in rounds],
+        kl=[r.get("kl_to_ref") for r in rounds], collected=stats.get("rl/rollouts_collected"),
+        stale=stats.get("rl/rollouts_stale_dropped"))
+    for t in timings:
+        print(f"rl round [{card}]: round {t['round']}: collect {t['collect_s']:.3f} s "
+              f"({t['decode_steps']} decode steps, {t['prefill_chunks']} prefill chunks, "
+              f"{t['tokens']} tokens, {t['tokens_per_s']:.1f} rollout tokens/s); update "
+              f"{1e3 * t['update_s']:.1f} ms (MFU {100 * t['mfu']:.2f}%); sync "
+              f"{1e3 * t['sync_s']:.3f} ms; round {t['round_s']:.3f} s", flush=True)
+    print(f"rl-fit [{card}]: GRPO at llama-3.1-8b widths x {layers} layers ({summary['params']} "
+          f"params), {len(rounds)} rounds of {RL_PROMPTS} prompts x {RL_GROUP} rollouts "
+          f"({RL_PROMPT_LEN} + {RL_NEW} tokens), AdamW, fused sync: update MFU "
+          + ", ".join(f"{100 * t['mfu']:.2f}%" for t in timings)
+          + f" ({flops / 1e12:.1f} TFLOP an update: 6N a trained token, 2N a reference token, "
+          f"attention 12D + 4D a visible pair a head a layer); peak memory "
+          f"{out['peak_memory_gb']:.2f} GB; launches K1 {k1} K2 {k2} K3 {k3} K4 {k4} "
+          f"(expected {expected}), plain attention {summary['plain_calls']}; engine generation "
+          f"{summary['generation']}, |delta| of a policy weight {summary['probe_delta']:.3e}; "
+          f"mean rewards {out['mean_rewards']}, losses {out['losses']}, KL {out['kl']}; "
+          f"set-up {summary['setup_s']:.1f} s, child wall {wall:.1f} s", flush=True)
+    check(len(rounds) == RL_ROUNDS and summary["launches"] == expected and min(expected) > 0
+          and summary["plain_calls"] == 0,
+          f"rl-fit: {len(rounds)} rounds, launches {summary['launches']} (expected {expected}), "
+          f"plain attention {summary['plain_calls']}")
+    check(any(0 < r < 1 for r in out["mean_rewards"]),
+          f"rl-fit: mean rewards {out['mean_rewards']}: no group has spread rewards")
+    check(summary["generation"] == RL_ROUNDS and summary["probe_delta"] > 0
+          and out["collected"] == RL_ROUNDS * RL_PROMPTS * RL_GROUP and out["stale"] == 0
+          and all(math.isfinite(x) for x in out["losses"] + out["kl"]),
+          f"rl-fit: generation {summary['generation']}, weight delta {summary['probe_delta']}, "
+          f"collected {out['collected']}, stale {out['stale']}, losses {out['losses']}")
+    return out
+
+
+def rl_batch(vocab: int) -> dict:
+    """One GRPO batch of RL_GROUP rows of RL_PROMPT_LEN + RL_NEW seeded
+    tokens: two groups of 4 with spread rewards, behavior logprobs around
+    a random model's (ln 1/vocab), so ratios fall inside and outside the
+    clip."""
+    rng = np.random.default_rng(17)
+    rows, seq = RL_GROUP, RL_PROMPT_LEN + RL_NEW
+    completion = np.zeros((rows, seq), np.int32)
+    completion[:, RL_PROMPT_LEN:] = 1
+    behavior = np.where(completion > 0, rng.uniform(-12.3, -11.2, (rows, seq)), 0.0)
+    return {"input_ids": rng.integers(0, vocab, (rows, seq)).astype(np.int32),
+            "segment_ids": np.ones((rows, seq), np.int32), "completion_mask": completion,
+            "behavior_logprobs": behavior.astype(np.float32),
+            "rewards": rng.uniform(0, 1, rows).astype(np.float32),
+            "group_ids": np.repeat(np.arange(2), rows // 2).astype(np.int32)}
+
+
+def rl_token_terms(policy_lp, ref_lp, mask, batch, beta=0.04, clip=0.2):
+    """GRPO's per-token loss terms `(pg + beta kl) mask / n` from the two
+    models' token log-probs (the objective's formula, written out here as
+    the yardstick the loss is held to)."""
+    from llm_training_tpu_torch.lms.grpo import group_relative_advantages
+
+    behavior = torch.cat([batch["behavior_logprobs"][:, 1:],
+                          torch.zeros_like(batch["behavior_logprobs"][:, :1])], 1)
+    adv = group_relative_advantages(batch["rewards"], batch["group_ids"])[:, None]
+    ratio = torch.exp(torch.where(mask > 0, policy_lp - behavior, 0.0))
+    pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - clip, 1 + clip) * adv)
+    r = torch.where(mask > 0, ref_lp - policy_lp, 0.0)
+    return (pg + beta * (torch.exp(r) - r - 1)) * mask / mask.sum().clamp_min(1)
+
+
+def rl_pair(ref, config):
+    """(policy, reference) in `config`: the reference a copy of `ref`, the
+    policy that copy plus seeded noise of PREF_PARITY_NOISE x the init std."""
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    ref_model, policy = Llama(config, device=RL_DEVICE), Llama(config, device=RL_DEVICE)
+    ref_model.load_state_dict(ref.state_dict())
+    policy.load_state_dict(ref.state_dict())
+    noise = torch.Generator(device=RL_DEVICE).manual_seed(2)
+    with torch.no_grad():
+        for p in policy.parameters():
+            p.add_(torch.randn(p.shape, generator=noise, device=p.device),
+                   alpha=PREF_PARITY_NOISE * config.initializer_range)
+    return policy, ref_model.requires_grad_(False)
+
+
+def rl_parity(card: str) -> dict:
+    """Leg b, first half: one GRPO batch's loss, token log-probs and policy
+    gradients with a 2-layer full-width policy (the reference plus seeded
+    noise) through K1-K3 and the plain path, in fp32 (within RL_FP32_RTOL
+    of max|plain|) and in bf16 (no further from fp32 than NO_FURTHER x the
+    plain bf16 path)."""
+    from llm_training_tpu_torch.lms.grpo import GRPO, GRPOConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    layers = RL_SMALL_LAYERS
+    kw = dict(num_hidden_layers=layers, param_dtype="float32", enable_gradient_checkpointing=True,
+              recompute_granularity="selective")
+    ref = Llama(preset("llama-3.1-8b", **kw), device=RL_DEVICE)
+    ref.init_weights(torch.Generator(device=RL_DEVICE).manual_seed(1))
+    batch = {k: torch.as_tensor(v, device=RL_DEVICE) for k, v in rl_batch(ref.config.vocab_size).items()}
+    names = ("model.layers.0.self_attn.q_proj.weight", "model.layers.1.self_attn.k_proj.weight",
+             "model.layers.1.mlp.down_proj.weight", "model.embed_tokens.weight")
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    results = {}
+    for path, compute, impl in (("kernel_bf16", "bfloat16", "auto"), ("plain_bf16", "bfloat16", "torch"),
+                                ("kernel_fp32", "float32", "auto"), ("plain_fp32", "float32", "torch")):
+        policy, ref_model = rl_pair(ref, preset("llama-3.1-8b", compute_dtype=compute,
+                                                attention_impl=impl, **kw))
+        objective = GRPO(GRPOConfig(logps_chunk_size=RL_LOGPS_CHUNK), model=policy,
+                         ref_model=ref_model)
+        logps, real = [], objective._token_logps
+
+        def recorded(model, batch, real=real, logps=logps):
+            out = real(model, batch)
+            logps.append(out)
+            return out
+
+        objective._token_logps = recorded  # policy, then reference
+        before = [launcher.launches for launcher in launchers]
+        with count_plain_attention() as plain:
+            loss, metrics = objective.loss_and_metrics(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+        ran = [launcher.launches - b for launcher, b in zip(launchers, before)]
+        kernel = path.startswith("kernel")
+        expected = [2 * layers, layers, layers] if kernel else [0, 0, 0]
+        check(ran == expected and (plain[0] == 0) == kernel,
+              f"rl parity: {path} launched K1/K2/K3 {ran} (expected {expected}), the plain "
+              f"path {plain[0]} times")
+        check(all(p.grad is None for p in ref_model.parameters()),
+              f"rl parity: {path}: the reference got gradients")
+        (policy_lp, mask), (ref_lp, _) = [(lp.detach(), m) for lp, m in logps]
+        params = dict(policy.named_parameters())
+        results[path] = dict(loss=float(loss.detach()), policy_logps=policy_lp, ref_logps=ref_lp,
+                             terms=rl_token_terms(policy_lp, ref_lp, mask, batch),
+                             clip_frac=float(metrics["ratio_clip_frac"]),
+                             kl=float(metrics["kl_to_ref"]),
+                             **{n: params[n].grad.detach().clone() for n in names})
+        del objective, recorded, logps, real, loss, metrics, params, policy, ref_model
+        release()
+    del ref
+    keys = ("policy_logps", "ref_logps", "terms", *names)
+    errors = {}
+    for path, truth in (("kernel_fp32", "plain_fp32"), ("kernel_bf16", "plain_fp32"),
+                        ("plain_bf16", "plain_fp32")):
+        errors[path] = {k: _max_rel(results[path][k], results[truth][k]) for k in keys}
+        errors[path]["loss"] = abs(results[path]["loss"] - results[truth]["loss"])
+    # a loss is a sum of per-token terms whose rounding errors may cancel by
+    # chance on one path and not the other: the loss is held to the sum of
+    # the plain path's per-token term errors, without cancellation
+    budgets = {path: float((results[path]["terms"] - results["plain_fp32"]["terms"]).abs().sum())
+               for path in ("kernel_fp32", "plain_bf16")}
+    truth = results["plain_fp32"]
+    print(f"rl parity [{card}]: GRPO, {layers}-layer full width, {RL_GROUP} rows x "
+          f"{RL_PROMPT_LEN + RL_NEW} tokens, loss fp32 {truth['loss']:.6f}, KL {truth['kl']:.4e}, "
+          f"clip fraction {truth['clip_frac']:.3f}; vs the plain fp32 path (loss |error|; token "
+          "log-probs, per-token loss terms and grads: max error over max|fp32|): " + "; ".join(
+              f"{path} " + ", ".join(f"{k.removeprefix('model.')} {v:.3e}"
+                                     for k, v in errors[path].items())
+              for path in errors)
+          + f"; loss limits: fp32 {RL_FP32_RTOL} x max(|loss|, the per-token terms' sum) , bf16 "
+          f"{NO_FURTHER} x the plain bf16 terms' errors {budgets['plain_bf16']:.3e}", flush=True)
+    scale = max(abs(truth["loss"]), float(truth["terms"].abs().sum()))
+    for key, err in errors["kernel_fp32"].items():
+        limit = RL_FP32_RTOL * (scale if key == "loss" else 1.0)
+        check(err <= limit, f"rl parity: fp32 {key}: the kernel path is {err:.3e} from the "
+              f"plain path (limit {limit:.3e})")
+    for key, err in errors["kernel_bf16"].items():
+        limit = (budgets["plain_bf16"] if key == "loss" else errors["plain_bf16"][key])
+        check(err <= NO_FURTHER * limit,
+              f"rl parity: bf16 {key}: the kernel path is further from fp32 ({err:.3e}) than "
+              f"{NO_FURTHER} x the plain bf16 path's ({limit:.3e})")
+    loss_fp32 = truth["loss"]
+    del results, truth
+    release()
+    return dict(layers=layers, loss_fp32=loss_fp32, errors=errors, loss_budgets=budgets)
+
+
+def rl_sync(card: str) -> dict:
+    """Leg b, second half: a greedy request in flight across a weight sync
+    at 2 layers of full width (bf16 compute, bf16 cache): `fused` and
+    `host` leave bit-equal engine tensors and continue with the same
+    tokens, which a fresh engine over the new weights, fed prompt + the
+    tokens so far, also gives."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import paged_attention as pa
+    from llm_training_tpu_torch.rl.sync import sync_weights
+    from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+
+    config = preset("llama-3.1-8b", num_hidden_layers=RL_SMALL_LAYERS, param_dtype="float32")
+    serve = ServeConfig(max_batch=4, max_model_len=RL_PROMPT_LEN + 64, prefill_chunk=RL_PREFILL,
+                        cache_dtype="bfloat16", eos_token_id=None)
+    prompt = np.random.default_rng(5).integers(0, config.vocab_size, RL_PROMPT_LEN).tolist()
+    total, before_sync = 48, 16
+
+    def model(seed):
+        m = Llama(config, device=RL_DEVICE)
+        m.init_weights(torch.Generator(device=RL_DEVICE).manual_seed(seed))
+        return m.eval().requires_grad_(False)
+
+    target = model(4)
+    runs, held = {}, {}
+    pa.paged_decode_attention.launches = 0
+    for mode in ("fused", "host"):
+        engine = ServingEngine(model(3), serve, device=RL_DEVICE)
+        tokens = [e["token"] for e in engine.submit(id="r", prompt=prompt, max_new_tokens=total)
+                  if e["type"] == "token"]
+        while len(tokens) < before_sync:
+            tokens += [e["token"] for e in engine.step() if e["type"] == "token"]
+        k = len(tokens)
+        summary = sync_weights(engine, target.state_dict(keep_vars=True), mode=mode)
+        done = None
+        while done is None:
+            done = next((e for e in engine.step() if e["type"] == "done"), None)
+        runs[mode] = (k, done["tokens"], done["generation"], summary["sync_time_s"])
+        held[mode] = {n: t.detach().clone() for n, t in engine.model.state_dict().items()}
+        del engine
+        release()
+    k, tokens = runs["fused"][0], runs["fused"][1]
+    fresh = ServingEngine(target, serve, device=RL_DEVICE)
+    done = next((e for e in fresh.submit(id="f", prompt=prompt + tokens[:k],
+                                         max_new_tokens=total - k) if e["type"] == "done"), None)
+    while done is None:
+        done = next((e for e in fresh.step() if e["type"] == "done"), None)
+    equal = all(torch.equal(held["fused"][n], held["host"][n]) for n in held["fused"])
+    out = dict(k=k, fused_equals_host=runs["fused"][:3] == runs["host"][:3], tensors_equal=equal,
+               fresh_equal=tokens[k:] == done["tokens"], k4_launches=pa.paged_decode_attention.launches,
+               sync_s={mode: runs[mode][3] for mode in runs})
+    print(f"rl sync [{card}]: 2 layers full width, a greedy request of {RL_PROMPT_LEN} + {total} "
+          f"tokens synced after {k}: fused {1e3 * runs['fused'][3]:.3f} ms, host "
+          f"{1e3 * runs['host'][3]:.3f} ms; engine tensors bit-equal {equal}; continuations equal "
+          f"(fused/host) {out['fused_equals_host']}, equal to a fresh engine's {out['fresh_equal']}; "
+          f"K4 {out['k4_launches']} launches", flush=True)
+    check(equal and out["fused_equals_host"] and out["fresh_equal"] and out["k4_launches"] > 0
+          and runs["fused"][2] == 1,
+          f"rl sync: tensors equal {equal}, fused {runs['fused'][:3]}, host {runs['host'][:3]}, "
+          f"fresh {done['tokens']}")
+    del held, target, fresh
+    release()
+    return out
+
+
+def rl_cast_cost(card: str) -> dict:
+    """What decoding from fp32 master weights costs: leg a's engine reads
+    the trainer's fp32 parameters and casts them to bf16 at each product.
+    The decode step of 32 rows of 256 + 64 tokens at 8 layers, from fp32
+    parameters and from a bf16 copy, in turns (fp32, bf16, bf16, fp32)."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+
+    rows, new = RL_PROMPTS * RL_GROUP, 64
+    fp32 = Llama(preset("llama-3.1-8b", num_hidden_layers=RL_LAYERS, param_dtype="float32"),
+                 device=RL_DEVICE)
+    fp32.init_weights(torch.Generator(device=RL_DEVICE).manual_seed(0))
+    bf16 = Llama(preset("llama-3.1-8b", num_hidden_layers=RL_LAYERS, param_dtype="bfloat16"),
+                 device=RL_DEVICE)
+    bf16.load_state_dict(fp32.state_dict())
+    models = {"fp32": fp32.eval().requires_grad_(False), "bf16": bf16.eval().requires_grad_(False)}
+    serve = ServeConfig(max_batch=rows, max_model_len=RL_PROMPT_LEN + new, prefill_chunk=RL_PREFILL,
+                        cache_dtype="bfloat16", eos_token_id=None)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, fp32.config.vocab_size, RL_PROMPT_LEN).tolist() for _ in range(rows)]
+    steps = {"fp32": [], "bf16": []}
+    for turn in ("fp32", "bf16", "bf16", "fp32"):
+        engine = ServingEngine(models[turn], serve, device=RL_DEVICE)
+        for i, prompt in enumerate(prompts):
+            engine.submit(id=str(i), prompt=prompt, max_new_tokens=new)
+        while not engine.scheduler.idle:
+            chunks = engine.prefill_chunks
+            t0 = time.perf_counter()
+            engine.step()  # ends in the sampled tokens' copy to the host
+            if engine.prefill_chunks == chunks:  # a decode step alone
+                steps[turn].append(time.perf_counter() - t0)
+        del engine
+        release()
+    p50 = {k: 1e3 * percentile(v, 50) for k, v in steps.items()}
+    out = dict(decode_step_ms_p50=p50, overhead_pct=100 * (p50["fp32"] / p50["bf16"] - 1),
+               steps=len(steps["fp32"]))
+    print(f"rl cast cost [{card}]: decode step of {rows} rows ({RL_PROMPT_LEN} + {new} tokens) at "
+          f"{RL_LAYERS} layers, p50 over {out['steps']} steps in two turns: fp32 parameters cast "
+          f"at each product {p50['fp32']:.3f} ms, a bf16 copy {p50['bf16']:.3f} ms "
+          f"({out['overhead_pct']:+.1f}%)", flush=True)
+    check(all(math.isfinite(v) and v > 0 for v in p50.values()), f"rl cast cost: {p50}")
+    del models, fp32, bf16
+    release()
+    return out
+
+
+def rl_leg_c(card: str) -> dict:
+    """Leg c: `rl-fit` at 2 layers of full width under SGD with a
+    checkpointer and the rollout journal: SIGTERM in the middle of round 2
+    (exit 75, the journal written, the round cursor checkpointed), then a
+    relaunch with host sync that adopts the journaled rollouts and
+    finishes (exit 0); no stale sample is trained on."""
+    optim = {"optimizer": "sgd", "learning_rate": RL_LR, "lr_scheduler": "constant",
+             "warmup_steps": 0, "grad_clip_norm": 1.0}
+    path = rl_config("c", RL_SMALL_LAYERS, optim, checkpoint=True)
+    free = free_bytes(RL_DIR)
+    # three 11.9 GB steps (max_to_keep 3) and a forced save's staged clone
+    check(free >= 40e9, f"rl resume: {free} bytes free in {RL_DIR}, the leg needs 40 GB")
+    run_dir = RL_DIR / "c" / "run" / "log"
+    rc, wall, summary, records, text = rl_child(
+        "c1", rl_argv(path, RL_RESUME_ROUNDS), env={"SMOKE_RL_SIGTERM": str(RL_SIGTERM_STEP)})
+    journal = run_dir / "rl-journal.jsonl"
+    entries = []
+    if journal.exists():
+        from llm_training_tpu_torch.serve.journal import replay_journal
+
+        entries = replay_journal(journal)
+    meta = json.loads((RL_DIR / "c" / "ckpt" / "step_1" / "meta.json").read_text()) if (
+        RL_DIR / "c" / "ckpt" / "step_1").is_dir() else {}
+    first = dict(rc=rc, wall_s=wall, journaled=len(entries),
+                 journaled_tokens=sum(len(e["generated"]) for e in entries),
+                 cursor=meta.get("rl"), rounds=[r["round"] for r in records
+                                                if r.get("type") == "rl_round"])
+    check(rc == 75 and entries and meta.get("rl") == {"round": 1} and first["rounds"] == [0],
+          f"rl resume: SIGTERM run exited {rc}, journaled {len(entries)}, cursor "
+          f"{meta.get('rl')}, rounds {first['rounds']}: {text[-3000:]}")
+    rc, wall, summary, records, text = rl_child("c2", rl_argv(path, RL_RESUME_ROUNDS, "--sync-mode",
+                                                              "host"))
+    stats = next((r["stats"] for r in records if r.get("type") == "stats"), {})
+    rounds = [r["round"] for r in records if r.get("type") == "rl_round"]
+    second = dict(rc=rc, wall_s=wall, rounds=rounds, stats={
+        k: stats.get(k) for k in ("serve/replayed_requests", "rl/rollouts_collected",
+                                  "rl/rollouts_submitted", "rl/rollouts_stale_dropped",
+                                  "rl/weight_syncs", "rl/sync_time_s")},
+        launches=summary["launches"] if summary else None)
+    replayed = stats.get("serve/replayed_requests", 0)
+    check(rc == 0 and rounds == [1] and replayed == len(entries)
+          and stats.get("rl/rollouts_stale_dropped") == 0
+          and stats.get("rl/rollouts_collected") == RL_PROMPTS * RL_GROUP
+          and stats.get("rl/rollouts_submitted") == RL_PROMPTS * RL_GROUP - replayed
+          and not journal.exists(),
+          f"rl resume: relaunch exited {rc}, rounds {rounds}, stats {second['stats']}, journal "
+          f"left {journal.exists()}: {text[-3000:]}")
+    ckpt = RL_DIR / "c" / "ckpt" / "step_2"
+    size = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    out = dict(first=first, second=second, checkpoint_bytes=size)
+    print(f"rl resume [{card}]: 2 layers full width, SGD, a {size / 1e9:.2f} GB checkpoint of the "
+          f"policy and the reference a round; SIGTERM {RL_SIGTERM_STEP} engine steps into round 2: "
+          f"exit 75 after {first['wall_s']:.1f} s, {first['journaled']} rollouts journaled "
+          f"({first['journaled_tokens']} tokens), cursor {first['cursor']}; the relaunch (host "
+          f"sync) replayed and adopted {replayed:.0f}, submitted "
+          f"{second['stats']['rl/rollouts_submitted']:.0f}, collected "
+          f"{second['stats']['rl/rollouts_collected']:.0f}, stale dropped "
+          f"{second['stats']['rl/rollouts_stale_dropped']:.0f}, exit 0 after "
+          f"{second['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_rl(card: str) -> dict:
+    """rl-fit: GRPO over the serving engine (see the header)."""
+    shutil.rmtree(RL_DIR, ignore_errors=True)
+    RL_DIR.mkdir()
+    out = {}
+    try:
+        for name, leg in (("a", rl_leg_a), ("parity", rl_parity), ("sync", rl_sync),
+                          ("cast", rl_cast_cost), ("c", rl_leg_c)):
+            t0 = time.perf_counter()
+            out[name] = leg(card)
+            out[name]["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(RL_DIR, ignore_errors=True)
+        release()
+    return out
+
+
+def timed(name: str, phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if len(sys.argv) != 1:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -3105,24 +3711,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
-    phase_kernel_parity(kernels)
-    phase_flash_parity()
-    serve = phase_serve(kernels, card)
+    t_start = time.perf_counter()
+    timed("2 build", phase_build)
+    timed("3 kernel parity", phase_kernel_parity, kernels)
+    timed("4 flash parity", phase_flash_parity)
+    serve = timed("5 serving", phase_serve, kernels, card)
     gc.collect()  # the engine's timing wrappers form a reference cycle
     torch.cuda.empty_cache()
-    phase_engine_parity(kernels)
+    timed("6 engine parity", phase_engine_parity, kernels)
     torch.cuda.empty_cache()
-    timing = phase_timing(kernels, card)
-    train = phase_train(card)
-    lifecycle = phase_lifecycle(card)
-    preference = phase_preference(card)
-    optimizer = phase_optimizer(card)
-    resilience = phase_resilience(card)
-    durability = phase_durability(card)
-    phase_train_parity()
-    flash = phase_flash_timing(card)
-    phase_random_streams(card)
+    timing = timed("7 K4 timing", phase_timing, kernels, card)
+    train = timed("8 training", phase_train, card)
+    lifecycle = timed("12 lifecycle", phase_lifecycle, card)
+    preference = timed("13 preference", phase_preference, card)
+    optimizer = timed("14 optimizer", phase_optimizer, card)
+    resilience = timed("15 resilience", phase_resilience, card)
+    durability = timed("16 durability", phase_durability, card)
+    rl = timed("17 rl-fit", phase_rl, card)
+    timed("9 train-step parity", phase_train_parity)
+    flash = timed("10 flash timing", phase_flash_timing, card)
+    timed("11 random streams", phase_random_streams, card)
+    print(f"phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"serve summary [{card}]: " + json.dumps(serve))
     print(f"train summary [{card}]: " + json.dumps(train))
     print(f"lifecycle summary [{card}]: " + json.dumps(lifecycle))
@@ -3130,12 +3739,15 @@ def main() -> int:
     print(f"optimizer summary [{card}]: " + json.dumps(optimizer))
     print(f"resilience summary [{card}]: " + json.dumps(resilience))
     print(f"durability summary [{card}]: " + json.dumps(durability))
+    print(f"rl summary [{card}]: " + json.dumps(rl))
+    # launches on this slice's path: phase 17a's rl-fit, which runs all four
+    launches = rl["a"]["launches"]
     rows = [{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": serve["launches"],
+        "launches": launches["decode"],
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3144,9 +3756,8 @@ def main() -> int:
         "library_ms": None,
     }]
     for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
-        # launches on this slice's path: full-depth AdamW with int8 state offloaded
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": optimizer["adamw_int8_full"]["launches"][kind], **flash[kind]})
+                     "launches": launches[kind], **flash[kind]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,16 @@ from llm_training_tpu_torch.callbacks.time_estimator import (
 )
 from llm_training_tpu_torch.data.dummy import DummyDataModule, DummyDataModuleConfig
 from llm_training_tpu_torch.dataclass_config import build_dataclass
-from llm_training_tpu_torch.lms import CLM, DPO, ORPO, CLMConfig, DPOConfig, ORPOConfig
+from llm_training_tpu_torch.lms import (
+    CLM,
+    DPO,
+    GRPO,
+    ORPO,
+    CLMConfig,
+    DPOConfig,
+    GRPOConfig,
+    ORPOConfig,
+)
 
 _INTERP = re.compile(r"\$\{([^}]+)\}")
 
@@ -42,6 +51,7 @@ CLASS_PATHS: dict[str, tuple[type, type]] = {
     "llm_training_tpu.lms.CLM": (CLM, CLMConfig),
     "llm_training_tpu.lms.DPO": (DPO, DPOConfig),
     "llm_training_tpu.lms.ORPO": (ORPO, ORPOConfig),
+    "llm_training_tpu.lms.GRPO": (GRPO, GRPOConfig),
     "llm_training_tpu.data.DummyDataModule": (DummyDataModule, DummyDataModuleConfig),
     "llm_training_tpu.callbacks.JsonlLogger": (JsonlLogger, JsonlLoggerConfig),
     "llm_training_tpu.callbacks.NanGuard": (NanGuard, NanGuardConfig),

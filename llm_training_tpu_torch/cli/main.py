@@ -1,5 +1,5 @@
 """Console entry: `python -m llm_training_tpu_torch
-{fit,validate,generate,evaluate,serve,supervise,ckpt}`.
+{fit,validate,generate,evaluate,serve,rl-fit,supervise,ckpt}`.
 
 `fit --config file.json [--ckpt-path STEP] [key.path=value ...]` trains:
 the counterpart of the JAX `fit` command on a JSON config with the YAML
@@ -28,8 +28,12 @@ per input line (`{"id", "prompt": [ids], "max_new_tokens"?, "priority"?,
 the engine streams `{"type": "token"}` chunks and one `{"type": "done"}`
 per request as they land, admitting new requests between decode steps. A
 malformed line answers a `{"type": "error"}` chunk and the server keeps
-running. stdin EOF drains the queue, then a final `{"type": "stats"}`
-record is printed.
+running. With `--config`, a `{"type": "reload", "ckpt_path"?}` control
+line restores the newest (or the named) checkpoint and hot-swaps it into
+the engine between steps, answering `{"type": "weights", "generation",
+"ckpt_path"}`; a failed reload answers an error chunk and the current
+weights keep serving. stdin EOF drains the queue, then a final
+`{"type": "stats"}` record is printed.
 
 The model is the run's (`--config`, restored from its checkpoint, newest
 or `--ckpt-path`, into a model whose parameters are in the run's compute
@@ -37,6 +41,16 @@ dtype), a named preset (`--preset llama-3.1-8b`) or a JSON config file
 (`--model-config`); a preset's or file's weights come from a `.npz` of the
 JAX parameter tree (`--weights`, keys joined by '/') or are drawn from
 `--seed`.
+
+`rl-fit --config file.json` is the counterpart of `_run_rl_fit`: on-policy
+GRPO over the serving engine (`rl/loop.py`). Each round samples
+`--prompts-per-round` x `group_size` rollouts through the engine, scores
+them, updates the policy and syncs it into the engine; it prints one
+`{"type": "rl_round"}` record a round and a final `{"type": "stats"}`
+record, and logs to stdout as JAX's does. With a JSONL logger the run
+directory holds the rollout journal (`rl-journal.jsonl`): SIGTERM drains
+the rollouts in flight into it, checkpoints the round cursor and exits 75;
+the relaunch replays and adopts them.
 
 `supervise --config file.json` runs `fit` as a child process and
 relaunches it on exit 75 and on hard deaths (SIGKILL, segfault, the
@@ -55,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import queue
 import random
 import shlex
@@ -74,6 +89,7 @@ from llm_training_tpu_torch.infer.engine import GenerateConfig, InferenceEngine
 from llm_training_tpu_torch.infer.evaluate import run_evaluation
 from llm_training_tpu_torch.infer.sampling import SamplingConfig
 from llm_training_tpu_torch.lms.clm import CLM
+from llm_training_tpu_torch.lms.grpo import GRPO
 from llm_training_tpu_torch.models.llama.config import PRESETS, LlamaConfig, preset
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax, tree_from_flat
 from llm_training_tpu_torch.models.llama.model import Llama
@@ -82,16 +98,20 @@ from llm_training_tpu_torch.resilience import (
     NON_FINITE_EXIT_CODE,
     RECOVERY_EXHAUSTED_EXIT_CODE,
     RESUMABLE_EXIT_CODE,
+    GracefulShutdown,
     PreemptionInterrupt,
     RecoveryExhaustedError,
 )
+from llm_training_tpu_torch.resilience.chaos import config_from_env, install_chaos, uninstall_chaos
 from llm_training_tpu_torch.resilience.durability import ckpt_main
 from llm_training_tpu_torch.resilience.supervisor import (
     Supervisor,
     SupervisorConfig,
     build_fit_argv,
 )
+from llm_training_tpu_torch.rl.loop import RLLoop, RLLoopOptions
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+from llm_training_tpu_torch.serve.journal import RequestJournal, replay_journal
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
@@ -147,13 +167,20 @@ def _restored(config: dict, args, command: str, serving: bool = False):
 def build_model(args) -> Llama:
     """The serving model of `args` on its device: the run's restored
     weights (`--config`), or a preset's or file's carried or random ones."""
+    return _serving_model(args)[0]
+
+
+def _serving_model(args) -> tuple[Llama, Trainer | None, object | None]:
+    """`build_model`'s model, and for `--config` the run's trainer and
+    objective (what a reload restores through)."""
     if getattr(args, "config", None) is not None:
         if args.preset or args.model_config or args.weights:
             raise SystemExit("--config serves the run's checkpoint; it excludes "
                              "--preset / --model-config / --weights")
         # the JSONL protocol owns stdout: log records go to stderr
         config = _load(args, log_stream=sys.stderr)
-        return _restored(config, args, "serve", serving=True)[3].model
+        trainer, objective, _, state = _restored(config, args, "serve", serving=True)
+        return state.model, trainer, objective
     if getattr(args, "ckpt_path", None) or getattr(args, "overrides", None):
         raise SystemExit("--ckpt-path and config overrides need --config")
     device = resolve_device(args.device)
@@ -172,7 +199,7 @@ def build_model(args) -> Llama:
         generator = torch.Generator(device=device)
         generator.manual_seed(args.seed)
         model.init_weights(generator)
-    return model.eval()
+    return model.eval(), None, None
 
 
 def _scalar_eos(config: LlamaConfig) -> int | None:
@@ -183,7 +210,7 @@ def _scalar_eos(config: LlamaConfig) -> int | None:
 
 
 def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> int:
-    model = build_model(args)
+    model, trainer, objective = _serving_model(args)
     serve_config = ServeConfig(
         max_batch=args.max_batch,
         max_model_len=args.max_model_len,
@@ -222,14 +249,42 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
             stdout.write(json.dumps(event) + "\n")
         stdout.flush()
 
+    def reload_from_checkpoint(request: dict) -> None:
+        """{"type": "reload", "ckpt_path"?}: restore the newest (or the
+        named) checkpoint into a new model and hot-swap it between steps.
+        A failed reload answers an error chunk; the current weights keep
+        serving."""
+        step = request.get("ckpt_path")
+        serving = objective.model if objective is not None else None
+        try:
+            if trainer is None:
+                raise ValueError("reload restores the run's checkpoint: serve --config")
+            # restore into a new model, so a restore that fails midway leaves
+            # the served weights as they were
+            objective.model = None
+            new_state = trainer.restore_for_inference(
+                objective, int(step) if step is not None else None)
+            generation = engine.reload_weights(new_state.model.state_dict(keep_vars=True))
+        except Exception as e:  # the server keeps serving
+            logging.getLogger(__name__).exception("reload failed")
+            if objective is not None:
+                objective.model = serving
+            emit([{"type": "error", "error": f"reload failed: {e}"}])
+            return
+        emit([{"type": "weights", "generation": generation, "ckpt_path": step}])
+
     def ingest(item) -> bool:
-        """One stdin line -> submit, or an error chunk; False at EOF."""
+        """One stdin line -> submit (or a reload), or an error chunk; False
+        at EOF."""
         if item is eof:
             return False
         try:
             record = json.loads(item)
             if not isinstance(record, dict):
                 raise ValueError("request line must be a JSON object")
+            if record.get("type") == "reload":
+                reload_from_checkpoint(record)
+                return True
             deadline_ms = record.get("deadline_ms")
             emit(engine.submit(
                 id=record["id"], prompt=record["prompt"],
@@ -316,6 +371,135 @@ def _jsonl_run_dir(config: dict) -> Path | None:
                 return (Path(init.get("save_dir", "runs"))
                         / str(init.get("project", "llm-training-tpu")) / str(init["name"]))
     return None
+
+
+# JAX's serve SLO targets (`telemetry/slo.py`): one set arms its monitor
+_SLO_TARGET_ENVS = ("LLMT_SLO_TTFT_P99_MS", "LLMT_SLO_TPOT_P99_MS", "LLMT_SLO_ERROR_RATE",
+                    "LLMT_SLO_STEP_TIME_P99_S", "LLMT_SLO_GOODPUT_PCT_MIN")
+
+
+def _refuse_unported_rl_fit(args) -> None:
+    """What `rl-fit` cannot honour yet raises, naming the queue that brings
+    it: load shedding, an armed SLO monitor (the rollout yield), the
+    `/metrics` exporter. The serve chaos triggers raise in `config_from_env`."""
+    def number(name: str) -> float | None:
+        try:  # a malformed value is ignored, as JAX ignores it
+            return float(os.environ.get(name) or "")
+        except ValueError:
+            return None
+
+    if args.max_queue is not None:
+        raise NotImplementedError(
+            "rl-fit --max-queue: load shedding is not ported yet (ROADMAP A.7)")
+    armed_slo = [name for name in _SLO_TARGET_ENVS if number(name) is not None]
+    if armed_slo:
+        raise NotImplementedError(
+            f"rl-fit with an SLO target armed ({', '.join(armed_slo)}): the SLO monitor and "
+            "the rollout yield are not ported yet (ROADMAP A.7)")
+    if number("LLMT_METRICS_PORT"):
+        raise NotImplementedError(
+            "rl-fit with LLMT_METRICS_PORT: the /metrics exporter is not ported yet (ROADMAP A.7)")
+
+
+def run_rl_fit(args) -> int:
+    """`rl-fit`: on-policy GRPO riding the serving engine (`rl/loop.py`).
+    SIGTERM drains the rollouts in flight into the request journal,
+    checkpoints the weights they were sampled under with the round cursor,
+    and exits 75; the relaunch restores, replays the journal and adopts the
+    replayed rollouts."""
+    _refuse_unported_rl_fit(args)
+    config = _load(args)
+    log = logging.getLogger(__name__)
+    trainer, objective, _ = build_fit(config, args.device)
+    if not isinstance(objective, GRPO):
+        raise SystemExit(
+            "rl-fit drives the GRPO objective; the config's model node "
+            f"builds {type(objective).__name__} — point rl-fit at a config "
+            "whose model node is llm_training_tpu.lms.GRPO wrapping the "
+            "policy model"
+        )
+    model_config = (objective.model.config if objective.model is not None
+                    else objective.config.model.get_config())
+    serve_config = ServeConfig(
+        max_batch=args.max_batch,
+        max_model_len=args.max_model_len,
+        block_size=args.block_size,
+        num_blocks=args.num_blocks,
+        prefill_chunk=args.prefill_chunk,
+        cache_dtype=args.cache_dtype,
+        seed=args.seed,
+        eos_token_id=(
+            args.eos_token_id if args.eos_token_id is not None else _scalar_eos(model_config)
+        ),
+        sampling=SamplingConfig(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p
+        ),
+    )
+    install_chaos(config_from_env())
+    shutdown = GracefulShutdown().install()
+    journal = None
+    try:
+        loop = RLLoop(trainer, objective, serve_config, RLLoopOptions(
+            rounds=args.rounds,
+            prompts_per_round=args.prompts_per_round,
+            prompt_len=args.prompt_len,
+            max_new_tokens=args.max_new_tokens,
+            sync_mode=args.sync_mode,
+            reward=args.reward,
+            prompt_style=args.prompt_style,
+            rollout_priority=args.rollout_priority,
+            updates_per_round=args.updates_per_round,
+            user_traffic=args.user_traffic,
+            resume_step=_resume_step(args),
+        ))
+        loop.setup()
+        engine = loop.engine
+        # the rollout journal, with serve's rotation contract: the backup
+        # lives until every entry is accepted again into the new journal
+        run_dir = _jsonl_run_dir(config)
+        journal_path = run_dir / "rl-journal.jsonl" if run_dir is not None else None
+        backup_path = None
+        resumed = []
+        if journal_path is not None:
+            backup_path = journal_path.with_name("rl-journal.replaying.jsonl")
+            if journal_path.exists():
+                with open(backup_path, "a") as backup:
+                    backup.write(journal_path.read_text())
+                journal_path.unlink()
+            if backup_path.exists():
+                resumed = replay_journal(backup_path)
+            journal = RequestJournal(journal_path)
+            engine.attach_journal(journal, every=args.journal_every)
+        if resumed:
+            log.warning("replaying %d journaled rollout(s) from the previous rl-fit process",
+                        len(resumed))
+            # adopt first, so the replayed token events route to the collector
+            loop.collector.adopt(resumed)
+            for entry in resumed:
+                loop.collector.ingest(engine.submit_resumed(entry))
+        if backup_path is not None and backup_path.exists():
+            backup_path.unlink()
+
+        result = loop.run(shutdown=shutdown,
+                          emit=lambda record: print(json.dumps(record), flush=True))
+        rc = RESUMABLE_EXIT_CODE if result["interrupted"] else 0
+        if rc:
+            log.warning("%s: rollouts journaled and round cursor checkpointed — exiting %d "
+                        "(resumable)", shutdown.reason, RESUMABLE_EXIT_CODE)
+        print(json.dumps({"type": "stats", "stats": result["gauges"]}), flush=True)
+        if journal is not None:
+            journal.close()
+            journal = None
+            if rc == 0:
+                journal_path.unlink(missing_ok=True)
+        return rc
+    finally:
+        if journal is not None:
+            journal.close()
+        if trainer.checkpointer is not None:
+            trainer.checkpointer.close()
+        uninstall_chaos()
+        shutdown.uninstall()
 
 
 def run_supervise(args) -> int:
@@ -523,6 +707,94 @@ def build_parser() -> argparse.ArgumentParser:
     _sampling_args(serve)
     _run_args(serve, device_default="cuda")
 
+    rl_fit = sub.add_parser(
+        "rl-fit",
+        help="on-policy GRPO post-training: rollouts through the serving "
+        "engine, group-relative policy-gradient updates, weight sync into "
+        "the engine each round",
+    )
+    rl_fit.add_argument("--config", required=True, help="JSON config file")
+    rl_fit.add_argument(
+        "--ckpt-path", default=None,
+        help="checkpoint step to restore the policy from (default: newest; "
+        "fresh seed-init when none exists)",
+    )
+    rl_fit.add_argument("--rounds", type=int, default=4)
+    rl_fit.add_argument(
+        "--prompts-per-round", type=int, default=2,
+        help="prompt groups per round (x the objective's group_size samples each)",
+    )
+    rl_fit.add_argument(
+        "--prompt-len", type=int, default=4,
+        help="synthetic prompt length (deterministic in seed and round)",
+    )
+    rl_fit.add_argument("--max-new-tokens", type=int, default=8)
+    rl_fit.add_argument(
+        "--sync-mode", default="fused", choices=("fused", "host"),
+        help="trainer->engine weight sync: fused = the engine decodes from the "
+        "policy's own tensors (default), host = a round trip through host memory "
+        "into the engine's tensors (the correctness oracle)",
+    )
+    rl_fit.add_argument(
+        "--reward", default=None,
+        help="verifiable reward name (copy_digit/regex/numeric_answer/"
+        "length; default: LLMT_RL_REWARD, else copy_digit)",
+    )
+    rl_fit.add_argument(
+        "--prompt-style", default="uniform", choices=("uniform", "repeat"),
+        help="synthetic prompt shape: uniform random tokens, or one digit "
+        "repeated (the copy-the-digit smoke task)",
+    )
+    rl_fit.add_argument(
+        "--updates-per-round", type=int, default=1,
+        help="PPO-style epochs over each round's batch (the clipped "
+        "importance ratio keeps >1 sound)",
+    )
+    rl_fit.add_argument(
+        "--rollout-priority", type=int, default=-1,
+        help="scheduler priority class for rollout requests (default -1: "
+        "below user traffic's 0, so contention evicts rollouts first)",
+    )
+    rl_fit.add_argument(
+        "--user-traffic", type=int, default=0,
+        help="synthetic priority-0 user requests submitted per round "
+        "alongside the rollouts",
+    )
+    rl_fit.add_argument(
+        "--yield-steps", type=int, default=50,
+        help="engine steps rollout submission backs off after a new serve "
+        "SLO burn-rate breach (JAX's flag; the SLO monitor is not ported yet and "
+        "an armed target raises, so nothing reads it)",
+    )
+    rl_fit.add_argument("--max-batch", type=int, default=4, help="decode slots (static batch)")
+    rl_fit.add_argument("--max-model-len", type=int, default=256)
+    rl_fit.add_argument("--block-size", type=int, default=DEFAULT_BLOCK_SIZE)
+    rl_fit.add_argument("--num-blocks", type=int, default=None)
+    rl_fit.add_argument("--prefill-chunk", type=int, default=32)
+    rl_fit.add_argument(
+        "--max-queue", type=int, default=None,
+        help="intake bound; overflow sheds lowest-priority (rollouts) first "
+        "(not ported yet: raises)",
+    )
+    rl_fit.add_argument(
+        "--journal-every", type=int, default=1,
+        help="engine steps between rollout-journal progress checkpoints",
+    )
+    rl_fit.add_argument(
+        "--cache-dtype", default=None, choices=("param", "float32", "bfloat16"),
+        help="KV-cache storage dtype (default: the model's param dtype)",
+    )
+    rl_fit.add_argument(
+        "--temperature", type=float, default=1.0,
+        help="rollout sampling temperature (must be > 0 for exploration)",
+    )
+    rl_fit.add_argument("--top-k", type=int, default=None)
+    rl_fit.add_argument("--top-p", type=float, default=None)
+    rl_fit.add_argument("--seed", type=int, default=0)
+    rl_fit.add_argument("--eos-token-id", type=int, default=None)
+    rl_fit.add_argument("overrides", nargs="*", help="key.path=value (value parsed as JSON)")
+    rl_fit.add_argument("--device", default=None, help="cuda (default) or cpu")
+
     supervise = sub.add_parser(
         "supervise",
         help="run fit (or, with --child serve, the serving tier) as a "
@@ -609,7 +881,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     commands = {"fit": run_fit, "validate": run_validate, "generate": run_generate,
-                "evaluate": run_evaluate, "serve": run_serve, "supervise": run_supervise,
+                "evaluate": run_evaluate, "serve": run_serve, "rl-fit": run_rl_fit,
+                "supervise": run_supervise,
                 "ckpt": ckpt_main}
     return commands[args.command](args)
 

@@ -7,7 +7,7 @@ with label smoothing and the reward metrics.
 
 The trained module is a `PolicyAndReference` (`policy`, `ref`), so its
 parameters are named `policy.<name>` and `ref.<name>` and match the JAX
-tree's `policy/params/...` and `ref/params/...` (`from_jax.jax_paths`).
+tree's `policy/params/...` and `ref/params/...` (`from_jax.jax_path`).
 `^ref/` joins `frozen_modules`, the reference's parameters do not require
 gradients, and the optimizer holds no state for them. The reference's two
 forwards run under `torch.no_grad()`, JAX's `stop_gradient`: no backward
@@ -73,10 +73,14 @@ class PolicyAndReference(torch.nn.Module):
         self.ref = ref
 
 
-class DPO:
+class PairObjective:
+    """The objective contract over a `PolicyAndReference` (DPO, GRPO):
+    `^ref/` joins `frozen_modules`; `configure_model` builds the pair and
+    `bind` points the objective at one."""
+
     def __init__(
         self,
-        config: DPOConfig,
+        config,
         model: torch.nn.Module | None = None,
         ref_model: torch.nn.Module | None = None,
     ):
@@ -96,15 +100,17 @@ class DPO:
         policy's initial weights."""
         if self.pair is None:
             cfg = self.config
+            where = type(cfg).__name__
             start = generator.get_state()
             policy = self.model
             if policy is None:
-                policy = build_model(cfg.model, cfg.init_weights, device, generator, "DPOConfig.model")
+                policy = build_model(cfg.model, cfg.init_weights, device, generator,
+                                     f"{where}.model")
             ref = self.ref_model
             if ref is None and cfg.ref_model is not None:
                 generator.set_state(start)
                 ref = build_model(cfg.ref_model, cfg.init_weights, device, generator,
-                                  "DPOConfig.ref_model")
+                                  f"{where}.ref_model")
             elif ref is None:
                 ref = copy.deepcopy(policy)
             ref.requires_grad_(False)
@@ -123,6 +129,8 @@ class DPO:
             "(ROADMAP A.8)"
         )
 
+
+class DPO(PairObjective):
     def _logps(self, model, batch, side):
         cfg = self.config
         return sequence_log_probs(model, batch, side, cfg.ignore_index, cfg.logps_chunk_size)

@@ -59,6 +59,10 @@ class LlamaConfig:
     enable_gradient_checkpointing: bool = False
     recompute_granularity: str = "full"
     attention_impl: str = "auto"
+    # the JAX parameter tree's layout (one scanned `layers/layer` stack, or
+    # `layers_{i}`): it changes nothing the port computes, only the paths
+    # that `frozen_modules` patterns match (optim/builder.py)
+    scan_layers: bool = True
     # architecture selectors of the JAX config; only the Llama values are ported
     num_experts: int | None = None
     norm_scheme: str = "pre"

@@ -83,24 +83,26 @@ PAIR = ("policy", "ref")
 ADAFACTOR_FIELDS = ("v_row", "v_col", "v", "ema")
 
 
-def jax_paths(name: str) -> list[str]:
-    """The '/'-joined paths of the port's parameter `name` in a JAX `Llama`
-    tree: `params/...` outside the layers; for a layer's parameter both the
-    scanned form (`params/layers/layer/...`, one leaf for all layers) and
-    the looped form (`params/layers_{i}/...`). A name of a policy and
-    reference pair (`policy.<name>`, `ref.<name>`) is prefixed as the JAX
-    DPO tree nests it (`policy/params/...`). Empty for any other name."""
+def jax_path(name: str, scan_layers: bool = True) -> str | None:
+    """The '/'-joined path of the port's parameter `name` in the JAX
+    `Llama` tree of one layout: `params/...` outside the layers; a layer's
+    parameter in the scanned tree (`params/layers/layer/...`, one leaf for
+    all layers) or the looped one (`params/layers_{i}/...`). A name of a
+    policy and reference pair (`policy.<name>`, `ref.<name>`) is prefixed
+    as the JAX DPO and GRPO trees nest it (`policy/params/...`). None for
+    any other name."""
     part, _, rest = name.partition(".")
     if part in PAIR:
-        return [f"{part}/{path}" for path in jax_paths(rest)]
+        path = jax_path(rest, scan_layers)
+        return None if path is None else f"{part}/{path}"
     try:
         layer, keys = jax_leaf(name)
     except KeyError:
-        return []
+        return None
     tail = "/".join(keys)
     if layer is None:
-        return [f"params/{tail}"]
-    return [f"params/layers/layer/{tail}", f"params/layers_{layer}/{tail}"]
+        return f"params/{tail}"
+    return f"params/layers/layer/{tail}" if scan_layers else f"params/layers_{layer}/{tail}"
 
 
 def jax_layout(name: str) -> tuple[str, int | None, bool]:

@@ -1,9 +1,10 @@
 """Cross-entropy losses, including the chunked fused-linear cross-entropy.
 
 Counterpart of `llm_training_tpu/ops/cross_entropy.py`: `shift_labels`,
-`cross_entropy`, `fused_linear_cross_entropy` and `fused_linear_log_probs`
-(the per-row label log-probs of DPO and ORPO). The fused ones chunk the
-tokens and run each chunk under `torch.utils.checkpoint`, so forward and
+`cross_entropy`, `fused_linear_cross_entropy`, `fused_linear_log_probs`
+(the per-row label log-probs of DPO and ORPO) and
+`fused_linear_token_log_probs` (GRPO's per-token ones). The fused ones
+chunk the tokens and run each chunk under `torch.utils.checkpoint`, so forward and
 backward peak at one chunk's fp32 logits instead of the whole
 `tokens x vocab`. The head product is a plain matrix product (the JAX
 package left it to XLA), so it is `torch.mm`. In bf16 the logits are the
@@ -138,13 +139,38 @@ def fused_linear_cross_entropy(
     return total, count
 
 
-def _chunk_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
-    """Per-row sums of label log-probs and valid counts of one sequence
-    chunk: h `[batch, chunk, embed]`, labels `[batch, chunk]`."""
+def _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
+    """Label log-probs (0 where ignored) and the validity mask of one
+    sequence chunk: h `[batch, chunk, embed]`, labels `[batch, chunk]`."""
     rows, width, embed = h.shape
     logits = _chunk_logits(h.reshape(-1, embed), weight, bias, logits_soft_cap)
     nll, valid = _token_nll(logits, labels.reshape(-1), ignore_index)
-    return -nll.reshape(rows, width).sum(-1), valid.reshape(rows, width).sum(-1)
+    return -nll.reshape(rows, width), valid.reshape(rows, width)
+
+
+def _chunk_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
+    """Per-row sums of label log-probs and valid counts of one chunk."""
+    logps, valid = _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index)
+    return logps.sum(-1), valid.sum(-1)
+
+
+def _sequence_chunks(fn, hidden, weight, labels, ignore_index, chunk_size, logits_soft_cap,
+                     bias):
+    """`fn` over the sequence axis, `chunk_size` positions of every row at a
+    time, each chunk recomputed in the backward. The last chunk is padded
+    to `chunk_size` with zero hidden states and ignored labels, as the JAX
+    scan pads it, so every chunk has one shape; callers strip or sum away
+    the padding. Yields (the chunk's unpadded width, fn's outputs)."""
+    batch, seq, embed = hidden.shape
+    chunk_size = min(chunk_size, seq)
+    for start in range(0, seq, chunk_size):
+        h = hidden[:, start:start + chunk_size]
+        l = labels[:, start:start + chunk_size]
+        width = h.shape[1]
+        if width < chunk_size:
+            h = torch.cat([h, h.new_zeros((batch, chunk_size - width, embed))], dim=1)
+            l = torch.cat([l, l.new_full((batch, chunk_size - width), ignore_index)], dim=1)
+        yield width, _checkpointed(fn, h, weight, l, bias, logits_soft_cap, ignore_index)
 
 
 def fused_linear_log_probs(
@@ -162,16 +188,33 @@ def fused_linear_log_probs(
     `[batch]`). Chunked over the sequence axis, `chunk_size` positions of
     every row at a time, each chunk recomputed in the backward, so memory
     peaks at `batch x chunk_size x vocab` fp32 logits."""
-    batch, seq, _ = hidden.shape
-    chunk_size = min(chunk_size, seq)
+    batch = hidden.shape[0]
     logps = torch.zeros((batch,), dtype=torch.float32, device=hidden.device)
     counts = torch.zeros((batch,), dtype=torch.int64, device=hidden.device)
-    # an uneven last chunk runs as it is (the JAX scan pads it with ignored
-    # labels, which add nothing)
-    for start in range(0, seq, chunk_size):
-        h = hidden[:, start:start + chunk_size]
-        l = labels[:, start:start + chunk_size]
-        s, c = _checkpointed(_chunk_logps, h, weight, l, bias, logits_soft_cap, ignore_index)
+    # the padding of the last chunk adds nothing to either sum
+    for _, (s, c) in _sequence_chunks(_chunk_logps, hidden, weight, labels, ignore_index,
+                                      chunk_size, logits_soft_cap, bias):
         logps = logps + s
         counts = counts + c
     return logps, counts
+
+
+def fused_linear_token_log_probs(
+    hidden: torch.Tensor,
+    weight: torch.Tensor,
+    labels: torch.Tensor,
+    ignore_index: int = -100,
+    chunk_size: int = 1024,
+    logits_soft_cap: float | None = None,
+    bias: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-TOKEN label log-probs of `hidden @ weight (+ bias)` without the
+    full logits (GRPO's token-level ratio and KL). hidden `[batch, seq,
+    embed]`, labels `[batch, seq]`. Returns (log p per token `[batch, seq]`
+    fp32, 0 at `ignore_index`; the validity mask `[batch, seq]` bool): the
+    chunk loop of `fused_linear_log_probs`, its chunks concatenated instead
+    of summed."""
+    chunks = [(out[0][:, :width], out[1][:, :width]) for width, out in _sequence_chunks(
+        _chunk_token_logps, hidden, weight, labels, ignore_index, chunk_size,
+        logits_soft_cap, bias)]
+    return torch.cat([c[0] for c in chunks], dim=1), torch.cat([c[1] for c in chunks], dim=1)

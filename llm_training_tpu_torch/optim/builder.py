@@ -45,7 +45,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from llm_training_tpu_torch.models.llama.from_jax import jax_layout, jax_paths
+from llm_training_tpu_torch.models.llama.from_jax import jax_layout, jax_path
 from llm_training_tpu_torch.optim import adafactor
 from llm_training_tpu_torch.optim.offload import StateStore
 from llm_training_tpu_torch.optim.quantized_state import DEFAULT_BLOCK
@@ -123,14 +123,18 @@ def build_lr_schedule(config: OptimConfig, num_total_steps: int) -> Callable[[in
     return lambda count: warmup(count) if count < boundary else inner(count - boundary)
 
 
-def _frozen(name: str, patterns: list[re.Pattern]) -> bool:
-    """A parameter is frozen when a pattern matches its name, dotted
-    (`model.embed_tokens.weight`) or joined by '/', or its path in the JAX
-    package's parameter tree (`params/layers/layer/mlp/up_proj/kernel`,
-    `params/layers_0/...`), which is what `_freeze_mask` matches there: a
-    config written for the JAX package freezes the same parameters."""
-    forms = [name, name.replace(".", "/"), *jax_paths(name)]
-    return any(p.search(form) for p in patterns for form in forms)
+def _frozen(name: str, patterns: list[re.Pattern], scan_layers: bool = True) -> bool:
+    """A parameter is frozen when a pattern matches the path `_freeze_mask`
+    sees in the JAX package: the parameter's path in the JAX tree of the
+    model's layout (`params/layers/layer/mlp/up_proj/kernel` when
+    `scan_layers`, else `params/layers_0/mlp/up_proj/kernel`; a pair's
+    `policy/` or `ref/` before it), never the port's dotted name. A name
+    with no JAX counterpart (not a `Llama` parameter) matches as the tree
+    of the same nesting would name it, joined by '/'."""
+    path = jax_path(name, scan_layers)
+    if path is None:
+        path = name.replace(".", "/")
+    return any(p.search(path) for p in patterns)
 
 
 class Optimizer:
@@ -157,6 +161,7 @@ class Optimizer:
         offload: bool = False,
         state_dtype: str = "float32",
         quant_block: int = DEFAULT_BLOCK,
+        scan_layers: bool = True,
     ):
         if config.optimizer not in _KWARGS:
             raise ValueError(
@@ -175,7 +180,7 @@ class Optimizer:
         patterns = [re.compile(p) for p in frozen_modules or []]
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
-        self.trainable = [not _frozen(n, patterns) for n, _ in named_params]
+        self.trainable = [not _frozen(n, patterns, scan_layers) for n, _ in named_params]
         self.count = 0  # inner updates done
         self.mini_step = 0
         # set to {} before an update to collect, per parameter index, the
@@ -456,6 +461,7 @@ def build_optimizer(
 ) -> tuple[Optimizer, Callable[[int], float]]:
     """The full chain (clip -> optimizer(schedule) [-> freeze mask]) over
     `named_params`, and its schedule. `offload` takes `Optimizer`'s
-    `offload`, `state_dtype` and `quant_block`."""
+    `offload`, `state_dtype`, `quant_block` and `scan_layers` (the JAX
+    layout `frozen_modules` match against)."""
     schedule = build_lr_schedule(config, num_total_steps)
     return Optimizer(named_params, config, schedule, frozen_modules, accumulate, **offload), schedule

@@ -1,10 +1,10 @@
 """Continuous-batching serving engine.
 
 Counterpart of `llm_training_tpu/serve/engine.py` (without load shedding,
-the journal, chaos, tracing, weight reload and device-attribution layers).
-Every step first expires deadlines, so a `deadline` terminal is never more
-than one step late. Two model calls run against the paged pool, which they
-update in place:
+chaos, tracing, live stats and device-attribution layers). Every step
+first expires deadlines, so a `deadline` terminal is never more than one
+step late. Two model calls run against the paged pool, which they update
+in place:
 
 - a prefill chunk: ONE request's next prompt chunk (batch 1, fixed chunk
   width) written into its own blocks; it samples the first new token when
@@ -15,17 +15,29 @@ update in place:
 
 Sampling draws under `fold_in(key(seed), call)` with a call counter that
 advances on every prefill chunk and every decode step, greedy or not, as
-the JAX engine's `_next_rng` does: the same seed gives its tokens.
+the JAX engine's `_next_rng` does: the same seed gives its tokens. The
+counter runs on across weight reloads.
+
+Hot weight reload (`reload_weights`) swaps the model's tensors between
+steps: every running request is evicted through the fold-in requeue (its
+paged KV was computed under the old weights), the new tensors are bound
+(a tensor the engine already holds is kept, so nothing is copied), and
+`weights_generation` bumps; every token and done event carries the
+generation it was decoded under. An attached `RequestJournal`
+(`attach_journal`, `serve/journal.py`) records accepted, progress and done
+records, so `drain()`, the SIGTERM path, can evict and journal everything
+in flight for a relaunch to `submit_resumed`.
 
 The host loop (`step()`) executes what the `Scheduler` decides.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +52,9 @@ from llm_training_tpu_torch.serve.paged_cache import (
     pool_bytes,
 )
 from llm_training_tpu_torch.serve.scheduler import Scheduler, SchedulerConfig, ServeRequest
+from llm_training_tpu_torch.telemetry.registry import get_registry
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -116,6 +131,15 @@ class ServingEngine:
         self.peak_running = 0
         # False once any sampled-from logits row held a non-finite value
         self.logits_finite = True
+        # bumped by reload_weights; every event carries the generation its
+        # token was decoded under
+        self.weights_generation = 0
+        # the request journal (attach_journal): a terminal's `done` record is
+        # deferred to the next step, once the caller has delivered it
+        self.journal = None
+        self._journal_every = 1
+        self._unretired: list[ServeRequest] = []
+        self.replayed_requests = 0
 
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(array, device=self._pool_k.device)
@@ -155,9 +179,127 @@ class ServingEngine:
         )
         if deadline_ms is not None:
             request.deadline_s = request.arrival_s + float(deadline_ms) / 1000.0
-        if self.scheduler.submit(request) is not None:
+        return self._ingest(request)
+
+    def submit_resumed(self, entry: dict) -> list[dict]:
+        """Resubmit one `replay_journal` entry after a relaunch: its journaled
+        continuation folds in as an eviction requeue does (a re-prefill of
+        prompt + generated under the current weights), its logprobs ride
+        along (padded with None where the journal had none), and the
+        `emitted` watermark keeps streamed tokens from being sent again. A
+        deadline re-anchors at the resumed arrival."""
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        request = ServeRequest(
+            id=str(entry["id"]), prompt=[int(t) for t in entry["prompt"]],
+            max_new_tokens=int(entry["max_new_tokens"]), priority=int(entry.get("priority", 0)),
+        )
+        request.generated = [int(t) for t in entry.get("generated", [])]
+        logprobs = [None if lp is None else float(lp)
+                    for lp in (entry.get("logprobs") or [])][: len(request.generated)]
+        request.logprobs = logprobs + [None] * (len(request.generated) - len(logprobs))
+        request.emitted = min(int(entry.get("emitted", 0)), len(request.generated))
+        if entry.get("deadline_ms") is not None:
+            request.deadline_s = request.arrival_s + float(entry["deadline_ms"]) / 1000.0
+        self.replayed_requests += 1
+        if len(request.generated) >= request.max_new_tokens:
+            # the journal caught the last token but not the done record
+            request.stop_reason = "max_tokens"
+            self.scheduler.completed.append(request)
             return [self._done_event(request)]
-        return []
+        return self._ingest(request)
+
+    def _ingest(self, request: ServeRequest) -> list[dict]:
+        """Hand a built request to the scheduler, journal its acceptance,
+        and return the terminal submission produced (a rejection)."""
+        before = len(self.scheduler.completed)
+        self.scheduler.submit(request)
+        if not request.done and self.journal is not None:
+            self.journal.accepted(request)
+            if request.generated or request.emitted:
+                # a replayed continuation must survive a second death
+                self.journal.progress(request)
+        return [self._done_event(r) for r in self.scheduler.completed[before:]]
+
+    # ---------------------------------------------------------- resilience
+
+    def attach_journal(self, journal, every: int = 1) -> None:
+        """Record request lifetimes into `journal`; progress is checkpointed
+        every `every` engine steps (and always at drain)."""
+        self.journal = journal
+        self._journal_every = max(1, int(every))
+
+    def _retire_finished(self) -> None:
+        """The deferred `done` records of terminals the caller has had the
+        chance to deliver (everything returned before this step)."""
+        if self.journal is None or not self._unretired:
+            return
+        retired, self._unretired = self._unretired, []
+        for request in retired:
+            self.journal.finished(request)
+
+    def reload_weights(self, weights: Mapping[str, torch.Tensor]) -> int:
+        """Hot-swap the model's tensors between engine steps. `weights` maps
+        every name of the model's `state_dict()` to a tensor of the same
+        shape, dtype and device. Every running request is evicted through
+        the fold-in requeue first: its paged KV was computed under the old
+        weights. A tensor the engine already holds stays bound (no copy);
+        any other is bound in its place. Returns the new generation."""
+        current = self.model.state_dict(keep_vars=True)
+        missing, unexpected = sorted(set(current) - set(weights)), sorted(set(weights) - set(current))
+        if missing or unexpected:
+            raise ValueError(
+                "reload_weights: parameter names mismatch — the reload must be the same "
+                f"architecture (missing {missing[:4]}, unexpected {unexpected[:4]})"
+            )
+        for name, old in current.items():
+            new = weights[name]
+            if (new.shape, new.dtype, new.device) != (old.shape, old.dtype, old.device):
+                raise ValueError(
+                    f"reload_weights: {name} shape/dtype/device mismatch ({tuple(new.shape)}/"
+                    f"{new.dtype}/{new.device} vs the engine's {tuple(old.shape)}/{old.dtype}/"
+                    f"{old.device})"
+                )
+        evicted = 0
+        for request in list(self.scheduler.running.values()):
+            self.scheduler.evict(request)
+            evicted += 1
+        for name, new in weights.items():
+            owner_name, _, leaf = name.rpartition(".")
+            owner = self.model.get_submodule(owner_name)
+            if leaf in owner._parameters:
+                if owner._parameters[leaf] is not new:
+                    owner._parameters[leaf] = (
+                        new if isinstance(new, torch.nn.Parameter)
+                        else torch.nn.Parameter(new, requires_grad=False)
+                    )
+            elif owner._buffers[leaf] is not new:
+                owner._buffers[leaf] = new
+        self.weights_generation += 1
+        get_registry().gauge("serve/weights_generation").set(float(self.weights_generation))
+        logger.info("weights reloaded: generation %d (%d in-flight request(s) folded for "
+                    "re-prefill)", self.weights_generation, evicted)
+        return self.weights_generation
+
+    def drain(self) -> dict:
+        """Evict and journal everything in flight, the graceful-shutdown
+        tail: running requests fold their progress through the eviction
+        requeue (freeing every pool block), then every queued request is
+        checkpointed to the journal for a relaunch to `submit_resumed`. No
+        terminal is emitted: the relaunch owes them."""
+        self._retire_finished()
+        for request in list(self.scheduler.running.values()):
+            self.scheduler.evict(request)
+        journaled = 0
+        for request in self.scheduler.waiting:
+            if self.journal is not None:
+                self.journal.progress(request)
+                journaled += 1
+        summary = {"journaled": journaled, "blocks_in_use": self.allocator.blocks_in_use,
+                   "step": self.step_index}
+        logger.warning("drain: %d unfinished request(s) journaled for replay (%d pool blocks "
+                       "in use)", journaled, self.allocator.blocks_in_use)
+        return summary
 
     # ---------------------------------------------------------------- step
 
@@ -167,6 +309,12 @@ class ServingEngine:
         streamed events."""
         events: list[dict] = []
         self.step_index += 1
+        # what the previous step returned has been delivered by now: retire
+        # finished ids and checkpoint progress before this step can die
+        self._retire_finished()
+        if self.journal is not None and self.step_index % self._journal_every == 0:
+            for request in self.scheduler.running.values():
+                self.journal.progress(request)
         before = len(self.scheduler.completed)
         # deadlines first: expired queued work never costs a prefill, and an
         # expired running row frees its blocks before admission looks
@@ -198,6 +346,7 @@ class ServingEngine:
                 "type": "token", "id": request.id,
                 "token": request.generated[request.emitted],
                 "logprob": request.logprobs[request.emitted],
+                "generation": self.weights_generation,
             })
             request.emitted += 1
         eos = self.config.eos_token_id
@@ -279,6 +428,8 @@ class ServingEngine:
         return events
 
     def _done_event(self, request: ServeRequest) -> dict:
+        if self.journal is not None:
+            self._unretired.append(request)
         event = {
             "type": "done", "id": request.id,
             "stop_reason": request.stop_reason,
@@ -286,6 +437,7 @@ class ServingEngine:
             "logprobs": list(request.logprobs),
             "n_tokens": len(request.generated),
             "evictions": request.evictions,
+            "generation": self.weights_generation,
         }
         if request.first_token_s is not None:
             event["ttft_ms"] = 1000.0 * (request.first_token_s - request.arrival_s)
@@ -341,6 +493,8 @@ class ServingEngine:
             "serve/requests_shed": float(shed),
             "serve/requests_evicted": float(self.scheduler.evictions),
             "serve/deadline_total": float(self.scheduler.deadline_total),
+            "serve/weights_generation": float(self.weights_generation),
+            "serve/replayed_requests": float(self.replayed_requests),
             "serve/tokens_generated": float(self.tokens_generated),
             "serve/tokens_per_sec": self.tokens_generated / wall if wall > 0 else 0.0,
             "serve/peak_running": float(self.peak_running),

@@ -45,7 +45,9 @@ class ServeRequest:
     deadline_s: float | None = None
 
     generated: list[int] = field(default_factory=list)
-    logprobs: list[float] = field(default_factory=list)  # parallel to generated
+    # the chosen token's logprob, parallel to `generated`; None where it is
+    # unknown (restored from a journal that had none)
+    logprobs: list[float | None] = field(default_factory=list)
     emitted: int = 0  # tokens already streamed (an evict/resume never re-emits)
     slot: int | None = None
     blocks: list[int] = field(default_factory=list)

@@ -193,6 +193,14 @@ def _host_metrics(metrics: dict) -> dict[str, float]:
     return {k: host[k] for k in metrics}
 
 
+def _scan_layers(module: torch.nn.Module) -> bool:
+    """The JAX layout of the objective's model config (`scan_layers`, JAX's
+    default True): the tree `frozen_modules` patterns are matched against.
+    A policy and reference pair takes the policy's."""
+    model = getattr(module, "policy", module)
+    return bool(getattr(getattr(model, "config", None), "scan_layers", True))
+
+
 class Trainer:
     """Drives an objective over a datamodule: `Trainer(config).fit(objective,
     datamodule)`. `trainer.state` is the live `TrainState` from the fit's
@@ -266,7 +274,7 @@ class Trainer:
                 frozen_modules=objective.config.frozen_modules,
                 accumulate=cfg.accumulate_grad_batches,
                 offload=cfg.offload_optimizer_state, state_dtype=cfg.offload_state_dtype,
-                quant_block=cfg.offload_quant_block,
+                quant_block=cfg.offload_quant_block, scan_layers=_scan_layers(model),
             )
         state = TrainState(step=0, model=model, optimizer=optimizer, rng=prng.key(cfg.seed + 1))
         return state, schedule

@@ -476,22 +476,21 @@ def test_accumulation_matches_optax_multisteps():
 
 
 @pytest.mark.parametrize("scan", [True, False], ids=["scanned", "looped"])
-@pytest.mark.parametrize("jax_pattern,port_pattern", [
-    ("mlp/up_proj/kernel", None),
-    ("params/layers/layer/self_attn", None),
-    ("layers_0/", None),
-    (r"layers_1/self_attn/(q|k)_proj/kernel", None),
-    ("embed_tokens|(^|/)norm/weight", None),
-    ("layers_0/mlp/", r"model\.layers\.0\.mlp\."),
-    ("no_such_module", None),
+@pytest.mark.parametrize("pattern", [
+    "mlp/up_proj/kernel",
+    "params/layers/layer/self_attn",
+    "layers_0/",
+    r"layers_1/self_attn/(q|k)_proj/kernel",
+    "embed_tokens|(^|/)norm/weight",
+    r"model\.layers\.0\.mlp\.",
+    "no_such_module",
 ], ids=["kernel_path", "scanned_path", "layers_0", "looped_regex", "embed_and_norm",
         "port_dotted_name", "matches_nothing"])
-def test_frozen_modules_match_jax(scan, jax_pattern, port_pattern):
-    """`frozen_modules` written for the JAX package freezes the same
-    parameters in the port: the JAX side is `_freeze_mask` over the tiny
-    Llama's tree (scanned: one leaf for all layers; looped: `layers_{i}`),
-    the port side the optimizer's `trainable` flags. A pattern in the port's
-    own dotted names is held against its JAX spelling."""
+def test_frozen_modules_match_jax(scan, pattern):
+    """`frozen_modules` freezes exactly the parameters `_freeze_mask` freezes
+    in the JAX tree of the same layout (`scan_layers`; scanned: one leaf for
+    all layers, looped: `layers_{i}`): a path of the other layout, and a
+    pattern in the port's own dotted names, freeze nothing, as in JAX."""
     from llm_training_tpu.optim.builder import _freeze_mask
     from llm_training_tpu_torch.models.llama.from_jax import jax_leaf
 
@@ -499,8 +498,8 @@ def test_frozen_modules_match_jax(scan, jax_pattern, port_pattern):
     variables = nn.meta.unbox(
         jax.eval_shape(jax_model.init, jax.random.key(0), np.zeros((1, 4), np.int32))
     )
-    trainable = _freeze_mask(variables, [jax_pattern])["params"]
-    model = Llama(LlamaConfig(**TINY), device="meta")
+    trainable = _freeze_mask(variables, [pattern])["params"]
+    model = Llama(LlamaConfig(**TINY, scan_layers=scan), device="meta")
     named = list(model.named_parameters())
     expected = set()
     for name, _ in named:
@@ -513,17 +512,18 @@ def test_frozen_modules_match_jax(scan, jax_pattern, port_pattern):
             node = node[key]
         if not node:
             expected.add(name)
-    pattern = port_pattern or jax_pattern
-    opt, _ = build_optimizer(OptimConfig(optimizer="sgd"), 4, named, [pattern])
+    opt, _ = build_optimizer(OptimConfig(optimizer="sgd"), 4, named, [pattern],
+                             scan_layers=scan)
     frozen = {name for (name, _), flag in zip(named, opt.trainable) if not flag}
-    # a path of the other layout matches nothing in this JAX tree, by design of
-    # the layouts; the port has one layout and takes a path of either
-    other_layout = ("layers_" in jax_pattern) if scan else ("layers/layer" in jax_pattern)
-    if other_layout:
-        assert not expected and frozen
-    else:
-        assert frozen == expected, (sorted(frozen), sorted(expected))
-    assert bool(frozen) == (jax_pattern != "no_such_module")
+    assert frozen == expected, (sorted(frozen), sorted(expected))
+    # through the Trainer, which takes the layout from the objective's model config
+    trainer = Trainer(TrainerConfig(max_steps=4), device="cpu")
+    objective = CLM(CLMConfig(optim=OptimConfig(optimizer="sgd"), frozen_modules=[pattern]),
+                    model=Llama(LlamaConfig(**TINY, scan_layers=scan), device="cpu"))
+    state, _ = trainer.init_state(objective)
+    frozen = {name for name, flag in zip(state.optimizer.names, state.optimizer.trainable)
+              if not flag}
+    assert frozen == expected, (sorted(frozen), sorted(expected))
 
 
 def test_adamw_default_weight_decay_is_optax_not_torch():
