@@ -146,18 +146,20 @@ Phases, each of which must pass (any failure exits non-zero):
    the saved one; with both copies of step 4 rotten the fit falls back to
    step 2, deletes step 4 and re-runs steps 3-4, their losses within 1e-3
    relative of the clean run's (bit-equal where the scatter-add allows);
-   each time the ladder's counters are checked. b: `supervise` in processes
-   of its own with `LLMT_CHAOS_SIGKILL_STEP=3`: the child dies on SIGKILL,
+   each time the ladder's counters are checked. b: `supervise` in
+   processes of its own, two runs side by side: with
+   `LLMT_CHAOS_SIGKILL_STEP=3` on a fresh root the child dies on SIGKILL,
    the relaunch restores step 2 and exits 0, `supervisor.jsonl` shows
-   launch, exit (SIGKILL), restart, launch, exit, complete, and the final
-   parameters equal the clean run's; then a forced final save killed inside
-   its swap (`LLMT_CHAOS_CKPT_KILL_IN_SWAP`) is promoted from `.stale/` by
-   the relaunch, its bytes unchanged. c: `ckpt verify --mode full` exits 0,
-   `ls`, `gc --dry-run` and `mirror` run, a flipped byte makes `verify`
-   exit 1 naming the step and the file, a missing root exits 2. K1-K3
-   launch in leg a's fits. It prints the manifest seconds and hashing rate,
-   the mirror, verify, heal and fallback seconds, and each process's wall
-   time and restarts.
+   launch, exit (SIGKILL), restart, launch, exit, complete, and the losses
+   and final parameters equal leg a's clean run's; on leg a's root a
+   forced final save killed inside its swap (`LLMT_CHAOS_CKPT_KILL_IN_SWAP`)
+   is promoted from `.stale/` by the relaunch, its bytes unchanged. c:
+   after the swap run, on leg a's root (beside the SIGKILL run), `ckpt
+   verify --mode full` exits 0, `ls`, `gc --dry-run` and `mirror` run, a
+   flipped byte makes `verify` exit 1 naming the step and the file, a
+   missing root exits 2. K1-K3 launch in leg a's fits. It prints the
+   manifest seconds and hashing rate, the mirror, verify, heal and fallback
+   seconds, and each process's wall time and restarts.
 17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
    engine through the `rl-fit` command, in legs. a: in a process of its
    own, Llama-3.1-8B widths cut to 8 layers (fp32 params, bf16 compute,
@@ -184,10 +186,41 @@ Phases, each of which must pass (any failure exits non-zero):
    rollouts in flight journaled and the round cursor checkpointed; the
    relaunch (host sync) adopts every journaled rollout, submits none again,
    drops none as stale, and exits 0 with the journal retired.
+18. `serve`'s resilience and live telemetry (run after phase 17 freed its
+   memory), through the CLI in processes of their own, each counting K4's
+   launches and the plain decode path's calls (which must stay 0). a: full
+   depth, `--preset llama-3.1-8b` (bf16, random weights from seed 0),
+   `max_batch` 8, `max_model_len` 2048, chunk 256, greedy: 8 warm-up
+   requests, then a burst of 48 (prompts of 32-1024 tokens, 64 new) --
+   without shedding, then with `--max-queue 8 --shed-ttft-ms` twice the
+   warm-up TTFT p50: TTFT p50/p99, `overloaded` terminals (0, then > 0),
+   decode step p50; `/metrics` scraped at ~2 Hz through `LLMT_METRICS_PORT`
+   and every scrape parsed by the port's `parse_prometheus_text`,
+   `/healthz` 200 while busy, the final scrape's completions equal the
+   client's. Both processes also hold a request journal and time, on the
+   loop thread, every call into the tracer, the journal and the watchdog's
+   beat, while their engine steps cycle through all on, the tracer
+   disabled and the journal detached: the host microseconds each costs a
+   step, and each mode's decode-only step against the adjacent all-on
+   one; a microbenchmark gives the tracer's cost an event. b: 8 layers of the
+   same widths in fp32 (token equality across a drain needs the prefill
+   and decode paths to agree closer than bf16 does): a 1-step SGD `fit`
+   writes the checkpoint, one uninterrupted `serve --config` answers 16
+   requests of 128 new tokens, then `supervise --child serve` with
+   `LLMT_CHAOS_SERVE_SIGTERM_STEP` 40 and a 1 s drain: exit 75, the
+   relaunch replays the journal, every stream equals the uninterrupted
+   one token for token with one terminal a request; a `{"type":
+   "profile"}` line writes a `torch.profiler` trace holding CUDA kernel
+   events with `profile/errors` 0; the `trace` command's export tiles
+   every residency's queue/prefill/decode spans within 50 ms. c: 2 layers
+   in bf16, a stall at engine step 10 under `--watchdog-timeout-s 6`: a
+   hang dump and a flight dump, `/healthz` 503 before the abort, and the
+   supervised relaunch finishes every request.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
 Every phase prints its wall time. It prints one `{"kernels": [...]}` line
-(launches from phase 17a, which runs all four kernels), the card's name and
+(launches from phase 17a, which runs all four kernels; phase 18's K4
+launches on a line of their own), the card's name and
 power limit, and as its last line `{"ok": true, "device": {...}}`.
 """
 
@@ -363,12 +396,18 @@ RES_SPIKE_Z = 1000.0
 RES_WATCHDOG_S = 15.0
 RES_STALL_S = 20.0
 RES_MAX_DOC = 4096  # the packed rows' longest document (packed_batches' default)
-# phase 16: durability, supervise and the ckpt command, on phase 15's 2-layer
+# phase 16: durability and the ckpt command, on phase 15's 2-layer
 # model under SGD (a checkpoint of the parameters, 5.95 GB)
 DUR_DIR = ROOT / ".smoke_durability"
 DUR_STEPS = 4
 DUR_COUNTERS = ("checkpoint/verify_failures", "checkpoint/mirror_restores",
                 "resilience/restore_fallbacks")
+# leg b's supervised runs, each (its children included) killed past this
+DUR_SUPERVISE_TIMEOUT_S = 420.0
+# leg b's live `supervise` process groups, and whether the phase is ending
+# them (a failure elsewhere in the phase)
+_DUR_LIVE: set[int] = set()
+_DUR_STOP = [False]
 # the supervised run's final parameters against the clean run's, per tensor
 # over its largest |value|, where they are not bit-equal: the embedding's
 # backward (a CUDA scatter-add) sums in no fixed order (RESUME_RTOL's
@@ -383,6 +422,34 @@ class SmokeFailure(RuntimeError):
 def check(condition: bool, message: str) -> None:
     if not condition:
         raise SmokeFailure(message)
+
+
+class LegThread:
+    """A leg on a thread of its own; `result()` joins and re-raises."""
+
+    def __init__(self, leg, *args):
+        import threading
+
+        self._out, self._error = None, None
+        self._thread = threading.Thread(target=self._run, args=(leg, *args), daemon=True)
+        self._thread.start()
+
+    def _run(self, leg, *args) -> None:
+        try:
+            self._out = leg(*args)
+        except BaseException as e:  # re-raised on the phase's thread
+            self._error = e
+
+    def join(self, timeout: float) -> None:
+        """Wait for the leg without re-raising its error."""
+        self._thread.join(timeout)
+
+    def result(self, timeout: float):
+        self._thread.join(timeout)
+        check(not self._thread.is_alive(), f"a leg did not finish in {timeout:.0f} s")
+        if self._error is not None:
+            raise self._error
+        return self._out
 
 
 def percentile(values, q) -> float:
@@ -2800,11 +2867,6 @@ def dur_compare(got: dict, want: dict) -> dict:
     return dict(tensors=len(want), differ=len(differ), max_rel=worst)
 
 
-def dur_losses(name: str) -> dict[int, float]:
-    rows = (DUR_DIR / name / "run" / "log" / "metrics.jsonl").read_text().splitlines()
-    return {r["step"]: r["loss"] for r in map(json.loads, rows) if "loss" in r}
-
-
 def dur_in_process(card: str) -> dict:
     """Leg a: the clean fit (manifests, mirror, both copies verify); a
     flipped byte in the primary step 4 healed from the mirror at restore;
@@ -2942,7 +3004,12 @@ def dur_in_process(card: str) -> dict:
     return out, clean
 
 
-def dur_supervise(name: str, config: dict, env: dict, args: list[str], timeout: float = 420):
+def dur_losses(name: str) -> dict[int, float]:
+    rows = (DUR_DIR / name / "run" / "log" / "metrics.jsonl").read_text().splitlines()
+    return {r["step"]: r["loss"] for r in map(json.loads, rows) if "loss" in r}
+
+
+def dur_supervise(name: str, config: dict, env: dict, args: list[str]):
     """`python -m llm_training_tpu_torch supervise` in a session of its own
     (its children with it, all killed on the timeout): (exit code, wall
     seconds, the supervisor's events, its output)."""
@@ -2955,12 +3022,14 @@ def dur_supervise(name: str, config: dict, env: dict, args: list[str], timeout: 
     out_path = DUR_DIR / f"{name}.log"
     cmd = [sys.executable, "-m", "llm_training_tpu_torch", "supervise", "--config", str(path),
            "--backoff-base-s", "0", "--max-restarts", "2", "--log", str(log), *args]
+    check(not _DUR_STOP[0], f"durability {name}: the phase is ending")
     t0 = time.perf_counter()
     with open(out_path, "w") as handle:
         proc = subprocess.Popen(cmd, cwd=ROOT, env={**os.environ, **env}, stdout=handle,
                                 stderr=subprocess.STDOUT, start_new_session=True)
+        _DUR_LIVE.add(proc.pid)
         try:
-            rc = proc.wait(timeout=timeout)
+            rc = proc.wait(timeout=DUR_SUPERVISE_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             rc = None
         finally:
@@ -2969,6 +3038,7 @@ def dur_supervise(name: str, config: dict, env: dict, args: list[str], timeout: 
             except ProcessLookupError:
                 pass
             proc.wait()
+            _DUR_LIVE.discard(proc.pid)
     wall = time.perf_counter() - t0
     events = [json.loads(line) for line in log.read_text().splitlines()] if log.exists() else []
     return rc, wall, events, out_path.read_text()
@@ -2982,14 +3052,10 @@ HEALED = [("launch", None), ("exit", "SIGKILL"), ("restart", None), ("launch", N
           ("exit", None), ("complete", None)]
 
 
-def dur_processes(card: str, clean: dict, clean_losses: dict) -> dict:
-    """Leg b: a chaos SIGKILL at step 3 under `supervise`, healed by the
-    relaunch; then a SIGKILL inside a forced final save's swap, healed by
-    promoting `.stale/step_4` (see the header)."""
-    from llm_training_tpu_torch.cli.main import build_fit
-    from llm_training_tpu_torch.resilience import durability
-
-    root = DUR_DIR / "b" / "ckpt"
+def dur_sigkill() -> dict:
+    """Leg b's first run (on a thread beside the swap run and leg c): a
+    chaos SIGKILL at step 3 under `supervise` on a fresh root, healed by
+    the relaunch (see the header)."""
     config = dur_config("b", checkpoint={"async_save": False})
     rc, wall, events, text = dur_supervise(
         "sigkill", config, {"LLMT_CHAOS_SIGKILL_STEP": "3"},
@@ -2997,8 +3063,47 @@ def dur_processes(card: str, clean: dict, clean_losses: dict) -> dict:
     check(rc == 0 and dur_lifecycle(events) == HEALED
           and [e["attempt"] for e in events if e["event"] == "segment_topology"] == [1, 2],
           f"durability supervise: exit {rc}, events {dur_lifecycle(events)}: {text[-1500:]}")
-    runtimes = [e["runtime_s"] for e in events if e["event"] == "exit"]
-    losses = {s: float(v) for s, v in dur_losses("b").items()}
+    return dict(rc=rc, wall_s=wall, runtimes=[e["runtime_s"] for e in events
+                                              if e["event"] == "exit"],
+                restarts=sum(e["event"] == "restart" for e in events),
+                losses={s: float(v) for s, v in dur_losses("b").items()})
+
+
+def dur_swap() -> dict:
+    """Leg b's second run, on leg a's root (steps 2 and 4): a forced final
+    save killed inside its swap. The first launch resumes step 2
+    (--ckpt-path), runs steps 3-4 with no interval save, and its final save
+    over the committed step 4 dies on SIGKILL between the renames; the
+    relaunch promotes .stale/step_4 and finds nothing left to do."""
+    from llm_training_tpu_torch.resilience import durability
+
+    root = DUR_DIR / "a" / "ckpt"
+    before = durability.load_manifest(root, 4)
+    rc, wall, events, text = dur_supervise(
+        "swap", dur_config("a", checkpoint={"async_save": False}),
+        {"LLMT_CHAOS_CKPT_KILL_IN_SWAP": "4"},
+        ["--ckpt-path", "2", "--child-args",
+         f"--device {LIFE_DEVICE} trainer.checkpoint_every_n_steps=null"])
+    promoted = "promoted staged checkpoint step 4" in text
+    check(rc == 0 and dur_lifecycle(events) == HEALED and promoted
+          and durability.committed_steps(root) == [2, 4]
+          and durability.load_manifest(root, 4) == before
+          and durability.verify_step(root, 4, mode="full").ok
+          and not (root / durability.STALE_DIR).exists(),
+          f"durability kill-in-swap: exit {rc}, events {dur_lifecycle(events)}, "
+          f"promoted {promoted}, steps {durability.committed_steps(root)}: {text[-1500:]}")
+    return dict(swap_rc=rc, swap_wall_s=wall,
+                swap_runtimes=[e["runtime_s"] for e in events if e["event"] == "exit"],
+                swap_restarts=sum(e["event"] == "restart" for e in events))
+
+
+def dur_processes_match(card: str, out: dict, clean: dict, clean_losses: dict) -> dict:
+    """Leg b's SIGKILL run: its losses and final parameters (step 4)
+    against leg a's clean run."""
+    from llm_training_tpu_torch.cli.main import build_fit
+
+    config = dur_config("b", checkpoint={"async_save": False})
+    losses = out["losses"]
     rel = max(abs(losses[s] - clean_losses[s]) / abs(clean_losses[s]) for s in clean_losses)
     trainer, objective, _ = build_fit(config, LIFE_DEVICE)
     state = trainer.restore_for_inference(objective)
@@ -3011,51 +3116,32 @@ def dur_processes(card: str, clean: dict, clean_losses: dict) -> dict:
           and (final["differ"] == 0 or final["max_rel"] <= DUR_PARAM_RTOL),
           f"durability supervise: losses {losses} against {clean_losses}, final parameters "
           f"{final}")
-
-    # a forced final save killed inside its swap: the first launch resumes
-    # step 2 (--ckpt-path), runs steps 3-4 with no interval save, and its final
-    # save over the committed step 4 dies on SIGKILL between the renames; the
-    # relaunch promotes .stale/step_4 and finds nothing left to do
-    before = durability.load_manifest(root, 4)
-    rc_swap, wall_swap, swap_events, swap_text = dur_supervise(
-        "swap", config, {"LLMT_CHAOS_CKPT_KILL_IN_SWAP": "4"},
-        ["--ckpt-path", "2", "--child-args",
-         f"--device {LIFE_DEVICE} trainer.checkpoint_every_n_steps=null"])
-    promoted = "promoted staged checkpoint step 4" in swap_text
-    check(rc_swap == 0 and dur_lifecycle(swap_events) == HEALED and promoted
-          and durability.committed_steps(root) == [2, 4]
-          and durability.load_manifest(root, 4) == before
-          and durability.verify_step(root, 4, mode="full").ok
-          and not (root / durability.STALE_DIR).exists(),
-          f"durability kill-in-swap: exit {rc_swap}, events {dur_lifecycle(swap_events)}, "
-          f"promoted {promoted}, steps {durability.committed_steps(root)}: {swap_text[-1500:]}")
-    swap_runtimes = [e["runtime_s"] for e in swap_events if e["event"] == "exit"]
-    out = dict(rc=rc, wall_s=wall, runtimes=runtimes,
-               restarts=sum(e["event"] == "restart" for e in events), losses=losses,
-               losses_bit_equal=losses == clean_losses, max_rel_loss=rel, final=final,
-               swap_rc=rc_swap, swap_wall_s=wall_swap, swap_runtimes=swap_runtimes,
-               swap_restarts=sum(e["event"] == "restart" for e in swap_events))
+    out.update(losses_bit_equal=losses == clean_losses, max_rel_loss=rel, final=final)
+    runtimes, swap_runtimes = out["runtimes"], out["swap_runtimes"]
     print(f"durability processes [{card}]: supervise with LLMT_CHAOS_SIGKILL_STEP=3: the child "
           f"died on SIGKILL after {runtimes[0]:.1f} s, the relaunch restored step 2 and "
-          f"completed in {runtimes[1]:.1f} s ({out['restarts']} restart, {wall:.1f} s wall); "
-          f"losses " + ("bit-equal to" if out["losses_bit_equal"] else
-                        f"within {rel:.2e} relative of") + " the clean run's, final parameters "
-          + ("bit-equal" if final["differ"] == 0 else
-             f"{final['differ']} of {final['tensors']} tensors within {final['max_rel']:.2e}")
+          f"completed in {runtimes[1]:.1f} s ({out['restarts']} restart, {out['wall_s']:.1f} s "
+          f"wall); losses " + ("bit-equal to" if out["losses_bit_equal"] else
+                               f"within {rel:.2e} relative of") + " the clean run's, final "
+          "parameters " + ("bit-equal" if final["differ"] == 0 else
+                           f"{final['differ']} of {final['tensors']} tensors within "
+                           f"{final['max_rel']:.2e}")
           + f"; a forced final save killed inside its swap after {swap_runtimes[0]:.1f} s, the "
           f"relaunch promoted .stale/step_4 (bytes unchanged, full verify clean) and exited 0 "
-          f"in {swap_runtimes[1]:.1f} s ({wall_swap:.1f} s wall)", flush=True)
+          f"in {swap_runtimes[1]:.1f} s ({out['swap_wall_s']:.1f} s wall; on leg a's root, "
+          f"beside the SIGKILL run)", flush=True)
     return out
 
 
 def dur_cli(card: str) -> dict:
-    """Leg c: `ckpt verify`, `ls`, `gc --dry-run` and `mirror` on leg b's
-    root; one flipped byte makes `verify` exit 1 naming the step and file;
-    a missing root exits 2."""
+    """Leg c: `ckpt verify`, `ls`, `gc --dry-run` and `mirror` on leg a's
+    root (steps 2 and 4 after its fallback re-ran steps 3-4); one flipped
+    byte makes `verify` exit 1 naming the step and file; a missing root
+    exits 2."""
     from llm_training_tpu_torch.cli.main import main as cli_main
     from llm_training_tpu_torch.resilience import durability
 
-    root = DUR_DIR / "b" / "ckpt"
+    root = DUR_DIR / "a" / "ckpt"
 
     def ckpt(*argv):
         out = io.StringIO()
@@ -3068,13 +3154,15 @@ def dur_cli(card: str) -> dict:
     listed = ckpt("ls", root)
     gc_dry = ckpt("gc", root, "--keep-last", "1", "--dry-run")
     mirror = ckpt("mirror", root, "--mirror-dir", DUR_DIR / "c-mirror")
+    mirrored = durability.committed_steps(DUR_DIR / "c-mirror")
+    shutil.rmtree(DUR_DIR / "c-mirror")  # 12 GB the disk need not hold beside leg b
     victim = durability.corrupt_step(root, 4, "flip")
     finding = ckpt("verify", root, "--mode", "full", "--step", "4")
     missing = ckpt("verify", DUR_DIR / "missing", "--mode", "full")
     codes = [r[0] for r in (verify, listed, gc_dry, mirror, finding, missing)]
     check(codes == [0, 0, 0, 0, 1, 2] and "step 4" in finding[2] and victim in finding[2]
           and "would delete steps [2]" in gc_dry[2]
-          and durability.committed_steps(DUR_DIR / "c-mirror") == [2, 4],
+          and mirrored == [2, 4],
           f"durability ckpt: exit codes {codes} (want [0, 0, 0, 0, 1, 2]): "
           + " | ".join(r[2][-400:] for r in (verify, gc_dry, mirror, finding, missing)))
     out = dict(codes=codes, verify_full_s=verify[1], mirror_s=mirror[1], finding_s=finding[1],
@@ -3088,11 +3176,13 @@ def dur_cli(card: str) -> dict:
 
 def phase_durability(card: str) -> dict:
     """Checkpoint durability, supervise and the ckpt command (see the
-    header)."""
+    header): after leg a, leg b's SIGKILL run goes on a thread while its
+    swap run and then leg c use leg a's root."""
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     shutil.rmtree(DUR_DIR, ignore_errors=True)
     DUR_DIR.mkdir()
     out = {}
+    leg_b, _DUR_STOP[0] = None, False
     try:
         free = free_bytes(DUR_DIR)
         # leg a holds two steps, two mirror copies and a healing copy at once
@@ -3100,15 +3190,33 @@ def phase_durability(card: str) -> dict:
         t0 = time.perf_counter()
         out["in_process"], clean = dur_in_process(card)
         out["in_process"]["leg_s"] = time.perf_counter() - t0
-        shutil.rmtree(DUR_DIR / "a", ignore_errors=True)
+        # the machine's disk counts every block ever written: leg b's roots
+        # take the place of leg a's mirror, and leg c's mirror follows the
+        # swap run
+        shutil.rmtree(DUR_DIR / "a" / "mirror")
         t0 = time.perf_counter()
-        out["processes"] = dur_processes(card, clean, out["in_process"]["losses"])
+        leg_b = LegThread(dur_sigkill)
+        swap = dur_swap()
+        t1 = time.perf_counter()
+        out["ckpt"] = dur_cli(card)
+        out["ckpt"]["leg_s"] = time.perf_counter() - t1
+        sigkill = leg_b.result(DUR_SUPERVISE_TIMEOUT_S + 60)
+        leg_b = None
+        out["processes"] = dur_processes_match(card, {**sigkill, **swap}, clean,
+                                               out["in_process"]["losses"])
         out["processes"]["leg_s"] = time.perf_counter() - t0
         del clean
-        t0 = time.perf_counter()
-        out["ckpt"] = dur_cli(card)
-        out["ckpt"]["leg_s"] = time.perf_counter() - t0
     finally:
+        if leg_b is not None:  # the swap run or leg c failed: end leg b's SIGKILL run
+            import signal
+
+            _DUR_STOP[0] = True
+            for pgid in list(_DUR_LIVE):
+                try:
+                    os.killpg(pgid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            leg_b.join(60)
         shutil.rmtree(DUR_DIR, ignore_errors=True)
         release()
     return out
@@ -3685,6 +3793,878 @@ def phase_rl(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 18: serve resilience
+
+SV_DIR = ROOT / ".smoke_serve"
+SV_DEVICE = "cuda"
+SV_PRESET = "llama-3.1-8b"
+# leg a's model flags: the published preset (a CPU rehearsal passes a
+# `--model-config` file of a narrow model instead)
+SV_MODEL_ARGS = ["--preset", SV_PRESET]
+SV_BATCH = 8
+SV_MAX_LEN = 2048
+SV_CHUNK = 256
+SV_PROMPTS = (32, 1024)  # prompt lengths, inclusive
+SV_WARM = 8  # leg a: warm-up requests that seed the service-time EMA
+SV_BURST = 48  # leg a: then this many at once
+SV_NEW = 64
+SV_B_LAYERS = 8  # leg b: the journal and the supervisor, 2.80 B parameters
+SV_B_REQUESTS = 16
+SV_B_NEW = 128
+SV_SIGTERM_STEP = 40
+SV_DRAIN_S = 1.0
+SV_C_LAYERS = 2  # leg c: the watchdog
+SV_C_REQUESTS = 8
+SV_C_NEW = 32
+SV_STALL_STEP = 10
+SV_WATCHDOG_S = 6.0
+SV_SCRAPE_S = 0.5  # ~2 Hz
+SV_A_WATCHDOG_S = 60.0  # leg a: /healthz reads a real beat
+SV_TILE_S = 0.05  # a residency's spans against its wall clock
+SV_TIMEOUT_S = 300.0
+
+# a serving process of phase 18: the CLI's `serve` (argv) with K4's launch
+# count, the plain decode path's calls (the gather path at one query token),
+# decode-only step times and the drain/replay instants recorded; it writes
+# one JSON summary at exit (and, with SMOKE_SERVE_STEP_SUMMARY, after every
+# engine step too, for a process the watchdog aborts) to
+# $SMOKE_SERVE_OUT.<pid>.json. With SMOKE_SERVE_HOOKS=<path> (leg a) it also
+# attaches a request journal at <path> to the engine, as a run dir's serve
+# does, and measures the per-step host work of the tracer, the journal and
+# the watchdog's beat in this process: each call on the loop thread is
+# timed inclusively, and the engine steps cycle through all on, the tracer
+# disabled and the journal detached, so adjacent decode-only steps compare
+_SERVE_CHILD = r"""
+import time
+T_START = time.time()
+import atexit, json, os, sys, threading
+import torch
+sys.path.insert(0, os.getcwd())
+from llm_training_tpu_torch.cli import main as cli
+from llm_training_tpu_torch.ops import paged_attention as ops_pa
+from llm_training_tpu_torch.ops.kernels import paged_attention as pa
+from llm_training_tpu_torch.resilience import chaos
+from llm_training_tpu_torch.resilience.watchdog import HangWatchdog
+from llm_training_tpu_torch.serve.engine import ServingEngine
+from llm_training_tpu_torch.serve.journal import RequestJournal
+from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.trace import TraceRecorder, get_tracer
+
+out = {"pid": os.getpid(), "attempt": os.environ.get("LLMT_SUPERVISOR_ATTEMPT"),
+       "t_start": T_START}
+engines, plain, step_ms, step_t0 = [], [0], [], []
+real_gather = ops_pa._gather_attention
+
+def gather(q, *args, **kwargs):
+    plain[0] += q.shape[1] == 1
+    return real_gather(q, *args, **kwargs)
+
+def wrap(name, after):
+    real = getattr(ServingEngine, name)
+    def wrapped(self, *args, **kwargs):
+        before = (self.decode_steps, self.prefill_chunks) if name == "step" else None
+        wall, t = time.time(), time.perf_counter()
+        result = real(self, *args, **kwargs)
+        after(self, result, before, t, wall)
+        return result
+    setattr(ServingEngine, name, wrapped)
+
+def stepped(self, result, before, t, wall):
+    if (self.decode_steps, self.prefill_chunks) == (before[0] + 1, before[1]):
+        step_ms.append(1e3 * (time.perf_counter() - t))
+        step_t0.append(wall)
+    if every_step:
+        summary()
+
+def resumed(self, result, before, t, wall):
+    out["t_replayed"] = time.time()
+
+def drained(self, result, before, t, wall):
+    out["drain"], out["t_drained"] = result, time.time()
+
+hooks = os.environ.get("SMOKE_SERVE_HOOKS")
+real_init = ServingEngine.__init__
+def init(self, *args, **kwargs):
+    real_init(self, *args, **kwargs)
+    engines.append(self)
+    if hooks and self.journal is None:
+        self.attach_journal(RequestJournal(hooks))
+ServingEngine.__init__ = init
+ops_pa._gather_attention = gather
+wrap("step", stepped)
+wrap("submit_resumed", resumed)
+wrap("drain", drained)
+
+# SMOKE_SERVE_HOOKS: "<bucket> <mode>" -> [seconds, calls] on the loop
+# thread, the outermost call counted once, mode the engine step's (or
+# "between" steps); engine steps a mode; (engine step, mode, ms) of each
+# decode-only step
+cost, mode_steps, ab_steps = {}, {}, []
+LOOP, nested, current = threading.get_ident(), [0], ["between"]
+
+def timed(cls, name, bucket):
+    real = getattr(cls, name)
+    def wrapped(*args, **kwargs):
+        if nested[0] or threading.get_ident() != LOOP:
+            return real(*args, **kwargs)
+        nested[0] += 1
+        t = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            entry = cost.setdefault(f"{bucket} {current[0]}", [0.0, 0])
+            entry[0] += time.perf_counter() - t
+            entry[1] += 1
+            nested[0] -= 1
+    setattr(cls, name, wrapped)
+
+if hooks:
+    for name in ("span", "instant", "sample_request"):
+        timed(TraceRecorder, name, "tracer")
+    for name in ("delivered", "accepted", "progress", "finished"):
+        timed(RequestJournal, name, "journal")
+    timed(HangWatchdog, "beat", "beat")
+    MODES = ("on", "tracer_off", "journal_off")
+    timed_step = ServingEngine.step
+    def ab_step(self):
+        mode = MODES[self.step_index % len(MODES)]
+        tracer, journal = get_tracer(), self.journal
+        enabled = tracer.enabled
+        tracer.enabled = enabled and mode != "tracer_off"
+        if mode == "journal_off":
+            self.journal = None
+        timed_before = len(step_ms)
+        current[0] = mode
+        try:
+            return timed_step(self)
+        finally:
+            current[0] = "between"
+            mode_steps[mode] = mode_steps.get(mode, 0) + 1
+            tracer.enabled, self.journal = enabled, journal
+            if len(step_ms) > timed_before:
+                ab_steps.append((self.step_index, mode, step_ms[-1]))
+    ServingEngine.step = ab_step
+    real_stats = ServingEngine.stats
+    def stats(self):
+        # the CLI's last call before exit: the journal is this process's
+        # own, so it is closed here (a run dir's serve unlinks its own)
+        if self.journal is not None:
+            self.journal.close()
+            self.journal = None
+        return real_stats(self)
+    ServingEngine.stats = stats
+real_sigterm = chaos.Chaos.maybe_serve_sigterm_mid_stream
+def sigterm(self, step):
+    fired = real_sigterm(self, step)
+    if fired:
+        out["t_sigterm"] = time.time()
+    return fired
+chaos.Chaos.maybe_serve_sigterm_mid_stream = sigterm
+pa.paged_decode_attention.launches = 0
+every_step = bool(os.environ.get("SMOKE_SERVE_STEP_SUMMARY"))
+
+def summary():
+    engine = engines[-1] if engines else None
+    values = get_registry().snapshot()
+    out.update(
+        t_exit=time.time(), launches=pa.paged_decode_attention.launches,
+        plain_decode_calls=plain[0], decode_step_ms=step_ms, decode_step_t0=step_t0,
+        decode_steps=engine.decode_steps if engine else 0,
+        engine_steps=engine.step_index if engine else 0,
+        replayed=engine.replayed_requests if engine else 0,
+        profile={k: v for k, v in values.items() if k.startswith("profile/")},
+        trace=get_tracer().counts(), hook_cost=cost, mode_steps=mode_steps, ab_steps=ab_steps,
+        journal_bytes=os.path.getsize(hooks) if hooks and os.path.exists(hooks) else 0,
+        peak_bytes=torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0)
+    with open(f"{os.environ['SMOKE_SERVE_OUT']}.{os.getpid()}.json", "w") as f:
+        json.dump(out, f)
+
+atexit.register(summary)
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+# `supervise` through the CLI, its serve children started through
+# `_SERVE_CHILD` (the same argv after the interpreter)
+_SUPERVISE_DRIVER = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from llm_training_tpu_torch.cli import main as cli
+real = cli.build_serve_argv
+def build(*args, **kwargs):
+    argv = real(*args, **kwargs)
+    assert argv[1:4] == ["-m", "llm_training_tpu_torch", "serve"], argv
+    return [argv[0], "-c", chip_smoke._SERVE_CHILD, *argv[3:]]
+cli.build_serve_argv = build
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def sv_requests(seed: int, n: int, new: int, vocab: int, prefix: str) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(SV_PROMPTS[0], SV_PROMPTS[1] + 1, size=n)
+    return [{"id": f"{prefix}{i}", "prompt": rng.integers(0, vocab, int(k)).tolist(),
+             "max_new_tokens": new} for i, k in enumerate(lengths)]
+
+
+def sv_serve_flags(*extra: str) -> list[str]:
+    return ["--device", SV_DEVICE, "--max-batch", str(SV_BATCH), "--max-model-len",
+            str(SV_MAX_LEN), "--prefill-chunk", str(SV_CHUNK), *extra]
+
+
+def sv_summaries(prefix: str) -> list[dict]:
+    """The `_SERVE_CHILD` summaries written under `prefix`, in start order."""
+    found = [json.loads(p.read_text()) for p in SV_DIR.glob(f"{Path(prefix).name}.*.json")]
+    return sorted(found, key=lambda s: s["t_start"])
+
+
+def sv_get(port: int, path: str, timeout: float = 2.0) -> tuple[int, str]:
+    """(status, body) of one GET on the local exporter; (0, error) when it
+    does not answer."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError as e:
+        return 0, str(e)
+
+
+class Scraper:
+    """Polls `/metrics` and `/healthz` of a local exporter every `every`
+    seconds on a thread: every `/metrics` body goes through the port's
+    `parse_prometheus_text` (a parse error is kept, and fails the leg)."""
+
+    def __init__(self, port: int, every: float, metrics: bool = True):
+        import threading
+
+        self.port, self.every, self.metrics = port, every, metrics
+        self.scrapes, self.health, self.errors, self.scrape_ms = [], [], [], []
+        self.windows = []  # (start, end) wall seconds of each /metrics scrape
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        from llm_training_tpu_torch.telemetry.exporter import parse_prometheus_text
+
+        while not self._stop.is_set():
+            if self.metrics:
+                t, wall = time.perf_counter(), time.time()
+                code, body = sv_get(self.port, "/metrics")
+                if code == 200:
+                    self.scrape_ms.append(1e3 * (time.perf_counter() - t))
+                    self.windows.append((wall, time.time()))
+                    try:
+                        self.scrapes.append(parse_prometheus_text(body))
+                    except ValueError as e:
+                        self.errors.append(str(e))
+            code, _ = sv_get(self.port, "/healthz")
+            if code:
+                self.health.append((time.time(), code))
+            self._stop.wait(self.every)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+class Stream:
+    """A serving process (or a supervisor of them) on pipes: lines written
+    to its stdin, its JSON stdout records collected by a thread."""
+
+    def __init__(self, argv: list[str], env: dict, log: Path):
+        import queue
+        import subprocess
+        import threading
+
+        self._log = open(log, "w")
+        self.proc = subprocess.Popen(argv, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=self._log, text=True, env={**os.environ, **env},
+                                     start_new_session=True)
+        self.records: list[dict] = []
+        self._queue: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                self._queue.put(json.loads(line))
+        self._queue.put(None)
+
+    def send(self, records: list[dict]) -> None:
+        self.proc.stdin.write("".join(json.dumps(r) + "\n" for r in records))
+        self.proc.stdin.flush()
+
+    def until(self, done, timeout: float = SV_TIMEOUT_S) -> None:
+        """Collect records until `done(records)` or the stream ends."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while not done(self.records):
+            try:
+                record = self._queue.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise SmokeFailure(f"serve: no progress in {timeout:.0f} s") from None
+            if record is None:
+                return
+            self.records.append(record)
+
+    def finish(self, timeout: float = SV_TIMEOUT_S) -> int:
+        """Close stdin, collect to the end, and return the exit code."""
+        self.proc.stdin.close()
+        self.until(lambda records: False, timeout)
+        try:
+            return self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self._log.close()
+
+
+def sv_done(records: list[dict]) -> dict[str, list[dict]]:
+    done: dict[str, list[dict]] = {}
+    for record in records:
+        if record.get("type") == "done":
+            done.setdefault(record["id"], []).append(record)
+    return done
+
+
+def sv_streams(records: list[dict]) -> dict[str, list[int]]:
+    streams: dict[str, list[int]] = {}
+    for record in records:
+        if record.get("type") == "token":
+            streams.setdefault(record["id"], []).append(record["token"])
+    return streams
+
+
+def sv_leg_a_run(name: str, flags: list[str], warm: list[dict], burst: list[dict],
+                 port: int) -> dict:
+    """One full-depth `serve` process: the warm-up, then (after its last
+    terminal) the burst; its exporter on `port` scraped at ~2 Hz throughout
+    and once after the last terminal."""
+    prefix = str(SV_DIR / f"a-{name}")
+    env = {"SMOKE_SERVE_OUT": prefix, "SMOKE_SERVE_HOOKS": str(SV_DIR / f"a-{name}.journal"),
+           "LLMT_METRICS_PORT": str(port)}
+    argv = [sys.executable, "-c", _SERVE_CHILD, "serve", *SV_MODEL_ARGS,
+            *sv_serve_flags("--max-new-tokens", str(SV_NEW), "--watchdog-timeout-s",
+                            str(SV_A_WATCHDOG_S), *flags)]
+    stream = Stream(argv, env, SV_DIR / f"a-{name}.log")
+    scraper = Scraper(port, SV_SCRAPE_S)
+    try:
+        with scraper:
+            stream.send(warm)
+            stream.until(lambda r: len(sv_done(r)) >= len(warm))
+            t_burst = time.perf_counter()
+            stream.send(burst)
+            stream.until(lambda r: len(sv_done(r)) >= len(warm) + len(burst))
+            burst_s = time.perf_counter() - t_burst
+            code, body = sv_get(port, "/metrics")
+            check(code == 200, f"serve {name}: the final scrape answered {code}: {body[:200]}")
+            from llm_training_tpu_torch.telemetry.exporter import parse_prometheus_text
+
+            final = parse_prometheus_text(body)
+        rc = stream.finish()
+    finally:
+        stream.kill()
+    text = (SV_DIR / f"a-{name}.log").read_text()
+    summaries = sv_summaries(prefix)
+    check(rc == 0 and len(summaries) == 1, f"serve {name}: exit {rc}: {text[-3000:]}")
+    child = summaries[0]
+    done = sv_done(stream.records)
+    check(all(len(v) == 1 for v in done.values()) and len(done) == len(warm) + len(burst),
+          f"serve {name}: terminals {sorted((k, len(v)) for k, v in done.items())}")
+    warm_ids = {r["id"] for r in warm}
+    completed = [v[0] for v in done.values() if v[0]["stop_reason"] in ("eos", "max_tokens")]
+    ttft = [d["ttft_ms"] for d in completed]
+    out = dict(
+        rc=rc, burst_s=burst_s,
+        warm_ttft_ms_p50=percentile([done[i][0]["ttft_ms"] for i in warm_ids], 50),
+        ttft_ms_p50=percentile(ttft, 50), ttft_ms_p99=percentile(ttft, 99),
+        completed=len(completed),
+        overloaded=sum(v[0]["stop_reason"] == "overloaded" for v in done.values()),
+        other=sorted({v[0]["stop_reason"] for v in done.values()} - {"max_tokens", "overloaded"}),
+        decode_step_ms_p50=percentile(child["decode_step_ms"], 50),
+        decode_steps_timed=len(child["decode_step_ms"]),
+        decode_steps=child["decode_steps"], engine_steps=child["engine_steps"],
+        launches=child["launches"], plain_decode_calls=child["plain_decode_calls"],
+        trace_recorded=child["trace"]["recorded"], trace_written=child["trace"]["written"],
+        layers=None, hooks=sv_hook_costs(child), journal_bytes=child["journal_bytes"],
+    )
+    stats = next((r["stats"] for r in stream.records if r.get("type") == "stats"), {})
+    out["stats_completed"] = stats.get("serve/requests_completed")
+    out["stats_shed"] = stats.get("serve/shed_total")
+    healthz = [code for _, code in scraper.health]
+    # decode steps that overlapped a /metrics render against the rest
+    overlapped = [ms for ms, t0 in zip(child["decode_step_ms"], child["decode_step_t0"])
+                  if any(a < t0 + ms / 1e3 and t0 < b for a, b in scraper.windows)]
+    alone = [ms for ms, t0 in zip(child["decode_step_ms"], child["decode_step_t0"])
+             if not any(a < t0 + ms / 1e3 and t0 < b for a, b in scraper.windows)]
+    out.update(steps_scraped=len(overlapped),
+               decode_step_ms_p50_scraped=percentile(overlapped, 50) if overlapped else math.nan,
+               decode_step_ms_p50_unscraped=percentile(alone, 50) if alone else math.nan)
+    out.update(scrapes=len(scraper.scrapes), scrape_errors=scraper.errors,
+               scrape_ms_p50=percentile(scraper.scrape_ms, 50) if scraper.scrape_ms else None,
+               healthz=sorted(set(healthz)), healthz_n=len(healthz),
+               final_completed=final.get("llmt_serve_requests_completed"))
+    check(not scraper.errors and len(scraper.scrapes) >= 2,
+          f"serve {name}: scrapes {len(scraper.scrapes)}, parse errors {scraper.errors[:3]}")
+    check(healthz and set(healthz) == {200}, f"serve {name}: /healthz answered {set(healthz)}")
+    check(out["final_completed"] == len(completed),
+          f"serve {name}: the final scrape counts {out['final_completed']} completions, "
+          f"the client {len(completed)}")
+    check(child["launches"] > 0 and child["plain_decode_calls"] == 0
+          and child["launches"] % max(1, child["decode_steps"]) == 0,
+          f"serve {name}: K4 {child['launches']} launches for {child['decode_steps']} decode "
+          f"steps, plain decode calls {child['plain_decode_calls']}")
+    out["layers"] = child["launches"] // max(1, child["decode_steps"])
+    return out
+
+
+def sv_hook_costs(child: dict) -> dict:
+    """SMOKE_SERVE_HOOKS' readings of one process (see `_SERVE_CHILD`): the
+    tracer's, the journal's and the beat's host microseconds and calls an
+    engine step on the loop thread with everything on (calls inside the
+    "on" steps over those steps, plus calls between steps over all steps),
+    and each mode's decode-only step p50 with the difference to the
+    adjacent "on" step (its p25, p50, p75 over the pairs)."""
+    cost, steps = child["hook_cost"], child["mode_steps"]
+    n_on, n_all = max(1, steps.get("on", 0)), max(1, sum(steps.values()))
+    out = {}
+    for bucket in ("tracer", "journal", "beat"):
+        on = cost.get(f"{bucket} on", [0.0, 0])
+        between = cost.get(f"{bucket} between", [0.0, 0])
+        out[f"{bucket}_us_per_step"] = 1e6 * (on[0] / n_on + between[0] / n_all)
+        out[f"{bucket}_calls_per_step"] = on[1] / n_on + between[1] / n_all
+    # an entry's step is the engine's index after it; its mode was chosen
+    # from the index before: tracer_off follows an "on" step, journal_off
+    # precedes one
+    by_step = {step: (mode, ms) for step, mode, ms in child["ab_steps"]}
+    out["on_ms_p50"] = percentile([ms for mode, ms in by_step.values() if mode == "on"], 50)
+    for mode, offset in (("tracer_off", -1), ("journal_off", 1)):
+        diffs = [ms - by_step[step + offset][1] for step, (m, ms) in by_step.items()
+                 if m == mode and by_step.get(step + offset, ("",))[0] == "on"]
+        out[mode] = dict(
+            pairs=len(diffs),
+            ms_p50=percentile([ms for m, ms in by_step.values() if m == mode], 50),
+            diff_ms=[percentile(diffs, q) for q in (25, 50, 75)] if diffs else None)
+    return out
+
+
+def sv_tracer_cost() -> dict:
+    """Host microseconds a tracer event costs, ring and sink (a span and an
+    instant per pair, as the engine emits them)."""
+    from llm_training_tpu_torch.telemetry.trace import TraceRecorder
+
+    tracer = TraceRecorder(capacity=2048, sample_every=1, enabled=True)
+    tracer.attach_sink(SV_DIR / "tracer-cost.jsonl")
+    n = 20000
+    t0 = time.perf_counter()
+    for i in range(n):
+        now = tracer.clock()
+        tracer.span("serve", "engine_step", now, now + 1e-3, step=i, running=8, waiting=0)
+        tracer.instant("serve", "first_token", ts=now, request_id=f"r{i}", ttft_ms=1.0)
+    seconds = time.perf_counter() - t0
+    tracer.detach_sink()
+    return {"us_per_event": 1e6 * seconds / (2 * n)}
+
+
+def sv_journal_cost() -> dict:
+    """Host microseconds of one progress record (a JSON line written and
+    flushed to this disk) with nothing else running, as the engine writes
+    one for each running row a step: 8 rows, one token and log-probability
+    more each time."""
+    from types import SimpleNamespace
+
+    from llm_training_tpu_torch.serve.journal import RequestJournal
+
+    journal = RequestJournal(SV_DIR / "journal-cost.jsonl")
+    rows = [SimpleNamespace(id=f"r{i}", generated=[], logprobs=[], emitted=0) for i in range(8)]
+    n = 2000
+    t0 = time.perf_counter()
+    for step in range(n):
+        for row in rows:
+            row.generated.append(step)
+            row.logprobs.append(-1.0)
+            row.emitted += 1
+            journal.progress(row)
+    seconds = time.perf_counter() - t0
+    journal.close()
+    return {"us_per_record": 1e6 * seconds / (n * len(rows))}
+
+
+def sv_leg_a(card: str) -> dict:
+    """Full depth: without shedding (scraped), then with shedding, on the
+    same requests; the tracer's, the journal's and the beat's cost a step
+    measured inside both processes."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.telemetry.exporter import find_free_port
+
+    vocab = preset(SV_PRESET).vocab_size
+    requests = sv_requests(0, SV_WARM + SV_BURST, SV_NEW, vocab, "r")
+    warm, burst = requests[:SV_WARM], requests[SV_WARM:]
+    plain = sv_leg_a_run("plain", [], warm, burst, find_free_port())
+    limit = 2.0 * plain["warm_ttft_ms_p50"]
+    shed = sv_leg_a_run("shed", ["--max-queue", "8", "--shed-ttft-ms", f"{limit:.3f}"],
+                        warm, burst, find_free_port())
+    check(plain["overloaded"] == 0 and not plain["other"],
+          f"serve: the unshed run ended {plain['overloaded']} overloaded, other {plain['other']}")
+    check(shed["overloaded"] > 0 and shed["overloaded"] + shed["completed"] == len(requests)
+          and shed["stats_shed"] == shed["overloaded"],
+          f"serve: the shedding run ended {shed['overloaded']} overloaded of {len(requests)} "
+          f"(stats shed {shed['stats_shed']})")
+    for name, run in (("plain", plain), ("shed", shed)):
+        hooks = run["hooks"]
+        check(hooks["tracer_calls_per_step"] > 0 and hooks["journal_calls_per_step"] > 0
+              and hooks["beat_calls_per_step"] > 0 and run["journal_bytes"] > 0
+              and hooks["tracer_off"]["pairs"] > 0 and hooks["journal_off"]["pairs"] > 0,
+              f"serve {name}: the in-process cost hooks saw {hooks}")
+    cost = sv_tracer_cost()
+    journal_cost = sv_journal_cost()
+    hooks = plain["hooks"]
+    step_us = 1e3 * hooks["on_ms_p50"]
+    out = dict(plain=plain, shed=shed, shed_ttft_ms=limit, tracer=cost, journal=journal_cost,
+               events_per_step=hooks["tracer_calls_per_step"],
+               tracer_share_pct=100.0 * hooks["tracer_us_per_step"] / step_us,
+               journal_share_pct=100.0 * hooks["journal_us_per_step"] / step_us,
+               beat_share_pct=100.0 * hooks["beat_us_per_step"] / step_us,
+               microbench_share_pct=100.0 * hooks["tracer_calls_per_step"]
+               * cost["us_per_event"] / step_us)
+    for name in ("plain", "shed"):
+        run = out[name]
+        print(f"serve resilience a/{name} [{card}]: {SV_PRESET} x {run['layers']} layers, bf16, "
+              f"{SV_WARM} warm-up + a burst of {SV_BURST} ({SV_NEW} new tokens): TTFT p50 "
+              f"{run['ttft_ms_p50']:.1f} ms, p99 {run['ttft_ms_p99']:.1f} ms over "
+              f"{run['completed']} completed; {run['overloaded']} overloaded; decode step p50 "
+              f"{run['decode_step_ms_p50']:.3f} ms ({run['decode_steps_timed']} decode-only "
+              f"steps); K4 {run['launches']} launches ({run['decode_steps']} decode steps), plain "
+              f"decode calls {run['plain_decode_calls']}; warm-up TTFT p50 "
+              f"{run['warm_ttft_ms_p50']:.1f} ms", flush=True)
+        h = run["hooks"]
+        diffs = {m: "n/a" if h[m]["diff_ms"] is None else
+                 "{:+.3f} ms (p25 {:+.3f}, p75 {:+.3f})".format(h[m]["diff_ms"][1],
+                                                               h[m]["diff_ms"][0],
+                                                               h[m]["diff_ms"][2])
+                 for m in ("tracer_off", "journal_off")}
+        print(f"serve resilience a/{name} host work a step, in process [{card}]: tracer "
+              f"{h['tracer_us_per_step']:.1f} us ({h['tracer_calls_per_step']:.2f} calls), "
+              f"journal {h['journal_us_per_step']:.1f} us ({h['journal_calls_per_step']:.2f} "
+              f"calls, {run['journal_bytes']} bytes written), beat {h['beat_us_per_step']:.1f} "
+              f"us ({h['beat_calls_per_step']:.2f} calls); decode-only step p50 all on "
+              f"{h['on_ms_p50']:.3f} ms, tracer off {h['tracer_off']['ms_p50']:.3f} ms, journal "
+              f"detached {h['journal_off']['ms_p50']:.3f} ms; against the adjacent all-on step: "
+              f"tracer off {diffs['tracer_off']} over {h['tracer_off']['pairs']} pairs, journal "
+              f"detached {diffs['journal_off']} over {h['journal_off']['pairs']} pairs",
+              flush=True)
+    print(f"serve resilience a [{card}]: shedding at --max-queue 8 --shed-ttft-ms {limit:.1f}; "
+          f"{plain['scrapes']} scrapes parsed (p50 {plain['scrape_ms_p50']:.2f} ms a scrape), "
+          f"/healthz {plain['healthz']} x{plain['healthz_n']}, final scrape "
+          f"{plain['final_completed']:.0f} completions = the client's {plain['completed']}; in "
+          f"the scraped run, the {plain['steps_scraped']} steps beside a scrape p50 "
+          f"{plain['decode_step_ms_p50_scraped']:.3f} ms, the others "
+          f"{plain['decode_step_ms_p50_unscraped']:.3f} ms; of the all-on decode step p50: "
+          f"tracer {out['tracer_share_pct']:.3f}%, journal {out['journal_share_pct']:.3f}%, "
+          f"beat {out['beat_share_pct']:.4f}% (timed in process); the tracer's microbenchmark "
+          f"{cost['us_per_event']:.2f} us an event x {out['events_per_step']:.2f} calls a step "
+          f"= {out['microbench_share_pct']:.3f}%; the journal's microbenchmark "
+          f"{journal_cost['us_per_record']:.2f} us a progress record, in the loop "
+          f"{hooks['journal_us_per_step'] / max(hooks['journal_calls_per_step'], 1e-9):.2f} us a "
+          f"call", flush=True)
+    return out
+
+
+def sv_config(name: str, layers: int, dtype: str, run_name: str) -> Path:
+    """A CLM config at Llama-3.1-8B widths cut to `layers`, parameters and
+    compute in `dtype`, a checkpointer under SV_DIR/<name>/ckpt and a JSONL
+    logger whose run directory (SV_DIR/<name>/run/<run_name>) holds the
+    serve journal and trace."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    model = asdict(preset(SV_PRESET, num_hidden_layers=layers, param_dtype=dtype,
+                          compute_dtype=dtype))
+    config = {
+        "seed_everything": 0,
+        "trainer": {
+            "max_steps": 1, "seed": 0,
+            "checkpoint": {"dirpath": str(SV_DIR / name / "ckpt"), "async_save": False},
+            "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
+                         "init_args": {"save_dir": str(SV_DIR / name), "project": "run",
+                                       "name": run_name}}],
+        },
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": model},
+            "optim": {"optimizer": "sgd", "learning_rate": 1e-4, "lr_scheduler": "constant",
+                      "warmup_steps": 0}}},
+        "data": {"class_path": "llm_training_tpu.data.DummyDataModule",
+                 "init_args": {"batch_size": 1, "max_length": 16, "num_samples": 4,
+                               "vocab_size": model["vocab_size"]}},
+    }
+    path = SV_DIR / f"{name}-{run_name}.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+def sv_fit(path: Path) -> float:
+    """`fit` of one config in this process (a checkpoint); its seconds."""
+    from llm_training_tpu_torch.cli.main import main as cli_main
+
+    t0 = time.perf_counter()
+    check(cli_main(["fit", "--config", str(path), "--device", SV_DEVICE]) == 0,
+          f"serve fit: {path.name} failed")
+    release()
+    return time.perf_counter() - t0
+
+
+def sv_tiling(run_dir: Path) -> dict:
+    """The `trace` command's export of `run_dir`: every residency that
+    reaches its `done` (from its `submit`) is tiled by its queue, prefill and
+    decode spans within SV_TILE_S."""
+    from llm_training_tpu_torch.cli.main import main as cli_main
+
+    check(cli_main(["trace", str(run_dir)]) == 0, f"trace: no export of {run_dir}")
+    events = json.loads((run_dir / "trace-export.json").read_text())["traceEvents"]
+    by_track: dict[tuple, list[dict]] = {}
+    for event in events:
+        if event.get("cat") == "serve" and event.get("ph") in ("X", "i"):
+            by_track.setdefault((event["pid"], event["tid"]), []).append(event)
+    gaps, residencies = [], 0
+    for track in by_track.values():
+        track.sort(key=lambda e: e["ts"])
+        submits = [e for e in track if e["name"] == "submit"]
+        for i, submit in enumerate(submits):
+            end = submits[i + 1]["ts"] if i + 1 < len(submits) else float("inf")
+            done = [e for e in track if e["name"] == "done" and submit["ts"] <= e["ts"] < end]
+            if not done:
+                continue
+            spans = [e for e in track if e["ph"] == "X" and e["name"] in ("queue", "prefill", "decode")
+                     and submit["ts"] <= e["ts"] < done[0]["ts"]]
+            wall = done[0]["ts"] - submit["ts"]
+            gaps.append(abs(sum(e["dur"] for e in spans) - wall) / 1e6)
+            residencies += 1
+    check(residencies > 0 and max(gaps) < SV_TILE_S,
+          f"trace: {residencies} residencies, worst |spans - wall| {max(gaps, default=0):.4f} s")
+    return {"residencies": residencies, "worst_gap_s": max(gaps)}
+
+
+def sv_baseline(config: Path, requests: list[dict], flags: list[str]) -> dict:
+    """Leg b's uninterrupted `serve --config` of `requests`."""
+    import subprocess
+
+    stdin = SV_DIR / "b-requests.jsonl"
+    stdin.write_text("".join(json.dumps(r) + "\n" for r in requests))
+    t0 = time.perf_counter()
+    with open(stdin) as source, open(SV_DIR / "b-base.out", "w") as sink, \
+            open(SV_DIR / "b-base.log", "w") as log:
+        rc = subprocess.run([sys.executable, "-c", _SERVE_CHILD, "serve", "--config", str(config),
+                             *flags], cwd=ROOT, stdin=source, stdout=sink, stderr=log,
+                            env={**os.environ, "SMOKE_SERVE_OUT": str(SV_DIR / "b-base")},
+                            timeout=SV_TIMEOUT_S).returncode
+    seconds = time.perf_counter() - t0
+    done = sv_done([json.loads(line) for line in (SV_DIR / "b-base.out").read_text().splitlines()
+                    if line.startswith("{")])
+    check(rc == 0 and len(done) == len(requests) and all(
+        v[0]["stop_reason"] == "max_tokens" for v in done.values()),
+        f"serve b: the baseline exited {rc} with {len(done)} terminals: "
+        f"{(SV_DIR / 'b-base.log').read_text()[-3000:]}")
+    (child,) = sv_summaries(str(SV_DIR / "b-base"))
+    check(child["launches"] > 0 and child["plain_decode_calls"] == 0,
+          f"serve b: baseline K4 {child['launches']}, plain decode {child['plain_decode_calls']}")
+    return {"seconds": seconds, "tokens": {k: v[0]["tokens"] for k, v in done.items()},
+            "launches": child["launches"]}
+
+
+def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str],
+                  baseline: dict) -> dict:
+    """Leg b's `supervise --child serve` with a chaos SIGTERM at engine step
+    SV_SIGTERM_STEP and a profile line once the first token is out."""
+    t0 = time.perf_counter()
+    stream = Stream(
+        [sys.executable, "-c", _SUPERVISE_DRIVER, "supervise", "--config", str(config),
+         "--child", "serve", "--backoff-base-s", "0",
+         "--child-args", " ".join([*flags, "--drain-timeout-s", str(SV_DRAIN_S)])],
+        {"LLMT_CHAOS_SERVE_SIGTERM_STEP": str(SV_SIGTERM_STEP),
+         "SMOKE_SERVE_OUT": str(SV_DIR / "b-sup")}, SV_DIR / "b-sup.log")
+    try:
+        stream.send(requests)
+        stream.until(lambda r: any(x.get("type") == "token" for x in r))
+        stream.send([{"type": "profile", "tag": "smoke"}])
+        rc = stream.finish()
+    finally:
+        stream.kill()
+    sup_s = time.perf_counter() - t0
+    text = (SV_DIR / "b-sup.log").read_text()
+    children = sv_summaries(str(SV_DIR / "b-sup"))
+    run_dir = SV_DIR / "b" / "run" / "sup"
+    events = [json.loads(line) for line in (run_dir / "supervisor.jsonl").read_text().splitlines()]
+    exits = [e.get("rc") for e in events if e.get("event") == "exit"]
+    check(rc == 0 and exits == [75, 0] and len(children) == 2,
+          f"serve b: supervise exited {rc}, children {exits} ({len(children)} summaries): "
+          f"{text[-3000:]}")
+    first, second = children
+    done = sv_done(stream.records)
+    streams = sv_streams(stream.records)
+    answers = [r for r in stream.records if r.get("type") == "profile"]
+    check(all(len(done.get(r["id"], [])) == 1 for r in requests) and len(done) == len(requests),
+          f"serve b: terminals {sorted((k, len(v)) for k, v in done.items())}")
+    want = baseline["tokens"]
+    mismatched = [r["id"] for r in requests if streams.get(r["id"]) != want[r["id"]]
+                  or done[r["id"]][0]["tokens"] != want[r["id"]]]
+    check(not mismatched, f"serve b: streams differ from the uninterrupted run for {mismatched}")
+    journaled = first.get("drain", {}).get("journaled", 0)
+    check(journaled > 0 and second["replayed"] == journaled and "t_sigterm" in first,
+          f"serve b: journaled {journaled}, replayed {second['replayed']}")
+    for name, child in (("first", first), ("relaunch", second)):
+        check(child["launches"] > 0 and child["plain_decode_calls"] == 0,
+              f"serve b: {name} K4 {child['launches']}, plain decode {child['plain_decode_calls']}")
+    # the profile line: a torch.profiler trace with CUDA kernel events
+    trace_file = run_dir / "profile-smoke" / "trace.json"
+    kernels = 0
+    if trace_file.exists():
+        kernels = sum(e.get("cat") == "kernel"
+                      for e in json.loads(trace_file.read_text()).get("traceEvents", []))
+    check(answers and answers[0].get("accepted") and kernels > 0
+          and (run_dir / "profile-smoke.json").exists()
+          and first["profile"].get("profile/errors", 0) == 0
+          and first["profile"].get("profile/captures") == 1,
+          f"serve b: profile answer {answers}, {kernels} kernel events, counters {first['profile']}")
+    return dict(
+        supervised_s=sup_s, sigterm_to_exit_s=first["t_exit"] - first["t_sigterm"],
+        relaunch_to_replayed_s=second["t_replayed"] - second["t_start"],
+        journaled=journaled, replayed=second["replayed"],
+        launches=[baseline["launches"], first["launches"], second["launches"]],
+        profile_kernel_events=kernels, tiling=sv_tiling(run_dir),
+        base_tiling=sv_tiling(SV_DIR / "b" / "run" / "base"),
+        engine_steps_first=first["engine_steps"],
+    )
+
+
+def sv_legs_bc(card: str) -> tuple[dict, dict]:
+    """Legs b and c (see the header). This process fits c's checkpoint,
+    then b's; leg c runs on its checkpoint while b's fit and uninterrupted
+    run go on beside it; b's supervised run, whose seconds are the
+    readings, runs alone."""
+    from llm_training_tpu_torch.models.llama.config import preset
+
+    base_cfg = sv_config("b", SV_B_LAYERS, "float32", "base")
+    sup_cfg = sv_config("b", SV_B_LAYERS, "float32", "sup")
+    c_cfg = sv_config("c", SV_C_LAYERS, "bfloat16", "sup")
+    c_fit_s = sv_fit(c_cfg)
+    leg_c = LegThread(sv_leg_c, card, c_cfg)
+    fit_s = sv_fit(base_cfg)
+    ckpt_bytes = sum(f.stat().st_size for f in (SV_DIR / "b" / "ckpt").rglob("*") if f.is_file())
+    requests = sv_requests(1, SV_B_REQUESTS, SV_B_NEW, preset(SV_PRESET).vocab_size, "b")
+    flags = sv_serve_flags("--max-new-tokens", str(SV_B_NEW))
+    baseline = sv_baseline(base_cfg, requests, flags)
+    c = leg_c.result(SV_TIMEOUT_S)
+    b = dict(fit_s=fit_s, c_fit_s=c_fit_s, checkpoint_bytes=ckpt_bytes,
+             baseline_s=baseline["seconds"],
+             **sv_supervised(card, sup_cfg, requests, flags, baseline))
+    tiling, base_tiling = b["tiling"], b["base_tiling"]
+    print(f"serve resilience b [{card}]: {SV_PRESET} x {SV_B_LAYERS} layers in fp32 "
+          f"(a {ckpt_bytes / 1e9:.2f} GB checkpoint; its fit {fit_s:.1f} s), {SV_B_REQUESTS} "
+          f"requests of {SV_B_NEW} new tokens: the uninterrupted run {b['baseline_s']:.1f} s "
+          f"(leg c beside it); supervise --child serve with SIGTERM at engine step "
+          f"{SV_SIGTERM_STEP}: exit 75 {b['sigterm_to_exit_s']:.2f} s after the SIGTERM "
+          f"({SV_DRAIN_S:.1f} s drain), {b['journaled']} journaled, the relaunch replayed "
+          f"{b['replayed']} {b['relaunch_to_replayed_s']:.2f} s after its start; every stream "
+          f"token for token equal, one terminal each ({b['supervised_s']:.1f} s in all); K4 "
+          f"{b['launches']} launches (baseline, first, relaunch), plain decode 0; profile: "
+          f"{b['profile_kernel_events']} CUDA kernel events, profile/errors 0; trace: "
+          f"{tiling['residencies']} residencies tiled within {tiling['worst_gap_s'] * 1e3:.3f} "
+          f"ms (baseline {base_tiling['worst_gap_s'] * 1e3:.3f} ms)", flush=True)
+    return b, c
+
+
+def sv_leg_c(card: str, path: Path) -> dict:
+    """The watchdog at 2 layers (see the header)."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.telemetry.exporter import find_free_port
+
+    requests = sv_requests(2, SV_C_REQUESTS, SV_C_NEW, preset(SV_PRESET).vocab_size, "c")
+    port = find_free_port()
+    flags = sv_serve_flags("--max-new-tokens", str(SV_C_NEW), "--watchdog-timeout-s",
+                           str(SV_WATCHDOG_S))
+    t0 = time.perf_counter()
+    stream = Stream(
+        [sys.executable, "-c", _SUPERVISE_DRIVER, "supervise", "--config", str(path),
+         "--child", "serve", "--backoff-base-s", "0", "--child-args", " ".join(flags)],
+        {"LLMT_CHAOS_SERVE_STALL_STEP": str(SV_STALL_STEP), "LLMT_METRICS_PORT": str(port),
+         "SMOKE_SERVE_STEP_SUMMARY": "1", "SMOKE_SERVE_OUT": str(SV_DIR / "c-sup")},
+        SV_DIR / "c-sup.log")
+    try:
+        with Scraper(port, 0.25, metrics=False) as scraper:
+            stream.send(requests)
+            rc = stream.finish()
+    finally:
+        stream.kill()
+    wall = time.perf_counter() - t0
+    text = (SV_DIR / "c-sup.log").read_text()
+    children = sv_summaries(str(SV_DIR / "c-sup"))
+    run_dir = SV_DIR / "c" / "run" / "sup"
+    events = [json.loads(line) for line in (run_dir / "supervisor.jsonl").read_text().splitlines()]
+    exits = [e.get("rc") for e in events if e.get("event") == "exit"]
+    check(rc == 0 and exits == [-6, 0] and len(children) == 2,
+          f"serve c: supervise exited {rc}, children {exits}: {text[-3000:]}")
+    first, second = children
+    t_abort = next(e["ts"] for e in events if e.get("event") == "exit")
+    red = [t for t, code in scraper.health if code == 503 and t < t_abort]
+    dumps = sorted(p.name for p in run_dir.glob("hang-dump-*.txt"))
+    flights = sorted(p.name for p in run_dir.glob("trace-flight-hang-*.jsonl"))
+    done = sv_done(stream.records)
+    check(red and dumps and flights, f"serve c: 503s before the abort {len(red)}, hang dumps "
+          f"{dumps}, flight dumps {flights}")
+    check(len(done) == len(requests) and all(
+        len(v) == 1 and v[0]["stop_reason"] == "max_tokens" for v in done.values()),
+        f"serve c: terminals {sorted((k, [d['stop_reason'] for d in v]) for k, v in done.items())}")
+    for name, child in (("first", first), ("relaunch", second)):
+        check(child["launches"] > 0 and child["plain_decode_calls"] == 0,
+              f"serve c: {name} K4 {child['launches']}, plain decode {child['plain_decode_calls']}")
+    out = dict(wall_s=wall, first_503_before_abort_s=t_abort - red[0],
+               stall_to_abort_s=t_abort - first["t_exit"],
+               hang_dumps=dumps, flight_dumps=flights, replayed=second["replayed"],
+               launches=[first["launches"], second["launches"]])
+    print(f"serve resilience c [{card}]: {SV_C_LAYERS} layers, bf16, a stall at engine step "
+          f"{SV_STALL_STEP} under --watchdog-timeout-s {SV_WATCHDOG_S:.0f}: the abort "
+          f"{out['stall_to_abort_s']:.2f} s after the last step, /healthz 503 "
+          f"{out['first_503_before_abort_s']:.2f} s before it, {len(dumps)} hang dump, "
+          f"{len(flights)} flight dump; supervise relaunched, {second['replayed']} replayed, "
+          f"{len(done)}/{len(requests)} finished once; K4 {out['launches']}, plain decode 0 "
+          f"({wall:.1f} s)", flush=True)
+    return out
+
+
+def phase_serve_resilience(card: str) -> dict:
+    """serve's resilience and live telemetry (see the header)."""
+    shutil.rmtree(SV_DIR, ignore_errors=True)
+    SV_DIR.mkdir()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["a"] = sv_leg_a(card)
+        out["a"]["leg_s"] = time.perf_counter() - t0
+        out["b"], out["c"] = sv_legs_bc(card)
+        out["b"]["legs_bc_s"] = time.perf_counter() - t0 - out["a"]["leg_s"]
+    finally:
+        shutil.rmtree(SV_DIR, ignore_errors=True)
+        release()
+    return out
+
+
 def timed(name: str, phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3728,6 +4708,7 @@ def main() -> int:
     resilience = timed("15 resilience", phase_resilience, card)
     durability = timed("16 durability", phase_durability, card)
     rl = timed("17 rl-fit", phase_rl, card)
+    serving = timed("18 serve resilience", phase_serve_resilience, card)
     timed("9 train-step parity", phase_train_parity)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
@@ -3740,6 +4721,10 @@ def main() -> int:
     print(f"resilience summary [{card}]: " + json.dumps(resilience))
     print(f"durability summary [{card}]: " + json.dumps(durability))
     print(f"rl summary [{card}]: " + json.dumps(rl))
+    print(f"serve resilience summary [{card}]: " + json.dumps(serving))
+    print("phase 18 K4 launches: " + json.dumps({
+        "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
+        "b": serving["b"]["launches"], "c": serving["c"]["launches"]}))
     # launches on this slice's path: phase 17a's rl-fit, which runs all four
     launches = rl["a"]["launches"]
     rows = [{

@@ -11,7 +11,8 @@ or checkpointer (`telemetry.anomaly.resolve_run_dir`), else
 raises inside the window leaves no profiler running.
 
 JAX hands the window to its `ProfileTrigger` inside a fit; the trigger is
-not ported yet (ROADMAP A.7), so this callback always owns its capture.
+not wired into the port's `fit` yet (ROADMAP A.7b), so this callback
+always owns its capture.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Console entry: `python -m llm_training_tpu_torch
-{fit,validate,generate,evaluate,serve,rl-fit,supervise,ckpt}`.
+{fit,validate,generate,evaluate,serve,rl-fit,supervise,ckpt,watch,profile,trace}`.
 
 `fit --config file.json [--ckpt-path STEP] [key.path=value ...]` trains:
 the counterpart of the JAX `fit` command on a JSON config with the YAML
@@ -32,8 +32,21 @@ running. With `--config`, a `{"type": "reload", "ckpt_path"?}` control
 line restores the newest (or the named) checkpoint and hot-swaps it into
 the engine between steps, answering `{"type": "weights", "generation",
 "ckpt_path"}`; a failed reload answers an error chunk and the current
-weights keep serving. stdin EOF drains the queue, then a final
-`{"type": "stats"}` record is printed.
+weights keep serving. A `{"type": "profile", "tag"?}` line arms a
+`torch.profiler` capture over the next engine steps and is answered with
+`{"type": "profile", "accepted", "reason", "tag"}`. stdin EOF drains the
+queue, then a final `{"type": "stats"}` record is printed (and, with a run
+dir, merged into its `telemetry.jsonl`).
+
+`serve`'s resilience is JAX's: `--max-queue` and `--shed-ttft-ms` shed
+queued requests with `stop_reason` `overloaded`; SIGTERM stops intake,
+finishes what `--drain-timeout-s` allows, evicts and journals the rest into
+the run dir's `serve-journal.jsonl` and exits 75, and the relaunch replays
+the journal before it reads stdin; `--watchdog-timeout-s` aborts a wedged
+engine step after a hang dump and a flight dump of the trace ring. Sampled
+request spans go to the run dir's `trace.jsonl`; `LLMT_SLO_*` arms the SLO
+monitor and `LLMT_METRICS_PORT` the `/metrics`, `/statusz`, `/healthz` and
+`/profilez` exporter.
 
 The model is the run's (`--config`, restored from its checkpoint, newest
 or `--ckpt-path`, into a model whose parameters are in the run's compute
@@ -52,14 +65,17 @@ directory holds the rollout journal (`rl-journal.jsonl`): SIGTERM drains
 the rollouts in flight into it, checkpoints the round cursor and exits 75;
 the relaunch replays and adopts them.
 
-`supervise --config file.json` runs `fit` as a child process and
-relaunches it on exit 75 and on hard deaths (SIGKILL, segfault, the
+`supervise --config file.json` runs `fit` (or, with `--child serve`,
+`serve`) as a child process and relaunches it on exit 75 and on hard deaths (SIGKILL, segfault, the
 watchdog's SIGABRT) with JAX's flags, budget and backoff, logging every
 lifecycle event to `supervisor.jsonl` (the config's run directory by
 default); it never initializes CUDA. Flags for the child (`--device cpu`)
 ride in `--child-args`. `ckpt {verify,ls,gc,mirror} DIR` checks, lists,
 prunes and mirrors a checkpoint root by its integrity manifests: exit 0
-clean, 1 findings, 2 unusable.
+clean, 1 findings, 2 unusable. `trace SOURCE` exports a run dir's
+`trace.jsonl` (or a flight dump) as Chrome-trace JSON (exit 2 when absent
+or empty); `watch` polls a live run's `/statusz` (`--once` exits 2 when it
+is unreachable); `profile` arms a capture through `/profilez`.
 
 Every command runs on `cuda` unless `--device cpu` is given.
 """
@@ -75,6 +91,7 @@ import random
 import shlex
 import sys
 import threading
+import time
 from pathlib import Path
 from typing import TextIO
 
@@ -99,6 +116,7 @@ from llm_training_tpu_torch.resilience import (
     RECOVERY_EXHAUSTED_EXIT_CODE,
     RESUMABLE_EXIT_CODE,
     GracefulShutdown,
+    HangWatchdog,
     PreemptionInterrupt,
     RecoveryExhaustedError,
 )
@@ -108,11 +126,17 @@ from llm_training_tpu_torch.resilience.supervisor import (
     Supervisor,
     SupervisorConfig,
     build_fit_argv,
+    build_serve_argv,
 )
 from llm_training_tpu_torch.rl.loop import RLLoop, RLLoopOptions
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 from llm_training_tpu_torch.serve.journal import RequestJournal, replay_journal
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
+from llm_training_tpu_torch.telemetry.exporter import profile_main, start_exporter, watch_main
+from llm_training_tpu_torch.telemetry.profiling import build_profile_trigger, set_profile_trigger
+from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.slo import build_slo_monitor
+from llm_training_tpu_torch.telemetry.trace import get_tracer, trace_main
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 
@@ -170,9 +194,9 @@ def build_model(args) -> Llama:
     return _serving_model(args)[0]
 
 
-def _serving_model(args) -> tuple[Llama, Trainer | None, object | None]:
-    """`build_model`'s model, and for `--config` the run's trainer and
-    objective (what a reload restores through)."""
+def _serving_model(args) -> tuple[Llama, Trainer | None, object | None, dict | None]:
+    """`build_model`'s model, and for `--config` the run's trainer,
+    objective (what a reload restores through) and loaded config."""
     if getattr(args, "config", None) is not None:
         if args.preset or args.model_config or args.weights:
             raise SystemExit("--config serves the run's checkpoint; it excludes "
@@ -180,7 +204,7 @@ def _serving_model(args) -> tuple[Llama, Trainer | None, object | None]:
         # the JSONL protocol owns stdout: log records go to stderr
         config = _load(args, log_stream=sys.stderr)
         trainer, objective, _, state = _restored(config, args, "serve", serving=True)
-        return state.model, trainer, objective
+        return state.model, trainer, objective, config
     if getattr(args, "ckpt_path", None) or getattr(args, "overrides", None):
         raise SystemExit("--ckpt-path and config overrides need --config")
     device = resolve_device(args.device)
@@ -199,7 +223,7 @@ def _serving_model(args) -> tuple[Llama, Trainer | None, object | None]:
         generator = torch.Generator(device=device)
         generator.manual_seed(args.seed)
         model.init_weights(generator)
-    return model.eval(), None, None
+    return model.eval(), None, None, None
 
 
 def _scalar_eos(config: LlamaConfig) -> int | None:
@@ -210,13 +234,23 @@ def _scalar_eos(config: LlamaConfig) -> int | None:
 
 
 def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> int:
-    model, trainer, objective = _serving_model(args)
+    """`serve`, in the order of JAX's `_run_serve`: the engine; the trace
+    sink in the run dir; env chaos; the SIGTERM handler; the watchdog; the
+    SLO monitor, the profile trigger and the exporter; the journal's
+    rotation and its replay before any stdin line; then the loop. SIGTERM
+    drains for up to `--drain-timeout-s`, evicts and journals the rest and
+    exits 75. A `--preset` or `--model-config` server has no run dir: it
+    traces into the ring only and keeps no journal."""
+    model, trainer, objective, config = _serving_model(args)
+    device = model.model.embed_tokens.weight.device
     serve_config = ServeConfig(
         max_batch=args.max_batch,
         max_model_len=args.max_model_len,
         block_size=args.block_size,
         num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk,
+        max_queue=args.max_queue,
+        shed_ttft_ms=args.shed_ttft_ms,
         cache_dtype=args.cache_dtype,
         seed=args.seed,
         eos_token_id=(
@@ -227,26 +261,115 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p
         ),
     )
-    engine = ServingEngine(model, serve_config, device=model.model.embed_tokens.weight.device)
+    engine = ServingEngine(model, serve_config, device=device)
+    log = logging.getLogger(__name__)
 
-    # a reader thread feeds stdin lines into a queue, so intake never
+    # sampled request spans land in the run dir's trace.jsonl for `trace`
+    run_dir = _jsonl_run_dir(config) if config is not None else None
+    tracer = get_tracer()
+    trace_attached = run_dir is not None and tracer.attach_sink(run_dir / "trace.jsonl")
+    # serve chaos is env-only (LLMT_CHAOS_SERVE_*): serve has no
+    # trainer.resilience node to carry a config
+    chaos = install_chaos(config_from_env())
+    shutdown = GracefulShutdown().install()
+    watchdog = None
+    if args.watchdog_timeout_s:
+        watchdog = HangWatchdog(
+            args.watchdog_timeout_s, run_dir=run_dir, action="abort",
+            primary_source="engine_step",
+        ).start()
+    registry = get_registry()
+    slo = build_slo_monitor(registry=registry, run_dir=run_dir)
+    profile_trigger = build_profile_trigger(
+        registry=registry, run_dir=run_dir, cuda=device.type == "cuda")
+    exporter = start_exporter(
+        registry=registry, watchdog=watchdog, slo=slo, profile=profile_trigger,
+        role="serve", extra_fn=engine.live_stats,
+        status_fn=lambda: {
+            "engine step": engine.step_index,
+            "queue depth": len(engine.scheduler.waiting),
+            "running": len(engine.scheduler.running),
+            "completed": len(engine.scheduler.completed),
+        },
+    )
+
+    # the request journal: the previous one is rotated into a backup that
+    # lives until every entry is accepted again into the fresh journal, so
+    # a death anywhere in the replay window still replays on the next start
+    journal_path = run_dir / "serve-journal.jsonl" if run_dir is not None else None
+    backup_path = None
+    resumed = []
+    if journal_path is not None:
+        backup_path = journal_path.with_name("serve-journal.replaying.jsonl")
+        if journal_path.exists():
+            with open(backup_path, "a") as backup:
+                backup.write(journal_path.read_text())
+            journal_path.unlink()
+        if backup_path.exists():
+            resumed = replay_journal(backup_path)
+        engine.attach_journal(RequestJournal(journal_path), every=args.journal_every)
+
+    # a reader thread feeds parsed stdin lines into a queue, so intake never
     # blocks the decode loop: a request arriving mid-decode joins at the
     # next step
     lines: queue.Queue = queue.Queue()
     eof = object()
 
+    def parse_line(line: str):
+        """One raw line -> (record, error), or None for a blank line."""
+        line = line.strip()
+        if not line:
+            return None
+        try:
+            record = json.loads(line)
+            if not isinstance(record, dict):
+                raise ValueError("request line must be a JSON object")
+            return record, None
+        except ValueError as e:  # JSONDecodeError is a ValueError
+            return None, f"bad request line: {e}"
+
+    def journal_delivery(record: dict) -> None:
+        """Journal a well-formed request the moment it is READ: a hard death
+        between read and submit must not lose it."""
+        if engine.journal is None or record.get("type"):
+            return
+        try:
+            engine.journal.delivered(
+                id=record["id"], prompt=record["prompt"],
+                max_new_tokens=record.get("max_new_tokens", args.max_new_tokens),
+                priority=record.get("priority", 0),
+                deadline_ms=record.get("deadline_ms"),
+            )
+        except (KeyError, TypeError, ValueError):
+            pass
+
     def read_stdin():
         for line in stdin:
-            if line.strip():
-                lines.put(line)
+            item = parse_line(line)
+            if item is None:
+                continue
+            if item[0] is not None:
+                journal_delivery(item[0])
+            lines.put(item)
         lines.put(eof)
 
-    reader = threading.Thread(target=read_stdin, daemon=True)
-    reader.start()
+    threading.Thread(target=read_stdin, daemon=True).start()
+    # the chaos malformed flood: garbage on the intake path costs error
+    # chunks, never the batch
+    if chaos is not None:
+        for bad in chaos.serve_malformed_lines():
+            lines.put(parse_line(bad))
 
     def emit(events):
         for event in events:
             stdout.write(json.dumps(event) + "\n")
+            if slo is not None and event.get("type") == "done":
+                # every terminal feeds the SLO windows; anything but a full
+                # completion burns the error-rate budget
+                slo.observe_request(
+                    ttft_ms=event.get("ttft_ms"), tpot_ms=event.get("tpot_ms"),
+                    ok=event.get("stop_reason") in ("eos", "max_tokens"),
+                )
         stdout.flush()
 
     def reload_from_checkpoint(request: dict) -> None:
@@ -266,50 +389,153 @@ def run_serve(args, stdin: TextIO = sys.stdin, stdout: TextIO = sys.stdout) -> i
                 objective, int(step) if step is not None else None)
             generation = engine.reload_weights(new_state.model.state_dict(keep_vars=True))
         except Exception as e:  # the server keeps serving
-            logging.getLogger(__name__).exception("reload failed")
+            log.exception("reload failed")
             if objective is not None:
                 objective.model = serving
             emit([{"type": "error", "error": f"reload failed: {e}"}])
             return
+        finally:
+            if watchdog is not None:
+                # the restore is legitimate host work between steps
+                watchdog.beat()
         emit([{"type": "weights", "generation": generation, "ckpt_path": step}])
 
     def ingest(item) -> bool:
-        """One stdin line -> submit (or a reload), or an error chunk; False
-        at EOF."""
+        """One parsed stdin item -> submit (or a control line), or an error
+        chunk; False at EOF."""
         if item is eof:
             return False
-        try:
-            record = json.loads(item)
-            if not isinstance(record, dict):
-                raise ValueError("request line must be a JSON object")
-            if record.get("type") == "reload":
-                reload_from_checkpoint(record)
+        record, error = item
+        if error is None and record.get("type") == "profile":
+            # {"type": "profile", "tag"?}: arm a capture over the next engine
+            # steps; the answer says whether the trigger accepted it
+            tag = str(record.get("tag") or f"serve-{engine.step_index}")
+            emit([{"type": "profile", **profile_trigger.request(tag, source="serve")}])
+            return True
+        if error is None and record.get("type") == "reload":
+            reload_from_checkpoint(record)
+            return True
+        if error is None:
+            try:
+                deadline_ms = record.get("deadline_ms")
+                emit(engine.submit(
+                    id=record["id"], prompt=record["prompt"],
+                    max_new_tokens=int(record.get("max_new_tokens", args.max_new_tokens)),
+                    priority=int(record.get("priority", 0)),
+                    deadline_ms=float(deadline_ms) if deadline_ms is not None else None,
+                ))
                 return True
-            deadline_ms = record.get("deadline_ms")
-            emit(engine.submit(
-                id=record["id"], prompt=record["prompt"],
-                max_new_tokens=int(record.get("max_new_tokens", args.max_new_tokens)),
-                priority=int(record.get("priority", 0)),
-                deadline_ms=float(deadline_ms) if deadline_ms is not None else None,
-            ))
-        except (KeyError, TypeError, ValueError) as e:  # JSONDecodeError is a ValueError
-            emit([{"type": "error", "error": f"bad request line: {e}"}])
+            except (KeyError, TypeError, ValueError) as e:
+                error = f"bad request line: {e}"
+        emit([{"type": "error", "error": error}])
         return True
 
     open_stdin = True
-    while open_stdin or not engine.scheduler.idle:
-        if engine.scheduler.idle:
-            open_stdin = ingest(lines.get())
-            continue
-        try:  # in flight: take whatever arrived, never stall the batch
+
+    def flush_delivered() -> None:
+        """Submit everything the reader already pulled off stdin: those are
+        delivered requests and must reach the engine (and the journal)."""
+        nonlocal open_stdin
+        try:
             while open_stdin:
-                open_stdin = ingest(lines.get_nowait())
+                open_stdin = ingest(lines.get_nowait()) and open_stdin
         except queue.Empty:
             pass
+
+    def step() -> None:
         emit(engine.step())
-    reader.join(timeout=1.0)
-    emit([{"type": "stats", "stats": engine.stats()}])
-    return 0
+        profile_trigger.poll(engine.step_index)
+        if watchdog is not None:
+            watchdog.beat(step=engine.step_index)
+
+    # the journal's replay precedes any stdin line: its clients are oldest
+    if resumed:
+        log.warning("replaying %d journaled request(s) from the previous serve process",
+                    len(resumed))
+        for entry in resumed:
+            emit(engine.submit_resumed(entry))
+    if backup_path is not None and backup_path.exists():
+        backup_path.unlink()
+
+    rc = 0
+    try:
+        while open_stdin or not engine.scheduler.idle:
+            if shutdown.requested:
+                break
+            if engine.scheduler.idle:
+                if watchdog is not None:
+                    # a quiet server is healthy: the beat moves under traffic
+                    watchdog.beat()
+                try:  # nothing in flight: wait, but stay SIGTERM-responsive
+                    open_stdin = ingest(lines.get(timeout=0.2))
+                except queue.Empty:
+                    pass
+                continue
+            flush_delivered()  # in flight: take whatever arrived
+            step()
+        if shutdown.requested:
+            # stop taking new stdin, finish what the budget allows, journal
+            # the rest and exit resumable, so `supervise --child serve`
+            # relaunches into a replay
+            log.warning("%s: draining in-flight requests for up to %.1fs, then journaling "
+                        "the remainder and exiting %d", shutdown.reason,
+                        args.drain_timeout_s, RESUMABLE_EXIT_CODE)
+            deadline = time.monotonic() + args.drain_timeout_s
+            while True:
+                flush_delivered()
+                if engine.scheduler.idle or time.monotonic() >= deadline:
+                    break
+                step()
+            time.sleep(0.05)  # let a line the reader is mid-way through land
+            flush_delivered()
+            engine.drain()
+            rc = RESUMABLE_EXIT_CODE
+
+        stats = engine.stats()
+        profile_trigger.teardown()
+        emit([{"type": "stats", "stats": stats}])
+        if config is not None:
+            _publish_run_telemetry(config, stats)
+        if engine.journal is not None and rc == 0:
+            # a clean end: every accepted request got its terminal. On the
+            # drain path the journal stays open until exit, so a last line
+            # the reader pulls still lands in it
+            engine.journal.close()
+            journal_path.unlink(missing_ok=True)
+        return rc
+    finally:
+        set_profile_trigger(None)
+        if watchdog is not None:
+            watchdog.stop()
+        if trace_attached:
+            tracer.detach_sink()
+        if exporter is not None:
+            # last: a scrape may follow the final terminal
+            exporter.stop()
+        uninstall_chaos()
+        shutdown.uninstall()
+
+
+def _publish_run_telemetry(config: dict, gauges: dict) -> None:
+    """Merge `gauges` into the run dir's newest `telemetry.jsonl` record
+    (same step, keys overlaid), as JAX's does; a no-op without a run dir."""
+    run_dir = _jsonl_run_dir(config)
+    if run_dir is None or not gauges:
+        return
+    path = run_dir / "telemetry.jsonl"
+    last: dict = {}
+    if path.exists():
+        for line in path.read_text().splitlines():
+            try:
+                last = json.loads(line) if line.strip() else last
+            except json.JSONDecodeError:
+                continue  # a torn tail from a killed run
+    run_dir.mkdir(parents=True, exist_ok=True)
+    record = {**last, **{k: float(v) for k, v in gauges.items()}}
+    record.setdefault("step", 0)
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+    logging.getLogger(__name__).info("telemetry merged into %s", path)
 
 
 def build_fit(config: dict, device: str | None) -> tuple[Trainer, object, object]:
@@ -378,27 +604,25 @@ _SLO_TARGET_ENVS = ("LLMT_SLO_TTFT_P99_MS", "LLMT_SLO_TPOT_P99_MS", "LLMT_SLO_ER
                     "LLMT_SLO_STEP_TIME_P99_S", "LLMT_SLO_GOODPUT_PCT_MIN")
 
 
-def _refuse_unported_rl_fit(args) -> None:
+def _refuse_unported_rl_fit() -> None:
     """What `rl-fit` cannot honour yet raises, naming the queue that brings
-    it: load shedding, an armed SLO monitor (the rollout yield), the
-    `/metrics` exporter. The serve chaos triggers raise in `config_from_env`."""
+    it: an armed SLO monitor (the rollout yield) and the `/metrics`
+    exporter, which `rl-fit` wires with `fit` (ROADMAP A.7b)."""
     def number(name: str) -> float | None:
         try:  # a malformed value is ignored, as JAX ignores it
             return float(os.environ.get(name) or "")
         except ValueError:
             return None
 
-    if args.max_queue is not None:
-        raise NotImplementedError(
-            "rl-fit --max-queue: load shedding is not ported yet (ROADMAP A.7)")
     armed_slo = [name for name in _SLO_TARGET_ENVS if number(name) is not None]
     if armed_slo:
         raise NotImplementedError(
-            f"rl-fit with an SLO target armed ({', '.join(armed_slo)}): the SLO monitor and "
-            "the rollout yield are not ported yet (ROADMAP A.7)")
+            f"rl-fit with an SLO target armed ({', '.join(armed_slo)}): rl-fit's SLO monitor "
+            "and the rollout yield are not ported yet (ROADMAP A.7b)")
     if number("LLMT_METRICS_PORT"):
         raise NotImplementedError(
-            "rl-fit with LLMT_METRICS_PORT: the /metrics exporter is not ported yet (ROADMAP A.7)")
+            "rl-fit with LLMT_METRICS_PORT: rl-fit's /metrics exporter is not ported yet "
+            "(ROADMAP A.7b)")
 
 
 def run_rl_fit(args) -> int:
@@ -407,7 +631,7 @@ def run_rl_fit(args) -> int:
     checkpoints the weights they were sampled under with the round cursor,
     and exits 75; the relaunch restores, replays the journal and adopts the
     replayed rollouts."""
-    _refuse_unported_rl_fit(args)
+    _refuse_unported_rl_fit()
     config = _load(args)
     log = logging.getLogger(__name__)
     trainer, objective, _ = build_fit(config, args.device)
@@ -426,6 +650,7 @@ def run_rl_fit(args) -> int:
         block_size=args.block_size,
         num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk,
+        max_queue=args.max_queue,
         cache_dtype=args.cache_dtype,
         seed=args.seed,
         eos_token_id=(
@@ -503,16 +728,14 @@ def run_rl_fit(args) -> int:
 
 
 def run_supervise(args) -> int:
-    """`supervise`: relaunch `fit` on exit 75 and hard deaths. Subprocesses
-    only: this process never initializes CUDA."""
-    if args.child == "serve":
-        raise NotImplementedError(
-            "supervise --child serve relaunches into a replay of the serve request journal, "
-            "which is not ported yet (ROADMAP A.7)"
-        )
+    """`supervise`: relaunch `fit` (or, with `--child serve`, `serve`) on exit
+    75 and hard deaths. Subprocesses only: this process never initializes
+    CUDA. A relaunched serve child replays its request journal before it
+    reads stdin, which the children inherit from this process."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-                        stream=sys.stdout)
+                        # the serve protocol owns stdout
+                        stream=sys.stderr if args.child == "serve" else sys.stdout)
     child_args = list(args.overrides) + shlex.split(args.child_args or "")
     log_path = args.log
     if log_path is None:
@@ -532,10 +755,11 @@ def run_supervise(args) -> int:
         min_devices=args.min_devices, probe_backoff_s=args.probe_backoff_s,
         probe_max_wait_s=args.probe_max_wait_s,
     )
+    build = build_serve_argv if args.child == "serve" else build_fit_argv
     supervisor = Supervisor(
-        build_fit_argv(args.config, child_args, ckpt_path=args.ckpt_path), config=config,
+        build(args.config, child_args, ckpt_path=args.ckpt_path), config=config,
         # relaunches drop an explicit --ckpt-path: they restore the newest step
-        relaunch_argv=build_fit_argv(args.config, child_args),
+        relaunch_argv=build(args.config, child_args),
     )
     return supervisor.run()
 
@@ -704,6 +928,32 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-new-tokens", type=int, default=32,
         help="generation budget for requests that omit it",
     )
+    serve.add_argument(
+        "--max-queue", type=int, default=None,
+        help="intake bound: queued requests past this are shed with "
+        "stop_reason='overloaded' (lowest priority first); default unbounded",
+    )
+    serve.add_argument(
+        "--shed-ttft-ms", type=float, default=None,
+        help="shed queued requests whose projected TTFT (EMA service-time "
+        "estimate) crosses this many ms; default off",
+    )
+    serve.add_argument(
+        "--drain-timeout-s", type=float, default=30.0,
+        help="SIGTERM grace: finish in-flight requests for up to this "
+        "long, then evict-and-journal the rest and exit 75 (resumable)",
+    )
+    serve.add_argument(
+        "--watchdog-timeout-s", type=float, default=0.0,
+        help="abort (SIGABRT, after a flight dump) when an engine step "
+        "makes no progress for this long, so `supervise` can relaunch; "
+        "0 disables (default)",
+    )
+    serve.add_argument(
+        "--journal-every", type=int, default=1,
+        help="engine steps between request-journal progress checkpoints "
+        "(1 = every step; drain always journals)",
+    )
     _sampling_args(serve)
     _run_args(serve, device_default="cuda")
 
@@ -763,8 +1013,8 @@ def build_parser() -> argparse.ArgumentParser:
     rl_fit.add_argument(
         "--yield-steps", type=int, default=50,
         help="engine steps rollout submission backs off after a new serve "
-        "SLO burn-rate breach (JAX's flag; the SLO monitor is not ported yet and "
-        "an armed target raises, so nothing reads it)",
+        "SLO burn-rate breach (JAX's flag; rl-fit's SLO monitor comes with "
+        "ROADMAP A.7b and an armed target raises, so nothing reads it)",
     )
     rl_fit.add_argument("--max-batch", type=int, default=4, help="decode slots (static batch)")
     rl_fit.add_argument("--max-model-len", type=int, default=256)
@@ -773,8 +1023,7 @@ def build_parser() -> argparse.ArgumentParser:
     rl_fit.add_argument("--prefill-chunk", type=int, default=32)
     rl_fit.add_argument(
         "--max-queue", type=int, default=None,
-        help="intake bound; overflow sheds lowest-priority (rollouts) first "
-        "(not ported yet: raises)",
+        help="intake bound; overflow sheds lowest-priority (rollouts) first",
     )
     rl_fit.add_argument(
         "--journal-every", type=int, default=1,
@@ -805,7 +1054,7 @@ def build_parser() -> argparse.ArgumentParser:
     supervise.add_argument(
         "--child", default="fit", choices=("fit", "serve"),
         help="the supervised subcommand; a relaunched serve child replays "
-        "its request journal before reading stdin (serve: not ported yet)",
+        "its request journal before reading stdin",
     )
     supervise.add_argument(
         "--child-args", default="",
@@ -845,6 +1094,44 @@ def build_parser() -> argparse.ArgumentParser:
     )
     supervise.add_argument("overrides", nargs="*")
 
+    watch = sub.add_parser(
+        "watch",
+        help="poll a live run's /statusz (the LLMT_METRICS_PORT exporter) "
+        "and print each snapshot",
+    )
+    watch.add_argument("--port", type=int, default=None,
+                       help="exporter port (default: LLMT_METRICS_PORT)")
+    watch.add_argument("--host", default="127.0.0.1")
+    watch.add_argument("--interval-s", type=float, default=2.0, help="poll cadence")
+    watch.add_argument("--once", action="store_true",
+                       help="one snapshot then exit (exit 2 when unreachable)")
+
+    profile = sub.add_parser(
+        "profile",
+        help="arm a device-profile capture on a live run via its exporter's "
+        "/profilez endpoint; exit 0 when armed, 3 when the trigger refused "
+        "(budget/cooldown/busy), 2 when unreachable",
+    )
+    profile.add_argument("--port", type=int, default=None,
+                         help="exporter port (default: LLMT_METRICS_PORT)")
+    profile.add_argument("--host", default="127.0.0.1")
+    profile.add_argument("--tag", default=None,
+                         help="artifact tag (profile-<tag>/ in the run dir; default: a "
+                         "profilez-<n> serial)")
+
+    trace = sub.add_parser(
+        "trace",
+        help="export a run's trace.jsonl as Chrome-trace JSON viewable in Perfetto",
+    )
+    trace.add_argument("source", nargs="?", default=None,
+                       help="run directory holding trace.jsonl, or a trace/flight-dump "
+                       "jsonl file directly")
+    trace.add_argument("--out", default=None,
+                       help="output path (default: trace-export.json next to the source)")
+    trace.add_argument("--merge", nargs="+", default=None, metavar="DIR",
+                       help="instead of one source: wall-align N run dirs (via their "
+                       "clock_anchor events) into ONE Perfetto file with per-run tracks")
+
     ckpt = sub.add_parser(
         "ckpt",
         help="checkpoint durability operations over a checkpoint root "
@@ -883,7 +1170,11 @@ def main(argv: list[str] | None = None) -> int:
     commands = {"fit": run_fit, "validate": run_validate, "generate": run_generate,
                 "evaluate": run_evaluate, "serve": run_serve, "rl-fit": run_rl_fit,
                 "supervise": run_supervise,
-                "ckpt": ckpt_main}
+                "ckpt": ckpt_main,
+                "watch": lambda a: watch_main(port=a.port, host=a.host,
+                                              interval_s=a.interval_s, once=a.once),
+                "profile": lambda a: profile_main(port=a.port, host=a.host, tag=a.tag),
+                "trace": lambda a: trace_main(a.source, out=a.out, merge=a.merge)}
     return commands[args.command](args)
 
 

@@ -37,13 +37,18 @@ MODEL_CLASSES: dict[str, tuple[type, type]] = {
 
 @dataclass
 class BaseLMConfig:
-    """The JAX `BaseLMConfig` fields the port implements: random init (or
-    not), the optimizer, and frozen-parameter regexes. Loading HF weights
-    is not ported yet (ROADMAP A.5)."""
+    """JAX's `BaseLMConfig`, every field at JAX's default: random init (or
+    not), the optimizer, frozen-parameter regexes, and the pre-trained
+    source. `log_grad_norm` is read nowhere, as in JAX. Loading HF weights
+    (`pre_trained_weights` here or in the model config, with `load_weights`)
+    is not ported yet and raises in `build_model` (ROADMAP A.8)."""
 
     init_weights: bool = True
+    load_weights: bool = True
+    pre_trained_weights: str | None = None
     optim: OptimConfig = field(default_factory=OptimConfig)
     frozen_modules: list[str] = field(default_factory=list)
+    log_grad_norm: bool = True
 
 
 @dataclass
@@ -72,15 +77,25 @@ class ModelProvider:
 
 
 def build_model(
-    provider: ModelProvider | None, init_weights: bool, device: torch.device,
+    provider: ModelProvider | None, lm_config: BaseLMConfig, device: torch.device,
     generator: torch.Generator, where: str,
 ) -> torch.nn.Module:
     """A model from a config node on `device`, with random weights from
-    `generator` when `init_weights`."""
+    `generator` when `lm_config.init_weights`. A pre-trained source (the
+    objective's `pre_trained_weights`, else the model config's) with
+    `load_weights` raises: HF checkpoint I/O comes with ROADMAP A.8. With
+    `load_weights: false` the source is ignored, as in JAX."""
     if provider is None:
         raise ValueError(f"{where} is required when no model is given")
+    model_config = provider.get_config()
+    source = lm_config.pre_trained_weights or getattr(model_config, "pre_trained_weights", None)
+    if source and lm_config.load_weights:
+        raise NotImplementedError(
+            f"{where}: loading pre-trained weights from {source!r} is not ported yet "
+            "(HF checkpoint I/O, ROADMAP A.8); set load_weights: false to start from the seed"
+        )
     model = provider.get_model(device)
-    if init_weights:
+    if lm_config.init_weights:
         model.init_weights(generator)
     return model
 
@@ -99,8 +114,7 @@ class SingleModelObjective:
         config with random weights from `generator` (on `device`)."""
         if self.model is None:
             name = f"{type(self.config).__name__}.model"
-            self.model = build_model(self.config.model, self.config.init_weights, device,
-                                     generator, name)
+            self.model = build_model(self.config.model, self.config, device, generator, name)
         self.model = self.model.to(device)
         return self.model
 

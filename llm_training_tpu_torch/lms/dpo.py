@@ -104,13 +104,11 @@ class PairObjective:
             start = generator.get_state()
             policy = self.model
             if policy is None:
-                policy = build_model(cfg.model, cfg.init_weights, device, generator,
-                                     f"{where}.model")
+                policy = build_model(cfg.model, cfg, device, generator, f"{where}.model")
             ref = self.ref_model
             if ref is None and cfg.ref_model is not None:
                 generator.set_state(start)
-                ref = build_model(cfg.ref_model, cfg.init_weights, device, generator,
-                                  f"{where}.ref_model")
+                ref = build_model(cfg.ref_model, cfg, device, generator, f"{where}.ref_model")
             elif ref is None:
                 ref = copy.deepcopy(policy)
             ref.requires_grad_(False)

@@ -1,9 +1,13 @@
 """Llama model config, as a dataclass that validates on construction.
 
 Counterpart of `llm_training_tpu/models/llama/config.py`. Field names are
-the JAX package's (which are HF's). Only the plain Llama decoder is ported:
-fields that select another architecture raise `NotImplementedError` when
-set to anything but the Llama value.
+the JAX package's (which are HF's), and every JAX field is accepted. Only
+the plain Llama decoder is ported: fields that select another architecture
+(or a mesh layout) raise `NotImplementedError` when set to anything but the
+Llama value, naming the ROADMAP queue that brings them. `bos_token_id` and
+`pre_trained_weights` are carried as JAX carries them (the weights are
+loaded by `lms/base.py`, which refuses a source it cannot read), and
+`attention_dropout` raises unless 0.0, as JAX's does.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 from llm_training_tpu_torch.models.base import resolve_dtype
 from llm_training_tpu_torch.ops.rope_utils import RoPEConfig, rope_config_from_hf
 
-# field -> the only value the port implements
+# field -> the only value the port implements (JAX's default), for fields
+# that select another family, the MoE stack or HF I/O (ROADMAP A.8)
 _LLAMA_ONLY = {
     "num_experts": None,
     "norm_scheme": "pre",
@@ -30,6 +35,39 @@ _LLAMA_ONLY = {
     "layer_types": None,
     "attention_bias": False,
     "mlp_bias": False,
+    "attention_out_bias": False,
+    "lm_head_bias": False,
+    "attention_multiplier": None,
+    "embedding_multiplier": 1.0,
+    "residual_multiplier": 1.0,
+    "logits_scaling": 1.0,
+    "logit_scale": None,
+    "dual_local_rope": False,
+    "no_rope_layers": None,
+    "rope_interleaved": False,
+    "neox_naming": False,
+    "fused_gate_up": False,
+    "gelu_approximate": True,
+    "qk_norm_position": "pre_rope",
+    "qk_norm_scope": "head",
+    "num_experts_per_tok": 2,
+    "moe_intermediate_size": None,
+    "shared_expert_intermediate_size": None,
+    "shared_expert_gated": True,
+    "norm_topk_prob": True,
+    "moe_style": "qwen",
+    "moe_impl": "auto",
+    "moe_router_impl": "softmax",
+    "moe_capacity_factor": 1.25,
+    "ep_capacity_factor": 2.0,
+    "router_aux_loss_coef": 0.001,
+    "router_jitter_eps": 0.01,
+}
+# the same for fields of more than one device (ROADMAP A.9)
+_ONE_DEVICE_ONLY = {
+    "ring_attention": False,
+    "pipeline_stages": 1,
+    "pipeline_microbatches": None,
 }
 
 
@@ -45,14 +83,18 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     initializer_range: float = 0.02
     rms_norm_eps: float = 1e-6
+    bos_token_id: int | None = 1
     eos_token_id: int | list[int] | None = 2
     pad_token_id: int | None = None  # generate's left-pad id (0 when None)
     tie_word_embeddings: bool = False
     rope_theta: float = 10000.0
     rope_scaling: dict[str, Any] | None = None
     sliding_window: int | None = None
+    attention_dropout: float = 0.0  # JAX refuses anything else
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    # an HF checkpoint to initialize from (the objective's own field wins)
+    pre_trained_weights: str | None = None
     # training: activation checkpointing per decoder layer (models/remat.py)
     # and the attention path (ops/attention.py: 'auto' = the flash kernels
     # on CUDA; JAX's 'xla' / 'pallas' name the plain path / the kernels)
@@ -75,13 +117,51 @@ class LlamaConfig:
     layer_types: list[str] | None = None
     attention_bias: bool = False
     mlp_bias: bool = False
+    # None follows attention_bias, as in JAX
+    attention_out_bias: bool | None = None
+    lm_head_bias: bool = False
+    attention_multiplier: float | None = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    logit_scale: float | None = None
+    dual_local_rope: bool = False
+    no_rope_layers: list[int] | None = None
+    rope_interleaved: bool = False
+    neox_naming: bool = False
+    fused_gate_up: bool = False
+    gelu_approximate: bool = True
+    qk_norm_position: str = "pre_rope"
+    qk_norm_scope: str = "head"
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int | None = None
+    shared_expert_intermediate_size: int | None = None
+    shared_expert_gated: bool = True
+    norm_topk_prob: bool = True
+    moe_style: str = "qwen"
+    moe_impl: str = "auto"
+    moe_router_impl: str = "softmax"
+    moe_capacity_factor: float = 1.25
+    ep_capacity_factor: float = 2.0
+    router_aux_loss_coef: float = 0.001
+    router_jitter_eps: float = 0.01
+    ring_attention: bool = False
+    pipeline_stages: int = 1
+    pipeline_microbatches: int | None = None
 
     def __post_init__(self):
-        for name, value in _LLAMA_ONLY.items():
-            if getattr(self, name) != value:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported (only {value!r})"
-                )
+        if self.attention_out_bias is None:
+            self.attention_out_bias = self.attention_bias
+        for queue, only in (("A.8", _LLAMA_ONLY), ("A.9", _ONE_DEVICE_ONLY)):
+            for name, value in only.items():
+                if getattr(self, name) != value:
+                    raise NotImplementedError(
+                        f"{name}={getattr(self, name)!r} is not ported (only {value!r}; "
+                        f"ROADMAP {queue})"
+                    )
+        if self.attention_dropout != 0.0:
+            # as JAX: fail loudly rather than train without the dropout asked for
+            raise ValueError("attention_dropout is not supported; set it to 0.0")
         if self.num_attention_heads % self.num_key_value_heads != 0:
             raise ValueError(
                 f"num_attention_heads ({self.num_attention_heads}) must be divisible "

@@ -30,8 +30,8 @@ trainer's fit runs:
   beside every committed step, verify-before-restore, an async mirror
   daemon with retention GC and a scrubber, `.stale/` staging of forced
   saves, and the `ckpt` command.
-- **Fault injection** (`chaos.py`): the triggers of the sites above; the
-  serving tier's wait for ROADMAP A.7.
+- **Fault injection** (`chaos.py`): the triggers of the sites above and
+  of the serving tier; the router's wait for ROADMAP A.7c.
 """
 
 from __future__ import annotations

@@ -9,7 +9,11 @@ port's fit runs: data-source errors in the prefetcher (`data_error_steps`,
 metrics (`nan_step`, `spike_step`, `spike_scale`), a sustained slow regime
 (`slow_step_s` from `slow_step_from`), byte-level corruption of a
 committed checkpoint (`ckpt_corrupt`) and a SIGKILL inside a forced
-save's swap (`ckpt_kill_in_swap`), all seeded by `seed`. Injected I/O
+save's swap (`ckpt_kill_in_swap`), all seeded by `seed`; and the serving
+tier's faults, at the top of an engine step and in the `serve` CLI's
+intake: a wedged step (`serve_stall_step`), a SIGTERM mid-stream
+(`serve_sigterm_step`) and a flood of malformed request lines
+(`serve_malformed_flood`), each on the first supervisor attempt only. Injected I/O
 faults raise `ChaosError`, an `OSError`, so they take the production retry
 path.
 
@@ -18,9 +22,8 @@ The harness is a process global the trainer installs at fit start
 `chaos_point(site, step)`, a no-op when nothing is installed.
 `config_from_env` overlays `LLMT_CHAOS_*` variables with JAX's names.
 
-JAX's other triggers raise `NotImplementedError` here, naming the queue
-that brings their site: the serving tier's and the router's with ROADMAP
-A.7.
+JAX's router triggers raise `NotImplementedError` here, naming the queue
+that brings their site (ROADMAP A.7c).
 """
 
 from __future__ import annotations
@@ -42,11 +45,8 @@ SITES = ("data", "checkpoint_save")
 # JAX's triggers whose sites the port does not have yet -> the queue that
 # brings them, and their environment names
 NOT_PORTED = {
-    "serve_stall_step": ("A.7", "LLMT_CHAOS_SERVE_STALL_STEP"),
-    "serve_sigterm_step": ("A.7", "LLMT_CHAOS_SERVE_SIGTERM_STEP"),
-    "serve_malformed_flood": ("A.7", "LLMT_CHAOS_SERVE_MALFORMED_FLOOD"),
-    "router_kill_replica_at": ("A.7", "LLMT_CHAOS_ROUTER_KILL_REPLICA"),
-    "router_blackhole_at": ("A.7", "LLMT_CHAOS_ROUTER_BLACKHOLE"),
+    "router_kill_replica_at": ("A.7c", "LLMT_CHAOS_ROUTER_KILL_REPLICA"),
+    "router_blackhole_at": ("A.7c", "LLMT_CHAOS_ROUTER_BLACKHOLE"),
 }
 
 
@@ -96,11 +96,20 @@ class ChaosConfig:
     # SIGKILL this process inside a forced save's swap at this step: the
     # staged `.stale/` copy must be promotable on relaunch
     ckpt_kill_in_swap: int | None = None
-    # JAX's other triggers: accepted unset, NotImplementedError when set
-    # (NOT_PORTED names the queue that brings each one's site)
+    # serving-tier faults, all gated to the FIRST supervisor attempt
+    # (LLMT_SUPERVISOR_ATTEMPT <= 1) so a supervised relaunch survives
+    # re-crossing the trigger step:
+    # wedge the serving engine at this engine step (sleep far past any
+    # watchdog window): the hang watchdog's dump + SIGABRT path
     serve_stall_step: int | None = None
+    # deliver a real SIGTERM at this engine step, mid-stream: the
+    # drain -> exit 75 -> supervised replay path
     serve_sigterm_step: int | None = None
+    # inject this many malformed request lines into the serve CLI's intake
+    # at startup: the error boundary must answer each and keep serving
     serve_malformed_flood: int = 0
+    # the router's triggers: accepted unset, NotImplementedError when set
+    # (NOT_PORTED names the queue that brings their site)
     router_kill_replica_at: int | None = None
     router_blackhole_at: int | None = None
 
@@ -116,6 +125,7 @@ class ChaosConfig:
             (self.spike_scale > 0, "spike_scale must be > 0"),
             (self.slow_step_s >= 0, "slow_step_s must be >= 0"),
             (self.slow_step_from >= 0, "slow_step_from must be >= 0"),
+            (self.serve_malformed_flood >= 0, "serve_malformed_flood must be >= 0"),
         )
         for ok, message in checks:
             if not ok:
@@ -131,6 +141,9 @@ class ChaosConfig:
             or self.sigkill_step is not None
             or self.nan_step is not None
             or self.spike_step is not None
+            or self.serve_stall_step is not None
+            or self.serve_sigterm_step is not None
+            or self.serve_malformed_flood > 0
             or self.ckpt_corrupt is not None
             or self.ckpt_kill_in_swap is not None
             or self.slow_step_s > 0
@@ -145,7 +158,8 @@ def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
     LLMT_CHAOS_SLOW_STEP_S (floats), LLMT_CHAOS_SIGTERM_STEP /
     LLMT_CHAOS_SIGKILL_STEP / LLMT_CHAOS_NAN_STEP / LLMT_CHAOS_SPIKE_STEP /
     LLMT_CHAOS_CKPT_KILL_IN_SWAP / LLMT_CHAOS_SLOW_STEP_FROM /
-    LLMT_CHAOS_SEED (ints), LLMT_CHAOS_CKPT_CORRUPT
+    LLMT_CHAOS_SERVE_STALL_STEP / LLMT_CHAOS_SERVE_SIGTERM_STEP /
+    LLMT_CHAOS_SERVE_MALFORMED_FLOOD / LLMT_CHAOS_SEED (ints), LLMT_CHAOS_CKPT_CORRUPT
     ({flip,truncate,delete}[:step]). A set variable of a trigger the port
     does not have raises NotImplementedError."""
     for key, (_, env_name) in NOT_PORTED.items():
@@ -162,6 +176,9 @@ def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
         ("nan_step", "LLMT_CHAOS_NAN_STEP", int),
         ("spike_step", "LLMT_CHAOS_SPIKE_STEP", int),
         ("spike_scale", "LLMT_CHAOS_SPIKE_SCALE", float),
+        ("serve_stall_step", "LLMT_CHAOS_SERVE_STALL_STEP", int),
+        ("serve_sigterm_step", "LLMT_CHAOS_SERVE_SIGTERM_STEP", int),
+        ("serve_malformed_flood", "LLMT_CHAOS_SERVE_MALFORMED_FLOOD", int),
         ("ckpt_corrupt", "LLMT_CHAOS_CKPT_CORRUPT", str),
         ("ckpt_kill_in_swap", "LLMT_CHAOS_CKPT_KILL_IN_SWAP", int),
         ("slow_step_s", "LLMT_CHAOS_SLOW_STEP_S", float),
@@ -291,6 +308,64 @@ class Chaos:
         self._count()
         logger.warning("chaos: delivering SIGKILL inside force-save swap at step %d", step)
         os.kill(os.getpid(), signal.SIGKILL)
+
+    # ------------------------------------------------------- serving tier
+
+    def _serve_first_attempt(self) -> bool:
+        """Serve faults fire only on the first supervisor attempt: the
+        relaunch that replays the journal must survive re-crossing the
+        trigger step."""
+        from llm_training_tpu_torch.resilience.elastic import segment_attempt
+
+        return segment_attempt() <= 1
+
+    def maybe_serve_stall(self, step: int, sleep=None) -> bool:
+        """Wedge the serving engine at the trigger step (once, first
+        attempt only): sleep far past any watchdog window, so the hang
+        watchdog's dump + SIGABRT ends the process, not this sleep. Returns
+        True when the stall fired (tests inject a no-op `sleep`)."""
+        if self.config.serve_stall_step is None or not self._serve_first_attempt():
+            return False
+        with self._lock:
+            if step != self.config.serve_stall_step or ("serve_stall", step) in self._fired:
+                return False
+            self._fired.add(("serve_stall", step))
+        self._count()
+        logger.warning("chaos: wedging serve engine step %d", step)
+        (sleep or time.sleep)(3600.0)
+        return True
+
+    def maybe_serve_sigterm_mid_stream(self, step: int) -> bool:
+        """Deliver SIGTERM to this process at the trigger engine step (once,
+        first attempt only): the serve CLI's GracefulShutdown turns it into
+        drain -> journal -> exit 75."""
+        if self.config.serve_sigterm_step is None or not self._serve_first_attempt():
+            return False
+        with self._lock:
+            if step != self.config.serve_sigterm_step or ("serve_sigterm", step) in self._fired:
+                return False
+            self._fired.add(("serve_sigterm", step))
+        self._count()
+        logger.warning("chaos: delivering SIGTERM to serve process at engine step %d", step)
+        os.kill(os.getpid(), signal.SIGTERM)
+        return True
+
+    def serve_malformed_lines(self) -> list[str]:
+        """The malformed-flood payload for the serve CLI's intake (first
+        attempt only): broken lines the error boundary must answer with
+        {"type": "error"} chunks while every well-formed request still
+        completes."""
+        n = self.config.serve_malformed_flood
+        if n <= 0 or not self._serve_first_attempt():
+            return []
+        self._count()
+        shapes = (
+            "{not json at all",
+            '{"id": "flood", "prompt": "not-a-token-list"}',
+            '{"prompt": [1, 2, 3]}',  # no id
+            '{"id": "flood", "prompt": [1], "max_new_tokens": "junk"}',
+        )
+        return [shapes[i % len(shapes)] for i in range(n)]
 
     def maybe_slow_step(self, step: int, sleep=None) -> bool:
         """Inject `slow_step_s` of dead time at this optimizer-step boundary

@@ -25,8 +25,9 @@ so each fit segment appends its own `segment_topology` event.
 With `min_devices` set, each relaunch first probes the visible CUDA device
 count in a subprocess and waits with backoff while the pool is below the
 minimum. The supervisor itself never initializes CUDA: it must not hold
-the card its child needs. Supervising `serve` waits for the request
-journal (ROADMAP A.7).
+the card its child needs. `supervise --child serve` runs `serve` the same
+way (`build_serve_argv`); a relaunched serve child replays its request
+journal before it reads stdin, which the children inherit.
 """
 
 from __future__ import annotations
@@ -271,3 +272,18 @@ def build_fit_argv(
     argv += list(overrides)
     return argv
 
+
+def build_serve_argv(
+    config_path: str,
+    serve_args: Sequence[str] = (),
+    ckpt_path: str | None = None,
+) -> list[str]:
+    """The child `serve` command of a supervised serving tier. Same contract
+    as `build_fit_argv`: `ckpt_path` pins a restore step for the FIRST
+    launch only, and `serve_args` carries config overrides and serve flags
+    verbatim (the supervisor never parses them)."""
+    argv = [sys.executable, "-m", "llm_training_tpu_torch", "serve", "--config", config_path]
+    if ckpt_path:
+        argv += ["--ckpt-path", str(ckpt_path)]
+    argv += list(serve_args)
+    return argv

@@ -11,10 +11,6 @@ Python thread's stack, the goodput ledger's currently-open phase (the
 activity the loop is stuck inside), and per-source beat ages — then, with
 `action="abort"`, kills the process so a supervisor can relaunch instead of
 burning the reservation. Progress re-arms it, so a one-off dump per stall.
-
-JAX's dump also writes the trace ring's flight dump and arms a device
-profile under the same tag; the tracer and the profile trigger are not
-ported yet (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -100,6 +96,17 @@ class HangWatchdog:
             if source == self.primary_source:
                 self._dumped = False
 
+    def beat_age(self, source: str | None = None) -> float | None:
+        """Seconds since the last beat from `source` (default the primary
+        source), or None before any beat. Read by the metrics exporter's
+        /healthz (telemetry/exporter.py): the probe turns red on a stale
+        primary beat BEFORE this watchdog's own timeout aborts."""
+        if source is None:
+            source = self.primary_source
+        with self._lock:
+            last = self._beats.get(source)
+        return None if last is None else self._clock() - last
+
     # ------------------------------------------------------------ polling
 
     def _run(self) -> None:
@@ -154,6 +161,25 @@ class HangWatchdog:
             # dump_paths from the main thread — list append is atomic, but
             # the guarded-by contract keeps every mutation accountable
             self.dump_paths.append(path)
+        # flight recorder (docs/observability.md#tracing): the trace ring
+        # holds the spans leading into the stall — what the loop was doing
+        # and for which step/request — next to the thread stacks. Lazy
+        # import keeps this module importable without the telemetry layer;
+        # flight_dump itself never raises.
+        from llm_training_tpu_torch.telemetry.trace import get_tracer
+
+        get_tracer().flight_dump(self.run_dir, f"hang-{stamp}")
+        # arm a device profile under the matching tag — request side only:
+        # this runs on the watchdog's poll thread, which must never touch
+        # the card (a capture call would block behind the wedged dispatch being
+        # reported, and with action='abort' SIGABRT follows immediately).
+        # The capture materializes only if the owning loop limps through
+        # another step; the armed request is still the honest marker.
+        from llm_training_tpu_torch.telemetry.profiling import get_profile_trigger
+
+        trigger = get_profile_trigger()
+        if trigger is not None:
+            trigger.request(f"hang-{stamp}", source="watchdog")
         logger.error(
             "watchdog: no %s progress for %.1fs — thread stacks "
             "dumped to %s", self.primary_source, stalled_s, path,

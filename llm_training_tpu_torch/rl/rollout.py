@@ -1,8 +1,8 @@
 """Rollout collection through the serving engine.
 
 Counterpart of `llm_training_tpu/rl/rollout.py` (without the SLO
-arbitration, which comes with ROADMAP A.7's monitor: `rl/rollout_yields`
-stays 0). Rollouts are ordinary `ServingEngine` requests, `group_size`
+arbitration, which comes with `rl-fit`'s SLO monitor, ROADMAP A.7b:
+`rl/rollout_yields` stays 0). Rollouts are ordinary `ServingEngine` requests, `group_size`
 samples per prompt, submitted as a priority class of their own (below
 user traffic by default); the collector drives `engine.step()` as the
 serve loop does and routes every other event to `on_foreign_event`.

@@ -1,9 +1,10 @@
 """Continuous-batching serving engine.
 
-Counterpart of `llm_training_tpu/serve/engine.py` (without load shedding,
-chaos, tracing, live stats and device-attribution layers). Every step
-first expires deadlines, so a `deadline` terminal is never more than one
-step late. Two model calls run against the paged pool, which they update
+Counterpart of `llm_training_tpu/serve/engine.py` (without JAX's
+decode-step cost attribution, which is XLA cost analysis: ROADMAP C.17).
+Every step first expires deadlines and re-evaluates load shedding, so a
+`deadline` or `overloaded` terminal is never more than one step late. Two
+model calls run against the paged pool, which they update
 in place:
 
 - a prefill chunk: ONE request's next prompt chunk (batch 1, fixed chunk
@@ -26,7 +27,14 @@ paged KV was computed under the old weights), the new tensors are bound
 generation it was decoded under. An attached `RequestJournal`
 (`attach_journal`, `serve/journal.py`) records accepted, progress and done
 records, so `drain()`, the SIGTERM path, can evict and journal everything
-in flight for a relaunch to `submit_resumed`.
+in flight for a relaunch to `submit_resumed`. The chaos serve faults
+(`LLMT_CHAOS_SERVE_*`) hook the top of `step()`.
+
+Tracing (`telemetry/trace.py`): `submit`, `first_token`, `done`, `drain`
+and `weights_reload` instants, a `prefill_chunk` span per chunk and an
+`engine_step` span per step, beside the scheduler's queue/prefill/decode
+spans. `live_stats()` gives the `/metrics` exporter's scrape threads the
+queue depth, in-flight rows and rolling TTFT/TPOT percentiles.
 
 The host loop (`step()`) executes what the `Scheduler` decides.
 """
@@ -51,10 +59,20 @@ from llm_training_tpu_torch.serve.paged_cache import (
     init_paged_pool,
     pool_bytes,
 )
+from llm_training_tpu_torch.resilience.chaos import get_chaos
 from llm_training_tpu_torch.serve.scheduler import Scheduler, SchedulerConfig, ServeRequest
 from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.trace import get_tracer
 
 logger = logging.getLogger(__name__)
+
+# newest terminals live_stats() scans for its rolling TTFT/TPOT
+# percentiles: bounds the per-scrape cost on a long-lived server
+_LIVE_WINDOW = 512
+
+# terminals that are the engine shedding load to protect its SLO, not
+# request failures: counted as serve/requests_shed, never requests_failed
+_SHED_REASONS = ("deadline", "overloaded")
 
 
 @dataclass
@@ -66,6 +84,12 @@ class ServeConfig:
     # max_batch full-length requests
     num_blocks: int | None = None
     prefill_chunk: int = 32  # tokens per prefill chunk
+    # intake bound: queued requests past this end with an honest
+    # stop_reason='overloaded' terminal; None = unbounded
+    max_queue: int | None = None
+    # shed when the queue tail's projected TTFT (EMA service-time estimate)
+    # crosses this many ms; None disables
+    shed_ttft_ms: float | None = None
     cache_dtype: str | None = None
     seed: int = 0
     eos_token_id: int | None = None
@@ -78,6 +102,10 @@ class ServeConfig:
             raise ValueError(f"max_model_len must be >= 2, got {self.max_model_len}")
         if self.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {self.prefill_chunk}")
+        if self.max_queue is not None and self.max_queue < 0:
+            raise ValueError(f"max_queue must be >= 0, got {self.max_queue}")
+        if self.shed_ttft_ms is not None and self.shed_ttft_ms <= 0:
+            raise ValueError(f"shed_ttft_ms must be > 0, got {self.shed_ttft_ms}")
         if self.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {self.block_size}")
         if self.num_blocks is not None and self.num_blocks < 1:
@@ -118,6 +146,8 @@ class ServingEngine:
                 max_model_len=self.config.max_model_len,
                 block_size=self.block_size,
                 prefill_chunk=self.config.prefill_chunk,
+                max_queue=self.config.max_queue,
+                shed_ttft_ms=self.config.shed_ttft_ms,
             ),
             self.allocator,
         )
@@ -140,6 +170,13 @@ class ServingEngine:
         self._journal_every = 1
         self._unretired: list[ServeRequest] = []
         self.replayed_requests = 0
+        # terminal counters, bumped in _done_event (every terminal passes
+        # there): live_stats reads them, so a scrape never scans the whole
+        # completion history. Shed load (deadline/overloaded) is tallied
+        # apart from real failures
+        self._done_full = 0
+        self._done_shed = 0
+        self._done_failed = 0
 
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(array, device=self._pool_k.device)
@@ -179,6 +216,14 @@ class ServingEngine:
         )
         if deadline_ms is not None:
             request.deadline_s = request.arrival_s + float(deadline_ms) / 1000.0
+        tracer = get_tracer()
+        request.traced = tracer.sample_request()
+        tracer.instant(
+            "serve", "submit", ts=request.arrival_s, write=request.traced,
+            request_id=request.id, prompt_len=len(request.prompt),
+            max_new_tokens=request.max_new_tokens, priority=request.priority,
+            **({"deadline_ms": float(deadline_ms)} if deadline_ms is not None else {}),
+        )
         return self._ingest(request)
 
     def submit_resumed(self, entry: dict) -> list[dict]:
@@ -201,17 +246,27 @@ class ServingEngine:
         request.emitted = min(int(entry.get("emitted", 0)), len(request.generated))
         if entry.get("deadline_ms") is not None:
             request.deadline_s = request.arrival_s + float(entry["deadline_ms"]) / 1000.0
+        tracer = get_tracer()
+        request.traced = tracer.sample_request()
+        tracer.instant(
+            "serve", "submit", ts=request.arrival_s, write=request.traced,
+            request_id=request.id, prompt_len=len(request.prompt),
+            max_new_tokens=request.max_new_tokens, priority=request.priority,
+            replayed=True, generated=len(request.generated),
+        )
         self.replayed_requests += 1
         if len(request.generated) >= request.max_new_tokens:
             # the journal caught the last token but not the done record
             request.stop_reason = "max_tokens"
+            request.advance_phase("done")
             self.scheduler.completed.append(request)
             return [self._done_event(request)]
         return self._ingest(request)
 
     def _ingest(self, request: ServeRequest) -> list[dict]:
         """Hand a built request to the scheduler, journal its acceptance,
-        and return the terminal submission produced (a rejection)."""
+        and return the terminals submission produced (a rejection, shed
+        victims)."""
         before = len(self.scheduler.completed)
         self.scheduler.submit(request)
         if not request.done and self.journal is not None:
@@ -277,6 +332,8 @@ class ServingEngine:
                 owner._buffers[leaf] = new
         self.weights_generation += 1
         get_registry().gauge("serve/weights_generation").set(float(self.weights_generation))
+        get_tracer().instant("serve", "weights_reload", generation=self.weights_generation,
+                             evicted_for_reload=evicted)
         logger.info("weights reloaded: generation %d (%d in-flight request(s) folded for "
                     "re-prefill)", self.weights_generation, evicted)
         return self.weights_generation
@@ -297,6 +354,7 @@ class ServingEngine:
                 journaled += 1
         summary = {"journaled": journaled, "blocks_in_use": self.allocator.blocks_in_use,
                    "step": self.step_index}
+        get_tracer().instant("serve", "drain", **summary)
         logger.warning("drain: %d unfinished request(s) journaled for replay (%d pool blocks "
                        "in use)", journaled, self.allocator.blocks_in_use)
         return summary
@@ -304,10 +362,12 @@ class ServingEngine:
     # ---------------------------------------------------------------- step
 
     def step(self) -> list[dict]:
-        """One scheduler round: deadline expiry, admissions, at most one
-        prefill chunk, one decode step over every decoding row. Returns the
-        streamed events."""
+        """One scheduler round: deadline expiry, admissions, shedding, at
+        most one prefill chunk, one decode step over every decoding row.
+        Returns the streamed events (deadline/overloaded terminals
+        included)."""
         events: list[dict] = []
+        tracer = get_tracer()
         self.step_index += 1
         # what the previous step returned has been delivered by now: retire
         # finished ids and checkpoint progress before this step can die
@@ -315,20 +375,33 @@ class ServingEngine:
         if self.journal is not None and self.step_index % self._journal_every == 0:
             for request in self.scheduler.running.values():
                 self.journal.progress(request)
-        before = len(self.scheduler.completed)
-        # deadlines first: expired queued work never costs a prefill, and an
-        # expired running row frees its blocks before admission looks
-        self.scheduler.expire_deadlines()
-        self.scheduler.admit()
-        for request in self.scheduler.completed[before:]:
-            events.append(self._done_event(request))
-        self.peak_running = max(self.peak_running, len(self.scheduler.running))
-        plan = self.scheduler.next_prefill()
-        if plan is not None:
-            events.extend(self._run_prefill(*plan))
-        rows = self.scheduler.decode_rows()
-        if rows:
-            events.extend(self._run_decode(rows))
+        # chaos serve faults: a wedged step and a mid-stream SIGTERM land
+        # where the real ones would, at the top of an engine step
+        chaos = get_chaos()
+        if chaos is not None:
+            chaos.maybe_serve_stall(self.step_index)
+            chaos.maybe_serve_sigterm_mid_stream(self.step_index)
+        with tracer.measure(
+            "serve", "engine_step", step=self.step_index,
+            running=len(self.scheduler.running), waiting=len(self.scheduler.waiting),
+        ):
+            before = len(self.scheduler.completed)
+            # deadlines first: expired queued work never costs a prefill, and
+            # an expired running row frees its blocks before admission looks
+            self.scheduler.expire_deadlines()
+            self.scheduler.admit()
+            # the service-time EMA moves with every completion, so the
+            # projected-TTFT shed decision is re-evaluated each step
+            self.scheduler.shed()
+            for request in self.scheduler.completed[before:]:
+                events.append(self._done_event(request))
+            self.peak_running = max(self.peak_running, len(self.scheduler.running))
+            plan = self.scheduler.next_prefill()
+            if plan is not None:
+                events.extend(self._run_prefill(*plan))
+            rows = self.scheduler.decode_rows()
+            if rows:
+                events.extend(self._run_decode(rows))
         return events
 
     def _emit_token(
@@ -340,6 +413,12 @@ class ServingEngine:
         self.tokens_generated += 1
         if request.first_token_s is None:
             request.first_token_s = now
+            get_tracer().instant(
+                "serve", "first_token", ts=now, write=request.traced, request_id=request.id,
+                # arrival-anchored: an evicted-then-resumed request's TTFT
+                # counts from its original arrival
+                ttft_ms=round(1000.0 * (now - request.arrival_s), 3),
+            )
         request.last_token_s = now
         while request.emitted < len(request.generated):
             events.append({
@@ -360,6 +439,7 @@ class ServingEngine:
     @torch.no_grad()
     def _run_prefill(self, request: ServeRequest, chunk: list[int], start: int) -> list[dict]:
         events: list[dict] = []
+        t_chunk = time.perf_counter()
         key = self._next_key()  # every chunk takes one, final or not
         width = self.config.prefill_chunk
         ids = np.zeros((1, width), np.int64)
@@ -380,10 +460,20 @@ class ServingEngine:
         self.prefill_chunks += 1
         request.prefilled += len(chunk)
         request.cache_len += len(chunk)
-        if start + len(chunk) >= len(request.prefill_tokens):
+        final = start + len(chunk) >= len(request.prefill_tokens)
+        if final:
             logits = out.logits[0, len(chunk) - 1].to(torch.float32)
             tokens, logprobs = self._sample(logits[None], key)
             self._emit_token(request, int(tokens[0]), float(logprobs[0]), events)
+        now = time.perf_counter()
+        get_tracer().span(
+            "serve", "prefill_chunk", t_chunk, now, write=request.traced,
+            request_id=request.id, start=start, tokens=len(chunk), final=final,
+        )
+        if final and not request.done:
+            # the first new token landed inside the prefill phase; decode
+            # (one token per engine step) starts here
+            request.advance_phase("decode", now)
         return events
 
     @torch.no_grad()
@@ -428,6 +518,12 @@ class ServingEngine:
         return events
 
     def _done_event(self, request: ServeRequest) -> dict:
+        if request.stop_reason in ("eos", "max_tokens"):
+            self._done_full += 1
+        elif request.stop_reason in _SHED_REASONS:
+            self._done_shed += 1
+        else:
+            self._done_failed += 1
         if self.journal is not None:
             self._unretired.append(request)
         event = {
@@ -440,12 +536,19 @@ class ServingEngine:
             "generation": self.weights_generation,
         }
         if request.first_token_s is not None:
-            event["ttft_ms"] = 1000.0 * (request.first_token_s - request.arrival_s)
+            event["ttft_ms"] = round(1000.0 * (request.first_token_s - request.arrival_s), 3)
         if request.last_token_s is not None and len(request.generated) > 1:
-            event["tpot_ms"] = (
+            event["tpot_ms"] = round(
                 1000.0 * (request.last_token_s - request.first_token_s)
-                / (len(request.generated) - 1)
+                / (len(request.generated) - 1), 3,
             )
+        get_tracer().instant(
+            "serve", "done", write=request.traced, request_id=request.id,
+            stop_reason=request.stop_reason, n_tokens=len(request.generated),
+            evictions=request.evictions,
+            queue_wait_ms=round(1000.0 * request.queue_wait_s, 3),
+            **({"ttft_ms": event["ttft_ms"]} if "ttft_ms" in event else {}),
+        )
         return event
 
     # ----------------------------------------------------------------- run
@@ -467,31 +570,48 @@ class ServingEngine:
 
     # --------------------------------------------------------------- stats
 
+    def _completed_latencies(self) -> tuple[list, list, list[float], list[float]]:
+        """(all terminals, full completions, ttft_ms, tpot_ms) over the
+        requests finished so far: the one filter both `stats()` and
+        `live_stats()` render."""
+        return _latencies(list(self.scheduler.completed))
+
+    def live_stats(self) -> dict[str, float]:
+        """Scrape-time gauges for the `/metrics` exporter: queue depth,
+        in-flight rows, terminal counts and rolling TTFT/TPOT percentiles
+        over the newest `_LIVE_WINDOW` terminals. Called from the
+        exporter's handler threads: host reads only, never the card."""
+        _, _, ttft, tpot = _latencies(self.scheduler.completed[-_LIVE_WINDOW:])
+        out = {
+            "serve/queue_depth": float(len(self.scheduler.waiting)),
+            "serve/running": float(len(self.scheduler.running)),
+            "serve/engine_steps": float(self.step_index),
+            "serve/requests_completed": float(self._done_full),
+            "serve/requests_failed": float(self._done_failed),
+            "serve/requests_shed": float(self._done_shed),
+            "serve/tokens_generated": float(self.tokens_generated),
+            "serve/weights_generation": float(self.weights_generation),
+            "decode/cache_blocks_in_use": float(self.allocator.blocks_in_use),
+        }
+        _percentiles(out, ttft, tpot)
+        return out
+
     def stats(self) -> dict[str, float]:
-        """Completed / failed requests, tokens, tokens/s and TTFT/TPOT
-        percentiles over the requests finished so far (host clock)."""
-        completed = [
-            r for r in self.scheduler.completed if r.stop_reason in ("eos", "max_tokens")
-        ]
-        # shed load (deadline) is the engine keeping its budget, not a failure
-        shed = sum(r.stop_reason == "deadline" for r in self.scheduler.completed)
-        ttft = [
-            1000.0 * (r.first_token_s - r.arrival_s)
-            for r in completed if r.first_token_s is not None
-        ]
-        tpot = [
-            1000.0 * (r.last_token_s - r.first_token_s) / (len(r.generated) - 1)
-            for r in completed
-            if r.last_token_s is not None and len(r.generated) > 1
-        ]
+        """Completed / shed / failed requests, tokens, tokens/s and TTFT/TPOT
+        percentiles over the requests finished so far (host clock), with
+        the tracer's counts; published as `serve/*` gauges in the current
+        registry."""
+        completed_all, completed, ttft, tpot = self._completed_latencies()
+        # shed load (deadline/overloaded) is the engine keeping its budget;
+        # requests_failed is what remains (rejections, capacity)
+        shed = sum(r.stop_reason in _SHED_REASONS for r in completed_all)
         wall = (time.perf_counter() - self._t0) if self._t0 is not None else 0.0
         stats = {
             "serve/requests_completed": float(len(completed)),
-            "serve/requests_failed": float(
-                len(self.scheduler.completed) - len(completed) - shed
-            ),
+            "serve/requests_failed": float(len(completed_all) - len(completed) - shed),
             "serve/requests_shed": float(shed),
             "serve/requests_evicted": float(self.scheduler.evictions),
+            "serve/shed_total": float(self.scheduler.shed_total),
             "serve/deadline_total": float(self.scheduler.deadline_total),
             "serve/weights_generation": float(self.weights_generation),
             "serve/replayed_requests": float(self.replayed_requests),
@@ -506,8 +626,33 @@ class ServingEngine:
             "decode/cache_blocks_in_use": float(self.allocator.blocks_in_use),
             "decode/cache_peak_blocks_in_use": float(self.allocator.peak_in_use),
         }
-        for name, values in (("ttft", ttft), ("tpot", tpot)):
-            if values:
-                stats[f"serve/{name}_p50_ms"] = float(np.percentile(values, 50))
-                stats[f"serve/{name}_p99_ms"] = float(np.percentile(values, 99))
+        _percentiles(stats, ttft, tpot)
+        counts = get_tracer().counts()
+        stats["trace/events_recorded"] = float(counts["recorded"])
+        stats["trace/events_written"] = float(counts["written"])
+        stats["trace/requests_sampled"] = float(counts["requests_sampled"])
+        registry = get_registry()
+        for key, value in stats.items():
+            registry.gauge(key).set(value)
         return stats
+
+
+def _latencies(terminals: list) -> tuple[list, list, list[float], list[float]]:
+    completed = [r for r in terminals if r.stop_reason in ("eos", "max_tokens")]
+    ttft = [
+        1000.0 * (r.first_token_s - r.arrival_s)
+        for r in completed if r.first_token_s is not None
+    ]
+    tpot = [
+        1000.0 * (r.last_token_s - r.first_token_s) / (len(r.generated) - 1)
+        for r in completed
+        if r.last_token_s is not None and len(r.generated) > 1
+    ]
+    return terminals, completed, ttft, tpot
+
+
+def _percentiles(out: dict[str, float], ttft: list[float], tpot: list[float]) -> None:
+    for name, values in (("ttft", ttft), ("tpot", tpot)):
+        if values:
+            out[f"serve/{name}_p50_ms"] = float(np.percentile(values, 50))
+            out[f"serve/{name}_p99_ms"] = float(np.percentile(values, 99))

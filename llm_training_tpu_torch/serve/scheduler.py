@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler. Pure host logic.
 
-Counterpart of `llm_training_tpu/serve/scheduler.py` (without load
-shedding and tracing). Per engine step the scheduler decides:
+Counterpart of `llm_training_tpu/serve/scheduler.py`. Per engine step the
+scheduler decides:
 
 - **admission**: the head of the waiting queue joins when a decode slot is
   free AND the pool has blocks for its whole (re)prefill plus one decode
@@ -14,13 +14,26 @@ shedding and tracing). Per engine step the scheduler decides:
   dry, the lowest-priority running request (ties: youngest) is evicted,
   its blocks freed, and it is requeued at the FRONT with its progress
   folded into the prompt, so on re-admission it re-prefills and continues
-  (token-identically under greedy decoding);
+  (token-identically under greedy decoding).
+
+Two admission-control policies ride the same machinery:
+
 - **deadlines**: a request may carry a completion deadline (`deadline_s`,
   the protocol's `deadline_ms` anchored at arrival). `expire_deadlines`,
   called at the top of every engine step, ends past-deadline work with
   `stop_reason='deadline'` wherever it sits: still queued, or running
   (its blocks freed, the tokens already streamed standing as the partial
-  result).
+  result);
+- **load shedding**: the waiting queue is bounded (`max_queue`) and, once
+  a service-time estimate exists, projected TTFT is capped
+  (`shed_ttft_ms`). Over either limit the lowest-priority queued request
+  (ties: youngest, the eviction order) ends with
+  `stop_reason='overloaded'`. Intake itself never blocks.
+
+Every lifecycle transition emits a trace span (`telemetry/trace.py`): a
+request moves queue -> prefill -> decode (-> back to queue on eviction)
+and each phase it leaves becomes one span, so the spans tile its
+residency exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +42,8 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
+
+from llm_training_tpu_torch.telemetry.trace import get_tracer
 
 
 @dataclass
@@ -41,12 +56,16 @@ class ServeRequest:
     priority: int = 0  # higher = more important (evicted last)
     arrival_s: float = field(default_factory=time.perf_counter)
     # absolute (arrival-anchored, perf_counter clock) completion deadline;
-    # None = no deadline
+    # None = no deadline. Set from the protocol's relative `deadline_ms`.
     deadline_s: float | None = None
 
+    # runtime (scheduler-owned)
     generated: list[int] = field(default_factory=list)
-    # the chosen token's logprob, parallel to `generated`; None where it is
-    # unknown (restored from a journal that had none)
+    # chosen-token logprob per generated token (parallel to `generated`;
+    # the engine appends both together). None marks a token whose logprob
+    # is unknown — e.g. restored from a pre-logprob journal. RL rollout
+    # collection (rl/rollout.py) trains on these; eviction preserves them
+    # with `generated` so a fold-in requeue loses nothing.
     logprobs: list[float | None] = field(default_factory=list)
     emitted: int = 0  # tokens already streamed (an evict/resume never re-emits)
     slot: int | None = None
@@ -58,6 +77,30 @@ class ServeRequest:
     last_token_s: float | None = None
     evictions: int = 0
     stop_reason: str | None = None
+    # tracing (docs/observability.md#tracing): whether this request's
+    # events reach the trace.jsonl sink (sampling — the ring records all),
+    # the lifecycle phase currently open, when it opened, and the total
+    # time spent waiting in the queue (initial + post-eviction)
+    traced: bool = True
+    phase: str = "queue"
+    phase_start_s: float | None = None
+    queue_wait_s: float = 0.0
+
+    def advance_phase(self, new_phase: str, now: float | None = None) -> None:
+        """Close the open lifecycle phase as a trace span and enter
+        `new_phase`. Phases tile the request's residency wall-clock
+        exactly: each span starts where the previous one ended."""
+        if now is None:
+            now = time.perf_counter()
+        start = self.phase_start_s if self.phase_start_s is not None else self.arrival_s
+        get_tracer().span(
+            "serve", self.phase, start, now, write=self.traced,
+            request_id=self.id, residency=self.evictions,
+        )
+        if self.phase == "queue":
+            self.queue_wait_s += max(0.0, now - start)
+        self.phase = new_phase
+        self.phase_start_s = now
 
     @property
     def done(self) -> bool:
@@ -65,7 +108,8 @@ class ServeRequest:
 
     @property
     def decoding(self) -> bool:
-        """Prefill complete for this residency: one token per decode step."""
+        """Prefill complete for the current residency — the row produces
+        one token per decode step."""
         return (
             self.slot is not None
             and not self.done
@@ -75,15 +119,23 @@ class ServeRequest:
 
 @dataclass
 class SchedulerConfig:
-    max_batch: int  # decode slots (the decode step's batch)
+    max_batch: int  # decode slots (the decode program's static batch)
     max_model_len: int  # per-request cap: len(prompt) + max_new_tokens
     block_size: int
-    prefill_chunk: int  # tokens per prefill chunk
+    prefill_chunk: int  # tokens per prefill-chunk program call
+    # intake bound: queued (not running) requests past this are shed with
+    # stop_reason='overloaded'; None = unbounded (the pre-resilience
+    # behavior)
+    max_queue: int | None = None
+    # projected-TTFT bound: when the tail of the queue projects past this
+    # many milliseconds to its first token (estimated from completed
+    # requests' service times), shed until it doesn't; None disables
+    shed_ttft_ms: float | None = None
 
 
 class Scheduler:
-    """Owns the waiting queue, the slot map and the block accounting; the
-    `ServingEngine` executes what `admit`/`next_prefill`/
+    """Owns the waiting queue, the slot map, and the block accounting
+    policy; the `ServingEngine` executes what `admit`/`next_prefill`/
     `ensure_decode_blocks` decide."""
 
     def __init__(self, config: SchedulerConfig, allocator):
@@ -96,21 +148,38 @@ class Scheduler:
         self._free_slots = list(range(config.max_batch - 1, -1, -1))
         self.completed: list[ServeRequest] = []
         self.evictions = 0
-        self.deadline_total = 0  # 'deadline' terminations (queued + running)
+        self.shed_total = 0  # 'overloaded' terminations (load shedding)
+        self.deadline_total = 0  # 'deadline' terminations (queue + decode)
+        # EMA of completed requests' residency seconds (arrival -> done),
+        # the service-time estimate behind projected-TTFT shedding; None
+        # until the first completion (no estimate -> no TTFT shedding)
+        self._service_ema_s: float | None = None
+
+    # ------------------------------------------------------------ intake
 
     def submit(self, request: ServeRequest) -> ServeRequest | None:
         """Queue a request; returns it REJECTED (stop_reason='rejected')
-        instead when it is empty or can never fit max_model_len."""
+        instead when it can never fit max_model_len. Enqueueing may shed
+        (`stop_reason='overloaded'`) — the victim is the lowest-priority
+        QUEUED request, not necessarily this one — so callers must emit
+        terminals for everything newly in `completed`, not just the return
+        value."""
         total = len(request.prompt) + request.max_new_tokens
-        if (
-            len(request.prompt) == 0
-            or request.max_new_tokens < 1
-            or total > self.config.max_model_len
-        ):
+        if len(request.prompt) == 0 or request.max_new_tokens < 1:
             request.stop_reason = "rejected"
+        elif total > self.config.max_model_len:
+            request.stop_reason = "rejected"
+        if request.done:
             self.completed.append(request)
             return request
         self.waiting.append(request)
+        if not self._free_slots:
+            # saturated: nothing will drain this queue before the next
+            # decode completes, so the intake bound applies NOW (an honest
+            # synchronous 'overloaded'). With a slot free, the next step's
+            # admit -> shed pass decides — a burst that fits the free slots
+            # must not be shed on arrival order alone.
+            self.shed()
         return None
 
     @property
@@ -120,10 +189,13 @@ class Scheduler:
     def _blocks_for(self, tokens: int) -> int:
         return math.ceil(tokens / self.config.block_size)
 
+    # ------------------------------------------- deadlines + load shedding
+
     def expire_deadlines(self, now: float | None = None) -> None:
-        """End past-deadline requests with stop_reason='deadline': queued
-        ones before they cost a prefill, running ones with their blocks
-        freed. Callers emit the terminals from the `completed` diff."""
+        """Terminate past-deadline requests with stop_reason='deadline' —
+        queued ones before they cost a prefill FLOP, decoding ones with
+        their blocks freed and the already-streamed tokens standing as the
+        partial result. Callers emit terminals via the `completed` diff."""
         if now is None:
             now = time.perf_counter()
 
@@ -132,27 +204,90 @@ class Scheduler:
 
         for request in [r for r in self.waiting if expired(r)]:
             self.waiting.remove(request)
-            request.stop_reason = "deadline"
-            self.completed.append(request)
-            self.deadline_total += 1
+            self._terminate_queued(request, "deadline", now)
         for request in [r for r in self.running.values() if expired(r)]:
             self.finish(request, "deadline")
             self.deadline_total += 1
+            get_tracer().instant(
+                "serve", "deadline_expired", write=request.traced,
+                request_id=request.id, phase="decode",
+                n_tokens=len(request.generated),
+            )
+
+    def shed(self) -> None:
+        """Shed lowest-priority queued work (stop_reason='overloaded')
+        while the queue is over `max_queue` or its tail projects past
+        `shed_ttft_ms` to a first token. Reuses the eviction-priority
+        order, so under overload the queue keeps exactly the requests
+        eviction would have kept."""
+        while self.waiting and self._over_intake_limits():
+            victim = min(
+                self.waiting, key=lambda r: (r.priority, -r.arrival_s)
+            )
+            self.waiting.remove(victim)
+            self._terminate_queued(victim, "overloaded")
+
+    def _over_intake_limits(self) -> bool:
+        cfg = self.config
+        if cfg.max_queue is not None and len(self.waiting) > cfg.max_queue:
+            return True
+        projected = self.projected_ttft_ms(len(self.waiting) - 1)
+        return (
+            cfg.shed_ttft_ms is not None
+            and projected is not None
+            and projected > cfg.shed_ttft_ms
+        )
+
+    def projected_ttft_ms(self, queue_position: int) -> float | None:
+        """Estimated milliseconds to first token for the request at
+        `queue_position` (0 = head of the waiting queue): each max_batch-
+        sized wave ahead of it costs ~one EMA service time. A coarse,
+        monotone-in-depth estimate — None until a completion has seeded
+        the EMA."""
+        if self._service_ema_s is None or queue_position < 0:
+            return None
+        waves = queue_position // self.config.max_batch + 1
+        return 1000.0 * waves * self._service_ema_s
+
+    def _terminate_queued(
+        self, request: ServeRequest, stop_reason: str,
+        now: float | None = None,
+    ) -> None:
+        """Complete a never-admitted (or no-longer-resident) request from
+        the queue: no slot or blocks to release."""
+        request.stop_reason = stop_reason
+        request.advance_phase("done", now)
+        self.completed.append(request)
+        if stop_reason == "overloaded":
+            self.shed_total += 1
+        elif stop_reason == "deadline":
+            self.deadline_total += 1
+        get_tracer().instant(
+            "serve", "shed" if stop_reason == "overloaded" else "deadline_expired",
+            write=request.traced, request_id=request.id, phase="queue",
+            queue_depth=len(self.waiting), priority=request.priority,
+        )
+
+    # --------------------------------------------------------- admission
 
     def admit(self) -> list[ServeRequest]:
         """Admit waiting requests while a slot is free and the pool covers
-        each one's (re)prefill + one decode write. A head-of-queue request
-        the pool can NEVER hold fails with stop_reason='capacity' instead
-        of starving the queue behind it."""
+        each one's (re)prefill + one decode-step write. A head-of-queue
+        request the pool can NEVER satisfy (even with everything else
+        drained) fails with stop_reason='capacity' rather than starving
+        the queue behind it."""
         admitted = []
         while self.waiting and self._free_slots:
             request = self.waiting[0]
             resident = request.prompt + request.generated
-            blocks = self.allocator.alloc(self._blocks_for(len(resident) + 1))
+            needed = self._blocks_for(len(resident) + 1)
+            blocks = self.allocator.alloc(needed)
             if blocks is None:
                 if not self.running and not admitted:
+                    # nothing left to drain — this request cannot ever fit
                     self.waiting.popleft()
                     request.stop_reason = "capacity"
+                    request.advance_phase("done")
                     self.completed.append(request)
                     continue
                 break
@@ -162,15 +297,19 @@ class Scheduler:
             request.prefill_tokens = resident
             request.prefilled = 0
             request.cache_len = 0
+            request.advance_phase("prefill")
             self.running[request.slot] = request
             admitted.append(request)
         return admitted
+
+    # ----------------------------------------------------------- prefill
 
     def next_prefill(self) -> tuple[ServeRequest, list[int], int] | None:
         """(request, chunk_tokens, chunk_start) for the oldest running
         request with prompt left to prefill, or None."""
         pending = [
-            r for r in self.running.values() if r.prefilled < len(r.prefill_tokens)
+            r for r in self.running.values()
+            if r.prefilled < len(r.prefill_tokens)
         ]
         if not pending:
             return None
@@ -178,6 +317,8 @@ class Scheduler:
         start = request.prefilled
         chunk = request.prefill_tokens[start:start + self.config.prefill_chunk]
         return request, chunk, start
+
+    # ------------------------------------------------------------ decode
 
     def decode_rows(self) -> list[ServeRequest]:
         return [r for r in self.running.values() if r.decoding]
@@ -190,15 +331,26 @@ class Scheduler:
             if grown is not None:
                 request.blocks.extend(grown)
                 return True
-            victim = min(self.running.values(), key=lambda r: (r.priority, -r.arrival_s))
+            victim = self._eviction_victim()
             self.evict(victim)
             if victim is request:
                 return False
         return True
 
+    def _eviction_victim(self) -> ServeRequest:
+        return min(
+            self.running.values(), key=lambda r: (r.priority, -r.arrival_s)
+        )
+
     def evict(self, request: ServeRequest) -> None:
-        """Free the request's residency and requeue it at the front with
-        its progress folded in; streamed tokens are never re-emitted."""
+        """Free the request's residency and requeue it (front) with its
+        progress folded in; already-streamed tokens are never re-emitted."""
+        lost_cache = request.cache_len
+        request.advance_phase("queue")
+        get_tracer().instant(
+            "serve", "evicted", write=request.traced, request_id=request.id,
+            lost_cache_tokens=lost_cache, generated=len(request.generated),
+        )
         self._release(request)
         request.evictions += 1
         self.evictions += 1
@@ -207,10 +359,22 @@ class Scheduler:
         request.cache_len = 0
         self.waiting.appendleft(request)
 
+    # -------------------------------------------------------- completion
+
     def finish(self, request: ServeRequest, stop_reason: str) -> None:
+        request.advance_phase("done")
         self._release(request)
         request.stop_reason = stop_reason
         self.completed.append(request)
+        if stop_reason in ("eos", "max_tokens"):
+            # successful completions seed the service-time estimate behind
+            # projected-TTFT shedding (beta 0.8: a few requests converge it,
+            # one outlier doesn't own it)
+            service_s = max(0.0, time.perf_counter() - request.arrival_s)
+            if self._service_ema_s is None:
+                self._service_ema_s = service_s
+            else:
+                self._service_ema_s = 0.8 * self._service_ema_s + 0.2 * service_s
 
     def _release(self, request: ServeRequest) -> None:
         del self.running[request.slot]

@@ -19,8 +19,8 @@ only, copied). Two pieces, both consumed by `callbacks.NanGuard` (the run-health
   so post-mortem starts from a file instead of a scrollback hunt.
 
 JAX's dump also writes the trace ring's flight dump beside the file and
-arms a device profile under the same tag; the tracer and the profile
-trigger are not ported yet (ROADMAP A.7).
+arms a device profile under the same tag; `fit`'s share of the tracer and
+the profile trigger comes with ROADMAP A.7b.
 """
 
 from __future__ import annotations

@@ -35,6 +35,8 @@ from pathlib import Path
 
 import torch
 
+from llm_training_tpu_torch.telemetry.trace import get_tracer
+
 logger = logging.getLogger(__name__)
 
 _MEMORY_STAT_KEYS = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit", "bytes_reserved")
@@ -139,8 +141,8 @@ class HBMTimeline:
     record to `<run_dir>/hbm.jsonl` (at most `LLMT_HBM_TIMELINE_MAX`
     records), and counts `hbm_timeline/highwater_events` (with a warning)
     the first time a card crosses `LLMT_HBM_HIGHWATER_FRAC` of its memory,
-    re-armed when it falls back below. JAX also emits a trace instant
-    there; the tracer is not ported yet (ROADMAP A.7)."""
+    re-armed when it falls back below, with a `hbm/highwater` trace
+    instant as JAX's."""
 
     def __init__(
         self,
@@ -191,6 +193,8 @@ class HBMTimeline:
                 self._highwater_events += 1
                 if self._registry is not None:
                     self._registry.counter("hbm_timeline/highwater_events").inc()
+                get_tracer().instant("hbm", "highwater", device=device_id, step=step,
+                                     frac=round(frac, 4), limit_bytes=limit)
                 logger.warning("device %d memory high water: %.1f%% of %.2f GiB at step %d",
                                device_id, frac * 100, limit / 2**30, step)
             elif frac < self.highwater_frac:

@@ -1,0 +1,403 @@
+"""Triggered device-profile captures.
+
+Counterpart of `llm_training_tpu/telemetry/profiling.py`. When the host
+side decides something is wrong (an SLO breach, a hang watchdog about to
+abort, an operator hitting `/profilez` or the serve `{"type": "profile"}`
+line), the NEXT few steps are the ones worth a device profile.
+`ProfileTrigger` splits the work in two:
+
+- The **request surface** (`request()`, `schedule()`, `status()`) is
+  callable from any thread and only records intent, enforcing the capture
+  budget and cooldown (`LLMT_PROFILE_*` envs) and bumping `profile/*`
+  counters, as JAX's does.
+- The **capture side** (`poll()`, `teardown()`) runs ONLY in the loop that
+  owns the device (the serve engine loop). Where JAX drives
+  `jax.profiler`, it drives `torch.profiler` with the CPU activity and,
+  when the trigger was built for the card (`cuda=True`), the CUDA one,
+  and writes the window as a Chrome trace `trace.json` into
+  `profile-<tag>/`, with a `profile-<tag>.json` manifest beside it. A
+  capture that fails counts `profile/errors` and never stops the loop.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import threading
+import time
+from pathlib import Path
+
+from llm_training_tpu_torch.telemetry.trace import get_tracer
+
+logger = logging.getLogger(__name__)
+
+# fallback artifact root when no run dir is known (mirrors the old
+# ProfilerCallback default, so unconfigured captures stay findable)
+DEFAULT_TRACE_ROOT = "runs/profile"
+
+_TAG_SANITIZE = re.compile(r"[^A-Za-z0-9._-]+")
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        logger.warning("ignoring malformed %s=%r (want a float)", name, raw)
+        return default
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(_env_float(name, float(default)))
+
+
+def sanitize_tag(tag: str) -> str:
+    """Tags become file/dir names next to the flight dumps; collapse
+    anything path-hostile instead of refusing the capture."""
+    return _TAG_SANITIZE.sub("-", str(tag)).strip("-") or "capture"
+
+
+class ProfileTrigger:
+    """On-demand `torch.profiler` capture windows with budget + cooldown.
+
+    One instance per process, owned by the loop that owns the device and
+    published through `set_profile_trigger` so the thread-safe layers (SLO
+    monitor, watchdog, exporter handlers, serve reader) can reach the
+    request surface without importing anything device-shaped.
+    """
+
+    def __init__(
+        self,
+        run_dir=None,
+        registry=None,
+        budget: int | None = None,
+        cooldown_s: float | None = None,
+        window_steps: int | None = None,
+        clock=time.monotonic,
+        cuda: bool = False,
+    ):
+        self.run_dir = Path(run_dir) if run_dir else None
+        self._registry = registry
+        self._clock = clock
+        # env knobs (docs/observability.md#profiling); explicit args win
+        self.budget = (
+            budget if budget is not None
+            else _env_int("LLMT_PROFILE_BUDGET", 4)
+        )
+        self.cooldown_s = (
+            cooldown_s if cooldown_s is not None
+            else _env_float("LLMT_PROFILE_COOLDOWN_S", 120.0)
+        )
+        self.window_steps = max(1, (
+            window_steps if window_steps is not None
+            else _env_int("LLMT_PROFILE_STEPS", 2)
+        ))
+        root = os.environ.get("LLMT_PROFILE_DIR")
+        if root:
+            self.artifact_root = Path(root)
+        elif self.run_dir is not None:
+            self.artifact_root = self.run_dir
+        else:
+            self.artifact_root = Path(DEFAULT_TRACE_ROOT)
+        self._lock = threading.Lock()
+        self._pending: dict | None = None  # guarded by: _lock — accepted request awaiting poll()
+        self._scheduled: list[dict] = []  # guarded by: _lock — config step windows
+        self._active: dict | None = None  # guarded by: _lock — the open capture
+        self._captures = 0  # guarded by: _lock
+        self._requested = 0  # guarded by: _lock
+        self._suppressed = 0  # guarded by: _lock
+        self._last_accept_t: float | None = None  # guarded by: _lock
+        self._history: list[dict] = []  # guarded by: _lock — completed captures (bounded)
+        self._torn_down = False  # guarded by: _lock
+        self.cuda = cuda  # trace the CUDA activity too (the loop runs on the card)
+        self._profiler = None  # owner loop only: the open torch.profiler.profile
+
+    # ------------------------------------------------- thread-safe request side
+
+    def request(self, tag: str, source: str = "manual") -> dict:
+        """Arm a capture window for the owning loop's next `poll()`.
+
+        Thread-safe and thread-safe: callable from scrape handlers, the SLO
+        breach path, the watchdog poll thread, the serve reader. Returns
+        `{"accepted": bool, "reason": ..., "tag": ...}`; a refusal is an
+        answer, not an error. Counter side effects emit AFTER the lock is
+        released (the SLOMonitor pattern), so this lock adds no edge into
+        the registry leaf."""
+        tag = sanitize_tag(tag)
+        now = self._clock()
+        with self._lock:
+            if self._torn_down:
+                reason = "torn-down"
+            elif self._active is not None or self._pending is not None:
+                # the profiler does not nest; one window at a time
+                reason = "busy"
+            elif self._captures + len(self._scheduled) >= self.budget:
+                reason = "budget"
+            elif (
+                self._last_accept_t is not None
+                and now - self._last_accept_t < self.cooldown_s
+            ):
+                reason = "cooldown"
+            else:
+                reason = None
+                self._last_accept_t = now
+                self._pending = {"tag": tag, "source": source, "t_request": now}
+            self._requested += 1
+            if reason is not None:
+                self._suppressed += 1
+        registry = self._registry
+        if registry is not None:
+            registry.counter("profile/requested").inc()
+            if reason is not None:
+                registry.counter("profile/suppressed").inc()
+                registry.counter(f"profile/suppressed/{reason}").inc()
+        if reason is not None:
+            logger.info(
+                "profile request %r (source %s) suppressed: %s",
+                tag, source, reason,
+            )
+        return {"accepted": reason is None, "reason": reason, "tag": tag}
+
+    def schedule(
+        self,
+        start_step: int,
+        num_steps: int,
+        trace_dir: str | None = None,
+        max_steps: int | None = None,
+        source: str = "window",
+    ) -> bool:
+        """Register a config-time step window (the absorbed
+        ProfilerCallback path): capture steps `[start_step, start_step +
+        num_steps)`, stop boundary clamped to `max_steps` so a window
+        overrunning the fit still closes inside the loop. Scheduled
+        windows are explicit operator config — they count against the
+        budget up front but bypass the cooldown."""
+        stop_step = start_step + num_steps
+        if max_steps is not None:
+            stop_step = min(stop_step, max_steps)
+        if stop_step <= start_step:
+            logger.warning(
+                "profile window [%d, %d) truncated to nothing; not tracing",
+                start_step, start_step + num_steps,
+            )
+            return False
+        entry = {
+            "tag": sanitize_tag(f"window-{start_step}"),
+            "source": source,
+            "start_step": start_step,
+            "stop_step": stop_step,
+            "trace_dir": trace_dir,
+        }
+        with self._lock:
+            self._scheduled.append(entry)
+        return True
+
+    def status(self) -> dict:
+        """Thread-safe snapshot for `/profilez` and tests."""
+        with self._lock:
+            return {
+                "budget": self.budget,
+                "cooldown_s": self.cooldown_s,
+                "window_steps": self.window_steps,
+                "requested": self._requested,
+                "captures": self._captures,
+                "suppressed": self._suppressed,
+                "active": self._active["tag"] if self._active else None,
+                "pending": self._pending["tag"] if self._pending else None,
+                "scheduled": [dict(s) for s in self._scheduled],
+                "history": [dict(h) for h in self._history[-8:]],
+            }
+
+    # --------------------------------------------- capture side (owner loop)
+
+    def poll(self, step: int) -> None:
+        """Drive at most ONE capture transition for this step. Called only
+        by the loop that owns the device; the profiler calls happen outside the
+        lock, and stop-before-start means a window closing this step never
+        nests with one opening."""
+        start_info = stop_info = None
+        with self._lock:
+            if self._active is not None:
+                if step >= self._active["stop_step"]:
+                    stop_info = self._active
+                    self._active = None
+            else:
+                info = self._take_due_locked(step)
+                if info is not None:
+                    self._active = info
+                    start_info = info
+        if stop_info is not None:
+            self._finish_capture(stop_info, step)
+        if start_info is not None and not self._begin_capture(start_info):
+            with self._lock:
+                self._active = None
+
+    def _take_due_locked(self, step: int) -> dict | None:
+        """The next capture due at `step`, with its window resolved.
+        Caller holds `_lock`."""
+        if self._torn_down:
+            return None
+        if self._pending is not None:
+            info, self._pending = self._pending, None
+            info = dict(info)
+            info["start_step"] = step
+            info["stop_step"] = step + self.window_steps
+            info.setdefault("trace_dir", None)
+            return info
+        for i, entry in enumerate(self._scheduled):
+            # never start a window whose clamped stop boundary has passed
+            # (a resume landing past the window must not open a trace only
+            # teardown would close)
+            if entry["start_step"] <= step < entry["stop_step"]:
+                del self._scheduled[i]
+                return dict(entry)
+            if step >= entry["stop_step"]:
+                del self._scheduled[i]
+                return self._take_due_locked(step)
+        return None
+
+    def _trace_dir(self, info: dict) -> Path:
+        explicit = info.get("trace_dir")
+        if explicit:
+            return Path(explicit)
+        return self.artifact_root / f"profile-{info['tag']}"
+
+    def _begin_capture(self, info: dict) -> bool:
+        trace_dir = self._trace_dir(info)
+        try:
+            import torch
+
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+            self._profiler = profiler
+        except Exception as e:  # noqa: BLE001 — profiling must never kill the run
+            logger.warning(
+                "profile capture %r failed to start (%s)", info["tag"], e
+            )
+            if self._registry is not None:
+                self._registry.counter("profile/errors").inc()
+            return False
+        info["trace_dir"] = str(trace_dir)
+        info["t_start"] = self._clock()
+        with self._lock:
+            self._captures += 1
+        registry = self._registry
+        if registry is not None:
+            registry.counter("profile/captures").inc()
+            registry.gauge("profile/last_capture_step").set(
+                float(info["start_step"])
+            )
+        get_tracer().instant(
+            "profile", "start", tag=info["tag"], source=info["source"],
+            step=info["start_step"],
+        )
+        logger.info(
+            "device profile %r started at step %d -> %s",
+            info["tag"], info["start_step"], info["trace_dir"],
+        )
+        return True
+
+    def _finish_capture(self, info: dict, step: int, reason: str = "window") -> None:
+        profiler, self._profiler = self._profiler, None
+        try:
+            if self.cuda:
+                import torch
+
+                torch.cuda.synchronize()
+            profiler.stop()
+            profiler.export_chrome_trace(
+                str(Path(info["trace_dir"]) / "trace.json")
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.warning(
+                "profile capture %r failed to stop (%s)", info["tag"], e
+            )
+            if self._registry is not None:
+                self._registry.counter("profile/errors").inc()
+            return
+        duration = self._clock() - info.get("t_start", self._clock())
+        record = {
+            "tag": info["tag"],
+            "source": info["source"],
+            "start_step": info["start_step"],
+            "stop_step": step,
+            "trace_dir": info.get("trace_dir"),
+            "duration_s": round(duration, 4),
+            "stopped_by": reason,
+        }
+        with self._lock:
+            self._history.append(record)
+            del self._history[:-32]
+        registry = self._registry
+        if registry is not None:
+            registry.gauge("profile/last_capture_duration_s").set(duration)
+        get_tracer().instant(
+            "profile", "stop", tag=info["tag"], step=step, reason=reason,
+        )
+        self._write_manifest(record)
+        logger.info(
+            "device profile %r stopped at step %d (%.2fs)",
+            info["tag"], step, duration,
+        )
+
+    def _write_manifest(self, record: dict) -> None:
+        """`profile-<tag>.json` beside the capture dir — what `report`
+        reads. Never raises: a manifest error must not mask the condition
+        being profiled."""
+        try:
+            self.artifact_root.mkdir(parents=True, exist_ok=True)
+            path = self.artifact_root / f"profile-{record['tag']}.json"
+            with open(path, "w") as f:
+                json.dump(record, f)
+                f.write("\n")
+        except OSError as e:
+            logger.warning("profile manifest write failed: %s", e)
+
+    def teardown(self) -> None:
+        """Stop a dangling capture (fit died mid-window) and refuse
+        further requests. Idempotent; owner-loop only (it stops the profiler)."""
+        with self._lock:
+            self._torn_down = True
+            active, self._active = self._active, None
+            self._pending = None
+            self._scheduled = []
+        if active is not None:
+            self._finish_capture(
+                active, active["start_step"], reason="teardown"
+            )
+
+
+# Process-global trigger, mirroring trace.py's get_tracer/set_tracer: the
+# thread-safe layers (slo breach path, watchdog dump, anomaly dump, serve
+# reader) resolve the owner loop's trigger through this module global.
+_current_lock = threading.Lock()
+_current: ProfileTrigger | None = None  # guarded by: _current_lock
+
+
+def set_profile_trigger(trigger: ProfileTrigger | None) -> None:
+    global _current
+    with _current_lock:
+        _current = trigger
+
+
+def get_profile_trigger() -> ProfileTrigger | None:
+    with _current_lock:
+        return _current
+
+
+def build_profile_trigger(registry=None, run_dir=None, **kwargs) -> ProfileTrigger:
+    """Construct a trigger and publish it as the process global. Always
+    returns one (unlike `build_slo_monitor` there is no arming config —
+    `LLMT_PROFILE_BUDGET=0` refuses every request but keeps the counters
+    and `/profilez` answering honestly)."""
+    trigger = ProfileTrigger(run_dir=run_dir, registry=registry, **kwargs)
+    set_profile_trigger(trigger)
+    return trigger

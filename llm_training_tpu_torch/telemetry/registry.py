@@ -105,20 +105,32 @@ class TelemetryRegistry:
             return self._timers.setdefault(name, Timer(self._lock, self._clock))
 
     def snapshot(self) -> dict[str, float]:
-        """Every metric as `{name: float}` under ONE lock hold, so a reader
-        landing mid-write never observes a torn metric (a Timer's `_s`/`_n`
-        pair moves together); a gauge never set is left out."""
+        """Every metric as `{name: float}`; one flatten for both
+        `telemetry.jsonl` and the `/metrics` scrape."""
+        return self.snapshot_with_kinds()[0]
+
+    def snapshot_with_kinds(self) -> tuple[dict[str, float], dict[str, str]]:
+        """(values, kinds) under ONE lock hold, so a reader landing
+        mid-write never observes a torn metric (a Timer's `_s`/`_n` pair
+        moves together); a gauge never set is left out. Kinds map to
+        Prometheus types: counters and timer accumulators are 'counter',
+        everything else 'gauge'."""
         with self._lock:
             values: dict[str, float] = {}
+            kinds: dict[str, str] = {}
             for name, counter in self._counters.items():
                 values[name] = counter._value
+                kinds[name] = "counter"
             for name, gauge in self._gauges.items():
                 if gauge._value is not None:
                     values[name] = gauge._value
+                    kinds[name] = "gauge"
             for name, timer in self._timers.items():
                 values[name + "_s"] = timer.total_s
                 values[name + "_n"] = float(timer.count)
-            return values
+                kinds[name + "_s"] = "counter"
+                kinds[name + "_n"] = "counter"
+            return values, kinds
 
 
 # ---------------------------------------------------------------- current

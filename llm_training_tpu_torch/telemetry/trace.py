@@ -1,0 +1,710 @@
+"""Request-lifecycle tracing and the crash flight recorder.
+
+Counterpart of `llm_training_tpu/telemetry/trace.py` (standard library
+only), with its record schema field for field, so either package's
+`trace.jsonl` reads and exports through either package. A process-wide
+`TraceRecorder` collects span/instant events (monotonic timestamps,
+category, name, and correlation ids such as `request_id`) into
+
+- a **bounded ring buffer** that always records, the *flight recorder*
+  that the hang watchdog and the SLO monitor dump next to their own dump
+  files; and
+- an optional **`trace.jsonl` sink** in the run directory, fed only by
+  *sampled* events (every `LLMT_TRACE_SAMPLE`-th serve request; per-step
+  train spans only with `LLMT_TRACE_TRAIN=1`).
+
+`python -m llm_training_tpu_torch trace <run_dir>` exports the sink as
+Chrome-trace JSON for Perfetto: one track per request, one for the
+serving engine's steps, one for the trainer's phases.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Iterator
+
+logger = logging.getLogger(__name__)
+
+# flush the sink every N written events: bounds both the syscall rate on
+# hot paths and how much a crash can tear off the tail
+_FLUSH_EVERY = 64
+
+# serve request-lifecycle phase names, in order (docs/observability.md)
+REQUEST_PHASES = ("queue", "prefill", "decode")
+
+
+def _env_int(name: str, default: int, minimum: int = 1) -> int:
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    try:
+        return max(minimum, int(raw))
+    except ValueError:
+        logger.warning("ignoring malformed %s=%r (want an int)", name, raw)
+        return default
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    return raw != "0"
+
+
+def clock_anchor(clock=time.perf_counter) -> dict:
+    """One wall↔monotonic anchor pair: trace timestamps are monotonic
+    process time (unalignable across processes on their own), so each
+    sink/flight-dump leads with this sample. `wall_s ≈ wall(mono_s)`
+    within `err_s` — the wall read is bracketed by two monotonic reads
+    and the half-width bounds the pairing error, which is exactly the
+    |skew| bound `trace --merge` alignment inherits (test-pinned)."""
+    m0 = clock()
+    wall = time.time()
+    m1 = clock()
+    try:
+        attempt = int(os.environ.get("LLMT_SUPERVISOR_ATTEMPT") or 0)
+    except ValueError:
+        attempt = 0
+    return {
+        "wall_s": wall,
+        "mono_s": 0.5 * (m0 + m1),
+        "err_s": max(0.0, 0.5 * (m1 - m0)),
+        "pid": os.getpid(),
+        "attempt": attempt,
+    }
+
+
+class TraceRecorder:
+    """Bounded ring of span/instant events + an optional jsonl sink.
+
+    Every `record` lands in the ring (the flight recorder); only events
+    with `write=True` reach the sink — callers gate that flag on sampling
+    (`sample_request()`) or the train-step switch (`train_steps`). All
+    mutation goes through one lock, so any thread may record.
+    """
+
+    def __init__(
+        self,
+        capacity: int | None = None,
+        sample_every: int | None = None,
+        train_steps: bool | None = None,
+        enabled: bool | None = None,
+        clock=time.perf_counter,
+    ):
+        # env overlay (docs/observability.md#tracing-env): explicit args win
+        self.capacity = capacity or _env_int("LLMT_TRACE_RING", 2048)
+        self.sample_every = sample_every or _env_int("LLMT_TRACE_SAMPLE", 1)
+        self.train_steps = (
+            train_steps if train_steps is not None
+            else _env_flag("LLMT_TRACE_TRAIN", False)
+        )
+        self.enabled = (
+            enabled if enabled is not None else _env_flag("LLMT_TRACE", True)
+        )
+        self.clock = clock
+        self._ring: deque[dict] = deque(maxlen=self.capacity)  # guarded by: _lock
+        self._lock = threading.Lock()
+        self._sink = None  # guarded by: _lock
+        self._sink_path: Path | None = None  # guarded by: _lock
+        self._unflushed = 0  # guarded by: _lock
+        self._recorded = 0  # guarded by: _lock
+        self._written = 0  # guarded by: _lock
+        self._flight_dumps = 0  # guarded by: _lock
+        self._requests_seen = 0  # guarded by: _lock
+        self._requests_sampled = 0  # guarded by: _lock
+
+    # ------------------------------------------------------------ sink
+
+    def attach_sink(self, path: str | Path) -> bool:
+        """Open `path` for appending sampled events; False when tracing is
+        disabled or a sink is already attached (the first owner keeps it —
+        a later owner must not steal the sink the first one opened)."""
+        if not self.enabled:
+            return False
+        with self._lock:
+            if self._sink is not None:
+                return False
+            path = Path(path)
+            try:
+                path.parent.mkdir(parents=True, exist_ok=True)
+                self._sink = open(path, "a")
+            except OSError:
+                logger.exception("trace sink %s unavailable — ring only", path)
+                self._sink = None
+                return False
+            self._sink_path = path
+            self._unflushed = 0
+        # one-time wall↔monotonic anchor so cross-process merges can align
+        # this file (docs/observability.md#fleet); emitted OUTSIDE the
+        # attach lock — instant() takes it again
+        anchor = clock_anchor(self.clock)
+        self.instant("meta", "clock_anchor", ts=anchor["mono_s"], **anchor)
+        self.flush()
+        return True
+
+    def detach_sink(self) -> None:
+        with self._lock:
+            sink, self._sink, self._sink_path = self._sink, None, None
+        if sink is not None:
+            try:
+                sink.flush()
+                sink.close()
+            except OSError:
+                logger.exception("trace sink close failed")
+
+    def flush(self) -> None:
+        with self._lock:
+            if self._sink is not None:
+                try:
+                    self._sink.flush()
+                except OSError:
+                    logger.exception("trace sink flush failed")
+                self._unflushed = 0
+
+    @property
+    def sink_path(self) -> Path | None:
+        return self._sink_path
+
+    # ------------------------------------------------------------ record
+
+    def _record(self, event: dict, write: bool) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self._ring.append(event)
+            self._recorded += 1
+            if write and self._sink is not None:
+                try:
+                    self._sink.write(json.dumps(event) + "\n")
+                except (OSError, TypeError, ValueError):
+                    logger.exception("trace sink write failed (event dropped)")
+                    return
+                self._written += 1
+                self._unflushed += 1
+                if self._unflushed >= _FLUSH_EVERY:
+                    try:
+                        self._sink.flush()
+                    except OSError:
+                        pass
+                    self._unflushed = 0
+
+    def span(
+        self, cat: str, name: str, t0: float, t1: float,
+        write: bool = True, **args,
+    ) -> None:
+        """One complete span [t0, t1) (Chrome-trace 'X' phase). Timestamps
+        are this recorder's clock (monotonic seconds)."""
+        event = {"ts": t0, "dur": max(0.0, t1 - t0), "ph": "X",
+                 "cat": cat, "name": name}
+        if args:
+            event["args"] = args
+        self._record(event, write)
+
+    def instant(
+        self, cat: str, name: str, ts: float | None = None,
+        write: bool = True, **args,
+    ) -> None:
+        event = {"ts": self.clock() if ts is None else ts, "ph": "i",
+                 "cat": cat, "name": name}
+        if args:
+            event["args"] = args
+        self._record(event, write)
+
+    @contextmanager
+    def measure(
+        self, cat: str, name: str, write: bool = True, **args
+    ) -> Iterator[None]:
+        t0 = self.clock()
+        try:
+            yield
+        finally:
+            self.span(cat, name, t0, self.clock(), write=write, **args)
+
+    # ---------------------------------------------------------- sampling
+
+    def sample_request(self) -> bool:
+        """Admission decision for one serve request's sink events: every
+        `sample_every`-th submitted request is traced (the ring records
+        all of them regardless)."""
+        with self._lock:
+            nth = self._requests_seen
+            self._requests_seen += 1
+            sampled = self.enabled and nth % self.sample_every == 0
+            if sampled:
+                self._requests_sampled += 1
+            return sampled
+
+    # ----------------------------------------------------- flight recorder
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def flight_dump(self, run_dir: str | Path, tag: str) -> Path | None:
+        """Write the ring's last-N events to `trace-flight-<tag>.jsonl` in
+        `run_dir` — the crash flight recorder. Returns the path, or None on
+        failure; never raises (a dump error must not mask the failure being
+        dumped)."""
+        try:
+            events = self.snapshot()
+            run_dir = Path(run_dir)
+            run_dir.mkdir(parents=True, exist_ok=True)
+            path = run_dir / f"trace-flight-{tag}.jsonl"
+            # lead with a fresh anchor: flight dumps are exactly the files
+            # that get merged across replicas post-mortem
+            anchor = clock_anchor(self.clock)
+            anchor_event = {
+                "ts": anchor["mono_s"], "ph": "i", "cat": "meta",
+                "name": "clock_anchor", "args": anchor,
+            }
+            with open(path, "w") as f:
+                f.write(json.dumps(anchor_event) + "\n")
+                for event in events:
+                    f.write(json.dumps(event) + "\n")
+            with self._lock:
+                self._flight_dumps += 1
+            logger.warning(
+                "flight recorder: %d trace events dumped to %s",
+                len(events), path,
+            )
+            return path
+        except Exception:
+            logger.exception("flight dump failed (tag %s)", tag)
+            return None
+
+    def counts(self) -> dict[str, int]:
+        with self._lock:
+            return {
+                "recorded": self._recorded,
+                "written": self._written,
+                "flight_dumps": self._flight_dumps,
+                "requests_seen": self._requests_seen,
+                "requests_sampled": self._requests_sampled,
+            }
+
+
+# ---------------------------------------------------------------- current
+# A plain module global (same rationale as registry.py): worker threads and
+# independently constructed components (scheduler, watchdog, NaN guard) must
+# find the process tracer without plumbing.
+_current_tracer: TraceRecorder | None = None  # guarded by: _current_lock
+_current_lock = threading.Lock()
+
+
+def get_tracer() -> TraceRecorder:
+    """The process tracer (constructed from env on first use)."""
+    global _current_tracer
+    with _current_lock:
+        if _current_tracer is None:
+            _current_tracer = TraceRecorder()
+        return _current_tracer
+
+
+def set_tracer(tracer: TraceRecorder) -> TraceRecorder | None:
+    """Install `tracer` as current; returns the previous one (tests restore
+    it in a finally)."""
+    global _current_tracer
+    with _current_lock:
+        previous = _current_tracer
+        _current_tracer = tracer
+        return previous
+
+
+# ---------------------------------------------------------------- reading
+
+
+def resolve_trace_file(source: str | Path) -> Path | None:
+    """`source` may be a trace.jsonl (or flight dump) file itself or a run
+    directory holding trace.jsonl."""
+    source = Path(source)
+    if source.is_file():
+        return source
+    if source.is_dir():
+        candidate = source / "trace.jsonl"
+        if candidate.is_file():
+            return candidate
+    return None
+
+
+def read_trace_events(path: str | Path) -> list[dict]:
+    """Tolerant jsonl read: torn/malformed lines and non-dict records are
+    skipped — a killed run's trace must still export."""
+    events: list[dict] = []
+    try:
+        text = Path(path).read_text()
+    except OSError:
+        return events
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            record = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(record, dict) and "ts" in record and "name" in record:
+            events.append(record)
+    return events
+
+
+# ----------------------------------------------------------------- export
+
+_PIDS = {"serve": 1, "train": 2, "resilience": 3}
+_ENGINE_TID = 1
+_REQUEST_TID_BASE = 10
+
+
+def to_chrome_trace(
+    events: list[dict],
+    ts_offset_s: float = 0.0,
+    pid_base: int = 0,
+    label: str | None = None,
+) -> dict:
+    """Chrome-trace-format JSON (the Perfetto/about:tracing schema):
+    serving requests become one track each (tid per request id, named),
+    engine steps one track, trainer phases one track, resilience events
+    their own track. Timestamps convert to microseconds (the format's
+    unit); by default they are monotonic process time, so Perfetto shows
+    a relative timeline.
+
+    The merge hooks: `ts_offset_s` shifts every timestamp (wall-aligned
+    callers pre-rebase and pass 0), `pid_base` namespaces this source's
+    process ids so merged replicas never collide, and `label` prefixes
+    every process_name (`replica-0/serve`). `cat == "meta"` events
+    (clock anchors) steer alignment but never render."""
+    out: list[dict] = []
+    request_tids: dict[str, int] = {}
+    prefix = f"{label}/" if label else ""
+    for name, pid in _PIDS.items():
+        out.append({"ph": "M", "pid": pid_base + pid, "tid": 0,
+                    "name": "process_name", "args": {"name": prefix + name}})
+    out.append({"ph": "M", "pid": pid_base + _PIDS["serve"],
+                "tid": _ENGINE_TID,
+                "name": "thread_name", "args": {"name": "engine"}})
+    out.append({"ph": "M", "pid": pid_base + _PIDS["train"], "tid": 1,
+                "name": "thread_name", "args": {"name": "trainer phases"}})
+    out.append({"ph": "M", "pid": pid_base + _PIDS["resilience"], "tid": 1,
+                "name": "thread_name", "args": {"name": "events"}})
+    for event in events:
+        try:
+            cat = str(event.get("cat", "other"))
+            if cat == "meta":
+                continue
+            pid = pid_base + _PIDS.get(cat, 9)
+            args = event.get("args") or {}
+            request_id = args.get("request_id")
+            if cat == "serve" and request_id is not None:
+                rid = str(request_id)
+                tid = request_tids.get(rid)
+                if tid is None:
+                    tid = _REQUEST_TID_BASE + len(request_tids)
+                    request_tids[rid] = tid
+                    out.append({
+                        "ph": "M", "pid": pid, "tid": tid,
+                        "name": "thread_name", "args": {"name": f"req {rid}"},
+                    })
+            else:
+                tid = _ENGINE_TID if cat == "serve" else 1
+            converted = {
+                "name": str(event.get("name", "?")),
+                "cat": cat,
+                "ph": "X" if event.get("ph") == "X" else "i",
+                "ts": (float(event["ts"]) + ts_offset_s) * 1e6,
+                "pid": pid,
+                "tid": tid,
+            }
+            if converted["ph"] == "X":
+                converted["dur"] = float(event.get("dur", 0.0)) * 1e6
+            else:
+                converted["s"] = "t"  # thread-scoped instant
+            if args:
+                converted["args"] = args
+            out.append(converted)
+        except (TypeError, ValueError, KeyError):
+            continue  # one malformed record must not sink the export
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+# ------------------------------------------------------------------ merge
+
+
+def _extract_anchors(events: list[dict]) -> list[tuple[float, float, float]]:
+    """Sorted `(mono_s, wall_offset_s, err_s)` triples from the file's
+    `clock_anchor` meta events; `ts + wall_offset_s` is wall time."""
+    anchors: list[tuple[float, float, float]] = []
+    for event in events:
+        if event.get("cat") != "meta" or event.get("name") != "clock_anchor":
+            continue
+        args = event.get("args") or {}
+        try:
+            mono = float(args["mono_s"])
+            wall = float(args["wall_s"])
+            err = float(args.get("err_s", 0.0))
+        except (KeyError, TypeError, ValueError):
+            continue
+        anchors.append((mono, wall - mono, err))
+    anchors.sort()
+    return anchors
+
+
+def wall_align(events: list[dict]) -> tuple[list[dict], float] | None:
+    """Rebase every event's monotonic `ts` to wall seconds, SEGMENT-WISE:
+    each event uses the nearest preceding anchor (a supervised relaunch
+    appends a fresh anchor to the same trace.jsonl, and its events must
+    align by the new process's clock pair, not the dead one's). Events
+    before the first anchor use the first. Returns `(aligned, max_err_s)`
+    — the per-file contribution to the merge skew bound — or None when
+    the file holds no anchor at all (pre-anchor traces cannot merge)."""
+    import bisect
+
+    anchors = _extract_anchors(events)
+    if not anchors:
+        return None
+    monos = [a[0] for a in anchors]
+    aligned: list[dict] = []
+    for event in events:
+        if event.get("cat") == "meta":
+            continue
+        try:
+            ts = float(event["ts"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        i = max(0, bisect.bisect_right(monos, ts) - 1)
+        rebased = dict(event)
+        rebased["ts"] = ts + anchors[i][1]
+        aligned.append(rebased)
+    return aligned, max(a[2] for a in anchors)
+
+
+def merge_traces(sources: list[str | Path]) -> tuple[dict, dict]:
+    """Merge N runs' traces into ONE wall-aligned Chrome-trace document:
+    per-source events rebase monotonic→wall via their anchors, the global
+    earliest event becomes t=0, and each source gets its own pid
+    namespace + label so two replicas' request tracks render side by
+    side. Raises ValueError (naming every offending path) on a missing
+    trace file or an anchorless one. The cross-replica |skew| is bounded
+    by the SUM of the two worst anchor half-widths — `info['skew_bound_s']`,
+    pinned by the round-trip test."""
+    resolved: list[tuple[Path, Path]] = []
+    missing: list[str] = []
+    for source in sources:
+        path = resolve_trace_file(source)
+        if path is None:
+            missing.append(
+                f"{source} (searched {source} and "
+                f"{Path(source) / 'trace.jsonl'})"
+            )
+        else:
+            resolved.append((Path(source), path))
+    if missing:
+        raise ValueError("no trace file for: " + "; ".join(missing))
+    aligned_all: list[tuple[str, list[dict]]] = []
+    labels_seen: set[str] = set()
+    errs: list[float] = []
+    for index, (src, path) in enumerate(resolved):
+        events = read_trace_events(path)
+        if not events:
+            raise ValueError(f"{path} holds no parseable events")
+        aligned = wall_align(events)
+        if aligned is None:
+            raise ValueError(
+                f"{path} holds no clock_anchor meta event — cannot "
+                "wall-align (anchors are emitted at sink attach; re-record "
+                "with the current tracer)"
+            )
+        events_wall, err = aligned
+        if not events_wall:
+            raise ValueError(f"{path} holds only meta events")
+        label = src.name if src.is_dir() else (src.parent.name or src.stem)
+        if label in labels_seen:
+            label = f"{label}#{index}"
+        labels_seen.add(label)
+        aligned_all.append((label, events_wall))
+        errs.append(err)
+    t0 = min(e["ts"] for _, evs in aligned_all for e in evs)
+    merged: list[dict] = []
+    for index, (label, evs) in enumerate(aligned_all):
+        rebased = [dict(e, ts=e["ts"] - t0) for e in evs]
+        document = to_chrome_trace(
+            rebased, pid_base=(index + 1) * 100, label=label
+        )
+        merged.extend(document["traceEvents"])
+    worst_pair = sorted(errs, reverse=True)[:2]
+    info = {
+        "sources": [str(path) for _, path in resolved],
+        "labels": [label for label, _ in aligned_all],
+        "events": sum(len(evs) for _, evs in aligned_all),
+        "t0_wall_s": t0,
+        "skew_bound_s": sum(worst_pair),
+    }
+    return {"traceEvents": merged, "displayTimeUnit": "ms"}, info
+
+
+# ---------------------------------------------------------------- summary
+
+
+def summarize_trace(events: list[dict], top_k: int = 3) -> dict:
+    """Aggregates for `report`'s `== Trace ==` section and the JSON report:
+    per-(category, name) span totals, plus the top-k slowest completed
+    serve requests with their queue/prefill/decode breakdowns. ttft_ms per
+    request comes from its `first_token` instant — the same value the
+    engine put in the protocol's done event."""
+    spans: dict[str, dict] = {}
+    requests: dict[str, dict] = {}
+    # per-stop_reason terminal counts: under the resilience layer
+    # (docs/serving.md#resilience) deadline/overloaded terminations are
+    # normal operation, and "every request one honest terminal" is exactly
+    # what a trace reader wants to audit
+    terminal_reasons: dict[str, int] = {}
+    # trace.jsonl appends across runs (like metrics.jsonl), and callers
+    # (load drivers) reuse ids like req-0 per run — a `submit` for an id
+    # whose previous incarnation already completed starts a NEW logical
+    # request (keyed id#N), so phases never merge across runs
+    live: dict[str, str] = {}
+
+    def request_for(rid: str, is_submit: bool) -> dict:
+        key = live.get(rid)
+        if key is None or (
+            is_submit and requests[key].get("stop_reason") is not None
+        ):
+            n = sum(
+                1 for k in requests if k == rid or k.startswith(rid + "#")
+            )
+            key = rid if n == 0 else f"{rid}#{n + 1}"
+            live[rid] = key
+            requests[key] = {"id": key, "phase_s": {}, "evictions": 0}
+        return requests[key]
+
+    for event in events:
+        try:
+            args = event.get("args") or {}
+            name = str(event.get("name", "?"))
+            cat = str(event.get("cat", "other"))
+            rid = args.get("request_id")
+            if rid is not None:
+                request = request_for(str(rid), name == "submit")
+            if event.get("ph") == "X":
+                dur = float(event.get("dur", 0.0))
+                agg = spans.setdefault(
+                    f"{cat}/{name}",
+                    {"count": 0, "total_s": 0.0, "max_s": 0.0},
+                )
+                agg["count"] += 1
+                agg["total_s"] += dur
+                agg["max_s"] = max(agg["max_s"], dur)
+                if rid is not None and name in REQUEST_PHASES:
+                    phases = request["phase_s"]
+                    phases[name] = phases.get(name, 0.0) + dur
+            elif rid is not None:
+                if name == "first_token" and "ttft_ms" in args:
+                    request["ttft_ms"] = float(args["ttft_ms"])
+                elif name == "evicted":
+                    request["evictions"] += 1
+                elif name == "done":
+                    request["stop_reason"] = args.get("stop_reason")
+                    if "n_tokens" in args:
+                        request["n_tokens"] = int(args["n_tokens"])
+                    reason = str(args.get("stop_reason"))
+                    terminal_reasons[reason] = terminal_reasons.get(reason, 0) + 1
+        except (TypeError, ValueError):
+            continue
+    completed = [
+        r for r in requests.values()
+        if r.get("stop_reason") in ("eos", "max_tokens")
+    ]
+    for request in requests.values():
+        request["wall_s"] = sum(request["phase_s"].values())
+    slowest = sorted(completed, key=lambda r: -r["wall_s"])[:top_k]
+    return {
+        "events": len(events),
+        "spans": spans,
+        "requests_traced": len(requests),
+        "requests_completed": len(completed),
+        "terminal_reasons": terminal_reasons,
+        "slowest_requests": [
+            {
+                "id": r["id"],
+                "wall_ms": round(1000.0 * r["wall_s"], 3),
+                **{
+                    f"{phase}_ms": round(1000.0 * r["phase_s"].get(phase, 0.0), 3)
+                    for phase in REQUEST_PHASES
+                },
+                "ttft_ms": r.get("ttft_ms"),
+                "n_tokens": r.get("n_tokens"),
+                "evictions": r["evictions"],
+            }
+            for r in slowest
+        ],
+    }
+
+
+# -------------------------------------------------------------------- CLI
+
+
+def trace_main(
+    source: str | None = None,
+    out: str | None = None,
+    merge: list[str] | None = None,
+) -> int:
+    """`python -m llm_training_tpu_torch trace <run_dir|trace.jsonl> [--out file]`: export
+    the trace sink as Chrome-trace JSON for Perfetto (ui.perfetto.dev →
+    Open trace file). `--merge <dir>...` instead wall-aligns N runs into
+    one file (per-replica pid namespaces — docs/observability.md#fleet).
+    Exit 2 — naming every path searched — when no trace file is
+    reachable."""
+    import sys
+
+    if merge:
+        try:
+            document, info = merge_traces(list(merge))
+        except ValueError as e:
+            print(f"trace: {e}", file=sys.stderr)
+            return 2
+        first = Path(merge[0])
+        out_path = Path(out) if out else (
+            first / "trace-merged.json" if first.is_dir()
+            else first.with_name("trace-merged.json")
+        )
+        out_path.write_text(json.dumps(document))
+        print(
+            f"trace: merged {info['events']} events from "
+            f"{len(info['sources'])} source(s) "
+            f"({', '.join(info['labels'])}) -> {out_path} "
+            f"(|skew| <= {1e3 * info['skew_bound_s']:.3f}ms)"
+        )
+        print("open in Perfetto: https://ui.perfetto.dev (Open trace file)")
+        return 0
+    if source is None:
+        print("trace: need a source (or --merge <dir>...)", file=sys.stderr)
+        return 2
+    path = resolve_trace_file(source)
+    if path is None:
+        print(
+            f"trace: no trace file found — searched {source} and "
+            f"{Path(source) / 'trace.jsonl'} — run with tracing "
+            "enabled first (docs/observability.md#tracing)",
+            file=sys.stderr,
+        )
+        return 2
+    events = read_trace_events(path)
+    if not events:
+        print(f"trace: {path} holds no parseable events", file=sys.stderr)
+        return 2
+    document = to_chrome_trace(events)
+    out_path = Path(out) if out else path.with_name("trace-export.json")
+    out_path.write_text(json.dumps(document))
+    summary = summarize_trace(events)
+    print(
+        f"trace: exported {summary['events']} events "
+        f"({summary['requests_traced']} request track(s)) from {path} "
+        f"-> {out_path}"
+    )
+    print("open in Perfetto: https://ui.perfetto.dev (Open trace file)")
+    return 0

@@ -396,3 +396,74 @@ def test_prefetcher_places_batches_on_the_card(cuda):
     got = [batch["input_ids"] for batch, _ in prefetcher]
     assert [int(t[0, 0]) for t in got] == list(range(5))
     assert all(t.is_cuda and bool((t == i).all()) for i, t in enumerate(got))
+
+
+@pytest.mark.cuda
+def test_profile_trigger_captures_cuda_kernels(cuda, tmp_path):
+    """The serve loop's profile trigger on the card: a `torch.profiler`
+    window holding CUDA kernel events, its manifest, no `profile/errors`."""
+    import json
+
+    from llm_training_tpu_torch.telemetry.profiling import ProfileTrigger
+    from llm_training_tpu_torch.telemetry.registry import TelemetryRegistry
+
+    registry = TelemetryRegistry()
+    trigger = ProfileTrigger(run_dir=tmp_path, registry=registry, budget=1, cooldown_s=0.0,
+                             window_steps=1, cuda=True)
+    assert trigger.request("card")["accepted"]
+    trigger.poll(1)
+    a = torch.randn(256, 256, device=cuda)
+    (a @ a).sum().item()
+    trigger.poll(2)
+    events = json.loads((tmp_path / "profile-card" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert (tmp_path / "profile-card.json").exists()
+    snapshot = registry.snapshot()
+    assert snapshot["profile/captures"] == 1.0 and "profile/errors" not in snapshot
+
+
+@pytest.mark.cuda
+def test_engine_sheds_and_decodes_through_the_kernel(cuda):
+    """A bounded queue on the card: the queued request ends `overloaded`,
+    the admitted one decodes through K4 once a layer a decode step, the
+    plain decode path never; the tracer saw the engine's steps."""
+    from llm_training_tpu_torch.models.llama.config import LlamaConfig
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops import paged_attention as ops_pa
+    from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+    from llm_training_tpu_torch.telemetry import trace
+
+    config = LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=256,
+                         num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=2,
+                         head_dim=64, max_position_embeddings=128, compute_dtype="bfloat16",
+                         param_dtype="bfloat16")
+    model = Llama(config, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(0))
+    engine = ServingEngine(model.eval(), ServeConfig(max_batch=1, max_model_len=64, max_queue=0,
+                                                     prefill_chunk=8, eos_token_id=None),
+                           device=cuda)
+    tracer = trace.TraceRecorder(capacity=1024, sample_every=1, enabled=True)
+    previous = trace.set_tracer(tracer)
+    plain = [0]
+    real = ops_pa._gather_attention
+
+    def gather(q, *args, **kwargs):
+        plain[0] += q.shape[1] == 1
+        return real(q, *args, **kwargs)
+
+    ops_pa._gather_attention = gather
+    before = kernels.paged_decode_attention.launches
+    try:
+        events = engine.submit("a", [3, 4, 5], max_new_tokens=6)
+        events += engine.submit("b", [6, 7], max_new_tokens=6)
+        while not engine.scheduler.idle:
+            events += engine.step()
+    finally:
+        ops_pa._gather_attention = real
+        trace.set_tracer(previous)
+    done = {e["id"]: e["stop_reason"] for e in events if e["type"] == "done"}
+    assert done == {"a": "max_tokens", "b": "overloaded"}
+    launches = kernels.paged_decode_attention.launches - before
+    assert launches == engine.decode_steps * config.num_hidden_layers > 0 and plain[0] == 0
+    assert engine.live_stats()["serve/requests_shed"] == 1.0
+    assert sum(e["name"] == "engine_step" for e in tracer.snapshot()) == engine.step_index

@@ -65,6 +65,8 @@ print(json.dumps(sorted(set(sys.modules) - before)))
     assert "llm_training_tpu_torch.ops.kernels.flash_attention" in added
     for module in ("durability", "supervisor", "elastic"):
         assert f"llm_training_tpu_torch.resilience.{module}" in added
+    for module in ("trace", "slo", "exporter", "profiling"):
+        assert f"llm_training_tpu_torch.telemetry.{module}" in added
     bad = [name for name in added if _forbidden(name)]
     assert not bad, f"the port pulled in {bad}"
 
@@ -147,3 +149,28 @@ print(json.dumps(dict(rc=rc, drained=drained, codes=codes, calls=calls,
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == dict(rc=0, drained=True, codes=[0, 0], calls=[], initialized=False,
                        mirrored=[1])
+
+
+@pytest.mark.skipif(__import__("torch").cuda.is_available(),
+                    reason="this machine has CUDA: the default device is available")
+def test_serve_preset_needs_cuda_unless_cpu_is_asked_for(tmp_path):
+    """`serve --preset` starts on `cuda` by default: without a card it
+    refuses before it builds anything; `--device cpu` is the only way onto
+    the CPU (shown with a narrow `--model-config`)."""
+    run = subprocess.run(
+        [sys.executable, "-m", "llm_training_tpu_torch", "serve", "--preset", "llama-3.1-8b"],
+        cwd=ROOT, input="", capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and "CUDA is not available" in run.stderr
+    model = tmp_path / "tiny.json"
+    model.write_text(json.dumps(dict(
+        vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=8, compute_dtype="float32",
+        param_dtype="float32")))
+    run = subprocess.run(
+        [sys.executable, "-m", "llm_training_tpu_torch", "serve", "--model-config", str(model),
+         "--device", "cpu", "--max-new-tokens", "2"],
+        cwd=ROOT, input='{"id": "a", "prompt": [1, 2]}\n', capture_output=True, text=True,
+        timeout=120)
+    assert run.returncode == 0, run.stderr[-2000:]
+    records = [json.loads(line) for line in run.stdout.splitlines()]
+    assert [r["type"] for r in records] == ["token", "token", "done", "stats"]

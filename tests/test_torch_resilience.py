@@ -222,19 +222,22 @@ def test_chaos_env_overlay_and_refused_keys(monkeypatch):
     config = config_from_env(ChaosConfig(spike_step=4))
     assert (config.nan_step, config.data_error_steps, config.slow_step_s,
             config.spike_step) == (7, (2, 5), 0.5, 4)
-    # the checkpoint's triggers and SIGKILL are ported (A.4); the serving
-    # tier's and the router's still raise, naming A.7
+    # the checkpoint's triggers and SIGKILL are ported (A.4), the serving
+    # tier's too (A.7a); the router's still raise, naming A.7c
     monkeypatch.setenv("LLMT_CHAOS_SIGKILL_STEP", "3")
     assert config_from_env().sigkill_step == 3
     monkeypatch.setenv("LLMT_CHAOS_SERVE_STALL_STEP", "3")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    assert config_from_env().serve_stall_step == 3
+    monkeypatch.setenv("LLMT_CHAOS_ROUTER_BLACKHOLE", "3")
+    with pytest.raises(NotImplementedError, match="A.7c"):
         config_from_env()
     for key, value in (("checkpoint_error_steps", (1,)), ("sigkill_step", 2),
                        ("ckpt_corrupt", "flip"), ("ckpt_kill_in_swap", 1),
-                       ("checkpoint_error_prob", 0.5)):
+                       ("checkpoint_error_prob", 0.5), ("serve_stall_step", 1),
+                       ("serve_sigterm_step", 1), ("serve_malformed_flood", 2)):
         assert ChaosConfig(**{key: value}).any_active(), key
-    for key, value in (("serve_stall_step", 1), ("router_blackhole_at", 1)):
-        with pytest.raises(NotImplementedError, match="A.7"):
+    for key, value in (("router_kill_replica_at", 1), ("router_blackhole_at", 1)):
+        with pytest.raises(NotImplementedError, match="A.7c"):
             ChaosConfig(**{key: value})
     assert ResilienceConfig(elastic={"price_per_chip_hour": 1.0}).elastic.price_per_chip_hour == 1.0
     with pytest.raises(ValueError):

@@ -597,19 +597,37 @@ def test_rl_fit_sigterm_drill_resumes(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("env,flags,match", [
-    ({}, ["--max-queue", "8"], "load shedding"),
+    ({}, ["--max-queue", "8"], None),
     ({"LLMT_SLO_TTFT_P99_MS": "50"}, [], "SLO monitor"),
     ({"LLMT_METRICS_PORT": "9400"}, [], "exporter"),
-    ({"LLMT_CHAOS_SERVE_SIGTERM_STEP": "5"}, [], "serve_sigterm_step"),
+    ({"LLMT_CHAOS_SERVE_SIGTERM_STEP": "5"}, [], None),
 ], ids=["max_queue", "slo", "metrics_port", "serve_chaos"])
 def test_rl_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, env, flags, match):
-    """What `rl-fit` cannot honour yet raises, naming ROADMAP A.7."""
+    """What `rl-fit` cannot honour yet raises, naming ROADMAP A.7b: an armed
+    SLO target and the exporter. `--max-queue` and the serve chaos triggers
+    are ported (A.7a): the queue bound reaches the engine's scheduler and
+    the trigger parses (zero rounds run no engine step, so it never
+    fires)."""
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match=match) as raised:
-        cli.main(["rl-fit", "--config", PORT_SMOKE_CONFIG, "--device", "cpu", *flags,
-                  f"run_root={tmp_path}"])
-    assert "A.7" in str(raised.value)
+    argv = ["rl-fit", "--config", PORT_SMOKE_CONFIG, "--device", "cpu", *flags,
+            f"run_root={tmp_path}"]
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match) as raised:
+            cli.main(argv)
+        assert "A.7b" in str(raised.value)
+        return
+    engines = []
+    real_setup = cli.RLLoop.setup
+
+    def setup(loop):
+        real_setup(loop)
+        engines.append(loop.engine)
+
+    monkeypatch.setattr(cli.RLLoop, "setup", setup)
+    assert cli.main([*argv, "--rounds", "0"]) == 0
+    scheduler = engines[0].scheduler.config
+    assert scheduler.max_queue == (8 if flags else None)
 
 
 def test_rl_fit_needs_grpo(tmp_path):

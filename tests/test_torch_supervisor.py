@@ -126,8 +126,12 @@ def test_supervisor_config_and_argv_match_jax():
                     "--ckpt-path", "4", "a=1", "--device", "cpu"]
     assert argv[4:] == jax_supervisor.build_fit_argv("c.json", ["a=1", "--device", "cpu"],
                                                      ckpt_path="4")[4:]
-    with pytest.raises(NotImplementedError, match="A.7"):
-        cli_main(["supervise", "--config", "c.json", "--child", "serve"])
+    serve = supervisor.build_serve_argv("c.json", ["--device", "cpu", "--max-queue", "4"],
+                                        ckpt_path="4")
+    assert serve[:4] == [sys.executable, "-m", "llm_training_tpu_torch", "serve"]
+    for args in ((["--device", "cpu", "--max-queue", "4"], "4"), ([], None)):
+        assert (supervisor.build_serve_argv("c.json", *args)[4:]
+                == jax_supervisor.build_serve_argv("c.json", *args)[4:])
 
 
 def test_stale_log_env_is_not_inherited(tmp_path, monkeypatch):
