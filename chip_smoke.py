@@ -12,16 +12,19 @@ Phases, each of which must pass (any failure exits non-zero):
    PyTorch version over head_dim x GQA group x window/cap x page size x
    four row layouts (ragged lengths to 2000, one long row, short rows, 65
    rows), in fp32 and bf16, each with an idle trash-block row; in bf16 the
-   split planner reaches 1, an intermediate count and 16 blocks a row;
+   split planner reaches 1, an intermediate count and 16 blocks a row; then
+   Phi-3's head_dim 96 at group 1 and 4, with its 2047-token window and
+   without, over rows of up to 3100 tokens;
 4. flash parity (K1-K3): the flash forward (O, LSE) and backward (dq, dk,
    dv, d_sinks) kernels against their plain versions over head_dim x GQA
    group x {causal, window, cap, sinks} x {one document, packed, padding
    tail}, in fp32 and bf16, at S 300, and at S 64 and 257 (lengths that
    cross the backward kernels' 128-row block, with a packed boundary at row
    64 inside a block), and as q_offset chunks of 100 and 170 rows (Sq != Skv,
-   not block multiples); every case has fully masked rows (O = 0, LSE =
-   -inf or the sink, dq = 0); then K1, K2 and K3 launched twice on one
-   input give the same bits;
+   not block multiples), and Phi-3's head_dim 96 (padded to 128 by the
+   wrapper) at group 1 with its 2047-token window at S 4096; every case has
+   fully masked rows (O = 0, LSE = -inf or the sink, dq = 0); then K1, K2
+   and K3 launched twice on one input give the same bits;
 5. serving: `ServingEngine` on a full-width, full-depth Llama-3.1-8B in
    bf16 (random weights drawn on the card from a seed) answers 16
    requests, half of them admitted while decode is running; all complete,
@@ -49,7 +52,7 @@ Phases, each of which must pass (any failure exits non-zero):
    sampler's Gumbel draw) against their plain versions at the fit's and
    the serving shapes (uniform bits equal, tokens equal), then timed;
 12. lifecycle (run after the training phase freed its memory): at
-   Llama-3.1-8B widths cut to 2 layers (fp32 params, bf16 compute; the
+   Llama-3.1-8B widths cut to 1 layer (fp32 params, bf16 compute; the
    fit phase's data, AdamW with clip, cosine/warmup over 4 steps, 2
    micro-batches a step), through the CLI's own builders and commands: an
    uninterrupted 4-step fit; the same run checkpointed (async, every 2
@@ -98,7 +101,7 @@ Phases, each of which must pass (any failure exits non-zero):
    packed 8192-token rows in turn, the example's AdamW (cosine, clip 1.0,
    accumulation 1) at the fit phase's peak. First it reads MemAvailable
    and fails if the pinned state would not fit, and times a plain 1 GiB
-   pinned copy each way. At 8 layers, 3 steps each: AdamW with its state
+   pinned copy each way. At 4 layers, 3 steps each: AdamW with its state
    on the card, prefetching 2 batches and 0 (losses equal; the device idle
    share of one traced step of each); AdamW with its state offloaded to
    pinned host memory as float32 (parameters and losses bit-equal to the
@@ -106,7 +109,7 @@ Phases, each of which must pass (any failure exits non-zero):
    limits of the on-card run. Then at full depth (32 layers), 4 steps:
    AdamW with int8 state offloaded, and Adafactor with its state on the
    card; step 1's loss near ln(vocab), the loss on each row lower at its
-   second visit. Then Lion at 8 layers. Every run: K1, K2 and K3 once a
+   second visit. Then Lion at 4 layers. Every run: K1, K2 and K3 once a
    layer a step (128 each at full depth), the plain path never, peak
    memory under the card's; it prints step and update ms, tokens/s, MFU,
    peak memory, pinned host bytes and, offloaded, the update's split
@@ -124,7 +127,7 @@ Phases, each of which must pass (any failure exits non-zero):
    equal to `torch.cuda.max_memory_allocated` within 1%, K1-K3 once a
    layer a step, the plain path never; it prints step p50 with and without
    health, the overhead, and the estimator's tokens/s and MFU beside the
-   smoke's own. b: the lifecycle's 2-layer full-width model under plain SGD
+   smoke's own. b: the lifecycle's 1-layer full-width model under plain SGD
    (a checkpoint of the parameters only), one committed save at step 2;
    chaos NaN at step 3 and spike at step 4: NanGuard raises, the trainer
    rolls back in-process twice, skips both windows and finishes, its
@@ -137,8 +140,8 @@ Phases, each of which must pass (any failure exits non-zero):
    and the main thread's stack while the run completes; a data error at
    batch 2 with `data_retries` 2 counts `data/retries` 1, losses equal.
 16. checkpoint durability, `supervise` and the `ckpt` command (run after
-   phase 15 freed its memory), on phase 15's 2-layer full-width model under
-   SGD (checkpoints of 5.95 GB), 4 steps, saves at 2 and 4 with `verify:
+   phase 15 freed its memory), on phase 15's 1-layer full-width model under
+   SGD (checkpoints of 5.07 GB), 4 steps, saves at 2 and 4 with `verify:
    full`, in three legs. a: in one process, the clean fit commits steps 2
    and 4 with manifests, the mirror (on the same disk) drains and both
    copies verify in full; one flipped byte in the primary step 4 is healed
@@ -159,10 +162,11 @@ Phases, each of which must pass (any failure exits non-zero):
    flipped byte makes `verify` exit 1 naming the step and the file, a
    missing root exits 2. K1-K3 launch in leg a's fits. It prints the
    manifest seconds and hashing rate, the mirror, verify, heal and fallback
-   seconds, and each process's wall time and restarts.
+   seconds, and each process's wall time and restarts. Once leg a's mirror
+   is gone, phase 19's round trip (d below) runs on leg a's checkpoints.
 17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
    engine through the `rl-fit` command, in legs. a: in a process of its
-   own, Llama-3.1-8B widths cut to 8 layers (fp32 params, bf16 compute,
+   own, Llama-3.1-8B widths cut to 4 layers (fp32 params, bf16 compute,
    selective recompute, random weights from seed 0), AdamW, beta 0.04,
    clip_eps 0.2, fused sync, no checkpointer; 3 rounds of 4 prompts x 8
    rollouts of 256 + 256 tokens (temperature 1, eos off, `max_batch` 32,
@@ -188,8 +192,9 @@ Phases, each of which must pass (any failure exits non-zero):
    drops none as stale, and exits 0 with the journal retired.
 18. `serve`'s resilience and live telemetry (run after phase 17 freed its
    memory), through the CLI in processes of their own, each counting K4's
-   launches and the plain decode path's calls (which must stay 0). a: full
-   depth, `--preset llama-3.1-8b` (bf16, random weights from seed 0),
+   launches and the plain decode path's calls (which must stay 0). a:
+   Llama-3.1-8B's widths cut to 8 layers (`--model-config`; bf16, random
+   weights from seed 0),
    `max_batch` 8, `max_model_len` 2048, chunk 256, greedy: 8 warm-up
    requests, then a burst of 48 (prompts of 32-1024 tokens, 64 new) --
    without shedding, then with `--max-queue 8 --shed-ttft-ms` twice the
@@ -202,7 +207,7 @@ Phases, each of which must pass (any failure exits non-zero):
    beat, while their engine steps cycle through all on, the tracer
    disabled and the journal detached: the host microseconds each costs a
    step, and each mode's decode-only step against the adjacent all-on
-   one; a microbenchmark gives the tracer's cost an event. b: 8 layers of the
+   one; a microbenchmark gives the tracer's cost an event. b: 2 layers of the
    same widths in fp32 (token equality across a drain needs the prefill
    and decode paths to agree closer than bf16 does): a 1-step SGD `fit`
    writes the checkpoint, one uninterrupted `serve --config` answers 16
@@ -216,12 +221,43 @@ Phases, each of which must pass (any failure exits non-zero):
    in bf16, a stall at engine step 10 under `--watchdog-timeout-s 6`: a
    hang dump and a flight dump, `/healthz` 503 before the abort, and the
    supervised relaunch finishes every request.
+19. HF checkpoint I/O and Phi-3 (run after phase 18 freed its memory), at
+   the published widths of Phi-3-mini-4k-instruct (hidden 3072, 32 layers,
+   32 q and kv heads of 96, vocab 32064, a 2047-token sliding window),
+   random bf16 weights from seed 0. a: `save_hf_checkpoint` writes two
+   safetensors shards, the index and `config.json` (seconds, GB/s). b:
+   `ModelProvider("HFCausalLM", {"hf_path": ...})` through the objectives'
+   `build_model`/`init_model` loads it on the card, every tensor equal to
+   the exported model's (seconds, GB/s); a `ServingEngine` (bf16, 8 slots,
+   `max_model_len` 4096, block 16, chunk 512) answers 16 requests of
+   1024-3072 prompt tokens and 128 new ones (most rows decode past the
+   window): all complete, the pool ends leak-free, K4 launches 32 times a
+   decode step, the plain decode path never; decode step p50, tokens/s,
+   TTFT p50, peak memory. c: DPO built from a JSON node whose model is
+   `HFCausalLM` over the same directory with `num_hidden_layers: 8`
+   (fp32 parameters, bf16 compute, selective recompute): policy and
+   reference loaded (the reference equal to the policy, the probed tensors
+   equal to the export's), the example's AdamW, 3 steps of 8 synthetic
+   pairs up to 2048 tokens: the first loss ln 2, K1 4 x 8 x 3 and K2/K3 2 x
+   8 x 3 launches, the plain path never; step p50, MFU, peak memory. d
+   (inside phase 16, on its leg a checkpoints of 5.07 GB): `convert_to_hf`
+   writes bf16 safetensors, `HFCausalLM` reloads them on the card: every
+   tensor equal to the restored model's rounded to bf16, and the logits of
+   one 2 x 1024 batch bit-equal (else the largest difference is printed,
+   and must stay within 8 bf16 steps of the largest logit). Then the
+   kernels at this slice's shapes against their plain versions and timed
+   beside their bounds: K4 at B 8, Hkv 32, D 96, window 2047, rows of
+   2048-3072; K1-K3 at B 8, S 2048, Hq = Hkv = 32, D 96 (padded to 128;
+   the bound counts 96), window 2047, with the plain versions and SDPA.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
-Every phase prints its wall time. It prints one `{"kernels": [...]}` line
-(launches from phase 17a, which runs all four kernels; phase 18's K4
-launches on a line of their own), the card's name and
-power limit, and as its last line `{"ok": true, "device": {...}}`.
+Every phase prints its wall time. It prints the four kernels at the
+earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
+17a) and phase 18's K4 launches on lines of their own, then one
+`{"kernels": [...]}` line for this slice's path (phase 19: K4 launches
+from its serving leg, K1-K3 from its DPO leg, times at its shapes), the
+card's name and power limit, and as its last line `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -234,6 +270,7 @@ import os
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -291,7 +328,7 @@ NO_FURTHER = 1.5
 TRAIN_LAYERS = 8
 TRAIN_SEQ = 8192
 # the lifecycle phase: its depth, steps, and where its checkpoints go
-LIFE_LAYERS = 2
+LIFE_LAYERS = 1  # cut from 2 to keep the smoke inside its time limit
 LIFE_STEPS = 4
 LIFE_DIR = ROOT / ".smoke_lifecycle"
 LIFE_DEVICE = "cuda"
@@ -331,7 +368,7 @@ PREFILL_RTOL = 1e-2
 # the optimizer phase: placement parity, prefetch and Lion at OPT_LAYERS for
 # OPT_STEPS steps; AdamW with int8 state offloaded, and Adafactor, at full
 # depth for OPT_FULL_STEPS steps; one packed 8192-token row a step
-OPT_LAYERS = 8
+OPT_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
 OPT_STEPS = 3
 OPT_FULL_LAYERS = 32
 OPT_FULL_STEPS = 4
@@ -378,12 +415,12 @@ OPT_LN_V_ATOL = 1.5
 OFFLOAD_LIMITS = {"bfloat16": {"loss": 1e-3, "params": 1e-2},
                   "int8": {"loss": 5e-3, "params": 0.3}}
 # phase 15: telemetry and resilience around fit
-RES_LAYERS = 8  # leg a: health at phase 14's 8-layer width
+RES_LAYERS = 8  # leg a: health at 8 layers (the layout of telemetry/health_keys.json)
 RES_STEPS = 6
 RES_DIR = ROOT / ".smoke_resilience"
 RES_DEVICE = "cuda"
-# legs b and c: the lifecycle's 2-layer model; plain SGD keeps a checkpoint to
-# the parameters (5.9 GB): AdamW's moments would triple every save and restore
+# legs b and c: the lifecycle's 1-layer model; plain SGD keeps a checkpoint to
+# the parameters (5.1 GB): AdamW's moments would triple every save and restore
 # of these legs at the ~0.7 GB/s the card's disk commits (phase 12 measures it)
 RES_SGD = dict(optimizer="sgd", learning_rate=3e-4, lr_scheduler="constant",
                grad_clip_norm=1.0)
@@ -396,8 +433,8 @@ RES_SPIKE_Z = 1000.0
 RES_WATCHDOG_S = 15.0
 RES_STALL_S = 20.0
 RES_MAX_DOC = 4096  # the packed rows' longest document (packed_batches' default)
-# phase 16: durability and the ckpt command, on phase 15's 2-layer
-# model under SGD (a checkpoint of the parameters, 5.95 GB)
+# phase 16: durability and the ckpt command, on phase 15's 1-layer
+# model under SGD (a checkpoint of the parameters, 5.07 GB)
 DUR_DIR = ROOT / ".smoke_durability"
 DUR_STEPS = 4
 DUR_COUNTERS = ("checkpoint/verify_failures", "checkpoint/mirror_restores",
@@ -542,13 +579,27 @@ def phase_kernel_parity(kernels) -> dict[str, float]:
                                 splits_seen.add(kernels.plan_splits(
                                     tables.shape[1] * page, 2 * len(lengths), sms))
                             n_cases += 1
+    # Phi-3: head_dim 96, MHA (and group 4), its 2047-token window over rows past it
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for group in (1, 4):
+            for window in (None, 2047):
+                case = decode_case([1, 16, 1500, 2100, 3100, 1], 16, 2, group, 96, dtype, n_cases)
+                case["block_tables"][-1] = 0
+                err = kernel_vs_plain(kernels, case, sliding_window=window)
+                check(err.pop("ok"), f"kernel parity: {name} D=96 G={group} window={window}: "
+                      f"errors {err}")
+                for key, value in err.items():
+                    worst[name][key] = max(worst[name].get(key, 0.0), value)
+                n_cases += 1
     check({1, kernels.MAX_SPLITS} <= splits_seen and len(splits_seen) >= 3,
           f"kernel parity: the bf16 cases split {sorted(splits_seen)} ways; they must reach 1, "
           f"an intermediate count and {kernels.MAX_SPLITS}")
     bf16 = worst["bfloat16"]
     print(
         f"kernel parity: {n_cases} cases pass (D 64/128 x G 1/4/8 x window 100 + cap 5 or "
-        f"neither x page 16/32 x {'/'.join(k4_layouts(16))}; bf16 split "
+        f"neither x page 16/32 x {'/'.join(k4_layouts(16))}; D 96 x G 1/4 x window 2047 or "
+        f"none over rows to 3100; bf16 split "
         f"{sorted(splits_seen)} ways); fp32 max abs err {worst['float32']['abs']:.3e} "
         f"(atol {FP32_ATOL}); bf16 max abs err {bf16['abs']:.3e}, worst row's max err "
         f"over its max |value| {bf16['row_rel']:.3e} (limit {BF16_ROW_RTOL}), vs fp32 plain "
@@ -961,6 +1012,11 @@ def phase_flash_parity() -> dict:
                                   None))
         for variant in variants:  # a chunk at q_offset 130, no block multiple
             cases.append((dtype, 64, 8, variant, "packed", 300, 170))
+    # Phi-3's shape: head_dim 96 (padded to 128 by the wrapper), MHA, its
+    # 2047-token window over rows of 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout in ("one_doc", "packed"):
+            cases.append((dtype, 96, 1, "window2047", layout, 4096, None))
     for n, (dtype, head_dim, group, variant, layout, seq, q_len) in enumerate(cases):
         rng = np.random.default_rng(n)
         other = "packed" if layout != "packed" else "one_doc"
@@ -973,6 +1029,8 @@ def phase_flash_parity() -> dict:
         sinks = None
         if variant == "window":
             opts["sliding_window"] = 100
+        elif variant == "window2047":
+            opts["sliding_window"] = 2047
         elif variant == "cap":
             opts["logits_soft_cap"] = 30.0
         elif variant == "sinks":
@@ -1006,8 +1064,8 @@ def phase_flash_parity() -> dict:
           "flash determinism: K2 or K3 gave other bits on a second launch (S 257)")
     print(f"flash parity: {len(cases)} cases pass (D 64/128 x G 1/4/8 x causal/window 100/"
           f"cap 30/sinks x one_doc/packed/padding_tail at S 300; S 64 and 257; q_offset chunks "
-          f"of 100 and 170 rows; fully masked rows exact; K1, K2 and K3 twice: identical "
-          f"bits); "
+          f"of 100 and 170 rows; D 96 G 1 window 2047 at S 4096; fully masked rows exact; K1, "
+          f"K2 and K3 twice: identical bits); "
           f"fp32 worst error over max|ref| (limit {FP32_ATOL}): {fp32}")
     print(f"flash parity: bf16 worst (out_row limit {BF16_ROW_RTOL}, out_row_vs_fp32 "
           f"{FLASH_OUT_VS_FP32:.3e}, grads {FLASH_GRAD_VS_BF16} / vs fp32 "
@@ -2119,6 +2177,8 @@ def optimizer_run(card: str, name: str, layers: int, steps: int, optim: dict,
     from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
     from llm_training_tpu_torch.lms.base import ModelProvider
     from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+
+    t_run = time.perf_counter()
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.ops.kernels import bench_flash
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
@@ -2271,6 +2331,8 @@ def optimizer_run(card: str, name: str, layers: int, steps: int, optim: dict,
           f"optimizer {name}: peak {peak_gb:.2f} GB")
     del state, trainer, objective, model, clock
     release()
+    result["wall_s"] = time.perf_counter() - t_run
+    print(f"optimizer {name}: {result['wall_s']:.1f} s in all", flush=True)
     return result
 
 
@@ -2689,7 +2751,7 @@ def res_rollback(card: str) -> dict:
 
 
 def res_run_config(name: str, trainer: dict) -> Path:
-    """A JSON config of leg c: the 2-layer model, SGD, the packed rows, a
+    """A JSON config of leg c: the lifecycle's model, SGD, the packed rows, a
     JSONL logger into `RES_DIR/c/<name>/run`."""
     node = {"max_steps": 4, "seed": 0, "log_every_n_steps": 1,
             "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
@@ -2834,7 +2896,7 @@ def phase_resilience(card: str) -> dict:
 
 
 def dur_config(name: str, trainer: dict | None = None, checkpoint: dict | None = None) -> dict:
-    """Phase 15's 2-layer full-width model, SGD and packed rows for 4 steps,
+    """Phase 15's full-width model, SGD and packed rows for 4 steps,
     saving every 2 steps (`verify: full`, three kept) into
     `DUR_DIR/<name>/ckpt`, a JSONL logger into `DUR_DIR/<name>/run/log`."""
     node = {"max_steps": DUR_STEPS, "seed": 0, "log_every_n_steps": 1,
@@ -3174,10 +3236,12 @@ def dur_cli(card: str) -> dict:
     return out
 
 
-def phase_durability(card: str) -> dict:
+def phase_durability(card: str, round_trip=None) -> dict:
     """Checkpoint durability, supervise and the ckpt command (see the
     header): after leg a, leg b's SIGKILL run goes on a thread while its
-    swap run and then leg c use leg a's root."""
+    swap run and then leg c use leg a's root. `round_trip(card, ckpt_dir,
+    out_dir)` runs on leg a's checkpoints once its mirror is gone (phase
+    19's `convert_to_hf` leg: no new large checkpoint)."""
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     shutil.rmtree(DUR_DIR, ignore_errors=True)
     DUR_DIR.mkdir()
@@ -3194,6 +3258,10 @@ def phase_durability(card: str) -> dict:
         # take the place of leg a's mirror, and leg c's mirror follows the
         # swap run
         shutil.rmtree(DUR_DIR / "a" / "mirror")
+        if round_trip is not None:
+            t0 = time.perf_counter()
+            out["hf_round_trip"] = round_trip(card, DUR_DIR / "a" / "ckpt", DUR_DIR / "hf")
+            out["hf_round_trip"]["leg_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         leg_b = LegThread(dur_sigkill)
         swap = dur_swap()
@@ -3226,7 +3294,7 @@ def phase_durability(card: str) -> dict:
 
 RL_DIR = ROOT / ".smoke_rl"
 RL_DEVICE = "cuda"
-RL_LAYERS = 8  # leg a: 8 layers at Llama-3.1-8B widths
+RL_LAYERS = 4  # leg a at Llama-3.1-8B widths (cut from 8 for the smoke's time limit)
 RL_SMALL_LAYERS = 2  # legs b and c
 RL_ROUNDS = 3
 RL_PROMPTS = 4  # prompts a round, x RL_GROUP rollouts each
@@ -3400,7 +3468,7 @@ def rl_update_flops(summary: dict) -> float:
 
 
 def rl_leg_a(card: str) -> dict:
-    """GRPO through `rl-fit` at 8 layers of Llama-3.1-8B widths, AdamW,
+    """GRPO through `rl-fit` at RL_LAYERS layers of Llama-3.1-8B widths, AdamW,
     fused sync, no checkpointer (see the header)."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
 
@@ -3670,7 +3738,7 @@ def rl_sync(card: str) -> dict:
 def rl_cast_cost(card: str) -> dict:
     """What decoding from fp32 master weights costs: leg a's engine reads
     the trainer's fp32 parameters and casts them to bf16 at each product.
-    The decode step of 32 rows of 256 + 64 tokens at 8 layers, from fp32
+    The decode step of 32 rows of 256 + 64 tokens at RL_LAYERS layers, from fp32
     parameters and from a bf16 copy, in turns (fp32, bf16, bf16, fp32)."""
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.models.llama.model import Llama
@@ -3798,9 +3866,10 @@ def phase_rl(card: str) -> dict:
 SV_DIR = ROOT / ".smoke_serve"
 SV_DEVICE = "cuda"
 SV_PRESET = "llama-3.1-8b"
-# leg a's model flags: the published preset (a CPU rehearsal passes a
-# `--model-config` file of a narrow model instead)
-SV_MODEL_ARGS = ["--preset", SV_PRESET]
+SV_A_LAYERS = 8  # leg a: the preset cut to 8 layers (for the smoke's time limit)
+# leg a's model flags: None is the preset cut to SV_A_LAYERS, written as a
+# `--model-config` file (a CPU rehearsal passes a file of a narrow model)
+SV_MODEL_ARGS = None
 SV_BATCH = 8
 SV_MAX_LEN = 2048
 SV_CHUNK = 256
@@ -3808,7 +3877,7 @@ SV_PROMPTS = (32, 1024)  # prompt lengths, inclusive
 SV_WARM = 8  # leg a: warm-up requests that seed the service-time EMA
 SV_BURST = 48  # leg a: then this many at once
 SV_NEW = 64
-SV_B_LAYERS = 8  # leg b: the journal and the supervisor, 2.80 B parameters
+SV_B_LAYERS = 2  # leg b: the journal and the supervisor (cut from 8 for the smoke's time limit)
 SV_B_REQUESTS = 16
 SV_B_NEW = 128
 SV_SIGTERM_STEP = 40
@@ -4307,12 +4376,18 @@ def sv_journal_cost() -> dict:
 
 
 def sv_leg_a(card: str) -> dict:
-    """Full depth: without shedding (scraped), then with shedding, on the
-    same requests; the tracer's, the journal's and the beat's cost a step
-    measured inside both processes."""
+    """SV_A_LAYERS layers: without shedding (scraped), then with shedding,
+    on the same requests; the tracer's, the journal's and the beat's cost a
+    step measured inside both processes."""
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.telemetry.exporter import find_free_port
 
+    global SV_MODEL_ARGS
+    if SV_MODEL_ARGS is None:
+        path = SV_DIR / f"model-{SV_A_LAYERS}.json"
+        path.write_text(json.dumps(dataclasses.asdict(
+            preset(SV_PRESET, num_hidden_layers=SV_A_LAYERS))))
+        SV_MODEL_ARGS = ["--model-config", str(path)]
     vocab = preset(SV_PRESET).vocab_size
     requests = sv_requests(0, SV_WARM + SV_BURST, SV_NEW, vocab, "r")
     warm, burst = requests[:SV_WARM], requests[SV_WARM:]
@@ -4665,6 +4740,467 @@ def phase_serve_resilience(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- phase 19: HF I/O + Phi-3
+
+HF_DIR = ROOT / ".smoke_hf"
+HF_DEVICE = "cuda"
+# the config.json of huggingface.co/microsoft/Phi-3-mini-4k-instruct
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                 num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                 max_position_embeddings=4096, original_max_position_embeddings=4096,
+                 sliding_window=2047, rms_norm_eps=1e-5, rope_theta=10000.0,
+                 bos_token_id=1, eos_token_id=32000, pad_token_id=32000,
+                 tie_word_embeddings=False)
+HF_SERVE = dict(max_batch=8, max_model_len=4096, block_size=16, prefill_chunk=512)
+HF_REQUESTS = 16
+HF_PROMPTS = (1024, 3072)  # prompt lengths, inclusive: most rows decode past the window
+HF_NEW = 128
+HF_DPO_LAYERS = 8
+HF_DPO_STEPS = 3
+# the optimizer of config/examples/phi-3/phi-3-mini_dpo.yaml: AdamW (the
+# default), 5e-7, linear with 50 warm-up steps, clip 1.0 (the default)
+HF_DPO_OPTIM = {"optimizer": "adamw", "learning_rate": 5e-7, "lr_scheduler": "linear",
+                "warmup_steps": 50}
+
+
+def hf_probes() -> tuple[str, ...]:
+    """Tensors the DPO leg's loaded policy is held to: the embeddings, the
+    head and its last layer's."""
+    last = f"model.layers.{HF_DPO_LAYERS - 1}."
+    return ("model.embed_tokens.weight", last + "self_attn.q_proj.weight",
+            last + "mlp.down_proj.weight", "lm_head.weight")
+
+
+@contextlib.contextmanager
+def count_plain_decode():
+    """Count single-token calls of the paged gather path (the plain decode
+    path, which the serving engine must never take on the card)."""
+    from llm_training_tpu_torch.ops import paged_attention as ops_pa
+
+    real = ops_pa._gather_attention
+    calls = [0]
+
+    def counted(q, *args, **kwargs):
+        calls[0] += q.shape[1] == 1
+        return real(q, *args, **kwargs)
+
+    ops_pa._gather_attention = counted
+    try:
+        yield calls
+    finally:
+        ops_pa._gather_attention = real
+
+
+def hf_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.glob("*.safetensors"))
+
+
+def hf_load(path: Path, **overrides):
+    """An `HFCausalLM` model built and loaded on the card through the
+    objective's own loader; (model, seconds)."""
+    from llm_training_tpu_torch.lms.base import (
+        BaseLMConfig,
+        ModelProvider,
+        build_model,
+        init_model,
+        resolve_pretrained_source,
+    )
+
+    t0 = time.perf_counter()
+    model = build_model(ModelProvider("HFCausalLM", {"hf_path": str(path), **overrides}),
+                        torch.device(HF_DEVICE), "phase 19")
+    lm = BaseLMConfig()
+    init_model(model, lm, resolve_pretrained_source(lm, model.config), torch.Generator())
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def hf_export(card: str):
+    """a) Phi-3-mini at its published widths, random bf16 weights from seed
+    0, written by `save_hf_checkpoint`: two shards and an index."""
+    from llm_training_tpu_torch.models.hf_io import save_hf_checkpoint
+    from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
+
+    config = Phi3Config(**PHI3_MINI, param_dtype="bfloat16", compute_dtype="bfloat16")
+    model = Phi3(config, device=HF_DEVICE)
+    model.init_weights(torch.Generator(device=HF_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    path = save_hf_checkpoint(model.state_dict(), config, HF_DIR / "phi-3-mini",
+                              dtype="bfloat16")
+    seconds = time.perf_counter() - t0
+    shards = sorted(p.name for p in path.glob("*.safetensors"))
+    check(shards == ["model-00001-of-00002.safetensors", "model-00002-of-00002.safetensors"]
+          and (path / "model.safetensors.index.json").exists()
+          and json.loads((path / "config.json").read_text())["model_type"] == "phi3",
+          f"hf export: files {sorted(p.name for p in path.iterdir())}")
+    nbytes = hf_bytes(path)
+    out = dict(params=n_params, bytes=nbytes, seconds=seconds, gb_per_s=nbytes / seconds / 1e9)
+    print(f"hf export [{card}]: phi-3-mini, {n_params} params in bf16, {nbytes} bytes in "
+          f"{len(shards)} shards in {seconds:.2f} s ({out['gb_per_s']:.2f} GB/s)", flush=True)
+    return model, path, out
+
+
+def hf_reload(card: str, exported, path: Path):
+    """b) `HFCausalLM` over the export at full depth, loaded on the card:
+    every tensor equal to the exported model's. (model, host copies of a
+    few exported tensors, the load's numbers)."""
+    from llm_training_tpu_torch.models.phi3 import Phi3
+
+    model, load_s = hf_load(path, param_dtype="bfloat16", compute_dtype="bfloat16")
+    nbytes = hf_bytes(path)
+    check(isinstance(model, Phi3) and model.config.sliding_window == 2047
+          and model.config.num_hidden_layers == PHI3_MINI["num_hidden_layers"],
+          f"hf load: {type(model).__name__} "
+          f"{model.config}")
+    mine, theirs = model.state_dict(), exported.state_dict()
+    differ = [n for n, t in theirs.items() if not torch.equal(t, mine[n])]
+    check(not differ, f"hf load: {len(differ)} tensors differ from the export: {differ[:4]}")
+    probes = {n: theirs[n].detach().to("cpu", copy=True) for n in hf_probes()}
+    print(f"hf load [{card}]: HFCausalLM -> Phi3, {nbytes} bytes to the card in {load_s:.2f} s "
+          f"({nbytes / load_s / 1e9:.2f} GB/s), every tensor equal to the export", flush=True)
+    return model.eval(), probes, dict(load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9)
+
+
+def hf_serve(card: str, model) -> dict:
+    """b) The serving engine answers 16 requests on the loaded model through
+    K4 at head_dim 96 with the 2047-token window, the plain decode path
+    never."""
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+    from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, ServeConfig(**HF_SERVE), device=HF_DEVICE)
+    decode_ms, prefill_ms = [], []
+
+    def timed(fn, sink):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(*args)
+            torch.cuda.synchronize()
+            sink.append(1e3 * (time.perf_counter() - t))
+            return result
+        return run
+
+    engine._run_decode = timed(engine._run_decode, decode_ms)
+    engine._run_prefill = timed(engine._run_prefill, prefill_ms)
+    rng = np.random.default_rng(19)
+    lens = rng.integers(HF_PROMPTS[0], HF_PROMPTS[1] + 1, size=HF_REQUESTS)
+    requests = [{"id": f"h{i}", "prompt": rng.integers(0, PHI3_MINI["vocab_size"], n).tolist(),
+                 "max_new_tokens": HF_NEW} for i, n in enumerate(lens)]
+    events: list[dict] = []
+    with count_plain_decode() as plain:
+        kernels.paged_decode_attention.launches = 0
+        t_run = time.perf_counter()
+        for request in requests:
+            events.extend(engine.submit(**request))
+        while not engine.scheduler.idle:
+            events.extend(engine.step())
+            check(engine.step_index < 20_000, "hf serve: the loop did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = kernels.paged_decode_attention.launches
+    done = {e["id"]: e for e in events if e["type"] == "done"}
+    stats = engine.stats()
+    layers = PHI3_MINI["num_hidden_layers"]
+    check(len(done) == HF_REQUESTS and all(
+        e["stop_reason"] == "max_tokens" and e["n_tokens"] == HF_NEW for e in done.values()),
+        f"hf serve: not every request completed: {[(k, v['stop_reason']) for k, v in done.items()]}")
+    check(engine.allocator.blocks_in_use == 0 and engine.logits_finite,
+          "hf serve: pool blocks leaked or logits not finite")
+    check(launches == layers * engine.decode_steps and launches > 0 and plain[0] == 0,
+          f"hf serve: {launches} K4 launches for {engine.decode_steps} decode steps x {layers} "
+          f"layers; {plain[0]} plain decode calls")
+    past = int(sum(n + HF_NEW > PHI3_MINI["sliding_window"] for n in lens))
+    out = dict(
+        launches=launches,
+        decode_steps=engine.decode_steps, launches_per_step=launches / engine.decode_steps,
+        plain_decode_calls=plain[0], prefill_chunks=engine.prefill_chunks,
+        rows_past_window=past, wall_s=wall,
+        tokens_per_s=stats["serve/tokens_generated"] / wall,
+        decode_step_ms_p50=percentile(decode_ms, 50),
+        prefill_chunk_ms_p50=percentile(prefill_ms, 50),
+        ttft_ms_p50=stats["serve/ttft_p50_ms"], tpot_ms_p50=stats["serve/tpot_p50_ms"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    print(f"hf serve [{card}]: phi-3-mini full depth, {len(done)}/{HF_REQUESTS} requests of "
+          f"{HF_PROMPTS[0]}-"
+          f"{HF_PROMPTS[1]} + {HF_NEW} tokens ({past} decode past the 2047 window); "
+          f"{engine.decode_steps} decode steps, {launches} K4 launches "
+          f"({out['launches_per_step']:.0f} a step), {plain[0]} plain decode calls; decode step "
+          f"p50 {out['decode_step_ms_p50']:.3f} ms, prefill chunk (512) p50 "
+          f"{out['prefill_chunk_ms_p50']:.3f} ms, {out['tokens_per_s']:.1f} tokens/s over "
+          f"{wall:.2f} s, TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
+          f"{out['tpot_ms_p50']:.3f} ms, peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
+    out.update(profile_decode(engine, card, rng))
+    del engine
+    return out
+
+
+def hf_dpo(card: str, path: Path, probes: dict) -> dict:
+    """c) DPO at 8 layers from the same directory (`num_hidden_layers` an
+    `HFCausalLM` override): policy and reference both loaded, the example's
+    AdamW, 3 steps of 8 synthetic pairs up to 2048 tokens, through K1-K3."""
+    from llm_training_tpu_torch.cli.config import instantiate_from_config
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    batches = preference_batches(19, HF_DPO_STEPS, PHI3_MINI["vocab_size"])
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Watch:
+        """Step clock, host metrics, and at fit start the loaded weights."""
+
+        def __init__(self):
+            self.step_s, self.metrics, self.t, self.loaded = [], [], None, {}
+
+        def on_fit_start(self, trainer, *args):
+            pair = trainer.state.model
+            self.loaded = dict(
+                ref_equals_policy=all(torch.equal(p, r) for p, r in zip(
+                    pair.policy.parameters(), pair.ref.parameters())),
+                probes_equal=all(torch.equal(
+                    pair.policy.state_dict()[n].cpu(), t.float()) for n, t in probes.items()),
+                loaded_layers=len(pair.policy.model.layers))
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.metrics.append(metrics)
+
+    objective = instantiate_from_config({"class_path": "llm_training_tpu.lms.DPO", "init_args": {
+        "model": {"model_class": "HFCausalLM", "model_kwargs": {
+            "hf_path": str(path), "num_hidden_layers": HF_DPO_LAYERS, "param_dtype": "float32",
+            "compute_dtype": "bfloat16", "enable_gradient_checkpointing": True,
+            "recompute_granularity": "selective"}},
+        "beta": PREF_BETA, "label_smoothing": 0.0, "logps_chunk_size": 128,
+        "optim": HF_DPO_OPTIM}})
+    watch = Watch()
+    trainer = Trainer(TrainerConfig(max_steps=HF_DPO_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[watch], device=HF_DEVICE)
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    fit_s = time.perf_counter() - t0
+    losses = [m["loss"] for m in watch.metrics]
+    policy = state.model.policy
+    n_matmul = sum(p.numel() for p in policy.parameters()) - policy.model.embed_tokens.weight.numel()
+    head_dim, hq = 96, PHI3_MINI["num_attention_heads"]
+    per_token = 8 * n_matmul  # 6 N a policy token, 2 N a reference token
+    per_pair = 16 * head_dim * hq * HF_DPO_LAYERS  # 12 D policy, 4 D reference
+    flops, tokens = [], []
+    for batch in batches:
+        n, f = 0, 0
+        for side in ("chosen", "rejected"):
+            seg = torch.as_tensor(batch[f"{side}_segment_ids"], device=HF_DEVICE)
+            side_tokens = int((batch[f"{side}_segment_ids"] > 0).sum())
+            n += side_tokens
+            f += per_token * side_tokens + per_pair * bench_flash.visible_pairs(
+                seg, seg, window=PHI3_MINI["sliding_window"])
+        tokens.append(n)
+        flops.append(f)
+    timed_s = watch.step_s[1:]
+    expected = [4 * HF_DPO_LAYERS * HF_DPO_STEPS] + [2 * HF_DPO_LAYERS * HF_DPO_STEPS] * 2
+    out = dict(layers=HF_DPO_LAYERS, steps=HF_DPO_STEPS, losses=losses, fit_s=fit_s,
+               widths=[b["chosen_input_ids"].shape[1] for b in batches], tokens=tokens,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+               step_ms_p50=1e3 * percentile(timed_s, 50),
+               step_ms=[1e3 * t for t in watch.step_s],
+               mfu=sum(flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **watch.loaded)
+    print(f"hf dpo [{card}]: phi-3-mini x {HF_DPO_LAYERS} layers from the export (policy and "
+          f"reference loaded: reference == policy {watch.loaded['ref_equals_policy']}, probes "
+          f"equal {watch.loaded['probes_equal']}), {HF_DPO_STEPS} steps of {PREF_PAIRS} pairs "
+          f"(widths {out['widths']}); losses " + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain path {plain[0]}; step "
+          f"p50 {out['step_ms_p50']:.1f} ms, MFU {100 * out['mfu']:.2f}% of 989 TFLOPS (8N a "
+          f"token, 16 D a visible pair a head a layer at D 96), peak memory "
+          f"{out['peak_memory_gb']:.2f} GB", flush=True)
+    check(watch.loaded == dict(ref_equals_policy=True, probes_equal=True,
+                              loaded_layers=HF_DPO_LAYERS),
+          f"hf dpo: loaded weights {watch.loaded}")
+    check(len(losses) == HF_DPO_STEPS and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(2)) <= LN2_RTOL * math.log(2),
+          f"hf dpo: losses {losses} (step 1 must be ln 2 = {math.log(2)})")
+    check(launches == expected and plain[0] == 0,
+          f"hf dpo: K1/K2/K3 launched {launches}, expected {expected}; plain path {plain[0]}")
+    del objective, state, trainer, policy
+    release()
+    return out
+
+
+def hf_kernel_timing(card: str) -> dict:
+    """The kernels at this slice's shapes, held against their plain versions
+    there and timed beside their bounds: K4 at Phi-3-mini's serving shape
+    (B 8, Hkv 32, D 96, group 1, window 2047, rows past it, bf16), K1-K3 at
+    its DPO shape (B 8, S 2048, Hq = Hkv = 32, D 96 padded to 128 by the
+    wrapper, window 2047): the bound counts D 96."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import bench_paged_decode as bench
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+
+    window = PHI3_MINI["sliding_window"]
+    rng = np.random.default_rng(20)
+    lengths = rng.integers(2048, 3073, size=8).tolist()
+    cases = [bench.phi3_decode_case(lengths, seed) for seed in range(2)]
+    cases += [bench.phi3_decode_case(lengths, s) for s in range(2, bench.cold_copies(cases[0]))]
+    err = kernel_vs_plain(kernels, cases[0], sliding_window=window)
+    as_fp32 = {k: (v.float() if v.is_floating_point() else v) for k, v in cases[0].items()}
+    err32 = kernel_vs_plain(kernels, as_fp32, sliding_window=window)
+    check(err.pop("ok") and err32.pop("ok"),
+          f"phi-3 decode shape: kernel vs plain errors bf16 {err}, fp32 {err32}")
+    k4_ms = bench.device_ms([(lambda c=c: kernels.paged_decode_attention(
+        **c, sliding_window=window)) for c in cases])
+    plain_ms = bench.device_ms([(lambda c=c: kernels.paged_decode_attention_torch(
+        **c, sliding_window=window)) for c in cases])
+    bound_ms, bound_by = bench.decode_bound_ms(cases[0], window)
+    out = {"k4": dict(ms=k4_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                      library_ms=None, max_abs_err=err["abs"])}
+    print(f"kernel timing [{card}]: paged_decode phi-3 B8 Hq32 Hkv32 D96 page16 window {window} "
+          f"lengths {min(lengths)}-{max(lengths)} bf16, cold L2: kernel {1e3 * k4_ms:.2f} us, "
+          f"plain {1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+          f"{100 * bound_ms / k4_ms:.1f}% of bound; parity bf16 row {err['row_rel']:.3e}, vs "
+          f"fp32 {err['vs_fp32']:.3f} of the limit, fp32 abs {err32['abs']:.3e}", flush=True)
+    del cases
+    release()
+    cases = bench_flash.dpo_case()
+    case = cases[0]
+    got = bench_flash.run_case(case, kernel=True, causal=True, sliding_window=window)
+    ref = bench_flash.run_plain_by_kv_head(case, causal=True, sliding_window=window)
+    ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, causal=True,
+                                             sliding_window=window)
+    torch.cuda.synchronize()
+    errors, broken = flash_case_errors(got, ref, ref32, case, None)
+    check(not broken, f"phi-3 DPO shape: flash kernels vs plain: {broken}")
+    abs_err = {
+        "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
+        "dq": float((got["dq"].float() - ref["dq"].float()).abs().max()),
+        "dkv": max(float((got[n].float() - ref[n].float()).abs().max()) for n in ("dk", "dv")),
+    }
+    del got, ref, ref32
+    record = bench_flash.kernel_record(cases=cases, window=window)
+    plain = bench_flash.time_plain(cases, window=window)
+    library = bench_flash.time_sdpa(cases, window=window)
+    for kind in ("fwd", "dq", "dkv"):
+        side = "fwd_ms" if kind == "fwd" else "bwd_ms"
+        out[kind] = dict(ms=record[f"{kind}_ms"], plain_ms=plain[side], library_ms=library[side],
+                         bound_ms=record[f"{kind}_bound_ms"], bound_by=record[f"{kind}_bound_by"],
+                         max_abs_err=abs_err[kind])
+    print(f"flash timing [{card}]: phi-3 DPO B8 S2048 Hq32 Hkv32 D96 (padded to 128) window "
+          f"{window} bf16 ({record['visible_pairs_per_head']} visible pairs a head), cold L2: "
+          + "; ".join(f"{kind} {v['ms']:.3f} ms (bound at D 96 {v['bound_ms']:.3f} ms by "
+                      f"{v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}%)"
+                      for kind, v in out.items() if kind != "k4")
+          + f"; plain fwd {plain['fwd_ms']:.3f} ms, bwd {plain['bwd_ms']:.3f} ms; SDPA fwd "
+          f"{library['fwd_ms']:.3f} ms, bwd {library['bwd_ms']:.3f} ms; parity bf16 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errors.items())), flush=True)
+    del cases, case
+    release()
+    return out
+
+
+def hf_round_trip(card: str, ckpt_dir: Path, out_dir: Path) -> dict:
+    """d) `convert_to_hf` on a checkpoint phase 16 wrote (the 1-layer
+    Llama-3.1-8B-width model under SGD), the export reloaded through
+    `HFCausalLM` on the card: every tensor and the logits on one batch
+    equal those of the restored model with its parameters rounded to bf16."""
+    from llm_training_tpu_torch.convert_to_hf import convert_checkpoint, load_checkpoint
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    release()
+    t0 = time.perf_counter()
+    convert_checkpoint(ckpt_dir, out_dir, dtype="bfloat16")
+    convert_s = time.perf_counter() - t0
+    nbytes = hf_bytes(out_dir)
+    meta_model, params, _ = load_checkpoint(ckpt_dir, None)
+    config = dataclasses.replace(meta_model.config, param_dtype="bfloat16")
+    restored = Llama(config, device=HF_DEVICE)
+    restored.load_state_dict({k: v.to(torch.bfloat16) for k, v in params.items()})
+    del params
+    reloaded, reload_s = hf_load(out_dir, param_dtype="bfloat16",
+                                 compute_dtype=config.compute_dtype)
+    mine = reloaded.state_dict()
+    differ = [n for n, t in restored.state_dict().items() if not torch.equal(t, mine[n])]
+    check(not differ, f"hf round trip: {len(differ)} tensors differ: {differ[:4]}")
+    ids = torch.randint(0, config.vocab_size, (2, 1024), device=HF_DEVICE,
+                        generator=torch.Generator(device=HF_DEVICE).manual_seed(21))
+    with torch.no_grad():
+        a = restored.eval()(ids).logits
+        b = reloaded.eval()(ids).logits
+    torch.cuda.synchronize()
+    equal = torch.equal(a, b)
+    diff = float((a.float() - b.float()).abs().max())
+    scale = float(a.float().abs().max())
+    out = dict(bytes=nbytes, convert_s=convert_s, convert_gb_per_s=nbytes / convert_s / 1e9,
+               reload_s=reload_s, reload_gb_per_s=nbytes / reload_s / 1e9,
+               logits_bit_equal=equal, logits_max_abs_diff=diff)
+    print(f"hf round trip [{card}]: convert_to_hf of {ckpt_dir.name}'s newest step "
+          f"({nbytes} bytes of bf16 safetensors) in {convert_s:.2f} s "
+          f"({out['convert_gb_per_s']:.2f} GB/s written), reloaded through HFCausalLM in "
+          f"{reload_s:.2f} s; every tensor equal; logits on 2 x 1024 tokens "
+          + ("bit-equal" if equal else f"differ by at most {diff:.3e} (max |logit| {scale:.3f}): "
+             "the same bf16 weights and inputs through the same kernels, so a difference "
+             "comes from a nondeterministic library product"), flush=True)
+    check(equal or diff <= ENGINE_LOGITS_RTOL * scale,
+          f"hf round trip: logits differ by {diff} (> {ENGINE_LOGITS_RTOL} x {scale})")
+    shutil.rmtree(out_dir)
+    del restored, reloaded, a, b
+    release()
+    return out
+
+
+def phase_hf_phi3(card: str) -> dict:
+    """HF I/O and Phi-3-mini (see the header): export, load and serve at full
+    depth, DPO at 8 layers from the same directory, the kernels at this
+    slice's shapes."""
+    logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
+    shutil.rmtree(HF_DIR, ignore_errors=True)
+    HF_DIR.mkdir()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        exported, path, out["export"] = hf_export(card)
+        model, probes, out["load"] = hf_reload(card, exported, path)
+        del exported
+        release()
+        out["serve"] = hf_serve(card, model)
+        del model
+        release()
+        out["serve"]["leg_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dpo"] = hf_dpo(card, path, probes)
+        out["dpo"]["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(HF_DIR, ignore_errors=True)
+        release()
+    t0 = time.perf_counter()
+    out["kernels"] = hf_kernel_timing(card)
+    out["kernels"]["leg_s"] = time.perf_counter() - t0
+    return out
+
+
 def timed(name: str, phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4706,9 +5242,11 @@ def main() -> int:
     preference = timed("13 preference", phase_preference, card)
     optimizer = timed("14 optimizer", phase_optimizer, card)
     resilience = timed("15 resilience", phase_resilience, card)
-    durability = timed("16 durability", phase_durability, card)
+    durability = timed("16 durability", phase_durability, card, hf_round_trip)
     rl = timed("17 rl-fit", phase_rl, card)
     serving = timed("18 serve resilience", phase_serve_resilience, card)
+    hf = timed("19 hf + phi3", phase_hf_phi3, card)
+    hf["round_trip"] = durability.pop("hf_round_trip")
     timed("9 train-step parity", phase_train_parity)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
@@ -4722,28 +5260,29 @@ def main() -> int:
     print(f"durability summary [{card}]: " + json.dumps(durability))
     print(f"rl summary [{card}]: " + json.dumps(rl))
     print(f"serve resilience summary [{card}]: " + json.dumps(serving))
+    print(f"hf + phi3 summary [{card}]: " + json.dumps(hf))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"]}))
-    # launches on this slice's path: phase 17a's rl-fit, which runs all four
-    launches = rl["a"]["launches"]
-    rows = [{
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches["decode"],
-        "max_abs_err": timing["max_abs_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]
-    for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
-        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[kind], **flash[kind]})
-    print(json.dumps({"kernels": rows}))
+
+    def kernel_rows(k4: dict, k4_launches: int, flash_by_kind: dict, launches: dict) -> list:
+        rows = [{"name": "paged_decode_attention", "route": "cuda", "source": KERNEL_SOURCE,
+                 "replaces": KERNEL_REPLACES, "launches": k4_launches,
+                 **{key: k4[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by")}, "library_ms": None}]
+        for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv")):
+            rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         "launches": launches[kind], **flash_by_kind[kind]})
+        return rows
+
+    # the earlier slices' shapes (Llama-3.1-8B: phases 7 and 10) with phase
+    # 17a's launches (its rl-fit runs all four kernels)
+    print("kernels at Llama-3.1-8B shapes (launches: phase 17a): " + json.dumps(kernel_rows(
+        timing, rl["a"]["launches"]["decode"], flash, rl["a"]["launches"])))
+    # this slice's path: phase 19's serving (K4) and DPO (K1-K3) at Phi-3-mini's
+    # shapes, timed there
+    print(json.dumps({"kernels": kernel_rows(
+        hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -182,7 +182,7 @@ def _restored(config: dict, args, command: str, serving: bool = False):
     _require_single_model_objective(objective, command)
     if serving:
         provider = objective.config.model
-        compute = provider.get_config().compute_dtype
+        compute = provider.model_config().compute_dtype
         provider.model_kwargs = {**provider.model_kwargs, "param_dtype": compute}
     state = trainer.restore_for_inference(objective, _resume_step(args))
     return trainer, objective, datamodule, state
@@ -643,7 +643,7 @@ def run_rl_fit(args) -> int:
             "policy model"
         )
     model_config = (objective.model.config if objective.model is not None
-                    else objective.config.model.get_config())
+                    else objective.config.model.model_config())
     serve_config = ServeConfig(
         max_batch=args.max_batch,
         max_model_len=args.max_model_len,

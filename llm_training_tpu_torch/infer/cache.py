@@ -32,8 +32,11 @@ def init_decode_state(
     max_length: int,
     cache_dtype: str | None = None,
     device: torch.device | str | None = None,
+    rope_length: int | None = None,
 ) -> DecodeState:
-    """A fresh all-zeros dense cache on `device`: index 0, no slot filled."""
+    """A fresh all-zeros dense cache on `device`: index 0, no slot filled;
+    `rope_length` is the length RoPE table selection sees (None: the
+    capacity)."""
     num_layers, kv_heads, head_dim = cache_dims(config)
     dtype = resolve_cache_dtype(config, cache_dtype)
     shape = (num_layers, batch_size, max_length, kv_heads, head_dim)
@@ -42,6 +45,7 @@ def init_decode_state(
         v=torch.zeros(shape, dtype=dtype, device=device),
         index=0,
         segment_ids=torch.zeros((batch_size, max_length), dtype=torch.int32, device=device),
+        rope_length=rope_length,
     )
 
 

@@ -114,8 +114,11 @@ class InferenceEngine:
                 f"max_length {max_length} cannot hold the padded prompt "
                 f"({width}) plus max_new_tokens ({config.max_new_tokens})"
             )
+        # length-dependent RoPE variants select their tables from the length
+        # the generation will reach, not the cache's capacity
         state = init_decode_state(model_config, batch, max_length,
-                                  cache_dtype=config.cache_dtype, device=self.device)
+                                  cache_dtype=config.cache_dtype, device=self.device,
+                                  rope_length=width + config.max_new_tokens)
         # a prompt may contain pad_id, so padding is positional (the
         # left-pad region), not by value
         columns = np.arange(width)[None, :]

@@ -1,11 +1,14 @@
-"""Objective base: config surface and model provider.
+"""Objective base: config surface, model provider and pre-trained loading.
 
 Counterpart of `llm_training_tpu/lms/base.py`: `BaseLMConfig` (optimizer
-config, frozen-module regexes) and `ModelProvider`, the `{model_class,
-model_kwargs}` config node that builds a model. The JAX provider imports
-the class by name from `llm_training_tpu.models`; the port maps the names
-of the model classes it has onto its own classes and imports nothing of
-the JAX package.
+config, frozen-module regexes, the pre-trained source) and
+`ModelProvider`, the `{model_class, model_kwargs}` config node that builds
+a model. The JAX provider imports the class by name from
+`llm_training_tpu.models`; the port maps the names of the model classes it
+has (`Llama`, `Phi3`, `HFCausalLM`) onto its own classes and imports
+nothing of the JAX package. `resolve_pretrained_source` and `init_model`
+are JAX's `resolve_pretrained_source` and `load_single_model_pretrained`:
+the objective's source wins over the model config's.
 
 The objective contract the `Trainer` drives (the JAX objective's
 `init_params` becomes a module): `configure_model(device, generator)`
@@ -18,20 +21,34 @@ with it; `config.optim` and `config.frozen_modules` build its optimizer.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
 
+from llm_training_tpu_torch.models.hf_causal_lm import (
+    HFCausalLM,
+    HFCausalLMConfig,
+    resolve_hf_config,
+)
+from llm_training_tpu_torch.models.hf_io import load_pretrained_params
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
+from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
 from llm_training_tpu_torch.optim.builder import OptimConfig
+
+logger = logging.getLogger(__name__)
 
 # model_class as the JAX configs name it (bare names resolve in
 # `llm_training_tpu.models`) -> (model, config)
 MODEL_CLASSES: dict[str, tuple[type, type]] = {
     "Llama": (Llama, LlamaConfig),
     "llm_training_tpu.models.Llama": (Llama, LlamaConfig),
+    "Phi3": (Phi3, Phi3Config),
+    "llm_training_tpu.models.Phi3": (Phi3, Phi3Config),
+    "HFCausalLM": (HFCausalLM, HFCausalLMConfig),
+    "llm_training_tpu.models.HFCausalLM": (HFCausalLM, HFCausalLMConfig),
 }
 
 
@@ -39,9 +56,9 @@ MODEL_CLASSES: dict[str, tuple[type, type]] = {
 class BaseLMConfig:
     """JAX's `BaseLMConfig`, every field at JAX's default: random init (or
     not), the optimizer, frozen-parameter regexes, and the pre-trained
-    source. `log_grad_norm` is read nowhere, as in JAX. Loading HF weights
-    (`pre_trained_weights` here or in the model config, with `load_weights`)
-    is not ported yet and raises in `build_model` (ROADMAP A.8)."""
+    source: an HF directory (`pre_trained_weights` here, else the model
+    config's), loaded by `init_model` when `load_weights`.
+    `log_grad_norm` is read nowhere, as in JAX."""
 
     init_weights: bool = True
     load_weights: bool = True
@@ -71,31 +88,42 @@ class ModelProvider:
         _, config_cls = self._resolve()
         return config_cls.from_dict(self.model_kwargs, f"model_kwargs of {self.model_class}")
 
+    def model_config(self) -> LlamaConfig:
+        """The config the model is built from: `get_config()`, or for
+        `HFCausalLM` the family config its `config.json` resolves to."""
+        config = self.get_config()
+        return resolve_hf_config(config)[1] if isinstance(config, HFCausalLMConfig) else config
+
     def get_model(self, device: torch.device | str | None = None) -> torch.nn.Module:
         model_cls, _ = self._resolve()
         return model_cls(self.get_config(), device=device)
 
 
-def build_model(
-    provider: ModelProvider | None, lm_config: BaseLMConfig, device: torch.device,
-    generator: torch.Generator, where: str,
-) -> torch.nn.Module:
-    """A model from a config node on `device`, with random weights from
-    `generator` when `lm_config.init_weights`. A pre-trained source (the
-    objective's `pre_trained_weights`, else the model config's) with
-    `load_weights` raises: HF checkpoint I/O comes with ROADMAP A.8. With
-    `load_weights: false` the source is ignored, as in JAX."""
+def resolve_pretrained_source(lm_config: BaseLMConfig, model_config: Any) -> str | None:
+    """The objective's `pre_trained_weights` wins; else the model config's
+    own (JAX's `resolve_pretrained_source`)."""
+    return lm_config.pre_trained_weights or getattr(model_config, "pre_trained_weights", None)
+
+
+def build_model(provider: ModelProvider | None, device: torch.device, where: str) -> torch.nn.Module:
+    """A model from a config node on `device`, its weights not yet set
+    (`init_model` sets them)."""
     if provider is None:
         raise ValueError(f"{where} is required when no model is given")
-    model_config = provider.get_config()
-    source = lm_config.pre_trained_weights or getattr(model_config, "pre_trained_weights", None)
+    return provider.get_model(device)
+
+
+def init_model(model: torch.nn.Module, lm_config: BaseLMConfig, source: str | None,
+               generator: torch.Generator) -> torch.nn.Module:
+    """Set a built model's weights: streamed from the HF directory `source`
+    when there is one and `load_weights` (each tensor placed on the
+    model's device in its parameter's dtype before the next is read), else
+    random from `generator` when `init_weights`. With `load_weights: false`
+    the source is ignored, as in JAX."""
     if source and lm_config.load_weights:
-        raise NotImplementedError(
-            f"{where}: loading pre-trained weights from {source!r} is not ported yet "
-            "(HF checkpoint I/O, ROADMAP A.8); set load_weights: false to start from the seed"
-        )
-    model = provider.get_model(device)
-    if lm_config.init_weights:
+        logger.info("loading pre-trained weights from %s", source)
+        load_pretrained_params(model.config, source, into=model.state_dict())
+    elif lm_config.init_weights:
         model.init_weights(generator)
     return model
 
@@ -111,10 +139,13 @@ class SingleModelObjective:
 
     def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
         """The model on `device`: the one given, or one built from the
-        config with random weights from `generator` (on `device`)."""
+        config with the pre-trained source's weights, or random ones from
+        `generator` (on `device`)."""
         if self.model is None:
             name = f"{type(self.config).__name__}.model"
-            self.model = build_model(self.config.model, self.config, device, generator, name)
+            model = build_model(self.config.model, device, name)
+            self.model = init_model(model, self.config,
+                                    resolve_pretrained_source(self.config, model.config), generator)
         self.model = self.model.to(device)
         return self.model
 

@@ -12,8 +12,10 @@ tree's `policy/params/...` and `ref/params/...` (`from_jax.jax_path`).
 gradients, and the optimizer holds no state for them. The reference's two
 forwards run under `torch.no_grad()`, JAX's `stop_gradient`: no backward
 graph, no saved activations. The reference starts as an exact copy of the
-policy's initial weights, or is built from `ref_model` (initialised from
-the same generator state as the policy, as JAX inits both under one key).
+policy's initial weights (random, or read once from the pre-trained
+source), or is built from `ref_model` (initialised from the same generator
+state as the policy, as JAX inits both under one key, or loaded from its
+own source, else the policy's, as JAX's `pretrained_params`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from llm_training_tpu_torch import prng
-from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider, build_model
+from llm_training_tpu_torch.lms.base import (
+    BaseLMConfig,
+    ModelProvider,
+    build_model,
+    init_model,
+    resolve_pretrained_source,
+)
 from llm_training_tpu_torch.lms.clm import head_and_bias
 from llm_training_tpu_torch.ops.cross_entropy import fused_linear_log_probs, shift_labels
 
@@ -95,37 +103,53 @@ class PairObjective:
 
     def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
         """The `PolicyAndReference` on `device`: the policy handed in or
-        built (random weights from `generator` when `init_weights`), and the
-        reference handed in, built from `ref_model`, or copied from the
-        policy's initial weights."""
+        built, and the reference handed in, built from `ref_model`, or
+        copied from the policy. A built model loads the pre-trained source
+        (`pretrained_sources`) or takes random weights from `generator`
+        when `init_weights`; a `ref_model` starts from the generator state
+        the policy started from, as JAX inits both under one key."""
         if self.pair is None:
             cfg = self.config
             where = type(cfg).__name__
             start = generator.get_state()
             policy = self.model
-            if policy is None:
-                policy = build_model(cfg.model, cfg, device, generator, f"{where}.model")
             ref = self.ref_model
+            if policy is None:
+                policy = build_model(cfg.model, device, f"{where}.model")
             if ref is None and cfg.ref_model is not None:
-                generator.set_state(start)
-                ref = build_model(cfg.ref_model, cfg, device, generator, f"{where}.ref_model")
-            elif ref is None:
+                ref = build_model(cfg.ref_model, device, f"{where}.ref_model")
+            policy_src, ref_src = self.pretrained_sources(policy, ref)
+            if self.model is None:
+                init_model(policy, cfg, policy_src, generator)
+            if ref is None:
+                # one model, one source: the checkpoint is read once and
+                # placed twice; the reference starts as an exact copy
                 ref = copy.deepcopy(policy)
+            elif self.ref_model is None:
+                generator.set_state(start)
+                init_model(ref, cfg, ref_src, generator)
             ref.requires_grad_(False)
             self.pair = PolicyAndReference(policy, ref)
         self.bind(self.pair.to(device))
         return self.pair
 
+    def pretrained_sources(self, policy: torch.nn.Module,
+                           ref: torch.nn.Module | None) -> tuple[str | None, str | None]:
+        """(policy's, reference's) pre-trained source, as JAX's
+        `pretrained_params` reads them: the policy's is the objective's
+        `pre_trained_weights`, else its model config's; a separate
+        reference reads its own config's source when it has one, else the
+        policy's. Nothing loads without a policy source."""
+        policy_src = resolve_pretrained_source(self.config, policy.config)
+        if not policy_src:
+            return None, None
+        ref_src = getattr(ref.config, "pre_trained_weights", None) if ref is not None else None
+        return policy_src, ref_src or policy_src
+
     def bind(self, module: PolicyAndReference) -> None:
         """Compute with `module`'s policy and reference (a state built by
         `configure_model` and restored)."""
         self.pair, self.model, self.ref_model = module, module.policy, module.ref
-
-    def pretrained_params(self, *args, **kwargs):
-        raise NotImplementedError(
-            "loading HF weights into the policy and the reference is not ported yet "
-            "(ROADMAP A.8)"
-        )
 
 
 class DPO(PairObjective):

@@ -46,10 +46,20 @@ class DecodeState:
     v: torch.Tensor
     index: int
     segment_ids: torch.Tensor
+    # the length the generation will reach (padded prompt width plus
+    # max_new_tokens): length-dependent RoPE variants (longrope's short or
+    # long factors, dynamic NTK) select their tables from it, not from the
+    # cache's capacity. None: the capacity
+    rope_length: int | None = None
 
     @property
     def max_length(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def table_length(self) -> int:
+        """The length RoPE table selection sees."""
+        return self.rope_length or self.max_length
 
 
 @dataclass
@@ -70,6 +80,14 @@ class PagedDecodeState:
     v: torch.Tensor
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    # the planned sequence length for length-dependent RoPE tables (as
+    # `DecodeState.rope_length`); None: the tokens a row's table can address
+    rope_length: int | None = None
+
+    @property
+    def table_length(self) -> int:
+        """The length RoPE table selection sees."""
+        return self.rope_length or self.block_tables.shape[1] * self.k.shape[2]
 
 
 @dataclass

@@ -2,12 +2,12 @@
 
 Counterpart of `llm_training_tpu/models/llama/config.py`. Field names are
 the JAX package's (which are HF's), and every JAX field is accepted. Only
-the plain Llama decoder is ported: fields that select another architecture
-(or a mesh layout) raise `NotImplementedError` when set to anything but the
-Llama value, naming the ROADMAP queue that brings them. `bos_token_id` and
-`pre_trained_weights` are carried as JAX carries them (the weights are
-loaded by `lms/base.py`, which refuses a source it cannot read), and
-`attention_dropout` raises unless 0.0, as JAX's does.
+the plain Llama decoder is ported (with Phi-3 over it, `models/phi3/`):
+fields that select another architecture (or a mesh layout) raise
+`NotImplementedError` when set to anything but the Llama value, naming the
+ROADMAP queue that brings them. `bos_token_id` and `pre_trained_weights`
+are carried as JAX carries them (`lms/base.py` loads the HF directory the
+latter names), and `attention_dropout` raises unless 0.0, as JAX's does.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from llm_training_tpu_torch.models.base import resolve_dtype
 from llm_training_tpu_torch.ops.rope_utils import RoPEConfig, rope_config_from_hf
 
 # field -> the only value the port implements (JAX's default), for fields
-# that select another family, the MoE stack or HF I/O (ROADMAP A.8)
+# that select another family or the MoE stack (ROADMAP A.8)
 _LLAMA_ONLY = {
     "num_experts": None,
     "norm_scheme": "pre",

@@ -20,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llm_training_tpu_torch.models.base import CausalLMOutput, DecodeState, PagedDecodeState
+from llm_training_tpu_torch.models.base import (
+    CausalLMOutput,
+    DecodeState,
+    PagedDecodeState,
+    resolve_dtype,
+)
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.remat import remat_policy, run_layer
 from llm_training_tpu_torch.ops.attention import dot_product_attention
@@ -28,6 +33,7 @@ from llm_training_tpu_torch.ops.paged_attention import paged_cached_attention
 from llm_training_tpu_torch.ops.rms_norm import rms_norm
 from llm_training_tpu_torch.ops.rope import apply_rope
 from llm_training_tpu_torch.ops.rope_utils import (
+    LENGTH_DEPENDENT,
     compute_rope_cos_sin,
     compute_rope_frequencies,
 )
@@ -65,6 +71,8 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(config.hidden_size, config.num_key_value_heads * head_dim, **kw)
         self.v_proj = nn.Linear(config.hidden_size, config.num_key_value_heads * head_dim, **kw)
         self.o_proj = nn.Linear(config.num_attention_heads * head_dim, config.hidden_size, **kw)
+        name = getattr(config, "attention_compute_dtype", None)
+        self.attention_dtype = None if name is None else resolve_dtype(name)
 
     def forward(
         self,
@@ -86,6 +94,10 @@ class LlamaAttention(nn.Module):
         k = _linear(hidden, self.k_proj).reshape(batch, seq, cfg.num_key_value_heads, head_dim)
         v = _linear(hidden, self.v_proj).reshape(batch, seq, cfg.num_key_value_heads, head_dim)
         q, k = apply_rope(q, k, cos, sin)
+        if self.attention_dtype is not None:
+            # Phi-3's attention precision: q, k and v in this dtype on every
+            # path (the kernels take their fp32 paths), as in JAX
+            q, k, v = q.to(self.attention_dtype), k.to(self.attention_dtype), v.to(self.attention_dtype)
         scale = head_dim**-0.5
         if kv_index is not None:
             # the dense cache: write this chunk's k/v at the shared index,
@@ -177,10 +189,27 @@ class Llama(nn.Module):
                 config.hidden_size, config.vocab_size, bias=False,
                 dtype=config.param_torch_dtype, device=device,
             )
-        inv_freq, self._rope_scaling = compute_rope_frequencies(config.rope_config)
+        self._rope = config.rope_config
+        inv_freq, self._rope_scaling = compute_rope_frequencies(self._rope)
         self.register_buffer(
             "inv_freq", torch.as_tensor(inv_freq, device=device), persistent=False
         )
+        self._rope_by_length: dict = {}
+
+    def rope_frequencies(self, rope_len: int) -> tuple[torch.Tensor, float]:
+        """(inv_freq on the model's device, attention factor) for a forward
+        whose table-selection length is `rope_len`: JAX's `seq_len` (the
+        input width in training, the decode state's `table_length` under a
+        cache). Only `dynamic` and `longrope` depend on it."""
+        if self._rope.type not in LENGTH_DEPENDENT:
+            return self.inv_freq, self._rope_scaling
+        key = (rope_len, self.inv_freq.device)
+        if key not in self._rope_by_length:
+            inv_freq, factor = compute_rope_frequencies(self._rope, rope_len)
+            self._rope_by_length[key] = (
+                torch.as_tensor(inv_freq, device=self.inv_freq.device), factor
+            )
+        return self._rope_by_length[key]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -215,7 +244,12 @@ class Llama(nn.Module):
         device = hidden.device
         if position_ids is None:
             position_ids = torch.arange(seq, device=device)[None, :]
-        cos, sin = compute_rope_cos_sin(self.inv_freq, position_ids, self._rope_scaling)
+        # JAX's table-selection length: the input width in training, the
+        # cache's planned length under a cache (a 1-token decode chunk
+        # spans the generation's positions)
+        rope_len = seq if decode_state is None else decode_state.table_length
+        inv_freq, rope_factor = self.rope_frequencies(rope_len)
+        cos, sin = compute_rope_cos_sin(inv_freq, position_ids, rope_factor)
 
         if decode_state is not None and segment_ids is None:
             segment_ids = torch.ones((batch, seq), dtype=torch.int32, device=device)
@@ -247,7 +281,7 @@ class Llama(nn.Module):
         if decode_state is not None and not paged:
             new_state = DecodeState(
                 k=decode_state.k, v=decode_state.v, index=decode_state.index + seq,
-                segment_ids=decode_state.segment_ids,
+                segment_ids=decode_state.segment_ids, rope_length=decode_state.rope_length,
             )
         elif paged:
             # rows advance by the chunk's REAL token count: padded tail
@@ -257,6 +291,7 @@ class Llama(nn.Module):
                 block_tables=decode_state.block_tables,
                 lengths=decode_state.lengths
                 + (segment_ids > 0).sum(dim=1).to(torch.int32),
+                rope_length=decode_state.rope_length,
             )
         hidden = self.model.norm(hidden)
         logits = None

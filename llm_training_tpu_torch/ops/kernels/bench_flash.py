@@ -4,8 +4,9 @@
 
 times K1 (forward) and K2 + K3 (backward) at the training shape of
 Llama-3.1-8B (B 1, S 8192, Hq 32, Hkv 8, D 128, bf16, one row packed from
-documents of 256-4096 tokens with a padding tail) and at S 2048, and prints
-one JSON line for each.
+documents of 256-4096 tokens with a padding tail), at S 2048, and at
+Phi-3-mini's DPO shape (B 8, S 2048, Hq = Hkv = 32, D 96 padded to 128 by
+the wrapper, window 2047), and prints one JSON line for each.
 `chip_smoke.py` uses the same helpers for its parity and timing phases.
 
 Device time comes from CUDA events around calls enqueued behind a
@@ -26,6 +27,7 @@ from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 from llm_training_tpu_torch.ops.kernels.bench_paged_decode import (
     HBM_BYTES_PER_S,
     L2_BYTES,
+    PHI3_WINDOW,
     card_line,
     device_ms,
 )
@@ -183,7 +185,9 @@ def bound_ms(kind: str, pairs: int, hq: int, head_dim: int, nbytes: int) -> tupl
 
 
 def io_bytes(flat: dict, kind: str) -> int:
-    """Bytes K1 (fwd) or K2/K3 (dq, dkv) must read and write once."""
+    """Bytes K1 (fwd) or K2/K3 (dq, dkv) must read and write once, for the
+    tensors given: the kernels' padded inputs, or a case's own (`case_io`),
+    whose head_dim is what the work needs."""
     q, k = flat["q"], flat["k"]
     qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     rows = q.shape[0] * q.shape[2] * q.shape[1] * 4  # one fp32 per q row and head
@@ -208,10 +212,33 @@ def training_case(seq: int = 8192) -> list[dict]:
             for seed in range(copies)]
 
 
+def case_io(case: dict) -> dict:
+    """A case's own tensors under `io_bytes`' names (no padding)."""
+    return dict(q=case["q"], k=case["k"], seg_q=case["q_segment_ids"],
+                seg_kv=case["segment_ids"])
+
+
+def dpo_case(seq: int = 2048, rows: int = 8) -> list[dict]:
+    """Phi-3-mini's DPO shape: 8 right-padded rows of one sequence each (a
+    prompt and a response, 1/2 to all of `seq` tokens), Hq = Hkv = 32,
+    D 96, bf16, in enough copies to run cold in L2."""
+    hq, head_dim = 32, 96
+    rng = np.random.default_rng(2)
+    segs = []
+    for _ in range(rows):
+        row = np.zeros(seq, np.int32)
+        row[:int(rng.integers(seq // 2, seq + 1))] = 1
+        segs.append(row)
+    per_copy = 2 * rows * seq * 3 * hq * head_dim * 2  # q, k, v and dout
+    copies = max(2, math.ceil(2 * L2_BYTES / per_copy) + 1)
+    return [flash_case(seq, hq, hq, head_dim, torch.bfloat16, segs, seed)
+            for seed in range(copies)]
+
+
 HYPER = dict(causal=True, window=0, cap=0.0, q_offset=0)  # the timed calls: causal, packed
 
 
-def kernel_inputs(case: dict) -> tuple[dict, dict, dict]:
+def kernel_inputs(case: dict, hyper: dict = HYPER) -> tuple[dict, dict, dict]:
     """The direct inputs of K1 and of K2/K3 for a case at q_offset 0: the
     flat padded tensors with their tile ranges; those plus dO, and LSE and
     delta from one run of K1; and the launchers' own 128-row block ranges."""
@@ -220,8 +247,9 @@ def kernel_inputs(case: dict) -> tuple[dict, dict, dict]:
     flat["k_ranges"] = fa.tile_ranges(flat["seg_kv"])
     blocks = dict(q_blocks=fa.tile_ranges(flat["seg_q"], fa.BLOCK),
                   k_blocks=fa.tile_ranges(flat["seg_kv"], fa.BLOCK))
-    out, lse = fa.flash_fwd_kernel(**flat, sinks=None, q_blocks=blocks["q_blocks"], **HYPER)
-    dout = fa._pad_to(case["dout"], 1, flat["q"].shape[1]).contiguous()
+    out, lse = fa.flash_fwd_kernel(**flat, sinks=None, q_blocks=blocks["q_blocks"], **hyper)
+    dout = fa._pad_to(fa._pad_to(case["dout"], 1, flat["q"].shape[1]), 3,
+                      flat["q"].shape[3]).contiguous()
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return flat, dict(**flat, dout=dout, lse=lse, delta=delta), blocks
 
@@ -247,15 +275,17 @@ def backward_twice_identical(case: dict) -> bool:
     return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def time_kernels(cases: list[dict]) -> dict:
-    """Device ms of K1, K2 and K3 on the cases' flat inputs (causal, packed)."""
-    inputs = [kernel_inputs(c) for c in cases]
+def time_kernels(cases: list[dict], window: int = 0) -> dict:
+    """Device ms of K1, K2 and K3 on the cases' flat inputs (causal, with
+    the window given)."""
+    hyper = {**HYPER, "window": window}
+    inputs = [kernel_inputs(c, hyper) for c in cases]
     fwd_ms = device_ms([lambda f=f, r=r: fa.flash_fwd_kernel(**f, sinks=None,
-                                                          q_blocks=r["q_blocks"], **HYPER)
+                                                          q_blocks=r["q_blocks"], **hyper)
                         for f, _, r in inputs])
-    dq_ms = device_ms([lambda b=b, r=r: fa.flash_dq_kernel(**b, q_blocks=r["q_blocks"], **HYPER)
+    dq_ms = device_ms([lambda b=b, r=r: fa.flash_dq_kernel(**b, q_blocks=r["q_blocks"], **hyper)
                        for _, b, r in inputs], reps=10)
-    dkv_ms = device_ms([lambda b=b, r=r: fa.flash_dkv_kernel(**b, k_blocks=r["k_blocks"], **HYPER)
+    dkv_ms = device_ms([lambda b=b, r=r: fa.flash_dkv_kernel(**b, k_blocks=r["k_blocks"], **hyper)
                         for _, b, r in inputs], reps=10)
     return dict(fwd_ms=fwd_ms, dq_ms=dq_ms, dkv_ms=dkv_ms)
 
@@ -273,7 +303,7 @@ def _fwd_bwd_ms(forward, cases: list[dict], reps: int) -> dict:
     return dict(fwd_ms=fwd, bwd_ms=both - fwd)
 
 
-def time_plain(cases: list[dict], reps: int = 3) -> dict:
+def time_plain(cases: list[dict], reps: int = 3, window: int = 0) -> dict:
     """The plain versions: K1's (`flash_fwd_torch`, O and LSE) and the
     backward's (autograd through it, dq, dk and dv together), one kv head
     at a time as `run_plain_by_kv_head` runs them."""
@@ -282,7 +312,7 @@ def time_plain(cases: list[dict], reps: int = 3) -> dict:
         return torch.cat([
             fa.flash_fwd_torch(
                 q[:, :, h * group:(h + 1) * group], k[:, :, h:h + 1], v[:, :, h:h + 1],
-                case["q_segment_ids"], case["segment_ids"], causal=True,
+                case["q_segment_ids"], case["segment_ids"], causal=True, window=window,
                 q_offset=case["q_offset"],
             )[0]
             for h in range(k.shape[2])
@@ -291,7 +321,7 @@ def time_plain(cases: list[dict], reps: int = 3) -> dict:
     return _fwd_bwd_ms(forward, cases, reps)
 
 
-def time_sdpa(cases: list[dict], reps: int = 10) -> dict:
+def time_sdpa(cases: list[dict], reps: int = 10, window: int = 0) -> dict:
     """The library call that computes the same function:
     `F.scaled_dot_product_attention` with the packed boolean mask and
     `enable_gqa=True` (scale 1: q is pre-scaled), forward and backward.
@@ -301,7 +331,8 @@ def time_sdpa(cases: list[dict], reps: int = 10) -> dict:
     from llm_training_tpu_torch.ops.attention import make_attention_mask
 
     masks = [make_attention_mask(c["q_segment_ids"], c["segment_ids"], c["q"].shape[1],
-                                 c["k"].shape[1], causal=True, q_offset=c["q_offset"])
+                                 c["k"].shape[1], causal=True, q_offset=c["q_offset"],
+                                 sliding_window=window or None)
              for c in cases]
     by_case = {id(c): m for c, m in zip(cases, masks)}
 
@@ -315,17 +346,22 @@ def time_sdpa(cases: list[dict], reps: int = 10) -> dict:
     return _fwd_bwd_ms(forward, cases, reps)
 
 
-def kernel_record(seq: int) -> dict:
-    """Times and bounds of K1-K3 at the training shape cut to `seq` tokens."""
-    cases = training_case(seq)
-    flat = flat_inputs(cases[0])
-    pairs = visible_pairs(flat["seg_q"], flat["seg_kv"])
-    times = time_kernels(cases)
-    hq, head_dim = flat["q"].shape[2], flat["q"].shape[3]
-    record = {"card": card_line(), "seq": flat["q"].shape[1], "hq": hq, "hkv": flat["k"].shape[2],
-              "head_dim": head_dim, "dtype": "bfloat16", "visible_pairs_per_head": pairs}
+def kernel_record(seq: int | None = None, cases: list[dict] | None = None,
+                  window: int = 0) -> dict:
+    """Times and bounds of K1-K3 on `cases` (default: the training shape
+    cut to `seq` tokens), causal with `window`. The bound counts the
+    case's own head_dim and bytes: a head_dim the kernels pad (96 to 128)
+    shows as the padding's cost."""
+    cases = training_case(seq) if cases is None else cases
+    case = cases[0]
+    pairs = visible_pairs(case["q_segment_ids"], case["segment_ids"], window=window or None)
+    times = time_kernels(cases, window)
+    batch, seq, hq, head_dim = case["q"].shape
+    record = {"card": card_line(), "batch": batch, "seq": seq, "hq": hq,
+              "hkv": case["k"].shape[2], "head_dim": head_dim, "window": window,
+              "dtype": "bfloat16", "visible_pairs_per_head": pairs}
     for kind in ("fwd", "dq", "dkv"):
-        bound, by = bound_ms(kind, pairs, hq, head_dim, io_bytes(flat, kind))
+        bound, by = bound_ms(kind, pairs, hq, head_dim, io_bytes(case_io(case), kind))
         record.update({f"{kind}_ms": times[f"{kind}_ms"], f"{kind}_bound_ms": bound,
                        f"{kind}_bound_by": by})
     return record
@@ -336,6 +372,7 @@ def main() -> int:
         raise SystemExit("bench_flash needs a CUDA card")
     for seq in (8192, 2048):
         print(json.dumps(kernel_record(seq)))
+    print(json.dumps(kernel_record(cases=dpo_case(), window=PHI3_WINDOW)))
     return 0
 
 

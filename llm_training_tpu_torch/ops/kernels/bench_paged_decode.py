@@ -3,9 +3,10 @@
     python -m llm_training_tpu_torch.ops.kernels.bench_paged_decode
 
 Sweeps the GQA group and the cache length at the serving shape of
-Llama-3.1-8B (batch 8, Hkv 8, head_dim 128, page 16, bf16) and prints one
-JSON line per point: the kernel's time per call with a cold L2 and with a
-hot one, and the HBM-bytes bound. `chip_smoke.py` times the kernel and its
+Llama-3.1-8B (batch 8, Hkv 8, head_dim 128, page 16, bf16), then the cache
+length at Phi-3-mini's (Hkv 32, head_dim 96, group 1, window 2047), and
+prints one JSON line per point: the kernel's time per call with a cold L2
+(and a hot one at Llama's shape), and the HBM-bytes bound. `chip_smoke.py` times the kernel and its
 plain version with the same helpers.
 
 Timing: a `torch.cuda._sleep` holds the stream while the host enqueues all
@@ -65,22 +66,34 @@ def decode_case(lengths, page, num_kv_heads, group, head_dim, dtype, seed, width
     )
 
 
-def decode_bound_ms(case: dict) -> tuple[float, str]:
+PHI3_WINDOW = 2047  # Phi-3-mini-4k's sliding window
+
+
+def phi3_decode_case(lengths, seed) -> dict:
+    """One decode step at Phi-3-mini's serving shape: 32 kv heads of 96
+    (MHA), page 16, tables of 256 pages (max_model_len 4096), bf16."""
+    return decode_case(lengths, 16, 32, 1, 96, torch.bfloat16, seed, width=256)
+
+
+def decode_bound_ms(case: dict, window: int | None = None) -> tuple[float, str]:
     """Least time for one call, the larger of two: the bytes it needs over
-    the HBM rate (K and V of each row's first `len` slots, the table
-    entries of the pages those slots lie in, q and lengths read once, out
-    written once), and its fp32 flops (scores and p.V) over the fp32 rate.
-    A page's slots past `len` are never read, so they are not counted."""
+    the HBM rate (K and V of each row's visible slots -- its last `window`
+    of `len`, or all `len` -- the table entries of the pages those slots
+    lie in, q and lengths read once, out written once), and its fp32 flops
+    (scores and p.V) over the fp32 rate. Slots outside the window and a
+    page's slots past `len` are never read, so they are not counted."""
     q, pool = case["q"], case["k_pages"]
     _, page, num_kv_heads, head_dim = pool.shape
     lengths = case["lengths"].tolist()
-    table_entries = sum(math.ceil(n / page) for n in lengths)
+    starts = [max(n - window, 0) if window else 0 for n in lengths]
+    visible = sum(n - start for n, start in zip(lengths, starts))
+    table_entries = sum(math.ceil(n / page) - start // page for n, start in zip(lengths, starts))
     nbytes = (
-        sum(lengths) * num_kv_heads * head_dim * 2 * pool.element_size()
+        visible * num_kv_heads * head_dim * 2 * pool.element_size()
         + 2 * q.numel() * q.element_size()
         + table_entries * 4 + len(lengths) * 4
     )
-    flops = 4 * sum(lengths) * q.shape[1] * head_dim
+    flops = 4 * visible * q.shape[1] * head_dim
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     flops_ms = 1e3 * flops / FP32_FLOPS_PER_S
     return (bytes_ms, "bytes") if bytes_ms >= flops_ms else (flops_ms, "operations")
@@ -146,6 +159,25 @@ def main() -> int:
             }), flush=True)
             del copies, first
             torch.cuda.empty_cache()
+    # Phi-3-mini's serving shape: MHA, head_dim 96, its 2047-token window
+    # over rows past it, tables of a 4096-token max_model_len
+    for mean_len in (1024, 2048, 3072):
+        lengths = rng.integers(mean_len - 64, mean_len + 65, 8).tolist()
+        copies = [phi3_decode_case(lengths, seed) for seed in range(2)]
+        copies += [phi3_decode_case(lengths, s) for s in range(2, cold_copies(copies[0]))]
+        call = lambda c: (lambda: kernels.paged_decode_attention(  # noqa: E731
+            **c, sliding_window=PHI3_WINDOW))
+        cold = device_ms([call(c) for c in copies])
+        bound_ms, bound_by = decode_bound_ms(copies[0], PHI3_WINDOW)
+        print(json.dumps({
+            "card": card, "batch": 8, "kv_heads": 32, "group": 1, "head_dim": 96,
+            "page": 16, "window": PHI3_WINDOW, "dtype": "bfloat16",
+            "len_min": min(lengths), "len_max": max(lengths), "cold_us": 1e3 * cold,
+            "bound_us": 1e3 * bound_ms, "bound_by": bound_by,
+            "share_of_bound_cold": bound_ms / cold,
+        }), flush=True)
+        del copies
+        torch.cuda.empty_cache()
     return 0
 
 

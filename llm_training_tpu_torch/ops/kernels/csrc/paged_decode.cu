@@ -46,6 +46,16 @@
 //    writes exactly 0.
 // Scores are kept in log2 units (scale * log2(e) folded in) for ex2.
 //
+// head_dim 64, 96 or 128 (96: Phi-3). At 96 a K/V row is 192
+// bytes, 12 16-byte pieces: the swizzle keeps a piece inside its aligned
+// group of 4 (see `swizzle`), a lane accumulates D / 32 = 3 dims of V, read
+// as three 2-byte words because 6 bytes may straddle two pieces, and the
+// stage is 6 KB. The GQA group picks the instantiation: kG 1, 2, 4 or 8
+// heads as the mma's columns (group 3 runs kG 4 with one column masked).
+// The mma is 8 columns wide, so an MHA model (group 1, Phi-3) uses 1 of its
+// 8 columns: the scores cost 8x the tensor-core work they need, which
+// is far below the HBM bound either way (ROADMAP B).
+//
 // The other dtype pairs (fp32 q or pools: parity and the CPU tests' types)
 // keep the first kernel below: one block per (row, kv head), 8 warps over
 // 8-slot chunks, a lane per D/32 dims, a score a warp-shuffle sum.
@@ -73,9 +83,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
-// E contiguous elements, loaded or stored as one aligned vector
+// the largest power of two that divides `bytes`
+constexpr int pow2_divisor(int bytes) { return bytes & -bytes; }
+
+// E contiguous elements, loaded or stored as one vector: aligned to its
+// size when that is a power of two, else to the largest power of two
+// dividing it (D 96: 3 elements a lane, 12 or 6 bytes, loaded as 3 words)
 template <typename T, int E>
-struct __align__(sizeof(T) * E) Vec {
+struct alignas(pow2_divisor(sizeof(T) * E)) Vec {
   T v[E];
 };
 
@@ -252,6 +267,10 @@ int launch_typed(int head_dim, const void* q, const void* k_pool, const void* v_
     paged_decode_kernel<TQ, TKV, 64><<<grid, kThreads, 0, stream>>>(
         (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
         num_kv_heads, group, page, pages_per_row, scale, cap, window);
+  } else if (head_dim == 96) {
+    paged_decode_kernel<TQ, TKV, 96><<<grid, kThreads, 0, stream>>>(
+        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
+        num_kv_heads, group, page, pages_per_row, scale, cap, window);
   } else if (head_dim == 128) {
     paged_decode_kernel<TQ, TKV, 128><<<grid, kThreads, 0, stream>>>(
         (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
@@ -325,6 +344,22 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The 16-byte piece of a stage row where piece `piece` of that row's K (or
+// V) is stored: swizzled by the row so that ldmatrix's 8 rows of one
+// piece land in 8 distinct 16-byte bank groups (offsets mod 128 bytes).
+// Rows of 128 or 256 bytes (D 64, 128) XOR the piece with row & 7. A
+// 192-byte row (D 96: 12 pieces) already sits 64 bytes further mod 128
+// every other row, so the piece is XORed with (row >> 1) & 3: that keeps
+// it inside its aligned group of 4 (inside the row), and with the row's
+// own offset gives 8 distinct groups.
+template <int D>
+__device__ __forceinline__ int swizzle(int row, int piece) {
+  if constexpr (D == 96)
+    return piece ^ ((row >> 1) & 3);
+  else
+    return piece ^ (row & 7);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -418,7 +453,7 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       const int pos = min(s0 + row, hi - 1);
       const int pg = table_sh[min(pos / page, pages_per_row - 1)];
       const size_t src = ((size_t)pg * page + pos % page) * slot_stride + piece * 8;
-      const uint32_t dst = row * kRowBytes + ((piece ^ (row & 7)) << 4);
+      const uint32_t dst = row * kRowBytes + (swizzle<D>(row, piece) << 4);
       cp_async16(stage + dst, k_head + src);
       cp_async16(stage + kChunk * kRowBytes + dst, v_head + src);
     }
@@ -457,7 +492,7 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, a_base + (((2 * kk + (lane >> 4)) ^ (a_row & 7)) << 4));
+      ldmatrix_x4(a, a_base + (swizzle<D>(a_row, 2 * kk + (lane >> 4)) << 4));
       mma_16816(c, a, qb[kk]);
     }
     float mx[2] = {-INFINITY, -INFINITY};
@@ -499,11 +534,18 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int v_byte = lane * E * 2;
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      const unsigned char* v_row = stage + kChunk * kRowBytes + j * kRowBytes +
-                                   ((((v_byte >> 4) ^ (j & 7))) << 4) + (v_byte & 15);
+      const unsigned char* v_stage = stage + kChunk * kRowBytes + j * kRowBytes;
+      // the address of byte `byte` of V row j
+      auto v_at = [&](int byte) { return v_stage + (swizzle<D>(j, byte >> 4) << 4) + (byte & 15); };
       float v[E];
-      if constexpr (E == 4) {
-        const uint2 w = *reinterpret_cast<const uint2*>(v_row);
+      if constexpr (E == 3) {
+        // a lane's 3 dims (6 bytes) may straddle two swizzled pieces: one
+        // 2-byte read each
+#pragma unroll
+        for (int e = 0; e < 3; ++e)
+          v[e] = __bfloat162float(*reinterpret_cast<const bf16*>(v_at(v_byte + 2 * e)));
+      } else if constexpr (E == 4) {
+        const uint2 w = *reinterpret_cast<const uint2*>(v_at(v_byte));
         const __nv_bfloat162 lo2 = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
         const __nv_bfloat162 hi2 = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
         v[0] = __low2float(lo2);
@@ -511,7 +553,7 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         v[2] = __low2float(hi2);
         v[3] = __high2float(hi2);
       } else {
-        const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(v_row);
+        const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(v_at(v_byte));
         v[0] = __low2float(w);
         v[1] = __high2float(w);
       }
@@ -679,6 +721,7 @@ extern "C" int paged_decode_launch(int q_dtype, int kv_dtype, int head_dim, cons
   q, k_pool, v_pool, tables, lens, out, batch, num_kv_heads, group, page, pages_per_row, scale, \
       cap, window, splits, s
     if (head_dim == 64) return launch_split<64>(PAGED_SPLIT_ARGS);
+    if (head_dim == 96) return launch_split<96>(PAGED_SPLIT_ARGS);
     if (head_dim == 128) return launch_split<128>(PAGED_SPLIT_ARGS);
 #undef PAGED_SPLIT_ARGS
     return (int)cudaErrorInvalidValue;

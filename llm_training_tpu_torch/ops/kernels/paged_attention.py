@@ -43,7 +43,7 @@ from llm_training_tpu_torch.ops.attention import _xla_attention
 from llm_training_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
 _MAX_GROUP = 8
 MAX_SPLITS = 16  # blocks of a cluster (above 8 with the non-portable attribute)
 MIN_SPLIT_SLOTS = 64  # no split shorter than this many of the kv slots a row can hold

@@ -452,6 +452,7 @@ class ServingEngine:
             k=self._pool_k, v=self._pool_v,
             block_tables=self._tensor(self._table_row(request)[None, :]),
             lengths=self._tensor(np.asarray([start], np.int32)),
+            rope_length=self.config.max_model_len,
         )
         out = self.model(
             self._tensor(ids), segment_ids=self._tensor(seg),
@@ -503,6 +504,7 @@ class ServingEngine:
         state = PagedDecodeState(
             k=self._pool_k, v=self._pool_v,
             block_tables=self._tensor(tables), lengths=lengths_t,
+            rope_length=self.config.max_model_len,
         )
         out = self.model(
             self._tensor(tokens), position_ids=lengths_t[:, None].long(),

@@ -715,6 +715,12 @@ class Trainer:
             return datamodule.train_batches(start_step=from_micro)
 
         if cfg.prefetch_batches > 0:
+            if self.device.type == "cpu":
+                # pins MKL's thread count: with its dynamic threads on, a
+                # product that overlaps the worker's production runs on fewer
+                # threads and rounds otherwise, so a step's loss would depend
+                # on the worker's timing
+                torch.set_num_threads(torch.get_num_threads())
             watchdog = self._watchdog
             return DevicePrefetcher(
                 lambda produced: stream(start_micro + produced),

@@ -304,8 +304,8 @@ def test_example_trainer_and_callback_nodes_are_accepted():
     """cpu-smoke.yaml's trainer node (health, resilience with recovery,
     checkpoint, callbacks, loggers) and llama-3.1-8b_pt.yaml's callbacks
     build through the port's config layer; their model and data nodes still
-    name what is not ported (MoE and HFCausalLM: A.8; PreTrainingDataModule:
-    A.5)."""
+    name what is not ported (MoE: A.8; PreTrainingDataModule: A.5), and the
+    HFCausalLM node reads its HF directory (missing here)."""
     smoke = _example("smoke/cpu-smoke.yaml")
     node = dict(smoke["trainer"])
     checkpoint = CheckpointConfig.from_node(node.pop("checkpoint"))
@@ -324,8 +324,11 @@ def test_example_trainer_and_callback_nodes_are_accepted():
         build_dataclass(TrainerConfig, {"mesh": pt["trainer"]["mesh"]}, "trainer")
     with pytest.raises((ValueError, NotImplementedError), match="num_experts"):
         instantiate_from_config(smoke["model"]).config.model.get_config()
-    with pytest.raises(NotImplementedError, match="HFCausalLM"):
-        instantiate_from_config(pt["model"]).config.model.get_config()
+    hf = instantiate_from_config(pt["model"]).config.model
+    assert hf.get_config().hf_path == "/data/models/Llama-3.1-8B"
+    assert hf.get_config().overrides["recompute_granularity"] == "selective"
+    with pytest.raises(FileNotFoundError, match="Llama-3.1-8B"):
+        hf.model_config()  # HFCausalLM reads the directory's config.json
     with pytest.raises(NotImplementedError, match="PreTrainingDataModule"):
         instantiate_from_config(pt["data"])
     for path in ("NanGuard", "ProgressBar", "ProfilerCallback", "OutputRedirection"):

@@ -56,14 +56,15 @@ def test_objective_configs_take_every_jax_field(name):
 @pytest.mark.parametrize("where", ["objective", "model"])
 def test_load_weights_raises_only_beside_a_pretrained_source(name, where):
     """C.24: a pre-trained source (the objective's `pre_trained_weights` or
-    the model config's) with `load_weights` raises naming A.8; with
-    `load_weights: false` the model starts from the seed, as in JAX."""
+    the model config's) with `load_weights` is read (HF I/O:
+    a missing directory raises naming it); with `load_weights: false` the
+    model starts from the seed, as in JAX."""
     _, port_cls, objective_cls = OBJECTIVES[name]
     node = NODE if where == "objective" else {
         "model_class": "Llama", "model_kwargs": {**SMALL, "pre_trained_weights": "hf/dir"}}
     source = {"pre_trained_weights": "hf/dir"} if where == "objective" else {}
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(FileNotFoundError, match="hf/dir"):
         objective_cls(build_dataclass(port_cls, {"model": node, **source})).configure_model(
             cpu, torch.Generator().manual_seed(0))
     model = objective_cls(build_dataclass(port_cls, {"model": node, "load_weights": False,

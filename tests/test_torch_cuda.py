@@ -44,7 +44,8 @@ def _case(dtype, head_dim, group, page, lengths, device):
 @pytest.mark.parametrize("dtype,rtol,atol", [
     (torch.float32, 0.0, 1e-4), (torch.bfloat16, 2.0**-8, 1e-5),
 ])
-@pytest.mark.parametrize("head_dim,group,page", [(64, 1, 8), (128, 4, 16), (128, 8, 32)])
+@pytest.mark.parametrize("head_dim,group,page", [(64, 1, 8), (128, 4, 16), (128, 8, 32),
+                                                 (96, 1, 16), (96, 4, 16)])
 @pytest.mark.parametrize("window,cap", [(None, None), (20, 5.0)])
 def test_kernel_matches_plain(cuda, dtype, rtol, atol, head_dim, group, page, window, cap):
     case = _case(dtype, head_dim, group, page, [1, page, 50, 300, 1100], cuda)
@@ -83,6 +84,29 @@ def test_split_kernel_matches_plain(cuda, lengths, splits, group, window, cap):
     as_fp32 = {k: (v.float() if v.is_floating_point() else v) for k, v in case.items()}
     ref = kernels.paged_decode_attention_torch(**as_fp32, **opts)
     split_ref = kernels.paged_decode_split_torch(**as_fp32, splits=planned, **opts)
+    torch.cuda.synchronize()
+    for expected in (ref, split_ref):
+        torch.testing.assert_close(out, expected, rtol=2.0**-8, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("window", [None, 2047])
+def test_split_kernel_at_head_dim_96(cuda, group, window):
+    """Phi-3's shape: head_dim 96 (192-byte K/V rows through the swizzled
+    ring), MHA and group 4, its 2047-token window over rows up to 3000
+    tokens, bf16: within one bf16 rounding of the plain version in fp32
+    and of the split algebra's plain version."""
+    from llm_training_tpu_torch.ops.kernels.bench_paged_decode import decode_case
+
+    case = decode_case([1, 16, 530, 2100, 3000, 1], 16, 4, group, 96, torch.bfloat16, seed=96)
+    case["block_tables"][-1] = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = kernels.plan_splits(case["block_tables"].shape[1] * 16, 4 * 6, sms)
+    out = kernels.paged_decode_attention(**case, sliding_window=window).float()
+    as_fp32 = {k: (v.float() if v.is_floating_point() else v) for k, v in case.items()}
+    ref = kernels.paged_decode_attention_torch(**as_fp32, sliding_window=window)
+    split_ref = kernels.paged_decode_split_torch(**as_fp32, splits=planned, sliding_window=window)
     torch.cuda.synchronize()
     for expected in (ref, split_ref):
         torch.testing.assert_close(out, expected, rtol=2.0**-8, atol=1e-5)

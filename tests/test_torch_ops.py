@@ -92,8 +92,11 @@ def test_rope_cos_sin_and_apply_match_jax():
 
 
 def test_unported_rope_type_raises():
-    with pytest.raises(NotImplementedError):
-        rope_utils.rope_config_from_hf({"rope_type": "yarn", "factor": 2.0}, 1e4, 16, 64)
+    """Every JAX rope type is ported; a type JAX lacks raises JAX's error."""
+    with pytest.raises(ValueError, match="Unknown rope type 'ntk_by_parts'"):
+        rope_utils.rope_config_from_hf({"rope_type": "ntk_by_parts", "factor": 2.0}, 1e4, 16, 64)
+    with pytest.raises(ValueError, match="Unknown rope type 'ntk_by_parts'"):
+        jax_rope_utils.rope_config_from_hf({"rope_type": "ntk_by_parts", "factor": 2.0}, 1e4, 16, 64)
 
 
 def test_silu_mul_matches_jax():

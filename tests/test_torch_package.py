@@ -1,7 +1,8 @@
 """The port's boundary: `llm_training_tpu_torch`, `chip_smoke.py` and
-`bench_turns.py` import nothing of JAX and nothing of the JAX package, and
-the kernel modules import on a machine with no `nvcc` and build nothing
-when they do."""
+`bench_turns.py` import nothing of JAX, nothing of the JAX package and none
+of HF's packages (`safetensors`, `transformers`, `tokenizers`,
+`datasets`), and the kernel modules import on a machine with no `nvcc` and
+build nothing when they do."""
 
 import ast
 import json
@@ -28,11 +29,17 @@ def _port_modules() -> list[str]:
     return modules
 
 
+# HF's packages: the card's machine has none, and the port reads and writes
+# safetensors itself (`models/hf_io.py`); only the tests import them
+HF_PACKAGES = ("safetensors", "transformers", "tokenizers", "datasets")
+
+
 def _forbidden(name: str) -> bool:
-    """jax*, or the JAX package itself -- `llm_training_tpu_torch` starts
-    with `llm_training_tpu` too, and is allowed."""
+    """jax*, the JAX package itself -- `llm_training_tpu_torch` starts
+    with `llm_training_tpu` too, and is allowed -- or an HF package."""
     top = name.split(".")[0]
-    return top == "jax" or top.startswith("jax") or top == "llm_training_tpu"
+    return (top == "jax" or top.startswith("jax") or top == "llm_training_tpu"
+            or top in HF_PACKAGES)
 
 
 def test_forbidden_prefix_check():
@@ -40,6 +47,8 @@ def test_forbidden_prefix_check():
     assert _forbidden("llm_training_tpu") and _forbidden("llm_training_tpu.ops.attention")
     assert not _forbidden("llm_training_tpu_torch.ops.attention")
     assert not _forbidden("numpy")
+    assert _forbidden("safetensors.torch") and _forbidden("transformers")
+    assert _forbidden("tokenizers") and _forbidden("datasets")
 
 
 def test_import_adds_no_jax_module(tmp_path):
@@ -67,6 +76,7 @@ print(json.dumps(sorted(set(sys.modules) - before)))
         assert f"llm_training_tpu_torch.resilience.{module}" in added
     for module in ("trace", "slo", "exporter", "profiling"):
         assert f"llm_training_tpu_torch.telemetry.{module}" in added
+    assert "llm_training_tpu_torch.models.hf_io" in added
     bad = [name for name in added if _forbidden(name)]
     assert not bad, f"the port pulled in {bad}"
 

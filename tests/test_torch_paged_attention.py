@@ -158,6 +158,25 @@ def test_decode_bound_counts_visited_pages():
     assert bench.cold_copies(case) * 9 * 16 * 2 * 128 * 2 * 2 > 2 * bench.L2_BYTES
 
 
+def test_decode_bound_counts_the_window_only():
+    """With a sliding window the bound counts each row's last `window`
+    slots and the pages they lie in: Phi-3's 2047-token window over a row
+    of 3000 tokens (slots 953-2999, pages 59-187) and a row inside it."""
+    case = dict(
+        q=torch.zeros((2, 32, 96), dtype=torch.bfloat16),
+        k_pages=torch.zeros((200, 16, 32, 96), dtype=torch.bfloat16),
+        block_tables=torch.zeros((2, 256), dtype=torch.int32),
+        lengths=torch.tensor([3000, 100], dtype=torch.int32),
+    )
+    slots = 2047 + 100
+    pages = (188 - 59) + 7
+    nbytes = slots * 32 * 96 * 2 * 2 + 2 * 2 * 32 * 96 * 2 + pages * 4 + 2 * 4
+    bound_ms, bound_by = bench.decode_bound_ms(case, window=2047)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(1e3 * nbytes / bench.HBM_BYTES_PER_S, rel=1e-12)
+    assert bench.decode_bound_ms(case)[0] > bound_ms
+
+
 def test_wrapper_rejects_unsupported_shapes():
     """The kernel's shape checks run before any build or launch."""
     q = torch.zeros((2, 18, 64))
@@ -178,15 +197,15 @@ SPLIT_PAGE, SPLIT_PAGES = 8, 12  # 96 slots a row
 SPLIT_LENGTHS = [1, 5, 40, 96, 70, 1]  # rows 0 and 5 idle: length 1 on trash block 0
 
 
-def _split_inputs(group, seed):
+def _split_inputs(group, seed, head_dim=HEAD_DIM):
     rng = np.random.default_rng(seed)
     rows = len(SPLIT_LENGTHS)
-    pool_shape = (1 + rows * SPLIT_PAGES, SPLIT_PAGE, KV_HEADS, HEAD_DIM)
+    pool_shape = (1 + rows * SPLIT_PAGES, SPLIT_PAGE, KV_HEADS, head_dim)
     tables = np.arange(1, 1 + rows * SPLIT_PAGES, dtype=np.int32).reshape(rows, SPLIT_PAGES)
     tables = rng.permuted(tables, axis=1)  # the table indirection matters
     tables[0] = tables[-1] = TRASH_BLOCK
     return (
-        rng.standard_normal((rows, KV_HEADS * group, HEAD_DIM)).astype(np.float32),
+        rng.standard_normal((rows, KV_HEADS * group, head_dim)).astype(np.float32),
         rng.standard_normal(pool_shape).astype(np.float32),
         rng.standard_normal(pool_shape).astype(np.float32) + 0.5,
         tables, np.asarray(SPLIT_LENGTHS, np.int32),
@@ -216,6 +235,35 @@ def test_split_merge_matches_pallas_kernel(splits, window, cap, group):
     if window:  # the longest row's window leaves splits empty
         nonempty = sum(hi > lo for lo, hi in kernels.split_bounds(96, window, splits))
         assert nonempty <= -(-window // kernels.CHUNK) and (splits < 8 or nonempty < splits)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("window,group", [(None, 1), (20, 1), (33, 4)],
+                         ids=["mha", "window20_mha", "window33_g4"])
+def test_split_merge_matches_pallas_kernel_at_head_dim_96(splits, window, group):
+    """Phi-3's head_dim 96 (MHA, a window shorter than the rows): the split
+    algebra and the gather path (the plain versions of K4) against the
+    Pallas kernel (interpreted), fp32, within 2e-5."""
+    q, pool_k, pool_v, tables, lengths = _split_inputs(group, seed=96 + splits, head_dim=96)
+    args = (_t(q), _t(pool_k), _t(pool_v), _t(tables), _t(lengths))
+    theirs = np.asarray(jax_kernel.paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, pool_k, pool_v, tables, lengths)),
+        sliding_window=window, interpret=True,
+    ))
+    split = kernels.paged_decode_split_torch(*args, splits, sliding_window=window)
+    np.testing.assert_allclose(split.numpy(), theirs, **TOL)
+    gather = kernels.paged_decode_attention(*args, sliding_window=window)  # CPU: the plain version
+    np.testing.assert_allclose(gather.numpy(), theirs, **TOL)
+
+
+def test_wrapper_takes_head_dim_96_and_refuses_what_it_lacks():
+    """96 joins 64 and 128 in what the kernel takes; 80 still raises."""
+    tables = torch.zeros((2, 2), dtype=torch.int32)
+    lengths = torch.ones(2, dtype=torch.int32)
+    pool = torch.zeros((4, 16, 32, 96))
+    assert kernels._check(torch.zeros((2, 32, 96)), pool, pool, tables, lengths) == 1
+    with pytest.raises(ValueError, match="head_dim 80"):
+        kernels._check(torch.zeros((2, 32, 80)), pool[..., :80], pool[..., :80], tables, lengths)
 
 
 @pytest.mark.parametrize("length,window,splits", [
