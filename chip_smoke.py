@@ -249,15 +249,46 @@ Phases, each of which must pass (any failure exits non-zero):
    beside their bounds: K4 at B 8, Hkv 32, D 96, window 2047, rows of
    2048-3072; K1-K3 at B 8, S 2048, Hq = Hkv = 32, D 96 (padded to 128;
    the bound counts 96), window 2047, with the plain versions and SDPA.
+20. instruction tuning (after phase 19): the card's machine has no
+   tokenizer, so 512 conversations arrive tokenized on the host from seed
+   0 as Llama-3.1's chat template lays them out (`<|begin_of_text|>`, a
+   system turn, 1-3 user/assistant pairs of 32-1536 and 32-2048 content
+   tokens, log-uniform; the published special-token ids; labels on each
+   assistant turn's content and `<|eot_id|>`, the template's `{% generation
+   %}` block). The port's `_handle_overlong` (DROP at 4096),
+   `_group_by_length_packing` (the native packer) and
+   `InstructionTuningDataCollator` (pad id 128004) make the rows: exactly
+   the conversations over 4096 tokens are dropped, every row is at most
+   4096 tokens and each segment one kept conversation whole (each exactly
+   once), positions restart at each segment, padding has segment 0, the
+   labels equal the kept assistant masks' sum, and the native packer's
+   groups equal the Python version's on these lengths and on 10^6 drawn
+   the same way (a process started with phase 16 packs those with both
+   and times them; it shares the host with phase 16's checkpoint work).
+   Then the CLM `Trainer` at Llama-3.1-8B widths cut to 4
+   layers (fp32 parameters, bf16 compute, selective recompute, random
+   weights from seed 0), NEFTune 5.0, the example's AdamW and cosine
+   schedule at a peak of 3e-4 (no warmup), 4 steps of 4 packed rows, two
+   batches visited twice: step 1's loss near ln(vocab), every loss finite,
+   each batch's loss lower at its second visit, K1, K2 and K3 once a layer
+   a micro-step and the NEFTune kernel once a micro-step, the plain path
+   never. It prints step p50, tokens/s (all and assistant), MFU, peak
+   memory, the rows' fill, the dropped conversations, the host seconds to
+   drop, pack and collate the set, and both packers' seconds at 10^6
+   lengths; then the NEFTune kernel at each trained batch's shape [4, S,
+   4096] and the fit's magnitude 5 / sqrt(S x 4096) against its plain
+   version (bits equal), and K1-K3 at the first batch's shape against
+   their plain versions, timed beside their bounds, the plain versions and
+   SDPA.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
-17a) and phase 18's K4 launches on lines of their own, then one
-`{"kernels": [...]}` line for this slice's path (phase 19: K4 launches
-from its serving leg, K1-K3 from its DPO leg, times at its shapes), the
-card's name and power limit, and as its last line `{"ok": true,
-"device": {...}}`.
+17a), at Phi-3-mini's (phase 19) and phase 18's K4 launches on lines of
+their own, then one `{"kernels": [...]}` line for this slice's path
+(phase 20: K1-K3 launches and times at its shape; K4, which it does not
+run, from phase 19's serving), the card's name and power limit, and as its
+last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2362,12 +2393,15 @@ def phase_optimizer(card: str) -> dict:
     out = {"pinned_copy": rate}
 
     # 1. placement parity at OPT_LAYERS, and prefetch 2 against 0
+    # the comparisons run on the card, one parameter at a time, against host
+    # copies (float64 sums of ~2e9 elements take tens of seconds on the host)
     def keep(state, start):
         """The final parameters (host copies) and their travel from the start."""
-        final = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
-        travel = sum(float((final[n].double() - start[n].double()).pow(2).sum())
-                     for n in final) ** 0.5
-        return final, travel
+        final, travel = {}, 0.0
+        for n, p in state.model.named_parameters():
+            final[n] = p.detach().to("cpu", copy=True)
+            travel += float((p.detach().double() - start[n].to(p.device).double()).pow(2).sum())
+        return final, travel ** 0.5
 
     ref = optimizer_run(card, "adamw_card", OPT_LAYERS, OPT_STEPS, OPT_ADAMW, profile=True,
                         inspect=keep)
@@ -2384,10 +2418,11 @@ def phase_optimizer(card: str) -> dict:
         from them over that run's travel, in all and by parameter."""
         differ, by_name = [], {}
         for n, p in state.model.named_parameters():
-            p = p.detach().to("cpu")
-            if not torch.equal(p, p_ref[n]):
+            p, ref_p = p.detach(), p_ref[n].to(p.device)
+            if not torch.equal(p, ref_p):
                 differ.append(n)
-            by_name[n] = float((p.double() - p_ref[n].double()).pow(2).sum())
+            by_name[n] = float((p.double() - ref_p.double()).pow(2).sum())
+            del ref_p
         worst = sorted(by_name, key=by_name.get, reverse=True)[:3]
         return differ, sum(by_name.values()) ** 0.5 / travel, {
             n: by_name[n] ** 0.5 / travel for n in worst}
@@ -5085,15 +5120,29 @@ def hf_kernel_timing(card: str) -> dict:
           f"fp32 {err['vs_fp32']:.3f} of the limit, fp32 abs {err32['abs']:.3e}", flush=True)
     del cases
     release()
-    cases = bench_flash.dpo_case()
+    out.update(flash_shape_timing(
+        card, f"phi-3 DPO B8 S2048 Hq32 Hkv32 D96 (padded to 128) window {window}",
+        bench_flash.dpo_case(), window, bound_note=" at D 96"))
+    return out
+
+
+def flash_shape_timing(card: str, label: str, cases: list[dict], window: int = 0,
+                       bound_note: str = "") -> dict:
+    """K1, K2 and K3 on `cases` (copies of one shape, enough to run cold in
+    L2): held against their plain versions (one kv head at a time) on the
+    first, then timed beside their bounds, the plain versions and SDPA.
+    Returns per kernel kind ms, plain_ms, library_ms, bound_ms, bound_by
+    and max_abs_err."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+
     case = cases[0]
-    got = bench_flash.run_case(case, kernel=True, causal=True, sliding_window=window)
-    ref = bench_flash.run_plain_by_kv_head(case, causal=True, sliding_window=window)
+    got = bench_flash.run_case(case, kernel=True, causal=True, sliding_window=window or None)
+    ref = bench_flash.run_plain_by_kv_head(case, causal=True, sliding_window=window or None)
     ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, causal=True,
-                                             sliding_window=window)
+                                             sliding_window=window or None)
     torch.cuda.synchronize()
     errors, broken = flash_case_errors(got, ref, ref32, case, None)
-    check(not broken, f"phi-3 DPO shape: flash kernels vs plain: {broken}")
+    check(not broken, f"{label}: flash kernels vs plain: {broken}")
     abs_err = {
         "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
         "dq": float((got["dq"].float() - ref["dq"].float()).abs().max()),
@@ -5103,16 +5152,17 @@ def hf_kernel_timing(card: str) -> dict:
     record = bench_flash.kernel_record(cases=cases, window=window)
     plain = bench_flash.time_plain(cases, window=window)
     library = bench_flash.time_sdpa(cases, window=window)
+    out = {}
     for kind in ("fwd", "dq", "dkv"):
         side = "fwd_ms" if kind == "fwd" else "bwd_ms"
         out[kind] = dict(ms=record[f"{kind}_ms"], plain_ms=plain[side], library_ms=library[side],
                          bound_ms=record[f"{kind}_bound_ms"], bound_by=record[f"{kind}_bound_by"],
                          max_abs_err=abs_err[kind])
-    print(f"flash timing [{card}]: phi-3 DPO B8 S2048 Hq32 Hkv32 D96 (padded to 128) window "
-          f"{window} bf16 ({record['visible_pairs_per_head']} visible pairs a head), cold L2: "
-          + "; ".join(f"{kind} {v['ms']:.3f} ms (bound at D 96 {v['bound_ms']:.3f} ms by "
+    print(f"flash timing [{card}]: {label} bf16 ({record['visible_pairs_per_head']} visible "
+          f"pairs a head), cold L2: "
+          + "; ".join(f"{kind} {v['ms']:.3f} ms (bound{bound_note} {v['bound_ms']:.3f} ms by "
                       f"{v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}%)"
-                      for kind, v in out.items() if kind != "k4")
+                      for kind, v in out.items())
           + f"; plain fwd {plain['fwd_ms']:.3f} ms, bwd {plain['bwd_ms']:.3f} ms; SDPA fwd "
           f"{library['fwd_ms']:.3f} ms, bwd {library['bwd_ms']:.3f} ms; parity bf16 "
           + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errors.items())), flush=True)
@@ -5201,6 +5251,343 @@ def phase_hf_phi3(card: str) -> dict:
     return out
 
 
+IT_DEVICE = "cuda"
+IT_LAYERS = 4  # Llama-3.1-8B widths cut to 4 layers
+IT_STEPS = 4  # optimizer steps: two batches, each visited twice
+IT_ROWS = 4  # packed rows a step (the example's batch of 32, cut)
+IT_MAX_LENGTH = 4096  # the example's max_length
+IT_CONVERSATIONS = 512
+IT_TURNS = (1, 3)  # user/assistant turn pairs a conversation, inclusive
+IT_USER = (32, 1536)  # tokens of a user turn, log-uniform, inclusive
+IT_ASSISTANT = (32, 2048)  # tokens of an assistant turn, log-uniform, inclusive
+IT_SYSTEM = 24  # tokens of the system turn the template always writes
+IT_NEFTUNE = 5.0  # the example's neftune_alpha
+IT_BIG = 10**6  # lengths for the packers' timing and equality
+# Llama-3.1's special tokens (tokenizer_config.json of
+# huggingface.co/meta-llama/Llama-3.1-8B-Instruct) and the ids of the header
+# words and of "\n\n" in its tokenizer.json
+IT_BEGIN, IT_START_HEADER, IT_END_HEADER, IT_EOT, IT_PAD = 128000, 128006, 128007, 128009, 128004
+IT_ROLE = {"system": 9125, "user": 882, "assistant": 78191}
+IT_NEWLINES = 271
+# the example's AdamW and cosine schedule (its warmup of 100 of 3000 steps
+# is 0 of 4); the peak is the fit phase's 3e-4: the example's 2e-5 moves
+# no bf16 product in 4 steps from random weights (phases 13 and 14 found
+# the same of 5e-7-1e-5)
+IT_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=0)
+
+# the packers' timing and equality at IT_BIG lengths, in a process of its
+# own started with phase 16 (the Python packer takes about a minute there);
+# prints one JSON line
+_PACK_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from llm_training_tpu_torch import native
+from llm_training_tpu_torch.data.pre_training.packing import best_fit_bin_packing_py
+lengths, _ = chip_smoke.it_turns(int(sys.argv[2]), seed=1)
+kept = sorted((n for n in lengths.tolist() if n <= chip_smoke.IT_MAX_LENGTH), reverse=True)
+native.lib()
+t = time.perf_counter(); fast = native.bfd_pack(chip_smoke.IT_MAX_LENGTH, kept)
+native_s = time.perf_counter() - t
+t = time.perf_counter(); slow = best_fit_bin_packing_py(chip_smoke.IT_MAX_LENGTH, kept)
+python_s = time.perf_counter() - t
+print(json.dumps(dict(items=len(kept), dropped=len(lengths) - len(kept), bins=len(fast),
+                      equal=fast == slow, native_s=native_s, python_s=python_s)))
+"""
+
+
+def it_log_uniform(rng, bounds: tuple[int, int], shape) -> np.ndarray:
+    lo, hi = bounds
+    draw = np.exp(rng.uniform(math.log(lo), math.log(hi + 1), shape)).astype(np.int64)
+    return np.clip(draw, lo, hi)
+
+
+def it_turns(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """`n` conversations' token counts as Llama-3.1's template frames them
+    (`<|begin_of_text|>`, a system turn, then 1-3 user/assistant pairs; each
+    turn a 4-token header and an `<|eot_id|>`), and their [n, 3, 2] user and
+    assistant content lengths (0 past a conversation's turns)."""
+    rng = np.random.default_rng(seed)
+    turns = rng.integers(IT_TURNS[0], IT_TURNS[1] + 1, n)
+    content = np.stack([it_log_uniform(rng, IT_USER, (n, IT_TURNS[1])),
+                        it_log_uniform(rng, IT_ASSISTANT, (n, IT_TURNS[1]))], axis=-1)
+    content *= (np.arange(IT_TURNS[1])[None, :] < turns[:, None])[..., None]
+    lengths = 1 + (5 + IT_SYSTEM) + (content + 5 * (content > 0)).sum(axis=(1, 2))
+    return lengths, content
+
+
+def it_conversations(seed: int) -> tuple[dict, list[int]]:
+    """IT_CONVERSATIONS conversations tokenized on the host as Llama-3.1's
+    template (`data/chat_templates/llama-3.1.j2`) lays them out, content ids
+    drawn below the special tokens: the batch `_apply_template_and_tokenize`
+    gives (`input_ids`, `labels`: each assistant turn's content and its
+    `<|eot_id|>`, the template's `{% generation %}` block, else -100;
+    `length`) and each conversation's assistant-mask sum."""
+    lengths, content = it_turns(IT_CONVERSATIONS, seed)
+    rng = np.random.default_rng(seed + 100)
+    system = rng.integers(0, IT_BEGIN, IT_SYSTEM).tolist()
+
+    def header(role):
+        return [IT_START_HEADER, IT_ROLE[role], IT_END_HEADER, IT_NEWLINES]
+
+    batch, masks = {"input_ids": [], "labels": [], "length": []}, []
+    for turns in content:
+        ids = [IT_BEGIN, *header("system"), *system, IT_EOT]
+        labels = [-100] * len(ids)
+        for user, assistant in turns:
+            if not user:
+                break
+            ids += header("user") + rng.integers(0, IT_BEGIN, user).tolist() + [IT_EOT]
+            ids += header("assistant")
+            answer = rng.integers(0, IT_BEGIN, assistant).tolist() + [IT_EOT]
+            labels += [-100] * (len(ids) - len(labels)) + answer
+            ids += answer
+        batch["input_ids"].append(ids)
+        batch["labels"].append(labels)
+        batch["length"].append(len(ids))
+        masks.append(sum(t != -100 for t in labels))
+    check(batch["length"] == lengths.tolist(), "instruction tuning: conversation lengths")
+    return batch, masks
+
+
+def it_check_batch(batch: dict, kept: dict) -> None:
+    """One collated batch: positions restart at each segment, padding has
+    segment 0, label -100, position 0 and the pad id, and each segment is
+    a kept conversation whole."""
+    for row in range(batch["input_ids"].shape[0]):
+        seg, pos = batch["segment_ids"][row], batch["position_ids"][row]
+        pad = seg == 0
+        check(np.all(batch["input_ids"][row][pad] == IT_PAD) and np.all(pos[pad] == 0)
+              and np.all(batch["labels"][row][pad] == -100),
+              "instruction tuning: padding without segment 0, label -100, position 0, pad id")
+        real = np.flatnonzero(~pad)
+        check(real.size == 0 or real[-1] == real.size - 1, "instruction tuning: left padding")
+        for s in np.unique(seg[~pad]):
+            where = np.flatnonzero(seg == s)
+            check(np.array_equal(pos[where], np.arange(where.size)) and
+                  np.array_equal(where, np.arange(where[0], where[0] + where.size)),
+                  f"instruction tuning: segment {s} of a row does not restart its positions")
+            tokens = tuple(batch["input_ids"][row][where].tolist())
+            check(tokens in kept, "instruction tuning: a segment is not one kept conversation")
+            kept[tokens] -= 1
+
+
+def phase_instruction_tuning(card: str) -> dict:
+    """Instruction tuning through the port's data functions and the CLM
+    Trainer at Llama-3.1-8B widths (see the header)."""
+    from dataclasses import asdict
+    import subprocess
+    import types
+
+    from llm_training_tpu_torch import native, prng
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.data.instruction_tuning.collator import (
+        InstructionTuningDataCollator,
+    )
+    from llm_training_tpu_torch.data.instruction_tuning.datamodule import (
+        _group_by_length_packing,
+        _handle_overlong,
+    )
+    from llm_training_tpu_torch.data.pre_training.packing import best_fit_bin_packing_py
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset("llama-3.1-8b", num_hidden_layers=IT_LAYERS, param_dtype="float32",
+                    compute_dtype="bfloat16", enable_gradient_checkpointing=True,
+                    recompute_granularity="selective")
+    conversations, masks = it_conversations(0)
+
+    # the host's data path: drop the overlong, pack (the host packer),
+    # collate every row; timed together
+    t0 = time.perf_counter()
+    handled = _handle_overlong(conversations, IT_MAX_LENGTH, "drop")
+    packed = _group_by_length_packing(handled, IT_MAX_LENGTH)
+    collate = InstructionTuningDataCollator(types.SimpleNamespace(
+        tokenizer=types.SimpleNamespace(pad_token_id=IT_PAD), pad_to_multiple_of=None))
+    rows = [{k: packed[k][i] for k in ("input_ids", "labels", "segment_ids")}
+            for i in range(len(packed["input_ids"]))]
+    batches = [collate(rows[i:i + IT_ROWS]) for i in range(0, len(rows), IT_ROWS)]
+    host_s = time.perf_counter() - t0
+
+    keep = [i for i, n in enumerate(conversations["length"]) if n <= IT_MAX_LENGTH]
+    check(handled["input_ids"] == [conversations["input_ids"][i] for i in keep]
+          and handled["labels"] == [conversations["labels"][i] for i in keep],
+          "instruction tuning: DROP did not keep exactly the conversations of <= 4096 tokens")
+    check(all(n <= IT_MAX_LENGTH for n in packed["length"]),
+          f"instruction tuning: a packed row over {IT_MAX_LENGTH}: {max(packed['length'])}")
+    kept = {}
+    for i in keep:
+        key = tuple(conversations["input_ids"][i])
+        kept[key] = kept.get(key, 0) + 1
+    for batch in batches:
+        it_check_batch(batch, kept)
+    check(all(v == 0 for v in kept.values()),
+          "instruction tuning: a kept conversation is missing from the rows or appears twice")
+    labeled = sum(int((b["labels"] != -100).sum()) for b in batches)
+    check(labeled == sum(masks[i] for i in keep),
+          f"instruction tuning: {labeled} labels, assistant masks sum to "
+          f"{sum(masks[i] for i in keep)}")
+    order = sorted((conversations["length"][i] for i in keep), reverse=True)
+    check(native.bfd_pack(IT_MAX_LENGTH, order) == best_fit_bin_packing_py(IT_MAX_LENGTH, order),
+          "instruction tuning: the native packer's groups differ from the Python version's")
+    tokens_all = sum(packed["length"])
+    fill = tokens_all / (len(rows) * IT_MAX_LENGTH)
+    dropped = IT_CONVERSATIONS - len(keep)
+
+    # training: two batches spread over the packed set, each visited twice
+    picks = [batches[len(batches) * (j + 1) // 3] for j in range(2)]
+    steps = [picks[s % 2] for s in range(IT_STEPS)]
+
+    class Steps(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from steps[start_step:]
+
+    class StepClock:
+        def __init__(self):
+            self.step_s, self.losses, self.t = [], [], None
+
+        def on_fit_start(self, trainer, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    clock = StepClock()
+    trainer = Trainer(TrainerConfig(max_steps=IT_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[clock], device=IT_DEVICE)
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**IT_OPTIM), neftune_alpha=IT_NEFTUNE))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel, prng.uniform)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Steps(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = clock.losses
+    ln_v = math.log(config.vocab_size)
+    check(len(losses) == IT_STEPS and all(math.isfinite(x) for x in losses),
+          f"instruction tuning: losses {losses}")
+    check(abs(losses[0] - ln_v) <= OPT_LN_V_ATOL,
+          f"instruction tuning: step 1's loss {losses[0]:.4f}, ln V {ln_v:.4f}")
+    check(losses[2] < losses[0] and losses[3] < losses[1],
+          f"instruction tuning: a batch's loss is not lower at its second visit: {losses}")
+    want = [IT_LAYERS * IT_STEPS] * 3 + [IT_STEPS]
+    check(launches == want, f"instruction tuning: K1/K2/K3/NEFTune launched {launches} times; "
+          f"expected {want} (selective recompute, one NEFTune draw a micro-step)")
+    check(plain[0] == 0, f"instruction tuning: the plain attention path ran {plain[0]} times")
+
+    model = state.model
+    n_matmul = sum(p.numel() for p in model.parameters()) - model.model.embed_tokens.weight.numel()
+    head_dim, hq = config.resolved_head_dim, config.num_attention_heads
+    per_batch = []
+    for batch in picks:
+        seg = torch.as_tensor(batch["segment_ids"], device=IT_DEVICE)
+        pairs = bench_flash.visible_pairs(seg, seg)
+        tokens = int((batch["segment_ids"] > 0).sum())
+        assistant = int((batch["labels"] != -100).sum())
+        per_batch.append((tokens, assistant,
+                          6 * n_matmul * tokens + 12 * head_dim * hq * IT_LAYERS * pairs))
+    timed = clock.step_s[1:]  # step 1 carries the warm-up
+    work = [per_batch[s % 2] for s in range(1, IT_STEPS)]
+    del objective, state, trainer, model
+    release()
+
+    # the NEFTune kernel at the shapes and magnitude this fit gave it
+    # (clm.py: alpha / sqrt(width * hidden)), bits equal to the plain version
+    neftune_shapes = []
+    for batch in picks:
+        shape = (*batch["input_ids"].shape, config.hidden_size)
+        mag = IT_NEFTUNE / math.sqrt(shape[1] * shape[2])
+        key = prng.fold_in(prng.key(0), shape[1])
+        got = prng.uniform(key, shape, torch.bfloat16, -mag, mag, device=IT_DEVICE)
+        want = prng.uniform_torch(key, shape, torch.bfloat16, -mag, mag, device=IT_DEVICE)
+        check(torch.equal(got, want), f"instruction tuning: NEFTune uniform {shape}: "
+              f"{int((got != want).sum())} values differ from the plain version")
+        neftune_shapes.append(list(shape))
+        del got, want
+    torch.cuda.empty_cache()
+
+    child = _PACK_STATE.get("child")
+    check(child is not None, "instruction tuning: the packers' process was not started")
+    stdout, stderr = child.communicate(timeout=600)
+    check(child.returncode == 0, f"instruction tuning: the packers' process failed: "
+          f"{stderr[-2000:]}")
+    big = json.loads(stdout.strip().splitlines()[-1])
+    check(big["equal"], f"instruction tuning: native and Python groups differ at "
+          f"{big['items']} lengths")
+
+    # the kernels at this path's shape: the first training batch's layout
+    width = picks[0]["segment_ids"].shape[1]
+    seg_rows = list(picks[0]["segment_ids"])
+    per_copy = 2 * IT_ROWS * width * (hq + 2 * config.num_key_value_heads) * head_dim * 2
+    copies = max(2, math.ceil(2 * bench_flash.L2_BYTES / per_copy) + 1)
+    cases = [bench_flash.flash_case(width, hq, config.num_key_value_heads, head_dim,
+                                    torch.bfloat16, seg_rows, seed) for seed in range(copies)]
+    kernels = flash_shape_timing(card, f"instruction tuning B{IT_ROWS} S{width} Hq{hq} "
+                                 f"Hkv{config.num_key_value_heads} D{head_dim} packed", cases)
+    result = dict(
+        layers=IT_LAYERS, steps=IT_STEPS, rows_per_step=IT_ROWS, conversations=IT_CONVERSATIONS,
+        dropped=dropped, rows=len(rows), fill=fill, tokens=tokens_all,
+        labeled_tokens=labeled, host_pack_collate_s=host_s,
+        launches=dict(zip(("fwd", "dq", "dkv", "neftune"), launches)), plain_calls=plain[0],
+        losses=losses, step_ms=[1e3 * t for t in clock.step_s],
+        step_ms_p50=1e3 * percentile(timed, 50),
+        tokens_per_s=sum(w[0] for w in work) / sum(timed),
+        assistant_tokens_per_s=sum(w[1] for w in work) / sum(timed),
+        mfu=sum(w[2] for w in work) / sum(timed) / bench_flash.BF16_FLOPS_PER_S,
+        peak_memory_gb=peak_gb, packers=big, neftune_parity_shapes=neftune_shapes,
+        kernels=kernels,
+    )
+    print(f"instruction tuning [{card}]: {IT_CONVERSATIONS} conversations, {dropped} over "
+          f"{IT_MAX_LENGTH} dropped, {len(rows)} rows at {100 * fill:.2f}% fill, {labeled} labels; "
+          f"drop + pack + collate {host_s:.3f} s on the host; packers at {big['items']} lengths "
+          f"({big['bins']} bins): native {big['native_s']:.3f} s, Python {big['python_s']:.3f} s, "
+          f"groups equal")
+    print(f"instruction tuning [{card}]: llama-3.1-8b widths x {IT_LAYERS} layers, {IT_STEPS} "
+          f"steps of {IT_ROWS} packed rows (<= {IT_MAX_LENGTH}), NEFTune {IT_NEFTUNE}, peak lr "
+          f"{IT_OPTIM['learning_rate']}; losses {', '.join(f'{x:.4f}' for x in losses)} (ln V "
+          f"{ln_v:.4f}); launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} NEFTune "
+          f"{launches[3]}, plain path 0; step p50 {result['step_ms_p50']:.1f} ms, "
+          f"{result['tokens_per_s']:.0f} tokens/s ({result['assistant_tokens_per_s']:.0f} "
+          f"assistant), MFU {100 * result['mfu']:.2f}% of 989 TFLOPS, peak memory "
+          f"{peak_gb:.2f} GB; NEFTune uniform bits equal to the plain version at "
+          f"{', '.join('x'.join(map(str, s)) for s in neftune_shapes)}", flush=True)
+    return result
+
+
+_PACK_STATE: dict = {}
+
+
+def start_pack_child() -> None:
+    """Start phase 20's packers' process (stopped at exit if still running)."""
+    import atexit
+    import subprocess
+
+    child = subprocess.Popen([sys.executable, "-c", _PACK_CHILD, str(ROOT), str(IT_BIG)], cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(child.kill)
+    _PACK_STATE["child"] = child
+
+
 def timed(name: str, phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -5242,11 +5629,14 @@ def main() -> int:
     preference = timed("13 preference", phase_preference, card)
     optimizer = timed("14 optimizer", phase_optimizer, card)
     resilience = timed("15 resilience", phase_resilience, card)
+    # phase 20's packers at 10^6 lengths, on the host beside phase 16
+    start_pack_child()
     durability = timed("16 durability", phase_durability, card, hf_round_trip)
     rl = timed("17 rl-fit", phase_rl, card)
     serving = timed("18 serve resilience", phase_serve_resilience, card)
     hf = timed("19 hf + phi3", phase_hf_phi3, card)
     hf["round_trip"] = durability.pop("hf_round_trip")
+    it = timed("20 instruction tuning", phase_instruction_tuning, card)
     timed("9 train-step parity", phase_train_parity)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
@@ -5261,6 +5651,7 @@ def main() -> int:
     print(f"rl summary [{card}]: " + json.dumps(rl))
     print(f"serve resilience summary [{card}]: " + json.dumps(serving))
     print(f"hf + phi3 summary [{card}]: " + json.dumps(hf))
+    print(f"instruction tuning summary [{card}]: " + json.dumps(it))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"]}))
@@ -5279,10 +5670,13 @@ def main() -> int:
     # 17a's launches (its rl-fit runs all four kernels)
     print("kernels at Llama-3.1-8B shapes (launches: phase 17a): " + json.dumps(kernel_rows(
         timing, rl["a"]["launches"]["decode"], flash, rl["a"]["launches"])))
-    # this slice's path: phase 19's serving (K4) and DPO (K1-K3) at Phi-3-mini's
-    # shapes, timed there
+    # phase 19's serving (K4) and DPO (K1-K3) at Phi-3-mini's shapes, timed there
+    print("kernels at Phi-3-mini shapes (launches: phase 19): " + json.dumps(kernel_rows(
+        hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])))
+    # this slice's path: phase 20's instruction tuning (K1-K3, timed at its
+    # first batch's shape); K4, which it does not run, from phase 19's serving
     print(json.dumps({"kernels": kernel_rows(
-        hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])}))
+        hf["kernels"]["k4"], hf["serve"]["launches"], it["kernels"], it["launches"])}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

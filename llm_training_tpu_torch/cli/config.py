@@ -31,7 +31,16 @@ from llm_training_tpu_torch.callbacks.time_estimator import (
     TrainingTimeEstimator,
     TrainingTimeEstimatorConfig,
 )
-from llm_training_tpu_torch.data.dummy import DummyDataModule, DummyDataModuleConfig
+from llm_training_tpu_torch.data import (
+    DummyDataModule,
+    DummyDataModuleConfig,
+    InstructionTuningDataModule,
+    InstructionTuningDataModuleConfig,
+    PreferenceTuningDataModule,
+    PreferenceTuningDataModuleConfig,
+    PreTrainingDataModule,
+    PreTrainingDataModuleConfig,
+)
 from llm_training_tpu_torch.dataclass_config import build_dataclass
 from llm_training_tpu_torch.lms import (
     CLM,
@@ -53,6 +62,12 @@ CLASS_PATHS: dict[str, tuple[type, type]] = {
     "llm_training_tpu.lms.ORPO": (ORPO, ORPOConfig),
     "llm_training_tpu.lms.GRPO": (GRPO, GRPOConfig),
     "llm_training_tpu.data.DummyDataModule": (DummyDataModule, DummyDataModuleConfig),
+    "llm_training_tpu.data.PreTrainingDataModule": (
+        PreTrainingDataModule, PreTrainingDataModuleConfig),
+    "llm_training_tpu.data.InstructionTuningDataModule": (
+        InstructionTuningDataModule, InstructionTuningDataModuleConfig),
+    "llm_training_tpu.data.PreferenceTuningDataModule": (
+        PreferenceTuningDataModule, PreferenceTuningDataModuleConfig),
     "llm_training_tpu.callbacks.JsonlLogger": (JsonlLogger, JsonlLoggerConfig),
     "llm_training_tpu.callbacks.NanGuard": (NanGuard, NanGuardConfig),
     "llm_training_tpu.callbacks.TrainingTimeEstimator": (

@@ -773,20 +773,22 @@ def run_validate(args) -> int:
 
 
 def _parse_prompts(args, config: dict) -> list[list[int]]:
-    """--prompt-tokens '3,17,42' (repeatable); --prompt needs a tokenizer,
-    which the port does not have yet."""
+    """--prompt-tokens '3,17,42' (repeatable) and/or --prompt 'text...'
+    (repeatable; encoded by the tokenizer of the config's data node, as
+    JAX's `_parse_prompts` does)."""
     prompts = [[int(t) for t in raw.replace(" ", "").split(",") if t]
                for raw in args.prompt_tokens or []]
     if args.prompt:
-        if config.get("data", {}).get("init_args", {}).get("tokenizer") is None:
+        tokenizer_node = config.get("data", {}).get("init_args", {}).get("tokenizer")
+        if tokenizer_node is None:
             raise SystemExit(
                 "--prompt needs a tokenizer in the config's data node; "
                 "use --prompt-tokens with raw token ids instead"
             )
-        raise NotImplementedError(
-            "--prompt: tokenizers come with the HF data modules, not ported yet (ROADMAP "
-            "A.5); use --prompt-tokens"
-        )
+        from llm_training_tpu_torch.data.tokenizer import resolve_tokenizer
+
+        tokenizer = resolve_tokenizer(tokenizer_node)
+        prompts += [list(tokenizer(text)["input_ids"]) for text in args.prompt]
     if not prompts:
         raise SystemExit("generate needs --prompt-tokens and/or --prompt")
     return prompts

@@ -4,14 +4,13 @@ Counterpart of `scripts/convert_to_hf.py`: the model is rebuilt from the
 run config embedded in the checkpoint (`meta.json`), only the parameters
 are read (not the optimizer's state; for DPO and GRPO the policy's, not
 the frozen reference's), and `hf_io.save_hf_checkpoint` writes the
-safetensors shards and `config.json`.
+safetensors shards and `config.json`. The tokenizer named by `--tokenizer`
+or by the run config's data node is written beside them with
+`save_pretrained`, carrying the data node's `chat_template` when it names
+one (that export imports `transformers`, inside `_export_tokenizer` only).
 
     python -m llm_training_tpu_torch.convert_to_hf <checkpoint_dir> <output_dir> \\
         [--step N] [--dtype bfloat16] [--tokenizer PATH]
-
-Exporting a tokenizer needs the tokenizer modules (ROADMAP A.5): when one
-is named (here or in the run config's data node), the port logs a warning
-and writes the weights and `config.json` only (ROADMAP C.27).
 """
 
 from __future__ import annotations
@@ -81,13 +80,27 @@ def convert_checkpoint(
     model, params, meta = load_checkpoint(Path(ckpt_dir).absolute(), step)
     out = save_hf_checkpoint(params, model.config, output_dir, dtype=dtype)
     logger.info("weights + config.json written to %s", out)
-    tokenizer_src = tokenizer_path or _tokenizer_from_config(meta.get("config") or {})
+    run_config = meta.get("config") or {}
+    tokenizer_src = tokenizer_path or _tokenizer_from_config(run_config)
     if tokenizer_src is not None:
-        logger.warning("tokenizer %s not exported: the tokenizer modules are not ported "
-                       "(ROADMAP A.5); weights and config.json only", tokenizer_src)
+        _export_tokenizer(tokenizer_src, run_config, out)
     else:
         logger.warning("no tokenizer in config and none given; skipping tokenizer export")
     return out
+
+
+def _export_tokenizer(tokenizer_src, run_config: dict, out: Path) -> None:
+    """The tokenizer, with the data node's chat template when it names one,
+    saved into `out` (JAX's `_export_tokenizer`)."""
+    from llm_training_tpu_torch.data.chat_templates import get_chat_template
+    from llm_training_tpu_torch.data.tokenizer import resolve_tokenizer
+
+    tokenizer = resolve_tokenizer(tokenizer_src)
+    template_name = ((run_config.get("data") or {}).get("init_args") or {}).get("chat_template")
+    if template_name:
+        tokenizer.chat_template = get_chat_template(template_name)
+    tokenizer.save_pretrained(out)
+    logger.info("tokenizer written to %s", out)
 
 
 def main(argv: list[str] | None = None) -> int:

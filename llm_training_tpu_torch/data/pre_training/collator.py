@@ -1,10 +1,12 @@
 """Pre-training collator.
 
-Counterpart of the numpy path of
-`llm_training_tpu/data/pre_training/collator.py`: pad to the longest row
-(rounded up to `pad_to_multiple_of`) on the configured side, labels with
-BOS and padding masked (-100), segment ids 0 on padding, and one shared
-position stream per row (positions run across packed documents).
+Counterpart of `llm_training_tpu/data/pre_training/collator.py`: pad to
+the longest row (rounded up to `pad_to_multiple_of`) on the configured
+side, labels with BOS and padding masked (-100), segment ids 0 on padding,
+and one shared position stream per row (positions run across packed
+documents). Right padding runs through the host packer's `pad_batch`
+(`llm_training_tpu_torch/native`), as JAX's does; left padding through the
+numpy loop, which is also the plain version the tests hold it to.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+
+from llm_training_tpu_torch import native
 
 
 class PreTrainingDataCollator:
@@ -35,6 +39,21 @@ class PreTrainingDataCollator:
 
     def __call__(self, examples: list[dict]) -> dict[str, np.ndarray]:
         width = self._padded_len(max(len(e["input_ids"]) for e in examples))
+        if self.padding_side == "right":
+            rows = [np.asarray(e["input_ids"], np.int32) for e in examples]
+            row_labels = [
+                np.where(ids == self.bos_token_id, -100, ids).astype(np.int32)
+                if self.bos_token_id is not None else ids
+                for ids in rows
+            ]
+            return native.pad_batch(
+                rows, [np.asarray(e["segment_ids"], np.int32) for e in examples], row_labels,
+                width, self.pad_token_id, restart_positions=False,  # one stream per row
+            )
+        return self.plain(examples, width)
+
+    def plain(self, examples: list[dict], width: int) -> dict[str, np.ndarray]:
+        """The numpy loop: either side, JAX's fallback path."""
         batch = len(examples)
         input_ids = np.full((batch, width), self.pad_token_id, np.int32)
         segment_ids = np.zeros((batch, width), np.int32)

@@ -1,15 +1,25 @@
 """Best-fit-decreasing packing of documents into fixed-length rows.
 
-Counterpart of `best_fit_bin_packing_py` and `_best_fit_decreasing` in
-`llm_training_tpu/data/pre_training/datamodule.py`, copied without HF
-`datasets` and without the native engine (which gives byte-identical
-groups). A packed row holds whole documents with segment ids 1..N; the
-collator pads it with segment id 0.
+Counterpart of `best_fit_bin_packing`, `best_fit_bin_packing_py` and
+`_best_fit_decreasing` in `llm_training_tpu/data/pre_training/datamodule.py`
+(the port's `data/pre_training/datamodule.py` imports them from here): pure
+Python, numpy and the host packer (`llm_training_tpu_torch/native`), no
+HF packages, so the card's machine runs them. A packed row holds whole
+documents with segment ids 1..N; the collator pads it with segment id 0.
 """
 
 from __future__ import annotations
 
 import bisect
+
+from llm_training_tpu_torch import native
+
+
+def best_fit_bin_packing(capacity: int, lengths: list[int]) -> list[list[int]]:
+    """Best fit in arrival order, in the host packer (`std::set`,
+    O(n log n)) at every size; JAX's dispatcher sends fewer than 64 items
+    to Python, which gives the same groups. A failed native build raises."""
+    return native.bfd_pack(capacity, lengths)
 
 
 def best_fit_bin_packing_py(capacity: int, lengths: list[int]) -> list[list[int]]:
@@ -46,7 +56,7 @@ def best_fit_decreasing(batch: dict[str, list], max_length: int) -> dict[str, li
     for source, indices in by_source.items():
         indices = sorted(indices, key=lambda i: batch["length"][i], reverse=True)
         lengths = [batch["length"][i] for i in indices]
-        for group in best_fit_bin_packing_py(max_length, lengths):
+        for group in best_fit_bin_packing(max_length, lengths):
             ids: list[int] = []
             segs: list[int] = []
             for doc_num, local_idx in enumerate(group, start=1):

@@ -11,8 +11,8 @@ are JAX's `resolve_pretrained_source` and `load_single_model_pretrained`:
 the objective's source wins over the model config's.
 
 The objective contract the `Trainer` drives (the JAX objective's
-`init_params` becomes a module): `configure_model(device, generator)`
-returns the module whose parameters are the train state -- the model of
+`init_params` becomes a module): `configure_model(device, generator,
+load_pretrained)` returns the module whose parameters are the train state -- the model of
 CLM and ORPO (`SingleModelObjective`), DPO's `PolicyAndReference` -- and
 points the objective at it; `bind(module)` points the objective at such a
 module restored elsewhere; `loss_and_metrics(batch, rng, train)` computes
@@ -114,13 +114,14 @@ def build_model(provider: ModelProvider | None, device: torch.device, where: str
 
 
 def init_model(model: torch.nn.Module, lm_config: BaseLMConfig, source: str | None,
-               generator: torch.Generator) -> torch.nn.Module:
+               generator: torch.Generator, load_pretrained: bool = True) -> torch.nn.Module:
     """Set a built model's weights: streamed from the HF directory `source`
-    when there is one and `load_weights` (each tensor placed on the
-    model's device in its parameter's dtype before the next is read), else
-    random from `generator` when `init_weights`. With `load_weights: false`
-    the source is ignored, as in JAX."""
-    if source and lm_config.load_weights:
+    when there is one, `load_weights` and `load_pretrained` (each tensor
+    placed on the model's device in its parameter's dtype before the next
+    is read), else random from `generator` when `init_weights`. With
+    `load_weights: false` the source is ignored, as in JAX;
+    `load_pretrained=False` skips it for a state a restore overwrites."""
+    if source and lm_config.load_weights and load_pretrained:
         logger.info("loading pre-trained weights from %s", source)
         load_pretrained_params(model.config, source, into=model.state_dict())
     elif lm_config.init_weights:
@@ -137,15 +138,18 @@ class SingleModelObjective:
         self.config = config
         self.model = model
 
-    def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
+    def configure_model(self, device: torch.device, generator: torch.Generator,
+                        load_pretrained: bool = True) -> torch.nn.Module:
         """The model on `device`: the one given, or one built from the
-        config with the pre-trained source's weights, or random ones from
-        `generator` (on `device`)."""
+        config with the pre-trained source's weights (unless
+        `load_pretrained` is false), or random ones from `generator` (on
+        `device`)."""
         if self.model is None:
             name = f"{type(self.config).__name__}.model"
             model = build_model(self.config.model, device, name)
             self.model = init_model(model, self.config,
-                                    resolve_pretrained_source(self.config, model.config), generator)
+                                    resolve_pretrained_source(self.config, model.config), generator,
+                                    load_pretrained)
         self.model = self.model.to(device)
         return self.model
 

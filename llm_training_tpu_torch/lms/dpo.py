@@ -101,12 +101,14 @@ class PairObjective:
         if "^ref/" not in config.frozen_modules:
             config.frozen_modules = list(config.frozen_modules) + ["^ref/"]
 
-    def configure_model(self, device: torch.device, generator: torch.Generator) -> torch.nn.Module:
+    def configure_model(self, device: torch.device, generator: torch.Generator,
+                        load_pretrained: bool = True) -> torch.nn.Module:
         """The `PolicyAndReference` on `device`: the policy handed in or
         built, and the reference handed in, built from `ref_model`, or
         copied from the policy. A built model loads the pre-trained source
-        (`pretrained_sources`) or takes random weights from `generator`
-        when `init_weights`; a `ref_model` starts from the generator state
+        (`pretrained_sources`; none when `load_pretrained` is false) or
+        takes random weights from `generator` when `init_weights`; a
+        `ref_model` starts from the generator state
         the policy started from, as JAX inits both under one key."""
         if self.pair is None:
             cfg = self.config
@@ -120,14 +122,14 @@ class PairObjective:
                 ref = build_model(cfg.ref_model, device, f"{where}.ref_model")
             policy_src, ref_src = self.pretrained_sources(policy, ref)
             if self.model is None:
-                init_model(policy, cfg, policy_src, generator)
+                init_model(policy, cfg, policy_src, generator, load_pretrained)
             if ref is None:
                 # one model, one source: the checkpoint is read once and
                 # placed twice; the reference starts as an exact copy
                 ref = copy.deepcopy(policy)
             elif self.ref_model is None:
                 generator.set_state(start)
-                init_model(ref, cfg, ref_src, generator)
+                init_model(ref, cfg, ref_src, generator, load_pretrained)
             ref.requires_grad_(False)
             self.pair = PolicyAndReference(policy, ref)
         self.bind(self.pair.to(device))

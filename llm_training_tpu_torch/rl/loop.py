@@ -102,13 +102,11 @@ class RLLoop:
         from llm_training_tpu_torch.serve.engine import ServingEngine
 
         trainer, objective = self.trainer, self.objective
-        state, _ = trainer.init_state(objective)
-        if trainer.checkpointer is not None:
-            meta = trainer._restore(state, self.options.resume_step)
-            if meta is not None:
-                self.start_round = int(meta.get("rl", {}).get("round", 0))
-                logger.info("restored step %d, resuming at RL round %d", state.step,
-                            self.start_round)
+        state, _, meta = trainer.restored_state(objective, self.options.resume_step)
+        if meta is not None:
+            self.start_round = int(meta.get("rl", {}).get("round", 0))
+            logger.info("restored step %d, resuming at RL round %d", state.step,
+                        self.start_round)
         self.state = state
         policy = state.model.policy
         if self.options.sync_mode == "host":

@@ -257,16 +257,18 @@ class Trainer:
             if hasattr(cb, hook):
                 getattr(cb, hook)(self, *args)
 
-    def init_state(self, objective, with_optimizer: bool = True):
-        """The model on the device (random from the seed, or the objective's
-        own) and, for training, its optimizer chain: the state a fresh fit
-        starts from and a restore loads into (and what a state carried from
-        the JAX package loads into: `models/llama/from_jax.py`). Returns
-        (state, schedule); both optimizer and schedule are None without the
-        optimizer."""
+    def init_state(self, objective, with_optimizer: bool = True, pretrained: bool = True):
+        """The model on the device (the objective's pre-trained weights,
+        random from the seed, or the objective's own) and, for training, its
+        optimizer chain: the state a fresh fit starts from and a restore
+        loads into (and what a state carried from the JAX package loads
+        into: `models/llama/from_jax.py`). `pretrained=False` reads no
+        pre-trained source (a restore is about to overwrite the weights).
+        Returns (state, schedule); both optimizer and schedule are None
+        without the optimizer."""
         cfg = self.config
         init = torch.Generator(device=self.device).manual_seed(cfg.seed)
-        model = objective.configure_model(self.device, init)
+        model = objective.configure_model(self.device, init, load_pretrained=pretrained)
         optimizer = schedule = None
         if with_optimizer:
             optimizer, schedule = build_optimizer(
@@ -278,6 +280,24 @@ class Trainer:
             )
         state = TrainState(step=0, model=model, optimizer=optimizer, rng=prng.key(cfg.seed + 1))
         return state, schedule
+
+    def restored_state(self, objective, resume_step: int | None, with_optimizer: bool = True):
+        """The state a fit (or an RL loop) starts from, and the restored
+        step's meta (None when nothing restored). When the checkpointer
+        holds a step (or `resume_step` names one) the state is built without
+        reading the objective's pre-trained source and restored; only when
+        no step restores is it built afresh from that source, as JAX loads
+        HF weights only when no checkpoint restored
+        (`llm_training_tpu/trainer/trainer.py:934-950`). Returns (state,
+        schedule, meta)."""
+        built = {a: getattr(objective, a) for a in _MODEL_ATTRS if hasattr(objective, a)}
+        restorable = self.checkpointer is not None and (
+            resume_step is not None or bool(self.checkpointer.all_steps()))
+        state, schedule = self.init_state(objective, with_optimizer, pretrained=not restorable)
+        meta = self._restore(state, resume_step) if self.checkpointer is not None else None
+        if meta is None and restorable:
+            state, schedule = self._fresh_state(objective, state, built, with_optimizer)
+        return state, schedule, meta
 
     def _restore(self, state: TrainState, resume_step: int | None) -> dict | None:
         try:
@@ -391,18 +411,15 @@ class Trainer:
         acc = cfg.accumulate_grad_batches
         datamodule.setup()
         built = {a: getattr(objective, a) for a in _MODEL_ATTRS if hasattr(objective, a)}
-        state, base_schedule = self.init_state(objective, with_optimizer=True)
+        state, base_schedule, meta = self.restored_state(objective, resume_step)
         state.model.train()
-        meta = None
-        if self.checkpointer is not None:
-            meta = self._restore(state, resume_step)
-            if meta is not None:
-                self.counters.update(meta.get("counters", {}))
-                self._load_callback_state(meta)
-                if self.topology_plan is not None:
-                    # a restore that fell back to a step of another topology
-                    # must not go on as if it were the plan's
-                    verify_restored_topology(self.topology_plan, meta.get("topology"))
+        if meta is not None:
+            self.counters.update(meta.get("counters", {}))
+            self._load_callback_state(meta)
+            if self.topology_plan is not None:
+                # a restore that fell back to a step of another topology
+                # must not go on as if it were the plan's
+                verify_restored_topology(self.topology_plan, meta.get("topology"))
         saved_data_state = (meta or {}).get("data_state")
         self.state = state
 
@@ -686,18 +703,24 @@ class Trainer:
             )
         logger.warning("recovery: no committed checkpoint to roll back to — "
                        "re-initializing from step 0")
-        state.model = state.optimizer = None
-        self.state = None
-        for attr in built:
-            setattr(objective, attr, None)
-        gc.collect()
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
         self.counters = {"consumed_samples": 0, "consumed_tokens": 0}
-        fresh, base_schedule = self.init_state(objective, with_optimizer=True)
+        fresh, base_schedule = self._fresh_state(objective, state, built)
         fresh.model.train()
         self.state = fresh
         return fresh, 0, base_schedule
+
+    def _fresh_state(self, objective, state: TrainState, built: dict, with_optimizer: bool = True):
+        """Free `state`, point the objective back at the models it was given
+        (`built`), and build the state a fresh fit starts from, pre-trained
+        weights included."""
+        state.model = state.optimizer = None
+        self.state = None
+        for attr, module in built.items():
+            setattr(objective, attr, module)
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return self.init_state(objective, with_optimizer=with_optimizer)
 
     def train_stream(self, datamodule, start_micro: int, skip_list=None):
         """The fit's batches from micro-step `start_micro` as `(batch,
@@ -865,7 +888,7 @@ class Trainer:
         it holds no step."""
         if self.checkpointer is None:
             raise ValueError("restore_for_inference requires a checkpointer")
-        state, _ = self.init_state(objective, with_optimizer=False)
+        state, _ = self.init_state(objective, with_optimizer=False, pretrained=False)
         # an observation must not delete steps from the directory
         if self.checkpointer.maybe_restore(state, resume_step, repair=False) is None:
             raise ValueError(f"no checkpoint found in {self.checkpointer.directory}")

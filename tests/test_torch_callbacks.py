@@ -303,9 +303,9 @@ def _example(name):
 def test_example_trainer_and_callback_nodes_are_accepted():
     """cpu-smoke.yaml's trainer node (health, resilience with recovery,
     checkpoint, callbacks, loggers) and llama-3.1-8b_pt.yaml's callbacks
-    build through the port's config layer; their model and data nodes still
-    name what is not ported (MoE: A.8; PreTrainingDataModule: A.5), and the
-    HFCausalLM node reads its HF directory (missing here)."""
+    build through the port's config layer; the smoke's model node still
+    names what is not ported (MoE: A.8), the HFCausalLM node reads its HF
+    directory and the data node its tokenizer (both missing here)."""
     smoke = _example("smoke/cpu-smoke.yaml")
     node = dict(smoke["trainer"])
     checkpoint = CheckpointConfig.from_node(node.pop("checkpoint"))
@@ -329,7 +329,9 @@ def test_example_trainer_and_callback_nodes_are_accepted():
     assert hf.get_config().overrides["recompute_granularity"] == "selective"
     with pytest.raises(FileNotFoundError, match="Llama-3.1-8B"):
         hf.model_config()  # HFCausalLM reads the directory's config.json
-    with pytest.raises(NotImplementedError, match="PreTrainingDataModule"):
+    # the data node builds the port's PreTrainingDataModule, whose tokenizer
+    # path does not exist here: the same ValueError as JAX's (no download)
+    with pytest.raises(ValueError, match="/data/models/Llama-3.1-8B"):
         instantiate_from_config(pt["data"])
     for path in ("NanGuard", "ProgressBar", "ProfilerCallback", "OutputRedirection"):
         instantiate_from_config({"class_path": f"llm_training_tpu.callbacks.{path}"})

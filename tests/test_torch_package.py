@@ -1,8 +1,11 @@
 """The port's boundary: `llm_training_tpu_torch`, `chip_smoke.py` and
 `bench_turns.py` import nothing of JAX, nothing of the JAX package and none
 of HF's packages (`safetensors`, `transformers`, `tokenizers`,
-`datasets`), and the kernel modules import on a machine with no `nvcc` and
-build nothing when they do."""
+`datasets`) nor `packaging`, with one narrow exception: the HF data modules
+(`LAZY_HF_MODULES`) import `datasets`, `transformers`, `tokenizers` and
+`packaging` inside function bodies, never at a module's top level, so
+importing any port module still pulls in none of them. The kernel modules
+import on a machine with no `nvcc` and build nothing when they do."""
 
 import ast
 import json
@@ -30,8 +33,15 @@ def _port_modules() -> list[str]:
 
 
 # HF's packages: the card's machine has none, and the port reads and writes
-# safetensors itself (`models/hf_io.py`); only the tests import them
-HF_PACKAGES = ("safetensors", "transformers", "tokenizers", "datasets")
+# safetensors itself (`models/hf_io.py`)
+HF_PACKAGES = ("safetensors", "transformers", "tokenizers", "datasets", "packaging")
+# the host side of the data layer: these packages, lazily, in these modules only
+LAZY_HF_PACKAGES = ("datasets", "transformers", "tokenizers", "packaging")
+LAZY_HF_MODULES = tuple(f"llm_training_tpu_torch/{path}" for path in (
+    "data/tokenizer.py", "data/hf_based.py", "data/pre_training/datamodule.py",
+    "data/instruction_tuning/datamodule.py", "data/preference_tuning/datamodule.py",
+    "pre_process_data.py", "cli/main.py", "convert_to_hf.py",
+))
 
 
 def _forbidden(name: str) -> bool:
@@ -49,6 +59,7 @@ def test_forbidden_prefix_check():
     assert not _forbidden("numpy")
     assert _forbidden("safetensors.torch") and _forbidden("transformers")
     assert _forbidden("tokenizers") and _forbidden("datasets")
+    assert _forbidden("packaging.version") and _forbidden("datasets.fingerprint")
 
 
 def test_import_adds_no_jax_module(tmp_path):
@@ -77,6 +88,10 @@ print(json.dumps(sorted(set(sys.modules) - before)))
     for module in ("trace", "slo", "exporter", "profiling"):
         assert f"llm_training_tpu_torch.telemetry.{module}" in added
     assert "llm_training_tpu_torch.models.hf_io" in added
+    for module in ("data.hf_based", "data.tokenizer", "data.pre_training.datamodule",
+                   "data.instruction_tuning.datamodule", "data.preference_tuning.datamodule",
+                   "native", "pre_process_data"):
+        assert f"llm_training_tpu_torch.{module}" in added
     bad = [name for name in added if _forbidden(name)]
     assert not bad, f"the port pulled in {bad}"
 
@@ -87,15 +102,41 @@ print(json.dumps(sorted(set(sys.modules) - before)))
     + ["chip_smoke.py", "bench_turns.py"],
 )
 def test_source_imports_nothing_of_jax(path):
-    tree = ast.parse((ROOT / path).read_text())
-    imported = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            imported += [alias.name for alias in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-            imported.append(node.module)
-    bad = [name for name in imported if _forbidden(name)]
+    """No forbidden import anywhere in the file, except an HF package of
+    `LAZY_HF_PACKAGES` inside a function body of a `LAZY_HF_MODULES` file."""
+    bad = [name for name, lazy in _imports(ast.parse((ROOT / path).read_text()))
+           if _forbidden(name) and not (lazy and path in LAZY_HF_MODULES
+                                         and name.split(".")[0] in LAZY_HF_PACKAGES)]
     assert not bad, f"{path} imports {bad}"
+
+
+def _imports(tree: ast.AST, in_function: bool = False) -> list[tuple[str, bool]]:
+    """(module name, inside a function body) of every absolute import."""
+    found = []
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, ast.Import):
+            found += [(alias.name, in_function) for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            found.append((node.module, in_function))
+        found += _imports(node, in_function or isinstance(
+            node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+    return found
+
+
+def test_lazy_hf_imports_are_where_the_exception_names():
+    """The exception is used where it is named and nowhere else: the HF data
+    modules import the HF packages in function bodies only, and a top-level
+    import, or a lazy one outside those modules, is refused by the scan."""
+    lazy = {path for path in LAZY_HF_MODULES for name, in_function
+            in _imports(ast.parse((ROOT / path).read_text()))
+            if in_function and name.split(".")[0] in LAZY_HF_PACKAGES}
+    assert {f"llm_training_tpu_torch/data/{p}" for p in (
+        "tokenizer.py", "hf_based.py", "pre_training/datamodule.py",
+        "instruction_tuning/datamodule.py", "preference_tuning/datamodule.py")} <= lazy
+    top = ast.parse("import datasets\ndef f():\n    import transformers\n")
+    assert _imports(top) == [("datasets", False), ("transformers", True)]
+    nested = ast.parse("class C:\n    def m(self):\n        from packaging import version\n")
+    assert _imports(nested) == [("packaging", True)]
 
 
 def test_kernel_module_builds_nothing_on_import():

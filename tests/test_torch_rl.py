@@ -455,8 +455,8 @@ def _load_jax_init(monkeypatch, init_npz: Path):
     """The port's GRPO pair starts from the JAX run's initial parameters."""
     real = GRPO.configure_model
 
-    def configure_model(self, device, generator):
-        pair = real(self, device, generator)
+    def configure_model(self, device, generator, load_pretrained=True):
+        pair = real(self, device, generator, load_pretrained)
         with np.load(init_npz) as flat:
             pair.load_state_dict(state_dict_from_jax(tree_from_flat(flat), self.model.config))
         return pair

@@ -318,8 +318,8 @@ def served(tmp_path_factory):
         tree = tree_from_flat(flat)
     real = CLM.configure_model
 
-    def configure_model(self, device, generator):
-        model = real(self, device, generator)
+    def configure_model(self, device, generator, load_pretrained=True):
+        model = real(self, device, generator, load_pretrained)
         model.load_state_dict(state_dict_from_jax(tree, model.config))
         return model
 
