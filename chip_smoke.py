@@ -133,8 +133,8 @@ Phases, each of which must pass (any failure exits non-zero):
    rolls back in-process twice, skips both windows and finishes, its
    losses bit-equal step for step to a clean run configured with the same
    skip windows; with `max_rollbacks` 1 the CLI exits 76. c: the CLI's
-   `fit` in processes of its own (three at once, then a relaunch), 2
-   layers, 4 steps: SIGTERM at step 2 exits 75 after the emergency save
+   `fit` in processes of its own (three at once; the relaunch takes the
+   preempted run's place when it exits), 2 layers, 4 steps: SIGTERM at step 2 exits 75 after the emergency save
    and the relaunch resumes bit-equal to the uninterrupted run; a 20 s
    stall against a 15 s watchdog writes a hang dump naming the open phase
    and the main thread's stack while the run completes; a data error at
@@ -184,14 +184,18 @@ Phases, each of which must pass (any failure exits non-zero):
    sync at 2 layers: bit-equal engine tensors, the same continuation, which
    a fresh engine over the new weights fed prompt + tokens so far also
    gives. cast: the decode step from fp32 parameters against a bf16 copy,
-   in turns. c: in processes of their own, 2 layers under SGD with a
+   in turns. c (on a thread from the end of leg a, beside parity, sync,
+   cast and phase 18's leg a: its two processes mostly start up and write
+   checkpoints, and the smoke's time limit cannot hold them in sequence;
+   phase 18 joins it before its own checkpoints, so the disk holds one
+   leg's at a time): in processes of their own, 2 layers under SGD with a
    checkpointer (11.9 GB of policy and reference a round) and the rollout
    journal: a real SIGTERM 40 engine steps into round 2 exits 75 with the
    rollouts in flight journaled and the round cursor checkpointed; the
    relaunch (host sync) adopts every journaled rollout, submits none again,
    drops none as stale, and exits 0 with the journal retired.
 18. `serve`'s resilience and live telemetry (run after phase 17 freed its
-   memory), through the CLI in processes of their own, each counting K4's
+   memory; leg a beside phase 17's leg c), through the CLI in processes of their own, each counting K4's
    launches and the plain decode path's calls (which must stay 0). a:
    Llama-3.1-8B's widths cut to 8 layers (`--model-config`; bf16, random
    weights from seed 0),
@@ -282,12 +286,29 @@ Phases, each of which must pass (any failure exits non-zero):
    SDPA.
 The allocator runs with expandable segments (set before torch is
 imported) for phase 14's full-depth runs.
+21. mesh, last (its one-rank process group changes the checkpointer's
+   path; the group is destroyed at its end): (a) a one-rank NCCL group,
+   then phase 20's first two steps again under llama-3.1-8b_it.yaml's own
+   `trainer.mesh: {fsdp_size: -1}` (fsdp 1 on one card): FSDP2 over the
+   mesh, K1-K3 and NEFTune; both losses finite, step 1 within rtol 2e-3
+   of phase 20's, the parameters DTensors, K1-K3 once a layer a step, its
+   step times beside phase 20's; (b) the virtual ring
+   (`parallel/ring_attention.py`) through K1-K3 at the per-rank shapes of
+   llama-3.1-8b_tp_131k.yaml (S 131072 in 2 chunks, Hq 8, Hkv 2, D 128)
+   and of gpt-oss-20b_it_cp.yaml's ring (S 32768 in 4 chunks, Hq 64, Hkv
+   8, D 64, window 128, sinks), bf16, causal, one document, every owner in
+   turn: O, LSE, dQ, dK, dV (and d_sinks) against one whole-sequence K1-K3
+   call within `flash_case_errors`' limits; each chunk pair's launches and
+   time, the FLOP bound of the visible pairs at 989 TFLOP/s, the pairs the
+   causal skip and the window saved; then at S 4096 the ring of kernels
+   against the ring of plain chunk functions.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19) and phase 18's K4 launches on lines of
 their own, then one `{"kernels": [...]}` line for this slice's path
-(phase 20: K1-K3 launches and times at its shape; K4, which it does not
-run, from phase 19's serving), the card's name and power limit, and as its
+(phase 20: K1-K3 times at its shape, launches of phases 20 and 21; K4,
+which neither runs, from phase 19's serving), the card's name and power
+limit, and as its
 last line `{"ok": true, "device": {...}}`.
 """
 
@@ -300,6 +321,7 @@ import os
 # that grow in place keep the allocator's fragmentation from failing it
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1416,7 +1438,9 @@ def phase_flash_timing(card: str) -> dict:
 def phase_random_streams(card: str) -> dict:
     """The random-stream kernels (`prng.py`, `csrc/prng.cu`) against their
     plain versions at the shapes their paths give them: NEFTune's bf16
-    uniform over one 8192 x 4096 row of embeddings (bits equal), the fp32
+    uniform over one 8192 x 4096 row of embeddings (bits equal), a mesh
+    rank's block of the noise of 4 such rows (bits equal to the plain
+    version's and to the whole draw's), the fp32
     uniform and the categorical draw over [rows, 128256] logits (tokens
     equal, perturbed logits within 4 fp32 ulps); then timed beside the
     plain versions and the bytes they must write (and read) over HBM's
@@ -1436,6 +1460,19 @@ def phase_random_streams(card: str) -> dict:
         want = prng.uniform_torch(key, shape, dtype, low, high, device="cuda")
         check(torch.equal(got, want),
               f"random streams: uniform {shape} {dtype}: {int((got != want).sum())} values differ")
+    # a mesh rank's block of the global noise: its rows (one segment at an
+    # offset), its rows and sequence chunk (strided segments)
+    whole = (4, TRAIN_SEQ, 4096)
+    for block in ((slice(2, 4),), (slice(1, 3), slice(TRAIN_SEQ // 2, TRAIN_SEQ))):
+        got = prng.uniform(key, whole, torch.bfloat16, -mag, mag, device="cuda", block=block)
+        want = prng.uniform_torch(key, whole, torch.bfloat16, -mag, mag, device="cuda",
+                                  block=block)
+        drawn = prng.uniform(key, whole, torch.bfloat16, -mag, mag, device="cuda")[block]
+        check(torch.equal(got, want) and torch.equal(got, drawn),
+              f"random streams: uniform block {block} of {whole}: "
+              f"{int((got != want).sum())} values differ from the plain version, "
+              f"{int((got != drawn).sum())} from the whole draw")
+        del got, want, drawn
     worst_ulps = 0.0
     for rows in (1, 8):
         logits = 3 * torch.randn((rows, vocab), generator=torch.Generator(device="cuda")
@@ -1471,7 +1508,8 @@ def phase_random_streams(card: str) -> dict:
         perturbed_max_ulps=worst_ulps,
     )
     print(f"random streams: uniform bit-identical to the plain version (bf16 and fp32 NEFTune "
-          f"rows, fp32 [8, {vocab}], bf16 [3, 5, 17]); categorical tokens identical at "
+          f"rows, fp32 [8, {vocab}], bf16 [3, 5, 17], bf16 blocks of [4, {TRAIN_SEQ}, 4096] "
+          f"equal to the whole draw's); categorical tokens identical at "
           f"[1|8, {vocab}], perturbed logits within {worst_ulps:.2f} ulps")
     print(f"random streams timing [{card}]: NEFTune bf16 uniform 1 x {TRAIN_SEQ} x 4096: kernel "
           f"{out['uniform_ms']:.4f} ms, plain {out['uniform_plain_ms']:.3f} ms, bytes "
@@ -2848,11 +2886,20 @@ def res_processes(card: str) -> dict:
         "watchdog_timeout_s": RES_WATCHDOG_S, "data_retries": 2, "data_retry_backoff_s": 0.1,
         "chaos": {"data_error_steps": [2], "slow_step_s": RES_STALL_S, "slow_step_from": 4}}})
     t0 = time.perf_counter()
-    # three processes at once on the card (~20 GB each), then the relaunch
+    # three processes at once on the card (~20 GB each); the relaunch takes
+    # the preempted run's place as soon as it has exited, beside the others
     procs = {name: res_launch(path, logs / f"{name}.log")
              for name, path in (("clean", clean), ("preempt", preempt), ("faults", faults))}
     try:
-        rcs = {name: res_wait(launched) for name, launched in procs.items()}
+        rcs = {"preempt": res_wait(procs["preempt"])}
+        committed = sorted(p.name for p in (RES_DIR / "c" / "ckpt").iterdir())
+        preempt_text = (logs / "preempt.log").read_text()
+        check(rcs["preempt"] == 75 and "resumable code 75" in preempt_text
+              and committed == ["manifest-2.json", "step_2"],
+              f"resilience processes: the preempted run exited {rcs['preempt']} and committed "
+              f"{committed}: {preempt_text[-800:]}")
+        procs["relaunch"] = res_launch(preempt, logs / "relaunch.log")
+        rcs.update({name: res_wait(procs[name]) for name in ("clean", "faults", "relaunch")})
     finally:
         for proc, handle in procs.values():
             if proc.poll() is None:
@@ -2860,16 +2907,10 @@ def res_processes(card: str) -> dict:
                 proc.wait()
             handle.close()
     text = {name: (logs / f"{name}.log").read_text() for name in procs}
-    expected_rcs = {"clean": 0, "preempt": 75, "faults": 0}
+    expected_rcs = {"preempt": 75, "clean": 0, "faults": 0, "relaunch": 0}
     check(rcs == expected_rcs, f"resilience processes: exit codes {rcs}, expected "
           f"{expected_rcs}; tails: " + "; ".join(f"{n}: {text[n][-800:]}" for n in rcs
                                                  if rcs[n] != expected_rcs[n]))
-    committed = sorted(p.name for p in (RES_DIR / "c" / "ckpt").iterdir())
-    check("resumable code 75" in text["preempt"] and committed == ["manifest-2.json", "step_2"],
-          f"resilience processes: the preempted run committed {committed}")
-    rc = res_wait(res_launch(preempt, logs / "relaunch.log"))
-    check(rc == 0, f"resilience processes: the relaunch exited {rc}: "
-          f"{(logs / 'relaunch.log').read_text()[-800:]}")
     seconds = time.perf_counter() - t0
     want = res_losses("clean")
     preempted = res_losses("preempt")
@@ -2896,7 +2937,7 @@ def res_processes(card: str) -> dict:
           f"dumps {faults_telemetry.get('resilience/watchdog_dumps')}, losses "
           f"{res_losses('faults')} against {want}")
     phase_line = next(line for line in dump.splitlines() if line.startswith("goodput phase"))
-    out = dict(exit_codes={**rcs, "relaunch": rc}, losses=want, seconds=seconds,
+    out = dict(exit_codes=rcs, losses=want, seconds=seconds,
                hang_dumps=[d.name for d in dumps], dump_phase=phase_line,
                data_retries=faults_telemetry["data/retries"])
     print(f"resilience processes [{card}]: fit in processes of its own, {LIFE_LAYERS} layers, 4 "
@@ -3457,7 +3498,11 @@ def rl_argv(path: Path, rounds: int, *flags: str) -> list[str]:
             "--cache-dtype", "bfloat16", *flags]
 
 
-def rl_child(name: str, argv: list[str], env: dict | None = None, timeout: float = 600):
+RL_CHILD_TIMEOUT_S = 600
+
+
+def rl_child(name: str, argv: list[str], env: dict | None = None,
+             timeout: float = RL_CHILD_TIMEOUT_S):
     """`_RL_CHILD` in a process of its own: (exit code, wall seconds, its
     `SMOKE_RL` summary or None, its rl_round and stats records, output)."""
     import subprocess
@@ -3469,6 +3514,7 @@ def rl_child(name: str, argv: list[str], env: dict | None = None, timeout: float
             [sys.executable, "-c", _RL_CHILD, *argv], cwd=ROOT, stdout=handle,
             stderr=subprocess.STDOUT,
             env={**os.environ, **RL_REWARD_ENV, **(env or {})})
+        atexit.register(proc.kill)  # leg c's run outlives phase 17 on a thread
         try:
             rc = proc.wait(timeout=timeout)
         finally:
@@ -3879,21 +3925,42 @@ def rl_leg_c(card: str) -> dict:
     return out
 
 
-def phase_rl(card: str) -> dict:
-    """rl-fit: GRPO over the serving engine (see the header)."""
+def phase_rl(card: str) -> tuple[dict, LegThread]:
+    """rl-fit: GRPO over the serving engine (see the header). Returns the
+    legs' readings and leg c, still running on its thread: `rl_leg_c_join`
+    adds its readings and removes the phase's files."""
     shutil.rmtree(RL_DIR, ignore_errors=True)
     RL_DIR.mkdir()
-    out = {}
+    t0 = time.perf_counter()
+    out = {"a": rl_leg_a(card)}
+    out["a"]["leg_s"] = time.perf_counter() - t0
+    leg_c = LegThread(rl_leg_c_timed, card)
     try:
-        for name, leg in (("a", rl_leg_a), ("parity", rl_parity), ("sync", rl_sync),
-                          ("cast", rl_cast_cost), ("c", rl_leg_c)):
+        for name, leg in (("parity", rl_parity), ("sync", rl_sync), ("cast", rl_cast_cost)):
             t0 = time.perf_counter()
             out[name] = leg(card)
             out[name]["leg_s"] = time.perf_counter() - t0
     finally:
-        shutil.rmtree(RL_DIR, ignore_errors=True)
         release()
+    return out, leg_c
+
+
+def rl_leg_c_timed(card: str) -> dict:
+    t0 = time.perf_counter()
+    out = rl_leg_c(card)
+    out["leg_s"] = time.perf_counter() - t0
     return out
+
+
+def rl_leg_c_join(rl: dict, leg_c: LegThread) -> float:
+    """Phase 17's leg c joined into its readings (`rl["c"]`), the phase's
+    files removed; returns the seconds waited."""
+    t0 = time.perf_counter()
+    try:
+        rl["c"] = leg_c.result(2 * RL_CHILD_TIMEOUT_S + 60)
+    finally:
+        shutil.rmtree(RL_DIR, ignore_errors=True)
+    return time.perf_counter() - t0
 
 
 # ------------------------------------------------------------------ phase 18: serve resilience
@@ -4758,8 +4825,10 @@ def sv_leg_c(card: str, path: Path) -> dict:
     return out
 
 
-def phase_serve_resilience(card: str) -> dict:
-    """serve's resilience and live telemetry (see the header)."""
+def phase_serve_resilience(card: str, after_a=None) -> dict:
+    """serve's resilience and live telemetry (see the header). `after_a`,
+    when given, runs between leg a and legs b and c (the smoke joins phase
+    17's leg c there: legs b and c write checkpoints of their own)."""
     shutil.rmtree(SV_DIR, ignore_errors=True)
     SV_DIR.mkdir()
     out = {}
@@ -4767,8 +4836,11 @@ def phase_serve_resilience(card: str) -> dict:
         t0 = time.perf_counter()
         out["a"] = sv_leg_a(card)
         out["a"]["leg_s"] = time.perf_counter() - t0
+        if after_a is not None:
+            out["a"]["after_s"] = after_a()
+        t0 = time.perf_counter()
         out["b"], out["c"] = sv_legs_bc(card)
-        out["b"]["legs_bc_s"] = time.perf_counter() - t0 - out["a"]["leg_s"]
+        out["b"]["legs_bc_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(SV_DIR, ignore_errors=True)
         release()
@@ -5441,6 +5513,7 @@ def phase_instruction_tuning(card: str) -> dict:
 
     # training: two batches spread over the packed set, each visited twice
     picks = [batches[len(batches) * (j + 1) // 3] for j in range(2)]
+    _IT_STATE.update(picks=picks, config=config)
     steps = [picks[s % 2] for s in range(IT_STEPS)]
 
     class Steps(BaseDataModule):
@@ -5544,6 +5617,7 @@ def phase_instruction_tuning(card: str) -> dict:
                                     torch.bfloat16, seg_rows, seed) for seed in range(copies)]
     kernels = flash_shape_timing(card, f"instruction tuning B{IT_ROWS} S{width} Hq{hq} "
                                  f"Hkv{config.num_key_value_heads} D{head_dim} packed", cases)
+    _IT_STATE.update(losses=losses, step_ms=[1e3 * t for t in clock.step_s])
     result = dict(
         layers=IT_LAYERS, steps=IT_STEPS, rows_per_step=IT_ROWS, conversations=IT_CONVERSATIONS,
         dropped=dropped, rows=len(rows), fill=fill, tokens=tokens_all,
@@ -5575,11 +5649,276 @@ def phase_instruction_tuning(card: str) -> dict:
 
 
 _PACK_STATE: dict = {}
+# phase 20's batches and model config, which phase 21 trains again on the mesh
+_IT_STATE: dict = {}
+
+MESH_STEPS = 2  # phase 21a: phase 20's first two steps on the mesh
+MESH_STEP1_RTOL = 2e-3  # its step 1 against phase 20's: FSDP2 over one rank
+# phase 21b: the virtual ring at the examples' per-rank shapes (name, ring
+# size, sequence, Hq, Hkv, D, window, sinks), and again at S 4096 against
+# the ring of plain chunk functions
+RING_CASES = (
+    ("llama-3.1-8b_tp_131k (tp 4, sp 2)", 2, 131072, 8, 2, 128, None, False),
+    ("gpt-oss-20b_it_cp (sp 4)", 4, 32768, 64, 8, 64, 128, True),
+)
+RING_PLAIN_SEQ = 4096
+
+
+def phase_mesh(card: str) -> dict:
+    """Phase 21: the mesh path on the one card (see the header). Runs last:
+    it starts a one-rank NCCL process group, which changes the
+    checkpointer's path, and destroys it at the end."""
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        fit = mesh_fit_leg(card)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rings = [ring_leg(card, *case) for case in RING_CASES]
+    launches = {kind: fit["launches"][kind] + sum(r["launches"][kind] for r in rings)
+                for kind in ("fwd", "dq", "dkv")}
+    return dict(fit=fit, rings=rings, launches=launches)
+
+
+def mesh_fit_leg(card: str) -> dict:
+    """21a: phase 20's instruction-tuning fit, its first two steps, under
+    llama-3.1-8b_it.yaml's own `trainer.mesh` ({fsdp_size: -1}: fsdp 1
+    here), through FSDP2, K1-K3 and the NEFTune kernel."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch import prng
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.parallel.mesh import MeshConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    picks, config = _IT_STATE["picks"], _IT_STATE["config"]
+    example = ROOT / "config" / "examples" / "llama-3.1" / "llama-3.1-8b_it.yaml"
+    mesh_node = {"fsdp_size": -1}  # the example's whole trainer.mesh node
+    check("fsdp_size: -1" in example.read_text(),
+          "mesh: llama-3.1-8b_it.yaml's trainer.mesh is not {fsdp_size: -1}")
+
+    class Steps(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from picks[start_step:MESH_STEPS]
+
+    class StepClock:
+        def __init__(self):
+            self.step_s, self.losses, self.t, self.mesh = [], [], None, None
+
+        def on_fit_start(self, trainer, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+            self.mesh = trainer.mesh
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    clock = StepClock()
+    trainer = Trainer(TrainerConfig(max_steps=MESH_STEPS, seed=0, log_every_n_steps=1,
+                                    mesh=MeshConfig(**mesh_node)),
+                      callbacks=[clock], device=IT_DEVICE)
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**IT_OPTIM), neftune_alpha=IT_NEFTUNE))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel, prng.uniform)
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Steps(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    mesh = {k: int(v) for k, v in zip(clock.mesh.mesh_dim_names, clock.mesh.shape)}
+    sharded = type(next(state.model.parameters())).__name__
+    del objective, state, trainer
+    release()
+    losses, base = clock.losses, _IT_STATE["losses"]
+    check(len(losses) == MESH_STEPS and all(math.isfinite(x) for x in losses),
+          f"mesh: losses {losses}")
+    check(mesh == {"data": 1, "pipe": 1, "fsdp": 1, "expert": 1, "tensor": 1, "sequence": 1},
+          f"mesh: {{fsdp_size: -1}} resolved to {mesh} on one card")
+    check(sharded == "DTensor", f"mesh: the parameters are {sharded}, not FSDP2's DTensors")
+    err = abs(losses[0] - base[0]) / abs(base[0])
+    check(err <= MESH_STEP1_RTOL, f"mesh: step 1's loss {losses[0]:.6f} against phase 20's "
+          f"{base[0]:.6f} (rel {err:.2e} > {MESH_STEP1_RTOL})")
+    want = [IT_LAYERS * MESH_STEPS] * 3 + [MESH_STEPS]
+    check(launches == want, f"mesh: K1/K2/K3/NEFTune launched {launches}, expected {want}")
+    check(plain[0] == 0, f"mesh: the plain attention path ran {plain[0]} times")
+    step_ms = [1e3 * t for t in clock.step_s]
+    print(f"mesh [{card}]: llama-3.1-8b_it.yaml's mesh {{fsdp_size: -1}} -> {mesh} over one NCCL "
+          f"rank, FSDP2 (DTensor parameters); phase 20's first {MESH_STEPS} steps: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (phase 20: "
+          f"{', '.join(f'{x:.6f}' for x in base[:MESH_STEPS])}; step 1 rel {err:.2e}); step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} (phase 20: "
+          f"{', '.join(f'{t:.1f}' for t in _IT_STATE['step_ms'][:MESH_STEPS])}); launches K1 "
+          f"{launches[0]} K2 {launches[1]} K3 {launches[2]} NEFTune {launches[3]}", flush=True)
+    return dict(mesh=mesh, losses=losses, phase20_losses=base[:MESH_STEPS], step1_rel=err,
+                step_ms=step_ms, phase20_step_ms=_IT_STATE["step_ms"][:MESH_STEPS],
+                launches=dict(zip(("fwd", "dq", "dkv", "neftune"), launches)))
+
+
+def _ring_inputs(seq, hq, hkv, d, sinks, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, do = rand(1, seq, hq, d), rand(1, seq, hkv, d), rand(1, seq, hkv, d), rand(1, seq, hq, d)
+    seg = torch.ones(1, seq, dtype=torch.int32, device="cuda")  # one document
+    s = torch.randn(hq, generator=gen, device="cuda") if sinks else None
+    return (q * d**-0.5).to(dtype), k, v, seg, do, s
+
+
+def _whole_kernels(q, k, v, seg, do, window, sinks):
+    """One K1-K3 call over the whole sequence (scale folded into q): O, LSE
+    and the gradients."""
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.parallel.ring_attention import row_delta
+
+    ranges, blocks = fa.tile_ranges(seg), fa.tile_ranges(seg, fa.BLOCK)
+    hyper = dict(causal=True, window=int(window or 0), cap=0.0, q_offset=0)
+    out, lse = fa.flash_fwd_kernel(q, k, v, seg, seg, ranges, ranges, sinks, q_blocks=blocks,
+                                   **hyper)
+    delta = row_delta(do, out)
+    flat = (q, k, v, seg, seg, ranges, ranges, do, lse, delta)
+    dq = fa.flash_dq_kernel(*flat, q_blocks=blocks, **hyper)
+    dk, dv = fa.flash_dkv_kernel(*flat, k_blocks=blocks, **hyper)
+    got = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+    if sinks is not None:
+        got["dsinks"] = fa.sink_grad(sinks, lse, delta)
+    return got
+
+
+def _virtual_ring(q, k, v, seg, do, p, window, sinks, impl):
+    from llm_training_tpu_torch.parallel import ring_attention as ra
+
+    out, lse = ra.virtual_ring_forward(q, k, v, seg, p, sinks=sinks, sliding_window=window,
+                                       impl=impl)
+    dq, dk, dv, dsinks = ra.virtual_ring_backward(q, k, v, seg, out, lse, do, p, sinks=sinks,
+                                                  sliding_window=window, impl=impl)
+    got = dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+    if sinks is not None:
+        got["dsinks"] = dsinks
+    return got
+
+
+def ring_leg(card, name, p, seq, hq, hkv, d, window, sinks) -> dict:
+    """21b: the virtual ring through K1-K3 at one example's per-rank shape,
+    every owner in turn, held against one whole-sequence K1-K3 call; each
+    chunk pair timed; then at S 4096 against the ring of plain chunk
+    functions."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.parallel import ring_attention as ra
+
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    q, k, v, seg, do, s = _ring_inputs(seq, hq, hkv, d, sinks, seed=21)
+    _whole_kernels(q, k, v, seg, do, window, s)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    whole = _whole_kernels(q, k, v, seg, do, window, s)
+    end.record()
+    torch.cuda.synchronize()
+    whole_ms = start.elapsed_time(end)
+    # the ring's chunk partials are K1's fp32 output: the accumulator its
+    # bf16 output rounds (the first owner's diagonal pair, bits equal)
+    chunk = seq // p
+    first = [x[:, :chunk].contiguous() for x in (q, k, v, seg)]
+    ranges = fa.tile_ranges(first[3])
+    pair = (*first, first[3], ranges, ranges, None)
+    hyper = dict(q_blocks=fa.tile_ranges(first[3], fa.BLOCK), causal=True,
+                 window=int(window or 0), cap=0.0, q_offset=0)
+    o16, _ = fa.flash_fwd_kernel(*pair, **hyper)
+    o32, _ = fa.flash_fwd_kernel(*pair, **hyper, out_dtype=torch.float32)
+    check(torch.equal(o32.to(torch.bfloat16), o16),
+          f"mesh ring {name}: K1's fp32 O does not round to its bf16 O")
+    del o16, o32, first, pair
+    torch.cuda.synchronize()
+
+    # time every chunk pair: the chunk functions wrapped in CUDA events
+    pairs = []
+    originals = (ra.chunk_fwd_kernel, ra.chunk_bwd_kernel)
+
+    def timed_pair(fn, kind):
+        def run(q_, k_, *args, causal, q_offset, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(q_, k_, *args, causal=causal, q_offset=q_offset, **kw)
+            end.record()
+            pairs.append((kind, q_offset // q_.shape[1], causal, start, end,
+                          bench_flash.visible_pairs(args[1], args[2], causal=causal,
+                                                    window=window, q_offset=q_offset)))
+            return out
+        return run
+
+    ra.chunk_fwd_kernel, ra.chunk_bwd_kernel = timed_pair(originals[0], "fwd"), timed_pair(
+        originals[1], "bwd")
+    try:
+        for launcher in launchers:
+            launcher.launches = 0
+        ring = _virtual_ring(q, k, v, seg, do, p, window, s, "kernel")
+        torch.cuda.synchronize()
+        launches = dict(zip(("fwd", "dq", "dkv"), (lch.launches for lch in launchers)))
+    finally:
+        ra.chunk_fwd_kernel, ra.chunk_bwd_kernel = originals
+    case = {"q_segment_ids": seg}
+    errors, broken = flash_case_errors(ring, whole, whole, case, s)
+    check(not broken, f"mesh ring {name}: against one whole-sequence K1-K3 call: {broken}")
+    visible = sum(x[5] for x in pairs if x[0] == "fwd") * hq
+    flops = 4 * d * visible + 10 * d * visible  # forward QK, PV; backward five products
+    pair_rows = [dict(kind=kind, step=step, causal=causal, ms=a.elapsed_time(b),
+                      visible=vis * hq) for kind, step, causal, a, b, vis in pairs]
+    ring_ms = sum(r["ms"] for r in pair_rows)
+    computed = len(pairs) // 2
+    causal_skip = p * (p - 1) // 2
+    window_skip = p * p - computed - causal_skip
+    del whole, ring, q, k, v, do
+
+    # the ring of kernels against the ring of plain chunk functions at S 4096
+    q, k, v, seg, do, s = _ring_inputs(RING_PLAIN_SEQ, hq, hkv, d, sinks, seed=22)
+    got = _virtual_ring(q, k, v, seg, do, p, window, s, "kernel")
+    plain = _virtual_ring(q, k, v, seg, do, p, window, s, "torch")
+    f32 = [x.float() if x is not None else None for x in (q, k, v, seg, do)]
+    plain32 = _virtual_ring(f32[0], f32[1], f32[2], seg, f32[4], p, window, s, "torch")
+    small_errors, broken = flash_case_errors(got, plain, plain32, {"q_segment_ids": seg}, s)
+    check(not broken, f"mesh ring {name} S {RING_PLAIN_SEQ}: kernels against the plain chunk "
+          f"functions: {broken}")
+    del got, plain, plain32
+    torch.cuda.empty_cache()
+    bound_ms = 1e3 * flops / bench_flash.BF16_FLOPS_PER_S
+    print(f"mesh ring [{card}]: {name}: B1 S{seq} in {p} chunks of {chunk}, Hq{hq} Hkv{hkv} "
+          f"D{d}{f' window {window}' if window else ''}{' sinks' if sinks else ''}, bf16, causal, "
+          f"one document; {computed} of {p * p} chunk pairs computed (causal skip {causal_skip}, "
+          f"window skip {window_skip}); launches K1 {launches['fwd']} K2 {launches['dq']} K3 "
+          f"{launches['dkv']}; pairs (kind step causal ms): "
+          + ", ".join(f"{r['kind']} {r['step']} {'c' if r['causal'] else 'f'} {r['ms']:.2f}"
+                      for r in pair_rows)
+          + f"; ring {ring_ms:.2f} ms (one whole-sequence K1-K3 call {whole_ms:.2f} ms) against "
+          f"the FLOP bound of its visible pairs {bound_ms:.2f} ms at 989 TFLOP/s; against the "
+          "whole-sequence call: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errors.items())
+          + f"; kernels against plain chunks at S {RING_PLAIN_SEQ}: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in small_errors.items() if "plain" not in k),
+          flush=True)
+    return dict(name=name, ring=p, seq=seq, chunk=chunk, hq=hq, hkv=hkv, head_dim=d,
+                window=window, sinks=sinks, pairs=pair_rows, computed=computed,
+                causal_skip=causal_skip, window_skip=window_skip, launches=launches,
+                ring_ms=ring_ms, whole_ms=whole_ms, bound_ms=bound_ms, errors=errors,
+                plain_errors=small_errors)
 
 
 def start_pack_child() -> None:
     """Start phase 20's packers' process (stopped at exit if still running)."""
-    import atexit
     import subprocess
 
     child = subprocess.Popen([sys.executable, "-c", _PACK_CHILD, str(ROOT), str(IT_BIG)], cwd=ROOT,
@@ -5632,14 +5971,17 @@ def main() -> int:
     # phase 20's packers at 10^6 lengths, on the host beside phase 16
     start_pack_child()
     durability = timed("16 durability", phase_durability, card, hf_round_trip)
-    rl = timed("17 rl-fit", phase_rl, card)
-    serving = timed("18 serve resilience", phase_serve_resilience, card)
+    rl, rl_c = timed("17 rl-fit", phase_rl, card)
+    serving = timed("18 serve resilience", phase_serve_resilience, card,
+                    lambda: rl_leg_c_join(rl, rl_c))
     hf = timed("19 hf + phi3", phase_hf_phi3, card)
     hf["round_trip"] = durability.pop("hf_round_trip")
     it = timed("20 instruction tuning", phase_instruction_tuning, card)
     timed("9 train-step parity", phase_train_parity)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
+    # last: its one-rank process group changes the checkpointer's path
+    mesh = timed("21 mesh", phase_mesh, card)
     print(f"phases: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"serve summary [{card}]: " + json.dumps(serve))
     print(f"train summary [{card}]: " + json.dumps(train))
@@ -5652,6 +5994,7 @@ def main() -> int:
     print(f"serve resilience summary [{card}]: " + json.dumps(serving))
     print(f"hf + phi3 summary [{card}]: " + json.dumps(hf))
     print(f"instruction tuning summary [{card}]: " + json.dumps(it))
+    print(f"mesh summary [{card}]: " + json.dumps(mesh))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"]}))
@@ -5674,9 +6017,11 @@ def main() -> int:
     print("kernels at Phi-3-mini shapes (launches: phase 19): " + json.dumps(kernel_rows(
         hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])))
     # this slice's path: phase 20's instruction tuning (K1-K3, timed at its
-    # first batch's shape); K4, which it does not run, from phase 19's serving
+    # first batch's shape) with phase 21's launches added (the mesh fit and
+    # the virtual rings); K4, which neither runs, from phase 19's serving
+    it_mesh = {kind: it["launches"][kind] + mesh["launches"][kind] for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
-        hf["kernels"]["k4"], hf["serve"]["launches"], it["kernels"], it["launches"])}))
+        hf["kernels"]["k4"], hf["serve"]["launches"], it["kernels"], it_mesh)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from llm_training_tpu_torch.parallel.mesh import is_primary
+
 # metric keys routed (additionally) to telemetry.jsonl, as JAX's
 TELEMETRY_PREFIXES = (
     "goodput/", "hbm/", "xla/", "data/", "checkpoint/", "perf/",
@@ -59,6 +61,9 @@ class JsonlLogger:
         self._files: dict[str, object] = {}
 
     def _write(self, filename: str, record: dict) -> None:
+        # rank 0 alone writes the run's files, as JAX's process 0
+        if not is_primary():
+            return
         if filename not in self._files:
             self.run_dir.mkdir(parents=True, exist_ok=True)
             self._files[filename] = open(self.run_dir / filename, "a")
@@ -67,6 +72,8 @@ class JsonlLogger:
         f.flush()
 
     def on_fit_start(self, trainer, objective, datamodule, start_step) -> None:
+        if not is_primary():
+            return
         self.run_dir.mkdir(parents=True, exist_ok=True)
         device = trainer.device
         metadata = {

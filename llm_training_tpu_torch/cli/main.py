@@ -8,7 +8,13 @@ examples' node layout (`trainer` / `model` / `data`, components as
 `callbacks` lists are components too, and its `checkpoint` node builds the
 `Checkpointer`: `fit` then resumes from the newest step (or `--ckpt-path`),
 saves every `checkpoint_every_n_steps` and at the end. Its `health` and
-`resilience` nodes are JAX's; the `mesh` node is not ported yet and raises.
+`resilience` nodes are JAX's, and so is its `mesh` node (`MeshConfig`):
+`python -m torch.distributed.run --nproc-per-node N -m
+llm_training_tpu_torch fit --config ...` runs the fit over N ranks (NCCL,
+one card each by `LOCAL_RANK`; gloo with `--device cpu`), sharded as the
+mesh says; rank 0 writes the run's files. `validate`, `generate`,
+`evaluate` and `serve --config` restore a mesh fit's checkpoint onto one
+process (DCP reshards it).
 `fit` exits as JAX's does: 75 after a preemption's emergency save (relaunch
 the same command to resume), 76 when in-process recovery gave up, 77 on a
 loss spike and 78 on a non-finite loss that NanGuard raised.
@@ -110,6 +116,7 @@ from llm_training_tpu_torch.lms.grpo import GRPO
 from llm_training_tpu_torch.models.llama.config import PRESETS, LlamaConfig, preset
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax, tree_from_flat
 from llm_training_tpu_torch.models.llama.model import Llama
+from llm_training_tpu_torch.parallel.mesh import initialize_distributed
 from llm_training_tpu_torch.resilience import (
     LOSS_SPIKE_EXIT_CODE,
     NON_FINITE_EXIT_CODE,
@@ -562,6 +569,9 @@ def run_fit(args) -> int:
     """`fit`, with JAX's exit codes for the failures a supervisor tells
     apart: 75 (resumable), 76 (recovery exhausted), 77 (loss spike), 78
     (non-finite loss)."""
+    # a torchrun (or SLURM) world: the process group first, so the
+    # checkpointer and the trainer see it
+    initialize_distributed(backend="gloo" if args.device == "cpu" else "nccl")
     trainer, objective, datamodule = build_fit(_load(args), args.device)
     log = logging.getLogger(__name__)
     try:
@@ -625,6 +635,16 @@ def _refuse_unported_rl_fit() -> None:
             "(ROADMAP A.7b)")
 
 
+def _refuse_multi_process(command: str) -> None:
+    """`rl-fit` and `supervise` run in one process: launched as a world of
+    several (torchrun, SLURM) they raise, naming the queue that brings them."""
+    world = max(int(os.environ.get(n) or 1) for n in ("WORLD_SIZE", "SLURM_NTASKS"))
+    if world > 1:
+        raise NotImplementedError(
+            f"{command} across {world} processes is not ported yet (ROADMAP A.9b); run it as "
+            "one process")
+
+
 def run_rl_fit(args) -> int:
     """`rl-fit`: on-policy GRPO riding the serving engine (`rl/loop.py`).
     SIGTERM drains the rollouts in flight into the request journal,
@@ -632,6 +652,7 @@ def run_rl_fit(args) -> int:
     and exits 75; the relaunch restores, replays the journal and adopts the
     replayed rollouts."""
     _refuse_unported_rl_fit()
+    _refuse_multi_process("rl-fit")
     config = _load(args)
     log = logging.getLogger(__name__)
     trainer, objective, _ = build_fit(config, args.device)
@@ -732,6 +753,7 @@ def run_supervise(args) -> int:
     75 and hard deaths. Subprocesses only: this process never initializes
     CUDA. A relaunched serve child replays its request journal before it
     reads stdin, which the children inherit from this process."""
+    _refuse_multi_process("supervise")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
                         # the serve protocol owns stdout

@@ -22,6 +22,7 @@ import torch
 from llm_training_tpu_torch import prng
 from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider, SingleModelObjective
 from llm_training_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy, shift_labels
+from llm_training_tpu_torch.parallel.batch import batch_sum
 
 
 def head_and_bias(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -45,6 +46,22 @@ class CLMConfig(BaseLMConfig):
 class CLM(SingleModelObjective):
     """The CLM objective: owns the loss and metrics of a causal LM."""
 
+    def global_labels(self, batch: dict) -> torch.Tensor:
+        """The targets of a (global) batch: `labels` (else `input_ids`)
+        shifted, ignored where they would cross a packed document boundary
+        or land on padding."""
+        cfg = self.config
+        as_t = torch.as_tensor
+        labels = shift_labels(as_t(batch.get("labels", batch["input_ids"])).long(),
+                              cfg.ignore_index)
+        segment_ids = batch.get("segment_ids")
+        if segment_ids is not None:
+            segment_ids = as_t(segment_ids)
+            next_seg = torch.cat([segment_ids[:, 1:], torch.zeros_like(segment_ids[:, :1])], 1)
+            valid = (segment_ids > 0) & (segment_ids == next_seg)
+            labels = torch.where(valid, labels, cfg.ignore_index)
+        return labels
+
     def loss_and_metrics(
         self,
         batch: dict[str, torch.Tensor],
@@ -57,34 +74,40 @@ class CLM(SingleModelObjective):
         cfg = self.config
         model = self.model
         input_ids = batch["input_ids"].long()
-        labels = shift_labels(batch.get("labels", input_ids).long(), cfg.ignore_index)
+        # on a sequence-sharded mesh the labels were shifted on the global batch
+        labels = batch.get("shifted_labels")
+        labels = self.global_labels(batch) if labels is None else labels.long()
         segment_ids = batch.get("segment_ids")
         position_ids = batch.get("position_ids")
-        if segment_ids is not None:
-            # no label crosses a packed document boundary or lands on padding
-            next_seg = torch.cat([segment_ids[:, 1:], torch.zeros_like(segment_ids[:, :1])], 1)
-            valid = (segment_ids > 0) & (segment_ids == next_seg)
-            labels = torch.where(valid, labels, cfg.ignore_index)
+        # a mesh rank holds a block of the global batch: NEFTune's noise and
+        # its scale are the global batch's, and RoPE selects by the global width
+        shard = getattr(batch, "shard", None)
+        global_seq = shard.global_seq if shard is not None else input_ids.shape[1]
 
-        inputs_embeds = None
+        embeds_noise = None
         if train and cfg.neftune_alpha:
-            # uniform noise on the input embeddings, scale alpha / sqrt(tokens * dim)
-            table = model.model.embed_tokens.weight
-            inputs_embeds = table[input_ids].to(model.config.compute_torch_dtype)
             if rng is None:
                 raise ValueError("NEFTune needs the step's PRNG key")
-            mag = cfg.neftune_alpha / math.sqrt(input_ids.shape[1] * inputs_embeds.shape[-1])
-            noise = prng.uniform(rng, inputs_embeds.shape, inputs_embeds.dtype, -mag, mag,
-                                 inputs_embeds.device)
-            inputs_embeds = inputs_embeds + noise
+
+            def embeds_noise(embeds: torch.Tensor) -> torch.Tensor:
+                # uniform noise on the input embeddings, scale alpha / sqrt(tokens * dim);
+                # a mesh rank draws its own block of the global batch's noise
+                mag = cfg.neftune_alpha / math.sqrt(global_seq * embeds.shape[-1])
+                shape, block = embeds.shape, None
+                if shard is not None:
+                    shape = (shard.global_rows, shard.global_seq, shape[-1])
+                    block = (shard.rows, shard.seq)
+                noise = prng.uniform(rng, shape, embeds.dtype, -mag, mag, embeds.device, block)
+                return embeds + noise
 
         out = model(
-            input_ids=None if inputs_embeds is not None else input_ids,
+            input_ids=input_ids,
             segment_ids=segment_ids,
             position_ids=position_ids,
-            inputs_embeds=inputs_embeds,
             compute_logits=False,
             return_last_hidden_states=True,
+            embeds_noise=embeds_noise,
+            rope_length=global_seq,
         )
         hidden = out.last_hidden_states
         head, bias = head_and_bias(model)
@@ -93,7 +116,9 @@ class CLM(SingleModelObjective):
             chunk_size=cfg.ce_chunk_size, bias=bias,
             logits_soft_cap=getattr(model.config, "final_logit_softcapping", None),
         )
-        loss = total / count.clamp_min(1).float()
+        # the global batch's mean and token count on every rank of a mesh
+        count = batch_sum(count)
+        loss = batch_sum(total) / count.clamp_min(1).float()
         metrics = {"loss": loss.detach(), "target_tokens": count}
         if cfg.log_perplexity:
             metrics["perplexity"] = torch.exp(loss.detach())

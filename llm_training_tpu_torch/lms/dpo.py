@@ -36,6 +36,7 @@ from llm_training_tpu_torch.lms.base import (
 )
 from llm_training_tpu_torch.lms.clm import head_and_bias
 from llm_training_tpu_torch.ops.cross_entropy import fused_linear_log_probs, shift_labels
+from llm_training_tpu_torch.parallel.batch import batch_mean, batch_sum
 
 
 def sequence_log_probs(
@@ -177,16 +178,16 @@ class DPO(PairObjective):
 
         logits = (policy_chosen - policy_rejected) - (ref_chosen - ref_rejected)
         # the sigmoid loss with label smoothing
-        loss = (
+        loss = batch_mean(
             -F.logsigmoid(cfg.beta * logits) * (1 - cfg.label_smoothing)
             - F.logsigmoid(-cfg.beta * logits) * cfg.label_smoothing
-        ).mean()
+        )
 
         chosen_rewards = cfg.beta * (policy_chosen - ref_chosen).detach()
         rejected_rewards = cfg.beta * (policy_rejected - ref_rejected).detach()
         metrics = {
             "loss": loss.detach(),
-            "target_tokens": counts_c.sum() + counts_r.sum(),
+            "target_tokens": batch_sum(counts_c.sum() + counts_r.sum()),
             "chosen_rewards": chosen_rewards.mean(),
             "rejected_rewards": rejected_rewards.mean(),
             "reward_accuracy": (chosen_rewards > rejected_rewards).float().mean(),

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from llm_training_tpu_torch import prng
 from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider, SingleModelObjective
 from llm_training_tpu_torch.lms.dpo import sequence_log_probs
+from llm_training_tpu_torch.parallel.batch import batch_mean, batch_sum
 
 
 @dataclass
@@ -53,9 +54,9 @@ class ORPO(SingleModelObjective):
             - torch.log1p(-torch.exp(rejected_logps.clamp(max=eps)))
         )
         ratio = F.logsigmoid(log_odds)
-        or_loss = -(cfg.beta * ratio).mean()
+        or_loss = -batch_mean(cfg.beta * ratio)
         # the CE (SFT) term on the chosen response
-        ce_loss = -chosen_sums.sum() / chosen_counts.sum().clamp_min(1)
+        ce_loss = -batch_sum(chosen_sums.sum()) / batch_sum(chosen_counts.sum()).clamp_min(1)
         loss = or_loss + ce_loss
 
         chosen_rewards = cfg.beta * chosen_logps.detach()
@@ -64,7 +65,7 @@ class ORPO(SingleModelObjective):
             "loss": loss.detach(),
             "or_loss": or_loss.detach(),
             "ce_loss": ce_loss.detach(),
-            "target_tokens": chosen_counts.sum() + rejected_counts.sum(),
+            "target_tokens": batch_sum(chosen_counts.sum() + rejected_counts.sum()),
             "chosen_rewards": chosen_rewards.mean(),
             "rejected_rewards": rejected_rewards.mean(),
             "reward_accuracy": (chosen_rewards > rejected_rewards).float().mean(),

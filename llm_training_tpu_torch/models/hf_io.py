@@ -20,7 +20,7 @@ header length, a JSON header of `{name: {dtype, shape, data_offsets}}` and
 - `model_class_for_hf` routes an HF `model_type` over JAX's whole table;
   a type whose family the port lacks raises naming ROADMAP A.8.
 
-The pipeline layout (JAX's `_pp_*` adapters) waits for ROADMAP A.9:
+The pipeline layout (JAX's `_pp_*` adapters) waits for ROADMAP A.9b:
 `LlamaConfig` refuses `pipeline_stages > 1` naming it, so no staged model
 reaches this module.
 """

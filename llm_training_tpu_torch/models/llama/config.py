@@ -63,9 +63,8 @@ _LLAMA_ONLY = {
     "router_aux_loss_coef": 0.001,
     "router_jitter_eps": 0.01,
 }
-# the same for fields of more than one device (ROADMAP A.9)
+# the same for pipeline parallelism (ROADMAP A.9b)
 _ONE_DEVICE_ONLY = {
-    "ring_attention": False,
     "pipeline_stages": 1,
     "pipeline_microbatches": None,
 }
@@ -152,7 +151,7 @@ class LlamaConfig:
     def __post_init__(self):
         if self.attention_out_bias is None:
             self.attention_out_bias = self.attention_bias
-        for queue, only in (("A.8", _LLAMA_ONLY), ("A.9", _ONE_DEVICE_ONLY)):
+        for queue, only in (("A.8", _LLAMA_ONLY), ("A.9b", _ONE_DEVICE_ONLY)):
             for name, value in only.items():
                 if getattr(self, name) != value:
                     raise NotImplementedError(

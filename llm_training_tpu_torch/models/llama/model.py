@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from llm_training_tpu_torch.models.base import (
     CausalLMOutput,
@@ -38,9 +39,15 @@ from llm_training_tpu_torch.ops.rope_utils import (
     compute_rope_frequencies,
 )
 from llm_training_tpu_torch.ops.swiglu import silu_mul
+from llm_training_tpu_torch.parallel.ring_attention import dispatch_ring_attention
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    if isinstance(layer.weight, DTensor):
+        # a tensor-parallel projection: the plan's hooks take the plain
+        # activation and give back the local (or reduced) plain output; the
+        # mesh gathers parameters in the compute dtype
+        return layer(x)
     # parameters live in param_dtype, the product runs in the activation's
     return F.linear(x, layer.weight.to(x.dtype))
 
@@ -90,9 +97,10 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         head_dim = cfg.resolved_head_dim
         batch, seq, _ = hidden.shape
-        q = _linear(hidden, self.q_proj).reshape(batch, seq, cfg.num_attention_heads, head_dim)
-        k = _linear(hidden, self.k_proj).reshape(batch, seq, cfg.num_key_value_heads, head_dim)
-        v = _linear(hidden, self.v_proj).reshape(batch, seq, cfg.num_key_value_heads, head_dim)
+        # -1 heads: under tensor parallelism a rank holds its local heads
+        q = _linear(hidden, self.q_proj).reshape(batch, seq, -1, head_dim)
+        k = _linear(hidden, self.k_proj).reshape(batch, seq, -1, head_dim)
+        v = _linear(hidden, self.v_proj).reshape(batch, seq, -1, head_dim)
         q, k = apply_rope(q, k, cos, sin)
         if self.attention_dtype is not None:
             # Phi-3's attention precision: q, k and v in this dtype on every
@@ -119,11 +127,19 @@ class LlamaAttention(nn.Module):
                 scale=scale, impl=paged_impl,
             )
         else:
-            out = dot_product_attention(
-                q, k, v, segment_ids=segment_ids, causal=True,
-                sliding_window=cfg.sliding_window, scale=scale, impl=cfg.attention_impl,
-            )
-        out = out.to(hidden.dtype).reshape(batch, seq, cfg.num_attention_heads * head_dim)
+            out = None
+            if cfg.ring_attention:
+                # over the active mesh's sequence ranks, or None off a mesh
+                out = dispatch_ring_attention(
+                    q, k, v, segment_ids, sliding_window=cfg.sliding_window, scale=scale,
+                    impl=cfg.attention_impl,
+                )
+            if out is None:
+                out = dot_product_attention(
+                    q, k, v, segment_ids=segment_ids, causal=True,
+                    sliding_window=cfg.sliding_window, scale=scale, impl=cfg.attention_impl,
+                )
+        out = out.to(hidden.dtype).reshape(batch, seq, -1)
         return _linear(out, self.o_proj)
 
 
@@ -233,13 +249,22 @@ class Llama(nn.Module):
         inputs_embeds: torch.Tensor | None = None,
         compute_logits: bool = True,
         return_last_hidden_states: bool = False,
+        embeds_noise=None,
+        rope_length: int | None = None,
     ) -> CausalLMOutput:
+        """`embeds_noise(embeddings)` adds training noise to the input
+        embeddings in the compute dtype (NEFTune) inside the forward, where
+        a mesh has gathered the table; `rope_length` is the table-selection
+        length of a training forward whose rows are one chunk of the
+        sequence (the global width)."""
         cfg = self.config
         if inputs_embeds is None:
             if input_ids is None:
                 raise ValueError("one of input_ids / inputs_embeds is required")
             inputs_embeds = self.model.embed_tokens(input_ids)
         hidden = inputs_embeds.to(cfg.compute_torch_dtype)
+        if embeds_noise is not None:
+            hidden = embeds_noise(hidden)
         batch, seq = hidden.shape[:2]
         device = hidden.device
         if position_ids is None:
@@ -247,7 +272,7 @@ class Llama(nn.Module):
         # JAX's table-selection length: the input width in training, the
         # cache's planned length under a cache (a 1-token decode chunk
         # spans the generation's positions)
-        rope_len = seq if decode_state is None else decode_state.table_length
+        rope_len = (rope_length or seq) if decode_state is None else decode_state.table_length
         inv_freq, rope_factor = self.rope_frequencies(rope_len)
         cos, sin = compute_rope_cos_sin(inv_freq, position_ids, rope_factor)
 

@@ -10,6 +10,14 @@ backward peak at one chunk's fp32 logits instead of the whole
 package left it to XLA), so it is `torch.mm`. In bf16 the logits are the
 product's fp32 accumulator, never rounded to bf16, as with JAX's
 `preferred_element_type=float32`.
+
+Vocab-parallel: when the head is a DTensor sharded on `vocab` over the
+tensor ranks (the mesh's plan), each rank takes its chunk's local
+`[chunk, V/tp]` logits from its own slice of the head; the row max and the
+sum of exponentials are all-reduced over the tensor group and the label's
+logit is picked on the rank that owns it (`_VocabParallelNLL`), and the
+hidden states' gradient is all-reduced there in the backward. No rank
+holds a `[chunk, V]` tensor or the whole head.
 """
 
 from __future__ import annotations
@@ -25,8 +33,83 @@ def shift_labels(labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor
     return shifted
 
 
-def _token_nll(logits32: torch.Tensor, labels: torch.Tensor, ignore_index: int):
-    """Per-token negative log-likelihood (fp32) and validity mask."""
+class _VocabShard:
+    """The tensor group of a vocab-sharded head and this rank's first
+    vocab id."""
+
+    def __init__(self, group, start: int):
+        self.group, self.start = group, start
+
+
+def _local_head(weight: torch.Tensor, bias: torch.Tensor | None):
+    """(local weight, local bias, _VocabShard or None): a DTensor head
+    sharded on its vocab dim (1 of `[embed, vocab]`) over a 1-D mesh gives
+    its local slice; a plain one is itself."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(weight, DTensor):
+        return weight, bias, None
+    mesh = weight.device_mesh
+    if mesh.ndim != 1 or weight.placements[0] != Shard(1):
+        raise ValueError(f"the head must be sharded on vocab over one mesh dim, got "
+                         f"{weight.placements} over {mesh}")
+    local = weight.to_local()
+    if bias is not None and isinstance(bias, DTensor):
+        bias = bias.to_local()
+    return local, bias, _VocabShard(mesh.get_group(), mesh.get_local_rank() * local.shape[1])
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over `group` (each tensor
+    rank's logits slice contributes its part of d hidden)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token NLL of vocab-sharded fp32 logits `[n, V/tp]`: the max and
+    the sum of exponentials all-reduced, the label's logit from its owner."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_index, shard):
+        dist = torch.distributed
+        valid = labels != ignore_index
+        m = logits.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=shard.group)
+        e = torch.exp(logits - m[:, None])
+        total = e.sum(-1)
+        dist.all_reduce(total, group=shard.group)
+        local = valid & (labels >= shard.start) & (labels < shard.start + logits.shape[1])
+        index = torch.where(local, labels - shard.start, 0)
+        picked = torch.where(local, torch.gather(logits, 1, index[:, None])[:, 0], 0.0)
+        dist.all_reduce(picked, group=shard.group)
+        nll = torch.where(valid, m + torch.log(total) - picked, 0.0)
+        ctx.save_for_backward(e / total[:, None], index, local, valid)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, index, local, valid = ctx.saved_tensors
+        grad = torch.where(valid, grad, 0.0)
+        d = probs * grad[:, None]
+        d.scatter_add_(1, index[:, None], torch.where(local, -grad, 0.0)[:, None])
+        return d, None, None, None
+
+
+def _token_nll(logits32: torch.Tensor, labels: torch.Tensor, ignore_index: int, shard=None):
+    """Per-token negative log-likelihood (fp32) and validity mask; over a
+    vocab shard's local logits when `shard` is given."""
+    if shard is not None:
+        return _VocabParallelNLL.apply(logits32, labels, ignore_index, shard), labels != ignore_index
     valid = labels != ignore_index
     safe_labels = torch.where(valid, labels, 0)
     lse = torch.logsumexp(logits32, dim=-1)
@@ -103,9 +186,9 @@ def _checkpointed(fn, *args):
     return fn(*args)
 
 
-def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index):
+def _chunk_loss(h, weight, labels, bias, logits_soft_cap, ignore_index, shard=None):
     logits = _chunk_logits(h, weight, bias, logits_soft_cap)
-    nll, valid = _token_nll(logits, labels, ignore_index)
+    nll, valid = _token_nll(logits, labels, ignore_index, shard)
     return nll.sum(), valid.sum()
 
 
@@ -123,6 +206,9 @@ def fused_linear_cross_entropy(
     weight `[embed, vocab]`, bias `[vocab]`. Returns (sum of the NLL as an
     fp32 scalar, number of counted tokens); callers divide for the mean."""
     embed = hidden.shape[-1]
+    weight, bias, shard = _local_head(weight, bias)
+    if shard is not None:
+        hidden = _CopyToGroup.apply(hidden, shard.group)
     hidden = hidden.reshape(-1, embed)
     labels = labels.reshape(-1)
     chunk_size = min(chunk_size, hidden.shape[0])
@@ -133,24 +219,26 @@ def fused_linear_cross_entropy(
     for start in range(0, hidden.shape[0], chunk_size):
         h = hidden[start:start + chunk_size]
         l = labels[start:start + chunk_size]
-        s, c = _checkpointed(_chunk_loss, h, weight, l, bias, logits_soft_cap, ignore_index)
+        s, c = _checkpointed(_chunk_loss, h, weight, l, bias, logits_soft_cap, ignore_index,
+                             shard)
         total = total + s
         count = count + c
     return total, count
 
 
-def _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
+def _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index, shard=None):
     """Label log-probs (0 where ignored) and the validity mask of one
     sequence chunk: h `[batch, chunk, embed]`, labels `[batch, chunk]`."""
     rows, width, embed = h.shape
     logits = _chunk_logits(h.reshape(-1, embed), weight, bias, logits_soft_cap)
-    nll, valid = _token_nll(logits, labels.reshape(-1), ignore_index)
+    nll, valid = _token_nll(logits, labels.reshape(-1), ignore_index, shard)
     return -nll.reshape(rows, width), valid.reshape(rows, width)
 
 
-def _chunk_logps(h, weight, labels, bias, logits_soft_cap, ignore_index):
+def _chunk_logps(h, weight, labels, bias, logits_soft_cap, ignore_index, shard=None):
     """Per-row sums of label log-probs and valid counts of one chunk."""
-    logps, valid = _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index)
+    logps, valid = _chunk_token_logps(h, weight, labels, bias, logits_soft_cap, ignore_index,
+                                      shard)
     return logps.sum(-1), valid.sum(-1)
 
 
@@ -162,6 +250,9 @@ def _sequence_chunks(fn, hidden, weight, labels, ignore_index, chunk_size, logit
     scan pads it, so every chunk has one shape; callers strip or sum away
     the padding. Yields (the chunk's unpadded width, fn's outputs)."""
     batch, seq, embed = hidden.shape
+    weight, bias, shard = _local_head(weight, bias)
+    if shard is not None:
+        hidden = _CopyToGroup.apply(hidden, shard.group)
     chunk_size = min(chunk_size, seq)
     for start in range(0, seq, chunk_size):
         h = hidden[:, start:start + chunk_size]
@@ -170,7 +261,7 @@ def _sequence_chunks(fn, hidden, weight, labels, ignore_index, chunk_size, logit
         if width < chunk_size:
             h = torch.cat([h, h.new_zeros((batch, chunk_size - width, embed))], dim=1)
             l = torch.cat([l, l.new_full((batch, chunk_size - width), ignore_index)], dim=1)
-        yield width, _checkpointed(fn, h, weight, l, bias, logits_soft_cap, ignore_index)
+        yield width, _checkpointed(fn, h, weight, l, bias, logits_soft_cap, ignore_index, shard)
 
 
 def fused_linear_log_probs(

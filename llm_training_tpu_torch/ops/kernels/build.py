@@ -36,6 +36,16 @@ _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
 
+def refuse_dtensor(what: str, *tensors) -> None:
+    """A kernel wrapper takes plain local tensors: a DTensor (a mesh's
+    sharded tensor that leaked past the plan's local outputs) raises, and
+    never takes the plain path because its device reads `cpu`."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes local tensors, not DTensors")
+
+
 def _nvcc() -> str:
     for candidate in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if candidate and os.path.exists(candidate):

@@ -282,7 +282,7 @@ __device__ __forceinline__ void fwd_tile_math(bool open, float (&s)[kKvRows / 2]
 #undef FWD_TILE_MATH_ARGS
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -290,7 +290,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const int* __restrict__ seg_q, const int* __restrict__ seg_kv,
                        const int2* __restrict__ q_ranges, const int2* __restrict__ k_ranges,
                        const int2* __restrict__ q_block_ranges, const float* __restrict__ sinks,
-                       bf16* __restrict__ out, float* __restrict__ lse, int sq, int skv, int hq,
+                       OutT* __restrict__ out, float* __restrict__ lse, int sq, int skv, int hq,
                        int hkv, int causal, int window, SoftCap cap, int q_offset) {
   using P = FwdPlan<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -425,7 +425,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_kv,
                  const int* q_ranges, const int* k_ranges, const int* q_block_ranges,
                  const float* sinks, void* out, float* lse, int batch, int sq, int skv, int hq,
@@ -438,14 +438,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q, 
   if (const int err = encode_maps<D>(&maps, q, k, v, nullptr, batch, sq, skv, hq, hkv,
                                      kBlockRows, kKvRows))
     return err;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D, OutT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, sq / kBlockRows, batch);
   kernel<<<grid, kBlockThreads, smem, stream>>>(
       maps.q, maps.k, maps.v, seg_q, seg_kv, (const int2*)q_ranges, (const int2*)k_ranges,
-      (const int2*)q_block_ranges, sinks, (bf16*)out, lse, sq, skv, hq, hkv, causal, window,
+      (const int2*)q_block_ranges, sinks, (OutT*)out, lse, sq, skv, hq, hkv, causal, window,
       soft_cap_of(cap), q_offset);
   return (int)cudaGetLastError();
 }
@@ -457,13 +457,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q, 
 // id; q_block_ranges [B, Sq/128, 2] the same over 128-row blocks (read by
 // the bf16 kernel, which wants Sq a multiple of 128; unused in fp32); sinks
 // is [Hq] fp32 or null; window <= 0 means none, cap <= 0 means none.
+// out_f32 (bf16 only): O written in fp32, unrounded (ring attention merges
+// chunk partials before it rounds); an fp32 launch always writes fp32.
 // Returns a cudaError_t (0 on success) read right after the launch.
 extern "C" int flash_fwd_launch(int dtype, int head_dim, const void* q, const void* k,
                                 const void* v, const int* seg_q, const int* seg_kv,
                                 const int* q_ranges, const int* k_ranges,
                                 const int* q_block_ranges, const float* sinks, void* out,
                                 float* lse, int batch, int sq, int skv, int hq, int hkv,
-                                int causal, int window, float cap, int q_offset, void* stream) {
+                                int causal, int window, float cap, int q_offset, void* stream,
+                                int out_f32) {
   if (sq % kTile || skv % kTile || hkv < 1 || hq % hkv || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || sq == 0) return 0;
@@ -477,8 +480,10 @@ extern "C" int flash_fwd_launch(int dtype, int head_dim, const void* q, const vo
 #define FLASH_FWD_ARGS                                                                         \
   q, k, v, seg_q, seg_kv, q_ranges, k_ranges, q_block_ranges, sinks, out, lse, batch, sq, skv, \
       hq, hkv, causal, window, cap, q_offset, s
-  if (dtype == 1 && head_dim == 64) return launch_wgmma<64>(FLASH_FWD_ARGS);
-  if (dtype == 1 && head_dim == 128) return launch_wgmma<128>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 64 && !out_f32) return launch_wgmma<64, bf16>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 128 && !out_f32) return launch_wgmma<128, bf16>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 64) return launch_wgmma<64, float>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 128) return launch_wgmma<128, float>(FLASH_FWD_ARGS);
 #undef FLASH_FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

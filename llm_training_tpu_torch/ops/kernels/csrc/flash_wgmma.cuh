@@ -534,6 +534,20 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, size
   }
 }
 
+// the same rows in fp32, unrounded (K1's output for ring attention, whose
+// chunk partials merge before the one rounding to bf16)
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, size_t row_stride,
+                                           const float (&acc)[D / 2], int row0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = out + (size_t)(row0 + 8 * r) * row_stride + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------------------- host side
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

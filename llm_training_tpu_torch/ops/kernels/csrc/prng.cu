@@ -15,6 +15,11 @@
 //   minus 1, then a multiply and an add each rounded to bf16 (as XLA and
 //   torch do in bf16), at least minval.
 // - Gumbel logits (fp32): u uniform on [tiny, 1), logits - log(-log(u)).
+// - A uniform draw may be a block of a larger one (a rank's rows and
+//   sequence chunk of a global batch): its element i is element
+//   base + (i / seg_len) * seg_stride + i % seg_len of the whole draw, and
+//   takes that element's bits; a single segment (seg_len >= n) skips the
+//   division.
 //
 // The arithmetic is the plain versions' op for op with the rounding made
 // explicit (__fmaf_rn, __fmul_rn, __fadd_rn: nothing is contracted), so
@@ -69,21 +74,34 @@ __device__ __forceinline__ float uniform_f32(uint32_t bits, float low, float spa
   return fmaxf(low, __fmaf_rn(f, span, low));
 }
 
-__global__ void uniform_f32_kernel(uint32_t k0, uint32_t k1, int64_t n, float low, float high,
-                                   float* __restrict__ out) {
+// where a block's elements lie in the whole draw
+struct Block {
+  int64_t base, seg_len, seg_stride;
+};
+
+template <bool kStrided>
+__device__ __forceinline__ int64_t whole_index(const Block& block, int64_t i) {
+  if (kStrided) return block.base + (i / block.seg_len) * block.seg_stride + i % block.seg_len;
+  return block.base + i;
+}
+
+template <bool kStrided>
+__global__ void uniform_f32_kernel(uint32_t k0, uint32_t k1, int64_t n, Block block, float low,
+                                   float high, float* __restrict__ out) {
   const float span = __fsub_rn(high, low);
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * kThreads)
-    out[i] = uniform_f32(element_bits(k0, k1, i), low, span);
+    out[i] = uniform_f32(element_bits(k0, k1, whole_index<kStrided>(block, i)), low, span);
 }
 
 // low and high are bf16 values (rounded on the host)
-__global__ void uniform_bf16_kernel(uint32_t k0, uint32_t k1, int64_t n, float low, float high,
-                                    __nv_bfloat16* __restrict__ out) {
+template <bool kStrided>
+__global__ void uniform_bf16_kernel(uint32_t k0, uint32_t k1, int64_t n, Block block, float low,
+                                    float high, __nv_bfloat16* __restrict__ out) {
   const float span = __bfloat162float(__float2bfloat16_rn(__fsub_rn(high, low)));
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * kThreads) {
-    const uint32_t byte = element_bits(k0, k1, i) & 0xFFu;
+    const uint32_t byte = element_bits(k0, k1, whole_index<kStrided>(block, i)) & 0xFFu;
     const float one_to_two = __uint_as_float(((byte >> 1) | 0x3F80u) << 16);
     const float f = __fsub_rn(one_to_two, 1.0f);  // exact in bf16
     const float product = __bfloat162float(__float2bfloat16_rn(__fmul_rn(f, span)));
@@ -112,22 +130,32 @@ int grid_for(int64_t n) {
   return (int)(blocks < cap ? blocks : cap);
 }
 
-}  // namespace
-
-// dtype 0: fp32, 1: bf16; low/high already rounded to the dtype
-extern "C" int prng_uniform_launch(int dtype, uint32_t k0, uint32_t k1, int64_t n, float low,
-                                   float high, void* out, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
+template <bool kStrided>
+int launch_uniform(int dtype, uint32_t k0, uint32_t k1, int64_t n, Block block, float low,
+                   float high, void* out, cudaStream_t s) {
   if (dtype == 0)
-    uniform_f32_kernel<<<grid_for(n), kThreads, 0, s>>>(k0, k1, n, low, high, (float*)out);
+    uniform_f32_kernel<kStrided><<<grid_for(n), kThreads, 0, s>>>(k0, k1, n, block, low, high,
+                                                                   (float*)out);
   else if (dtype == 1)
-    uniform_bf16_kernel<<<grid_for(n), kThreads, 0, s>>>(k0, k1, n, low, high,
-                                                          (__nv_bfloat16*)out);
+    uniform_bf16_kernel<kStrided><<<grid_for(n), kThreads, 0, s>>>(
+        k0, k1, n, block, low, high, (__nv_bfloat16*)out);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype 0: fp32, 1: bf16; low/high already rounded to the dtype
+extern "C" int prng_uniform_launch(int dtype, uint32_t k0, uint32_t k1, int64_t n, int64_t base,
+                                   int64_t seg_len, int64_t seg_stride, float low, float high,
+                                   void* out, void* stream) {
+  if (n < 0 || base < 0 || seg_len < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const Block block{base, seg_len, seg_stride};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (seg_len < n) return launch_uniform<true>(dtype, k0, k1, n, block, low, high, out, s);
+  return launch_uniform<false>(dtype, k0, k1, n, block, low, high, out, s);
 }
 
 extern "C" int prng_gumbel_logits_launch(uint32_t k0, uint32_t k1, int64_t n,

@@ -63,8 +63,8 @@ def _load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal window cap q_offset
             ctypes.c_void_p,  # stream
         ]
-        # the q blocks' ranges, sinks, out, lse
-        lib.flash_fwd_launch.argtypes = [*common, *[ctypes.c_void_p] * 4, *shape]
+        # the q blocks' ranges, sinks, out, lse; after the stream, out_f32
+        lib.flash_fwd_launch.argtypes = [*common, *[ctypes.c_void_p] * 4, *shape, ctypes.c_int]
         # the launcher's own 128-row block ranges, then dout lse delta and the outputs
         lib.flash_dq_launch.argtypes = [*common, *[ctypes.c_void_p] * 5, *shape]
         lib.flash_dkv_launch.argtypes = [*common, *[ctypes.c_void_p] * 6, *shape]
@@ -122,17 +122,20 @@ def _shape_args(q, k, causal, window, cap, q_offset) -> list:
 
 def flash_fwd_kernel(
     q, k, v, seg_q, seg_kv, q_ranges, k_ranges, sinks, *, q_blocks, causal, window, cap,
-    q_offset,
+    q_offset, out_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 on flat padded inputs (scale already folded into q): returns O
-    `[B, Sq, Hq, D]` in q's type and LSE `[B, Hq, Sq]` fp32. `window` and
-    `cap` are 0 for none; `sinks` is `[Hq]` fp32 or None; `q_blocks` is
+    `[B, Sq, Hq, D]` in q's type (or fp32 with `out_dtype=torch.float32`:
+    the same accumulator, unrounded) and LSE `[B, Hq, Sq]` fp32. `window`
+    and `cap` are 0 for none; `sinks` is `[Hq]` fp32 or None; `q_blocks` is
     `tile_ranges(seg_q, BLOCK)`."""
     _check_blocks("flash forward", q, q_blocks)
     _check_flat(q, k, v, seg_q, seg_kv)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise ValueError(f"flash forward writes O in {q.dtype} or float32, not {out_dtype}")
     lib = _load()
     batch, sq, hq, head_dim = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     lse = torch.empty((batch, hq, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
@@ -140,7 +143,7 @@ def flash_fwd_kernel(
             seg_q.data_ptr(), seg_kv.data_ptr(), q_ranges.data_ptr(), k_ranges.data_ptr(),
             q_blocks.data_ptr(), None if sinks is None else sinks.data_ptr(), out.data_ptr(),
             lse.data_ptr(),
-            *_shape_args(q, k, causal, window, cap, q_offset),
+            *_shape_args(q, k, causal, window, cap, q_offset), int(out.dtype == torch.float32),
         )
     build.check_launch(err, "flash forward")
     flash_fwd_kernel.launches += 1
@@ -296,6 +299,7 @@ def flash_attention(
     in the kv sequence; `sinks` `[Hq]` gpt-oss sink logits. Returns `[B, Sq,
     Hq, D]` in q's type. CUDA tensors go through K1 (and K2/K3 in the
     backward); CPU tensors take the plain version."""
+    build.refuse_dtensor("flash_attention", q, k, v, segment_ids, q_segment_ids, sinks)
     batch, q_len, num_q_heads, head_dim = q.shape
     kv_len, num_kv_heads = k.shape[1], k.shape[2]
     if num_q_heads % num_kv_heads:

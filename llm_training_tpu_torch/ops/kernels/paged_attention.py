@@ -142,6 +142,7 @@ def paged_decode_attention(
     table of trash block 0. Returns `[B, Hq, D]` in q's dtype. The bf16
     kernel's split is planned from the table's capacity (`P * page`
     slots); lengths stay on the device."""
+    build.refuse_dtensor("paged_decode_attention", q, k_pages, v_pages, block_tables, lengths)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":

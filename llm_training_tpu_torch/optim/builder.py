@@ -29,6 +29,12 @@ the model's parameters, because torch's optimizers differ from optax's:
 - `adafactor` is `optax.adafactor` over the JAX layout of each parameter
   (`adafactor.py`).
 
+On a mesh the parameters are DTensors (FSDP2 and the tensor-parallel
+plan): the update runs on each parameter's local shard (every optimizer
+here but Adafactor is elementwise), the state is held as local tensors and
+handed to the checkpointer as DTensors of the parameter's placements, and
+the global norm sums each mesh's local squares over its sharded dims.
+
 The offloaded state (`offload_optimizer_state`, `offload_state_dtype`,
 `offload_quant_block` of the trainer) is a placement of this same state
 (`offload.py`, `quantized_state.py`): the update is the same math, the
@@ -44,6 +50,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from llm_training_tpu_torch.models.llama.from_jax import jax_layout, jax_path
 from llm_training_tpu_torch.optim import adafactor
@@ -180,6 +188,10 @@ class Optimizer:
         patterns = [re.compile(p) for p in frozen_modules or []]
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
+        # what the update writes: the local shard of a DTensor parameter
+        with torch.no_grad():
+            self.local = [local_tensor(p) for p in self.params]
+        self._index = {n: i for i, n in enumerate(self.names)}
         self.trainable = [not _frozen(n, patterns, scan_layers) for n, _ in named_params]
         self.count = 0  # inner updates done
         self.mini_step = 0
@@ -190,20 +202,20 @@ class Optimizer:
         # the state covers the trainable parameters only, as optax.masked
         # allocates it; the accumulator covers all of them
         self.live = [i for i, t in enumerate(self.trainable) if t]
-        device = self.params[0].device if self.params else torch.device("cpu")
+        device = self.local[0].device if self.params else torch.device("cpu")
         self.store = StateStore(device, offload, state_dtype, quant_block)
         layouts = [jax_layout(n) for n in self.names]
         # the JAX array's last axis, where the codec's blocks run
         self._axis = [0 if transposed and p.ndim == 2 else -1
                       for p, (_, _, transposed) in zip(self.params, layouts)]
-        zeros = lambda i: torch.zeros_like(self.params[i])  # noqa: E731
+        zeros = lambda i: torch.zeros_like(self.local[i])  # noqa: E731
         if accumulate > 1:
             for i, name in enumerate(self.names):
                 self.store.add(f"acc.{name}", zeros(i))
         if self.kind == "adafactor":
             self.groups = _groups(self.live, self.names, layouts)
             for group in self.groups:
-                state = adafactor.init_state(group.shape(self.params), self.hyper, device)
+                state = adafactor.init_state(group.shape(self.local), self.hyper, device)
                 for field, value in state.items():
                     self.store.add(f"{field}.{group.name}", value)
                 self.fields = tuple(state)
@@ -274,7 +286,15 @@ class Optimizer:
             "count": torch.tensor(self.count, dtype=torch.int64),
             "mini_step": torch.tensor(self.mini_step, dtype=torch.int64),
         }
-        out.update(self.store.state_dict())
+        for key, value in self.store.state_dict().items():
+            i = self._index.get(key.split(".", 1)[-1])
+            p = self.params[i] if i is not None else None
+            if isinstance(p, DTensor) and value.shape == self.local[i].shape:
+                # the parameter's placements over the live storage, so that
+                # DCP writes (and reshards into) this state as it does p
+                value = DTensor.from_local(value, p.device_mesh, p.placements, run_check=False,
+                                           shape=p.shape, stride=p.stride())
+            out[key] = value
         return out
 
     @torch.no_grad()
@@ -291,8 +311,9 @@ class Optimizer:
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         for key, buffer in live.items():
-            if key not in ("count", "mini_step") and state[key].data_ptr() != buffer.data_ptr():
-                buffer.copy_(state[key])
+            value, buffer = local_tensor(state[key]), local_tensor(buffer)
+            if key not in ("count", "mini_step") and value.data_ptr() != buffer.data_ptr():
+                buffer.copy_(value)
 
     # ------------------------------------------------------------ the update
 
@@ -301,7 +322,7 @@ class Optimizer:
         range along a blocked dim 0 covers whole blocks."""
         out = []
         for i in indices:
-            p = self.params[i]
+            p = self.local[i]
             if p.ndim < 2 or p.numel() <= _CHUNK:
                 out.append((i, None))
                 continue
@@ -317,7 +338,7 @@ class Optimizer:
         """Consume the parameters' `.grad` (folded into the running mean,
         or clipped in place, and released); returns whether the parameters
         changed (every `accumulate`-th call)."""
-        grads = [p.grad for p in self.params]
+        grads = [None if p.grad is None else local_tensor(p.grad) for p in self.params]
         for p in self.params:
             p.grad = None
         if self.accumulate > 1:
@@ -334,7 +355,7 @@ class Optimizer:
                 i, rows = units[u]
                 acc = work[f"acc.{self.names[i]}"]
                 if final and grads[i] is None:
-                    grads[i] = torch.zeros_like(self.params[i])
+                    grads[i] = torch.zeros_like(self.local[i])
                 g = grads[i] if rows is None or grads[i] is None else grads[i][rows[0]:rows[1]]
                 if final:  # acc + (g - acc) / k, in the gradient's own memory
                     g.sub_(acc).div_(n + 1).add_(acc)
@@ -356,9 +377,10 @@ class Optimizer:
         # unmasked optax chain sees it
         for i in self.live:
             if grads[i] is None:
-                grads[i] = torch.zeros_like(self.params[i])
+                grads[i] = torch.zeros_like(self.local[i])
         if self.clip is not None and self.live:
-            norm = global_norm([grads[i] for i in self.live])
+            norm = global_norm([grads[i] for i in self.live],
+                               like=[self.params[i] for i in self.live])
             if not bool(norm < self.clip):
                 for i in self.live:
                     grads[i].div_(norm).mul_(self.clip)
@@ -370,7 +392,7 @@ class Optimizer:
             for g, work in enumerate(self.store.stream(units)):
                 group = self.groups[g]
                 state = {k.split(".", 1)[0]: t for k, t in work.items()}
-                adafactor.update(group, self.params, grads, state, count, lr, self.hyper,
+                adafactor.update(group, self.local, grads, state, count, lr, self.hyper,
                                  record=self._record if self.update_sq is not None else None)
                 for i in group.members:
                     grads[i] = None
@@ -379,12 +401,12 @@ class Optimizer:
         keys = [([f"{f}.{self.names[i]}" for f in self.fields], rows) for i, rows in units]
         for u, work in enumerate(self.store.stream(keys)):
             i, rows = units[u]
-            p, g = self.params[i], grads[i]
+            p, g = self.local[i], grads[i]
             if rows is not None:
                 p, g = p[rows[0]:rows[1]], g[rows[0]:rows[1]]
             state = [work[f"{f}.{self.names[i]}"] for f in self.fields]
             self._step(p, g, state, lr, i)
-            if rows is None or rows[1] == self.params[i].shape[0]:
+            if rows is None or rows[1] == self.local[i].shape[0]:
                 grads[i] = None
 
     def _record(self, i: int, update: torch.Tensor, scale: float = 1.0) -> None:
@@ -446,9 +468,34 @@ def bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - power)
 
 
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage, under no_grad); else `t`."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_norm(tensors: list[torch.Tensor], like: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    DTensors (or local shards of the DTensors in `like`) may lie on
+    different meshes: each mesh's local squares are summed, all-reduced
+    over the mesh dims that shard them, then all are added."""
+    like = like or tensors
+    plain, meshes = [], {}
+    for t, ref in zip(tensors, like):
+        sq = local_tensor(t).float().pow(2).sum()
+        if not isinstance(ref, DTensor):
+            plain.append(sq)
+            continue
+        # any sharded dim (FSDP2 over a tensor-parallel dim is a strided shard)
+        dims = tuple(d for d, p in enumerate(ref.placements) if not p.is_replicate())
+        meshes.setdefault((id(ref.device_mesh), dims), (ref.device_mesh, dims, []))[2].append(sq)
+    parts = [torch.stack(plain).sum()] if plain else []
+    for mesh, dims, sqs in meshes.values():
+        total = torch.stack(sqs).sum()
+        for d in dims:
+            dist.all_reduce(total, group=mesh.get_group(d))
+        parts.append(total)
+    return (parts[0] if len(parts) == 1 else torch.stack(parts).sum()).sqrt()
 
 
 def build_optimizer(

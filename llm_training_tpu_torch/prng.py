@@ -27,6 +27,9 @@ carried in int64 and masked (torch's uint32 has few ops).
 - Bits of a shape: element i (row-major flat index) hashes the count pair
   (i >> 32, i & 0xFFFFFFFF); its 32 bits are the two output words XOR-ed,
   its 8 bits their low byte.
+- A block of a shape (slices of its leading dims: a mesh rank's rows and
+  sequence chunk) takes the bits of its elements' flat indices in the
+  whole shape, so a rank draws only its part of the global batch's noise.
 - `uniform`: the top mantissa bits under the exponent of 1.0, minus 1,
   times (maxval - minval), plus minval, at least minval, in the result's
   type; a 16-bit type with fewer than 8 mantissa bits (bf16) takes 8
@@ -86,21 +89,77 @@ def split(key: Key, num: int = 2) -> list[Key]:
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def random_bits(key: Key, shape, bit_width: int = 32, device=None) -> torch.Tensor:
-    """`bit_width` (8 or 32) random bits per element of `shape`, as int64
-    on `device`."""
-    shape = tuple(shape)
+def _block_extents(shape, block) -> tuple[list[int], list[int]]:
+    """(starts, extents) of `block` in `shape`: slices of step 1 over the
+    leading dims, the dims after them whole."""
+    block = tuple(block or ())
+    if len(block) > len(shape):
+        raise ValueError(f"a block of {len(block)} dims in a shape of {len(shape)}")
+    starts, extents = [], []
+    for d, size in enumerate(shape):
+        start, stop, step = (block[d] if d < len(block) else slice(None)).indices(size)
+        if step != 1:
+            raise ValueError("a block takes slices of step 1")
+        starts.append(start)
+        extents.append(max(stop - start, 0))
+    return starts, extents
+
+
+def _strides(shape) -> list[int]:
+    strides, stride = [], 1
+    for size in reversed(shape):
+        strides.append(stride)
+        stride *= size
+    return strides[::-1]
+
+
+def _block_flat_index(shape, block, device) -> torch.Tensor:
+    """The row-major flat index in `shape` of every element of `block`,
+    shaped as the block."""
+    starts, extents = _block_extents(shape, block)
+    index = torch.zeros((), dtype=torch.int64, device=device)
+    for start, extent, stride in zip(starts, extents, _strides(shape)):
+        index = index[..., None] + torch.arange(start, start + extent, dtype=torch.int64,
+                                                device=device) * stride
+    return index
+
+
+def _block_segments(shape, block) -> tuple[tuple[int, ...], int, int, int]:
+    """(the block's shape, base, seg_len, seg_stride): element i of the
+    block (row-major) is element base + (i // seg_len) * seg_stride +
+    i % seg_len of the whole `shape`, as the uniform kernel takes it. The
+    block must be one strided run of contiguous segments (a rank's rows
+    and sequence chunk of a global batch are)."""
+    starts, extents = _block_extents(shape, block)
+    strides = _strides(shape)
+    base = sum(start * stride for start, stride in zip(starts, strides))
     n = 1
-    for d in shape:
-        n *= d
-    index = torch.arange(n, dtype=torch.int64, device=device)
+    for extent in extents:
+        n *= extent
+    d, seg = len(shape) - 1, 1
+    while d >= 0 and extents[d] == shape[d]:
+        seg *= shape[d]
+        d -= 1
+    outer = [k for k in range(d) if extents[k] > 1] if d >= 0 else []
+    if not outer:
+        return tuple(extents), base, max(n, 1), 0
+    if len(outer) > 1:
+        raise ValueError(f"block {block} of {tuple(shape)} is not one strided run of segments")
+    return tuple(extents), base, seg * extents[d], strides[outer[0]]
+
+
+def random_bits(key: Key, shape, bit_width: int = 32, device=None, block=None) -> torch.Tensor:
+    """`bit_width` (8 or 32) random bits per element of `shape`, as int64
+    on `device`; with `block` (slices of the leading dims) only that
+    block's, the same bits the whole draw has there."""
+    index = _block_flat_index(tuple(shape), block, device)
     hi, lo = threefry2x32(key, index >> 32, index & _MASK)
     bits = hi ^ lo
     if bit_width == 8:
         bits = bits & 0xFF
     elif bit_width != 32:
         raise ValueError(f"bit_width must be 8 or 32, got {bit_width}")
-    return bits.reshape(shape)
+    return bits
 
 
 # mantissa bits, total bits, the int type of the same width, and 1.0's bits
@@ -126,13 +185,13 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def uniform_torch(key: Key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
-                  device=None) -> torch.Tensor:
+                  device=None, block=None) -> torch.Tensor:
     """`uniform`'s plain version: torch ops on `device`."""
     if dtype not in _FLOAT_LAYOUT:
         raise ValueError(f"uniform takes float32 or bfloat16, not {dtype}")
     nmant, nbits, int_type, one = _FLOAT_LAYOUT[dtype]
     rng_bits = 8 if nmant < 8 else nbits
-    bits = random_bits(key, shape, rng_bits, device)
+    bits = random_bits(key, shape, rng_bits, device, block)
     float_bits = (bits >> (rng_bits - nmant)) | one
     floats = float_bits.to(int_type).view(dtype) - torch.ones((), dtype=dtype, device=device)
     low = torch.as_tensor(minval, dtype=dtype, device=device)
@@ -170,6 +229,7 @@ def _load() -> ctypes.CDLL:
     if not _declared:
         lib.prng_uniform_launch.argtypes = [
             ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,  # dtype, key, n
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,  # base, seg_len, seg_stride
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,  # low, high, out, stream
         ]
         lib.prng_uniform_launch.restype = ctypes.c_int
@@ -187,24 +247,27 @@ def _stream(device: torch.device) -> int:
 
 
 def uniform(key: Key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
-            device=None) -> torch.Tensor:
+            device=None, block=None) -> torch.Tensor:
     """`jax.random.uniform(key, shape, dtype, minval, maxval)` on `device`
     (float32 or bfloat16), bit for bit: one kernel launch on the card, the
-    plain version on the CPU (the default)."""
+    plain version on the CPU (the default). With `block` (slices of the
+    leading dims: a rank's rows and sequence chunk) only that block is
+    drawn, with the values the whole draw has there."""
     device = torch.device(device if device is not None else "cpu")
     if device.type == "cpu":
-        return uniform_torch(key, shape, dtype, minval, maxval, device)
+        return uniform_torch(key, shape, dtype, minval, maxval, device, block)
     if device.type != "cuda":
         raise ValueError(f"uniform runs on cuda or cpu, not {device}")
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"uniform takes float32 or bfloat16, not {dtype}")
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    local, base, seg_len, seg_stride = _block_segments(tuple(shape), block)
+    out = torch.empty(local, dtype=dtype, device=device)
     # the bounds in the result's type, as JAX and the plain version take them
     low, high = (float(torch.tensor(x, dtype=dtype)) for x in (minval, maxval))
     with torch.cuda.device(device):
         err = _load().prng_uniform_launch(
-            _DTYPE_CODES[dtype], key[0], key[1], out.numel(), low, high, out.data_ptr(),
-            _stream(device),
+            _DTYPE_CODES[dtype], key[0], key[1], out.numel(), base, seg_len, seg_stride, low,
+            high, out.data_ptr(), _stream(device),
         )
     build.check_launch(err, "uniform")
     uniform.launches += 1
@@ -219,6 +282,7 @@ def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
     `logits` `[..., vocab]`, as int64. On the card the Gumbel noise and the
     sum with the logits are one kernel launch (fp32 logits), then an
     argmax; on the CPU, the plain version."""
+    build.refuse_dtensor("categorical", logits)
     if logits.device.type == "cpu":
         return categorical_torch(key, logits)
     if logits.device.type != "cuda":

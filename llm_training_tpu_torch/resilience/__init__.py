@@ -24,8 +24,9 @@ trainer's fit runs:
   backoff and a `supervisor.jsonl` event log.
 - **Elastic planning** (`elastic.py`): the topology planner, the data
   continuity check at resume, each segment's `segment_topology` event and
-  the goodput ledger's cost basis; on the port's one card (a mesh is
-  ROADMAP A.9).
+  the goodput ledger's cost basis; the planner runs over the live world
+  (the process group's ranks) and a resume onto other degrees reshards
+  through DCP.
 - **Checkpoint durability** (`durability.py`): sha256 integrity manifests
   beside every committed step, verify-before-restore, an async mirror
   daemon with retention GC and a scrubber, `.stale/` staging of forced
@@ -125,8 +126,8 @@ class ResilienceConfig:
     # data stream byte-identical to a recovery-less run
     recovery: RecoveryConfig | None = None
     # elastic planning: with this block set, fit plans its topology against
-    # the visible device count (the port runs one card: a plan for more
-    # raises, ROADMAP A.9). None (default) = the one card, as before
+    # the live world (the process group's ranks; a plan that leaves ranks
+    # idle raises). None (default) = the config's mesh as it is
     elastic: ElasticConfig | None = None
     # fault injection (off unless a trigger is set); LLMT_CHAOS_* env vars
     # overlay it at fit start

@@ -8,10 +8,9 @@ JAX's config is a pydantic model):
   checkpoint's recorded mesh degrees and the config's, pick the mesh: the
   model axes (pipe/fsdp/expert/tensor/sequence) stay at the degrees the
   checkpoint was written with and `data` absorbs the capacity change. A
-  pure function, equal to JAX's. The port has no mesh yet (ROADMAP A.9):
-  its fit runs on one card, so `plan_single_device` runs the planner on
-  the visible CUDA device count and raises `NotImplementedError` for a
-  plan that needs more than one device or shards a model axis.
+  pure function, equal to JAX's. `plan_live_world` runs it over the live
+  world (the process group's ranks), and a resume onto other degrees
+  reshards through DCP.
 - **Data continuity** (`check_data_continuity`): the (seed, step) sample
   stream is keyed to the GLOBAL batch; a resume that changes it is refused
   under elastic and warned about otherwise.
@@ -230,23 +229,27 @@ def single_device_mesh() -> dict[str, int]:
     return {axis: 1 for axis in MESH_AXES}
 
 
-def plan_single_device(
-    available_devices: int,
+def plan_live_world(
+    world_size: int,
+    config_sizes: dict[str, int],
     checkpoint_mesh: dict[str, int] | None = None,
     global_batch_size: int | None = None,
 ) -> TopologyPlan:
-    """The planner over the port's one-card config (every axis 1). A plan
-    that needs more than one device, or shards any model axis, raises
-    `NotImplementedError`: meshes come with ROADMAP A.9."""
-    plan = plan_topology(available_devices, single_device_mesh(),
-                         checkpoint_mesh=checkpoint_mesh,
+    """JAX's planner over the live world: the process group's ranks (1
+    without one). A torchrun world cannot leave ranks idle, so a plan that
+    uses fewer than all of them raises `ElasticTopologyError`; pipeline
+    stages raise `NotImplementedError` (ROADMAP A.9b)."""
+    plan = plan_topology(world_size, config_sizes, checkpoint_mesh=checkpoint_mesh,
                          global_batch_size=global_batch_size)
-    sharded = {a: plan.axis_sizes[a] for a in MODEL_AXES if plan.axis_sizes.get(a, 1) > 1}
-    if plan.device_count > 1 or sharded:
+    if plan.axis_sizes.get("pipe", 1) > 1:
         raise NotImplementedError(
-            f"elastic plan {plan.axis_sizes} over {plan.device_count} device(s) "
-            f"({plan.decision}) needs a device mesh, which is not ported yet "
-            "(ROADMAP A.9): the port's fit runs on one card"
+            f"elastic plan {plan.axis_sizes} shards the pipe axis: pipeline stages are not "
+            "ported yet (ROADMAP A.9b)"
+        )
+    if plan.device_count != world_size:
+        raise ElasticTopologyError(
+            f"elastic plan {plan.axis_sizes} ({plan.decision}) uses {plan.device_count} of "
+            f"{world_size} ranks: relaunch with {plan.device_count} processes"
         )
     return plan
 

@@ -10,9 +10,10 @@ which the CLI maps to `RESUMABLE_EXIT_CODE` so a supervisor can tell
 "relaunch me" from a real failure.
 
 Handlers are installed from the main thread only (`signal.signal` raises
-elsewhere; a fit driven from another thread runs without them). The port's
-fit is one process: JAX's broadcast of process 0's flag across hosts waits
-for the port's mesh (ROADMAP A.9), and `should_stop` reads the local flag.
+elsewhere; a fit driven from another thread runs without them). In a
+process group `should_stop` all-reduces the flag (the largest wins) on the
+steps `sync_every` gates, so a signal to any rank -- process 0's, as JAX
+broadcasts, or another's -- stops every rank at the same step boundary.
 """
 
 from __future__ import annotations
@@ -121,7 +122,26 @@ class GracefulShutdown:
         return signal.Signals(self._signum).name
 
     def should_stop(self, step: int, sync_every: int = 1) -> bool:
-        """Boundary check the trainer calls once per optimizer step: the
-        local flag (one process; `sync_every` is JAX's multihost broadcast
-        cadence, kept for its signature)."""
-        return self._requested.is_set()
+        """Boundary check the trainer calls once per optimizer step. In a
+        process group of more than one rank the flags are all-reduced (a
+        blocking collective, entered only on steps where `step %
+        sync_every == 0`: a pure function of the step, the same on every
+        rank), so every rank agrees on the same boundary step for the
+        collective emergency save. One process reads its local flag every
+        step."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return self._requested.is_set()
+        if sync_every > 1 and step % sync_every != 0:
+            return False
+        import torch
+
+        backend = dist.get_backend()
+        device = torch.device("cuda", torch.cuda.current_device()) if backend == "nccl" else "cpu"
+        flag = torch.tensor([1 if self._requested.is_set() else 0], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if int(flag.item()) and not self._requested.is_set():
+            self._signum = None
+            self._requested.set()
+        return bool(int(flag.item()))

@@ -3,7 +3,14 @@ durability plane.
 
 Counterpart of `CheckpointConfig` and `Checkpointer` in
 `llm_training_tpu/trainer/checkpoint.py`, on `torch.distributed.checkpoint`
-(DCP) in its single-process mode where the JAX package uses orbax:
+(DCP) where the JAX package uses orbax. In a process group (a mesh fit)
+every rank writes its shards of the DTensor state into the one directory
+(synchronously: a background write's collectives would interleave with
+the step's) and rank 0 alone writes `meta.json`, commits, prunes and
+manifests, as JAX's primary host does; a restore reads and reshards onto
+the live mesh (any degrees), or onto one process's plain tensors when no
+group exists (DCP's resharding). A mirror on more than one rank waits for
+ROADMAP A.9b.
 
 - one directory per step, `<dirpath>/step_{n}/`, holding the DCP files of
   `TrainState.state_dict()` and `meta.json` (the step, the consumed
@@ -57,6 +64,7 @@ import torch
 import torch.distributed.checkpoint as dcp
 
 from llm_training_tpu_torch.dataclass_config import build_dataclass
+from llm_training_tpu_torch.parallel.mesh import is_primary
 from llm_training_tpu_torch.resilience import durability
 from llm_training_tpu_torch.resilience.chaos import chaos_point, get_chaos
 from llm_training_tpu_torch.resilience.retry import RetryPolicy, is_transient, retry_call
@@ -157,6 +165,15 @@ def _single_process() -> bool:
     return not (torch.distributed.is_available() and torch.distributed.is_initialized())
 
 
+def _many_ranks() -> bool:
+    return not _single_process() and torch.distributed.get_world_size() > 1
+
+
+def _barrier() -> None:
+    if _many_ranks():
+        torch.distributed.barrier()
+
+
 def _dir_bytes(path: Path) -> int:
     return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
 
@@ -199,6 +216,9 @@ class Checkpointer:
         self.last_manifest: dict[str, Any] = {}
         mirror_raw = os.environ.get("LLMT_CKPT_MIRROR_DIR") or config.mirror_dir
         self.mirror_dir = Path(mirror_raw).absolute() if mirror_raw else None
+        if self.mirror_dir is not None and _many_ranks():
+            raise NotImplementedError(
+                "a checkpoint mirror over more than one rank is not ported yet (ROADMAP A.9b)")
         self._mirror: durability.MirrorDaemon | None = None
         if self.mirror_dir is not None:
             self._mirror = durability.MirrorDaemon(
@@ -295,7 +315,7 @@ class Checkpointer:
                 "tensor_bytes": sum(t.numel() * t.element_size() for t in staged.values()),
                 "blocking_s": time.perf_counter() - t0,
             }
-            if self.config.async_save:
+            if self.config.async_save and not _many_ranks():
                 self._inflight_step = step
                 self._thread = threading.Thread(
                     target=self._write_guarded, args=(step, staged, meta, t0),
@@ -311,7 +331,7 @@ class Checkpointer:
             retry_call(_save, self._retry_policy(), label=f"checkpoint save (step {step})",
                        counter=registry.counter("checkpoint/retries"))
         self._pending_manifest.add(step)
-        if self.config.async_save:
+        if self.config.async_save and not _many_ranks():
             logger.info("checkpoint save started at step %d -> %s (async; durable after "
                         "the wait() barrier)", step, self.directory)
         else:
@@ -321,15 +341,24 @@ class Checkpointer:
     def _stage(self, state_dict: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """Host copies of the state's tensors, in buffers kept for the next
         save (pinned when the tensor lives on the card)."""
+        from torch.distributed.tensor import DTensor
+
         staged = {}
         on_card = False
         for name, tensor in state_dict.items():
+            # a DTensor stages its local shard and goes back out with the
+            # same placements, so DCP writes this rank's part
+            local = tensor.to_local() if isinstance(tensor, DTensor) else tensor
             buffer = self._staging.get(name)
-            if buffer is None or buffer.shape != tensor.shape or buffer.dtype != tensor.dtype:
-                buffer = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=tensor.is_cuda)
+            if buffer is None or buffer.shape != local.shape or buffer.dtype != local.dtype:
+                buffer = torch.empty(local.shape, dtype=local.dtype, pin_memory=local.is_cuda)
                 self._staging[name] = buffer
-            buffer.copy_(tensor.detach(), non_blocking=tensor.is_cuda)
-            on_card |= tensor.is_cuda
+            buffer.copy_(local.detach(), non_blocking=local.is_cuda)
+            on_card |= local.is_cuda
+            if isinstance(tensor, DTensor):
+                buffer = DTensor.from_local(buffer, tensor.device_mesh, tensor.placements,
+                                            run_check=False, shape=tensor.shape,
+                                            stride=tensor.stride())
             staged[name] = buffer
         if on_card:
             torch.cuda.synchronize()
@@ -338,7 +367,7 @@ class Checkpointer:
     def _clear_partial(self) -> None:
         """Remove temporary directories a dead writer or healer left behind
         (never `.stale/`: it holds a durable copy)."""
-        if not self.directory.is_dir():
+        if not self.directory.is_dir() or not is_primary():
             return
         for entry in self.directory.iterdir():
             if entry.name.startswith(_PARTIAL_PREFIXES) and entry.is_dir():
@@ -354,13 +383,26 @@ class Checkpointer:
 
     def _write(self, step: int, staged: dict[str, torch.Tensor], meta: dict, t0: float) -> None:
         self.directory.mkdir(parents=True, exist_ok=True)
-        tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
-        tmp = self.directory / f".tmp-step_{step}-{tag}"
+        tag = [f"{os.getpid()}-{uuid.uuid4().hex[:8]}"]
+        if not _single_process():
+            # every rank writes into rank 0's temporary directory
+            torch.distributed.broadcast_object_list(tag, src=0)
+        tmp = self.directory / f".tmp-step_{step}-{tag[0]}"
         try:
             dcp.save(staged, storage_writer=dcp.FileSystemWriter(tmp, thread_count=_WRITE_THREADS),
                      no_dist=_single_process())
         except dcp.CheckpointException as e:  # a BaseException: not an Exception
             raise RuntimeError(f"writing checkpoint step {step} to {tmp} failed: {e}") from e
+        if not is_primary():
+            # rank 0 commits; the others wait for the step to exist
+            _barrier()
+            return
+        try:
+            self._commit(step, tmp, tag[0], meta, t0)
+        finally:
+            _barrier()
+
+    def _commit(self, step: int, tmp: Path, tag: str, meta: dict, t0: float) -> None:
         with open(tmp / _META, "w") as f:
             json.dump(meta, f, default=str)
             f.flush()
@@ -406,6 +448,9 @@ class Checkpointer:
         step's staged `.stale/` copy (its replacement is durable and
         manifested now) and wakes the mirror."""
         if not self._pending_manifest or self._writing():
+            return
+        if not is_primary():
+            self._pending_manifest.clear()
             return
         registry = get_registry()
         for step in sorted(self._pending_manifest):
@@ -513,6 +558,8 @@ class Checkpointer:
             state.optimizer.check_layout(meta["optimizer"])
         state_dict = state.state_dict()
         try:
+            # DTensors read their shards of the saved tensors (any degrees);
+            # plain tensors read whole ones
             dcp.load(state_dict, storage_reader=_SafeReader(path), no_dist=_single_process())
         except dcp.CheckpointException as e:  # a BaseException: not an Exception
             raise RuntimeError(f"loading checkpoint step {step} from {path} failed: {e}") from e
@@ -628,7 +675,7 @@ class Checkpointer:
             # left in place, an unrestorable newer step would stay the newest
             # every later restore falls back past, and the resumed run's save
             # of that step would dedupe away: the corruption never repaired
-            for bad in (corrupt + legacy) if repair else ():
+            for bad in (corrupt + legacy) if repair and is_primary() else ():
                 try:
                     shutil.rmtree(self.step_dir(bad))
                     durability.manifest_path(self.directory, bad).unlink(missing_ok=True)

@@ -41,13 +41,13 @@ step boundary of a fresh start (the `supervise` path). Every one of these
 is restored when `fit` returns or raises, and every callback's
 `teardown()` runs then.
 
-The elastic front door of JAX's `fit`, on the port's one card: each fit
-tags its ledger with its chip count and price (`set_cost_basis`), sets the
-`elastic/*` gauges and, under a supervisor, appends a `segment_topology`
-event to `supervisor.jsonl`; with `resilience.elastic` set it runs the
-topology planner over the visible device count (a plan for more than one
-device raises: ROADMAP A.9) and refuses a resume that changes the global
-batch (warned about otherwise). Checkpoints carry the `topology` rider.
+The elastic front door of JAX's `fit`: each fit tags its ledger with its
+chip count and price (`set_cost_basis`), sets the `elastic/*` gauges and,
+under a supervisor, appends a `segment_topology` event to
+`supervisor.jsonl`; with `resilience.elastic` set it runs JAX's topology
+planner over the live world (the process group's ranks, 1 without one) and
+refuses a resume that changes the global batch (warned about otherwise).
+Checkpoints carry the `topology` rider: the live mesh's degrees.
 
 The callback hooks are JAX's: `on_fit_start(trainer, objective,
 datamodule, start_step)`, `on_train_step(trainer, step)` (every optimizer
@@ -59,7 +59,19 @@ that a checkpoint carries. A callback stops the loop by setting
 `trainer.should_stop`, and vetoes the final save with
 `trainer.abort_final_save`.
 
-The mesh is not ported yet (ROADMAP A.9).
+The mesh (`trainer.mesh`, JAX's `MeshConfig`): inside a process group
+(torchrun, `parallel/mesh.py`) `fit` builds the 6-axis `DeviceMesh` and
+shards the model (`parallel/sharding.py`: the tensor-parallel plan, then
+FSDP2 per decoder layer, then the root). Every rank makes the same global
+batch and keeps its rows and sequence chunk (`parallel/batch.py`); the
+objectives' sums run over the batch's ranks, so the loss is the global
+batch's on every rank, and the gradients (scaled by the batch mesh's size,
+which FSDP2 averages over) are the global ones. The global norm combines
+the meshes of the parameters; checkpoints go through DCP, sharded; rank 0
+alone writes the run's files. Without a process group the fit runs on one
+device as before. Pipeline stages, offloaded state and Adafactor on more
+than one rank, health metrics and sequence-sharded preference objectives
+on a mesh raise (ROADMAP A.9b).
 """
 
 from __future__ import annotations
@@ -74,12 +86,25 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from llm_training_tpu_torch import prng, resolve_device
 from llm_training_tpu_torch.callbacks.nan_guard import LossSpikeError, NonFiniteLossError
 from llm_training_tpu_torch.data.prefetch import DevicePrefetcher, to_device
-from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm
+from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm, local_tensor
 from llm_training_tpu_torch.optim.offload import check_offload_keys
+from llm_training_tpu_torch.parallel import batch as batching
+from llm_training_tpu_torch.parallel.mesh import (
+    SEQUENCE_AXIS,
+    MeshConfig,
+    build_mesh,
+    is_primary,
+    local_rank,
+    mesh_axis_sizes,
+    resolve_axis_sizes,
+    use_mesh,
+)
+from llm_training_tpu_torch.parallel.sharding import batch_mesh, parallelize
 from llm_training_tpu_torch.resilience import (
     GracefulShutdown,
     HangWatchdog,
@@ -97,7 +122,7 @@ from llm_training_tpu_torch.resilience.elastic import (
     chaos_device_limit,
     check_data_continuity,
     log_segment_topology,
-    plan_single_device,
+    plan_live_world,
     resolve_chip_price,
     segment_attempt,
     single_device_mesh,
@@ -154,6 +179,9 @@ class TrainerConfig:
     # the hang watchdog (off by default), data retries, recovery and fault
     # injection (resilience/)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    # the device mesh of a multi-process fit (parallel/mesh.py); a fit
+    # without a process group runs on one device
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def __post_init__(self):
         check_offload_keys(self.offload_optimizer_state, self.offload_state_dtype,
@@ -191,6 +219,21 @@ def _host_metrics(metrics: dict) -> dict[str, float]:
         values = torch.stack([metrics[k].detach().reshape(()).to(torch.float64) for k in keys])
         host.update(zip(keys, values.tolist()))
     return {k: host[k] for k in metrics}
+
+
+class _HostBatch(dict):
+    """A rank's part of a global host batch, carrying the global batch's
+    (samples, tokens)."""
+
+    counts: tuple[int, int]
+
+
+def _host_counts(batch) -> tuple[int, int]:
+    return getattr(batch, "counts", None) or _batch_counts(batch)
+
+
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _scan_layers(module: torch.nn.Module) -> bool:
@@ -251,6 +294,11 @@ class Trainer:
         self.rollbacks: list[dict] = []
         # the elastic plan this fit ran on (None with resilience.elastic unset)
         self.topology_plan: TopologyPlan | None = None
+        # the fit's DeviceMesh (None off a process group) and the mesh
+        # FSDP2 shards over
+        self.mesh = None
+        self._dp_mesh = None
+        self._objective = None
 
     def _callbacks(self, hook: str, *args) -> None:
         for cb in self.callbacks:
@@ -269,7 +317,19 @@ class Trainer:
         cfg = self.config
         init = torch.Generator(device=self.device).manual_seed(cfg.seed)
         model = objective.configure_model(self.device, init, load_pretrained=pretrained)
+        if self.mesh is not None:
+            # every rank built the same full weights; each keeps its shards
+            for member in getattr(model, "policy", None), getattr(model, "ref", None):
+                if member is not None:
+                    parallelize(member, self.mesh, self._dp_mesh)
+            if not hasattr(model, "policy"):
+                parallelize(model, self.mesh, self._dp_mesh)
         optimizer = schedule = None
+        if with_optimizer and _world_size() > 1:
+            if cfg.offload_optimizer_state or objective.config.optim.optimizer == "adafactor":
+                raise NotImplementedError(
+                    "offloaded optimizer state and Adafactor on a mesh of more than one rank "
+                    "are not ported yet (ROADMAP A.9b)")
         if with_optimizer:
             optimizer, schedule = build_optimizer(
                 objective.config.optim, cfg.max_steps, list(model.named_parameters()),
@@ -323,7 +383,7 @@ class Trainer:
         elastic = self.config.resilience.elastic
         if elastic is None:
             return None
-        available = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        available = _world_size()
         limit = chaos_device_limit()
         if limit is not None and limit < available:
             logger.warning("chaos: shrinking visible devices %d -> %d (LLMT_CHAOS_DEVICES)",
@@ -334,7 +394,8 @@ class Trainer:
             meta = self.checkpointer.read_meta(resume_step) or {}
             checkpoint_mesh = (meta.get("topology") or {}).get("mesh")
             checkpoint_batch = (meta.get("data_state") or {}).get("global_batch_size")
-        plan = plan_single_device(available, checkpoint_mesh, checkpoint_batch)
+        plan = plan_live_world(available, self.config.mesh.axis_sizes(), checkpoint_mesh,
+                               checkpoint_batch)
         logger.info("elastic topology: %s over %d device(s) [%s, from %s]",
                     plan.axis_sizes, plan.device_count, plan.decision, plan.source)
         return plan
@@ -344,13 +405,44 @@ class Trainer:
         count and $/chip-hour), the `elastic/*` gauges and, under a
         supervisor, a `segment_topology` event keyed by the attempt."""
         price = resolve_chip_price(self.config.resilience.elastic)
-        self.ledger.set_cost_basis(1, price)
+        chips, sizes = self._topology()
+        self.ledger.set_cost_basis(chips, price)
         self.telemetry.gauge("elastic/segment").set(segment_attempt())
-        self.telemetry.gauge("elastic/device_count").set(1)
-        self.telemetry.gauge("elastic/data_parallel_size").set(1)
-        log_segment_topology(single_device_mesh(), 1,
-                             decision=plan.decision if plan is not None else "static mesh",
-                             price_per_chip_hour=price)
+        self.telemetry.gauge("elastic/device_count").set(chips)
+        self.telemetry.gauge("elastic/data_parallel_size").set(sizes["data"])
+        if is_primary():
+            log_segment_topology(sizes, chips,
+                                 decision=plan.decision if plan is not None else "static mesh",
+                                 price_per_chip_hour=price)
+
+    def _topology(self) -> tuple[int, dict[str, int]]:
+        """(devices, mesh degrees) of the live world: the one device's all
+        ones off a mesh."""
+        if self.mesh is None:
+            return 1, single_device_mesh()
+        return _world_size(), mesh_axis_sizes(self.mesh)
+
+    def _build_mesh(self, plan: TopologyPlan | None):
+        """The fit's mesh over the process group's ranks (the plan's degrees
+        under elastic), or None without a group. Pipeline stages raise
+        (ROADMAP A.9b). On CUDA each rank takes the card of its
+        `LOCAL_RANK`."""
+        config = self.config.mesh
+        if plan is not None:
+            config = MeshConfig.from_axis_sizes(plan.axis_sizes)
+        if config.pipeline_parallel_size != 1:
+            raise NotImplementedError(
+                f"pipeline_parallel_size={config.pipeline_parallel_size}: pipeline stages are not "
+                "ported yet (ROADMAP A.9b)")
+        resolve_axis_sizes(config, _world_size())  # JAX's errors, with or without a group
+        if not dist.is_initialized():
+            return None
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", local_rank())
+            torch.cuda.set_device(self.device)
+        mesh = build_mesh(config, device=self.device.type)
+        self._dp_mesh = batch_mesh(mesh)
+        return mesh
 
     # ------------------------------------------------------------ fit
 
@@ -362,6 +454,8 @@ class Trainer:
         under recovery) on divergence."""
         resil = self.config.resilience
         self.topology_plan = self._resolve_topology(resume_step)
+        self.mesh = self._build_mesh(self.topology_plan)
+        self._objective = objective
         # fresh telemetry per fit, installed as the process-current registry
         # so components built elsewhere (the prefetcher, the checkpointer)
         # find it
@@ -376,7 +470,8 @@ class Trainer:
             install_chaos(config_from_env(resil.chaos), registry=self.telemetry)
             self._shutdown = GracefulShutdown().install() if resil.handle_signals else None
             self._watchdog = None
-            run_dir = resolve_run_dir(self)
+            # the run's files are rank 0's (hang dumps, hbm.jsonl), as JAX's process 0's
+            run_dir = resolve_run_dir(self) if is_primary() else None
             if resil.watchdog_timeout_s:
                 self._watchdog = HangWatchdog(
                     resil.watchdog_timeout_s, run_dir=run_dir, ledger=self.ledger,
@@ -386,10 +481,11 @@ class Trainer:
             # hbm/* gauges and a logger's <run_dir>/hbm.jsonl (never into the
             # checkpoint directory, which holds steps only)
             log_dir = next((cb.run_dir for cb in self.callbacks
-                            if getattr(cb, "run_dir", None)), None)
+                            if getattr(cb, "run_dir", None)), None) if is_primary() else None
             self._hbm_timeline = HBMTimeline(run_dir=log_dir, registry=self.telemetry,
                                              device=self.device)
-            return self._fit_inner(objective, datamodule, resume_step)
+            with use_mesh(self.mesh):
+                return self._fit_inner(objective, datamodule, resume_step)
         finally:
             self._hbm_timeline = None
             if self._watchdog is not None:
@@ -436,6 +532,9 @@ class Trainer:
 
         health_every = cfg.health.every_n_steps
         self._param_groups = None
+        if health_every and _world_size() > 1:
+            raise NotImplementedError(
+                "health metrics on a mesh of more than one rank are not ported yet (ROADMAP A.9b)")
         if health_every:
             if _objective_supports_health(objective):
                 raise NotImplementedError(
@@ -734,8 +833,10 @@ class Trainer:
 
         def stream(from_micro: int):
             if skip_list is not None:
-                return datamodule.train_batches(start_step=from_micro, skip_list=skip_list)
-            return datamodule.train_batches(start_step=from_micro)
+                batches = datamodule.train_batches(start_step=from_micro, skip_list=skip_list)
+            else:
+                batches = datamodule.train_batches(start_step=from_micro)
+            return batches if self.mesh is None else map(self._rank_batch, batches)
 
         if cfg.prefetch_batches > 0:
             if self.device.type == "cpu":
@@ -747,12 +848,59 @@ class Trainer:
             watchdog = self._watchdog
             return DevicePrefetcher(
                 lambda produced: stream(start_micro + produced),
-                self.device, depth=cfg.prefetch_batches, host_aux_fn=_batch_counts,
+                self.device, depth=cfg.prefetch_batches, host_aux_fn=_host_counts,
                 registry=self.telemetry, retries=cfg.resilience.data_retries,
                 retry_backoff_s=cfg.resilience.data_retry_backoff_s,
                 heartbeat=(lambda: watchdog.beat("prefetcher")) if watchdog else None,
             )
-        return ((to_device(b, self.device), _batch_counts(b)) for b in stream(start_micro))
+        return ((to_device(b, self.device), _host_counts(b)) for b in stream(start_micro))
+
+    def _rank_batch(self, batch: dict) -> _HostBatch:
+        """This rank's part of a global host batch (`parallel/batch.py`):
+        explicit global positions, a CLM's labels shifted on the global
+        batch when the sequence is sharded, then the rows and the chunk."""
+        counts = _batch_counts(batch)
+        key = "input_ids" if "input_ids" in batch else "chosen_input_ids"
+        rows, seq = batch[key].shape[:2]
+        shard = batching.plan_shard(self.mesh, rows, seq)
+        if self.mesh[SEQUENCE_AXIS].size() > 1:
+            labels = getattr(self._objective, "global_labels", None)
+            if key != "input_ids" or labels is None:
+                raise NotImplementedError(
+                    f"{type(self._objective).__name__} over a sequence-sharded mesh is not "
+                    "ported yet (ROADMAP A.9b)")
+            batch = batching.with_global_positions(batch)
+            batch = {**batch, "shifted_labels": labels(batch).numpy()}
+        out = _HostBatch(batching.shard_batch(batch, shard))
+        out.counts = counts
+        return out
+
+    def _with_shard(self, batch: dict) -> dict:
+        """A rank's device batch with the global shard it is
+        (`ShardedBatch`), or the batch itself off a mesh."""
+        if self.mesh is None:
+            return batch
+        key = "input_ids" if "input_ids" in batch else "chosen_input_ids"
+        rows, width = batch[key].shape[:2]
+        sp = self.mesh[SEQUENCE_AXIS].size() if key == "input_ids" else 1
+        shard = batching.plan_shard(self.mesh, rows * batching.batch_ways(self.mesh), width * sp)
+        return batching.ShardedBatch(batch, shard)
+
+    def _global_metrics(self, metrics: dict) -> dict:
+        """The step's metrics of the global batch on every rank: each tensor
+        averaged over the batch's ranks. An objective's metric is a mean
+        over its rows or already the global batch's (its loss, its token
+        counts summed through `batch_sum`), which the average keeps."""
+        if self.mesh is None:
+            return metrics
+        group = batching.batch_group(self.mesh)
+        size = dist.get_world_size(group)
+        keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+        if size == 1 or not keys:
+            return metrics
+        values = torch.stack([metrics[k].detach().reshape(()).to(torch.float64) for k in keys])
+        dist.all_reduce(values, group=group)
+        return {**metrics, **dict(zip(keys, values / size))}
 
     def train_micro_step(self, objective, state: TrainState, batch, health: bool = False) -> dict:
         """One train-step call (`_make_step` in JAX): forward and backward on
@@ -768,19 +916,25 @@ class Trainer:
         params = [p for p in state.model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        batch = to_device(batch, self.device)
+        batch = self._with_shard(to_device(batch, self.device))
         # micro-step n's key, as JAX's fold_in(state.rng, state.step)
         step_rng = prng.fold_in(state.rng, state.step)
         loss, metrics = objective.loss_and_metrics(batch, rng=step_rng, train=True)
-        loss.backward()
+        # on a mesh the loss is the global batch's and this rank's backward
+        # its rows' share; FSDP2 averages over its mesh, so the share is
+        # scaled by that mesh's size to sum instead
+        scale = 1 if self._dp_mesh is None else self._dp_mesh.size()
+        (loss * scale if scale != 1 else loss).backward()
         # over the gradients there are: a parameter that requires none (DPO's
         # reference) adds the zero that JAX's stop_gradient gives it
         metrics["grad_norm"] = global_norm([p.grad for p in params if p.grad is not None])
+        metrics = self._global_metrics(metrics)
         if health:
             if self._param_groups is None:
                 self._param_groups = build_param_groups(zip(optimizer.names, optimizer.params))
-            p_sq = [sq_norm(p.detach(), self.device) for p in optimizer.params]
-            g_sq = [sq_norm(p.grad, self.device) for p in optimizer.params]
+            p_sq = [sq_norm(p.detach(), self.device) for p in optimizer.local]
+            g_sq = [sq_norm(None if p.grad is None else local_tensor(p.grad), self.device)
+                    for p in optimizer.params]
             optimizer.update_sq = {}
         try:
             optimizer.update()
@@ -806,7 +960,11 @@ class Trainer:
                 # a validation epoch can outlast the no-progress timeout;
                 # each batch is progress
                 self._watchdog.beat("train_loop")
-            _, metrics = objective.loss_and_metrics(to_device(host_batch, self.device), train=False)
+            if self.mesh is not None:
+                host_batch = self._rank_batch(host_batch)
+            batch = self._with_shard(to_device(host_batch, self.device))
+            _, metrics = objective.loss_and_metrics(batch, train=False)
+            metrics = self._global_metrics(metrics)
             losses.append(float(metrics["loss"]))
             weights.append(float(metrics["target_tokens"]))
         if not losses:
@@ -843,7 +1001,8 @@ class Trainer:
         extra: dict = {}
         if self._recovery is not None:
             extra["recovery"] = self._recovery.metadata()
-        extra["topology"] = {"device_count": 1, "mesh": single_device_mesh()}
+        chips, sizes = self._topology()
+        extra["topology"] = {"device_count": chips, "mesh": sizes}
         if self._global_batch_size:
             micro = step * self.config.accumulate_grad_batches
             extra["data_state"] = {

@@ -35,6 +35,7 @@ from llm_training_tpu.optim import OptimConfig as JaxOptimConfig
 from llm_training_tpu.trainer import Trainer as JaxTrainer
 from llm_training_tpu.trainer import TrainerConfig as JaxTrainerConfig
 from llm_training_tpu_torch.callbacks.loggers import JsonlLogger, JsonlLoggerConfig
+from llm_training_tpu_torch.parallel.mesh import MeshConfig
 from llm_training_tpu_torch.callbacks.output_redirection import (
     OutputRedirection,
     OutputRedirectionConfig,
@@ -302,8 +303,8 @@ def _example(name):
 
 def test_example_trainer_and_callback_nodes_are_accepted():
     """cpu-smoke.yaml's trainer node (health, resilience with recovery,
-    checkpoint, callbacks, loggers) and llama-3.1-8b_pt.yaml's callbacks
-    build through the port's config layer; the smoke's model node still
+    checkpoint, callbacks, loggers) and llama-3.1-8b_pt.yaml's callbacks and
+    mesh build through the port's config layer; the smoke's model node still
     names what is not ported (MoE: A.8), the HFCausalLM node reads its HF
     directory and the data node its tokenizer (both missing here)."""
     smoke = _example("smoke/cpu-smoke.yaml")
@@ -320,8 +321,9 @@ def test_example_trainer_and_callback_nodes_are_accepted():
     pt = _example("llama-3.1/llama-3.1-8b_pt.yaml")
     assert [type(instantiate_from_config(c)).__name__ for c in pt["trainer"]["callbacks"]] == [
         "TrainingTimeEstimator"]
-    with pytest.raises(ValueError, match="mesh"):
-        build_dataclass(TrainerConfig, {"mesh": pt["trainer"]["mesh"]}, "trainer")
+    # the example's mesh node builds JAX's MeshConfig (pure FSDP)
+    mesh = build_dataclass(TrainerConfig, {"mesh": pt["trainer"]["mesh"]}, "trainer").mesh
+    assert mesh == MeshConfig(fsdp_size=-1)
     with pytest.raises((ValueError, NotImplementedError), match="num_experts"):
         instantiate_from_config(smoke["model"]).config.model.get_config()
     hf = instantiate_from_config(pt["model"]).config.model

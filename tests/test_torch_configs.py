@@ -94,14 +94,19 @@ def test_llama_config_round_trips_every_jax_field():
     ("lm_head_bias", True, NotImplementedError, "A.8"),
     ("attention_out_bias", True, NotImplementedError, "A.8"),
     ("moe_style", "granite", NotImplementedError, "A.8"),
-    ("ring_attention", True, NotImplementedError, "A.9"),
-    ("pipeline_stages", 2, NotImplementedError, "A.9"),
+    ("ring_attention", True, None, None),
+    ("pipeline_stages", 2, NotImplementedError, "A.9b"),
     ("attention_dropout", 0.1, ValueError, "attention_dropout is not supported"),
 ])
 def test_llama_fields_beyond_the_plain_decoder_raise(field, value, error, match):
-    """C.25: a field that selects another architecture or a mesh raises at
-    any value but JAX's default, naming the queue that brings it;
-    `attention_dropout` raises unless 0.0, as JAX's config does."""
+    """C.25: a field that selects another architecture or pipeline stages
+    raises at any value but JAX's default, naming the queue that brings it;
+    `attention_dropout` raises unless 0.0, as JAX's config does;
+    `ring_attention` is accepted (the model rings over an active mesh's
+    `sequence` ranks, `parallel/ring_attention.py`)."""
+    if error is None:
+        assert getattr(LlamaConfig(**SMALL, **{field: value}), field) == value
+        return
     with pytest.raises(error, match=match):
         LlamaConfig(**SMALL, **{field: value})
     if field == "attention_dropout":

@@ -304,6 +304,28 @@ def test_uniform_kernel_matches_plain_bits(cuda, dtype, shape, minval, maxval):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [
+    ((4, 6, 8), (slice(2, 4),)),  # a rank's rows: one segment at an offset
+    ((4, 6, 8), (slice(0, 2), slice(3, 6))),  # rows and a sequence chunk: strided
+    ((8, 4096, 4096), (slice(2, 4), slice(2048, 4096))),  # at 8B widths
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_uniform_kernel_block_matches_plain_bits(cuda, dtype, shape, block):
+    """A block of the draw (a mesh rank's NEFTune noise) in one launch: the
+    plain version's bits, which are the whole draw's in that block."""
+    from llm_training_tpu_torch import prng
+
+    key = prng.fold_in(prng.key(5), 2)
+    before = prng.uniform.launches
+    got = prng.uniform(key, shape, dtype, -8.6e-4, 8.6e-4, device=cuda, block=block)
+    assert prng.uniform.launches == before + 1
+    want = prng.uniform_torch(key, shape, dtype, -8.6e-4, 8.6e-4, device=cuda, block=block)
+    assert torch.equal(got, want)
+    whole = prng.uniform(key, shape, dtype, -8.6e-4, 8.6e-4, device=cuda)
+    assert torch.equal(got, whole[block])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,vocab", [(1, 128256), (8, 128256), (3, 1000)])
 def test_categorical_kernel_matches_plain(cuda, rows, vocab):
     """Gumbel-perturbed logits in one launch: the same tokens as the plain
@@ -491,3 +513,51 @@ def test_engine_sheds_and_decodes_through_the_kernel(cuda):
     assert launches == engine.decode_steps * config.num_hidden_layers > 0 and plain[0] == 0
     assert engine.live_stats()["serve/requests_shed"] == 1.0
     assert sum(e["name"] == "engine_step" for e in tracer.snapshot()) == engine.step_index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,group,seq", [(64, 1, 256), (128, 4, 384)])
+@pytest.mark.parametrize("q_offset", [0, 128], ids=["diagonal", "offset"])
+def test_flash_forward_fp32_out_rounds_to_its_bf16_out(cuda, head_dim, group, seq, q_offset):
+    """K1's fp32 output (the ring's chunk partials) is the accumulator its
+    bf16 output rounds: rounded to bf16 it gives the same bits; LSE equal."""
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(head_dim + group)
+    q = torch.randn(2, seq, 2 * group, head_dim, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, seq, 2, head_dim, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    seg = torch.ones(2, seq, dtype=torch.int32, device=cuda)
+    seg[1, seq // 3:] = 2
+    args = (q, k, v, seg, seg, fa.tile_ranges(seg), fa.tile_ranges(seg), None)
+    hyper = dict(q_blocks=fa.tile_ranges(seg, fa.BLOCK), causal=q_offset == 0, window=0, cap=0.0,
+                 q_offset=q_offset)
+    o16, lse16 = fa.flash_fwd_kernel(*args, **hyper)
+    o32, lse32 = fa.flash_fwd_kernel(*args, **hyper, out_dtype=torch.float32)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(torch.bfloat16), o16)
+    assert torch.equal(lse32, lse16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,window,sinks", [(2, None, False), (4, None, False), (4, 100, True)])
+def test_ring_kernels_match_the_ring_of_plain_chunks(cuda, p, window, sinks):
+    """The virtual ring through K1-K3 against the ring of plain chunk
+    functions in bf16 (limits: `_assert_flash_matches_plain`), S 1024."""
+    from llm_training_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device=cuda).manual_seed(p)
+    bf = torch.bfloat16
+    q = (torch.randn(1, 1024, 8, 128, generator=gen, device=cuda) * 128**-0.5).to(bf)
+    k, v = (torch.randn(1, 1024, 2, 128, generator=gen, device=cuda).to(bf) for _ in range(2))
+    do = torch.randn(1, 1024, 8, 128, generator=gen, device=cuda).to(bf)
+    seg = torch.ones(1, 1024, dtype=torch.int32, device=cuda)
+    seg[0, 300:] = 2
+    seg[0, -40:] = 0
+    s = torch.randn(8, generator=gen, device=cuda) if sinks else None
+    runs = {}
+    for impl in ("kernel", "torch"):
+        o, lse = ra.virtual_ring_forward(q, k, v, seg, p, sinks=s, sliding_window=window, impl=impl)
+        dq, dk, dv, _ = ra.virtual_ring_backward(q, k, v, seg, o, lse, do, p, sinks=s,
+                                                 sliding_window=window, impl=impl)
+        runs[impl] = dict(out=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    _assert_flash_matches_plain(runs["kernel"], runs["torch"], {"q_segment_ids": seg}, bf)

@@ -71,6 +71,48 @@ def test_uniform_bit_identical(dtype, shape, minval, maxval):
     np.testing.assert_array_equal(got.view(ints).numpy().view(words), expected.view(words))
 
 
+# (global shape, block): a rank's rows, its rows and sequence chunk, one
+# row's chunk, the whole; the last is one strided run of segments of 2 dims
+BLOCKS = [
+    ((4, 6, 8), (slice(2, 4),)),
+    ((4, 6, 8), (slice(0, 2), slice(3, 6))),
+    ((4, 6, 8), (slice(1, 2), slice(0, 3))),
+    ((3, 5), ()),
+    ((2, 4, 3, 5), (slice(1, 2), slice(1, 3), slice(0, 2))),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,block", BLOCKS)
+def test_block_draw_is_that_block_of_the_whole_draw(dtype, shape, block):
+    """`uniform(..., block=...)` (a mesh rank's NEFTune noise) gives the
+    values of JAX's whole draw in that block, bit for bit; the kernel's
+    segments (base + (i // seg_len) * seg_stride + i % seg_len) address
+    the same elements."""
+    key = jax.random.fold_in(jax.random.key(5), 2)
+    jax_dtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    torch_dtype = getattr(torch, dtype)
+    whole = np.asarray(jax.random.uniform(key, shape, dtype=jax_dtype, minval=-0.3, maxval=0.7))
+    got = prng.uniform(prng.fold_in(prng.key(5), 2), shape, torch_dtype, -0.3, 0.7, block=block)
+    want = whole[block]
+    assert tuple(got.shape) == want.shape
+    words = np.uint32 if dtype == "float32" else np.uint16
+    ints = torch.int32 if dtype == "float32" else torch.int16
+    np.testing.assert_array_equal(got.view(ints).numpy().view(words), want.view(words))
+
+    local, base, seg_len, seg_stride = prng._block_segments(shape, block)
+    i = np.arange(int(np.prod(local)))
+    flat = np.arange(int(np.prod(shape))).reshape(shape)[block].reshape(-1)
+    np.testing.assert_array_equal(base + (i // seg_len) * seg_stride + i % seg_len, flat)
+
+
+def test_block_draw_rejects_what_the_kernel_cannot_address():
+    with pytest.raises(ValueError, match="strided run"):
+        prng._block_segments((4, 6, 8), (slice(0, 2), slice(0, 3), slice(0, 4)))
+    with pytest.raises(ValueError, match="step 1"):
+        prng.uniform(prng.key(0), (4, 6), block=(slice(0, 4, 2),))
+
+
 @pytest.mark.parametrize("rows", [1, 8])
 @pytest.mark.parametrize("vocab", [50, 1000])
 def test_categorical_tokens_match_jax(rows, vocab):

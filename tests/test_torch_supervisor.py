@@ -184,16 +184,26 @@ def test_plan_topology_matches_jax_over_a_grid():
 
 
 def test_plan_single_device_needs_a_mesh_for_more():
-    plan = elastic.plan_single_device(1)
-    assert plan.axis_sizes == elastic.single_device_mesh() and plan.device_count == 1
-    assert plan.decision == "fresh start: data=1"
-    resumed = elastic.plan_single_device(1, elastic.single_device_mesh(), 8)
+    """The planner over the live world (`plan_live_world`): one rank plans
+    every axis 1; four ranks fill the config's auto axis or scale data
+    against the checkpoint's model axes, a resume onto other degrees
+    included; a plan that leaves ranks idle, or shards the pipe axis,
+    raises (A.9b)."""
+    one = elastic.plan_live_world(1, {"fsdp": -1})
+    assert one.axis_sizes == elastic.single_device_mesh() and one.device_count == 1
+    assert one.decision == "fresh start: filled fsdp=1, data=1"
+    mesh = elastic.plan_live_world(4, {"fsdp": 2, "tensor": 2})
+    assert mesh.axis_sizes == {**elastic.single_device_mesh(), "fsdp": 2, "tensor": 2}
+    resumed = elastic.plan_live_world(4, {"fsdp": 2, "tensor": 2},
+                                      {**elastic.single_device_mesh(), "fsdp": 2, "tensor": 2}, 8)
     assert resumed.decision == "unchanged (data=1)" and resumed.source == "checkpoint"
-    for args in ((4,), (1, {"tensor": 2}), (2, {"data": 1, "fsdp": 2})):
-        with pytest.raises((NotImplementedError, elastic.ElasticTopologyError)) as info:
-            elastic.plan_single_device(*args)
-        if info.type is NotImplementedError:
-            assert "A.9" in str(info.value)
+    scaled = elastic.plan_live_world(4, {"data": -1, "fsdp": 1},
+                                     {**elastic.single_device_mesh(), "data": 2}, 8)
+    assert scaled.axis_sizes["data"] == 4 and scaled.decision == "scaled data 2->4"
+    with pytest.raises(elastic.ElasticTopologyError, match="relaunch with 2"):
+        elastic.plan_live_world(3, {"data": -1, "fsdp": 2}, None, 8)
+    with pytest.raises(NotImplementedError, match="A.9b"):
+        elastic.plan_live_world(2, {"pipe": 2, "fsdp": 1})
     assert elastic.single_device_mesh() == {a: 1 for a in
                                             ("data", "pipe", "fsdp", "expert", "tensor",
                                              "sequence")}
@@ -297,7 +307,8 @@ def _final_params(path) -> dict[str, torch.Tensor]:
 
 
 def test_elastic_fit_publishes_its_topology(tmp_path, monkeypatch):
-    """`resilience.elastic` on the CPU: the planner's one-device plan, the
+    """`resilience.elastic` on the CPU: the planner's one-device plan (over
+    the config's mesh, JAX's default `fsdp_size: -1` filled to 1), the
     `elastic/*` gauges and the ledger's cost basis in the telemetry, the
     `topology` rider in the checkpoint, a `segment_topology` event in the
     supervisor's log; a resume that changes the global batch is refused."""
@@ -316,8 +327,9 @@ def test_elastic_fit_publishes_its_topology(tmp_path, monkeypatch):
     assert meta["topology"] == {"device_count": 1, "mesh": elastic.single_device_mesh()}
     (event,) = [json.loads(line) for line in log.read_text().splitlines()]
     assert (event["event"], event["attempt"], event["decision"], event["mesh"],
-            event["price_per_chip_hour"]) == ("segment_topology", 3, "fresh start: data=1",
-                                              elastic.single_device_mesh(), 2.0)
+            event["price_per_chip_hour"]) == (
+                "segment_topology", 3, "fresh start: filled fsdp=1, data=1",
+                elastic.single_device_mesh(), 2.0)
     with pytest.raises(ValueError, match="GLOBAL batch size 8 -> 4"):
         cli_main(["fit", "--config", str(path), "--device", "cpu", "trainer.max_steps=4",
                   "data.init_args.batch_size=4"])
