@@ -163,7 +163,8 @@ Phases, each of which must pass (any failure exits non-zero):
    missing root exits 2. K1-K3 launch in leg a's fits. It prints the
    manifest seconds and hashing rate, the mirror, verify, heal and fallback
    seconds, and each process's wall time and restarts. Once leg a's mirror
-   is gone, phase 19's round trip (d below) runs on leg a's checkpoints.
+   is gone, phase 19's round trip (d below) runs on leg a's checkpoints;
+   at the end leg a's step 2 is moved (not copied) aside for phase 18d.
 17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
    engine through the `rl-fit` command, in legs. a: in a process of its
    own, Llama-3.1-8B widths cut to 4 layers (fp32 params, bf16 compute,
@@ -175,7 +176,15 @@ Phases, each of which must pass (any failure exits non-zero):
    (ms, MFU), sync and round wall are printed with the peak memory; K1 ran
    twice a layer an update (policy and reference), K2/K3 once, K4 once a
    layer a decode step, the plain attention path never; the engine's
-   generation is 3 and a policy weight moved. parity: one GRPO batch (8
+   generation is 3 and a policy weight moved. Its live telemetry is armed:
+   2 user requests a round ride the engine and feed a 1 ms TTFT target
+   (2 samples suffice), whose breach makes rollout submission yield 8
+   engine steps (`rl/rollout_yields` >= 1, a `rollout_yield` instant);
+   the exporter is scraped once as the rounds start (the collector's
+   `rl/*` counters present); the JSONL run dir's trace holds one
+   `collect_round`, `update`, `weight_sync` and `round` span a round; and
+   `report` in a process whose CUDA initialization raises prints `== RL
+   ==` with the yield. parity: one GRPO batch (8
    rows of 512 tokens) at 2 layers of full width through K1-K3 against the
    plain path, in fp32 (token log-probs, per-token loss terms, gradients
    within 1e-4 of max|plain|) and bf16 (no further from fp32 than 1.5 x the
@@ -224,7 +233,19 @@ Phases, each of which must pass (any failure exits non-zero):
    every residency's queue/prefill/decode spans within 50 ms. c: 2 layers
    in bf16, a stall at engine step 10 under `--watchdog-timeout-s 6`: a
    hang dump and a flight dump, `/healthz` 503 before the abort, and the
-   supervised relaunch finishes every request.
+   supervised relaunch finishes every request. d (on a thread beside the
+   wait for phase 17's leg c): `route --replicas 2` over `serve` children
+   at Llama-3.1-8B widths and 1 layer in fp32, restoring phase 16's kept
+   step 2 (no new checkpoint), with `LLMT_FLEET_DIR`: 16 greedy requests
+   of 64-512 prompt tokens and 32 new; the router SIGKILLs the replica of
+   the 160th forwarded token, folds its journal, replays its requests and
+   spawns a replacement: every request ends once, every stream equal to
+   one uninterrupted `serve` of the step; `fleet --once --json` over the
+   discovery cards sees both replicas green, then the killed one red or
+   stale; each replica counts K4 once a decode step and no plain decode
+   call; the router's run dir's `report` renders `== Router ==`. It
+   prints start-to-first-token, kill-to-replayed-token, tokens/s and the
+   card's memory peak beside leg c.
 19. HF checkpoint I/O and Phi-3 (run after phase 18 freed its memory), at
    the published widths of Phi-3-mini-4k-instruct (hidden 3072, 32 layers,
    32 q and kv heads of 96, vocab 32064, a 2047-token sliding window),
@@ -276,7 +297,15 @@ Phases, each of which must pass (any failure exits non-zero):
    batches visited twice: step 1's loss near ln(vocab), every loss finite,
    each batch's loss lower at its second visit, K1, K2 and K3 once a layer
    a micro-step and the NEFTune kernel once a micro-step, the plain path
-   never. It prints step p50, tokens/s (all and assistant), MFU, peak
+   never. The fit runs with its live telemetry armed (`LLMT_TRACE_TRAIN=1`,
+   a JSONL run dir with its trace sink, the exporter on a free port
+   scraped at step 2 with `goodput/*`, `slo/train/*` and `compile_time_s`
+   present, a 1 ms step-time target that breaches once and flight-dumps):
+   the trace holds one `segment_start`, one `compile` and every step's
+   `data_load` and `train_step`, the final telemetry record the `trace/*`
+   gauges, and `report` and `report --format json`, in a process whose
+   CUDA initialization raises, print `== Trace ==` and `== SLO ==`; the
+   tracer's host microseconds a step are printed. It prints step p50, tokens/s (all and assistant), MFU, peak
    memory, the rows' fill, the dropped conversations, the host seconds to
    drop, pack and collate the set, and both packers' seconds at 10^6
    lengths; then the NEFTune kernel at each trained batch's shape [4, S,
@@ -292,7 +321,8 @@ imported) for phase 14's full-depth runs.
    `trainer.mesh: {fsdp_size: -1}` (fsdp 1 on one card): FSDP2 over the
    mesh, K1-K3 and NEFTune; both losses finite, step 1 within rtol 2e-3
    of phase 20's, the parameters DTensors, K1-K3 once a layer a step, its
-   step times beside phase 20's; (b) the virtual ring
+   step times beside phase 20's (21a runs unarmed: its step 2 beside phase
+   20's armed p50 is the telemetry's cost, printed with the tracer's); (b) the virtual ring
    (`parallel/ring_attention.py`) through K1-K3 at the per-rank shapes of
    llama-3.1-8b_tp_131k.yaml (S 131072 in 2 chunks, Hq 8, Hkv 2, D 128)
    and of gpt-oss-20b_it_cp.yaml's ring (S 32768 in 4 chunks, Hq 64, Hkv
@@ -306,9 +336,9 @@ Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19) and phase 18's K4 launches on lines of
 their own, then one `{"kernels": [...]}` line for this slice's path
-(phase 20: K1-K3 times at its shape, launches of phases 20 and 21; K4,
-which neither runs, from phase 19's serving), the card's name and power
-limit, and as its
+(phase 20: K1-K3 times at its shape, launches of phases 20 and 21; K4
+launched by phase 18d's replicas, timed at phase 7's Llama-3.1-8B
+serving shape), the card's name and power limit, and as its
 last line `{"ok": true, "device": {...}}`.
 """
 
@@ -3350,6 +3380,14 @@ def phase_durability(card: str, round_trip=None) -> dict:
                                                out["in_process"]["losses"])
         out["processes"]["leg_s"] = time.perf_counter() - t0
         del clean
+        # phase 18d's replicas restore leg a's step 2 (moved, not copied:
+        # no new blocks on the disk); step 4, which leg c corrupted, goes
+        shutil.rmtree(RT_DIR, ignore_errors=True)
+        RT_DIR.mkdir()
+        shutil.move(str(DUR_DIR / "a" / "ckpt"), str(RT_DIR / "ckpt"))
+        for entry in (RT_DIR / "ckpt").iterdir():
+            if entry.name not in (f"step_{RT_STEP}", f"manifest-{RT_STEP}.json"):
+                shutil.rmtree(entry) if entry.is_dir() else entry.unlink()
     finally:
         if leg_b is not None:  # the swap run or leg c failed: end leg b's SIGKILL run
             import signal
@@ -3383,6 +3421,12 @@ RL_LR = 5e-5  # phase 13's peak: the examples' rates move no bf16 product in a f
 RL_LOGPS_CHUNK = 128
 RL_FP32_RTOL = 1e-4  # fp32 kernel path against the plain path, of max|plain|
 RL_SIGTERM_STEP = 40  # leg c: engine steps into round 2 when SIGTERM lands
+# leg a's live telemetry: user requests a round feed its serve SLO, whose
+# TTFT target every one of them misses; a breach holds rollout submission
+# back this many engine steps
+RL_USERS = 2
+RL_TTFT_SLO_MS = 1.0
+RL_YIELD_STEPS = 8
 RL_RESUME_ROUNDS = 2
 # the reward: `length` is constant here (eos is off, so every completion has
 # RL_NEW tokens), its advantages 0 and no weight would move; `regex` over the
@@ -3417,6 +3461,20 @@ def setup(self):
 cuda = torch.cuda.is_available()
 sync = torch.cuda.synchronize if cuda else (lambda: None)
 cli.RLLoop.setup = setup
+# SMOKE_RL_SCRAPE: one /metrics scrape of the armed exporter as the rounds start
+scrapes = []
+real_run = cli.RLLoop.run
+
+def run(self, *args, **kwargs):
+    port = os.environ.get("LLMT_METRICS_PORT")
+    if os.environ.get("SMOKE_RL_SCRAPE") and port:
+        import urllib.request
+        from llm_training_tpu_torch.telemetry.exporter import parse_prometheus_text
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            scrapes.append(parse_prometheus_text(r.read().decode()))
+    return real_run(self, *args, **kwargs)
+
+cli.RLLoop.run = run
 sigterm_at = int(os.environ.get("SMOKE_RL_SIGTERM", "0"))
 if sigterm_at:
     real_step = ServingEngine.step
@@ -3451,17 +3509,19 @@ out = dict(
     params=sum(p.numel() for p in policy.parameters()),
     embed=policy.model.embed_tokens.weight.numel(),
     probe_delta=float((policy.lm_head.weight[:64].detach() - loop.probe).abs().max()),
+    slo_armed=loop.slo is not None, scrape=scrapes[0] if scrapes else None,
 )
 print("SMOKE_RL " + json.dumps(out), flush=True)
 sys.exit(rc)
 """
 
 
-def rl_config(name: str, layers: int, optim: dict, checkpoint: bool) -> Path:
+def rl_config(name: str, layers: int, optim: dict, checkpoint: bool, log: bool = False) -> Path:
     """A GRPO config at Llama-3.1-8B widths (fp32 params, bf16 compute,
     selective recompute), random weights from seed 0, into
     `RL_DIR/<name>.json`; with `checkpoint`, a checkpointer and a JSONL
-    logger (whose run directory holds the rollout journal)."""
+    logger (whose run directory holds the rollout journal), with `log` the
+    logger alone (the run directory of the trace and `telemetry.jsonl`)."""
     from dataclasses import asdict
 
     from llm_training_tpu_torch.models.llama.config import preset
@@ -3472,6 +3532,7 @@ def rl_config(name: str, layers: int, optim: dict, checkpoint: bool) -> Path:
     trainer = {"max_steps": RL_ROUNDS, "seed": 0}
     if checkpoint:
         trainer["checkpoint"] = {"dirpath": str(RL_DIR / name / "ckpt"), "async_save": False}
+    if checkpoint or log:
         trainer["loggers"] = [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
                                "init_args": {"save_dir": str(RL_DIR / name), "project": "run",
                                              "name": "log"}}]
@@ -3532,6 +3593,59 @@ def rl_child(name: str, argv: list[str], env: dict | None = None,
     return rc, wall, summary, records, text
 
 
+# `report` (text, then JSON) on a run directory, in a process whose CUDA
+# initialization raises: the control plane must never take a CUDA context
+_NO_CUDA_REPORT = r"""
+import time
+T_START = time.perf_counter()
+import contextlib, io, json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+def refuse(*args, **kwargs):
+    raise RuntimeError("report initialized CUDA")
+torch.cuda._lazy_init = refuse
+torch.cuda.init = refuse
+from llm_training_tpu_torch.cli.main import main
+out = {}
+for fmt in ("text", "json"):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out[fmt] = [main(["report", sys.argv[1], "--format", fmt]), buf.getvalue()]
+out["cuda_initialized"] = torch.cuda.is_initialized()
+out["seconds"] = time.perf_counter() - T_START
+print("SMOKE_REPORT " + json.dumps(out))
+"""
+
+
+class ReportChild:
+    """`report` and `report --format json` on a run directory (see
+    `_NO_CUDA_REPORT`), started in a process of its own now (most of its
+    seconds are the interpreter's and torch's start-up, so the phase goes
+    on beside it) and read by `result()`: (text, JSON object, the
+    process's seconds)."""
+
+    def __init__(self, run_dir: Path, label: str):
+        import subprocess
+
+        self.label = label
+        self.proc = subprocess.Popen([sys.executable, "-c", _NO_CUDA_REPORT, str(run_dir)],
+                                     cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+        atexit.register(self.proc.kill)
+
+    def result(self) -> tuple[str, dict, float]:
+        stdout, stderr = self.proc.communicate(timeout=300)
+        lines = [line for line in stdout.splitlines() if line.startswith("SMOKE_REPORT ")]
+        check(self.proc.returncode == 0 and lines, f"{self.label}: report exited "
+              f"{self.proc.returncode}: {stderr[-2000:]}")
+        out = json.loads(lines[-1].removeprefix("SMOKE_REPORT "))
+        (text_rc, text), (json_rc, data) = out["text"], out["json"]
+        check(text_rc == json_rc == 0 and not out["cuda_initialized"],
+              f"{self.label}: report exit codes {text_rc}/{json_rc}, CUDA initialized "
+              f"{out['cuda_initialized']}")
+        return text, json.loads(data), out["seconds"]
+
+
 def rl_update_flops(summary: dict) -> float:
     """One update's operations: 6 N a trained token (N without the input
     embedding table) and 2 N a reference token, attention 12 D a visible
@@ -3553,10 +3667,19 @@ def rl_leg_a(card: str) -> dict:
     fused sync, no checkpointer (see the header)."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
 
+    from llm_training_tpu_torch.telemetry.exporter import find_free_port
+    from llm_training_tpu_torch.telemetry.trace import read_trace_events
+
     optim = {"optimizer": "adamw", "learning_rate": RL_LR, "lr_scheduler": "constant",
              "warmup_steps": 0, "grad_clip_norm": 1.0}
-    path = rl_config("a", RL_LAYERS, optim, checkpoint=False)
-    rc, wall, summary, records, text = rl_child("a", rl_argv(path, RL_ROUNDS))
+    path = rl_config("a", RL_LAYERS, optim, checkpoint=False, log=True)
+    # armed: a TTFT target the user requests miss (min 2 samples), the
+    # exporter (scraped once), a small yield window
+    env = {"LLMT_SLO_TTFT_P99_MS": str(RL_TTFT_SLO_MS), "LLMT_SLO_MIN_SAMPLES": "2",
+           "LLMT_METRICS_PORT": str(find_free_port()), "SMOKE_RL_SCRAPE": "1"}
+    flags = ["--user-traffic", str(RL_USERS), "--yield-steps", str(RL_YIELD_STEPS),
+             "--max-batch", str(RL_PROMPTS * RL_GROUP + RL_USERS)]
+    rc, wall, summary, records, text = rl_child("a", rl_argv(path, RL_ROUNDS, *flags), env)
     check(rc == 0 and summary is not None, f"rl-fit: exit {rc}: {text[-3000:]}")
     rounds = [r for r in records if r.get("type") == "rl_round"]
     stats = next((r["stats"] for r in records if r.get("type") == "stats"), {})
@@ -3576,7 +3699,30 @@ def rl_leg_a(card: str) -> dict:
         wall_s=wall, setup_s=summary["setup_s"], flops_per_update=flops,
         mean_rewards=[r["mean_reward"] for r in rounds], losses=[r.get("loss") for r in rounds],
         kl=[r.get("kl_to_ref") for r in rounds], collected=stats.get("rl/rollouts_collected"),
-        stale=stats.get("rl/rollouts_stale_dropped"))
+        stale=stats.get("rl/rollouts_stale_dropped"), yields=stats.get("rl/rollout_yields"),
+        user_done=stats.get("rl/user_requests_done"))
+    # the live telemetry: the SLO yield, the exporter's scrape, the rl/*
+    # spans in the run dir's trace and `report`'s == RL ==
+    run_dir = RL_DIR / "a" / "run" / "log"
+    events = read_trace_events(run_dir / "trace.jsonl")
+    spans = {name: sum(1 for e in events if e["cat"] == "rl" and e["name"] == name)
+             for name in ("collect_round", "update", "weight_sync", "round", "rollout_yield")}
+    report = ReportChild(run_dir, "rl-fit")
+    scrape = summary.get("scrape") or {}
+    out.update(spans=spans, scraped_keys=len(scrape))
+    check(summary.get("slo_armed") and (out["yields"] or 0) >= 1 and spans["rollout_yield"] >= 1
+          and out["user_done"] == RL_ROUNDS * RL_USERS,
+          f"rl-fit: SLO armed {summary.get('slo_armed')}, rollout yields {out['yields']} "
+          f"({spans['rollout_yield']} instants), user requests done {out['user_done']}")
+    check(all(spans[n] == RL_ROUNDS for n in ("collect_round", "update", "weight_sync", "round")),
+          f"rl-fit: rl/* spans in the trace {spans}, expected {RL_ROUNDS} of each")
+    check("llmt_rl_rollout_yields" in scrape and "llmt_rl_rollouts_submitted" in scrape,
+          f"rl-fit: the exporter's scrape holds {sorted(scrape)[:20]}")
+    print(f"rl-fit [{card}]: live telemetry: TTFT target {RL_TTFT_SLO_MS} ms over "
+          f"{RL_USERS} user requests a round, {out['yields']:.0f} rollout yield(s) of "
+          f"{RL_YIELD_STEPS} engine steps; spans {spans}; /metrics scraped once "
+          f"({len(scrape)} series)", flush=True)
+    out["report"] = report
     for t in timings:
         print(f"rl round [{card}]: round {t['round']}: collect {t['collect_s']:.3f} s "
               f"({t['decode_steps']} decode steps, {t['prefill_chunks']} prefill chunks, "
@@ -3940,9 +4086,22 @@ def phase_rl(card: str) -> tuple[dict, LegThread]:
             t0 = time.perf_counter()
             out[name] = leg(card)
             out[name]["leg_s"] = time.perf_counter() - t0
+        rl_report(card, out["a"])
     finally:
         release()
     return out, leg_c
+
+
+def rl_report(card: str, a: dict) -> None:
+    """Leg a's `report`, started at the end of leg a: `== RL ==` with the
+    yield, and the `rl/*` block of the JSON."""
+    text, data, seconds = a.pop("report").result()
+    a["report_s"] = seconds
+    check("== RL ==" in text and "SLO yield(s)" in text
+          and (data.get("rl") or {}).get("rl/rollout_yields", 0) >= 1,
+          f"rl-fit: report {text[-1500:]}")
+    print(f"rl-fit report [{card}]: (a process without CUDA, {seconds:.1f} s)\n"
+          + text[text.index("== RL =="):].split("\n\n")[0], flush=True)
 
 
 def rl_leg_c_timed(card: str) -> dict:
@@ -4185,7 +4344,8 @@ def sv_serve_flags(*extra: str) -> list[str]:
 
 def sv_summaries(prefix: str) -> list[dict]:
     """The `_SERVE_CHILD` summaries written under `prefix`, in start order."""
-    found = [json.loads(p.read_text()) for p in SV_DIR.glob(f"{Path(prefix).name}.*.json")]
+    prefix = Path(prefix)
+    found = [json.loads(p.read_text()) for p in prefix.parent.glob(f"{prefix.name}.*.json")]
     return sorted(found, key=lambda s: s["t_start"])
 
 
@@ -4260,6 +4420,7 @@ class Stream:
                                      stderr=self._log, text=True, env={**os.environ, **env},
                                      start_new_session=True)
         self.records: list[dict] = []
+        self.times: list[float] = []  # wall clock of each record's arrival
         self._queue: queue.Queue = queue.Queue()
         self._thread = threading.Thread(target=self._read, daemon=True)
         self._thread.start()
@@ -4267,7 +4428,7 @@ class Stream:
     def _read(self) -> None:
         for line in self.proc.stdout:
             if line.startswith("{"):
-                self._queue.put(json.loads(line))
+                self._queue.put((time.time(), json.loads(line)))
         self._queue.put(None)
 
     def send(self, records: list[dict]) -> None:
@@ -4286,7 +4447,8 @@ class Stream:
                 raise SmokeFailure(f"serve: no progress in {timeout:.0f} s") from None
             if record is None:
                 return
-            self.records.append(record)
+            self.times.append(record[0])
+            self.records.append(record[1])
 
     def finish(self, timeout: float = SV_TIMEOUT_S) -> int:
         """Close stdin, collect to the end, and return the exit code."""
@@ -4638,29 +4800,32 @@ def sv_tiling(run_dir: Path) -> dict:
     return {"residencies": residencies, "worst_gap_s": max(gaps)}
 
 
-def sv_baseline(config: Path, requests: list[dict], flags: list[str]) -> dict:
-    """Leg b's uninterrupted `serve --config` of `requests`."""
+def sv_baseline(config: Path, requests: list[dict], flags: list[str],
+                prefix: Path | None = None, label: str = "serve b") -> dict:
+    """An uninterrupted `serve --config` of `requests` (leg b's, and leg d's
+    with its own `prefix` for the files)."""
     import subprocess
 
-    stdin = SV_DIR / "b-requests.jsonl"
+    prefix = prefix or SV_DIR / "b-base"
+    stdin = prefix.with_name(prefix.name + "-requests.jsonl")
     stdin.write_text("".join(json.dumps(r) + "\n" for r in requests))
+    out, log_path = prefix.with_suffix(".out"), prefix.with_suffix(".log")
     t0 = time.perf_counter()
-    with open(stdin) as source, open(SV_DIR / "b-base.out", "w") as sink, \
-            open(SV_DIR / "b-base.log", "w") as log:
+    with open(stdin) as source, open(out, "w") as sink, open(log_path, "w") as log:
         rc = subprocess.run([sys.executable, "-c", _SERVE_CHILD, "serve", "--config", str(config),
                              *flags], cwd=ROOT, stdin=source, stdout=sink, stderr=log,
-                            env={**os.environ, "SMOKE_SERVE_OUT": str(SV_DIR / "b-base")},
+                            env={**os.environ, "SMOKE_SERVE_OUT": str(prefix)},
                             timeout=SV_TIMEOUT_S).returncode
     seconds = time.perf_counter() - t0
-    done = sv_done([json.loads(line) for line in (SV_DIR / "b-base.out").read_text().splitlines()
+    done = sv_done([json.loads(line) for line in out.read_text().splitlines()
                     if line.startswith("{")])
     check(rc == 0 and len(done) == len(requests) and all(
         v[0]["stop_reason"] == "max_tokens" for v in done.values()),
-        f"serve b: the baseline exited {rc} with {len(done)} terminals: "
-        f"{(SV_DIR / 'b-base.log').read_text()[-3000:]}")
-    (child,) = sv_summaries(str(SV_DIR / "b-base"))
+        f"{label}: the baseline exited {rc} with {len(done)} terminals: "
+        f"{log_path.read_text()[-3000:]}")
+    (child,) = sv_summaries(str(prefix))
     check(child["launches"] > 0 and child["plain_decode_calls"] == 0,
-          f"serve b: baseline K4 {child['launches']}, plain decode {child['plain_decode_calls']}")
+          f"{label}: baseline K4 {child['launches']}, plain decode {child['plain_decode_calls']}")
     return {"seconds": seconds, "tokens": {k: v[0]["tokens"] for k, v in done.items()},
             "launches": child["launches"]}
 
@@ -4825,24 +4990,275 @@ def sv_leg_c(card: str, path: Path) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 18d: route over serve replicas
+
+RT_DIR = ROOT / ".smoke_route"
+RT_DEVICE = "cuda"
+RT_REPLICAS = 2
+RT_REQUESTS = 16
+RT_PROMPTS = (64, 512)  # prompt lengths, inclusive
+RT_NEW = 32
+RT_BATCH = 8
+RT_MAX_LEN = 1024
+RT_CHUNK = 256
+RT_KILL_AT = 160  # the forwarded token whose replica the router SIGKILLs
+RT_SCRAPE_S = 0.5
+RT_STEP = 2  # phase 16's committed step the replicas restore
+RT_TIMEOUT_S = 300.0
+
+# `route` through the CLI: its replicas start through `_SERVE_CHILD` (K4
+# and plain-decode counts); the chaos SIGKILL is wrapped to run `fleet
+# --once --json` on a copy of the discovery cards as they stand, and again
+# once the replica is dead (the copy keeps its card, which the router
+# removes when it reaps the replica)
+_ROUTE_PROCESS = r"""
+import contextlib, json, os, shutil, signal, subprocess, sys, time
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from llm_training_tpu_torch.cli import main as cli
+from llm_training_tpu_torch.telemetry.fleet import fleet_main
+
+real_popen = subprocess.Popen
+class Popen(real_popen):
+    def __init__(self, argv, *args, **kwargs):
+        if list(argv[1:4]) == ["-m", "llm_training_tpu_torch", "serve"]:
+            argv = [argv[0], "-c", chip_smoke._SERVE_CHILD, *argv[3:]]
+        super().__init__(argv, *args, **kwargs)
+subprocess.Popen = Popen
+
+out_dir = os.environ["SMOKE_ROUTE_OUT"]
+real_kill = os.kill
+
+def fleet_once(snap, name):
+    with open(os.path.join(out_dir, name + ".out"), "w") as sink,             contextlib.redirect_stdout(sink):
+        return fleet_main(fleet_dir=snap, once=True, as_json=True,
+                          out=os.path.join(out_dir, name + ".json"))
+
+def kill(pid, sig):
+    if sig != signal.SIGKILL:
+        return real_kill(pid, sig)
+    snap = os.path.join(out_dir, "fleet-copy")
+    shutil.copytree(os.environ["LLMT_FLEET_DIR"], snap, dirs_exist_ok=True)
+    record = {"pid": pid, "before_rc": fleet_once(snap, "before"), "t_kill": time.time()}
+    real_kill(pid, sig)
+    time.sleep(0.5)
+    record["after_rc"] = fleet_once(snap, "after")
+    with open(os.path.join(out_dir, "kill.json"), "w") as f:
+        json.dump(record, f)
+os.kill = kill
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def rt_config(ckpt_dir: Path) -> Path:
+    """A `serve --config` of phase 16's model (Llama-3.1-8B widths, 1 layer)
+    restoring its kept checkpoint, computing in fp32 (token equality across
+    a replay needs the prefill and decode paths to agree closer than bf16
+    does, as phase 18's leg b), with `run_root` under RT_DIR so the router
+    gives each replica a run dir of its own."""
+    model = {**res_model_kwargs(LIFE_LAYERS), "compute_dtype": "float32"}
+    config = {
+        "seed_everything": 0, "run_root": str(RT_DIR / "runs"),
+        "trainer": {"max_steps": 1, "seed": 0,
+                    "checkpoint": {"dirpath": str(ckpt_dir), "async_save": False},
+                    "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
+                                 "init_args": {"save_dir": "${run_root}", "project": "run",
+                                               "name": "route"}}]},
+        "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
+            "model": {"model_class": "Llama", "model_kwargs": model}, "optim": RES_SGD}},
+        "data": {"class_path": "llm_training_tpu.data.DummyDataModule",
+                 "init_args": {"batch_size": 1, "max_length": 16, "num_samples": 4,
+                               "vocab_size": model["vocab_size"]}},
+    }
+    path = RT_DIR / "route.json"
+    path.write_text(json.dumps(config))
+    return path
+
+
+class MemoryPeak:
+    """`nvidia-smi`'s memory.used of the card, sampled every second on a
+    thread: the largest reading (MiB) and the card's total."""
+
+    def __init__(self):
+        import threading
+
+        self.peak_mib, self.total_mib = 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        import subprocess
+
+        while not self._stop.is_set():
+            try:
+                line = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                     "--format=csv,noheader,nounits", "-i", "0"],
+                    capture_output=True, text=True, timeout=10).stdout.strip()
+                used, total = (int(x) for x in line.split(","))
+                self.peak_mib, self.total_mib = max(self.peak_mib, used), total
+            except (OSError, ValueError, subprocess.SubprocessError):
+                pass
+            self._stop.wait(1.0)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=15)
+
+
+def phase_route(card: str) -> dict:
+    """18d: `route --replicas 2` over `serve` children at Llama-3.1-8B widths
+    and 1 layer, restoring phase 16's kept checkpoint (no new checkpoint: the
+    disk image), beside phase 17's leg c on the card. 16 greedy requests;
+    the router SIGKILLs the replica of the RT_KILL_AT-th forwarded token.
+    Every request ends once, with the tokens of one uninterrupted `serve`;
+    `fleet --once --json` over the discovery cards sees both replicas green,
+    then the killed one stale or red; every replica counts K4 and no plain
+    decode call. Prints start-to-first-token, kill-to-replayed-token and
+    tokens/s, and the card's memory peak beside leg c's run."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.telemetry.report import render_report
+
+    ckpt = RT_DIR / "ckpt"
+    check(ckpt.is_dir(), f"route: phase 16 left no checkpoint in {ckpt}")
+    config = rt_config(ckpt)
+    fleet_dir = RT_DIR / "fleet"
+    rng = np.random.default_rng(3)
+    lengths = [int(k) for k in rng.integers(RT_PROMPTS[0], RT_PROMPTS[1] + 1, size=RT_REQUESTS)]
+    requests = [{"id": f"d{i}", "prompt": rng.integers(0, preset(SV_PRESET).vocab_size, k).tolist(),
+                 "max_new_tokens": RT_NEW} for i, k in enumerate(lengths)]
+    flags = ["--device", RT_DEVICE, "--max-batch", str(RT_BATCH), "--max-model-len",
+             str(RT_MAX_LEN), "--prefill-chunk", str(RT_CHUNK), "--eos-token-id", "-1"]
+    t0 = time.perf_counter()
+    with MemoryPeak() as memory:
+        base = LegThread(sv_baseline, config, requests,
+                         [*flags, "--ckpt-path", str(RT_STEP), f"run_root={RT_DIR / 'base'}"],
+                         RT_DIR / "base", "route")
+        t_start = time.time()
+        stream = Stream(
+            [sys.executable, "-c", _ROUTE_PROCESS, "route", "--config", str(config),
+             "--ckpt-path", str(RT_STEP), "--replicas", str(RT_REPLICAS), "--scrape-interval-s",
+             str(RT_SCRAPE_S), "--", *flags],
+            {"LLMT_FLEET_DIR": str(fleet_dir), "LLMT_CHAOS_ROUTER_KILL_REPLICA": str(RT_KILL_AT),
+             "SMOKE_ROUTE_OUT": str(RT_DIR), "SMOKE_SERVE_OUT": str(RT_DIR / "replica"),
+             "SMOKE_SERVE_STEP_SUMMARY": "1"},
+            RT_DIR / "route.log")
+        try:
+            stream.send(requests)
+            rc = stream.finish(RT_TIMEOUT_S)
+        finally:
+            stream.kill()
+        baseline = base.result(RT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    text = (RT_DIR / "route.log").read_text()
+    check(rc == 0, f"route: exit {rc}: {text[-3000:]}")
+    done = sv_done(stream.records)
+    streams = sv_streams(stream.records)
+    want = baseline["tokens"]
+    check(sorted(done) == sorted(want) and all(len(v) == 1 for v in done.values()),
+          f"route: terminals {sorted((k, len(v)) for k, v in done.items())}")
+    mismatched = [k for k in want if streams.get(k) != want[k] or done[k][0]["tokens"] != want[k]]
+    check(not mismatched, f"route: streams differ from the uninterrupted serve for {mismatched}")
+    stats = next(r["stats"] for r in stream.records if r.get("type") == "stats")
+    check(stats.get("failovers", 0) >= 1 and stats.get("replays", 0) >= 1,
+          f"route: router stats {stats}")
+    kill = json.loads((RT_DIR / "kill.json").read_text())
+    before = json.loads((RT_DIR / "before.json").read_text())
+    after = json.loads((RT_DIR / "after.json").read_text())
+    victim = next(rid for rid, e in after["replicas"].items() if rid.endswith(f"-{kill['pid']}"))
+    # the router's own exporter carries a card too (role router)
+    serving = sorted(rid for rid, e in before["replicas"].items() if e["role"] == "serve")
+    check(kill["before_rc"] == 0 and before["verdict"] == "green"
+          and len(serving) == RT_REPLICAS,
+          f"route: fleet --once before the kill: rc {kill['before_rc']}, verdict "
+          f"{before['verdict']}, replicas {sorted(before['replicas'])}")
+    entry = after["replicas"][victim]
+    check(after["verdict"] == "red" and (entry["stale"] or not entry["healthy"]),
+          f"route: fleet --once after the kill: verdict {after['verdict']}, {victim} {entry}")
+    replicas = sv_summaries(str(RT_DIR / "replica"))
+    check(len(replicas) >= RT_REPLICAS, f"route: {len(replicas)} replica summaries")
+    for i, child in enumerate(replicas):
+        check(child["plain_decode_calls"] == 0 and child["launches"] == child["decode_steps"]
+              * LIFE_LAYERS and (child["launches"] > 0 or i >= RT_REPLICAS),
+              f"route: replica {i} K4 {child['launches']} over {child['decode_steps']} decode "
+              f"steps, plain decode {child['plain_decode_calls']}")
+    check(memory.peak_mib < memory.total_mib or not memory.total_mib,
+          f"route: card memory peak {memory.peak_mib} of {memory.total_mib} MiB")
+    token_t = [t for t, r in zip(stream.times, stream.records) if r.get("type") == "token"]
+    replayed = {k for k, v in done.items() if v[0].get("replays", 0) >= 1}
+    after_kill = [t for t, r in zip(stream.times, stream.records)
+                  if r.get("type") == "token" and r["id"] in replayed and t > kill["t_kill"]]
+    tokens = sum(len(v) for v in streams.values())
+    router_text = render_report(RT_DIR / "runs" / "run" / "route")
+    check("== Router ==" in router_text, f"route: report {router_text[-1500:]}")
+    out = dict(
+        wall_s=wall, requests=RT_REQUESTS, tokens=tokens, prompt_lengths=[min(lengths),
+                                                                          max(lengths)],
+        start_to_first_token_s=token_t[0] - t_start,
+        kill_to_replayed_token_s=(after_kill[0] - kill["t_kill"]) if after_kill else None,
+        tokens_per_s=tokens / (token_t[-1] - t_start),
+        decode_tokens_per_s=tokens / (token_t[-1] - token_t[0]),
+        failovers=stats.get("failovers"), replays=stats.get("replays"),
+        replaced=len(replicas) - RT_REPLICAS,
+        launches=[c["launches"] for c in replicas], baseline_launches=baseline["launches"],
+        baseline_s=baseline["seconds"], fleet_before=before["verdict"],
+        fleet_after=after["verdict"], victim_stale=entry["stale"],
+        memory_peak_mib=memory.peak_mib, memory_total_mib=memory.total_mib)
+    check(out["kill_to_replayed_token_s"] is not None,
+          f"route: no replayed request streamed after the kill ({sorted(replayed)})")
+    print(f"route [{card}]: route --replicas {RT_REPLICAS} over serve at {SV_PRESET} widths x "
+          f"{LIFE_LAYERS} layer (fp32, phase 16's step {RT_STEP}), {RT_REQUESTS} greedy requests "
+          f"(prompts {min(lengths)}-{max(lengths)}, {RT_NEW} new): SIGKILL of the replica of "
+          f"forwarded token {RT_KILL_AT}; {stats.get('failovers')} failover, "
+          f"{stats.get('replays')} replays, {out['replaced']} replacement; every stream equal to "
+          f"the uninterrupted serve, one terminal each; start to first token "
+          f"{out['start_to_first_token_s']:.2f} s, kill to replayed token "
+          f"{out['kill_to_replayed_token_s']:.3f} s, {out['tokens_per_s']:.1f} tokens/s from the "
+          f"start ({out['decode_tokens_per_s']:.1f} from the first token); fleet --once: "
+          f"{before['verdict']} with {len(serving)} serve replicas and the router, then "
+          f"{after['verdict']} "
+          f"({victim} {'stale' if entry['stale'] else 'red'}); K4 {out['launches']} (replicas), "
+          f"{baseline['launches']} (uninterrupted), plain decode 0; card memory peak "
+          f"{memory.peak_mib} of {memory.total_mib} MiB beside phase 17's leg c ({wall:.1f} s)",
+          flush=True)
+    return out
+
+
 def phase_serve_resilience(card: str, after_a=None) -> dict:
     """serve's resilience and live telemetry (see the header). `after_a`,
     when given, runs between leg a and legs b and c (the smoke joins phase
-    17's leg c there: legs b and c write checkpoints of their own)."""
+    17's leg c there: legs b and c write checkpoints of their own); leg d,
+    the router over serve replicas, runs beside that wait when phase 16
+    left its checkpoint in RT_DIR."""
     shutil.rmtree(SV_DIR, ignore_errors=True)
     SV_DIR.mkdir()
     out = {}
+    leg_d = None
     try:
         t0 = time.perf_counter()
         out["a"] = sv_leg_a(card)
         out["a"]["leg_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if (RT_DIR / "ckpt").is_dir():
+            leg_d = LegThread(phase_route, card)
         if after_a is not None:
             out["a"]["after_s"] = after_a()
+        if leg_d is not None:
+            out["d"] = leg_d.result(2 * RT_TIMEOUT_S + 60)
+            leg_d = None
+            out["d"]["leg_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["b"], out["c"] = sv_legs_bc(card)
         out["b"]["legs_bc_s"] = time.perf_counter() - t0
     finally:
+        if leg_d is not None:  # a leg before it failed: let 18d end before its files go
+            leg_d.join(2 * RT_TIMEOUT_S + 60)
         shutil.rmtree(SV_DIR, ignore_errors=True)
+        shutil.rmtree(RT_DIR, ignore_errors=True)
         release()
     return out
 
@@ -5346,6 +5762,13 @@ IT_NEWLINES = 271
 # no bf16 product in 4 steps from random weights (phases 13 and 14 found
 # the same of 5e-7-1e-5)
 IT_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=0)
+# the fit runs with its live telemetry armed: per-step spans, the exporter
+# (scraped once mid-fit), a step-time target below any step of this fit
+# (two samples suffice; the cooldown outlasts the fit, so it breaches once), and
+# a JSONL run directory that `report` reads
+IT_DIR = ROOT / ".smoke_it"
+IT_SLO_STEP_S = 1e-3
+IT_SCRAPE_STEP = 2
 
 # the packers' timing and equality at IT_BIG lengths, in a process of its
 # own started with phase 16 (the Python packer takes about a minute there);
@@ -5452,6 +5875,7 @@ def phase_instruction_tuning(card: str) -> dict:
     import types
 
     from llm_training_tpu_torch import native, prng
+    from llm_training_tpu_torch.callbacks.loggers import JsonlLogger, JsonlLoggerConfig
     from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
     from llm_training_tpu_torch.data.instruction_tuning.collator import (
         InstructionTuningDataCollator,
@@ -5467,6 +5891,8 @@ def phase_instruction_tuning(card: str) -> dict:
     from llm_training_tpu_torch.ops.kernels import bench_flash
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
     from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.telemetry.exporter import find_free_port, parse_prometheus_text
+    from llm_training_tpu_torch.telemetry.trace import TraceRecorder, set_tracer
     from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 
     config = preset("llama-3.1-8b", num_hidden_layers=IT_LAYERS, param_dtype="float32",
@@ -5523,9 +5949,11 @@ def phase_instruction_tuning(card: str) -> dict:
         def train_batches(self, start_step=0):
             yield from steps[start_step:]
 
+    port = find_free_port()
+
     class StepClock:
         def __init__(self):
-            self.step_s, self.losses, self.t = [], [], None
+            self.step_s, self.losses, self.t, self.scrape = [], [], None, None
 
         def on_fit_start(self, trainer, *args):
             torch.cuda.synchronize()
@@ -5535,25 +5963,59 @@ def phase_instruction_tuning(card: str) -> dict:
             torch.cuda.synchronize()
             now = time.perf_counter()
             self.step_s.append(now - self.t)
+            if step == IT_SCRAPE_STEP:
+                # one scrape of the fit's exporter, outside the step clock
+                code, body = sv_get(port, "/metrics", timeout=10.0)
+                self.scrape = parse_prometheus_text(body) if code == 200 else {"error": code}
+                now = time.perf_counter()
             self.t = now
 
         def on_step_end(self, trainer, step, metrics):
             self.losses.append(metrics["loss"])
 
+    shutil.rmtree(IT_DIR, ignore_errors=True)
     clock = StepClock()
     trainer = Trainer(TrainerConfig(max_steps=IT_STEPS, seed=0, log_every_n_steps=1),
-                      callbacks=[clock], device=IT_DEVICE)
+                      callbacks=[clock, JsonlLogger(JsonlLoggerConfig(
+                          save_dir=str(IT_DIR), project="run", name="it"))],
+                      device=IT_DEVICE)
     objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
                               optim=OptimConfig(**IT_OPTIM), neftune_alpha=IT_NEFTUNE))
     launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel, prng.uniform)
+    # the live telemetry, armed for this fit only: a fresh tracer reads
+    # LLMT_TRACE_TRAIN, and its span/instant calls on this thread are timed
+    armed = {"LLMT_TRACE_TRAIN": "1", "LLMT_METRICS_PORT": str(port),
+             "LLMT_SLO_STEP_TIME_P99_S": str(IT_SLO_STEP_S), "LLMT_SLO_MIN_SAMPLES": "2",
+             "LLMT_SLO_COOLDOWN_S": "3600", "LLMT_PROFILE_BUDGET": "0"}
+    saved_env = {k: os.environ.get(k) for k in armed}
+    os.environ.update(armed)
+    tracer, tracer_cost = TraceRecorder(), [0.0, 0]
+    for name in ("span", "instant"):
+        def timed_call(*args, _real=getattr(tracer, name), **kwargs):
+            t = time.perf_counter()
+            try:
+                return _real(*args, **kwargs)
+            finally:
+                tracer_cost[0] += time.perf_counter() - t
+                tracer_cost[1] += 1
+        setattr(tracer, name, timed_call)
+    previous_tracer = set_tracer(tracer)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with count_plain_attention() as plain:
-        for launcher in launchers:
-            launcher.launches = 0
-        state = trainer.fit(objective, Steps(BaseDataModuleConfig()))
-        torch.cuda.synchronize()
-        launches = [launcher.launches for launcher in launchers]
+    try:
+        with count_plain_attention() as plain:
+            for launcher in launchers:
+                launcher.launches = 0
+            state = trainer.fit(objective, Steps(BaseDataModuleConfig()))
+            torch.cuda.synchronize()
+            launches = [launcher.launches for launcher in launchers]
+    finally:
+        set_tracer(previous_tracer)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = clock.losses
     ln_v = math.log(config.vocab_size)
@@ -5567,6 +6029,7 @@ def phase_instruction_tuning(card: str) -> dict:
     check(launches == want, f"instruction tuning: K1/K2/K3/NEFTune launched {launches} times; "
           f"expected {want} (selective recompute, one NEFTune draw a micro-step)")
     check(plain[0] == 0, f"instruction tuning: the plain attention path ran {plain[0]} times")
+    telemetry, report = it_telemetry(card, clock.scrape, tracer_cost)
 
     model = state.model
     n_matmul = sum(p.numel() for p in model.parameters()) - model.model.embed_tokens.weight.numel()
@@ -5617,7 +6080,10 @@ def phase_instruction_tuning(card: str) -> dict:
                                     torch.bfloat16, seg_rows, seed) for seed in range(copies)]
     kernels = flash_shape_timing(card, f"instruction tuning B{IT_ROWS} S{width} Hq{hq} "
                                  f"Hkv{config.num_key_value_heads} D{head_dim} packed", cases)
-    _IT_STATE.update(losses=losses, step_ms=[1e3 * t for t in clock.step_s])
+    it_report(card, telemetry, report)
+    _IT_STATE.update(losses=losses, step_ms=[1e3 * t for t in clock.step_s],
+                     step_ms_p50=1e3 * percentile(timed, 50),
+                     tracer_us_per_step=telemetry["tracer_us_per_step"])
     result = dict(
         layers=IT_LAYERS, steps=IT_STEPS, rows_per_step=IT_ROWS, conversations=IT_CONVERSATIONS,
         dropped=dropped, rows=len(rows), fill=fill, tokens=tokens_all,
@@ -5629,7 +6095,7 @@ def phase_instruction_tuning(card: str) -> dict:
         assistant_tokens_per_s=sum(w[1] for w in work) / sum(timed),
         mfu=sum(w[2] for w in work) / sum(timed) / bench_flash.BF16_FLOPS_PER_S,
         peak_memory_gb=peak_gb, packers=big, neftune_parity_shapes=neftune_shapes,
-        kernels=kernels,
+        kernels=kernels, telemetry=telemetry,
     )
     print(f"instruction tuning [{card}]: {IT_CONVERSATIONS} conversations, {dropped} over "
           f"{IT_MAX_LENGTH} dropped, {len(rows)} rows at {100 * fill:.2f}% fill, {labeled} labels; "
@@ -5646,6 +6112,64 @@ def phase_instruction_tuning(card: str) -> dict:
           f"{peak_gb:.2f} GB; NEFTune uniform bits equal to the plain version at "
           f"{', '.join('x'.join(map(str, s)) for s in neftune_shapes)}", flush=True)
     return result
+
+
+def it_telemetry(card: str, scrape: dict | None, tracer_cost: list) -> dict:
+    """Phase 20's armed telemetry: the mid-fit scrape, the run dir's trace
+    (segment_start, one compile, every step's data_load and train_step, one
+    SLO breach with its flight dump), the `trace/*` gauges of the final
+    telemetry record, and `report` in a process without CUDA."""
+    from llm_training_tpu_torch.telemetry.trace import read_trace_events
+
+    run_dir = IT_DIR / "run" / "it"
+    events = read_trace_events(run_dir / "trace.jsonl")
+    count = lambda cat, name: sum(1 for e in events if e["cat"] == cat and e["name"] == name)  # noqa: E731
+    spans = {name: count("train", name)
+             for name in ("segment_start", "compile", "data_load", "train_step")}
+    breaches = count("slo", "breach")
+    dumps = sorted(p.name for p in run_dir.glob("trace-flight-slo-*.jsonl"))
+    records = [json.loads(line) for line in (run_dir / "telemetry.jsonl").read_text().splitlines()]
+    last = records[-1] if records else {}
+    gauges = {k: last.get(k) for k in ("trace/events_recorded", "trace/events_written",
+                                       "trace/flight_dumps", "slo/breaches_total")}
+    scrape = scrape or {}
+    report = ReportChild(run_dir, "instruction tuning")
+    out = dict(spans=spans, slo_breaches=breaches, flight_dumps=dumps, gauges=gauges,
+               scraped_series=len(scrape),
+               tracer_us_per_step=1e6 * tracer_cost[0] / IT_STEPS,
+               tracer_calls_per_step=tracer_cost[1] / IT_STEPS)
+    check(spans == {"segment_start": 1, "compile": 1, "data_load": IT_STEPS,
+                    "train_step": IT_STEPS},
+          f"instruction tuning: the trace's train spans {spans}")
+    check(breaches == 1 and len(dumps) == 1 and gauges["slo/breaches_total"] == 1,
+          f"instruction tuning: {breaches} SLO breach instants, flight dumps {dumps}, "
+          f"slo/breaches_total {gauges['slo/breaches_total']}")
+    check(all(gauges[k] for k in ("trace/events_recorded", "trace/events_written",
+                                  "trace/flight_dumps")),
+          f"instruction tuning: the final record's trace gauges {gauges}")
+    check(any(k.startswith("llmt_goodput_") for k in scrape)
+          and any(k.startswith("llmt_slo_train_") for k in scrape)
+          and "llmt_compile_time_s" in scrape,
+          f"instruction tuning: the mid-fit scrape holds {sorted(scrape)[:30]}")
+    print(f"instruction tuning telemetry [{card}]: LLMT_TRACE_TRAIN=1, step-time target "
+          f"{IT_SLO_STEP_S} s, exporter scraped at step {IT_SCRAPE_STEP} ({len(scrape)} series); "
+          f"trace spans {spans}, {breaches} SLO breach, flight dump {dumps}; final gauges "
+          f"{gauges}; tracer {out['tracer_us_per_step']:.1f} us a step on the loop thread "
+          f"({out['tracer_calls_per_step']:.1f} calls)", flush=True)
+    return out, report
+
+
+def it_report(card: str, telemetry: dict, report: ReportChild) -> None:
+    """Phase 20's `report`, started after the fit: `== Trace ==` and `==
+    SLO ==` with the fit's steps; then the run dir goes."""
+    text, data, seconds = report.result()
+    telemetry["report_s"] = seconds
+    check("== Trace ==" in text and "== SLO ==" in text and data.get("trace")
+          and data.get("slo"), f"instruction tuning: report {text[-2000:]}")
+    print(f"instruction tuning report [{card}]: (a process without CUDA, {seconds:.1f} s)\n"
+          + "\n".join(text[text.index(h):].split("\n\n")[0] for h in ("== Trace ==", "== SLO ==")),
+          flush=True)
+    shutil.rmtree(IT_DIR, ignore_errors=True)
 
 
 _PACK_STATE: dict = {}
@@ -5765,7 +6289,15 @@ def mesh_fit_leg(card: str) -> dict:
           f"{', '.join(f'{t:.1f}' for t in step_ms)} (phase 20: "
           f"{', '.join(f'{t:.1f}' for t in _IT_STATE['step_ms'][:MESH_STEPS])}); launches K1 "
           f"{launches[0]} K2 {launches[1]} K3 {launches[2]} NEFTune {launches[3]}", flush=True)
+    # the live telemetry's cost: phase 20 ran armed, this fit does not
+    armed_p50, unarmed = _IT_STATE["step_ms_p50"], step_ms[-1]
+    print(f"telemetry cost [{card}]: phase 20's armed step p50 {armed_p50:.1f} ms against 21a's "
+          f"unarmed step {MESH_STEPS} {unarmed:.1f} ms ({armed_p50 - unarmed:+.1f} ms; 21a runs "
+          f"FSDP2 over one rank, which may differ on its own); the tracer "
+          f"{_IT_STATE['tracer_us_per_step']:.1f} us a step on the loop thread", flush=True)
     return dict(mesh=mesh, losses=losses, phase20_losses=base[:MESH_STEPS], step1_rel=err,
+                telemetry_cost=dict(armed_p50_ms=armed_p50, unarmed_step_ms=unarmed,
+                                    tracer_us_per_step=_IT_STATE["tracer_us_per_step"]),
                 step_ms=step_ms, phase20_step_ms=_IT_STATE["step_ms"][:MESH_STEPS],
                 launches=dict(zip(("fwd", "dq", "dkv", "neftune"), launches)))
 
@@ -5997,7 +6529,8 @@ def main() -> int:
     print(f"mesh summary [{card}]: " + json.dumps(mesh))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
-        "b": serving["b"]["launches"], "c": serving["c"]["launches"]}))
+        "b": serving["b"]["launches"], "c": serving["c"]["launches"],
+        "d": serving["d"]["launches"]}))
 
     def kernel_rows(k4: dict, k4_launches: int, flash_by_kind: dict, launches: dict) -> list:
         rows = [{"name": "paged_decode_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -6016,12 +6549,13 @@ def main() -> int:
     # phase 19's serving (K4) and DPO (K1-K3) at Phi-3-mini's shapes, timed there
     print("kernels at Phi-3-mini shapes (launches: phase 19): " + json.dumps(kernel_rows(
         hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])))
-    # this slice's path: phase 20's instruction tuning (K1-K3, timed at its
-    # first batch's shape) with phase 21's launches added (the mesh fit and
-    # the virtual rings); K4, which neither runs, from phase 19's serving
+    # this slice's path: phase 20's armed instruction tuning (K1-K3, timed at
+    # its first batch's shape) with phase 21's launches added (the mesh fit
+    # and the virtual rings); K4 through phase 18d's router, every replica's
+    # launches, timed at the Llama-3.1-8B serving shape of phase 7
     it_mesh = {kind: it["launches"][kind] + mesh["launches"][kind] for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
-        hf["kernels"]["k4"], hf["serve"]["launches"], it["kernels"], it_mesh)}))
+        timing, sum(serving["d"]["launches"]), it["kernels"], it_mesh)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

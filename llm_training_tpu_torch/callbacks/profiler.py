@@ -10,9 +10,12 @@ or checkpointer (`telemetry.anomaly.resolve_run_dir`), else
 `runs/profile`. `teardown` stops a trace that is still open, so a fit that
 raises inside the window leaves no profiler running.
 
-JAX hands the window to its `ProfileTrigger` inside a fit; the trigger is
-not wired into the port's `fit` yet (ROADMAP A.7b), so this callback
-always owns its capture.
+Inside a fit the window goes to the fit's `ProfileTrigger`
+(`telemetry/profiling.py`), as JAX's does: the trainer reads
+`profile_window()` at fit start, schedules it on the trigger and marks the
+callback `_absorbed`, so one owner starts and stops `torch.profiler` and a
+capture an SLO breach fires never nests inside the window's. The callback
+owns its capture only where no trigger exists (outside a trainer's fit).
 """
 
 from __future__ import annotations
@@ -45,8 +48,17 @@ class ProfilerCallback:
         self._profiler: torch.profiler.profile | None = None
         self._stop_step: int | None = None
         self.trace_path: Path | None = None
+        # set by the trainer when the window was handed to its ProfileTrigger
+        self._absorbed = False
+
+    def profile_window(self) -> tuple[int, int, str | None]:
+        """The configured capture window, for a ProfileTrigger to adopt."""
+        cfg = self.config
+        return cfg.start_step, cfg.num_steps, cfg.trace_dir
 
     def on_train_step(self, trainer, step) -> None:
+        if self._absorbed:
+            return
         cfg = self.config
         if self._profiler is None and cfg.start_step <= step < cfg.start_step + cfg.num_steps:
             # the stop boundary clamped to the fit's last step, so the trace

@@ -1,5 +1,5 @@
-"""Console entry: `python -m llm_training_tpu_torch
-{fit,validate,generate,evaluate,serve,rl-fit,supervise,ckpt,watch,profile,trace}`.
+"""Console entry: `python -m llm_training_tpu_torch {fit,validate,generate,
+evaluate,serve,rl-fit,supervise,ckpt,watch,profile,trace,report,fleet,route}`.
 
 `fit --config file.json [--ckpt-path STEP] [key.path=value ...]` trains:
 the counterpart of the JAX `fit` command on a JSON config with the YAML
@@ -83,6 +83,15 @@ clean, 1 findings, 2 unusable. `trace SOURCE` exports a run dir's
 or empty); `watch` polls a live run's `/statusz` (`--once` exits 2 when it
 is unreachable); `profile` arms a capture through `/profilez`.
 
+`report RUN_DIR` renders a run's summary (`--format json` for one
+machine-readable object); `fleet` sweeps the exporters' discovery cards
+(`LLMT_FLEET_DIR`) or `--targets` into rollups and a health verdict
+(`--once` exits 2 when it finds no replica); `route --config file.json
+--replicas N [-- serve flags]` puts N `serve --config` children behind one
+stdin/stdout endpoint with failover replay, hedging and SLO-driven
+scaling. These three, `supervise`, `watch`, `profile`, `trace` and `ckpt`
+are control planes: they never initialise CUDA.
+
 Every command runs on `cuda` unless `--device cpu` is given.
 """
 
@@ -139,9 +148,12 @@ from llm_training_tpu_torch.rl.loop import RLLoop, RLLoopOptions
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 from llm_training_tpu_torch.serve.journal import RequestJournal, replay_journal
 from llm_training_tpu_torch.serve.paged_cache import DEFAULT_BLOCK_SIZE
+from llm_training_tpu_torch.serve.router import route_main
 from llm_training_tpu_torch.telemetry.exporter import profile_main, start_exporter, watch_main
+from llm_training_tpu_torch.telemetry.fleet import fleet_main
 from llm_training_tpu_torch.telemetry.profiling import build_profile_trigger, set_profile_trigger
 from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.report import report_main
 from llm_training_tpu_torch.telemetry.slo import build_slo_monitor
 from llm_training_tpu_torch.telemetry.trace import get_tracer, trace_main
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
@@ -609,32 +621,6 @@ def _jsonl_run_dir(config: dict) -> Path | None:
     return None
 
 
-# JAX's serve SLO targets (`telemetry/slo.py`): one set arms its monitor
-_SLO_TARGET_ENVS = ("LLMT_SLO_TTFT_P99_MS", "LLMT_SLO_TPOT_P99_MS", "LLMT_SLO_ERROR_RATE",
-                    "LLMT_SLO_STEP_TIME_P99_S", "LLMT_SLO_GOODPUT_PCT_MIN")
-
-
-def _refuse_unported_rl_fit() -> None:
-    """What `rl-fit` cannot honour yet raises, naming the queue that brings
-    it: an armed SLO monitor (the rollout yield) and the `/metrics`
-    exporter, which `rl-fit` wires with `fit` (ROADMAP A.7b)."""
-    def number(name: str) -> float | None:
-        try:  # a malformed value is ignored, as JAX ignores it
-            return float(os.environ.get(name) or "")
-        except ValueError:
-            return None
-
-    armed_slo = [name for name in _SLO_TARGET_ENVS if number(name) is not None]
-    if armed_slo:
-        raise NotImplementedError(
-            f"rl-fit with an SLO target armed ({', '.join(armed_slo)}): rl-fit's SLO monitor "
-            "and the rollout yield are not ported yet (ROADMAP A.7b)")
-    if number("LLMT_METRICS_PORT"):
-        raise NotImplementedError(
-            "rl-fit with LLMT_METRICS_PORT: rl-fit's /metrics exporter is not ported yet "
-            "(ROADMAP A.7b)")
-
-
 def _refuse_multi_process(command: str) -> None:
     """`rl-fit` and `supervise` run in one process: launched as a world of
     several (torchrun, SLURM) they raise, naming the queue that brings them."""
@@ -650,8 +636,11 @@ def run_rl_fit(args) -> int:
     SIGTERM drains the rollouts in flight into the request journal,
     checkpoints the weights they were sampled under with the round cursor,
     and exits 75; the relaunch restores, replays the journal and adopts the
-    replayed rollouts."""
-    _refuse_unported_rl_fit()
+    replayed rollouts. The run dir's `trace.jsonl` takes the `rl/*` spans;
+    `LLMT_SLO_*` arms the SLO monitor (user traffic feeds it; a serve
+    breach makes rollout submission yield `--yield-steps` engine steps) and
+    `LLMT_METRICS_PORT` the exporter; the final gauges merge into the run
+    dir's `telemetry.jsonl` for `report`'s `== RL ==`."""
     _refuse_multi_process("rl-fit")
     config = _load(args)
     log = logging.getLogger(__name__)
@@ -681,9 +670,15 @@ def run_rl_fit(args) -> int:
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p
         ),
     )
+    run_dir = _jsonl_run_dir(config)
+    trace_attached = run_dir is not None and get_tracer().attach_sink(run_dir / "trace.jsonl")
+    # serve chaos (LLMT_CHAOS_SERVE_*) fires inside engine.step, so the
+    # SIGTERM-mid-rollout drill takes the drain, journal and adopt path
     install_chaos(config_from_env())
     shutdown = GracefulShutdown().install()
+    slo = build_slo_monitor(registry=get_registry(), run_dir=run_dir)
     journal = None
+    exporter = None
     try:
         loop = RLLoop(trainer, objective, serve_config, RLLoopOptions(
             rounds=args.rounds,
@@ -696,13 +691,22 @@ def run_rl_fit(args) -> int:
             rollout_priority=args.rollout_priority,
             updates_per_round=args.updates_per_round,
             user_traffic=args.user_traffic,
+            yield_steps=args.yield_steps,
             resume_step=_resume_step(args),
-        ))
+        ), slo=slo)
         loop.setup()
         engine = loop.engine
+        exporter = start_exporter(
+            registry=get_registry(), slo=slo, role="rl-fit",
+            extra_fn=lambda: {**engine.live_stats(), **loop.collector.stats()},
+            status_fn=lambda: {
+                "engine step": engine.step_index,
+                "queue depth": len(engine.scheduler.waiting),
+                "running": len(engine.scheduler.running),
+            },
+        )
         # the rollout journal, with serve's rotation contract: the backup
         # lives until every entry is accepted again into the new journal
-        run_dir = _jsonl_run_dir(config)
         journal_path = run_dir / "rl-journal.jsonl" if run_dir is not None else None
         backup_path = None
         resumed = []
@@ -732,7 +736,12 @@ def run_rl_fit(args) -> int:
         if rc:
             log.warning("%s: rollouts journaled and round cursor checkpointed — exiting %d "
                         "(resumable)", shutdown.reason, RESUMABLE_EXIT_CODE)
-        print(json.dumps({"type": "stats", "stats": result["gauges"]}), flush=True)
+        stats = result["gauges"]
+        if trace_attached:
+            get_tracer().detach_sink()
+            trace_attached = False
+        print(json.dumps({"type": "stats", "stats": stats}), flush=True)
+        _publish_run_telemetry(config, stats)
         if journal is not None:
             journal.close()
             journal = None
@@ -744,6 +753,12 @@ def run_rl_fit(args) -> int:
             journal.close()
         if trainer.checkpointer is not None:
             trainer.checkpointer.close()
+        if exporter is not None:
+            # last, after the stats line and the telemetry merge: a final
+            # scrape may follow the last record
+            exporter.stop()
+        if trace_attached:
+            get_tracer().detach_sink()
         uninstall_chaos()
         shutdown.uninstall()
 
@@ -1037,8 +1052,8 @@ def build_parser() -> argparse.ArgumentParser:
     rl_fit.add_argument(
         "--yield-steps", type=int, default=50,
         help="engine steps rollout submission backs off after a new serve "
-        "SLO burn-rate breach (JAX's flag; rl-fit's SLO monitor comes with "
-        "ROADMAP A.7b and an armed target raises, so nothing reads it)",
+        "SLO burn-rate breach (LLMT_SLO_TTFT_P99_MS / LLMT_SLO_TPOT_P99_MS "
+        "arm the monitor that user traffic feeds)",
     )
     rl_fit.add_argument("--max-batch", type=int, default=4, help="decode slots (static batch)")
     rl_fit.add_argument("--max-model-len", type=int, default=256)
@@ -1156,6 +1171,96 @@ def build_parser() -> argparse.ArgumentParser:
                        help="instead of one source: wall-align N run dirs (via their "
                        "clock_anchor events) into ONE Perfetto file with per-run tracks")
 
+    report = sub.add_parser("report", help="render a run summary from a run directory")
+    report.add_argument("run_dir", help="dir holding metrics.jsonl / telemetry.jsonl")
+    report.add_argument(
+        "--bench-dir", default=None,
+        help="dir searched first for the newest BENCH_r*.json / bench*.json "
+        "record (== Perf == section); falls back to run_dir, then cwd",
+    )
+    report.add_argument(
+        "--supervisor-log", default=None,
+        help="supervisor.jsonl with per-segment topology events "
+        "(== Elastic == section); default: <run_dir>/supervisor.jsonl",
+    )
+    report.add_argument(
+        "--audit-dir", default=None,
+        help="dir searched first for the newest audit*.json shardcheck "
+        "record (== Audit == section); falls back to run_dir",
+    )
+    report.add_argument(
+        "--format", default="text", choices=("text", "json"),
+        help="json emits every section as one machine-readable object "
+        "(schema_version-pinned, for trend tracking)",
+    )
+
+    fleet = sub.add_parser(
+        "fleet",
+        help="sweep a fleet of replicas (LLMT_FLEET_DIR cards or static "
+        "--targets) and render rollups + health verdict; optionally "
+        "re-export federation /metrics",
+    )
+    fleet.add_argument("--dir", default=None,
+                       help="discovery directory holding replica-*.json cards "
+                       "(default: LLMT_FLEET_DIR)")
+    fleet.add_argument("--targets", default="",
+                       help="static host:port,host:port replica list (skips discovery)")
+    fleet.add_argument("--interval-s", type=float, default=None,
+                       help="sweep cadence (default: LLMT_FLEET_SCRAPE_S, else 2s)")
+    fleet.add_argument("--port", type=int, default=None,
+                       help="also serve the aggregator's /metrics //fleetz //healthz "
+                       "federation endpoint on this port")
+    fleet.add_argument("--once", action="store_true",
+                       help="one sweep then exit (exit 2, naming the searched paths, "
+                       "when no replicas are found)")
+    fleet.add_argument("--json", action="store_true",
+                       help="emit the raw snapshot JSON instead of the fleetz one-pager")
+    fleet.add_argument("--out", default=None,
+                       help="also write the snapshot JSON here (a run dir's fleet.json "
+                       "is what `report --format json` surfaces as its fleet block)")
+
+    route = sub.add_parser(
+        "route",
+        help="health-aware router over N serve replicas: same JSONL "
+        "protocol as serve on stdin/stdout, least-loaded routing with "
+        "eviction on red/stale health, failover replay with exactly-once "
+        "terminals, hedged retries, and SLO-driven elasticity",
+    )
+    route.add_argument("--config", required=True)
+    route.add_argument("--ckpt-path", default=None,
+                       help="checkpoint step each serve replica restores")
+    route.add_argument("--replicas", type=int, default=2,
+                       help="initial AND minimum serve replica count")
+    route.add_argument("--max-replicas", type=int, default=None,
+                       help="elasticity ceiling (default: --replicas, i.e. scale-out off)")
+    route.add_argument(
+        "--hedge-ttft-ms", type=float, default=0.0,
+        help="hedge a request onto a second replica when its projected "
+        "TTFT crosses this budget (deadline_ms, when set on the request, "
+        "takes precedence); 0 disables (default)",
+    )
+    route.add_argument("--scrape-interval-s", type=float, default=None,
+                       help="fleet health sweep cadence (default: LLMT_FLEET_SCRAPE_S, "
+                       "else 2s)")
+    route.add_argument("--idle-retire-s", type=float, default=0.0,
+                       help="drain-and-retire one replica (down to --replicas) after this "
+                       "long with no traffic; 0 disables (default)")
+    route.add_argument("--scale-cooldown-s", type=float, default=30.0,
+                       help="minimum seconds between scale events")
+    route.add_argument("--drain-timeout-s", type=float, default=30.0,
+                       help="SIGTERM grace before journaling the remainder and exiting 75")
+    route.add_argument("--replica-run-root", default=None,
+                       help="parent dir for per-replica run roots (default: "
+                       "<run_dir>/replicas); each replica gets run_root=<root>/rN")
+    route.add_argument("--seed-run-dir", default=None,
+                       help="run dir whose checkpoints/ seeds each fresh replica "
+                       "(default: the router's own run dir when it has one)")
+    route.add_argument(
+        "serve_args", nargs="*",
+        help="flags/overrides forwarded to every serve replica: pass "
+        "after `--` (e.g. -- --device cpu --max-batch 2 --eos-token-id -1)",
+    )
+
     ckpt = sub.add_parser(
         "ckpt",
         help="checkpoint durability operations over a checkpoint root "
@@ -1198,7 +1303,14 @@ def main(argv: list[str] | None = None) -> int:
                 "watch": lambda a: watch_main(port=a.port, host=a.host,
                                               interval_s=a.interval_s, once=a.once),
                 "profile": lambda a: profile_main(port=a.port, host=a.host, tag=a.tag),
-                "trace": lambda a: trace_main(a.source, out=a.out, merge=a.merge)}
+                "trace": lambda a: trace_main(a.source, out=a.out, merge=a.merge),
+                "report": lambda a: report_main(
+                    a.run_dir, bench_dir=a.bench_dir, supervisor_log=a.supervisor_log,
+                    audit_dir=a.audit_dir, format=a.format),
+                "fleet": lambda a: fleet_main(
+                    fleet_dir=a.dir, targets=a.targets, interval_s=a.interval_s, port=a.port,
+                    once=a.once, as_json=a.json, out=a.out),
+                "route": route_main}
     return commands[args.command](args)
 
 

@@ -13,17 +13,17 @@ save's swap (`ckpt_kill_in_swap`), all seeded by `seed`; and the serving
 tier's faults, at the top of an engine step and in the `serve` CLI's
 intake: a wedged step (`serve_stall_step`), a SIGTERM mid-stream
 (`serve_sigterm_step`) and a flood of malformed request lines
-(`serve_malformed_flood`), each on the first supervisor attempt only. Injected I/O
-faults raise `ChaosError`, an `OSError`, so they take the production retry
-path.
+(`serve_malformed_flood`), each on the first supervisor attempt only;
+and the router's, in the `route` CLI: a SIGKILL of the replica that
+produced the Nth forwarded token (`router_kill_replica_at`) and an
+assignment accepted but never submitted (`router_blackhole_at`). Injected
+I/O faults raise `ChaosError`, an `OSError`, so they take the production
+retry path.
 
 The harness is a process global the trainer installs at fit start
 (`install_chaos`) and removes in its fit's `finally`; call sites poll
 `chaos_point(site, step)`, a no-op when nothing is installed.
 `config_from_env` overlays `LLMT_CHAOS_*` variables with JAX's names.
-
-JAX's router triggers raise `NotImplementedError` here, naming the queue
-that brings their site (ROADMAP A.7c).
 """
 
 from __future__ import annotations
@@ -41,20 +41,6 @@ logger = logging.getLogger(__name__)
 
 # injection sites: data-source pull / checkpoint save I/O
 SITES = ("data", "checkpoint_save")
-
-# JAX's triggers whose sites the port does not have yet -> the queue that
-# brings them, and their environment names
-NOT_PORTED = {
-    "router_kill_replica_at": ("A.7c", "LLMT_CHAOS_ROUTER_KILL_REPLICA"),
-    "router_blackhole_at": ("A.7c", "LLMT_CHAOS_ROUTER_BLACKHOLE"),
-}
-
-
-def _not_ported(key: str) -> NotImplementedError:
-    queue, _ = NOT_PORTED[key]
-    return NotImplementedError(
-        f"chaos.{key} is not ported yet: its injection site comes with ROADMAP {queue}"
-    )
 
 
 class ChaosError(OSError):
@@ -108,15 +94,16 @@ class ChaosConfig:
     # inject this many malformed request lines into the serve CLI's intake
     # at startup: the error boundary must answer each and keep serving
     serve_malformed_flood: int = 0
-    # the router's triggers: accepted unset, NotImplementedError when set
-    # (NOT_PORTED names the queue that brings their site)
+    # router-tier faults, consumed by the `route` CLI (the router strips
+    # LLMT_CHAOS_ROUTER_* from its replicas' environments, so only the
+    # router reacts): SIGKILL the replica that produced the Nth forwarded
+    # token (failover replay with exactly-once terminals) ...
     router_kill_replica_at: int | None = None
+    # ... and accept the Nth request->replica assignment but never submit
+    # it: only a hedge can finish that request
     router_blackhole_at: int | None = None
 
     def __post_init__(self):
-        for key in NOT_PORTED:
-            if getattr(self, key) not in (None, (), [], 0, 0.0, ""):
-                raise _not_ported(key)
         self.data_error_steps = tuple(int(s) for s in self.data_error_steps)
         self.checkpoint_error_steps = tuple(int(s) for s in self.checkpoint_error_steps)
         checks = (
@@ -144,6 +131,8 @@ class ChaosConfig:
             or self.serve_stall_step is not None
             or self.serve_sigterm_step is not None
             or self.serve_malformed_flood > 0
+            or self.router_kill_replica_at is not None
+            or self.router_blackhole_at is not None
             or self.ckpt_corrupt is not None
             or self.ckpt_kill_in_swap is not None
             or self.slow_step_s > 0
@@ -159,12 +148,9 @@ def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
     LLMT_CHAOS_SIGKILL_STEP / LLMT_CHAOS_NAN_STEP / LLMT_CHAOS_SPIKE_STEP /
     LLMT_CHAOS_CKPT_KILL_IN_SWAP / LLMT_CHAOS_SLOW_STEP_FROM /
     LLMT_CHAOS_SERVE_STALL_STEP / LLMT_CHAOS_SERVE_SIGTERM_STEP /
-    LLMT_CHAOS_SERVE_MALFORMED_FLOOD / LLMT_CHAOS_SEED (ints), LLMT_CHAOS_CKPT_CORRUPT
-    ({flip,truncate,delete}[:step]). A set variable of a trigger the port
-    does not have raises NotImplementedError."""
-    for key, (_, env_name) in NOT_PORTED.items():
-        if os.environ.get(env_name):
-            raise _not_ported(key)
+    LLMT_CHAOS_SERVE_MALFORMED_FLOOD / LLMT_CHAOS_ROUTER_KILL_REPLICA /
+    LLMT_CHAOS_ROUTER_BLACKHOLE / LLMT_CHAOS_SEED (ints),
+    LLMT_CHAOS_CKPT_CORRUPT ({flip,truncate,delete}[:step])."""
     update: dict = {}
     for field, env_name, cast in (
         ("data_error_steps", "LLMT_CHAOS_DATA_ERROR_STEPS", _int_tuple),
@@ -179,6 +165,8 @@ def config_from_env(base: ChaosConfig | None = None) -> ChaosConfig:
         ("serve_stall_step", "LLMT_CHAOS_SERVE_STALL_STEP", int),
         ("serve_sigterm_step", "LLMT_CHAOS_SERVE_SIGTERM_STEP", int),
         ("serve_malformed_flood", "LLMT_CHAOS_SERVE_MALFORMED_FLOOD", int),
+        ("router_kill_replica_at", "LLMT_CHAOS_ROUTER_KILL_REPLICA", int),
+        ("router_blackhole_at", "LLMT_CHAOS_ROUTER_BLACKHOLE", int),
         ("ckpt_corrupt", "LLMT_CHAOS_CKPT_CORRUPT", str),
         ("ckpt_kill_in_swap", "LLMT_CHAOS_CKPT_KILL_IN_SWAP", int),
         ("slow_step_s", "LLMT_CHAOS_SLOW_STEP_S", float),
@@ -366,6 +354,40 @@ class Chaos:
             '{"id": "flood", "prompt": [1], "max_new_tokens": "junk"}',
         )
         return [shapes[i % len(shapes)] for i in range(n)]
+
+    # ------------------------------------------------------- router tier
+
+    def maybe_router_kill_replica(self, n_tokens: int) -> bool:
+        """Fire once when the router's forwarded-token count reaches the
+        trigger: the router (not this harness) SIGKILLs the replica that
+        produced the token, then folds its journal and replays every leg in
+        flight with exactly-once terminals. No first-attempt gate: the
+        router is unsupervised and the trigger consumes itself."""
+        trigger = self.config.router_kill_replica_at
+        if trigger is None or n_tokens < trigger:
+            return False
+        with self._lock:
+            if ("router_kill", trigger) in self._fired:
+                return False
+            self._fired.add(("router_kill", trigger))
+        self._count()
+        logger.warning("chaos: router kill-replica trigger at forwarded token %d", n_tokens)
+        return True
+
+    def maybe_router_blackhole(self, n_assign: int) -> bool:
+        """Fire once at the Nth request->replica assignment: the router
+        accepts it but never submits the leg, so only a hedge (or a
+        failover) can produce the terminal."""
+        trigger = self.config.router_blackhole_at
+        if trigger is None or n_assign != trigger:
+            return False
+        with self._lock:
+            if ("router_blackhole", trigger) in self._fired:
+                return False
+            self._fired.add(("router_blackhole", trigger))
+        self._count()
+        logger.warning("chaos: blackholing router assignment %d", n_assign)
+        return True
 
     def maybe_slow_step(self, step: int, sleep=None) -> bool:
         """Inject `slow_step_s` of dead time at this optimizer-step boundary

@@ -21,6 +21,12 @@ Counterpart of `llm_training_tpu/rl/loop.py`. One round:
 Round prompts are deterministic in (seed, round), so a relaunched round
 makes the same prompts and adopted journal entries take their places.
 
+Each round is an `rl/round` span around the collector's `collect_round`,
+the `update` and the sync's `weight_sync` spans. With an `SLOMonitor`
+(`slo=`), the terminals of user traffic feed its serve windows, and a
+serve breach makes the collector hold rollout submission back for
+`yield_steps` engine steps.
+
 With `fused` sync the engine decodes from the policy's own parameters,
 which the optimizer updates in place. That is safe because the loop never
 steps the engine between the update and the sync, and the sync's reload
@@ -42,6 +48,7 @@ from llm_training_tpu_torch.rl.reward import resolve_reward
 from llm_training_tpu_torch.rl.rollout import Rollout, RolloutCollector
 from llm_training_tpu_torch.rl.sync import sync_weights
 from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.trace import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +71,7 @@ class RLLoopOptions:
     # PPO-style epochs over the round's fixed batch
     updates_per_round: int = 1
     user_traffic: int = 0  # synthetic priority-0 requests per round
+    yield_steps: int = 50  # SLO-breach rollout-submission backoff
     resume_step: int | None = None
 
 
@@ -71,7 +79,7 @@ class RLLoop:
     """Owns the train state, the serving engine, the collector and the
     update. `setup()` builds or restores them; `run()` iterates rounds."""
 
-    def __init__(self, trainer, objective, serve_config, options: RLLoopOptions):
+    def __init__(self, trainer, objective, serve_config, options: RLLoopOptions, slo=None):
         from llm_training_tpu_torch.lms import GRPO
 
         if not isinstance(objective, GRPO):
@@ -84,6 +92,7 @@ class RLLoop:
         self.objective = objective
         self.serve_config = serve_config
         self.options = options
+        self.slo = slo
         self.reward_fn = resolve_reward(options.reward)
         self.engine: Any = None
         self.collector: RolloutCollector | None = None
@@ -117,14 +126,21 @@ class RLLoop:
             self.engine, group_size=objective.config.group_size,
             max_new_tokens=self.options.max_new_tokens,
             priority=self.options.rollout_priority, on_foreign_event=self._on_foreign,
+            slo=self.slo, yield_steps=self.options.yield_steps,
         )
 
     # ------------------------------------------------------------- traffic
 
     def _on_foreign(self, event: dict) -> None:
-        """Terminals of user traffic riding the engine."""
-        if event.get("type") == "done":
-            self._user_done += 1
+        """Terminals of user traffic riding the engine feed the serve SLO
+        windows; rollout latencies do not (the SLO protects the serving
+        product, not the trainer)."""
+        if event.get("type") != "done":
+            return
+        self._user_done += 1
+        if self.slo is not None:
+            self.slo.observe_request(ttft_ms=event.get("ttft_ms"), tpot_ms=event.get("tpot_ms"),
+                                     ok=event.get("stop_reason") in ("eos", "max_tokens"))
 
     def _round_prompts(self, round_idx: int) -> list[list[int]]:
         """Deterministic in (seed, round): a relaunched round makes the
@@ -207,6 +223,7 @@ class RLLoop:
         `emit` receives one JSON-able record per round."""
         options = self.options
         registry = get_registry()
+        tracer = get_tracer()
         should_stop = (lambda: shutdown.requested) if shutdown is not None else None
         mean_reward = 0.0
         interrupted = False
@@ -219,28 +236,31 @@ class RLLoop:
             t_round = time.perf_counter()
             engine_before = (self.engine.decode_steps, self.engine.prefill_chunks,
                              self.engine.tokens_generated)
-            self._submit_user_traffic(round_idx)
-            rollouts = self.collector.collect(round_idx, self._round_prompts(round_idx),
-                                              should_stop=should_stop)
-            t_collect = time.perf_counter()
-            if shutdown is not None and shutdown.requested:
-                interrupted = True
-                break
-            for rollout in rollouts:
-                rollout.reward = self.reward_fn(rollout.prompt, rollout.tokens)
-            mean_reward = float(np.mean([r.reward for r in rollouts])) if rollouts else 0.0
-            metrics = {}
-            if rollouts:
-                metrics = self._update(self._build_batch(rollouts))
-            else:
-                logger.warning("round %d harvested no usable rollouts — skipping the update "
-                               "(weights unchanged)", round_idx)
-            t_update = time.perf_counter()
-            sync = last_sync = sync_weights(self.engine, self.state.model.policy.state_dict(
-                keep_vars=True), mode=options.sync_mode)
-            t_sync = time.perf_counter()
-            self._checkpoint(round_idx + 1)
-            t_end = time.perf_counter()
+            with tracer.measure("rl", "round", round=round_idx):
+                self._submit_user_traffic(round_idx)
+                rollouts = self.collector.collect(round_idx, self._round_prompts(round_idx),
+                                                  should_stop=should_stop)
+                t_collect = time.perf_counter()
+                if shutdown is not None and shutdown.requested:
+                    interrupted = True
+                    break
+                for rollout in rollouts:
+                    rollout.reward = self.reward_fn(rollout.prompt, rollout.tokens)
+                mean_reward = float(np.mean([r.reward for r in rollouts])) if rollouts else 0.0
+                metrics = {}
+                if rollouts:
+                    batch = self._build_batch(rollouts)
+                    with tracer.measure("rl", "update", round=round_idx):
+                        metrics = self._update(batch)
+                else:
+                    logger.warning("round %d harvested no usable rollouts — skipping the update "
+                                   "(weights unchanged)", round_idx)
+                t_update = time.perf_counter()
+                sync = last_sync = sync_weights(self.engine, self.state.model.policy.state_dict(
+                    keep_vars=True), mode=options.sync_mode)
+                t_sync = time.perf_counter()
+                self._checkpoint(round_idx + 1)
+                t_end = time.perf_counter()
             self.timings.append({
                 "round": round_idx, "collect_s": t_collect - t_round,
                 "decode_steps": self.engine.decode_steps - engine_before[0],

@@ -1,11 +1,10 @@
 """Rollout collection through the serving engine.
 
-Counterpart of `llm_training_tpu/rl/rollout.py` (without the SLO
-arbitration, which comes with `rl-fit`'s SLO monitor, ROADMAP A.7b:
-`rl/rollout_yields` stays 0). Rollouts are ordinary `ServingEngine` requests, `group_size`
-samples per prompt, submitted as a priority class of their own (below
-user traffic by default); the collector drives `engine.step()` as the
-serve loop does and routes every other event to `on_foreign_event`.
+Counterpart of `llm_training_tpu/rl/rollout.py`. Rollouts are ordinary
+`ServingEngine` requests, `group_size` samples per prompt, submitted as a
+priority class of their own (below user traffic by default); the
+collector drives `engine.step()` as the serve loop does and routes every
+other event to `on_foreign_event`.
 
 - behavior logprobs: every token event carries the chosen token's logprob
   under the distribution it was sampled from; GRPO's ratio is taken
@@ -15,8 +14,15 @@ serve loop does and routes every other event to `on_foreign_event`.
   engine's current generation: one that spans a `reload_weights` is
   dropped and counted (`rl/rollouts_stale_dropped`), never trained on.
 
-`stats()` reads the counters under a lock; everything else is host state
-of the collection thread.
+SLO arbitration: with an `SLOMonitor` attached, a NEW serve-domain breach
+(TTFT/TPOT) stops the submission of further rollout groups for
+`yield_steps` engine steps (`rl/rollout_yields` counts the waves and a
+`rollout_yield` trace instant marks each); rollouts in flight keep their
+slots and user traffic keeps flowing. Each round is a `collect_round`
+span.
+
+`stats()` reads the counters under a lock (the exporter's scrape threads
+call it); everything else is host state of the collection thread.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import logging
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
+
+from llm_training_tpu_torch.telemetry.trace import get_tracer
 
 logger = logging.getLogger(__name__)
 
@@ -86,6 +94,8 @@ class RolloutCollector:
         max_new_tokens: int = 16,
         priority: int = -1,
         on_foreign_event: Callable[[dict], None] | None = None,
+        slo: Any | None = None,
+        yield_steps: int = 50,
     ):
         if group_size < 1:
             raise ValueError(f"group_size must be >= 1, got {group_size}")
@@ -94,6 +104,8 @@ class RolloutCollector:
         self.max_new_tokens = max_new_tokens
         self.priority = priority
         self.on_foreign_event = on_foreign_event
+        self.slo = slo
+        self.yield_steps = max(0, int(yield_steps))
         self._pending: dict[str, _Pending] = {}
         self._lock = threading.Lock()
         self._counters = {  # guarded by: _lock
@@ -103,6 +115,10 @@ class RolloutCollector:
             "rollouts_failed": 0,
             "rollout_yields": 0,
         }
+        # SLO arbitration state: read and written between engine steps on
+        # the collection thread only, never by a scrape
+        self._seen_breaches = self.slo.breach_count() if self.slo is not None else 0
+        self._yield_left = 0
 
     def _bump(self, key: str, n: int = 1) -> None:
         with self._lock:
@@ -169,6 +185,30 @@ class RolloutCollector:
             if event.get("type") == "done":
                 pending.done = event
 
+    # --------------------------------------------------------- arbitration
+
+    def _slo_gate(self) -> bool:
+        """True while rollout submission yields to serve traffic: a NEW
+        serve-domain breach opens (or re-arms) a `yield_steps` window."""
+        if self.slo is not None:
+            breaches = self.slo.breach_count()
+            if breaches > self._seen_breaches:
+                self._seen_breaches = breaches
+                alert = self.slo.last_alert() or {}
+                if str(alert.get("key", "")).startswith("serve/"):
+                    self._yield_left = self.yield_steps
+                    self._bump("rollout_yields")
+                    get_tracer().instant("rl", "rollout_yield", key=alert.get("key"),
+                                         burn_fast=alert.get("burn_fast"),
+                                         yield_steps=self.yield_steps)
+                    logger.warning("rollout submission yielding %d engine steps to serve "
+                                   "traffic (SLO breach on %s)", self.yield_steps,
+                                   alert.get("key"))
+        if self._yield_left > 0:
+            self._yield_left -= 1
+            return True
+        return False
+
     # ------------------------------------------------------------- collect
 
     def collect(
@@ -178,28 +218,33 @@ class RolloutCollector:
         max_steps: int = 100_000,
         should_stop: Callable[[], bool] | None = None,
     ) -> list[Rollout]:
-        """One round: submit `group_size` samples per prompt, drive the
-        engine until every rollout of the round is terminal, and harvest
-        them. Adopted samples of this round take their original (prompt,
-        sample) places instead of being submitted again. `should_stop`
-        (a `GracefulShutdown`'s flag) breaks out between engine steps: the
-        caller drains, journals, and the round replays."""
+        """One round: submit `group_size` samples per prompt (groups wait
+        while the SLO gate is closed), drive the engine until every rollout
+        of the round is terminal, and harvest them. Adopted samples of this
+        round take their original (prompt, sample) places instead of being
+        submitted again. `should_stop` (a `GracefulShutdown`'s flag) breaks
+        out between engine steps: the caller drains, journals, and the
+        round replays."""
         queue = list(enumerate(prompts))
-        for _ in range(max_steps):
-            if should_stop is not None and should_stop():
-                break
-            while queue:
-                prompt_idx, prompt = queue.pop(0)
-                self._route(self._submit_group(round_idx, prompt_idx, prompt))
-            open_rollouts = [p for p in self._pending.values()
-                             if p.round_idx == round_idx and p.done is None]
-            if not open_rollouts:
-                break
-            self._route(self.engine.step())
-        else:
-            raise RuntimeError(
-                f"rollout round {round_idx} not drained after {max_steps} engine steps"
-            )
+        with get_tracer().measure("rl", "collect_round", round=round_idx, prompts=len(prompts),
+                                  group=self.group_size):
+            for _ in range(max_steps):
+                if should_stop is not None and should_stop():
+                    break
+                while queue and not self._slo_gate():
+                    prompt_idx, prompt = queue.pop(0)
+                    self._route(self._submit_group(round_idx, prompt_idx, prompt))
+                    if self._yield_left > 0:
+                        break
+                open_rollouts = [p for p in self._pending.values()
+                                 if p.round_idx == round_idx and p.done is None]
+                if not queue and not open_rollouts:
+                    break
+                self._route(self.engine.step())
+            else:
+                raise RuntimeError(
+                    f"rollout round {round_idx} not drained after {max_steps} engine steps"
+                )
         return self._harvest(round_idx)
 
     def _harvest(self, round_idx: int) -> list[Rollout]:
@@ -219,6 +264,8 @@ class RolloutCollector:
             if stale or (not pending.generations and not pending.adopted):
                 # tokens decoded under older weights, or of unknown origin
                 self._bump("rollouts_stale_dropped")
+                get_tracer().instant("rl", "rollout_stale_dropped", request_id=id,
+                                     generations=sorted(pending.generations), current=current)
                 continue
             if len(logprobs) != len(done.get("tokens", [])) or any(lp is None for lp in logprobs):
                 # a logprob gap would poison the importance ratio

@@ -25,6 +25,7 @@ from typing import Any, Mapping
 import torch
 
 from llm_training_tpu_torch.telemetry.registry import get_registry
+from llm_training_tpu_torch.telemetry.trace import get_tracer
 
 _MODES = ("fused", "host")
 
@@ -37,23 +38,25 @@ def sync_weights(engine: Any, weights: Mapping[str, torch.Tensor], mode: str = "
     if mode not in _MODES:
         raise ValueError(f"sync mode must be one of {_MODES}, got {mode!r}")
     t0 = time.perf_counter()
-    if mode == "host":
-        held = engine.model.state_dict(keep_vars=True)
-        host = {name: tensor.detach().to("cpu", copy=True) for name, tensor in weights.items()}
-        fits = set(host) == set(held) and all(
-            (held[n].shape, held[n].dtype) == (t.shape, t.dtype) for n, t in host.items())
-        # a tree that does not fit is handed on as it is: reload_weights
-        # names the mismatch before the engine's tensors change
-        placed = host
-        if fits:
-            for name, tensor in host.items():
-                held[name].detach().copy_(tensor)
-            placed = held
-            if any(t.device.type == "cuda" for t in held.values()):
-                torch.cuda.synchronize()
-    else:
-        placed = dict(weights)
-    generation = engine.reload_weights(placed)
+    with get_tracer().measure("rl", "weight_sync", mode=mode):
+        if mode == "host":
+            held = engine.model.state_dict(keep_vars=True)
+            host = {name: tensor.detach().to("cpu", copy=True)
+                    for name, tensor in weights.items()}
+            fits = set(host) == set(held) and all(
+                (held[n].shape, held[n].dtype) == (t.shape, t.dtype) for n, t in host.items())
+            # a tree that does not fit is handed on as it is: reload_weights
+            # names the mismatch before the engine's tensors change
+            placed = host
+            if fits:
+                for name, tensor in host.items():
+                    held[name].detach().copy_(tensor)
+                placed = held
+                if any(t.device.type == "cuda" for t in held.values()):
+                    torch.cuda.synchronize()
+        else:
+            placed = dict(weights)
+        generation = engine.reload_weights(placed)
     dt = time.perf_counter() - t0
     registry = get_registry()
     registry.gauge("rl/weight_syncs").set(float(generation))

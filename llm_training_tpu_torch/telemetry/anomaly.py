@@ -16,11 +16,9 @@ only, copied). Two pieces, both consumed by `callbacks.NanGuard` (the run-health
   `anomaly-<step>.json` into the run directory — the offending metric
   snapshot, the per-layer health gauges from the trainer's most recent
   health step (`trainer.last_health`), and the offending layer paths —
-  so post-mortem starts from a file instead of a scrollback hunt.
-
-JAX's dump also writes the trace ring's flight dump beside the file and
-arms a device profile under the same tag; `fit`'s share of the tracer and
-the profile trigger comes with ROADMAP A.7b.
+  so post-mortem starts from a file instead of a scrollback hunt. The
+  trace ring's flight dump lands beside it, and a device profile is armed
+  under the same tag, as JAX's dump does.
 """
 
 from __future__ import annotations
@@ -180,6 +178,20 @@ def dump_anomaly(
             payload.update({k: _jsonable(v) if not isinstance(v, (dict, list)) else v
                             for k, v in extra.items()})
         path.write_text(json.dumps(payload, indent=2))
+        # flight recorder: the trace ring's last events (the steps leading
+        # into the anomaly) land next to the metric snapshot; flight_dump
+        # never raises
+        from llm_training_tpu_torch.telemetry.trace import get_tracer
+
+        get_tracer().flight_dump(run_dir, f"anomaly-{step}")
+        # matching-tag device profile: if the guard lets the run go on
+        # (warn and rollback paths), the next steps are captured under the
+        # same `anomaly-<step>` name; on an abort the request is never polled
+        from llm_training_tpu_torch.telemetry.profiling import get_profile_trigger
+
+        trigger = get_profile_trigger()
+        if trigger is not None:
+            trigger.request(f"anomaly-{step}", source="anomaly")
         return path
     except Exception:
         logger.exception("anomaly dump failed (step %d, reason %s)", step, reason)

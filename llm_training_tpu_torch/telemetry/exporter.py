@@ -19,8 +19,9 @@ only). A background daemon thread runs a small HTTP server (enabled by
 
 Scrape handler threads never touch the card: everything rendered here is
 host-side state. A port collision degrades to a logged warning and a
-disabled exporter, never a crash. Fleet discovery cards (`LLMT_FLEET_DIR`)
-come with the fleet plane (ROADMAP A.7c).
+disabled exporter, never a crash. With `LLMT_FLEET_DIR` set, an armed
+exporter announces itself with a discovery card in that directory
+(`telemetry/fleet.py`), removed on a clean stop.
 """
 
 from __future__ import annotations
@@ -218,8 +219,8 @@ class MetricsExporter:
         self.extra_fn = extra_fn
         self.status_fn = status_fn
         self.host = host
-        # fleet discovery role (train|serve|bench) stamped on the replica
-        # card by the fleet plane (ROADMAP A.7c)
+        # fleet discovery role (train|serve|bench|router) stamped on the
+        # replica card when LLMT_FLEET_DIR is armed
         self.role = role
         self._clock = clock
         # /healthz turns red at HALF the watchdog window by default: early
@@ -234,6 +235,7 @@ class MetricsExporter:
         self.port: int | None = None  # bound port; guarded by: _lock
         self._scrapes = 0  # guarded by: _lock
         self._errors = 0  # guarded by: _lock
+        self._card_path = None  # fleet discovery card; guarded by: _lock
 
     # ----------------------------------------------------------- lifecycle
 
@@ -267,11 +269,20 @@ class MetricsExporter:
             "metrics exporter listening on port %d "
             "(/metrics /statusz /healthz)", self.port,
         )
-        if os.environ.get("LLMT_FLEET_DIR"):
-            logger.warning(
-                "LLMT_FLEET_DIR is set but fleet discovery cards are not "
-                "ported (ROADMAP A.7c); this exporter writes none"
-            )
+        # fleet discovery: an armed exporter announces itself by card so an
+        # aggregator finds the fleet without static config (lazy import:
+        # fleet imports this module at module level)
+        from llm_training_tpu_torch.telemetry.fleet import (
+            resolve_fleet_dir,
+            write_replica_card,
+        )
+
+        fleet_dir = resolve_fleet_dir()
+        card = None
+        if fleet_dir is not None:
+            card = write_replica_card(fleet_dir, port=self.port, role=self.role)
+        with self._lock:
+            self._card_path = card
         return True
 
     def stop(self) -> None:
@@ -281,6 +292,13 @@ class MetricsExporter:
         with self._lock:
             server, self._server = self._server, None
             thread, self._thread = self._thread, None
+            card, self._card_path = self._card_path, None
+        if card is not None:
+            # a clean stop removes the discovery card; a SIGKILL cannot, and
+            # the aggregator's stale-pid check covers that hole
+            from llm_training_tpu_torch.telemetry.fleet import remove_replica_card
+
+            remove_replica_card(card)
         if server is not None:
             server.shutdown()
             server.server_close()

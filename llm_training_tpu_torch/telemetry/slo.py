@@ -6,8 +6,8 @@ only). It evaluates a declarative SLO config over sliding windows:
 - **serve**: `ttft_p99_ms`, `tpot_p99_ms` (latency SLOs: at most 1% of
   requests may exceed the target), `error_rate` (at most this fraction of
   requests may end without a full completion);
-- **train**: `step_time_p99_s` and `goodput_pct_min` (a level floor).
-  They are parsed here; the port's `fit` does not feed them yet.
+- **train**: `step_time_p99_s` (a latency SLO over optimizer-step wall
+  intervals) and `goodput_pct_min` (a level floor), fed by `fit`.
 
 A breach fires when the violation fraction burns the error budget at
 >= `fast_burn`x over the FAST window AND >= `slow_burn`x over the SLOW

@@ -32,6 +32,19 @@ checkpoint_save; the log steps' metrics gain the ledger's summary, the
 `hbm/*` gauges and the registry's snapshot, and the epilogue hands one
 last record to `on_telemetry`. `health.every_n_steps` adds the per-layer
 norms of `telemetry/health.py` (no change to the step's math).
+
+The live tier, as JAX's `fit` wires it (rank 0's on a mesh, as JAX's are
+process 0's): the tracer's `segment_start` instant, a `compile` span over
+the first micro-step, per-step `data_load` / `train_step` spans (in the
+sink only with `LLMT_TRACE_TRAIN=1`; the ring always records them),
+`validation` and `checkpoint_save` spans, and a `rollback` instant with a
+flight dump of the ring beside each rollback; the sink, a logger's
+`<run_dir>/trace.jsonl`, attached for the fit; an SLO monitor
+(`LLMT_SLO_STEP_TIME_P99_S`, `LLMT_SLO_GOODPUT_PCT_MIN`) fed every
+optimizer-step interval and every log step's goodput; the `/metrics`,
+`/healthz`, `/statusz` and `/profilez` exporter (`LLMT_METRICS_PORT`); and
+the profile trigger, which also takes over a `ProfilerCallback`'s window.
+The epilogue publishes the tracer's counts as `trace/*` gauges.
 `resilience` installs the fault-injection harness, SIGTERM/SIGINT
 handling (an emergency save at the next step boundary, then
 `PreemptionInterrupt`), the hang watchdog fed by the loop and the
@@ -76,12 +89,14 @@ on a mesh raise (ROADMAP A.9b).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import inspect
 import logging
 import time
 import traceback
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -134,11 +149,16 @@ from llm_training_tpu_torch.telemetry import (
     HealthConfig,
     TelemetryRegistry,
     build_param_groups,
+    build_profile_trigger,
+    build_slo_monitor,
+    get_tracer,
     hbm_gauges,
     layer_health_metrics,
     layer_health_tensor,
     resolve_run_dir,
+    set_profile_trigger,
     set_registry,
+    start_exporter,
 )
 from llm_training_tpu_torch.telemetry.health import sq_norm
 from llm_training_tpu_torch.trainer.checkpoint import Checkpointer
@@ -289,6 +309,11 @@ class Trainer:
         self._shutdown: GracefulShutdown | None = None
         self._watchdog: HangWatchdog | None = None
         self._hbm_timeline: HBMTimeline | None = None
+        # the live tier, per fit: the SLO monitor, the profile trigger and
+        # the /metrics exporter
+        self._slo = None
+        self._profile_trigger = None
+        self._exporter = None
         self._preempted = False
         self._recovery: RecoveryManager | None = None
         self.rollbacks: list[dict] = []
@@ -464,6 +489,7 @@ class Trainer:
         self._publish_topology(self.topology_plan)
         previous_registry = set_registry(self.telemetry)
         self._preempted = False
+        trace_attached = False
         try:
             # fault injection first (the environment overlays the config),
             # so every other layer sees the harness
@@ -484,9 +510,52 @@ class Trainer:
                             if getattr(cb, "run_dir", None)), None) if is_primary() else None
             self._hbm_timeline = HBMTimeline(run_dir=log_dir, registry=self.telemetry,
                                              device=self.device)
+            # SLO monitor: armed only by LLMT_SLO_* targets; breaches bump
+            # slo/* counters and flight-dump the trace ring into the run dir
+            self._slo = build_slo_monitor(registry=self.telemetry, run_dir=run_dir)
+            # the profile trigger: SLO breaches, anomaly and rollback dumps,
+            # /profilez and the `profile` command arm captures through it;
+            # only this loop's poll() starts and stops torch.profiler
+            self._profile_trigger = build_profile_trigger(
+                registry=self.telemetry, run_dir=run_dir, cuda=self.device.type == "cuda")
+            # a ProfilerCallback's window becomes a scheduled capture of the
+            # trigger, and the callback goes passive: one owner of the
+            # profiler, so an SLO-fired capture never nests inside it
+            for cb in self.callbacks:
+                window = getattr(cb, "profile_window", None)
+                if callable(window):
+                    start_step, num_steps, trace_dir = window()
+                    self._profile_trigger.schedule(start_step, num_steps, trace_dir=trace_dir,
+                                                   max_steps=self.config.max_steps)
+                    cb._absorbed = True
+            # /metrics (registry + ledger), /statusz, /healthz (red on a
+            # stale watchdog beat), /profilez: LLMT_METRICS_PORT unset
+            # disables it, a port collision degrades to a warning
+            if is_primary():
+                self._exporter = start_exporter(
+                    registry=self.telemetry, ledger=self.ledger, watchdog=self._watchdog,
+                    slo=self._slo, profile=self._profile_trigger, role="train",
+                    status_fn=lambda: {"step": self.last_step, "segment": segment_attempt()},
+                )
+            # the trace sink: lifecycle events land in a logger's
+            # <run_dir>/trace.jsonl (never in the checkpoint directory, which
+            # holds steps only: ROADMAP C.18), per-step spans only with
+            # LLMT_TRACE_TRAIN=1; False when another owner holds the sink
+            if log_dir is not None:
+                trace_attached = get_tracer().attach_sink(Path(log_dir) / "trace.jsonl")
             with use_mesh(self.mesh):
                 return self._fit_inner(objective, datamodule, resume_step)
         finally:
+            if self._exporter is not None:
+                self._exporter.stop()
+                self._exporter = None
+            self._slo = None
+            if self._profile_trigger is not None:
+                # closes a capture left open (the fit raised mid-window) and
+                # unpublishes the trigger, so the next fit starts clean
+                self._profile_trigger.teardown()
+                set_profile_trigger(None)
+                self._profile_trigger = None
             self._hbm_timeline = None
             if self._watchdog is not None:
                 self._watchdog.stop()
@@ -494,6 +563,8 @@ class Trainer:
             if self._shutdown is not None:
                 self._shutdown.uninstall()
                 self._shutdown = None
+            if trace_attached:
+                get_tracer().detach_sink()
             uninstall_chaos()
             set_registry(previous_registry)
             # callbacks that alter process state (output tees, profiler
@@ -505,6 +576,11 @@ class Trainer:
     def _fit_inner(self, objective, datamodule, resume_step) -> TrainState:
         cfg = self.config
         acc = cfg.accumulate_grad_batches
+        # lifecycle spans (compile, validation, checkpoint_save, segment
+        # boundaries) always reach the sink; the per-micro-step spans only
+        # with LLMT_TRACE_TRAIN=1, while the ring records them regardless
+        tracer = get_tracer()
+        trace_train = tracer.train_steps
         datamodule.setup()
         built = {a: getattr(objective, a) for a in _MODEL_ATTRS if hasattr(objective, a)}
         state, base_schedule, meta = self.restored_state(objective, resume_step)
@@ -564,15 +640,20 @@ class Trainer:
             `seg_start` to the end (or a guard's raise, or a stop). With
             recovery unset there is exactly one segment."""
             nonlocal warmed
+            tracer.instant("train", "segment_start", micro=seg_start, step=seg_start // acc)
             skip_list = recovery.skip_list if recovery is not None else None
             batches = self.train_stream(datamodule, seg_start, skip_list)
             first_step = seg_start // acc + 1
             window_time, window_step = time.perf_counter(), seg_start // acc
+            # the SLO's step-cadence anchor, reset per segment so a
+            # rollback's restore never bills as one slow step
+            slo_step_t: float | None = None
             try:
                 for micro in range(seg_start, micro_steps):
                     if self._watchdog is not None:
                         self._watchdog.beat("train_loop", step=micro)
-                    with self.ledger.measure("data_wait"):
+                    with self.ledger.measure("data_wait"), tracer.measure(
+                            "train", "data_load", write=trace_train, step=micro):
                         batch, (samples, tokens) = next(batches)
                     if self._global_batch_size is None:
                         self._global_batch_size = samples
@@ -588,9 +669,13 @@ class Trainer:
                     # the fit's first micro-step builds and loads the kernels
                     # and warms the allocator: the port's stand-in for compile
                     phase = "step_compute" if warmed else "compile"
+                    compile_span = (contextlib.nullcontext() if warmed
+                                    else tracer.measure("train", "compile"))
                     t_step = time.perf_counter()
-                    with self.ledger.measure(phase):
+                    with self.ledger.measure(phase), compile_span:
                         metrics = self.train_micro_step(objective, state, batch, health=use_health)
+                    tracer.span("train", "train_step", t_step, time.perf_counter(),
+                                write=trace_train, step=micro)
                     if not warmed:
                         self.telemetry.gauge("compile_time_s").set(time.perf_counter() - t_step)
                         warmed = True
@@ -601,6 +686,15 @@ class Trainer:
                         continue
                     step = (micro + 1) // acc
                     self.last_step = step
+                    if self._slo is not None:
+                        now_step = time.perf_counter()
+                        if slo_step_t is not None:
+                            self._slo.observe_step(now_step - slo_step_t, step=step)
+                        slo_step_t = now_step
+                    if self._profile_trigger is not None:
+                        # after the SLO observe: a breach fired there arms a
+                        # request, and this poll starts its capture at once
+                        self._profile_trigger.poll(step)
                     health = metrics.pop("health", None)
                     self.last_metrics = metrics
                     if health is not None:
@@ -629,6 +723,10 @@ class Trainer:
                         host.update(self.counters)
                         window_time, window_step = now, step
                         host.update(self.ledger.summary())
+                        if self._slo is not None:
+                            # before the snapshot, so this record carries the
+                            # fresh slo/* burn gauges
+                            self._slo.observe_goodput(float(host["goodput/goodput_pct"]), step=step)
                         host.update(self._hbm_timeline.sample(step))
                         host.update(self.telemetry.snapshot())
                         logger.info("step %d | loss %.4f | grad_norm %.3f | %.2f steps/s | "
@@ -640,7 +738,8 @@ class Trainer:
                         # the first step's warm-up stays out of the throughput window
                         window_time, window_step = time.perf_counter(), step
                     if cfg.val_check_interval and step % cfg.val_check_interval == 0:
-                        with self.ledger.measure("validation"):
+                        with self.ledger.measure("validation"), tracer.measure(
+                                "train", "validation", step=step):
                             self._run_validation(objective, datamodule, step)
                     if (
                         self.checkpointer is not None
@@ -650,7 +749,8 @@ class Trainer:
                         and not self.abort_final_save
                         and self._loss_finite(metrics, step)
                     ):
-                        with self.ledger.measure("checkpoint_save"):
+                        with self.ledger.measure("checkpoint_save"), tracer.measure(
+                                "train", "checkpoint_save", step=step):
                             self.checkpointer.save(step, state, counters=dict(self.counters),
                                                    extra=self._save_extra(step))
                         self._last_interval_save = step
@@ -707,6 +807,19 @@ class Trainer:
                         type(failure).__name__, plan.failed_step, start_micro,
                         win_start, win_start + win_len,
                     )
+                    # flight recorder: the ring holds the steps that led into
+                    # the divergence; dump them beside the guard's anomaly file
+                    tracer.instant("resilience", "rollback", failed_step=plan.failed_step,
+                                   restored_micro=start_micro,
+                                   rollback_index=plan.rollback_index,
+                                   failure=type(failure).__name__)
+                    rollback_run_dir = resolve_run_dir(self) if is_primary() else None
+                    if rollback_run_dir is not None:
+                        tracer.flight_dump(rollback_run_dir, f"rollback-{plan.failed_step}")
+                    if self._profile_trigger is not None:
+                        # a profile of the re-entered steps under the same tag
+                        self._profile_trigger.request(f"rollback-{plan.failed_step}",
+                                                      source="rollback")
                     self._callbacks("on_rollback", start_micro // acc)
                     recovery.register_cooldown(start_micro // acc)
                     # the cooldown re-wraps the schedule only: the restored
@@ -730,7 +843,8 @@ class Trainer:
             and not self.abort_final_save
             and self._loss_finite(self.last_metrics, self.last_step)
         ):
-            with self.ledger.measure("checkpoint_save"):
+            with self.ledger.measure("checkpoint_save"), tracer.measure(
+                    "train", "checkpoint_save", step=self.last_step):
                 # force: the step may collide with a stale entry of a previous
                 # run of the directory (the emergency-save case); but a step
                 # this fit's interval save wrote is not written twice
@@ -750,6 +864,11 @@ class Trainer:
         # one last telemetry record: the final save landed after the last
         # log step
         if self.last_step is not None:
+            counts = tracer.counts()
+            self.telemetry.gauge("trace/events_recorded").set(counts["recorded"])
+            self.telemetry.gauge("trace/events_written").set(counts["written"])
+            self.telemetry.gauge("trace/flight_dumps").set(counts["flight_dumps"])
+            tracer.flush()
             self.last_telemetry = {**self.ledger.summary(), **hbm_gauges(self.device),
                                    **self.telemetry.snapshot()}
             self._callbacks("on_telemetry", self.last_step, self.last_telemetry)

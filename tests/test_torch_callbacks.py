@@ -257,13 +257,16 @@ class _Raise:
 
 def test_profiler_writes_a_trace_over_the_window(tmp_path):
     """A CPU `torch.profiler` trace of steps [1, 3) lands in the run
-    directory as a Chrome trace; a fit raising inside a window leaves no
-    trace open (`teardown`)."""
+    directory as a Chrome trace: inside a fit the fit's profile trigger
+    takes the callback's window (the callback goes passive, as JAX's);
+    outside one the callback captures it itself. A fit raising inside a
+    window leaves no trace open (the trigger's and the callback's
+    `teardown`)."""
     logger = JsonlLogger(JsonlLoggerConfig(save_dir=str(tmp_path), project="p", name="r"))
     profiler = ProfilerCallback(ProfilerCallbackConfig(start_step=1, num_steps=2))
     _port_fit([logger, profiler], max_steps=4)
     trace = tmp_path / "p" / "r" / "profile-window-1" / "trace.json"
-    assert profiler.trace_path == trace
+    assert profiler._absorbed and profiler.trace_path is None
     events = json.loads(trace.read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
     open_window = ProfilerCallback(ProfilerCallbackConfig(trace_dir=str(tmp_path / "t"),
@@ -271,6 +274,17 @@ def test_profiler_writes_a_trace_over_the_window(tmp_path):
     with pytest.raises(RuntimeError, match="stop here"):
         _port_fit([open_window, _Raise(2)], max_steps=4)
     assert open_window._profiler is None and (tmp_path / "t" / "trace.json").exists()
+    # no trigger: the callback owns the capture of [1, 3)
+    alone = ProfilerCallback(ProfilerCallbackConfig(trace_dir=str(tmp_path / "alone"),
+                                                    start_step=1, num_steps=2))
+    trainer = types.SimpleNamespace(config=types.SimpleNamespace(max_steps=4), device="cpu",
+                                    callbacks=[])
+    for step in range(1, 5):
+        alone.on_train_step(trainer, step)
+        torch.ones(4).sum()
+    assert alone.trace_path == tmp_path / "alone" / "trace.json"
+    events = json.loads(alone.trace_path.read_text())["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
 
 
 def test_output_redirection_is_restored_by_teardown(tmp_path):

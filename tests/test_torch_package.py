@@ -202,6 +202,56 @@ print(json.dumps(dict(rc=rc, drained=drained, codes=codes, calls=calls,
                        mirrored=[1])
 
 
+def test_control_planes_never_touch_cuda(tmp_path):
+    """In a fresh interpreter whose CUDA initialization raises: `report`
+    (text and JSON) on a run directory, `fleet --once` over a live
+    exporter's discovery card and over an empty directory, and `route
+    --help` leave `torch.cuda.is_initialized()` False and never call it."""
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    (run_dir / "metrics.jsonl").write_text(json.dumps({"step": 1, "loss": 2.0}) + "\n")
+    (run_dir / "telemetry.jsonl").write_text(json.dumps(
+        {"step": 1, "goodput/goodput_pct": 90.0, "router/requests_total": 3.0}) + "\n")
+    script = f"""
+import contextlib, io, json, os, sys, threading
+sys.path.insert(0, {str(ROOT)!r})
+import torch
+calls = []
+def refuse(*args, **kwargs):
+    calls.append(threading.current_thread().name)
+    raise RuntimeError("CUDA initialized")
+torch.cuda._lazy_init = refuse
+torch.cuda.init = refuse
+from llm_training_tpu_torch.cli.main import main
+from llm_training_tpu_torch.telemetry.exporter import MetricsExporter
+from llm_training_tpu_torch.telemetry.registry import TelemetryRegistry
+os.environ["LLMT_FLEET_DIR"] = {str(tmp_path / "fleet")!r}
+exporter = MetricsExporter(0, registry=TelemetryRegistry(), role="serve")
+exporter.start()
+codes = []
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    codes.append(main(["report", {str(run_dir)!r}]))
+    codes.append(main(["report", {str(run_dir)!r}, "--format", "json"]))
+    codes.append(main(["fleet", "--once", "--json"]))
+    codes.append(main(["fleet", "--once", "--dir", {str(tmp_path / "empty")!r}]))
+    try:
+        main(["route", "--help"])
+    except SystemExit as e:
+        codes.append(e.code)
+exporter.stop()
+text = out.getvalue()
+print(json.dumps(dict(codes=codes, calls=calls, initialized=torch.cuda.is_initialized(),
+                      router="== Router ==" in text, fleet='"verdict": "green"' in text)))
+"""
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=tmp_path, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(codes=[0, 0, 0, 2, 0], calls=[], initialized=False, router=True,
+                       fleet=True)
+
+
 @pytest.mark.skipif(__import__("torch").cuda.is_available(),
                     reason="this machine has CUDA: the default device is available")
 def test_serve_preset_needs_cuda_unless_cpu_is_asked_for(tmp_path):

@@ -35,6 +35,7 @@ from llm_training_tpu.resilience import RetryPolicy as JaxRetryPolicy
 from llm_training_tpu.resilience import cooldown_schedule as jax_cooldown
 from llm_training_tpu.resilience import retry_call as jax_retry_call
 from llm_training_tpu.resilience.chaos import Chaos as JaxChaos
+from llm_training_tpu.resilience.chaos import config_from_env as jax_chaos_from_env
 from llm_training_tpu.resilience.watchdog import HangWatchdog as JaxWatchdog
 from llm_training_tpu.telemetry.goodput import GoodputLedger as JaxLedger
 from llm_training_tpu.trainer import Trainer as JaxTrainer
@@ -222,23 +223,33 @@ def test_chaos_env_overlay_and_refused_keys(monkeypatch):
     config = config_from_env(ChaosConfig(spike_step=4))
     assert (config.nan_step, config.data_error_steps, config.slow_step_s,
             config.spike_step) == (7, (2, 5), 0.5, 4)
-    # the checkpoint's triggers and SIGKILL are ported (A.4), the serving
-    # tier's too (A.7a); the router's still raise, naming A.7c
+    # the checkpoint's triggers and SIGKILL, the serving tier's and the
+    # router's parse from the environment as JAX's do
     monkeypatch.setenv("LLMT_CHAOS_SIGKILL_STEP", "3")
     assert config_from_env().sigkill_step == 3
     monkeypatch.setenv("LLMT_CHAOS_SERVE_STALL_STEP", "3")
     assert config_from_env().serve_stall_step == 3
     monkeypatch.setenv("LLMT_CHAOS_ROUTER_BLACKHOLE", "3")
-    with pytest.raises(NotImplementedError, match="A.7c"):
-        config_from_env()
+    monkeypatch.setenv("LLMT_CHAOS_ROUTER_KILL_REPLICA", "5")
+    ours = config_from_env()
+    assert (ours.router_blackhole_at, ours.router_kill_replica_at) == (3, 5)
+    theirs = jax_chaos_from_env()
+    assert (theirs.router_blackhole_at, theirs.router_kill_replica_at) == (3, 5)
     for key, value in (("checkpoint_error_steps", (1,)), ("sigkill_step", 2),
                        ("ckpt_corrupt", "flip"), ("ckpt_kill_in_swap", 1),
                        ("checkpoint_error_prob", 0.5), ("serve_stall_step", 1),
                        ("serve_sigterm_step", 1), ("serve_malformed_flood", 2)):
         assert ChaosConfig(**{key: value}).any_active(), key
-    for key, value in (("router_kill_replica_at", 1), ("router_blackhole_at", 1)):
-        with pytest.raises(NotImplementedError, match="A.7c"):
-            ChaosConfig(**{key: value})
+    # each router trigger fires once, at the same counts as JAX's
+    for key, value in (("router_kill_replica_at", 4), ("router_blackhole_at", 2)):
+        assert ChaosConfig(**{key: value}).any_active(), key
+        fired = []
+        for harness in (Chaos(ChaosConfig(**{key: value})),
+                        JaxChaos(JaxChaosConfig(**{key: value}))):
+            fire = (harness.maybe_router_kill_replica if key == "router_kill_replica_at"
+                    else harness.maybe_router_blackhole)
+            fired.append([fire(n) for n in range(8)])
+        assert fired[0] == fired[1] and sum(fired[0]) == 1, (key, fired)
     assert ResilienceConfig(elastic={"price_per_chip_hour": 1.0}).elastic.price_per_chip_hour == 1.0
     with pytest.raises(ValueError):
         ResilienceConfig(watchdog_action="explode")

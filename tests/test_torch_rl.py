@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import urllib.request
 from pathlib import Path
 
 import flax.linen as nn
@@ -49,6 +50,9 @@ from llm_training_tpu_torch.rl import RolloutCollector, resolve_reward, sync_wei
 from llm_training_tpu_torch.rl import reward as port_reward
 from llm_training_tpu_torch.rl import rollout as port_rollout
 from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
+from llm_training_tpu_torch.telemetry import report as port_report
+from llm_training_tpu_torch.telemetry import trace as port_trace
+from llm_training_tpu_torch.telemetry.exporter import find_free_port, parse_prometheus_text
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 
 jax_ce = importlib.import_module("llm_training_tpu.ops.cross_entropy")
@@ -324,6 +328,78 @@ def test_stale_generation_rollouts_dropped():
     assert stats["rl/rollouts_collected"] + stats["rl/rollouts_stale_dropped"] == 4.0
 
 
+class _StubEngine:
+    """An engine whose requests each stream `length` tokens, one a step."""
+
+    def __init__(self, length=3):
+        self.length, self.weights_generation = length, 0
+        self.live, self.submitted, self.steps = {}, [], 0
+
+    def submit(self, id, prompt, max_new_tokens, priority):
+        self.submitted.append((self.steps, id))
+        self.live[id] = []
+        return []
+
+    def step(self):
+        self.steps += 1
+        events = []
+        for id, tokens in list(self.live.items()):
+            tokens.append(len(tokens) + 2)
+            events.append({"type": "token", "id": id, "token": tokens[-1],
+                           "logprob": -1.0, "generation": 0})
+            if len(tokens) == self.length:
+                events.append({"type": "done", "id": id, "stop_reason": "max_tokens",
+                               "tokens": list(tokens), "logprobs": [-1.0] * len(tokens),
+                               "generation": 0})
+                del self.live[id]
+        return events
+
+
+class _ScriptedSLO:
+    """Breaches at the engine steps of `script` ({step: key})."""
+
+    def __init__(self, engine, script):
+        self.engine, self.script, self.alert = engine, script, None
+
+    def breach_count(self):
+        fired = [k for step, k in self.script.items() if step <= self.engine.steps]
+        if fired:
+            self.alert = {"key": fired[-1], "burn_fast": 20.0}
+        return len(fired)
+
+    def last_alert(self):
+        return self.alert
+
+
+@pytest.mark.parametrize("script,yield_steps,yields", [
+    ({}, 4, 0),
+    ({2: "serve/ttft_p99_ms"}, 4, 1),
+    ({2: "serve/ttft_p99_ms", 5: "serve/tpot_p99_ms", 9: "train/step_time_p99_s",
+      13: "serve/ttft_p99_ms"}, 2, 3),
+    ({2: "serve/ttft_p99_ms", 4: "train/step_time_p99_s"}, 3, 1),
+    ({2: "serve/ttft_p99_ms"}, 0, 1),
+], ids=["none", "one", "mixed", "train_only_after", "zero_window"])
+def test_rollout_yield_decisions_match_jax(script, yield_steps, yields):
+    """The same breach sequence through JAX's collector and the port's: the
+    same groups submitted at the same engine steps, the same yields, the
+    same harvest."""
+    from llm_training_tpu.rl.rollout import RolloutCollector as JaxCollector
+
+    results = []
+    for cls in (JaxCollector, RolloutCollector):
+        engine = _StubEngine()
+        collector = cls(engine, group_size=2, max_new_tokens=3, slo=_ScriptedSLO(engine, script),
+                        yield_steps=yield_steps)
+        got = [collector.collect(r, [[5, 6], [7, 8], [9, 9]]) for r in range(4)]
+        results.append((engine.submitted, collector.stats(),
+                        [[(x.id, x.tokens) for x in round_] for round_ in got]))
+    assert results[1] == results[0]
+    assert results[1][1]["rl/rollout_yields"] == yields
+    # a yield holds the next round's groups back by whole engine steps
+    rounds_at = sorted({step for step, _ in results[1][0]})
+    assert (rounds_at == [0, 3, 6, 9]) == (not yields or yield_steps == 0)
+
+
 def test_weight_sync_stream_equivalence_fused_vs_host_vs_fresh():
     """A greedy request in flight across a sync continues with the same
     tokens under `fused` and `host` sync and on a fresh engine over the
@@ -500,8 +576,11 @@ def test_rl_fit_matches_jax(jax_rl_fit, monkeypatch, capsys, tmp_path):
     and mean reward; the loss, KL and clip fraction within rtol 1e-4, each
     tensor of the final policy and reference within 1e-4 relative in norm;
     the mean reward rises as the smoke gate asks (the last two rounds over
-    the first two)."""
+    the first two). The port's run has a TTFT target armed that never
+    breaches: no rollout yields, and its `rl/*` spans and `report`'s
+    `== RL ==` section are JAX's."""
     out, jax_rounds, jax_stats, jax_rollouts = jax_rl_fit
+    monkeypatch.setenv("LLMT_SLO_TTFT_P99_MS", "1e9")
     _load_jax_init(monkeypatch, out / "init.npz")
     got = _harvested(monkeypatch)
     final = {}
@@ -546,6 +625,20 @@ def test_rl_fit_matches_jax(jax_rl_fit, monkeypatch, capsys, tmp_path):
     worst = max(np.linalg.norm(t.numpy() - expected[n].numpy()) / np.linalg.norm(
         expected[n].numpy()) for n, t in final.items())
     assert worst <= FIT_RTOL, worst
+    assert stats["rl/rollout_yields"] == jax_stats["stats"]["rl/rollout_yields"] == 0
+
+    def rl_events(run_dir):
+        return [(e["name"], e["args"].get("round"), e["args"].get("mode"))
+                for e in port_trace.read_trace_events(run_dir / "trace.jsonl") if e["cat"] == "rl"]
+    jax_dir, port_dir = out / "run" / "smoke" / "rl-smoke", tmp_path / "smoke" / "rl-smoke"
+    assert rl_events(port_dir) == rl_events(jax_dir)
+    assert [n for n, _, _ in rl_events(port_dir)][:4] == [
+        "collect_round", "update", "weight_sync", "round"]
+
+    def rl_section(run_dir):
+        text = port_report.render_report(run_dir)
+        return text[text.index("== RL =="):].split("\n\n")[0]
+    assert rl_section(port_dir) == rl_section(jax_dir)
 
 
 def test_rl_fit_sigterm_drill_resumes(monkeypatch, capsys, tmp_path):
@@ -598,36 +691,52 @@ def test_rl_fit_sigterm_drill_resumes(monkeypatch, capsys, tmp_path):
 
 @pytest.mark.parametrize("env,flags,match", [
     ({}, ["--max-queue", "8"], None),
-    ({"LLMT_SLO_TTFT_P99_MS": "50"}, [], "SLO monitor"),
-    ({"LLMT_METRICS_PORT": "9400"}, [], "exporter"),
+    ({"LLMT_SLO_TTFT_P99_MS": "50"}, [], "slo"),
+    ({"LLMT_METRICS_PORT": "free"}, [], "exporter"),
     ({"LLMT_CHAOS_SERVE_SIGTERM_STEP": "5"}, [], None),
 ], ids=["max_queue", "slo", "metrics_port", "serve_chaos"])
 def test_rl_fit_refuses_what_is_not_ported(monkeypatch, tmp_path, env, flags, match):
-    """What `rl-fit` cannot honour yet raises, naming ROADMAP A.7b: an armed
-    SLO target and the exporter. `--max-queue` and the serve chaos triggers
-    are ported (A.7a): the queue bound reaches the engine's scheduler and
-    the trigger parses (zero rounds run no engine step, so it never
-    fires)."""
+    """What JAX's `rl-fit` honours, the port's honours: `--max-queue`
+    reaches the engine's scheduler; the serve chaos triggers parse (zero
+    rounds run no engine step, so it never fires); an armed SLO target
+    builds the monitor the loop and its collector share; and
+    `LLMT_METRICS_PORT` arms the exporter, whose `/metrics` (scraped once
+    while the loop runs) carries the collector's `rl/*` counters."""
     for key, value in env.items():
-        monkeypatch.setenv(key, value)
+        monkeypatch.setenv(key, str(find_free_port()) if value == "free" else value)
     argv = ["rl-fit", "--config", PORT_SMOKE_CONFIG, "--device", "cpu", *flags,
             f"run_root={tmp_path}"]
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match) as raised:
-            cli.main(argv)
-        assert "A.7b" in str(raised.value)
-        return
-    engines = []
-    real_setup = cli.RLLoop.setup
+    loops, scrapes = [], []
+    real_setup, real_run = cli.RLLoop.setup, cli.RLLoop.run
 
     def setup(loop):
         real_setup(loop)
-        engines.append(loop.engine)
+        loops.append(loop)
+
+    def run(loop, *args, **kwargs):
+        if match == "exporter":
+            port = int(os.environ["LLMT_METRICS_PORT"])
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                scrapes.append(parse_prometheus_text(r.read().decode()))
+        return real_run(loop, *args, **kwargs)
 
     monkeypatch.setattr(cli.RLLoop, "setup", setup)
+    monkeypatch.setattr(cli.RLLoop, "run", run)
     assert cli.main([*argv, "--rounds", "0"]) == 0
-    scheduler = engines[0].scheduler.config
+    loop = loops[0]
+    scheduler = loop.engine.scheduler.config
     assert scheduler.max_queue == (8 if flags else None)
+    if match == "slo":
+        assert loop.slo is not None and loop.collector.slo is loop.slo
+        assert [s.key for s in loop.slo.specs] == ["serve/ttft_p99_ms"]
+    else:
+        assert loop.slo is None
+    if match == "exporter":
+        assert len(scrapes) == 1
+        assert scrapes[0]["llmt_rl_rollout_yields"] == 0.0
+        assert "llmt_rl_rollouts_submitted" in scrapes[0]
+    else:
+        assert not scrapes
 
 
 def test_rl_fit_needs_grpo(tmp_path):
