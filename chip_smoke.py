@@ -73,7 +73,7 @@ Phases, each of which must pass (any failure exits non-zero):
 13. preference tuning (run after the lifecycle phase freed its memory):
    DPO, then ORPO, each built from a JSON model node by the CLI's
    `instantiate_from_config` and driven by the `Trainer` at Llama-3.1-8B
-   widths cut to 8 layers (fp32 params, bf16 compute, selective recompute,
+   widths cut to 4 layers (fp32 params, bf16 compute, selective recompute,
    random weights from seed 0) for 6 steps of 8 synthetic pairs (prompts
    of 64-1024 tokens, responses of 32-1024, pairs over 2048 tokens
    dropped, collated by the port's collator to a multiple of 128), both at
@@ -101,7 +101,7 @@ Phases, each of which must pass (any failure exits non-zero):
    packed 8192-token rows in turn, the example's AdamW (cosine, clip 1.0,
    accumulation 1) at the fit phase's peak. First it reads MemAvailable
    and fails if the pinned state would not fit, and times a plain 1 GiB
-   pinned copy each way. At 4 layers, 3 steps each: AdamW with its state
+   pinned copy each way. At 2 layers, 3 steps each: AdamW with its state
    on the card, prefetching 2 batches and 0 (losses equal; the device idle
    share of one traced step of each); AdamW with its state offloaded to
    pinned host memory as float32 (parameters and losses bit-equal to the
@@ -109,7 +109,7 @@ Phases, each of which must pass (any failure exits non-zero):
    limits of the on-card run. Then at full depth (32 layers), 4 steps:
    AdamW with int8 state offloaded, and Adafactor with its state on the
    card; step 1's loss near ln(vocab), the loss on each row lower at its
-   second visit. Then Lion at 4 layers. Every run: K1, K2 and K3 once a
+   second visit. Then Lion at 2 layers. Every run: K1, K2 and K3 once a
    layer a step (128 each at full depth), the plain path never, peak
    memory under the card's; it prints step and update ms, tokens/s, MFU,
    peak memory, pinned host bytes and, offloaded, the update's split
@@ -167,7 +167,7 @@ Phases, each of which must pass (any failure exits non-zero):
    at the end leg a's step 2 is moved (not copied) aside for phase 18d.
 17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
    engine through the `rl-fit` command, in legs. a: in a process of its
-   own, Llama-3.1-8B widths cut to 4 layers (fp32 params, bf16 compute,
+   own, Llama-3.1-8B widths cut to 2 layers (fp32 params, bf16 compute,
    selective recompute, random weights from seed 0), AdamW, beta 0.04,
    clip_eps 0.2, fused sync, no checkpointer; 3 rounds of 4 prompts x 8
    rollouts of 256 + 256 tokens (temperature 1, eos off, `max_batch` 32,
@@ -193,20 +193,21 @@ Phases, each of which must pass (any failure exits non-zero):
    sync at 2 layers: bit-equal engine tensors, the same continuation, which
    a fresh engine over the new weights fed prompt + tokens so far also
    gives. cast: the decode step from fp32 parameters against a bf16 copy,
-   in turns. c (on a thread from the end of leg a, beside parity, sync,
-   cast and phase 18's leg a: its two processes mostly start up and write
-   checkpoints, and the smoke's time limit cannot hold them in sequence;
-   phase 18 joins it before its own checkpoints, so the disk holds one
-   leg's at a time): in processes of their own, 2 layers under SGD with a
+   in turns. c (on a thread from the phase's start, beside leg a, parity,
+   sync, cast and phase 18's legs a and d: its two processes mostly start
+   up and write checkpoints, and the smoke's time limit cannot hold them
+   in sequence; phase 18 joins it before its own checkpoints, so the disk
+   holds one leg's at a time): in processes of their own, 2 layers under SGD with a
    checkpointer (11.9 GB of policy and reference a round) and the rollout
    journal: a real SIGTERM 40 engine steps into round 2 exits 75 with the
    rollouts in flight journaled and the round cursor checkpointed; the
    relaunch (host sync) adopts every journaled rollout, submits none again,
    drops none as stale, and exits 0 with the journal retired.
 18. `serve`'s resilience and live telemetry (run after phase 17 freed its
-   memory; leg a beside phase 17's leg c), through the CLI in processes of their own, each counting K4's
+   memory; legs a and d beside phase 17's leg c), through the CLI in
+   processes of their own, each counting K4's
    launches and the plain decode path's calls (which must stay 0). a:
-   Llama-3.1-8B's widths cut to 8 layers (`--model-config`; bf16, random
+   Llama-3.1-8B's widths cut to 4 layers (`--model-config`; bf16, random
    weights from seed 0),
    `max_batch` 8, `max_model_len` 2048, chunk 256, greedy: 8 warm-up
    requests, then a burst of 48 (prompts of 32-1024 tokens, 64 new) --
@@ -233,8 +234,10 @@ Phases, each of which must pass (any failure exits non-zero):
    every residency's queue/prefill/decode spans within 50 ms. c: 2 layers
    in bf16, a stall at engine step 10 under `--watchdog-timeout-s 6`: a
    hang dump and a flight dump, `/healthz` 503 before the abort, and the
-   supervised relaunch finishes every request. d (on a thread beside the
-   wait for phase 17's leg c): `route --replicas 2` over `serve` children
+   supervised relaunch finishes every request (beside b's fit, its
+   uninterrupted and its supervised run). d (on a thread from the phase's
+   start, beside leg a and the wait for phase 17's leg c): `route
+   --replicas 2` over `serve` children
    at Llama-3.1-8B widths and 1 layer in fp32, restoring phase 16's kept
    step 2 (no new checkpoint), with `LLMT_FLEET_DIR`: 16 greedy requests
    of 64-512 prompt tokens and 32 new; the router SIGKILLs the replica of
@@ -245,18 +248,19 @@ Phases, each of which must pass (any failure exits non-zero):
    stale; each replica counts K4 once a decode step and no plain decode
    call; the router's run dir's `report` renders `== Router ==`. It
    prints start-to-first-token, kill-to-replayed-token, tokens/s and the
-   card's memory peak beside leg c.
-19. HF checkpoint I/O and Phi-3 (run after phase 18 freed its memory), at
-   the published widths of Phi-3-mini-4k-instruct (hidden 3072, 32 layers,
-   32 q and kv heads of 96, vocab 32064, a 2047-token sliding window),
-   random bf16 weights from seed 0. a: `save_hf_checkpoint` writes two
-   safetensors shards, the index and `config.json` (seconds, GB/s). b:
+   card's memory peak beside leg a and phase 17's leg c.
+19. HF checkpoint I/O, Phi-3 and Qwen3 (run after phase 18 freed its
+   memory), at the published widths of Phi-3-mini-4k-instruct (hidden
+   3072, 32 q and kv heads of 96, vocab 32064, a 2047-token sliding
+   window; its 32 layers cut to 16), random bf16 weights from seed 0. a:
+   `save_hf_checkpoint` writes two safetensors shards of at most 2 GiB,
+   the index and `config.json` (seconds, GB/s). b:
    `ModelProvider("HFCausalLM", {"hf_path": ...})` through the objectives'
    `build_model`/`init_model` loads it on the card, every tensor equal to
    the exported model's (seconds, GB/s); a `ServingEngine` (bf16, 8 slots,
    `max_model_len` 4096, block 16, chunk 512) answers 16 requests of
    1024-3072 prompt tokens and 128 new ones (most rows decode past the
-   window): all complete, the pool ends leak-free, K4 launches 32 times a
+   window): all complete, the pool ends leak-free, K4 launches 16 times a
    decode step, the plain decode path never; decode step p50, tokens/s,
    TTFT p50, peak memory. c: DPO built from a JSON node whose model is
    `HFCausalLM` over the same directory with `num_hidden_layers: 8`
@@ -269,7 +273,27 @@ Phases, each of which must pass (any failure exits non-zero):
    writes bf16 safetensors, `HFCausalLM` reloads them on the card: every
    tensor equal to the restored model's rounded to bf16, and the logits of
    one 2 x 1024 batch bit-equal (else the largest difference is printed,
-   and must stay within 8 bf16 steps of the largest logit). Then the
+   and must stay within 8 bf16 steps of the largest logit). e: Qwen3-8B
+   at its published widths (the `qwen3-8b` preset: hidden 4096, 32 q and
+   8 kv heads of 128 with per-head qk-norms, vocab 151936, rope theta 1e6;
+   random bf16 weights from seed 0), once the Phi-3 directory is gone: its
+   36 layers cut to 8, exported (the `config.json` is the `qwen3` overlay)
+   and loaded back through `HFCausalLM` on the card, every tensor equal
+   (the directory deleted as soon as it is loaded); a `ServingEngine` (8
+   slots, block 16, chunk 512) answers 16 greedy requests of 256-2048
+   prompt tokens and 64 new through K4 (8 launches a decode step, the
+   plain decode path never; decode step p50, TTFT p50, the decode
+   profile's device busy and idle share); at 2 layers one decode step and
+   one packed 4096-token row's CLM loss and gradients through K4 / K1-K3
+   in bf16 against the plain path in bf16 and in fp32 (phase 6's and phase
+   9's rules: within ENGINE_LOGITS_RTOL, no further from fp32 than 1.5 x
+   the plain path); the CLM `Trainer` at 4 layers (fp32 parameters, bf16
+   compute, selective recompute, AdamW), 3 steps of 4 packed rows of 4096
+   tokens through K1-K3 (once a layer a step, the plain path never; step
+   p50, MFU, peak memory); then the same two parities for a synthetic
+   variant at Qwen3-8B's widths (a sliding layer of window 1024 and a NoPE
+   full layer, attention scale 1/128): K1 and K4 must launch on both
+   layers, each with its own window and the scale. Then the
    kernels at this slice's shapes against their plain versions and timed
    beside their bounds: K4 at B 8, Hkv 32, D 96, window 2047, rows of
    2048-3072; K1-K3 at B 8, S 2048, Hq = Hkv = 32, D 96 (padded to 128;
@@ -334,12 +358,22 @@ imported) for phase 14's full-depth runs.
    against the ring of plain chunk functions.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
-17a), at Phi-3-mini's (phase 19) and phase 18's K4 launches on lines of
-their own, then one `{"kernels": [...]}` line for this slice's path
-(phase 20: K1-K3 times at its shape, launches of phases 20 and 21; K4
-launched by phase 18d's replicas, timed at phase 7's Llama-3.1-8B
-serving shape), the card's name and power limit, and as its
-last line `{"ok": true, "device": {...}}`.
+17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
+lines of their own, then one `{"kernels": [...]}` line for the port's
+path (K1-K3 times at phase 20's shape, launches of phases 19e, 20 and 21;
+K4 launched by 19e's serving and phase 18d's replicas, timed at phase 7's
+Llama-3.1-8B serving shape, whose heads are Qwen3-8B's), the card's name
+and power limit, and as its last line `{"ok": true, "device": {...}}`.
+Phase 19e and what it costs were bought back, with room for slower hosts,
+by cutting depths (phase 13 from 8 to 4 layers, phase 14's runs beside
+the full-depth ones from 4 to 2, 17a from 4 to 2, 18a from 8 to 4,
+Phi-3's export, load and serving from 32 to 16) and by overlapping
+process legs: 17c from phase 17's start, 18d beside 18a, 18c beside 18b's
+supervised run.
+
+`python3 chip_smoke.py silu-turns` builds the kernels and runs only
+`silu_turns`: phase 20's fit shape with its steps alternating between
+`silu_mul` in JAX's order and the `F.silu` version it replaced.
 """
 
 from __future__ import annotations
@@ -422,7 +456,7 @@ RESUME_RTOL = 1e-3
 EVAL_RTOL = 1e-6
 # the preference phase: depth, steps, pairs a batch, the longest pair, and
 # the collator's padding multiple
-PREF_LAYERS = 8
+PREF_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
 PREF_STEPS = 6
 PREF_PAIRS = 8
 PREF_MAX_LENGTH = 2048
@@ -451,7 +485,7 @@ PREFILL_RTOL = 1e-2
 # the optimizer phase: placement parity, prefetch and Lion at OPT_LAYERS for
 # OPT_STEPS steps; AdamW with int8 state offloaded, and Adafactor, at full
 # depth for OPT_FULL_STEPS steps; one packed 8192-token row a step
-OPT_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
+OPT_LAYERS = 2  # cut from 8 (and 4) to keep the smoke inside its time limit
 OPT_STEPS = 3
 OPT_FULL_LAYERS = 32
 OPT_FULL_STEPS = 4
@@ -871,11 +905,24 @@ def profile_decode(engine, card: str, rng) -> dict:
 def phase_engine_parity(kernels) -> float:
     """One decode step of a 2-layer full-width model from one pool state,
     through the kernel and through the plain gather path."""
+    return decode_parity(kernels, "engine parity", "llama-3.1-8b")["kernel_vs_plain"]
+
+
+def decode_parity(kernels, label: str, name: str, **fields) -> dict:
+    """One decode step of the 2-layer model of preset `name` (with
+    `fields`) from one pool state (8 rows of 0-2000 cached tokens), in bf16
+    through K4 and through the plain gather path, and through the plain
+    path in fp32 with the same weights and cache (the truth): logits within
+    ENGINE_LOGITS_RTOL of each other, the kernel no further from fp32 than
+    1.5 x the plain path. Returns the errors and each K4 call's window and
+    scale."""
     from llm_training_tpu_torch.models.base import PagedDecodeState
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops import paged_attention as ops_pa
 
-    config = preset("llama-3.1-8b", num_hidden_layers=2)
+    kw = dict(num_hidden_layers=2, **fields)
+    config = preset(name, **kw)
     model = Llama(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     model.eval()
@@ -896,31 +943,38 @@ def phase_engine_parity(kernels) -> float:
     pool_v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     tokens = torch.randint(0, config.vocab_size, (8, 1), generator=gen, device="cuda")
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    logits = {}
-    with torch.no_grad():
-        # bf16 through the kernel, bf16 through the plain path, then the
-        # plain path with the same weights and cache in fp32 as the truth
-        for name, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
-            if name == "fp32":
-                weights = model.state_dict()
-                model = Llama(
-                    preset("llama-3.1-8b", num_hidden_layers=2, compute_dtype="float32",
-                           param_dtype="float32"),
-                    device="cuda",
+    logits, calls = {}, []
+    real = ops_pa.paged_decode_attention
+
+    def recorded(*args, **kwargs):
+        calls.append((kwargs.get("sliding_window"), kwargs.get("scale")))
+        return real(*args, **kwargs)
+
+    ops_pa.paged_decode_attention = recorded
+    try:
+        with torch.no_grad():
+            # bf16 through the kernel, bf16 through the plain path, then the
+            # plain path with the same weights and cache in fp32 as the truth
+            for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
+                if path == "fp32":
+                    weights = model.state_dict()
+                    model = Llama(preset(name, **kw, compute_dtype="float32",
+                                         param_dtype="float32"), device="cuda")
+                    model.load_state_dict(weights)
+                    del weights
+                dtype = next(model.parameters()).dtype
+                before = kernels.paged_decode_attention.launches
+                state = PagedDecodeState(
+                    k=pool_k.to(dtype), v=pool_v.to(dtype), block_tables=tables.cuda(),
+                    lengths=lens,
                 )
-                model.load_state_dict(weights)
-                del weights
-            dtype = next(model.parameters()).dtype
-            before = kernels.paged_decode_attention.launches
-            state = PagedDecodeState(
-                k=pool_k.to(dtype), v=pool_v.to(dtype), block_tables=tables.cuda(),
-                lengths=lens,
-            )
-            out = model(tokens, position_ids=lens[:, None].long(), decode_state=state,
-                        paged_impl=impl)
-            logits[name] = out.logits.float()
-            ran = kernels.paged_decode_attention.launches - before
-            check(ran == (2 if impl == "auto" else 0), f"engine parity: {name} ran {ran} kernels")
+                out = model(tokens, position_ids=lens[:, None].long(), decode_state=state,
+                            paged_impl=impl)
+                logits[path] = out.logits.float()
+                ran = kernels.paged_decode_attention.launches - before
+                check(ran == (2 if impl == "auto" else 0), f"{label}: {path} ran {ran} kernels")
+    finally:
+        ops_pa.paged_decode_attention = real
     torch.cuda.synchronize()
     live = [row for row, n in enumerate(lengths) if n]
 
@@ -930,18 +984,19 @@ def phase_engine_parity(kernels) -> float:
     err = max_err("kernel", "plain")
     kernel_vs_fp32, plain_vs_fp32 = max_err("kernel", "fp32"), max_err("plain", "fp32")
     scale = float(logits["fp32"][live].abs().max())
-    check(bool(torch.isfinite(logits["kernel"]).all()), "engine parity: non-finite logits")
+    check(bool(torch.isfinite(logits["kernel"]).all()), f"{label}: non-finite logits")
     check(err <= ENGINE_LOGITS_RTOL * scale,
-          f"engine parity: kernel vs plain logits differ by {err} "
+          f"{label}: kernel vs plain logits differ by {err} "
           f"(> {ENGINE_LOGITS_RTOL} x |logits| {scale})")
     check(kernel_vs_fp32 <= 1.5 * plain_vs_fp32,
-          f"engine parity: kernel is further from fp32 ({kernel_vs_fp32}) than the "
+          f"{label}: kernel is further from fp32 ({kernel_vs_fp32}) than the "
           f"plain bf16 path ({plain_vs_fp32})")
-    print(f"engine parity: 2-layer full-width decode step, bf16 logits max abs err kernel vs "
+    print(f"{label}: 2-layer {name} decode step, bf16 logits max abs err kernel vs "
           f"plain {err:.3e} (tolerance {ENGINE_LOGITS_RTOL} x |logits| {scale:.3f}); vs fp32: "
-          f"kernel {kernel_vs_fp32:.3e}, plain {plain_vs_fp32:.3e}")
+          f"kernel {kernel_vs_fp32:.3e}, plain {plain_vs_fp32:.3e}", flush=True)
     del model, pool_k, pool_v
-    return err
+    return dict(kernel_vs_plain=err, kernel_vs_fp32=kernel_vs_fp32, plain_vs_fp32=plain_vs_fp32,
+                logit_scale=scale, k4_calls=calls)
 
 
 def phase_timing(kernels, card: str) -> dict:
@@ -1350,35 +1405,57 @@ def phase_train(card: str) -> dict:
 def phase_train_parity() -> dict:
     """One forward and backward of a 2-layer full-width model on one packed
     2048-token row: kernels in bf16, plain in bf16, plain in fp32."""
+    host = packed_batches(5, 2048, 1, 128256, max_doc=1000)[0]
+    return loss_grad_parity("train parity", "llama-3.1-8b", host, (
+        "model.layers.0.self_attn.q_proj.weight", "model.layers.1.self_attn.k_proj.weight",
+        "model.embed_tokens.weight"))["errors"]
+
+
+def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) -> dict:
+    """The CLM loss and its backward of the 2-layer model of preset `name`
+    (with `fields`; fp32 parameters) on the collated batch `host`: through
+    the kernels in bf16, the plain path in bf16 and the plain path in fp32
+    (the truth). The kernel path's loss and the gradients of `names` are no
+    further from fp32 than NO_FURTHER x the plain bf16 path's. Returns the
+    errors and each K1 call's window and scale."""
     from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.models.llama.model import Llama
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 
-    kw = dict(num_hidden_layers=2, param_dtype="float32")
-    model = Llama(preset("llama-3.1-8b", **kw), device="cuda")
+    kw = dict(num_hidden_layers=2, param_dtype="float32", **fields)
+    model = Llama(preset(name, **kw), device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
-    host = packed_batches(5, 2048, 1, model.config.vocab_size, max_doc=1000)[0]
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
-    names = ("model.layers.0.self_attn.q_proj.weight", "model.layers.1.self_attn.k_proj.weight",
-             "model.embed_tokens.weight")
-    results = {}
-    for name, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
-        if name == "fp32":
-            weights = model.state_dict()
-            model = Llama(preset("llama-3.1-8b", compute_dtype="float32", **kw), device="cuda")
-            model.load_state_dict(weights)
-            del weights
-        model.config.attention_impl = impl
-        before = fa.flash_fwd_kernel.launches + fa.flash_dq_kernel.launches + fa.flash_dkv_kernel.launches
-        model.zero_grad(set_to_none=True)
-        loss = CLM(CLMConfig(), model=model).loss_and_metrics(batch, train=False)[0]
-        loss.backward()
-        torch.cuda.synchronize()
-        ran = fa.flash_fwd_kernel.launches + fa.flash_dq_kernel.launches + fa.flash_dkv_kernel.launches - before
-        check(ran == (6 if name == "kernel" else 0), f"train parity: {name} ran {ran} flash kernels")
-        params = dict(model.named_parameters())
-        results[name] = dict(loss=float(loss.detach()), **{n: params[n].grad.float() for n in names})
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    results, calls = {}, []
+    real = fa.flash_attention
+
+    def recorded(*args, **kwargs):
+        calls.append((kwargs.get("sliding_window"), kwargs.get("scale")))
+        return real(*args, **kwargs)
+
+    fa.flash_attention = recorded
+    try:
+        for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
+            if path == "fp32":
+                weights = model.state_dict()
+                model = Llama(preset(name, compute_dtype="float32", **kw), device="cuda")
+                model.load_state_dict(weights)
+                del weights
+            model.config.attention_impl = impl
+            before = sum(launcher.launches for launcher in launchers)
+            model.zero_grad(set_to_none=True)
+            loss = CLM(CLMConfig(), model=model).loss_and_metrics(batch, train=False)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            ran = sum(launcher.launches for launcher in launchers) - before
+            check(ran == (6 if path == "kernel" else 0), f"{label}: {path} ran {ran} flash kernels")
+            params = dict(model.named_parameters())
+            results[path] = dict(loss=float(loss.detach()),
+                                 **{n: params[n].grad.float() for n in names})
+    finally:
+        fa.flash_attention = real
     del model
     truth = results["fp32"]
     errors = {}
@@ -1391,15 +1468,16 @@ def phase_train_parity() -> dict:
         # 2^-8 of the loss there
         floor = 2.0**-8 * abs(truth["loss"]) if key == "loss" else 0.0
         check(errors["kernel"][key] <= max(NO_FURTHER * errors["plain"][key], floor),
-              f"train parity: {key}: the kernel path is further from fp32 "
+              f"{label}: {key}: the kernel path is further from fp32 "
               f"({errors['kernel'][key]:.3e}) than the plain bf16 path ({errors['plain'][key]:.3e})")
-    print("train parity: 2-layer full width, 1 x 2048 packed tokens, vs fp32 (loss: |error|, grads: "
-          "max error over max|fp32|): " + "; ".join(
+    width = host["input_ids"].shape
+    print(f"{label}: 2-layer {name}, {width[0]} x {width[1]} packed tokens, vs fp32 (loss: "
+          "|error|, grads: max error over max|fp32|): " + "; ".join(
               f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
-              f"{errors['plain'][key]:.3e}" for key in errors["kernel"]))
+              f"{errors['plain'][key]:.3e}" for key in errors["kernel"]), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return errors
+    return dict(errors=errors, k1_calls=calls, loss=truth["loss"])
 
 
 def phase_flash_timing(card: str) -> dict:
@@ -3408,7 +3486,7 @@ def phase_durability(card: str, round_trip=None) -> dict:
 
 RL_DIR = ROOT / ".smoke_rl"
 RL_DEVICE = "cuda"
-RL_LAYERS = 4  # leg a at Llama-3.1-8B widths (cut from 8 for the smoke's time limit)
+RL_LAYERS = 2  # leg a at Llama-3.1-8B widths (cut from 8 and 4 for the smoke's time limit)
 RL_SMALL_LAYERS = 2  # legs b and c
 RL_ROUNDS = 3
 RL_PROMPTS = 4  # prompts a round, x RL_GROUP rollouts each
@@ -4077,10 +4155,11 @@ def phase_rl(card: str) -> tuple[dict, LegThread]:
     adds its readings and removes the phase's files."""
     shutil.rmtree(RL_DIR, ignore_errors=True)
     RL_DIR.mkdir()
+    # leg c's processes from the phase's start, beside leg a's
+    leg_c = LegThread(rl_leg_c_timed, card)
     t0 = time.perf_counter()
     out = {"a": rl_leg_a(card)}
     out["a"]["leg_s"] = time.perf_counter() - t0
-    leg_c = LegThread(rl_leg_c_timed, card)
     try:
         for name, leg in (("parity", rl_parity), ("sync", rl_sync), ("cast", rl_cast_cost)):
             t0 = time.perf_counter()
@@ -4127,7 +4206,7 @@ def rl_leg_c_join(rl: dict, leg_c: LegThread) -> float:
 SV_DIR = ROOT / ".smoke_serve"
 SV_DEVICE = "cuda"
 SV_PRESET = "llama-3.1-8b"
-SV_A_LAYERS = 8  # leg a: the preset cut to 8 layers (for the smoke's time limit)
+SV_A_LAYERS = 4  # leg a: the preset cut to 4 layers (for the smoke's time limit)
 # leg a's model flags: None is the preset cut to SV_A_LAYERS, written as a
 # `--model-config` file (a CPU rehearsal passes a file of a narrow model)
 SV_MODEL_ARGS = None
@@ -4897,9 +4976,8 @@ def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str
 
 def sv_legs_bc(card: str) -> tuple[dict, dict]:
     """Legs b and c (see the header). This process fits c's checkpoint,
-    then b's; leg c runs on its checkpoint while b's fit and uninterrupted
-    run go on beside it; b's supervised run, whose seconds are the
-    readings, runs alone."""
+    then b's; leg c runs on its checkpoint while b's fit, its uninterrupted
+    run and its supervised run go on beside it."""
     from llm_training_tpu_torch.models.llama.config import preset
 
     base_cfg = sv_config("b", SV_B_LAYERS, "float32", "base")
@@ -4912,10 +4990,10 @@ def sv_legs_bc(card: str) -> tuple[dict, dict]:
     requests = sv_requests(1, SV_B_REQUESTS, SV_B_NEW, preset(SV_PRESET).vocab_size, "b")
     flags = sv_serve_flags("--max-new-tokens", str(SV_B_NEW))
     baseline = sv_baseline(base_cfg, requests, flags)
-    c = leg_c.result(SV_TIMEOUT_S)
     b = dict(fit_s=fit_s, c_fit_s=c_fit_s, checkpoint_bytes=ckpt_bytes,
              baseline_s=baseline["seconds"],
              **sv_supervised(card, sup_cfg, requests, flags, baseline))
+    c = leg_c.result(SV_TIMEOUT_S)
     tiling, base_tiling = b["tiling"], b["base_tiling"]
     print(f"serve resilience b [{card}]: {SV_PRESET} x {SV_B_LAYERS} layers in fp32 "
           f"(a {ckpt_bytes / 1e9:.2f} GB checkpoint; its fit {fit_s:.1f} s), {SV_B_REQUESTS} "
@@ -5232,25 +5310,25 @@ def phase_serve_resilience(card: str, after_a=None) -> dict:
     """serve's resilience and live telemetry (see the header). `after_a`,
     when given, runs between leg a and legs b and c (the smoke joins phase
     17's leg c there: legs b and c write checkpoints of their own); leg d,
-    the router over serve replicas, runs beside that wait when phase 16
-    left its checkpoint in RT_DIR."""
+    the router over serve replicas, runs from the phase's start, beside leg
+    a and that wait, when phase 16 left its checkpoint in RT_DIR."""
     shutil.rmtree(SV_DIR, ignore_errors=True)
     SV_DIR.mkdir()
     out = {}
     leg_d = None
     try:
+        t_d = time.perf_counter()
+        if (RT_DIR / "ckpt").is_dir():
+            leg_d = LegThread(phase_route, card)
         t0 = time.perf_counter()
         out["a"] = sv_leg_a(card)
         out["a"]["leg_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if (RT_DIR / "ckpt").is_dir():
-            leg_d = LegThread(phase_route, card)
         if after_a is not None:
             out["a"]["after_s"] = after_a()
         if leg_d is not None:
             out["d"] = leg_d.result(2 * RT_TIMEOUT_S + 60)
             leg_d = None
-            out["d"]["leg_s"] = time.perf_counter() - t0
+            out["d"]["leg_s"] = time.perf_counter() - t_d
         t0 = time.perf_counter()
         out["b"], out["c"] = sv_legs_bc(card)
         out["b"]["legs_bc_s"] = time.perf_counter() - t0
@@ -5274,6 +5352,8 @@ PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
                  sliding_window=2047, rms_norm_eps=1e-5, rope_theta=10000.0,
                  bos_token_id=1, eos_token_id=32000, pad_token_id=32000,
                  tie_word_embeddings=False)
+HF_LAYERS = 16  # export, load and serve: cut from 32 to keep the smoke inside its time limit
+HF_SHARD_BYTES = 2 * 1024**3  # several shards and an index at 16 layers
 HF_SERVE = dict(max_batch=8, max_model_len=4096, block_size=16, prefill_chunk=512)
 HF_REQUESTS = 16
 HF_PROMPTS = (1024, 3072)  # prompt lengths, inclusive: most rows decode past the window
@@ -5339,19 +5419,21 @@ def hf_load(path: Path, **overrides):
 
 
 def hf_export(card: str):
-    """a) Phi-3-mini at its published widths, random bf16 weights from seed
-    0, written by `save_hf_checkpoint`: two shards and an index."""
+    """a) Phi-3-mini at its published widths cut to 16 layers, random bf16
+    weights from seed 0, written by `save_hf_checkpoint` in shards of at
+    most 2 GiB: two shards and an index."""
     from llm_training_tpu_torch.models.hf_io import save_hf_checkpoint
     from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
 
-    config = Phi3Config(**PHI3_MINI, param_dtype="bfloat16", compute_dtype="bfloat16")
+    config = Phi3Config(**{**PHI3_MINI, "num_hidden_layers": HF_LAYERS}, param_dtype="bfloat16",
+                        compute_dtype="bfloat16")
     model = Phi3(config, device=HF_DEVICE)
     model.init_weights(torch.Generator(device=HF_DEVICE).manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     t0 = time.perf_counter()
     path = save_hf_checkpoint(model.state_dict(), config, HF_DIR / "phi-3-mini",
-                              dtype="bfloat16")
+                              dtype="bfloat16", max_shard_bytes=HF_SHARD_BYTES)
     seconds = time.perf_counter() - t0
     shards = sorted(p.name for p in path.glob("*.safetensors"))
     check(shards == ["model-00001-of-00002.safetensors", "model-00002-of-00002.safetensors"]
@@ -5360,13 +5442,13 @@ def hf_export(card: str):
           f"hf export: files {sorted(p.name for p in path.iterdir())}")
     nbytes = hf_bytes(path)
     out = dict(params=n_params, bytes=nbytes, seconds=seconds, gb_per_s=nbytes / seconds / 1e9)
-    print(f"hf export [{card}]: phi-3-mini, {n_params} params in bf16, {nbytes} bytes in "
+    print(f"hf export [{card}]: phi-3-mini x {HF_LAYERS} layers, {n_params} params in bf16, {nbytes} bytes in "
           f"{len(shards)} shards in {seconds:.2f} s ({out['gb_per_s']:.2f} GB/s)", flush=True)
     return model, path, out
 
 
 def hf_reload(card: str, exported, path: Path):
-    """b) `HFCausalLM` over the export at full depth, loaded on the card:
+    """b) `HFCausalLM` over the export (16 layers), loaded on the card:
     every tensor equal to the exported model's. (model, host copies of a
     few exported tensors, the load's numbers)."""
     from llm_training_tpu_torch.models.phi3 import Phi3
@@ -5374,7 +5456,7 @@ def hf_reload(card: str, exported, path: Path):
     model, load_s = hf_load(path, param_dtype="bfloat16", compute_dtype="bfloat16")
     nbytes = hf_bytes(path)
     check(isinstance(model, Phi3) and model.config.sliding_window == 2047
-          and model.config.num_hidden_layers == PHI3_MINI["num_hidden_layers"],
+          and model.config.num_hidden_layers == HF_LAYERS,
           f"hf load: {type(model).__name__} "
           f"{model.config}")
     mine, theirs = model.state_dict(), exported.state_dict()
@@ -5390,11 +5472,27 @@ def hf_serve(card: str, model) -> dict:
     """b) The serving engine answers 16 requests on the loaded model through
     K4 at head_dim 96 with the 2047-token window, the plain decode path
     never."""
+    rng = np.random.default_rng(19)
+    lens = rng.integers(HF_PROMPTS[0], HF_PROMPTS[1] + 1, size=HF_REQUESTS)
+    out = serve_leg(card, "hf serve", f"phi-3-mini x {HF_LAYERS} layers", model, HF_SERVE, lens,
+                    HF_NEW, rng)
+    past = int(sum(n + HF_NEW > PHI3_MINI["sliding_window"] for n in lens))
+    print(f"hf serve [{card}]: {past} of the rows decode past the 2047 window", flush=True)
+    return {**out, "rows_past_window": past}
+
+
+def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: int,
+              rng) -> dict:
+    """A `ServingEngine` over `model` (`serve`'s settings) answers one greedy
+    request of `new` tokens a prompt length of `lens` (random ids from
+    `rng`): all complete, the pool ends leak-free, the logits finite, K4 one
+    launch a layer a decode step and the plain decode path never; then the
+    decode profile."""
     from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
     from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
-    engine = ServingEngine(model, ServeConfig(**HF_SERVE), device=HF_DEVICE)
+    engine = ServingEngine(model, ServeConfig(**serve), device="cuda")
     decode_ms, prefill_ms = [], []
 
     def timed(fn, sink):
@@ -5409,10 +5507,9 @@ def hf_serve(card: str, model) -> dict:
 
     engine._run_decode = timed(engine._run_decode, decode_ms)
     engine._run_prefill = timed(engine._run_prefill, prefill_ms)
-    rng = np.random.default_rng(19)
-    lens = rng.integers(HF_PROMPTS[0], HF_PROMPTS[1] + 1, size=HF_REQUESTS)
-    requests = [{"id": f"h{i}", "prompt": rng.integers(0, PHI3_MINI["vocab_size"], n).tolist(),
-                 "max_new_tokens": HF_NEW} for i, n in enumerate(lens)]
+    vocab = model.config.vocab_size
+    requests = [{"id": f"h{i}", "prompt": rng.integers(0, vocab, n).tolist(),
+                 "max_new_tokens": new} for i, n in enumerate(lens)]
     events: list[dict] = []
     with count_plain_decode() as plain:
         kernels.paged_decode_attention.launches = 0
@@ -5421,39 +5518,37 @@ def hf_serve(card: str, model) -> dict:
             events.extend(engine.submit(**request))
         while not engine.scheduler.idle:
             events.extend(engine.step())
-            check(engine.step_index < 20_000, "hf serve: the loop did not drain")
+            check(engine.step_index < 20_000, f"{label}: the loop did not drain")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         launches = kernels.paged_decode_attention.launches
     done = {e["id"]: e for e in events if e["type"] == "done"}
     stats = engine.stats()
-    layers = PHI3_MINI["num_hidden_layers"]
-    check(len(done) == HF_REQUESTS and all(
-        e["stop_reason"] == "max_tokens" and e["n_tokens"] == HF_NEW for e in done.values()),
-        f"hf serve: not every request completed: {[(k, v['stop_reason']) for k, v in done.items()]}")
+    layers = model.config.num_hidden_layers
+    check(len(done) == len(requests) and all(
+        e["stop_reason"] == "max_tokens" and e["n_tokens"] == new for e in done.values()),
+        f"{label}: not every request completed: "
+        f"{[(k, v['stop_reason']) for k, v in done.items()]}")
     check(engine.allocator.blocks_in_use == 0 and engine.logits_finite,
-          "hf serve: pool blocks leaked or logits not finite")
+          f"{label}: pool blocks leaked or logits not finite")
     check(launches == layers * engine.decode_steps and launches > 0 and plain[0] == 0,
-          f"hf serve: {launches} K4 launches for {engine.decode_steps} decode steps x {layers} "
+          f"{label}: {launches} K4 launches for {engine.decode_steps} decode steps x {layers} "
           f"layers; {plain[0]} plain decode calls")
-    past = int(sum(n + HF_NEW > PHI3_MINI["sliding_window"] for n in lens))
     out = dict(
         launches=launches,
         decode_steps=engine.decode_steps, launches_per_step=launches / engine.decode_steps,
-        plain_decode_calls=plain[0], prefill_chunks=engine.prefill_chunks,
-        rows_past_window=past, wall_s=wall,
+        plain_decode_calls=plain[0], prefill_chunks=engine.prefill_chunks, wall_s=wall,
         tokens_per_s=stats["serve/tokens_generated"] / wall,
         decode_step_ms_p50=percentile(decode_ms, 50),
         prefill_chunk_ms_p50=percentile(prefill_ms, 50),
         ttft_ms_p50=stats["serve/ttft_p50_ms"], tpot_ms_p50=stats["serve/tpot_p50_ms"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
-    print(f"hf serve [{card}]: phi-3-mini full depth, {len(done)}/{HF_REQUESTS} requests of "
-          f"{HF_PROMPTS[0]}-"
-          f"{HF_PROMPTS[1]} + {HF_NEW} tokens ({past} decode past the 2047 window); "
+    print(f"{label} [{card}]: {what}, {len(done)}/{len(requests)} requests of "
+          f"{min(lens)}-{max(lens)} + {new} tokens; "
           f"{engine.decode_steps} decode steps, {launches} K4 launches "
           f"({out['launches_per_step']:.0f} a step), {plain[0]} plain decode calls; decode step "
-          f"p50 {out['decode_step_ms_p50']:.3f} ms, prefill chunk (512) p50 "
+          f"p50 {out['decode_step_ms_p50']:.3f} ms, prefill chunk ({serve['prefill_chunk']}) p50 "
           f"{out['prefill_chunk_ms_p50']:.3f} ms, {out['tokens_per_s']:.1f} tokens/s over "
           f"{wall:.2f} s, TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
           f"{out['tpot_ms_p50']:.3f} ms, peak memory {out['peak_memory_gb']:.2f} GB", flush=True)
@@ -5709,10 +5804,222 @@ def hf_round_trip(card: str, ckpt_dir: Path, out_dir: Path) -> dict:
     return out
 
 
+# 19e: Qwen3-8B at its published widths (the preset, from the config.json
+# of huggingface.co/Qwen/Qwen3-8B), random bf16 weights from seed 0
+QW_PRESET = "qwen3-8b"
+QW_DIR = ROOT / ".smoke_qwen3"
+QW_LAYERS = 8  # export, load and serve: the 36 layers cut to 8
+QW_SERVE = dict(max_batch=8, max_model_len=2048 + 128, block_size=16, prefill_chunk=512)
+QW_REQUESTS = 16
+QW_PROMPTS = (256, 2048)  # prompt lengths, inclusive
+QW_NEW = 64
+QW_FIT_LAYERS = 4
+QW_FIT_STEPS = 3
+QW_FIT_ROWS = 4
+QW_FIT_SEQ = 4096
+QW_MAX_DOC = 4000  # the packed rows' longest document (below the packer's 4032)
+QW_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=0)
+QW_PARITY_NAMES = ("model.layers.0.self_attn.q_norm.weight",
+                   "model.layers.1.self_attn.k_proj.weight", "model.embed_tokens.weight")
+# a synthetic variant at Qwen3-8B's widths (no published model): a sliding
+# and a full layer, the full one NoPE, Granite's kind of attention scale
+QW_VARIANT = dict(layer_types=["sliding_attention", "full_attention"], sliding_window=1024,
+                  no_rope_layers=[1, 0], attention_multiplier=1 / 128)
+
+
+def qwen3_export(card: str):
+    """19e export: the preset at 8 layers written by `save_hf_checkpoint`;
+    its `config.json` is the `qwen3` overlay."""
+    from llm_training_tpu_torch.models.hf_io import save_hf_checkpoint
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.hf_conversion import config_to_hf
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    config = preset(QW_PRESET, num_hidden_layers=QW_LAYERS)
+    model = Llama(config, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    path = save_hf_checkpoint(model.state_dict(), config, QW_DIR / QW_PRESET, dtype="bfloat16")
+    seconds = time.perf_counter() - t0
+    written = json.loads((path / "config.json").read_text())
+    check(written == config_to_hf(config) and written["model_type"] == "qwen3"
+          and written["architectures"] == ["Qwen3ForCausalLM"] and written["head_dim"] == 128,
+          f"qwen3 export: config.json {written}")
+    nbytes = hf_bytes(path)
+    out = dict(params=n_params, bytes=nbytes, seconds=seconds, gb_per_s=nbytes / seconds / 1e9)
+    print(f"qwen3 export [{card}]: {QW_PRESET} x {QW_LAYERS} layers, {n_params} params in bf16, "
+          f"{nbytes} bytes in {seconds:.2f} s ({out['gb_per_s']:.2f} GB/s), config.json the "
+          "qwen3 overlay", flush=True)
+    return model, path, out
+
+
+def qwen3_fit(card: str) -> dict:
+    """19e fit: the CLM `Trainer` at 4 layers (fp32 parameters, bf16
+    compute, selective recompute, AdamW), 3 steps of 4 packed rows of 4096
+    tokens through K1-K3: step 1's loss near ln V, K1-K3 once a layer a
+    step, the plain path never."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset(QW_PRESET, num_hidden_layers=QW_FIT_LAYERS, param_dtype="float32",
+                    enable_gradient_checkpointing=True, recompute_granularity="selective")
+    rows = packed_batches(19, QW_FIT_SEQ, QW_FIT_ROWS * QW_FIT_STEPS, config.vocab_size,
+                          max_doc=QW_MAX_DOC)
+    batches = [{k: np.concatenate([r[k] for r in rows[i:i + QW_FIT_ROWS]])
+                for k in rows[0]} for i in range(0, len(rows), QW_FIT_ROWS)]
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.t = [], [], None
+
+        def on_fit_start(self, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    clock = Clock()
+    trainer = Trainer(TrainerConfig(max_steps=QW_FIT_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[clock], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**QW_OPTIM)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = clock.losses
+    ln_v = math.log(config.vocab_size)
+    check(len(losses) == QW_FIT_STEPS and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - ln_v) <= OPT_LN_V_ATOL,
+          f"qwen3 fit: losses {losses} (step 1 near ln V {ln_v:.4f})")
+    want = [QW_FIT_LAYERS * QW_FIT_STEPS] * 3
+    check(launches == want and plain[0] == 0,
+          f"qwen3 fit: K1/K2/K3 launched {launches}, expected {want}; plain path {plain[0]}")
+    model = state.model
+    n_matmul = sum(p.numel() for p in model.parameters()) - model.model.embed_tokens.weight.numel()
+    flops, tokens = [], []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        n = int((batch["segment_ids"] > 0).sum())
+        tokens.append(n)
+        flops.append(6 * n_matmul * n + 12 * config.resolved_head_dim
+                     * config.num_attention_heads * QW_FIT_LAYERS * bench_flash.visible_pairs(seg, seg))
+    timed = clock.step_s[1:]  # step 1 carries the warm-up
+    out = dict(layers=QW_FIT_LAYERS, steps=QW_FIT_STEPS, losses=losses, tokens=tokens,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+               step_ms=[1e3 * t for t in clock.step_s], step_ms_p50=1e3 * percentile(timed, 50),
+               tokens_per_s=sum(tokens[1:]) / sum(timed),
+               mfu=sum(flops[1:]) / sum(timed) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=peak_gb)
+    print(f"qwen3 fit [{card}]: {QW_PRESET} x {QW_FIT_LAYERS} layers, {QW_FIT_STEPS} steps of "
+          f"{QW_FIT_ROWS} x {QW_FIT_SEQ} packed tokens (AdamW, selective recompute); losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain path {plain[0]}; step "
+          f"p50 {out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.2f}% of 989 TFLOPS (6N a token, 12 D a visible pair a head a "
+          f"layer), peak memory {peak_gb:.2f} GB", flush=True)
+    del objective, state, trainer, model
+    release()
+    return out
+
+
+def qwen3_leg(card: str) -> dict:
+    """19e: Qwen3-8B exported at 8 layers and loaded back through
+    `HFCausalLM` bit-equal, served through K4; its decode step and its loss
+    and gradients at 2 layers against the plain path and fp32; a 3-step fit
+    at 4 layers through K1-K3; and a synthetic variant at its widths (a
+    sliding and a NoPE full layer, scale 1/128) through K1 and K4 on both
+    layers."""
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+
+    out = {}
+    shutil.rmtree(QW_DIR, ignore_errors=True)
+    QW_DIR.mkdir()
+    try:
+        t0 = time.perf_counter()
+        exported, path, out["export"] = qwen3_export(card)
+        model, load_s = hf_load(path, param_dtype="bfloat16", compute_dtype="bfloat16")
+        nbytes = hf_bytes(path)
+        check(type(model) is Llama and model.config.qk_norm
+              and model.config.num_hidden_layers == QW_LAYERS,
+              f"qwen3 load: {type(model).__name__} {model.config}")
+        mine, theirs = model.state_dict(), exported.state_dict()
+        differ = [n for n, t in theirs.items() if not torch.equal(t, mine[n])]
+        check(mine.keys() == theirs.keys() and not differ,
+              f"qwen3 load: {len(differ)} tensors differ from the export: {differ[:4]}")
+        out["load"] = dict(load_s=load_s, load_gb_per_s=nbytes / load_s / 1e9)
+        print(f"qwen3 load [{card}]: HFCausalLM -> Llama (qk-norm), {nbytes} bytes to the card "
+              f"in {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} GB/s), every tensor equal to the "
+              "export", flush=True)
+        del exported, mine, theirs
+        shutil.rmtree(QW_DIR)
+        release()
+        rng = np.random.default_rng(190)
+        lens = rng.integers(QW_PROMPTS[0], QW_PROMPTS[1] + 1, size=QW_REQUESTS)
+        out["serve"] = serve_leg(card, "qwen3 serve", f"{QW_PRESET} x {QW_LAYERS} layers",
+                                 model.eval(), QW_SERVE, lens, QW_NEW, rng)
+        out["serve"]["leg_s"] = time.perf_counter() - t0
+        del model
+        release()
+    finally:
+        shutil.rmtree(QW_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    out["decode_parity"] = decode_parity(kernels, "qwen3 decode parity", QW_PRESET)
+    host = packed_batches(191, QW_FIT_SEQ, 1, 151936, max_doc=QW_MAX_DOC)[0]
+    out["parity"] = loss_grad_parity("qwen3 train parity", QW_PRESET, host, QW_PARITY_NAMES)
+    out["parity"]["leg_s"] = time.perf_counter() - t0
+    out["fit"] = qwen3_fit(card)
+    t0 = time.perf_counter()
+    label = "qwen3 variant (synthetic: sliding + NoPE full layer, scale 1/128)"
+    variant = dict(decode=decode_parity(kernels, label + " decode", QW_PRESET, **QW_VARIANT),
+                   train=loss_grad_parity(label + " train", QW_PRESET, host,
+                                          QW_PARITY_NAMES, **QW_VARIANT))
+    want = [(QW_VARIANT["sliding_window"], QW_VARIANT["attention_multiplier"]),
+            (None, QW_VARIANT["attention_multiplier"])]
+    check(variant["decode"]["k4_calls"] == want and variant["train"]["k1_calls"] == want,
+          f"{label}: K4 calls (window, scale) {variant['decode']['k4_calls']}, K1 calls "
+          f"{variant['train']['k1_calls']}; each layer must launch with its own {want}")
+    print(f"{label}: K1 and K4 launched on both layers with (window, scale) {want}", flush=True)
+    variant["leg_s"] = time.perf_counter() - t0
+    out["variant"] = variant
+    release()
+    return out
+
+
 def phase_hf_phi3(card: str) -> dict:
-    """HF I/O and Phi-3-mini (see the header): export, load and serve at full
-    depth, DPO at 8 layers from the same directory, the kernels at this
-    slice's shapes."""
+    """HF I/O, Phi-3-mini and Qwen3-8B (see the header): Phi-3's export,
+    load and serving at 16 layers, DPO at 8 layers from the same directory,
+    then 19e (Qwen3-8B), then the kernels at Phi-3's shapes."""
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     shutil.rmtree(HF_DIR, ignore_errors=True)
     HF_DIR.mkdir()
@@ -5733,6 +6040,7 @@ def phase_hf_phi3(card: str) -> dict:
     finally:
         shutil.rmtree(HF_DIR, ignore_errors=True)
         release()
+    out["qwen3"] = qwen3_leg(card)
     t0 = time.perf_counter()
     out["kernels"] = hf_kernel_timing(card)
     out["kernels"]["leg_s"] = time.perf_counter() - t0
@@ -6449,6 +6757,89 @@ def ring_leg(card, name, p, seq, hq, hkv, d, window, sinks) -> dict:
                 plain_errors=small_errors)
 
 
+SILU_TURN_STEPS = 12  # after the warm-up step: 6 with each silu_mul, alternating
+
+
+def silu_turns(card: str) -> dict:
+    """`python3 chip_smoke.py silu-turns`: phase 20's fit shape (the
+    Llama-3.1-8B widths cut to 4 layers, fp32 parameters, bf16 compute,
+    selective recompute, NEFTune 5.0, AdamW, 4 packed rows of 4096 tokens
+    a step) in one `Trainer` fit whose steps alternate between `silu_mul`
+    as the port computes it (JAX's primitive order, ROADMAP C.1) and
+    `F.silu(gate) * up`, the version it replaced; prints each one's step
+    p50 and the difference as a share of the step."""
+    from dataclasses import asdict
+
+    import torch.nn.functional as F
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama import model as llama_model
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset("llama-3.1-8b", num_hidden_layers=IT_LAYERS, param_dtype="float32",
+                    enable_gradient_checkpointing=True, recompute_granularity="selective")
+    rows = packed_batches(20, 4096, 8, config.vocab_size, max_doc=QW_MAX_DOC)
+    batches = [{k: np.concatenate([r[k] for r in rows[i:i + 4]]) for k in rows[0]}
+               for i in (0, 4)]
+    versions = {"jax_order": llama_model.silu_mul, "f_silu": lambda g, u: F.silu(g) * u}
+    order = ["jax_order", "f_silu"]
+    steps = 1 + SILU_TURN_STEPS
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            for step in range(start_step, steps):
+                yield batches[step % 2]
+
+    class Turns:
+        def __init__(self):
+            self.times = {name: [] for name in order}
+            self.step, self.t = 0, None
+
+        def use(self):
+            llama_model.silu_mul = versions[order[self.step % 2]]
+
+        def on_fit_start(self, *args):
+            self.use()
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if self.step > 0:  # step 1 carries the warm-up
+                self.times[order[self.step % 2]].append(1e3 * (now - self.t))
+            self.step += 1
+            self.use()
+            self.t = time.perf_counter()
+
+    turns = Turns()
+    trainer = Trainer(TrainerConfig(max_steps=steps, seed=0, log_every_n_steps=1),
+                      callbacks=[turns], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**IT_OPTIM), neftune_alpha=IT_NEFTUNE))
+    try:
+        trainer.fit(objective, Batches(BaseDataModuleConfig()))
+    finally:
+        llama_model.silu_mul = versions["jax_order"]
+    p50 = {name: percentile(times, 50) for name, times in turns.times.items()}
+    share = (p50["jax_order"] - p50["f_silu"]) / p50["f_silu"]
+    print(f"silu turns [{card}]: phase 20's shape ({IT_LAYERS} layers, 4 x 4096 packed tokens a "
+          f"step), steps alternating: silu_mul in JAX's order p50 {p50['jax_order']:.2f} ms "
+          f"(steps {', '.join(f'{t:.1f}' for t in turns.times['jax_order'])}), F.silu p50 "
+          f"{p50['f_silu']:.2f} ms (steps {', '.join(f'{t:.1f}' for t in turns.times['f_silu'])}); "
+          f"difference {100 * share:+.2f}% of the step", flush=True)
+    del objective, trainer
+    release()
+    return dict(p50_ms=p50, share=share, times=turns.times)
+
+
 def start_pack_child() -> None:
     """Start phase 20's packers' process (stopped at exit if still running)."""
     import subprocess
@@ -6468,8 +6859,8 @@ def timed(name: str, phase, *args):
 
 
 def main() -> int:
-    if len(sys.argv) != 1:
-        print("usage: python3 chip_smoke.py", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["silu-turns"]):
+        print("usage: python3 chip_smoke.py [silu-turns]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
@@ -6484,6 +6875,11 @@ def main() -> int:
           f"CUDA {torch.version.cuda})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["silu-turns"]:
+        timed("2 build", phase_build)
+        timed("silu turns", silu_turns, card)
+        print(card)
+        return 0
 
     t_start = time.perf_counter()
     timed("2 build", phase_build)
@@ -6549,13 +6945,21 @@ def main() -> int:
     # phase 19's serving (K4) and DPO (K1-K3) at Phi-3-mini's shapes, timed there
     print("kernels at Phi-3-mini shapes (launches: phase 19): " + json.dumps(kernel_rows(
         hf["kernels"]["k4"], hf["serve"]["launches"], hf["kernels"], hf["dpo"]["launches"])))
-    # this slice's path: phase 20's armed instruction tuning (K1-K3, timed at
-    # its first batch's shape) with phase 21's launches added (the mesh fit
-    # and the virtual rings); K4 through phase 18d's router, every replica's
-    # launches, timed at the Llama-3.1-8B serving shape of phase 7
-    it_mesh = {kind: it["launches"][kind] + mesh["launches"][kind] for kind in ("fwd", "dq", "dkv")}
+    # phase 19e's Qwen3-8B: K4 serving at 8 layers, K1-K3 in the 4-layer fit
+    qwen3 = hf["qwen3"]
+    print("phase 19e launches: " + json.dumps({
+        "k4": qwen3["serve"]["launches"], **qwen3["fit"]["launches"]}))
+    # this slice's path: phase 19e's Qwen3-8B fit and phase 20's armed
+    # instruction tuning (K1-K3, timed at phase 20's first batch's shape, the
+    # head shape of Qwen3-8B's fit), with phase 21's launches added (the mesh
+    # fit and the virtual rings); K4 through 19e's serving and phase 18d's
+    # router (every replica), timed at phase 7's Llama-3.1-8B serving shape
+    # (Qwen3-8B's heads too: Hkv 8, D 128)
+    flash_launches = {kind: it["launches"][kind] + mesh["launches"][kind]
+                      + qwen3["fit"]["launches"][kind] for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
-        timing, sum(serving["d"]["launches"]), it["kernels"], it_mesh)}))
+        timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"], it["kernels"],
+        flash_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

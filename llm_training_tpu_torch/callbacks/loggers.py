@@ -13,14 +13,12 @@ and metadata land beside them at fit start.
 from __future__ import annotations
 
 import json
-import platform
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
-import torch
-
 from llm_training_tpu_torch.parallel.mesh import is_primary
+from llm_training_tpu_torch.run_metadata import collect_run_metadata
 
 # metric keys routed (additionally) to telemetry.jsonl, as JAX's
 TELEMETRY_PREFIXES = (
@@ -75,15 +73,14 @@ class JsonlLogger:
         if not is_primary():
             return
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        device = trainer.device
-        metadata = {
-            "python": platform.python_version(),
-            "torch": torch.__version__,
-            "device": str(device),
-            "device_name": (torch.cuda.get_device_name(device) if device.type == "cuda"
-                            else platform.processor() or "cpu"),
-        }
-        (self.run_dir / "run_metadata.json").write_text(json.dumps(metadata, indent=2))
+        # one metadata snapshot a run, as JAX's: the checkpointer's (taken
+        # at its construction) so the checkpoint meta and the run dir record
+        # the same world, env and rev; collected here when there is none
+        run_metadata = getattr(getattr(trainer, "checkpointer", None), "run_metadata", None)
+        if run_metadata is None:
+            run_metadata = collect_run_metadata()
+        (self.run_dir / "run_metadata.json").write_text(
+            json.dumps(run_metadata, indent=2, default=str))
         if trainer.run_config:
             (self.run_dir / "config.json").write_text(
                 json.dumps(trainer.run_config, indent=2, default=str)

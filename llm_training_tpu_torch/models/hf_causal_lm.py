@@ -2,7 +2,7 @@
 
 Counterpart of `llm_training_tpu/models/hf_causal_lm.py`: an architecture
 router, not a wrapper. `config.json`'s `model_type` selects the family
-(`hf_io.model_class_for_hf`: llama/mistral -> Llama, phi3 -> Phi3; a
+(`hf_io.model_class_for_hf`: every Llama-graph type -> Llama, phi3 -> Phi3; a
 family the port lacks raises naming ROADMAP A.8), the family's
 `config_from_hf` merges the hparams with any extra field of the node as
 an override, and with `load_hf_weights` (the default) the family config's

@@ -1,13 +1,16 @@
 """Llama model config, as a dataclass that validates on construction.
 
 Counterpart of `llm_training_tpu/models/llama/config.py`. Field names are
-the JAX package's (which are HF's), and every JAX field is accepted. Only
-the plain Llama decoder is ported (with Phi-3 over it, `models/phi3/`):
-fields that select another architecture (or a mesh layout) raise
-`NotImplementedError` when set to anything but the Llama value, naming the
-ROADMAP queue that brings them. `bos_token_id` and `pre_trained_weights`
-are carried as JAX carries them (`lms/base.py` loads the HF directory the
-latter names), and `attention_dropout` raises unless 0.0, as JAX's does.
+the JAX package's (which are HF's), and every JAX field is accepted. The
+Llama graph's variants are ported: norm schemes and types, qk-norm, biases,
+partial and interleaved rotary, learned positions, per-layer windows and
+NoPE layers, the Granite multipliers and the non-gated MLPs (with Phi-3
+over the same stack, `models/phi3/`). The fields of the MoE stack (and of
+a mesh's pipeline) raise `NotImplementedError` when set to anything but
+the dense value, naming the ROADMAP queue that brings them.
+`bos_token_id` and `pre_trained_weights` are carried as JAX carries them
+(`lms/base.py` loads the HF directory the latter names), and
+`attention_dropout` raises unless 0.0, as JAX's does.
 """
 
 from __future__ import annotations
@@ -21,35 +24,10 @@ import torch
 from llm_training_tpu_torch.models.base import resolve_dtype
 from llm_training_tpu_torch.ops.rope_utils import RoPEConfig, rope_config_from_hf
 
-# field -> the only value the port implements (JAX's default), for fields
-# that select another family or the MoE stack (ROADMAP A.8)
-_LLAMA_ONLY = {
+# field -> the only value the port implements (JAX's default), for the
+# fields of the MoE stack (ROADMAP A.8)
+_DENSE_ONLY = {
     "num_experts": None,
-    "norm_scheme": "pre",
-    "norm_type": "rmsnorm",
-    "mlp_type": "swiglu",
-    "qk_norm": False,
-    "clip_qkv": None,
-    "partial_rotary_factor": 1.0,
-    "position_embedding_type": "rope",
-    "layer_types": None,
-    "attention_bias": False,
-    "mlp_bias": False,
-    "attention_out_bias": False,
-    "lm_head_bias": False,
-    "attention_multiplier": None,
-    "embedding_multiplier": 1.0,
-    "residual_multiplier": 1.0,
-    "logits_scaling": 1.0,
-    "logit_scale": None,
-    "dual_local_rope": False,
-    "no_rope_layers": None,
-    "rope_interleaved": False,
-    "neox_naming": False,
-    "fused_gate_up": False,
-    "gelu_approximate": True,
-    "qk_norm_position": "pre_rope",
-    "qk_norm_scope": "head",
     "num_experts_per_tok": 2,
     "moe_intermediate_size": None,
     "shared_expert_intermediate_size": None,
@@ -62,6 +40,16 @@ _LLAMA_ONLY = {
     "ep_capacity_factor": 2.0,
     "router_aux_loss_coef": 0.001,
     "router_jitter_eps": 0.01,
+}
+# the choices of JAX's Literal fields
+_CHOICES = {
+    "norm_scheme": ("pre", "post", "parallel", "parallel2", "sandwich"),
+    "norm_type": ("rmsnorm", "layernorm", "layernorm_nobias", "layernorm1p",
+                  "layernorm_nonparam"),
+    "mlp_type": ("swiglu", "gelu", "relu2", "xielu"),
+    "qk_norm_scope": ("head", "full"),
+    "qk_norm_position": ("pre_rope", "post_rope"),
+    "position_embedding_type": ("rope", "learned"),
 }
 # the same for pipeline parallelism (ROADMAP A.9b)
 _ONE_DEVICE_ONLY = {
@@ -102,36 +90,64 @@ class LlamaConfig:
     attention_impl: str = "auto"
     # the JAX parameter tree's layout (one scanned `layers/layer` stack, or
     # `layers_{i}`): it changes nothing the port computes, only the paths
-    # that `frozen_modules` patterns match (optim/builder.py)
-    scan_layers: bool = True
-    # architecture selectors of the JAX config; only the Llama values are ported
-    num_experts: int | None = None
+    # that `frozen_modules` patterns match (optim/builder.py). None is
+    # JAX's default (True), which `layer_types` and `no_rope_layers` turn
+    # off; an explicit True beside them raises, as in JAX
+    scan_layers: bool | None = None
+    # the Llama graph's variants (see the JAX config for each family):
+    # 'pre' Llama; 'post' OLMo-2 (norm each block's output, no input
+    # norms); 'parallel' Cohere/Phi (one input norm feeds attention and
+    # mlp, one residual add); 'parallel2' GPT-NeoX (two norms over the same
+    # input); 'sandwich' GLM-4 (input and output norms around both blocks)
     norm_scheme: str = "pre"
+    # 'layernorm' biased (Starcoder2), 'layernorm_nobias' Cohere's
+    # weight-only, 'layernorm1p' Nemotron's (1 + w), 'layernorm_nonparam'
+    # OLMo-1's without parameters
     norm_type: str = "rmsnorm"
+    # 'gelu' c_fc -> gelu -> c_proj, 'relu2' up -> relu^2 -> down, 'xielu'
+    # Apertus' up -> xIELU -> down with two learnable scalars
     mlp_type: str = "swiglu"
+    # per-head RMSNorm on q and k (Qwen3); scope 'full' is OLMo-2's one
+    # norm over the projected width; HunYuan applies it after rotary
     qk_norm: bool = False
+    qk_norm_scope: str = "head"
+    qk_norm_position: str = "pre_rope"
+    # OLMo: clamp q/k/v to [-clip_qkv, clip_qkv] after the projections
     clip_qkv: float | None = None
+    # Phi: rotate only the first int(factor * head_dim) dims of each head
     partial_rotary_factor: float = 1.0
+    # GPT-2: learned absolute positions (wpe) instead of rotary
     position_embedding_type: str = "rope"
+    # per-layer 'sliding_attention' / 'full_attention' (OLMo-3, Ministral,
+    # EXAONE-4, Cohere2); sliding layers take sliding_window
     layer_types: list[str] | None = None
     attention_bias: bool = False
     mlp_bias: bool = False
     # None follows attention_bias, as in JAX
     attention_out_bias: bool | None = None
     lm_head_bias: bool = False
+    # Granite's multipliers (None: the standard 1/sqrt(head_dim) scale)
     attention_multiplier: float | None = None
     embedding_multiplier: float = 1.0
     residual_multiplier: float = 1.0
     logits_scaling: float = 1.0
+    # Cohere's multiplicative logit scale
     logit_scale: float | None = None
-    dual_local_rope: bool = False
+    # OLMo-3: sliding layers rotate with the unscaled tables. None is
+    # JAX's "not set", resolved by its back-compat rule
+    dual_local_rope: bool | None = None
+    # SmolLM3 NoPE: per-layer rope flags (1 rotate, 0 NoPE)
     no_rope_layers: list[int] | None = None
+    # Cohere/GLM/Ernie/Helium: (even, odd) rotation pairs
     rope_interleaved: bool = False
+    # GPT-NeoX checkpoint naming (gpt_neox. prefix, fused query_key_value)
     neox_naming: bool = False
+    # GLM: gate and up stored as one gate_up_proj in HF files
     fused_gate_up: bool = False
+    # tanh-approximate gelu (exact for GPT-NeoX's 'gelu')
     gelu_approximate: bool = True
-    qk_norm_position: str = "pre_rope"
-    qk_norm_scope: str = "head"
+    # the MoE stack (ROADMAP A.8): only the dense values
+    num_experts: int | None = None
     num_experts_per_tok: int = 2
     moe_intermediate_size: int | None = None
     shared_expert_intermediate_size: int | None = None
@@ -151,13 +167,16 @@ class LlamaConfig:
     def __post_init__(self):
         if self.attention_out_bias is None:
             self.attention_out_bias = self.attention_bias
-        for queue, only in (("A.8", _LLAMA_ONLY), ("A.9b", _ONE_DEVICE_ONLY)):
+        for queue, only in (("A.8", _DENSE_ONLY), ("A.9b", _ONE_DEVICE_ONLY)):
             for name, value in only.items():
                 if getattr(self, name) != value:
                     raise NotImplementedError(
                         f"{name}={getattr(self, name)!r} is not ported (only {value!r}; "
                         f"ROADMAP {queue})"
                     )
+        for name, choices in _CHOICES.items():
+            if getattr(self, name) not in choices:
+                raise ValueError(f"{name} must be one of {choices}, got {getattr(self, name)!r}")
         if self.attention_dropout != 0.0:
             # as JAX: fail loudly rather than train without the dropout asked for
             raise ValueError("attention_dropout is not supported; set it to 0.0")
@@ -173,6 +192,47 @@ class LlamaConfig:
             )
         if self.attention_impl not in ("auto", "xla", "pallas", "torch", "kernel"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
+        explicit_scan = self.scan_layers is not None
+        if self.scan_layers is None:
+            self.scan_layers = True
+        dual_set = self.dual_local_rope is not None
+        if not dual_set:
+            self.dual_local_rope = False
+        if self.layer_types is not None:
+            if len(self.layer_types) != self.num_hidden_layers:
+                raise ValueError(
+                    f"layer_types has {len(self.layer_types)} entries for "
+                    f"{self.num_hidden_layers} layers"
+                )
+            bad = set(self.layer_types) - {"sliding_attention", "full_attention"}
+            if bad:
+                raise ValueError(
+                    f"unknown layer_types entries {sorted(bad)}; expected "
+                    "'sliding_attention' or 'full_attention'"
+                )
+            if "sliding_attention" in self.layer_types and not self.sliding_window:
+                raise ValueError("sliding layer_types require sliding_window")
+            # per-layer windows and ropes: JAX's looped layout
+            if self.scan_layers and explicit_scan:
+                raise ValueError("layer_types requires looped layers; set scan_layers=False")
+            self.scan_layers = False
+            # JAX's back-compat rule: layer_types + rope_scaling under
+            # post-norm (OLMo-3's signature) means dual tables unless set
+            if not dual_set and self.rope_scaling and self.norm_scheme == "post":
+                self.dual_local_rope = True
+        if self.no_rope_layers is not None:
+            if self.position_embedding_type == "learned":
+                raise ValueError("no_rope_layers is meaningless with learned positions")
+            if len(self.no_rope_layers) != self.num_hidden_layers:
+                raise ValueError(
+                    f"no_rope_layers has {len(self.no_rope_layers)} entries "
+                    f"for {self.num_hidden_layers} layers"
+                )
+            if self.scan_layers and explicit_scan:
+                raise ValueError(
+                    "no_rope_layers requires looped layers; set scan_layers=False"
+                )
+            self.scan_layers = False
         resolve_dtype(self.compute_dtype)
         resolve_dtype(self.param_dtype)
         self.rope_config  # construct to validate the rope fields
@@ -190,11 +250,35 @@ class LlamaConfig:
         return resolve_dtype(self.param_dtype)
 
     @property
+    def rotary_dim(self) -> int:
+        """The rotated dims of a head (Phi's partial rotary)."""
+        return int(self.resolved_head_dim * self.partial_rotary_factor)
+
+    @property
     def rope_config(self) -> RoPEConfig:
         return rope_config_from_hf(
-            self.rope_scaling, self.rope_theta, self.resolved_head_dim,
-            self.max_position_embeddings,
+            self.rope_scaling, self.rope_theta, self.rotary_dim, self.max_position_embeddings,
         )
+
+    @property
+    def local_rope_config(self) -> RoPEConfig:
+        """OLMo-3's sliding layers: the same theta, never scaled."""
+        return rope_config_from_hf(None, self.rope_theta, self.rotary_dim,
+                                   self.max_position_embeddings)
+
+    def layer_sliding_window(self, layer_idx: int) -> int | None:
+        """The window of layer `layer_idx`: `sliding_window` everywhere, or
+        on the sliding layers of `layer_types` only."""
+        if self.layer_types is None or self.layer_types[layer_idx] == "sliding_attention":
+            return self.sliding_window
+        return None
+
+    def layer_rotates(self, layer_idx: int) -> bool:
+        """Whether layer `layer_idx` applies rotary (not learned positions,
+        not a NoPE layer)."""
+        if self.position_embedding_type == "learned":
+            return False
+        return self.no_rope_layers is None or bool(self.no_rope_layers[layer_idx])
 
     @classmethod
     def from_dict(cls, data: dict[str, Any], where: str = "config") -> "LlamaConfig":
@@ -212,8 +296,8 @@ class LlamaConfig:
             return cls.from_dict(json.load(f), path)
 
 
-# meta-llama/Llama-3.1-8B config.json widths
 PRESETS: dict[str, dict[str, Any]] = {
+    # the config.json of huggingface.co/meta-llama/Llama-3.1-8B
     "llama-3.1-8b": dict(
         vocab_size=128256,
         hidden_size=4096,
@@ -230,6 +314,29 @@ PRESETS: dict[str, dict[str, Any]] = {
             "high_freq_factor": 4.0, "original_max_position_embeddings": 8192,
         },
         eos_token_id=128001,
+        tie_word_embeddings=False,
+        compute_dtype="bfloat16",
+        param_dtype="bfloat16",
+    ),
+    # the config.json of huggingface.co/Qwen/Qwen3-8B: per-head qk-norm, no
+    # biases, no rope scaling, untied
+    "qwen3-8b": dict(
+        vocab_size=151936,
+        hidden_size=4096,
+        intermediate_size=12288,
+        num_hidden_layers=36,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        head_dim=128,
+        max_position_embeddings=40960,
+        rms_norm_eps=1e-6,
+        rope_theta=1000000.0,
+        rope_scaling=None,
+        qk_norm=True,
+        qk_norm_scope="head",
+        attention_bias=False,
+        bos_token_id=151643,
+        eos_token_id=151645,
         tie_word_embeddings=False,
         compute_dtype="bfloat16",
         param_dtype="bfloat16",

@@ -27,11 +27,25 @@ import torch
 
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 
+# the Dense projections of a decoder layer, and the norms (a layer's own,
+# and the attention's qk-norms), by their parent module
 _DENSE = {
     "self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-    "mlp": ("gate_proj", "up_proj", "down_proj"),
+    "mlp": ("gate_proj", "up_proj", "down_proj", "c_fc", "c_proj"),
 }
-_NORMS = ("input_layernorm", "post_attention_layernorm")
+_NORMS = ("input_layernorm", "post_attention_layernorm", "post_feedforward_layernorm",
+          "post_self_attn_layernorm", "post_mlp_layernorm")
+_QK_NORMS = ("q_norm", "k_norm")
+_XIELU = ("xielu_alpha_p", "xielu_alpha_n")
+# outside the layers: the port's name -> the keys below `params`
+_TOP = {
+    "model.embed_tokens.weight": ("embed_tokens", "embedding"),
+    "model.wpe.weight": ("wpe", "embedding"),
+    "model.norm.weight": ("norm", "weight"),
+    "model.norm.bias": ("norm", "bias"),
+    "lm_head.weight": ("lm_head", "kernel"),
+    "lm_head.bias": ("lm_head", "bias"),
+}
 
 
 def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
@@ -47,16 +61,24 @@ def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
 
 
 def parameter_names(config: LlamaConfig) -> list[str]:
-    """The port's `Llama` parameter names (HF names)."""
-    names = ["model.embed_tokens.weight", "model.norm.weight"]
-    if not config.tie_word_embeddings:
-        names.append("lm_head.weight")
-    for i in range(config.num_hidden_layers):
-        prefix = f"model.layers.{i}."
-        names += [f"{prefix}{block}.{name}.weight" for block, dense in _DENSE.items()
-                  for name in dense]
-        names += [f"{prefix}{norm}.weight" for norm in _NORMS]
-    return names
+    """The port's `Llama` parameter names (HF's spelling of JAX's tree) for
+    `config`, in the model's order."""
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    return [name for name, _ in Llama(config, device="meta").named_parameters()]
+
+
+def _layer_keys(keys: list[str]) -> tuple[str, ...] | None:
+    """The JAX keys below a decoder layer of the port's in-layer name
+    parts (`["self_attn", "q_proj", "weight"]`), or None."""
+    if len(keys) == 3 and keys[1] in _DENSE.get(keys[0], ()) and keys[2] in ("weight", "bias"):
+        return (keys[0], keys[1], "kernel" if keys[2] == "weight" else "bias")
+    if len(keys) == 3 and keys[0] == "self_attn" and keys[1] in _QK_NORMS and keys[2] == "weight":
+        return tuple(keys)
+    if len(keys) == 2 and (keys[0] in _NORMS and keys[1] in ("weight", "bias")
+                           or keys[0] == "mlp" and keys[1] in _XIELU):
+        return tuple(keys)
+    return None
 
 
 def jax_leaf(name: str) -> tuple[int | None, tuple[str, ...]]:
@@ -66,16 +88,11 @@ def jax_leaf(name: str) -> tuple[int | None, tuple[str, ...]]:
     `[in, out]`, the transpose of torch's `weight`. Raises KeyError for a
     name that is not a `Llama` parameter."""
     parts = name.split(".")
-    if parts[:2] == ["model", "layers"] and len(parts) in (5, 6) and parts[-1] == "weight":
-        keys = parts[3:-1]
-        if (len(keys) == 2 and keys[1] in _DENSE.get(keys[0], ())) or keys[0] in _NORMS:
-            return int(parts[2]), (*keys, "kernel" if len(keys) == 2 else "weight")
-    top = {
-        "model.embed_tokens.weight": ("embed_tokens", "embedding"),
-        "model.norm.weight": ("norm", "weight"),
-        "lm_head.weight": ("lm_head", "kernel"),
-    }
-    return None, top[name]
+    if parts[:2] == ["model", "layers"] and len(parts) >= 5 and parts[2].isdigit():
+        keys = _layer_keys(parts[3:])
+        if keys is not None:
+            return int(parts[2]), keys
+    return None, _TOP[name]
 
 
 PAIR = ("policy", "ref")

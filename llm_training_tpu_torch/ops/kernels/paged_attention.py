@@ -86,7 +86,8 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> int:
         )
     group = num_q_heads // num_kv_heads
     if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not supported (expected one of {_HEAD_DIMS})")
+        raise ValueError(f"head_dim {head_dim} not supported (expected one of {_HEAD_DIMS}; "
+                         "ROADMAP B, kernel limits)")
     if group > _MAX_GROUP:
         raise ValueError(f"GQA group {group} (Hq {num_q_heads} / Hkv {num_kv_heads}) exceeds {_MAX_GROUP}")
     if block_tables.dim() != 2 or block_tables.shape[0] != batch or lengths.shape != (batch,):

@@ -14,9 +14,12 @@ everything from it and the rules:
 
 - the DTensor tensor-parallel plan over `tensor`: a projection whose
   output dimension maps to `tensor` (`heads`, `kv_heads`, `mlp`, the head's
-  `vocab`) is colwise, one whose input dimension does (`o_proj`,
-  `down_proj`) rowwise, the embedding is sharded on `vocab`. Every style
-  keeps `use_local_output=True`, so the kernels only ever see plain local
+  `vocab`) is colwise (its bias sharded with it), one whose input
+  dimension does (`o_proj`, `down_proj`, `c_proj`) rowwise (its bias
+  replicated and added once, to the reduced sum), the embedding is sharded
+  on `vocab`, and a per-head qk-norm runs over the rank's heads with its
+  replicated weight's gradient summed over `tensor`. Every style keeps
+  `use_local_output=True`, so the kernels only ever see plain local
   tensors;
 - FSDP2's `fully_shard` per decoder layer, then at the model's root, over
   the batch axes: `fsdp` and `sequence` shard (the sequence ranks hold
@@ -205,27 +208,52 @@ def shard_pytree(tree: dict[str, torch.Tensor], mesh, logical_axes: dict[str, Se
 # ------------------------------------------------------------ the parameters
 
 # each parameter's logical names in the JAX array's orientation; `*` is a
-# decoder layer's index (the JAX scanned stack adds a leading 'layers')
+# decoder layer's index (the JAX scanned stack adds a leading 'layers'). A
+# Dense bias takes its kernel's last axis (JAX's `_dense`); every norm's
+# weight and bias are ('norm',) over their last dim (`param_logical_axes`
+# prepends None for Cohere's [heads, head_dim] qk-norm weights)
 PARAM_LOGICAL_AXES: dict[str, tuple[str, ...]] = {
     "model.embed_tokens.weight": ("vocab", "embed"),
-    "model.layers.*.input_layernorm.weight": ("norm",),
+    "model.wpe.weight": (None, "embed"),
     "model.layers.*.self_attn.q_proj.weight": ("embed", "heads"),
     "model.layers.*.self_attn.k_proj.weight": ("embed", "kv_heads"),
     "model.layers.*.self_attn.v_proj.weight": ("embed", "kv_heads"),
     "model.layers.*.self_attn.o_proj.weight": ("heads", "embed"),
-    "model.layers.*.post_attention_layernorm.weight": ("norm",),
+    "model.layers.*.self_attn.q_proj.bias": ("heads",),
+    "model.layers.*.self_attn.k_proj.bias": ("kv_heads",),
+    "model.layers.*.self_attn.v_proj.bias": ("kv_heads",),
+    "model.layers.*.self_attn.o_proj.bias": ("embed",),
+    "model.layers.*.self_attn.q_norm.weight": ("norm",),
+    "model.layers.*.self_attn.k_norm.weight": ("norm",),
     "model.layers.*.mlp.gate_proj.weight": ("embed", "mlp"),
     "model.layers.*.mlp.up_proj.weight": ("embed", "mlp"),
     "model.layers.*.mlp.down_proj.weight": ("mlp", "embed"),
+    "model.layers.*.mlp.c_fc.weight": ("embed", "mlp"),
+    "model.layers.*.mlp.c_proj.weight": ("mlp", "embed"),
+    "model.layers.*.mlp.gate_proj.bias": ("mlp",),
+    "model.layers.*.mlp.up_proj.bias": ("mlp",),
+    "model.layers.*.mlp.down_proj.bias": ("embed",),
+    "model.layers.*.mlp.c_fc.bias": ("mlp",),
+    "model.layers.*.mlp.c_proj.bias": ("embed",),
+    "model.layers.*.mlp.xielu_alpha_p": (None,),
+    "model.layers.*.mlp.xielu_alpha_n": (None,),
+    **{f"model.layers.*.{norm}.{leaf}": ("norm",)
+       for norm in ("input_layernorm", "post_attention_layernorm", "post_feedforward_layernorm",
+                    "post_self_attn_layernorm", "post_mlp_layernorm")
+       for leaf in ("weight", "bias")},
     "model.norm.weight": ("norm",),
+    "model.norm.bias": ("norm",),
     "lm_head.weight": ("embed", "vocab"),
+    "lm_head.bias": ("vocab",),
 }
 _LAYER = re.compile(r"^model\.layers\.\d+\.")
 
 
 def param_logical_axes(name: str, rules: LogicalAxisRules = DEFAULT_LOGICAL_AXIS_RULES,
-                       ) -> tuple[str, ...]:
-    """The JAX-orientation logical names of the model parameter `name`,
+                       ndim: int | None = None) -> tuple[str, ...]:
+    """The JAX-orientation logical names of the model parameter `name`
+    (of `ndim` dims: a norm weight of more dims than its entry, Cohere's
+    per-head qk-norm, takes None before it, as JAX's `LayerNorm` names it),
     resolved strictly: a parameter outside the table, or a name the rules
     do not know, raises `UnknownLogicalAxisError` naming it (as JAX's
     trainer does for its state)."""
@@ -233,6 +261,8 @@ def param_logical_axes(name: str, rules: LogicalAxisRules = DEFAULT_LOGICAL_AXIS
     axes = PARAM_LOGICAL_AXES.get(key)
     if axes is None:
         raise UnknownLogicalAxisError("<none>", known=tuple(_rules_dict(rules)), path=name)
+    if ndim is not None and ndim > len(axes) and axes[-1] == "norm":
+        axes = (None,) * (ndim - len(axes)) + axes
     resolve_spec(axes, rules, strict=True, path=name)
     return axes
 
@@ -247,12 +277,22 @@ def tensor_parallel_plan(model: torch.nn.Module,
     """`parallelize_module`'s plan over `tensor` for `model`, from the
     parameters' logical names: {module path: ParallelStyle}."""
     from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+        SequenceParallel,
+    )
 
     plan = {}
-    for name, _ in model.named_parameters():
-        axes = param_logical_axes(name, rules)
+    for name, param in model.named_parameters():
+        axes = param_logical_axes(name, rules, param.dim())
         module = name.removesuffix(".weight")
+        if module.endswith(("self_attn.q_norm", "self_attn.k_norm")) and param.dim() == 1:
+            # a head's qk-norm over a rank's local heads: its weight is
+            # replicated and its gradient, partial on each rank, is summed
+            # over `tensor` (the heads are dim 2 of [B, S, H, D])
+            plan[module] = SequenceParallel(sequence_dim=2, use_local_output=True)
+            continue
         if len(axes) != 2:
             continue
         if module.endswith("embed_tokens"):
@@ -295,8 +335,8 @@ def parallelize(model: torch.nn.Module, mesh, dp_mesh=None,
     from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
     from torch.distributed.tensor.parallel import parallelize_module
 
-    for name, _ in model.named_parameters():
-        param_logical_axes(name, rules)  # strict: every parameter has its names
+    for name, param in model.named_parameters():
+        param_logical_axes(name, rules, param.dim())  # strict: every parameter has its names
     config = model.config
     tp_mesh = mesh[TENSOR_AXIS]
     if tp_mesh.size() > 1:

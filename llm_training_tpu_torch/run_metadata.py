@@ -70,6 +70,7 @@ def collect_run_metadata() -> dict:
         "num_processes": torch.distributed.get_world_size() if distributed else 1,
         "process_index": torch.distributed.get_rank() if distributed else 0,
         "device_count": torch.cuda.device_count(),
+        "local_device_count": torch.cuda.device_count(),
         "backend": "cuda" if torch.cuda.is_available() else "cpu",
         "device_kind": torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu",
     }

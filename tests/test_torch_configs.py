@@ -91,19 +91,20 @@ def test_llama_config_round_trips_every_jax_field():
 
 @pytest.mark.parametrize("field,value,error,match", [
     ("num_experts_per_tok", 4, NotImplementedError, "A.8"),
-    ("lm_head_bias", True, NotImplementedError, "A.8"),
-    ("attention_out_bias", True, NotImplementedError, "A.8"),
+    ("lm_head_bias", True, None, None),
+    ("attention_out_bias", True, None, None),
     ("moe_style", "granite", NotImplementedError, "A.8"),
     ("ring_attention", True, None, None),
     ("pipeline_stages", 2, NotImplementedError, "A.9b"),
     ("attention_dropout", 0.1, ValueError, "attention_dropout is not supported"),
 ])
 def test_llama_fields_beyond_the_plain_decoder_raise(field, value, error, match):
-    """C.25: a field that selects another architecture or pipeline stages
-    raises at any value but JAX's default, naming the queue that brings it;
-    `attention_dropout` raises unless 0.0, as JAX's config does;
-    `ring_attention` is accepted (the model rings over an active mesh's
-    `sequence` ranks, `parallel/ring_attention.py`)."""
+    """C.25: a field of the MoE stack or pipeline stages raises at any value
+    but JAX's default, naming the queue that brings it; `attention_dropout`
+    raises unless 0.0, as JAX's config does; `ring_attention` is accepted
+    (the model rings over an active mesh's `sequence` ranks,
+    `parallel/ring_attention.py`), and since the Llama graph's variants
+    are ported so are the head's and o_proj's biases."""
     if error is None:
         assert getattr(LlamaConfig(**SMALL, **{field: value}), field) == value
         return

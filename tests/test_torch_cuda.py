@@ -131,6 +131,28 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         kernels.paged_decode_attention(**case)
 
 
+@pytest.mark.cuda
+def test_a_phi2_decode_step_raises_naming_roadmap_b(cuda):
+    """A Llama-graph type whose head_dim K4 does not take (Phi-2's 80)
+    raises on the card naming ROADMAP B: no plain fallback."""
+    from llm_training_tpu_torch.models.base import PagedDecodeState
+    from llm_training_tpu_torch.models.llama.hf_conversion import config_from_hf
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    config = config_from_hf({
+        "model_type": "phi", "vocab_size": 64, "hidden_size": 160, "intermediate_size": 64,
+        "num_hidden_layers": 1, "num_attention_heads": 2, "max_position_embeddings": 64},
+        compute_dtype="bfloat16", param_dtype="bfloat16")
+    assert config.resolved_head_dim == 80
+    model = Llama(config, device=cuda)
+    pool = torch.zeros((1, 2, 16, 2, 80), dtype=torch.bfloat16, device=cuda)
+    state = PagedDecodeState(k=pool, v=pool.clone(),
+                             block_tables=torch.ones((1, 1), dtype=torch.int32, device=cuda),
+                             lengths=torch.zeros(1, dtype=torch.int32, device=cuda))
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim 80.*ROADMAP B"):
+        model(torch.zeros((1, 1), dtype=torch.long, device=cuda), decode_state=state)
+
+
 # ---------------------------------------------------------------- flash attention (K1-K3)
 
 

@@ -33,6 +33,7 @@ from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax
 from llm_training_tpu_torch.models.llama.model import Llama
 from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
 from llm_training_tpu_torch.models.phi3 import hf_conversion as phi3_conv
+from torch_llama_variant_cases import EXPORTED_TYPES, FP32, hf_config
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 WIDTHS = dict(vocab_size=128, hidden_size=64, intermediate_size=112, num_hidden_layers=3,
@@ -129,12 +130,23 @@ def test_lazy_state_dict_finds_files_as_jax(families, tmp_path, where):
         hf_io.LazyStateDict(tmp_path / "empty")
 
 
-@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("family", sorted(FAMILIES) + list(EXPORTED_TYPES))
 def test_transformers_loads_the_ports_export(families, tmp_path, family):
+    """`transformers` loads the port's export of each family, and of each
+    Llama-graph type that JAX's own tests load through it (random weights,
+    biases and norms included), to logits equal to the port's."""
     transformers = pytest.importorskip("transformers")
-    _, _, params, config = families[family]
-    model = FAMILIES[family][2](config, device="cpu")
-    model.load_state_dict(_state_dict(params, config))
+    if family in FAMILIES:
+        _, _, params, config = families[family]
+        model = FAMILIES[family][2](config, device="cpu")
+        model.load_state_dict(_state_dict(params, config))
+    else:
+        config = llama_conv.config_from_hf(hf_config(family), **FP32)
+        model = Llama(config, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for param in model.parameters():
+                param.copy_(0.1 * torch.randn(param.shape, generator=gen))
     out = hf_io.save_hf_checkpoint(model.state_dict(), config, tmp_path / "export",
                                    dtype="float32")
     hf_model = transformers.AutoModelForCausalLM.from_pretrained(
@@ -186,13 +198,13 @@ HF_FIELDS = dict(
 def test_config_from_hf_matches_jax(model_type, monkeypatch):
     """The fields `config_from_hf` sets equal JAX's (JAX's LlamaConfig
     replaced by a recorder), or both raise JAX's ValueError; the port's
-    config then equals JAX's where it can run the type, and raises naming
-    A.8 where it cannot."""
+    config then equals JAX's for every dense type, and raises naming A.8
+    for the 8 MoE types."""
     hf = {**HF_FIELDS, "model_type": model_type}
     try:
         jax_config = jax_llama_conv.config_from_hf(hf).model_dump()
-    except ValueError:
-        jax_config = None  # the synthetic fields break one of JAX's checks
+    except ValueError as e:
+        jax_config = e  # the synthetic fields break one of JAX's checks
     monkeypatch.setattr(jax_llama_conv, "LlamaConfig", lambda **fields: fields)
     try:
         expected = jax_llama_conv.config_from_hf(hf)
@@ -201,13 +213,15 @@ def test_config_from_hf_matches_jax(model_type, monkeypatch):
             llama_conv.config_fields_from_hf(hf)
         return
     assert llama_conv.config_fields_from_hf(hf) == expected
-    try:
-        ours = dataclasses.asdict(llama_conv.config_from_hf(hf))
-    except NotImplementedError as e:
-        assert "A.8" in str(e)
+    if expected.get("num_experts") is not None:
+        with pytest.raises(NotImplementedError, match="A\\.8"):
+            llama_conv.config_from_hf(hf)
         return
-    assert ours == jax_config
-    assert ours["num_experts"] is None and not ours["attention_bias"]
+    if isinstance(jax_config, ValueError):
+        with pytest.raises(ValueError, match=re.escape(str(jax_config)[:40])):
+            llama_conv.config_from_hf(hf)
+        return
+    assert dataclasses.asdict(llama_conv.config_from_hf(hf)) == jax_config
 
 
 def test_phi3_config_round_trip_matches_jax(families, monkeypatch):

@@ -18,9 +18,9 @@ one must reproduce exactly (rtol 0: the telemetry touches no math).
   on JAX's run directory and on synthetic ones that carry a `fleet.json`,
   `router/*` gauges, a `supervisor.jsonl`, a bench record and an audit
   record; on each package's own run directory the two reports have the
-  same sections and the same keys under each, but the compiled step's
-  `xla/*` and `attr/*` gauges (ROADMAP C.17) and the `world` block, which
-  echoes each logger's `run_metadata.json` (ROADMAP C.40).
+  same sections and the same keys under each (the `world` block too: both
+  loggers write the checkpointer's or a fresh `collect_run_metadata()`),
+  but the compiled step's `xla/*` and `attr/*` gauges (ROADMAP C.17).
 """
 
 from __future__ import annotations
@@ -304,8 +304,6 @@ def test_port_report_on_port_run_dir_has_jax_sections(fits, capsys):
     assert ours_json["schema_version"] == theirs_json["schema_version"]
     assert sorted(ours_json) == sorted(theirs_json)
     for key in theirs_json:
-        if key == "world":
-            continue  # each logger's own run_metadata.json (ROADMAP C.40)
         if isinstance(theirs_json[key], dict) and isinstance(ours_json[key], dict):
             # the compiled step's gauges JAX writes and eager PyTorch has not
             # (ROADMAP C.17)
