@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (any failure exits non-zero):
+Phases, each of which must pass (any failure exits non-zero), in the
+order 1, 2, then 12 in a process of its own beside 3, 4, 6, 9, 13, 14 and
+phase 17's legs in this process, then 5, 7, 8, 15-20, 22, 10, 11, 21:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `csrc/` with nvcc, one
@@ -34,7 +36,7 @@ Phases, each of which must pass (any failure exits non-zero):
    step from one pool state through K4 and through the plain path;
 7. K4 timing at the serving shape (device time from CUDA events, cold L2),
    then at batch 1 (lengths ~1024) and at batch 8 with lengths ~2000;
-8. training: the CLM `Trainer` fits a Llama-3.1-8B of 8 layers at full
+8. training: the CLM `Trainer` fits a Llama-3.1-8B of 4 layers at full
    width (fp32 params, bf16 compute, selective recompute, AdamW with clip
    and cosine warmup, random weights from seed 0) for 8 optimizer steps of
    2 micro-batches of one packed 8192-token row; losses and grad norms are
@@ -51,7 +53,9 @@ Phases, each of which must pass (any failure exits non-zero):
 11. random streams: the kernels of `prng.py` (NEFTune's uniform, the
    sampler's Gumbel draw) against their plain versions at the fit's and
    the serving shapes (uniform bits equal, tokens equal), then timed;
-12. lifecycle (run after the training phase freed its memory): at
+12. lifecycle (in a process of its own after the build, beside the
+   phases that write nothing to the disk and time nothing the kernel
+   table reads: its time is checkpoint I/O for the most part): at
    Llama-3.1-8B widths cut to 1 layer (fp32 params, bf16 compute; the
    fit phase's data, AdamW with clip, cosine/warmup over 4 steps, 2
    micro-batches a step), through the CLI's own builders and commands: an
@@ -69,11 +73,12 @@ Phases, each of which must pass (any failure exits non-zero):
    request done, the pool empty, K4 launched once per layer per decode
    step; the share of tokens equal to `generate`'s is printed). It prints
    the checkpoint's bytes, the save's blocking and commit seconds, the
-   restore's seconds and the decode rate;
-13. preference tuning (run after the lifecycle phase freed its memory):
+   restore's seconds and the decode rate; the card's memory peak beside
+   the other phases is printed when it is joined;
+13. preference tuning (beside phase 12's process):
    DPO, then ORPO, each built from a JSON model node by the CLI's
    `instantiate_from_config` and driven by the `Trainer` at Llama-3.1-8B
-   widths cut to 4 layers (fp32 params, bf16 compute, selective recompute,
+   widths cut to 2 layers (fp32 params, bf16 compute, selective recompute,
    random weights from seed 0) for 6 steps of 8 synthetic pairs (prompts
    of 64-1024 tokens, responses of 32-1024, pairs over 2048 tokens
    dropped, collated by the port's collator to a multiple of 128), both at
@@ -106,11 +111,12 @@ Phases, each of which must pass (any failure exits non-zero):
    share of one traced step of each); AdamW with its state offloaded to
    pinned host memory as float32 (parameters and losses bit-equal to the
    on-card run), bfloat16 and int8 (blocks of 256), within the stated
-   limits of the on-card run. Then at full depth (32 layers), 4 steps:
-   AdamW with int8 state offloaded, and Adafactor with its state on the
-   card; step 1's loss near ln(vocab), the loss on each row lower at its
-   second visit. Then Lion at 2 layers. Every run: K1, K2 and K3 once a
-   layer a step (128 each at full depth), the plain path never, peak
+   limits of the on-card run. Then at 8 layers (a quarter of the full
+   depth, for the smoke's time limit), 4 steps: AdamW with int8
+   state offloaded, and Adafactor with its state on the card; step 1's
+   loss near ln(vocab), the loss on each row lower at its second visit.
+   Then Lion at 2 layers. Every run: K1, K2 and K3 once a layer a step
+   (32 each at 8 layers), the plain path never, peak
    memory under the card's; it prints step and update ms, tokens/s, MFU,
    peak memory, pinned host bytes and, offloaded, the update's split
    into copy-in, update and codec, and copy-out (CUDA events) with the
@@ -132,9 +138,10 @@ Phases, each of which must pass (any failure exits non-zero):
    chaos NaN at step 3 and spike at step 4: NanGuard raises, the trainer
    rolls back in-process twice, skips both windows and finishes, its
    losses bit-equal step for step to a clean run configured with the same
-   skip windows; with `max_rollbacks` 1 the CLI exits 76. c: the CLI's
-   `fit` in processes of its own (three at once; the relaunch takes the
-   preempted run's place when it exits), 2 layers, 4 steps: SIGTERM at step 2 exits 75 after the emergency save
+   skip windows; with `max_rollbacks` 1 the CLI exits 76 (leg b runs
+   beside leg c's faulty run and relaunch, once its clean run exited). c: the
+   CLI's `fit` in processes of its own (three at once; the relaunch takes
+   the preempted run's place when it exits), 1 layer, 4 steps: SIGTERM at step 2 exits 75 after the emergency save
    and the relaunch resumes bit-equal to the uninterrupted run; a 20 s
    stall against a 15 s watchdog writes a hang dump naming the open phase
    and the main thread's stack while the run completes; a data error at
@@ -150,21 +157,23 @@ Phases, each of which must pass (any failure exits non-zero):
    step 2, deletes step 4 and re-runs steps 3-4, their losses within 1e-3
    relative of the clean run's (bit-equal where the scatter-add allows);
    each time the ladder's counters are checked. b: `supervise` in
-   processes of its own, two runs side by side: with
-   `LLMT_CHAOS_SIGKILL_STEP=3` on a fresh root the child dies on SIGKILL,
-   the relaunch restores step 2 and exits 0, `supervisor.jsonl` shows
-   launch, exit (SIGKILL), restart, launch, exit, complete, and the losses
-   and final parameters equal leg a's clean run's; on leg a's root a
-   forced final save killed inside its swap (`LLMT_CHAOS_CKPT_KILL_IN_SWAP`)
-   is promoted from `.stale/` by the relaunch, its bytes unchanged. c:
-   after the swap run, on leg a's root (beside the SIGKILL run), `ckpt
-   verify --mode full` exits 0, `ls`, `gc --dry-run` and `mirror` run, a
-   flipped byte makes `verify` exit 1 naming the step and the file, a
-   missing root exits 2. K1-K3 launch in leg a's fits. It prints the
-   manifest seconds and hashing rate, the mirror, verify, heal and fallback
-   seconds, and each process's wall time and restarts. Once leg a's mirror
-   is gone, phase 19's round trip (d below) runs on leg a's checkpoints;
-   at the end leg a's step 2 is moved (not copied) aside for phase 18d.
+   processes of its own, two runs: from the phase's start, beside leg a,
+   with `LLMT_CHAOS_SIGKILL_STEP=3` on a fresh root the child dies on
+   SIGKILL, the relaunch restores step 2 and exits 0, `supervisor.jsonl`
+   shows launch, exit (SIGKILL), restart, launch, exit, complete, and the
+   losses and final parameters equal leg a's clean run's; once leg a is
+   done, on its root, a forced final save killed inside its swap
+   (`LLMT_CHAOS_CKPT_KILL_IN_SWAP`) is promoted from `.stale/` by the
+   relaunch, its bytes unchanged. c: beside the swap run, on the SIGKILL
+   run's root once its final parameters are compared, `ckpt verify --mode
+   full` exits 0, `ls`, `gc --dry-run` and `mirror` run, a flipped byte
+   makes `verify` exit 1 naming the step and the file, a missing root
+   exits 2. K1-K3 launch in leg a's fits. It prints the manifest seconds
+   and hashing rate, the mirror, verify, heal and fallback seconds, and
+   each process's wall time and restarts. Phase 19's round trip (d below)
+   runs on the SIGKILL run's checkpoints beside the swap run, once leg a's
+   mirror is gone; at the end leg a's step 2 is moved (not copied) aside
+   for phase 18d.
 17. rl-fit (run after phase 16 freed its memory): GRPO over the serving
    engine through the `rl-fit` command, in legs. a: in a process of its
    own, Llama-3.1-8B widths cut to 2 layers (fp32 params, bf16 compute,
@@ -193,18 +202,18 @@ Phases, each of which must pass (any failure exits non-zero):
    sync at 2 layers: bit-equal engine tensors, the same continuation, which
    a fresh engine over the new weights fed prompt + tokens so far also
    gives. cast: the decode step from fp32 parameters against a bf16 copy,
-   in turns. c (on a thread from the phase's start, beside leg a, parity,
-   sync, cast and phase 18's legs a and d: its two processes mostly start
-   up and write checkpoints, and the smoke's time limit cannot hold them
-   in sequence; phase 18 joins it before its own checkpoints, so the disk
-   holds one leg's at a time): in processes of their own, 2 layers under SGD with a
-   checkpointer (11.9 GB of policy and reference a round) and the rollout
-   journal: a real SIGTERM 40 engine steps into round 2 exits 75 with the
+   in turns (parity, sync and cast run beside phase 12's process). c (on
+   a thread from the phase's start, beside leg a and phase 18, which
+   joins it at its end: its two processes mostly start up and write
+   checkpoints, and the smoke's time limit cannot hold them in sequence):
+   in processes of their own, 2 layers under SGD with a checkpointer
+   keeping one step (11.9 GB of policy and reference a round, so that
+   phase 18's legs fit on the disk beside it) and the rollout journal: a real SIGTERM 40 engine steps into round 2 exits 75 with the
    rollouts in flight journaled and the round cursor checkpointed; the
    relaunch (host sync) adopts every journaled rollout, submits none again,
    drops none as stale, and exits 0 with the journal retired.
-18. `serve`'s resilience and live telemetry (run after phase 17 freed its
-   memory; legs a and d beside phase 17's leg c), through the CLI in
+18. `serve`'s resilience and live telemetry (after phase 17a; beside
+   phase 17's leg c), through the CLI in
    processes of their own, each counting K4's
    launches and the plain decode path's calls (which must stay 0). a:
    Llama-3.1-8B's widths cut to 4 layers (`--model-config`; bf16, random
@@ -221,11 +230,12 @@ Phases, each of which must pass (any failure exits non-zero):
    beat, while their engine steps cycle through all on, the tracer
    disabled and the journal detached: the host microseconds each costs a
    step, and each mode's decode-only step against the adjacent all-on
-   one; a microbenchmark gives the tracer's cost an event. b: 2 layers of the
-   same widths in fp32 (token equality across a drain needs the prefill
-   and decode paths to agree closer than bf16 does): a 1-step SGD `fit`
-   writes the checkpoint, one uninterrupted `serve --config` answers 16
-   requests of 128 new tokens, then `supervise --child serve` with
+   one; a microbenchmark gives the tracer's cost an event. b: phase 16's
+   kept step 2, the 1-layer full-width model that leg d restores, in fp32
+   (token equality across a drain needs the prefill and decode paths to
+   agree closer than bf16 does; cut from 2 layers with a fit of their
+   own): one uninterrupted `serve --config` answers 16
+   requests of 128 new tokens beside `supervise --child serve` with
    `LLMT_CHAOS_SERVE_SIGTERM_STEP` 40 and a 1 s drain: exit 75, the
    relaunch replays the journal, every stream equals the uninterrupted
    one token for token with one terminal a request; a `{"type":
@@ -234,9 +244,9 @@ Phases, each of which must pass (any failure exits non-zero):
    every residency's queue/prefill/decode spans within 50 ms. c: 2 layers
    in bf16, a stall at engine step 10 under `--watchdog-timeout-s 6`: a
    hang dump and a flight dump, `/healthz` 503 before the abort, and the
-   supervised relaunch finishes every request (beside b's fit, its
-   uninterrupted and its supervised run). d (on a thread from the phase's
-   start, beside leg a and the wait for phase 17's leg c): `route
+   supervised relaunch finishes every request (beside b's uninterrupted
+   and supervised runs). Legs b and c follow leg a. d (on a thread from
+   the phase's start, beside legs a, b and c): `route
    --replicas 2` over `serve` children
    at Llama-3.1-8B widths and 1 layer in fp32, restoring phase 16's kept
    step 2 (no new checkpoint), with `LLMT_FLEET_DIR`: 16 greedy requests
@@ -248,11 +258,11 @@ Phases, each of which must pass (any failure exits non-zero):
    stale; each replica counts K4 once a decode step and no plain decode
    call; the router's run dir's `report` renders `== Router ==`. It
    prints start-to-first-token, kill-to-replayed-token, tokens/s and the
-   card's memory peak beside leg a and phase 17's leg c.
+   card's memory peak beside the other legs and phase 17's leg c.
 19. HF checkpoint I/O, Phi-3 and Qwen3 (run after phase 18 freed its
    memory), at the published widths of Phi-3-mini-4k-instruct (hidden
    3072, 32 q and kv heads of 96, vocab 32064, a 2047-token sliding
-   window; its 32 layers cut to 16), random bf16 weights from seed 0. a:
+   window; its 32 layers cut to 8), random bf16 weights from seed 0. a:
    `save_hf_checkpoint` writes two safetensors shards of at most 2 GiB,
    the index and `config.json` (seconds, GB/s). b:
    `ModelProvider("HFCausalLM", {"hf_path": ...})` through the objectives'
@@ -260,16 +270,16 @@ Phases, each of which must pass (any failure exits non-zero):
    the exported model's (seconds, GB/s); a `ServingEngine` (bf16, 8 slots,
    `max_model_len` 4096, block 16, chunk 512) answers 16 requests of
    1024-3072 prompt tokens and 128 new ones (most rows decode past the
-   window): all complete, the pool ends leak-free, K4 launches 16 times a
+   window): all complete, the pool ends leak-free, K4 launches 8 times a
    decode step, the plain decode path never; decode step p50, tokens/s,
    TTFT p50, peak memory. c: DPO built from a JSON node whose model is
-   `HFCausalLM` over the same directory with `num_hidden_layers: 8`
+   `HFCausalLM` over the same directory with `num_hidden_layers: 4`
    (fp32 parameters, bf16 compute, selective recompute): policy and
    reference loaded (the reference equal to the policy, the probed tensors
    equal to the export's), the example's AdamW, 3 steps of 8 synthetic
-   pairs up to 2048 tokens: the first loss ln 2, K1 4 x 8 x 3 and K2/K3 2 x
-   8 x 3 launches, the plain path never; step p50, MFU, peak memory. d
-   (inside phase 16, on its leg a checkpoints of 5.07 GB): `convert_to_hf`
+   pairs up to 2048 tokens: the first loss ln 2, K1 4 x 4 x 3 and K2/K3 2 x
+   4 x 3 launches, the plain path never; step p50, MFU, peak memory. d
+   (inside phase 16, on its leg b checkpoints of 5.07 GB): `convert_to_hf`
    writes bf16 safetensors, `HFCausalLM` reloads them on the card: every
    tensor equal to the restored model's rounded to bf16, and the logits of
    one 2 x 1024 batch bit-equal (else the largest difference is printed,
@@ -356,20 +366,54 @@ imported) for phase 14's full-depth runs.
    time, the FLOP bound of the visible pairs at 989 TFLOP/s, the pairs the
    causal skip and the window saved; then at S 4096 the ring of kernels
    against the ring of plain chunk functions.
+22. Gemma (after phase 20): (a) the kernels at the shapes this
+   slice added, fp32 and bf16, against their plain versions: K4 at Phi-2's
+   head_dim 80 (MHA), Gemma-2-9B's 256 (group 2), gemma-2b's 256 (group 8)
+   and GLM-4-9B's group 16 (D 128), with a 4096 window and soft cap 50 and
+   without; K1-K3 at D 256 (Hq 16, Hkv 8) over a packed row of 5120
+   tokens, cap 50, window 4096 and none; one decode step of Phi-2 and of
+   GLM-4-9B (their published config.json, 2 layers) through K4 against the
+   plain path and fp32 (the 1.5x rule); (b) Gemma-2-9B from its preset,
+   random bf16 weights from seed 0: serving at 8 layers (the looped layout,
+   16 greedy requests of 256-2048 + 64; K4 8 a step, the plain decode path
+   never), its decode step at 2 layers and the loss and gradients of one
+   packed 8192-token row against the plain path and fp32 (the 1.5x rule),
+   and a 3-step CLM fit at 4 layers of 2 x 8192 packed tokens (documents
+   to 8000: the sliding layers' window cuts them; K1-K3 once a layer a
+   step; step p50, MFU, peak memory); (c) Gemma-3-4b at 6 layers (one 5:1
+   period): the decode step and the loss and gradients against the plain
+   path and fp32, each K4 and K1 call's (window, scale) and each layer's
+   rotary table (local on sliding layers) checked; (d) K4 timed at the
+   four new head shapes (B 8, rows of 256-2112; Gemma-2-9B's with its cap
+   and window), K1-K3 at Gemma-2-9B's training shape (with cap and window;
+   and without them beside SDPA). Each leg prints its seconds.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
-lines of their own, then one `{"kernels": [...]}` line for the port's
-path (K1-K3 times at phase 20's shape, launches of phases 19e, 20 and 21;
-K4 launched by 19e's serving and phase 18d's replicas, timed at phase 7's
-Llama-3.1-8B serving shape, whose heads are Qwen3-8B's), the card's name
+lines of their own, at Gemma-2-9B's (phase 22), then one `{"kernels":
+[...]}` line for the port's path (K1-K3 times at phase 20's shape,
+launches of phases 19e, 20, 21 and 22; K4 launched by 19e's and 22's
+serving and phase 18d's replicas, timed at phase 7's Llama-3.1-8B serving
+shape, whose heads are Qwen3-8B's), the card's name
 and power limit, and as its last line `{"ok": true, "device": {...}}`.
 Phase 19e and what it costs were bought back, with room for slower hosts,
 by cutting depths (phase 13 from 8 to 4 layers, phase 14's runs beside
 the full-depth ones from 4 to 2, 17a from 4 to 2, 18a from 8 to 4,
 Phi-3's export, load and serving from 32 to 16) and by overlapping
 process legs: 17c from phase 17's start, 18d beside 18a, 18c beside 18b's
-supervised run.
+supervised run. Phase 22 and the build's growth were bought back
+by cutting phase 8 from 8 to 4 layers, phase 13 from 4 to 2, phase 14's
+"full-depth" runs from 32 to 8, Phi-3's export, load and serving (19a-b)
+from 16 to 8 and 19c's DPO from 8 to 4, and by launching K4's fp32 kernel
+twice for a group above 8 instead of compiling a 16-head variant. That
+left a slow host past 1200 s, so the checkpoint-bound legs now overlap
+what does not hold the disk: phase 12 in a process of its own beside the
+parity phases, 13, 14 and 17's legs in this process; 15b beside 15c's
+faulty run and relaunch; 16b's SIGKILL run beside 16a, its swap run
+beside the round trip and 16c (on the SIGKILL run's root); 18b on phase
+16's kept step (1 layer, no fit), its uninterrupted run beside its
+supervised one, 18b-c right after 18a beside 18d and 17c (which keeps
+one step).
 
 `python3 chip_smoke.py silu-turns` builds the kernels and runs only
 `silu_turns`: phase 20's fit shape with its steps alternating between
@@ -442,13 +486,14 @@ FLASH_GRAD_VS_FP32 = 4 * 2.0**-8
 # train-step parity: the kernel path's distance from the fp32 truth over the
 # plain bf16 path's
 NO_FURTHER = 1.5
-TRAIN_LAYERS = 8
+TRAIN_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
 TRAIN_SEQ = 8192
 # the lifecycle phase: its depth, steps, and where its checkpoints go
 LIFE_LAYERS = 1  # cut from 2 to keep the smoke inside its time limit
 LIFE_STEPS = 4
 LIFE_DIR = ROOT / ".smoke_lifecycle"
 LIFE_DEVICE = "cuda"
+LIFE_TIMEOUT_S = 600  # its process, beside phases 13 and 14
 # the resumed losses against the uninterrupted ones: the embedding's
 # backward (a CUDA scatter-add) is not bit-stable from run to run
 RESUME_RTOL = 1e-3
@@ -456,7 +501,7 @@ RESUME_RTOL = 1e-3
 EVAL_RTOL = 1e-6
 # the preference phase: depth, steps, pairs a batch, the longest pair, and
 # the collator's padding multiple
-PREF_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
+PREF_LAYERS = 2  # cut from 8 (then 4) to keep the smoke inside its time limit
 PREF_STEPS = 6
 PREF_PAIRS = 8
 PREF_MAX_LENGTH = 2048
@@ -487,7 +532,7 @@ PREFILL_RTOL = 1e-2
 # depth for OPT_FULL_STEPS steps; one packed 8192-token row a step
 OPT_LAYERS = 2  # cut from 8 (and 4) to keep the smoke inside its time limit
 OPT_STEPS = 3
-OPT_FULL_LAYERS = 32
+OPT_FULL_LAYERS = 8  # cut from the full 32 to keep the smoke inside its time limit
 OPT_FULL_STEPS = 4
 OPT_BLOCK = 256  # the int8 codec's block (JAX's default)
 # rows of the fit phase's data the steps cycle over: step 3 sees step 1's
@@ -606,6 +651,67 @@ class LegThread:
         return self._out
 
 
+# a phase in a process of its own: argv is the repo's root, the phase
+# function's name, the card's line and the file its JSON result goes to
+_PHASE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+out = getattr(chip_smoke, sys.argv[2])(sys.argv[3])
+with open(sys.argv[4], "w") as handle:
+    json.dump(out, handle)
+"""
+SIDE_DIR = ROOT / ".smoke_side"
+
+
+class PhaseProcess:
+    """A phase (a function of this module taking the card's line) in a
+    process of its own, beside the phases this one runs: its own kernel
+    counts, its stdout kept in a file and printed by `result()`, its stderr
+    shared; killed at exit if still running."""
+
+    def __init__(self, name: str, phase: str, card: str):
+        import subprocess
+
+        self.name, self.t0 = name, time.perf_counter()
+        SIDE_DIR.mkdir(exist_ok=True)
+        self.result_path = SIDE_DIR / f"{phase}.json"
+        self.log_path = SIDE_DIR / f"{phase}.out"
+        self.result_path.unlink(missing_ok=True)
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _PHASE_CHILD, str(ROOT), phase, card, str(self.result_path)],
+            cwd=ROOT, stdout=self._log)
+        atexit.register(self.kill)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def result(self, timeout: float) -> dict:
+        import subprocess
+
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            self.kill()
+            self._log.close()
+        sys.stdout.write(self.log_path.read_text())
+        done = rc == 0 and self.result_path.exists()
+        out = json.loads(self.result_path.read_text()) if done else None
+        shutil.rmtree(SIDE_DIR, ignore_errors=True)
+        check(done, f"phase {self.name}: its process exited {rc} (timeout {timeout:.0f} s)")
+        print(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s (a process of its own)",
+              flush=True)
+        return out
+
+
 def percentile(values, q) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
 
@@ -644,7 +750,8 @@ def phase_build() -> float:
     path = build.build_library()
     build.load()
     seconds = time.perf_counter() - t0
-    print(f"build: {path.name} in {seconds:.2f} s (nvcc {build.build_info.get('seconds', 0):.2f} s)")
+    print(f"build: {path.name} in {seconds:.2f} s (nvcc {build.build_info.get('seconds', 0):.2f} s; "
+          f"each source done by: {build.build_info.get('done_by')})")
     function = ""
     for line in build.build_info.get("log", "").splitlines():
         if "Compiling entry function" in line:
@@ -908,6 +1015,41 @@ def phase_engine_parity(kernels) -> float:
     return decode_parity(kernels, "engine parity", "llama-3.1-8b")["kernel_vs_plain"]
 
 
+# published config.json files of Llama-graph types whose heads are K4's
+# newest: huggingface.co/microsoft/phi-2 (head_dim 80, MHA) and
+# huggingface.co/THUDM/glm-4-9b-hf (32 q heads over 2 kv heads: group 16)
+HF_TYPES = {
+    "phi-2": dict(model_type="phi", vocab_size=51200, hidden_size=2560, intermediate_size=10240,
+                  num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                  partial_rotary_factor=0.4, max_position_embeddings=2048, rope_theta=10000.0,
+                  layer_norm_eps=1e-5, hidden_act="gelu_new", tie_word_embeddings=False,
+                  bos_token_id=50256, eos_token_id=50256),
+    "glm-4-9b": dict(model_type="glm", vocab_size=151552, hidden_size=4096,
+                     intermediate_size=13696, num_hidden_layers=40, num_attention_heads=32,
+                     num_key_value_heads=2, head_dim=128, partial_rotary_factor=0.5,
+                     attention_bias=True, rms_norm_eps=1.5625e-07, rope_theta=10000.0,
+                     max_position_embeddings=131072, tie_word_embeddings=False,
+                     pad_token_id=151329, eos_token_id=[151329, 151336, 151338]),
+}
+
+
+def preset_model(name: str, **fields):
+    """(model class, config) of a published preset (Llama's or Gemma's) or
+    of a published HF config (`HF_TYPES`, in bf16), with `fields` replaced."""
+    from llm_training_tpu_torch.models.gemma import Gemma
+    from llm_training_tpu_torch.models.gemma import config as gemma_config
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.hf_conversion import config_from_hf
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    if name in gemma_config.PRESETS:
+        return Gemma, gemma_config.preset(name, **fields)
+    if name in HF_TYPES:
+        return Llama, config_from_hf(HF_TYPES[name], **{
+            "compute_dtype": "bfloat16", "param_dtype": "bfloat16", **fields})
+    return Llama, preset(name, **fields)
+
+
 def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     """One decode step of the 2-layer model of preset `name` (with
     `fields`) from one pool state (8 rows of 0-2000 cached tokens), in bf16
@@ -917,13 +1059,12 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     1.5 x the plain path. Returns the errors and each K4 call's window and
     scale."""
     from llm_training_tpu_torch.models.base import PagedDecodeState
-    from llm_training_tpu_torch.models.llama.config import preset
-    from llm_training_tpu_torch.models.llama.model import Llama
     from llm_training_tpu_torch.ops import paged_attention as ops_pa
 
-    kw = dict(num_hidden_layers=2, **fields)
-    config = preset(name, **kw)
-    model = Llama(config, device="cuda")
+    kw = {"num_hidden_layers": 2, **fields}
+    model_cls, config = preset_model(name, **kw)
+    layers = config.num_hidden_layers
+    model = model_cls(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     model.eval()
     lengths = [1023, 17, 1500, 0, 256, 640, 1, 2000]  # 0: an idle slot
@@ -938,7 +1079,7 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
             need = math.ceil((n + 1) / page)
             tables[row, :need] = torch.arange(used, used + need)
             used += need
-    shape = (2, num_blocks, page, config.num_key_value_heads, config.resolved_head_dim)
+    shape = (layers, num_blocks, page, config.num_key_value_heads, config.resolved_head_dim)
     pool_k = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     pool_v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     tokens = torch.randint(0, config.vocab_size, (8, 1), generator=gen, device="cuda")
@@ -958,8 +1099,8 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
             for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
                 if path == "fp32":
                     weights = model.state_dict()
-                    model = Llama(preset(name, **kw, compute_dtype="float32",
-                                         param_dtype="float32"), device="cuda")
+                    model = model_cls(preset_model(name, **kw, compute_dtype="float32",
+                                                   param_dtype="float32")[1], device="cuda")
                     model.load_state_dict(weights)
                     del weights
                 dtype = next(model.parameters()).dtype
@@ -972,7 +1113,7 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
                             paged_impl=impl)
                 logits[path] = out.logits.float()
                 ran = kernels.paged_decode_attention.launches - before
-                check(ran == (2 if impl == "auto" else 0), f"{label}: {path} ran {ran} kernels")
+                check(ran == (layers if impl == "auto" else 0), f"{label}: {path} ran {ran} kernels")
     finally:
         ops_pa.paged_decode_attention = real
     torch.cuda.synchronize()
@@ -991,7 +1132,7 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     check(kernel_vs_fp32 <= 1.5 * plain_vs_fp32,
           f"{label}: kernel is further from fp32 ({kernel_vs_fp32}) than the "
           f"plain bf16 path ({plain_vs_fp32})")
-    print(f"{label}: 2-layer {name} decode step, bf16 logits max abs err kernel vs "
+    print(f"{label}: {layers}-layer {name} decode step, bf16 logits max abs err kernel vs "
           f"plain {err:.3e} (tolerance {ENGINE_LOGITS_RTOL} x |logits| {scale:.3f}); vs fp32: "
           f"kernel {kernel_vs_fp32:.3e}, plain {plain_vs_fp32:.3e}", flush=True)
     del model, pool_k, pool_v
@@ -1419,12 +1560,12 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
     further from fp32 than NO_FURTHER x the plain bf16 path's. Returns the
     errors and each K1 call's window and scale."""
     from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
-    from llm_training_tpu_torch.models.llama.config import preset
-    from llm_training_tpu_torch.models.llama.model import Llama
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 
-    kw = dict(num_hidden_layers=2, param_dtype="float32", **fields)
-    model = Llama(preset(name, **kw), device="cuda")
+    kw = {"num_hidden_layers": 2, "param_dtype": "float32", **fields}
+    model_cls, config = preset_model(name, **kw)
+    layers = config.num_hidden_layers
+    model = model_cls(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
@@ -1440,7 +1581,8 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
         for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
             if path == "fp32":
                 weights = model.state_dict()
-                model = Llama(preset(name, compute_dtype="float32", **kw), device="cuda")
+                model = model_cls(preset_model(name, compute_dtype="float32", **kw)[1],
+                                  device="cuda")
                 model.load_state_dict(weights)
                 del weights
             model.config.attention_impl = impl
@@ -1450,7 +1592,8 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
             loss.backward()
             torch.cuda.synchronize()
             ran = sum(launcher.launches for launcher in launchers) - before
-            check(ran == (6 if path == "kernel" else 0), f"{label}: {path} ran {ran} flash kernels")
+            check(ran == (3 * layers if path == "kernel" else 0),
+                  f"{label}: {path} ran {ran} flash kernels")
             params = dict(model.named_parameters())
             results[path] = dict(loss=float(loss.detach()),
                                  **{n: params[n].grad.float() for n in names})
@@ -1471,7 +1614,7 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
               f"{label}: {key}: the kernel path is further from fp32 "
               f"({errors['kernel'][key]:.3e}) than the plain bf16 path ({errors['plain'][key]:.3e})")
     width = host["input_ids"].shape
-    print(f"{label}: 2-layer {name}, {width[0]} x {width[1]} packed tokens, vs fp32 (loss: "
+    print(f"{label}: {layers}-layer {name}, {width[0]} x {width[1]} packed tokens, vs fp32 (loss: "
           "|error|, grads: max error over max|fp32|): " + "; ".join(
               f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
               f"{errors['plain'][key]:.3e}" for key in errors["kernel"]), flush=True)
@@ -2980,10 +3123,12 @@ def res_losses(name: str) -> dict[int, float]:
     return {r["step"]: r["loss"] for r in map(json.loads, rows) if "loss" in r}
 
 
-def res_processes(card: str) -> dict:
+def res_processes(card: str, beside=None) -> dict:
     """Leg c: preemption (exit 75, the relaunch resumes bit-equal), the
     watchdog's hang dump and a retried data error, through the CLI in
-    processes of their own (see the header)."""
+    processes of their own (see the header). `beside()`, when given, runs
+    in this process once the clean run has exited, while the faulty run
+    and the relaunch run."""
     logs = RES_DIR / "c" / "logs"
     logs.mkdir(parents=True)
     clean = res_run_config("clean", {})
@@ -3007,7 +3152,10 @@ def res_processes(card: str) -> dict:
               f"resilience processes: the preempted run exited {rcs['preempt']} and committed "
               f"{committed}: {preempt_text[-800:]}")
         procs["relaunch"] = res_launch(preempt, logs / "relaunch.log")
-        rcs.update({name: res_wait(procs[name]) for name in ("clean", "faults", "relaunch")})
+        rcs["clean"] = res_wait(procs["clean"])
+        if beside is not None:
+            beside()
+        rcs.update({name: res_wait(procs[name]) for name in ("faults", "relaunch")})
     finally:
         for proc, handle in procs.values():
             if proc.poll() is None:
@@ -3053,7 +3201,9 @@ def res_processes(card: str) -> dict:
           f"and its losses equal the uninterrupted run's bit for bit; a {RES_STALL_S} s stall "
           f"against a {RES_WATCHDOG_S} s watchdog wrote a hang dump ('{phase_line}', the "
           f"main thread's stack) and the run completed; a data error at batch 2 retried once "
-          f"(data/retries 1), losses equal the clean run's; {seconds:.1f} s", flush=True)
+          f"(data/retries 1), losses equal the clean run's; {seconds:.1f} s"
+          + (" (leg b ran beside the faulty run and the relaunch)" if beside is not None
+             else ""), flush=True)
     return out
 
 
@@ -3063,12 +3213,20 @@ def phase_resilience(card: str) -> dict:
     shutil.rmtree(RES_DIR, ignore_errors=True)
     RES_DIR.mkdir()
     out = {}
+
+    def rollback() -> None:
+        t0 = time.perf_counter()
+        out["rollback"] = res_rollback(card)
+        out["rollback"]["leg_s"] = time.perf_counter() - t0
+
     try:
-        for name, leg in (("health", res_health), ("rollback", res_rollback),
-                          ("processes", res_processes)):
-            t0 = time.perf_counter()
-            out[name] = leg(card)
-            out[name]["leg_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["health"] = res_health(card)
+        out["health"]["leg_s"] = time.perf_counter() - t0
+        # leg b runs in this process beside leg c's faulty run and relaunch
+        t0 = time.perf_counter()
+        out["processes"] = res_processes(card, rollback)
+        out["processes"]["leg_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(RES_DIR, ignore_errors=True)
         release()
@@ -3299,8 +3457,8 @@ HEALED = [("launch", None), ("exit", "SIGKILL"), ("restart", None), ("launch", N
 
 
 def dur_sigkill() -> dict:
-    """Leg b's first run (on a thread beside the swap run and leg c): a
-    chaos SIGKILL at step 3 under `supervise` on a fresh root, healed by
+    """Leg b's first run (on a thread from the phase's start, beside leg a):
+    a chaos SIGKILL at step 3 under `supervise` on a fresh root, healed by
     the relaunch (see the header)."""
     config = dur_config("b", checkpoint={"async_save": False})
     rc, wall, events, text = dur_supervise(
@@ -3316,8 +3474,9 @@ def dur_sigkill() -> dict:
 
 
 def dur_swap() -> dict:
-    """Leg b's second run, on leg a's root (steps 2 and 4): a forced final
-    save killed inside its swap. The first launch resumes step 2
+    """Leg b's second run, on leg a's root (steps 2 and 4; on a thread
+    beside leg c on the SIGKILL run's root): a forced final save killed
+    inside its swap. The first launch resumes step 2
     (--ckpt-path), runs steps 3-4 with no interval save, and its final save
     over the committed step 4 dies on SIGKILL between the renames; the
     relaunch promotes .stale/step_4 and finds nothing left to do."""
@@ -3343,12 +3502,13 @@ def dur_swap() -> dict:
                 swap_restarts=sum(e["event"] == "restart" for e in events))
 
 
-def dur_processes_match(card: str, out: dict, clean: dict, clean_losses: dict) -> dict:
+def dur_processes_match(card: str, sigkill: dict, clean: dict, clean_losses: dict) -> dict:
     """Leg b's SIGKILL run: its losses and final parameters (step 4)
     against leg a's clean run."""
     from llm_training_tpu_torch.cli.main import build_fit
 
     config = dur_config("b", checkpoint={"async_save": False})
+    out = dict(sigkill)
     losses = out["losses"]
     rel = max(abs(losses[s] - clean_losses[s]) / abs(clean_losses[s]) for s in clean_losses)
     trainer, objective, _ = build_fit(config, LIFE_DEVICE)
@@ -3363,6 +3523,13 @@ def dur_processes_match(card: str, out: dict, clean: dict, clean_losses: dict) -
           f"durability supervise: losses {losses} against {clean_losses}, final parameters "
           f"{final}")
     out.update(losses_bit_equal=losses == clean_losses, max_rel_loss=rel, final=final)
+    return out
+
+
+def dur_processes_print(card: str, out: dict) -> dict:
+    """Leg b's two runs (the SIGKILL run matched, the swap run's readings
+    added) on a line."""
+    rel, final = out["max_rel_loss"], out["final"]
     runtimes, swap_runtimes = out["runtimes"], out["swap_runtimes"]
     print(f"durability processes [{card}]: supervise with LLMT_CHAOS_SIGKILL_STEP=3: the child "
           f"died on SIGKILL after {runtimes[0]:.1f} s, the relaunch restored step 2 and "
@@ -3375,19 +3542,16 @@ def dur_processes_match(card: str, out: dict, clean: dict, clean_losses: dict) -
           + f"; a forced final save killed inside its swap after {swap_runtimes[0]:.1f} s, the "
           f"relaunch promoted .stale/step_4 (bytes unchanged, full verify clean) and exited 0 "
           f"in {swap_runtimes[1]:.1f} s ({out['swap_wall_s']:.1f} s wall; on leg a's root, "
-          f"beside the SIGKILL run)", flush=True)
+          f"beside leg c)", flush=True)
     return out
 
 
-def dur_cli(card: str) -> dict:
-    """Leg c: `ckpt verify`, `ls`, `gc --dry-run` and `mirror` on leg a's
-    root (steps 2 and 4 after its fallback re-ran steps 3-4); one flipped
-    byte makes `verify` exit 1 naming the step and file; a missing root
-    exits 2."""
+def dur_cli(card: str, root: Path) -> dict:
+    """Leg c: `ckpt verify`, `ls`, `gc --dry-run` and `mirror` on `root`
+    (the SIGKILL run's steps 2 and 4); one flipped byte makes `verify` exit
+    1 naming the step and file; a missing root exits 2."""
     from llm_training_tpu_torch.cli.main import main as cli_main
     from llm_training_tpu_torch.resilience import durability
-
-    root = DUR_DIR / "a" / "ckpt"
 
     def ckpt(*argv):
         out = io.StringIO()
@@ -3401,7 +3565,7 @@ def dur_cli(card: str) -> dict:
     gc_dry = ckpt("gc", root, "--keep-last", "1", "--dry-run")
     mirror = ckpt("mirror", root, "--mirror-dir", DUR_DIR / "c-mirror")
     mirrored = durability.committed_steps(DUR_DIR / "c-mirror")
-    shutil.rmtree(DUR_DIR / "c-mirror")  # 12 GB the disk need not hold beside leg b
+    shutil.rmtree(DUR_DIR / "c-mirror")  # 10 GB the disk need not hold beside the swap run
     victim = durability.corrupt_step(root, 4, "flip")
     finding = ckpt("verify", root, "--mode", "full", "--step", "4")
     missing = ckpt("verify", DUR_DIR / "missing", "--mode", "full")
@@ -3422,44 +3586,52 @@ def dur_cli(card: str) -> dict:
 
 def phase_durability(card: str, round_trip=None) -> dict:
     """Checkpoint durability, supervise and the ckpt command (see the
-    header): after leg a, leg b's SIGKILL run goes on a thread while its
-    swap run and then leg c use leg a's root. `round_trip(card, ckpt_dir,
-    out_dir)` runs on leg a's checkpoints once its mirror is gone (phase
-    19's `convert_to_hf` leg: no new large checkpoint)."""
+    header): leg b's SIGKILL run goes on a thread from the phase's start,
+    on a root of its own, beside leg a; once leg a's mirror is gone, leg
+    b's swap run goes on a thread on leg a's root while this process, on
+    the SIGKILL run's root once that run is done, runs `round_trip(card,
+    ckpt_dir, out_dir)` (phase 19's `convert_to_hf` leg: no new large
+    checkpoint), holds its final parameters to leg a's and runs leg c."""
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     shutil.rmtree(DUR_DIR, ignore_errors=True)
     DUR_DIR.mkdir()
     out = {}
-    leg_b, _DUR_STOP[0] = None, False
+    legs, _DUR_STOP[0] = [], False
     try:
         free = free_bytes(DUR_DIR)
-        # leg a holds two steps, two mirror copies and a healing copy at once
+        # leg a holds two steps, two mirror copies and a healing copy at
+        # once, beside the SIGKILL run's two steps
         check(free >= 40e9, f"durability: {free} bytes free in {DUR_DIR}, the phase needs 40 GB")
+        t_b = time.perf_counter()
+        sigkill_leg = LegThread(dur_sigkill)
+        legs.append(sigkill_leg)
         t0 = time.perf_counter()
         out["in_process"], clean = dur_in_process(card)
         out["in_process"]["leg_s"] = time.perf_counter() - t0
-        # the machine's disk counts every block ever written: leg b's roots
-        # take the place of leg a's mirror, and leg c's mirror follows the
-        # swap run
+        # the machine's disk counts every block ever written: the swap run's
+        # staged copy, the export and leg c's mirror take the place of leg
+        # a's mirror
         shutil.rmtree(DUR_DIR / "a" / "mirror")
+        swap_leg = LegThread(dur_swap)
+        legs.append(swap_leg)
+        sigkill = sigkill_leg.result(DUR_SUPERVISE_TIMEOUT_S + 60)
         if round_trip is not None:
             t0 = time.perf_counter()
-            out["hf_round_trip"] = round_trip(card, DUR_DIR / "a" / "ckpt", DUR_DIR / "hf")
+            out["hf_round_trip"] = round_trip(card, DUR_DIR / "b" / "ckpt", DUR_DIR / "hf")
             out["hf_round_trip"]["leg_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        leg_b = LegThread(dur_sigkill)
-        swap = dur_swap()
-        t1 = time.perf_counter()
-        out["ckpt"] = dur_cli(card)
-        out["ckpt"]["leg_s"] = time.perf_counter() - t1
-        sigkill = leg_b.result(DUR_SUPERVISE_TIMEOUT_S + 60)
-        leg_b = None
-        out["processes"] = dur_processes_match(card, {**sigkill, **swap}, clean,
-                                               out["in_process"]["losses"])
-        out["processes"]["leg_s"] = time.perf_counter() - t0
+        # the SIGKILL run's final step against leg a's clean run, before leg
+        # c flips a byte of it
+        processes = dur_processes_match(card, sigkill, clean, out["in_process"]["losses"])
         del clean
+        t1 = time.perf_counter()
+        out["ckpt"] = dur_cli(card, DUR_DIR / "b" / "ckpt")
+        out["ckpt"]["leg_s"] = time.perf_counter() - t1
+        processes.update(swap_leg.result(DUR_SUPERVISE_TIMEOUT_S + 60))
+        legs.clear()
+        out["processes"] = dur_processes_print(card, processes)
+        out["processes"]["leg_s"] = time.perf_counter() - t_b
         # phase 18d's replicas restore leg a's step 2 (moved, not copied:
-        # no new blocks on the disk); step 4, which leg c corrupted, goes
+        # no new blocks on the disk); step 4 goes
         shutil.rmtree(RT_DIR, ignore_errors=True)
         RT_DIR.mkdir()
         shutil.move(str(DUR_DIR / "a" / "ckpt"), str(RT_DIR / "ckpt"))
@@ -3467,7 +3639,7 @@ def phase_durability(card: str, round_trip=None) -> dict:
             if entry.name not in (f"step_{RT_STEP}", f"manifest-{RT_STEP}.json"):
                 shutil.rmtree(entry) if entry.is_dir() else entry.unlink()
     finally:
-        if leg_b is not None:  # the swap run or leg c failed: end leg b's SIGKILL run
+        if legs:  # a leg failed: end leg b's supervised runs
             import signal
 
             _DUR_STOP[0] = True
@@ -3476,7 +3648,8 @@ def phase_durability(card: str, round_trip=None) -> dict:
                     os.killpg(pgid, signal.SIGKILL)
                 except ProcessLookupError:
                     pass
-            leg_b.join(60)
+            for leg in legs:
+                leg.join(60)
         shutil.rmtree(DUR_DIR, ignore_errors=True)
         release()
     return out
@@ -3597,9 +3770,10 @@ sys.exit(rc)
 def rl_config(name: str, layers: int, optim: dict, checkpoint: bool, log: bool = False) -> Path:
     """A GRPO config at Llama-3.1-8B widths (fp32 params, bf16 compute,
     selective recompute), random weights from seed 0, into
-    `RL_DIR/<name>.json`; with `checkpoint`, a checkpointer and a JSONL
-    logger (whose run directory holds the rollout journal), with `log` the
-    logger alone (the run directory of the trace and `telemetry.jsonl`)."""
+    `RL_DIR/<name>.json`; with `checkpoint`, a checkpointer keeping one
+    step and a JSONL logger (whose run directory holds the rollout
+    journal), with `log` the logger alone (the run directory of the trace
+    and `telemetry.jsonl`)."""
     from dataclasses import asdict
 
     from llm_training_tpu_torch.models.llama.config import preset
@@ -3609,7 +3783,8 @@ def rl_config(name: str, layers: int, optim: dict, checkpoint: bool, log: bool =
                           recompute_granularity="selective"))
     trainer = {"max_steps": RL_ROUNDS, "seed": 0}
     if checkpoint:
-        trainer["checkpoint"] = {"dirpath": str(RL_DIR / name / "ckpt"), "async_save": False}
+        trainer["checkpoint"] = {"dirpath": str(RL_DIR / name / "ckpt"), "async_save": False,
+                                 "max_to_keep": 1}
     if checkpoint or log:
         trainer["loggers"] = [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
                                "init_args": {"save_dir": str(RL_DIR / name), "project": "run",
@@ -4097,7 +4272,8 @@ def rl_leg_c(card: str) -> dict:
              "warmup_steps": 0, "grad_clip_norm": 1.0}
     path = rl_config("c", RL_SMALL_LAYERS, optim, checkpoint=True)
     free = free_bytes(RL_DIR)
-    # three 11.9 GB steps (max_to_keep 3) and a forced save's staged clone
+    # the kept 11.9 GB step and a save's staged one (max_to_keep 1), beside
+    # phase 18's legs b and c
     check(free >= 40e9, f"rl resume: {free} bytes free in {RL_DIR}, the leg needs 40 GB")
     run_dir = RL_DIR / "c" / "run" / "log"
     rc, wall, summary, records, text = rl_child(
@@ -4149,25 +4325,33 @@ def rl_leg_c(card: str) -> dict:
     return out
 
 
-def phase_rl(card: str) -> tuple[dict, LegThread]:
-    """rl-fit: GRPO over the serving engine (see the header). Returns the
-    legs' readings and leg c, still running on its thread: `rl_leg_c_join`
-    adds its readings and removes the phase's files."""
-    shutil.rmtree(RL_DIR, ignore_errors=True)
-    RL_DIR.mkdir()
-    # leg c's processes from the phase's start, beside leg a's
-    leg_c = LegThread(rl_leg_c_timed, card)
-    t0 = time.perf_counter()
-    out = {"a": rl_leg_a(card)}
-    out["a"]["leg_s"] = time.perf_counter() - t0
+def phase_rl_in_process(card: str) -> dict:
+    """Phase 17's legs in this process (parity, sync, cast: no disk, no
+    process of their own), run beside phase 12's process."""
+    out = {}
     try:
         for name, leg in (("parity", rl_parity), ("sync", rl_sync), ("cast", rl_cast_cost)):
             t0 = time.perf_counter()
             out[name] = leg(card)
             out[name]["leg_s"] = time.perf_counter() - t0
-        rl_report(card, out["a"])
     finally:
         release()
+    return out
+
+
+def phase_rl(card: str, in_process: dict) -> tuple[dict, LegThread]:
+    """rl-fit: GRPO over the serving engine (see the header), leg a here,
+    the legs of `phase_rl_in_process` (`in_process`) added. Returns the
+    readings and leg c, still running on its thread, with leg a's `report`:
+    `rl_join` adds both and removes the phase's files."""
+    shutil.rmtree(RL_DIR, ignore_errors=True)
+    RL_DIR.mkdir()
+    # leg c's processes from the phase's start, beside leg a's
+    leg_c = LegThread(rl_leg_c_timed, card)
+    t0 = time.perf_counter()
+    out = {"a": rl_leg_a(card), **in_process}
+    out["a"]["leg_s"] = time.perf_counter() - t0
+    release()
     return out, leg_c
 
 
@@ -4190,11 +4374,12 @@ def rl_leg_c_timed(card: str) -> dict:
     return out
 
 
-def rl_leg_c_join(rl: dict, leg_c: LegThread) -> float:
-    """Phase 17's leg c joined into its readings (`rl["c"]`), the phase's
-    files removed; returns the seconds waited."""
+def rl_join(card: str, rl: dict, leg_c: LegThread) -> float:
+    """Phase 17's leg a `report` and leg c joined into its readings
+    (`rl["c"]`), the phase's files removed; returns the seconds waited."""
     t0 = time.perf_counter()
     try:
+        rl_report(card, rl["a"])
         rl["c"] = leg_c.result(2 * RL_CHILD_TIMEOUT_S + 60)
     finally:
         shutil.rmtree(RL_DIR, ignore_errors=True)
@@ -4217,7 +4402,6 @@ SV_PROMPTS = (32, 1024)  # prompt lengths, inclusive
 SV_WARM = 8  # leg a: warm-up requests that seed the service-time EMA
 SV_BURST = 48  # leg a: then this many at once
 SV_NEW = 64
-SV_B_LAYERS = 2  # leg b: the journal and the supervisor (cut from 8 for the smoke's time limit)
 SV_B_REQUESTS = 16
 SV_B_NEW = 128
 SV_SIGTERM_STEP = 40
@@ -4910,9 +5094,10 @@ def sv_baseline(config: Path, requests: list[dict], flags: list[str],
 
 
 def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str],
-                  baseline: dict) -> dict:
+                  baseline_leg: LegThread) -> dict:
     """Leg b's `supervise --child serve` with a chaos SIGTERM at engine step
-    SV_SIGTERM_STEP and a profile line once the first token is out."""
+    SV_SIGTERM_STEP and a profile line once the first token is out, held to
+    the uninterrupted run on `baseline_leg` (beside it)."""
     t0 = time.perf_counter()
     stream = Stream(
         [sys.executable, "-c", _SUPERVISE_DRIVER, "supervise", "--config", str(config),
@@ -4928,6 +5113,7 @@ def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str
     finally:
         stream.kill()
     sup_s = time.perf_counter() - t0
+    baseline = baseline_leg.result(SV_TIMEOUT_S)
     text = (SV_DIR / "b-sup.log").read_text()
     children = sv_summaries(str(SV_DIR / "b-sup"))
     run_dir = SV_DIR / "b" / "run" / "sup"
@@ -4964,6 +5150,7 @@ def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str
           and first["profile"].get("profile/captures") == 1,
           f"serve b: profile answer {answers}, {kernels} kernel events, counters {first['profile']}")
     return dict(
+        baseline_s=baseline["seconds"],
         supervised_s=sup_s, sigterm_to_exit_s=first["t_exit"] - first["t_sigterm"],
         relaunch_to_replayed_s=second["t_replayed"] - second["t_start"],
         journaled=journaled, replayed=second["replayed"],
@@ -4975,30 +5162,31 @@ def sv_supervised(card: str, config: Path, requests: list[dict], flags: list[str
 
 
 def sv_legs_bc(card: str) -> tuple[dict, dict]:
-    """Legs b and c (see the header). This process fits c's checkpoint,
-    then b's; leg c runs on its checkpoint while b's fit, its uninterrupted
-    run and its supervised run go on beside it."""
+    """Legs b and c (see the header). This process fits c's checkpoint;
+    leg c runs on it while b's uninterrupted and supervised runs of phase
+    16's kept step go on beside it."""
     from llm_training_tpu_torch.models.llama.config import preset
 
-    base_cfg = sv_config("b", SV_B_LAYERS, "float32", "base")
-    sup_cfg = sv_config("b", SV_B_LAYERS, "float32", "sup")
+    # phase 16's kept step, which leg d restores too
+    base_cfg, sup_cfg = (step_config(SV_DIR / f"b-{name}.json", str(SV_DIR / "b"), name)
+                         for name in ("base", "sup"))
     c_cfg = sv_config("c", SV_C_LAYERS, "bfloat16", "sup")
     c_fit_s = sv_fit(c_cfg)
     leg_c = LegThread(sv_leg_c, card, c_cfg)
-    fit_s = sv_fit(base_cfg)
-    ckpt_bytes = sum(f.stat().st_size for f in (SV_DIR / "b" / "ckpt").rglob("*") if f.is_file())
+    ckpt = RT_DIR / "ckpt" / f"step_{RT_STEP}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
     requests = sv_requests(1, SV_B_REQUESTS, SV_B_NEW, preset(SV_PRESET).vocab_size, "b")
-    flags = sv_serve_flags("--max-new-tokens", str(SV_B_NEW))
-    baseline = sv_baseline(base_cfg, requests, flags)
-    b = dict(fit_s=fit_s, c_fit_s=c_fit_s, checkpoint_bytes=ckpt_bytes,
-             baseline_s=baseline["seconds"],
+    flags = sv_serve_flags("--max-new-tokens", str(SV_B_NEW), "--ckpt-path", str(RT_STEP))
+    # the uninterrupted run beside the supervised one (and leg c)
+    baseline = LegThread(sv_baseline, base_cfg, requests, flags)
+    b = dict(c_fit_s=c_fit_s, checkpoint_bytes=ckpt_bytes,
              **sv_supervised(card, sup_cfg, requests, flags, baseline))
     c = leg_c.result(SV_TIMEOUT_S)
     tiling, base_tiling = b["tiling"], b["base_tiling"]
-    print(f"serve resilience b [{card}]: {SV_PRESET} x {SV_B_LAYERS} layers in fp32 "
-          f"(a {ckpt_bytes / 1e9:.2f} GB checkpoint; its fit {fit_s:.1f} s), {SV_B_REQUESTS} "
+    print(f"serve resilience b [{card}]: {SV_PRESET} x {LIFE_LAYERS} layer in fp32 "
+          f"(phase 16's step {RT_STEP}, {ckpt_bytes / 1e9:.2f} GB), {SV_B_REQUESTS} "
           f"requests of {SV_B_NEW} new tokens: the uninterrupted run {b['baseline_s']:.1f} s "
-          f"(leg c beside it); supervise --child serve with SIGTERM at engine step "
+          f"(beside the supervised run and leg c); supervise --child serve with SIGTERM at engine step "
           f"{SV_SIGTERM_STEP}: exit 75 {b['sigterm_to_exit_s']:.2f} s after the SIGTERM "
           f"({SV_DRAIN_S:.1f} s drain), {b['journaled']} journaled, the relaunch replayed "
           f"{b['replayed']} {b['relaunch_to_replayed_s']:.2f} s after its start; every stream "
@@ -5128,27 +5316,26 @@ sys.exit(cli.main(sys.argv[1:]))
 """
 
 
-def rt_config(ckpt_dir: Path) -> Path:
+def step_config(path: Path, save_dir: str, name: str, **top) -> Path:
     """A `serve --config` of phase 16's model (Llama-3.1-8B widths, 1 layer)
-    restoring its kept checkpoint, computing in fp32 (token equality across
-    a replay needs the prefill and decode paths to agree closer than bf16
-    does, as phase 18's leg b), with `run_root` under RT_DIR so the router
-    gives each replica a run dir of its own."""
+    restoring its kept checkpoint in RT_DIR, computing in fp32 (token
+    equality across a replay or a drain needs the prefill and decode paths
+    to agree closer than bf16 does), its JSONL logger's run directory
+    `save_dir`/run/`name`; `top` adds top-level keys. Written to `path`."""
     model = {**res_model_kwargs(LIFE_LAYERS), "compute_dtype": "float32"}
     config = {
-        "seed_everything": 0, "run_root": str(RT_DIR / "runs"),
+        "seed_everything": 0, **top,
         "trainer": {"max_steps": 1, "seed": 0,
-                    "checkpoint": {"dirpath": str(ckpt_dir), "async_save": False},
+                    "checkpoint": {"dirpath": str(RT_DIR / "ckpt"), "async_save": False},
                     "loggers": [{"class_path": "llm_training_tpu.callbacks.JsonlLogger",
-                                 "init_args": {"save_dir": "${run_root}", "project": "run",
-                                               "name": "route"}}]},
+                                 "init_args": {"save_dir": save_dir, "project": "run",
+                                               "name": name}}]},
         "model": {"class_path": "llm_training_tpu.lms.CLM", "init_args": {
             "model": {"model_class": "Llama", "model_kwargs": model}, "optim": RES_SGD}},
         "data": {"class_path": "llm_training_tpu.data.DummyDataModule",
                  "init_args": {"batch_size": 1, "max_length": 16, "num_samples": 4,
                                "vocab_size": model["vocab_size"]}},
     }
-    path = RT_DIR / "route.json"
     path.write_text(json.dumps(config))
     return path
 
@@ -5201,9 +5388,9 @@ def phase_route(card: str) -> dict:
     from llm_training_tpu_torch.models.llama.config import preset
     from llm_training_tpu_torch.telemetry.report import render_report
 
-    ckpt = RT_DIR / "ckpt"
-    check(ckpt.is_dir(), f"route: phase 16 left no checkpoint in {ckpt}")
-    config = rt_config(ckpt)
+    # `run_root` under RT_DIR: the router gives each replica a run dir of its own
+    config = step_config(RT_DIR / "route.json", "${run_root}", "route",
+                         run_root=str(RT_DIR / "runs"))
     fleet_dir = RT_DIR / "fleet"
     rng = np.random.default_rng(3)
     lengths = [int(k) for k in rng.integers(RT_PROMPTS[0], RT_PROMPTS[1] + 1, size=RT_REQUESTS)]
@@ -5301,37 +5488,39 @@ def phase_route(card: str) -> dict:
           f"{after['verdict']} "
           f"({victim} {'stale' if entry['stale'] else 'red'}); K4 {out['launches']} (replicas), "
           f"{baseline['launches']} (uninterrupted), plain decode 0; card memory peak "
-          f"{memory.peak_mib} of {memory.total_mib} MiB beside phase 17's leg c ({wall:.1f} s)",
+          f"{memory.peak_mib} of {memory.total_mib} MiB beside leg a, phase 17's leg c and legs "
+          f"b and c ({wall:.1f} s)",
           flush=True)
     return out
 
 
-def phase_serve_resilience(card: str, after_a=None) -> dict:
-    """serve's resilience and live telemetry (see the header). `after_a`,
-    when given, runs between leg a and legs b and c (the smoke joins phase
-    17's leg c there: legs b and c write checkpoints of their own); leg d,
-    the router over serve replicas, runs from the phase's start, beside leg
-    a and that wait, when phase 16 left its checkpoint in RT_DIR."""
+def phase_serve_resilience(card: str, join=None) -> dict:
+    """serve's resilience and live telemetry (see the header). Leg d, the
+    router over serve replicas, runs from the phase's start, beside legs
+    a, b and c; legs b and c follow leg a (leg b restores the step leg d
+    does, and only leg c writes a checkpoint: phase 17's leg c, keeping
+    one step, leaves the disk room for it). `join`, when given, runs once
+    legs b and c are done (the smoke joins phase 17's leg c there)."""
     shutil.rmtree(SV_DIR, ignore_errors=True)
     SV_DIR.mkdir()
     out = {}
     leg_d = None
     try:
         t_d = time.perf_counter()
-        if (RT_DIR / "ckpt").is_dir():
-            leg_d = LegThread(phase_route, card)
+        check((RT_DIR / "ckpt").is_dir(), f"serve resilience: phase 16 left no checkpoint in "
+              f"{RT_DIR / 'ckpt'} for legs b and d")
+        leg_d = LegThread(phase_route, card)
         t0 = time.perf_counter()
         out["a"] = sv_leg_a(card)
         out["a"]["leg_s"] = time.perf_counter() - t0
-        if after_a is not None:
-            out["a"]["after_s"] = after_a()
-        if leg_d is not None:
-            out["d"] = leg_d.result(2 * RT_TIMEOUT_S + 60)
-            leg_d = None
-            out["d"]["leg_s"] = time.perf_counter() - t_d
         t0 = time.perf_counter()
         out["b"], out["c"] = sv_legs_bc(card)
         out["b"]["legs_bc_s"] = time.perf_counter() - t0
+        if join is not None:
+            out["join_s"] = join()
+        out["d"] = leg_d.result(2 * RT_TIMEOUT_S + 60)
+        leg_d = None
+        out["d"]["leg_s"] = time.perf_counter() - t_d
     finally:
         if leg_d is not None:  # a leg before it failed: let 18d end before its files go
             leg_d.join(2 * RT_TIMEOUT_S + 60)
@@ -5352,13 +5541,13 @@ PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
                  sliding_window=2047, rms_norm_eps=1e-5, rope_theta=10000.0,
                  bos_token_id=1, eos_token_id=32000, pad_token_id=32000,
                  tie_word_embeddings=False)
-HF_LAYERS = 16  # export, load and serve: cut from 32 to keep the smoke inside its time limit
-HF_SHARD_BYTES = 2 * 1024**3  # several shards and an index at 16 layers
+HF_LAYERS = 8  # export, load and serve: cut from 32 (then 16) for the smoke's time limit
+HF_SHARD_BYTES = 2 * 1024**3  # two shards and an index at 8 layers (2.21 GB)
 HF_SERVE = dict(max_batch=8, max_model_len=4096, block_size=16, prefill_chunk=512)
 HF_REQUESTS = 16
 HF_PROMPTS = (1024, 3072)  # prompt lengths, inclusive: most rows decode past the window
 HF_NEW = 128
-HF_DPO_LAYERS = 8
+HF_DPO_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
 HF_DPO_STEPS = 3
 # the optimizer of config/examples/phi-3/phi-3-mini_dpo.yaml: AdamW (the
 # default), 5e-7, linear with 50 warm-up steps, clip 1.0 (the default)
@@ -5419,7 +5608,7 @@ def hf_load(path: Path, **overrides):
 
 
 def hf_export(card: str):
-    """a) Phi-3-mini at its published widths cut to 16 layers, random bf16
+    """a) Phi-3-mini at its published widths cut to 8 layers, random bf16
     weights from seed 0, written by `save_hf_checkpoint` in shards of at
     most 2 GiB: two shards and an index."""
     from llm_training_tpu_torch.models.hf_io import save_hf_checkpoint
@@ -5448,7 +5637,7 @@ def hf_export(card: str):
 
 
 def hf_reload(card: str, exported, path: Path):
-    """b) `HFCausalLM` over the export (16 layers), loaded on the card:
+    """b) `HFCausalLM` over the export (8 layers), loaded on the card:
     every tensor equal to the exported model's. (model, host copies of a
     few exported tensors, the load's numbers)."""
     from llm_training_tpu_torch.models.phi3 import Phi3
@@ -5558,7 +5747,7 @@ def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: i
 
 
 def hf_dpo(card: str, path: Path, probes: dict) -> dict:
-    """c) DPO at 8 layers from the same directory (`num_hidden_layers` an
+    """c) DPO at 4 layers from the same directory (`num_hidden_layers` an
     `HFCausalLM` override): policy and reference both loaded, the example's
     AdamW, 3 steps of 8 synthetic pairs up to 2048 tokens, through K1-K3."""
     from llm_training_tpu_torch.cli.config import instantiate_from_config
@@ -5710,31 +5899,36 @@ def hf_kernel_timing(card: str) -> dict:
 
 
 def flash_shape_timing(card: str, label: str, cases: list[dict], window: int = 0,
-                       bound_note: str = "") -> dict:
+                       bound_note: str = "", cap: float = 0.0, parity: bool = True) -> dict:
     """K1, K2 and K3 on `cases` (copies of one shape, enough to run cold in
     L2): held against their plain versions (one kv head at a time) on the
-    first, then timed beside their bounds, the plain versions and SDPA.
-    Returns per kernel kind ms, plain_ms, library_ms, bound_ms, bound_by
-    and max_abs_err."""
+    first (unless `parity` is off: errors None), then timed beside their
+    bounds, the plain versions and SDPA (none with a soft cap: SDPA has
+    none, so no PyTorch call computes that function). Returns per kernel
+    kind ms, plain_ms, library_ms, bound_ms, bound_by and max_abs_err."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
 
     case = cases[0]
-    got = bench_flash.run_case(case, kernel=True, causal=True, sliding_window=window or None)
-    ref = bench_flash.run_plain_by_kv_head(case, causal=True, sliding_window=window or None)
-    ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, causal=True,
-                                             sliding_window=window or None)
-    torch.cuda.synchronize()
-    errors, broken = flash_case_errors(got, ref, ref32, case, None)
-    check(not broken, f"{label}: flash kernels vs plain: {broken}")
-    abs_err = {
-        "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
-        "dq": float((got["dq"].float() - ref["dq"].float()).abs().max()),
-        "dkv": max(float((got[n].float() - ref[n].float()).abs().max()) for n in ("dk", "dv")),
-    }
-    del got, ref, ref32
-    record = bench_flash.kernel_record(cases=cases, window=window)
-    plain = bench_flash.time_plain(cases, window=window)
-    library = bench_flash.time_sdpa(cases, window=window)
+    errors, abs_err = {}, {"fwd": None, "dq": None, "dkv": None}
+    if parity:
+        opts = dict(causal=True, sliding_window=window or None, logits_soft_cap=cap or None)
+        got = bench_flash.run_case(case, kernel=True, **opts)
+        ref = bench_flash.run_plain_by_kv_head(case, **opts)
+        ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, **opts)
+        torch.cuda.synchronize()
+        errors, broken = flash_case_errors(got, ref, ref32, case, None)
+        check(not broken, f"{label}: flash kernels vs plain: {broken}")
+        abs_err = {
+            "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
+            "dq": float((got["dq"].float() - ref["dq"].float()).abs().max()),
+            "dkv": max(float((got[n].float() - ref[n].float()).abs().max())
+                       for n in ("dk", "dv")),
+        }
+        del got, ref, ref32
+    record = bench_flash.kernel_record(cases=cases, window=window, cap=cap)
+    plain = bench_flash.time_plain(cases, window=window, cap=cap)
+    library = {"fwd_ms": None, "bwd_ms": None} if cap else bench_flash.time_sdpa(
+        cases, window=window)
     out = {}
     for kind in ("fwd", "dq", "dkv"):
         side = "fwd_ms" if kind == "fwd" else "bwd_ms"
@@ -5746,9 +5940,11 @@ def flash_shape_timing(card: str, label: str, cases: list[dict], window: int = 0
           + "; ".join(f"{kind} {v['ms']:.3f} ms (bound{bound_note} {v['bound_ms']:.3f} ms by "
                       f"{v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}%)"
                       for kind, v in out.items())
-          + f"; plain fwd {plain['fwd_ms']:.3f} ms, bwd {plain['bwd_ms']:.3f} ms; SDPA fwd "
-          f"{library['fwd_ms']:.3f} ms, bwd {library['bwd_ms']:.3f} ms; parity bf16 "
-          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(errors.items())), flush=True)
+          + f"; plain fwd {plain['fwd_ms']:.3f} ms, bwd {plain['bwd_ms']:.3f} ms; "
+          + (f"SDPA fwd {library['fwd_ms']:.3f} ms, bwd {library['bwd_ms']:.3f} ms" if not cap
+             else "no SDPA (soft cap)") + "; parity bf16 "
+          + (", ".join(f"{k} {v:.2e}" for k, v in sorted(errors.items())) or "not held here"),
+          flush=True)
     del cases, case
     release()
     return out
@@ -6018,7 +6214,7 @@ def qwen3_leg(card: str) -> dict:
 
 def phase_hf_phi3(card: str) -> dict:
     """HF I/O, Phi-3-mini and Qwen3-8B (see the header): Phi-3's export,
-    load and serving at 16 layers, DPO at 8 layers from the same directory,
+    load and serving at 8 layers, DPO at 4 layers from the same directory,
     then 19e (Qwen3-8B), then the kernels at Phi-3's shapes."""
     logging.basicConfig(level=logging.WARNING, stream=sys.stderr)
     shutil.rmtree(HF_DIR, ignore_errors=True)
@@ -6044,6 +6240,341 @@ def phase_hf_phi3(card: str) -> dict:
     t0 = time.perf_counter()
     out["kernels"] = hf_kernel_timing(card)
     out["kernels"]["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+G2_PRESET = "gemma-2-9b"
+G3_PRESET = "gemma-3-4b"
+G_SERVE_LAYERS = 8  # the 42 layers cut to 8
+G_SERVE = dict(max_batch=8, max_model_len=2048 + 64, block_size=16, prefill_chunk=512)
+G_REQUESTS = 16
+G_PROMPTS = (256, 2048)  # prompt lengths, inclusive
+G_NEW = 64
+G_FIT_LAYERS = 4  # sliding, full, sliding, full
+G_FIT_STEPS = 3
+G_FIT_ROWS = 2
+G_FIT_SEQ = 8192
+G_MAX_DOC = 8000  # documents past the 4096 window, below the packer's 8064
+G_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=0)
+G_PARITY_NAMES = ("model.layers.0.self_attn.q_proj.weight",
+                  "model.layers.1.post_feedforward_layernorm.weight", "model.embed_tokens.weight")
+G3_LAYERS = 6  # one 5:1 period
+G3_PARITY_SEQ = 4096
+G3_PARITY_NAMES = ("model.layers.0.self_attn.q_norm.weight",
+                   "model.layers.5.self_attn.k_proj.weight", "model.embed_tokens.weight")
+# K4 at the head shapes this slice added (kv heads, group, head_dim): Phi-2
+# (MHA at 80), Gemma-2-9B and gemma-2b (256, groups 2 and 8), GLM-4-9B
+# (group 16 at 128)
+G_K4_SHAPES = {"phi-2 D80": (32, 1, 80), "gemma-2-9b D256": (8, 2, 256),
+               "gemma-2b D256 G8": (1, 8, 256), "glm-4-9b G16": (2, 16, 128)}
+
+
+def gemma_kernel_parity(card: str) -> dict:
+    """22a: K4 at D 80, 256 and group 16, K1-K3 at D 256 (Gemma-2-9B's
+    heads) with soft cap 50, a 4096 window and none, over a packed row of
+    5120 tokens (a document past the window), fp32 and bf16, against the
+    plain versions within the limits of the module header; then one decode
+    step of Phi-2 (D 80) and of GLM-4-9B (group 16) at 2 layers through K4
+    against the plain path and fp32 (the 1.5x rule)."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+    from llm_training_tpu_torch.ops.kernels.bench_paged_decode import decode_case
+
+    out = {"k4": {}, "flash": {}}
+    for name, (hkv, group, head_dim) in G_K4_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            case = decode_case([1, 16, 530, 2100, 4700, 1], 16, hkv, group, head_dim, dtype,
+                               seed=head_dim + group)
+            case["block_tables"][-1] = 0
+            for window, cap in ((None, None), (4096, 50.0)):
+                err = kernel_vs_plain(kernels, case, sliding_window=window, logits_soft_cap=cap)
+                check(err.pop("ok"), f"gemma K4 parity {name} {dtype} window {window} cap {cap}: "
+                                     f"{err}")
+                key = f"{name} {str(dtype).removeprefix('torch.')}"
+                out["k4"][key] = max(out["k4"].get(key, 0.0), err["abs"])
+            del case
+    rng = np.random.default_rng(22)
+    row = np.zeros(5120, np.int32)
+    row[:4700], row[4700:5000] = 1, 2  # a 4700-token document, then a short one, then padding
+    for dtype in (torch.float32, torch.bfloat16):
+        case = bench_flash.flash_case(5120, 16, 8, 256, dtype, [row], seed=int(rng.integers(99)))
+        for window in (None, 4096):
+            opts = dict(causal=True, sliding_window=window, logits_soft_cap=50.0)
+            got = bench_flash.run_case(case, kernel=True, **opts)
+            ref = bench_flash.run_plain_by_kv_head(case, **opts)
+            ref32 = (bench_flash.run_plain_by_kv_head(case, upcast=True, **opts)
+                     if dtype == torch.bfloat16 else None)
+            torch.cuda.synchronize()
+            errors, broken = flash_case_errors(got, ref, ref32, case, None)
+            label = f"{str(dtype).removeprefix('torch.')} window {window}"
+            check(not broken, f"gemma flash parity D256 {label}: {broken}")
+            out["flash"][label] = errors
+            del got, ref, ref32
+        del case
+        release()
+    # the model-level decode steps of the heads K4 used to refuse
+    out["phi2_decode"] = decode_parity(kernels, f"phi-2 decode parity [{card}]", "phi-2")
+    out["glm4_decode"] = decode_parity(kernels, f"glm-4-9b decode parity [{card}]", "glm-4-9b")
+    print(f"gemma kernel parity [{card}]: K4 at " + ", ".join(
+        f"{k} {v:.2e}" for k, v in out["k4"].items())
+          + " (max abs err; window 4096 + cap 50 and none, rows to 4700); K1-K3 at D 256, Hq 16 "
+          "Hkv 8, S 5120, cap 50, window 4096 and none: " + "; ".join(
+              f"{k}: " + ", ".join(f"{n} {v:.2e}" for n, v in sorted(e.items()))
+              for k, e in out["flash"].items()), flush=True)
+    return out
+
+
+def gemma_serve(card: str) -> dict:
+    """22b: Gemma-2-9B at 8 layers (random bf16 weights from seed 0, the
+    looped layout serving needs) answers 16 greedy requests of 256-2048 +
+    64 tokens through K4 at D 256 with its window and soft cap."""
+    from llm_training_tpu_torch.models.gemma import Gemma
+    from llm_training_tpu_torch.models.gemma.config import preset
+
+    config = preset(G2_PRESET, num_hidden_layers=G_SERVE_LAYERS, scan_layers=False)
+    model = Gemma(config, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(220)
+    lens = rng.integers(G_PROMPTS[0], G_PROMPTS[1] + 1, size=G_REQUESTS)
+    out = serve_leg(card, "gemma serve", f"{G2_PRESET} x {G_SERVE_LAYERS} layers", model.eval(),
+                    G_SERVE, lens, G_NEW, rng)
+    del model
+    release()
+    return out
+
+
+def gemma_fit(card: str) -> dict:
+    """22b: the CLM `Trainer` on Gemma-2-9B at 4 layers (fp32 parameters,
+    bf16 compute, selective recompute, AdamW), 3 steps of 2 packed rows of
+    8192 tokens (documents to 8000, so the sliding layers' 4096 window
+    cuts them) through K1-K3 at D 256 with the soft cap: the loss finite
+    and falling, K1-K3 once a layer a step, the plain path never. MFU counts 6N a
+    token (the tied head included) and 12 D a visible pair a head on each
+    layer, the sliding layers' pairs inside their window."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.gemma.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset(G2_PRESET, num_hidden_layers=G_FIT_LAYERS, param_dtype="float32",
+                    enable_gradient_checkpointing=True, recompute_granularity="selective")
+    rows = packed_batches(22, G_FIT_SEQ, G_FIT_ROWS * G_FIT_STEPS, config.vocab_size,
+                          max_doc=G_MAX_DOC)
+    batches = [{k: np.concatenate([r[k] for r in rows[i:i + G_FIT_ROWS]])
+                for k in rows[0]} for i in range(0, len(rows), G_FIT_ROWS)]
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.t = [], [], None
+
+        def on_fit_start(self, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    clock = Clock()
+    trainer = Trainer(TrainerConfig(max_steps=G_FIT_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[clock], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("Gemma", asdict(config)),
+                              optim=OptimConfig(**G_OPTIM)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain:
+        for launcher in launchers:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = clock.losses
+    ln_v = math.log(config.vocab_size)
+    # not near ln V at step 1: the tied head reads the sqrt(hidden)-scaled
+    # embedding back, so each position's own token takes a logit near the
+    # final cap (30) at random weights, as in JAX; the loss must fall
+    check(len(losses) == G_FIT_STEPS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0],
+          f"gemma fit: losses {losses} must be finite and fall (ln V {ln_v:.4f})")
+    want = [G_FIT_LAYERS * G_FIT_STEPS] * 3
+    check(launches == want and plain[0] == 0,
+          f"gemma fit: K1/K2/K3 launched {launches}, expected {want}; plain path {plain[0]}")
+    n_matmul = sum(p.numel() for p in state.model.parameters())  # the tied head counted once
+    flops, tokens, windowed = [], [], []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        tokens.append(int((batch["segment_ids"] > 0).sum()))
+        pairs = [bench_flash.visible_pairs(seg, seg, window=config.layer_sliding_window(i))
+                 for i in range(G_FIT_LAYERS)]
+        windowed.append(pairs[1] - pairs[0])  # the pairs the window removed on a sliding layer
+        flops.append(6 * n_matmul * tokens[-1]
+                     + 12 * config.head_dim * config.num_attention_heads * sum(pairs))
+    check(all(w > 0 for w in windowed), f"gemma fit: the 4096 window cut no pair: {windowed}")
+    timed_s = clock.step_s[1:]  # step 1 carries the warm-up
+    out = dict(layers=G_FIT_LAYERS, steps=G_FIT_STEPS, losses=losses, tokens=tokens,
+               pairs_cut_by_window=windowed,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)), plain_calls=plain[0],
+               step_ms=[1e3 * t for t in clock.step_s], step_ms_p50=1e3 * percentile(timed_s, 50),
+               tokens_per_s=sum(tokens[1:]) / sum(timed_s),
+               mfu=sum(flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=peak_gb)
+    print(f"gemma fit [{card}]: {G2_PRESET} x {G_FIT_LAYERS} layers, {G_FIT_STEPS} steps of "
+          f"{G_FIT_ROWS} x {G_FIT_SEQ} packed tokens (AdamW, selective recompute, cap 50, window "
+          f"4096 on layers 0 and 2 cutting {windowed} pairs a head); losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, plain path {plain[0]}; step "
+          f"p50 {out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.2f}% of 989 TFLOPS (6N a token, 12 D a visible pair a head a "
+          f"layer), peak memory {peak_gb:.2f} GB", flush=True)
+    del objective, state, trainer
+    release()
+    return out
+
+
+def gemma3_leg(card: str) -> dict:
+    """22c: Gemma-3-4b at 6 layers (one 5:1 period): a decode step and the
+    loss and gradients on a packed 4096-token row against the plain path
+    and fp32 (the 1.5x rule), each K4 and K1 call's (window, scale) and
+    each layer's rotary table recorded: the sliding layers 1024 with the
+    local (10^4, unscaled) table, the sixth layer no window with the global
+    (10^6, linear 8) one."""
+    from llm_training_tpu_torch.models.gemma import Gemma
+    from llm_training_tpu_torch.models.gemma.config import preset
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+    from llm_training_tpu_torch.ops.rope_utils import compute_rope_cos_sin
+
+    config = preset(G3_PRESET)
+    fields = dict(num_hidden_layers=G3_LAYERS, layer_types=config.layer_types[:G3_LAYERS])
+    seen = []
+    real = Gemma.layer_tables
+
+    def recorded(self, position_ids, rope_len):
+        tables = real(self, position_ids, rope_len)
+        local = compute_rope_cos_sin(self.local_inv_freq, position_ids, self._local_scaling)[0]
+        seen.append(["local" if torch.equal(cos, local) else "global" for cos, _, _ in tables])
+        return tables
+
+    Gemma.layer_tables = recorded
+    try:
+        decode = decode_parity(kernels, "gemma-3 decode parity", G3_PRESET, **fields)
+        host = packed_batches(223, G3_PARITY_SEQ, 1, config.vocab_size, max_doc=3000)[0]
+        train = loss_grad_parity("gemma-3 train parity", G3_PRESET, host, G3_PARITY_NAMES,
+                                 **fields)
+    finally:
+        Gemma.layer_tables = real
+    scale = config.attention_scale
+    want_calls = [(config.sliding_window if t == "sliding_attention" else None, scale)
+                  for t in fields["layer_types"]]
+    want_tables = ["local" if t == "sliding_attention" else "global"
+                   for t in fields["layer_types"]]
+    check(decode["k4_calls"] == want_calls and train["k1_calls"] == want_calls,
+          f"gemma-3: K4 calls {decode['k4_calls']}, K1 calls {train['k1_calls']}; each layer "
+          f"must launch with its own (window, scale) {want_calls}")
+    check(seen and all(s == want_tables for s in seen),
+          f"gemma-3: the layers' rotary tables {seen}, expected {want_tables}")
+    print(f"gemma-3 [{card}]: {G3_PRESET} x {G3_LAYERS} layers: K4 and K1 launched on every "
+          f"layer with (window, scale) {want_calls}; rotary tables {want_tables} in all "
+          f"{len(seen)} forwards", flush=True)
+    return dict(decode=decode, train=train, tables=want_tables, k_calls=want_calls)
+
+
+def gemma_kernel_timing(card: str) -> dict:
+    """22d: the kernels at the shapes this slice added, timed beside their
+    bounds: K4 at B 8 over rows of 256-2112 (bf16) at each of `G_K4_SHAPES`
+    (Gemma-2-9B's with its soft cap 50 and window 4096), K1-K3 at
+    Gemma-2-9B's training shape (one
+    packed row of 8192, Hq 16, Hkv 8, D 256) with the cap and the window
+    of a sliding layer (no PyTorch call computes a capped attention), then
+    without either beside SDPA, the library call at D 256."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import bench_paged_decode as bench
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+
+    lengths = np.random.default_rng(221).integers(256, 2113, size=8).tolist()
+    out = {"k4_shapes": {}}
+    for name, (hkv, group, head_dim) in G_K4_SHAPES.items():
+        # Gemma's serving options on its shapes; the others' own (none)
+        opts = (dict(sliding_window=4096, logits_soft_cap=50.0) if name.startswith("gemma")
+                else {})
+        cases = [bench.decode_case(lengths, 16, hkv, group, head_dim, torch.bfloat16, seed,
+                                   width=132) for seed in range(2)]
+        cases += [bench.decode_case(lengths, 16, hkv, group, head_dim, torch.bfloat16, s,
+                                    width=132) for s in range(2, bench.cold_copies(cases[0]))]
+        err = kernel_vs_plain(kernels, cases[0], **opts)
+        check(err.pop("ok"), f"{name} decode shape: kernel vs plain errors {err}")
+        k4_ms = bench.device_ms([(lambda c=c: kernels.paged_decode_attention(**c, **opts))
+                                 for c in cases])
+        plain_ms = bench.device_ms([(lambda c=c: kernels.paged_decode_attention_torch(
+            **c, **opts)) for c in cases])
+        bound_ms, bound_by = bench.decode_bound_ms(cases[0], opts.get("sliding_window"))
+        out["k4_shapes"][name] = dict(ms=k4_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=None, max_abs_err=err["abs"])
+        print(f"kernel timing [{card}]: paged_decode {name} B8 Hq{hkv * group} Hkv{hkv} "
+              f"D{head_dim} page16 {opts or 'no window, no cap'} lengths {min(lengths)}-"
+              f"{max(lengths)} bf16, cold L2: kernel {1e3 * k4_ms:.2f} us, plain "
+              f"{1e3 * plain_ms:.2f} us, bound {1e3 * bound_ms:.2f} us ({bound_by}), "
+              f"{100 * bound_ms / k4_ms:.1f}% of bound", flush=True)
+        del cases
+        release()
+    out["k4"] = out["k4_shapes"]["gemma-2-9b D256"]
+    flash_cases = bench_flash.gemma2_case()
+    out.update(flash_shape_timing(card, "gemma-2-9b B1 S8192 Hq16 Hkv8 D256 cap 50 window 4096",
+                                  flash_cases, window=4096, cap=50.0))
+    # the same inputs without cap and window, beside SDPA (their parity is
+    # 22a's and the capped run's above)
+    out["plain_sdpa"] = flash_shape_timing(card, "gemma-2-9b B1 S8192 Hq16 Hkv8 D256 (no cap, "
+                                                 "no window: beside SDPA)", flash_cases,
+                                           parity=False)
+    return out
+
+
+def gemma2_parity(card: str) -> dict:
+    """22b: Gemma-2-9B's decode step at 2 layers (a sliding and a full one,
+    cap 50, scale 1/16) and the loss and gradients of one packed 8192-token
+    row (documents past the 4096 window) against the plain path and fp32:
+    the kernel path no further from fp32 than 1.5x the plain bf16 path's."""
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+
+    decode = decode_parity(kernels, f"gemma-2 decode parity [{card}]", G2_PRESET,
+                           scan_layers=False)
+    host = packed_batches(222, G_FIT_SEQ, 1, 256000, max_doc=G_MAX_DOC)[0]
+    train = loss_grad_parity(f"gemma-2 train parity [{card}]", G2_PRESET, host, G_PARITY_NAMES)
+    return dict(decode=decode, train=train)
+
+
+def phase_gemma(card: str) -> dict:
+    """Phase 22 (see the header): the kernels at the shapes this slice
+    added, Gemma-2-9B's serving, parity and fit, Gemma-3-4b's parity leg,
+    and the kernels timed at Gemma-2-9B's shapes; each leg prints its
+    seconds."""
+    out = {}
+    for name, leg in (("parity", gemma_kernel_parity), ("serve", gemma_serve),
+                      ("gemma2_parity", gemma2_parity), ("fit", gemma_fit),
+                      ("gemma3", gemma3_leg), ("kernels", gemma_kernel_timing)):
+        t0 = time.perf_counter()
+        out[name] = leg(card)
+        out[name]["leg_s"] = time.perf_counter() - t0
+        print(f"phase 22 {name}: {out[name]['leg_s']:.1f} s", flush=True)
+        release()
     return out
 
 
@@ -6883,29 +7414,38 @@ def main() -> int:
 
     t_start = time.perf_counter()
     timed("2 build", phase_build)
-    timed("3 kernel parity", phase_kernel_parity, kernels)
-    timed("4 flash parity", phase_flash_parity)
+    # phase 12 is checkpoint I/O for the most part: it runs in a process of
+    # its own beside the phases that write nothing to the disk and time
+    # nothing the kernel table reads (the parities, 13, 14 and phase 17's
+    # legs in this process); the timed phases 5, 7 and 8 follow it
+    with MemoryPeak() as memory:
+        lifecycle_process = PhaseProcess("12 lifecycle", "phase_lifecycle", card)
+        timed("3 kernel parity", phase_kernel_parity, kernels)
+        timed("4 flash parity", phase_flash_parity)
+        timed("6 engine parity", phase_engine_parity, kernels)
+        timed("9 train-step parity", phase_train_parity)
+        preference = timed("13 preference", phase_preference, card)
+        optimizer = timed("14 optimizer", phase_optimizer, card)
+        rl_in_process = timed("17 parity, sync, cast", phase_rl_in_process, card)
+        lifecycle = lifecycle_process.result(LIFE_TIMEOUT_S)
+    print(f"phases 12-14 [{card}]: card memory peak {memory.peak_mib} of {memory.total_mib} MiB "
+          f"with phase 12 beside phases 3, 4, 6, 9, 13, 14 and 17's legs in process", flush=True)
     serve = timed("5 serving", phase_serve, kernels, card)
     gc.collect()  # the engine's timing wrappers form a reference cycle
     torch.cuda.empty_cache()
-    timed("6 engine parity", phase_engine_parity, kernels)
-    torch.cuda.empty_cache()
     timing = timed("7 K4 timing", phase_timing, kernels, card)
     train = timed("8 training", phase_train, card)
-    lifecycle = timed("12 lifecycle", phase_lifecycle, card)
-    preference = timed("13 preference", phase_preference, card)
-    optimizer = timed("14 optimizer", phase_optimizer, card)
     resilience = timed("15 resilience", phase_resilience, card)
     # phase 20's packers at 10^6 lengths, on the host beside phase 16
     start_pack_child()
     durability = timed("16 durability", phase_durability, card, hf_round_trip)
-    rl, rl_c = timed("17 rl-fit", phase_rl, card)
+    rl, rl_c = timed("17 rl-fit", phase_rl, card, rl_in_process)
     serving = timed("18 serve resilience", phase_serve_resilience, card,
-                    lambda: rl_leg_c_join(rl, rl_c))
+                    lambda: rl_join(card, rl, rl_c))
     hf = timed("19 hf + phi3", phase_hf_phi3, card)
     hf["round_trip"] = durability.pop("hf_round_trip")
     it = timed("20 instruction tuning", phase_instruction_tuning, card)
-    timed("9 train-step parity", phase_train_parity)
+    gemma = timed("22 gemma", phase_gemma, card)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
     # last: its one-rank process group changes the checkpointer's path
@@ -6923,6 +7463,7 @@ def main() -> int:
     print(f"hf + phi3 summary [{card}]: " + json.dumps(hf))
     print(f"instruction tuning summary [{card}]: " + json.dumps(it))
     print(f"mesh summary [{card}]: " + json.dumps(mesh))
+    print(f"gemma summary [{card}]: " + json.dumps(gemma))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"],
@@ -6955,11 +7496,17 @@ def main() -> int:
     # fit and the virtual rings); K4 through 19e's serving and phase 18d's
     # router (every replica), timed at phase 7's Llama-3.1-8B serving shape
     # (Qwen3-8B's heads too: Hkv 8, D 128)
+    # phase 22's Gemma-2-9B: K4 serving at 8 layers (D 256), K1-K3 in its
+    # 4-layer fit (D 256, cap 50, window 4096), timed at its own shapes
+    print("kernels at Gemma-2-9B shapes (launches: phase 22): " + json.dumps(kernel_rows(
+        gemma["kernels"]["k4"], gemma["serve"]["launches"], gemma["kernels"],
+        gemma["fit"]["launches"])))
     flash_launches = {kind: it["launches"][kind] + mesh["launches"][kind]
-                      + qwen3["fit"]["launches"][kind] for kind in ("fwd", "dq", "dkv")}
+                      + qwen3["fit"]["launches"][kind] + gemma["fit"]["launches"][kind]
+                      for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
-        timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"], it["kernels"],
-        flash_launches)}))
+        timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"]
+        + gemma["serve"]["launches"], it["kernels"], flash_launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

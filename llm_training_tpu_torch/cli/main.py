@@ -56,8 +56,11 @@ monitor and `LLMT_METRICS_PORT` the `/metrics`, `/statusz`, `/healthz` and
 
 The model is the run's (`--config`, restored from its checkpoint, newest
 or `--ckpt-path`, into a model whose parameters are in the run's compute
-dtype), a named preset (`--preset llama-3.1-8b`) or a JSON config file
-(`--model-config`); a preset's or file's weights come from a `.npz` of the
+dtype), a named preset (`--preset llama-3.1-8b`, or a Gemma one such as
+`gemma-2-9b`, built with the looped layer layout JAX's serving needs for
+Gemma-2's windows) or a JSON config file (`--model-config`: `LlamaConfig`
+fields, or `GemmaConfig` fields with its `version`); a preset's or file's
+weights come from a `.npz` of the
 JAX parameter tree (`--weights`, keys joined by '/') or are drawn from
 `--seed`.
 
@@ -122,6 +125,8 @@ from llm_training_tpu_torch.infer.evaluate import run_evaluation
 from llm_training_tpu_torch.infer.sampling import SamplingConfig
 from llm_training_tpu_torch.lms.clm import CLM
 from llm_training_tpu_torch.lms.grpo import GRPO
+from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
+from llm_training_tpu_torch.models.gemma import config as gemma_config
 from llm_training_tpu_torch.models.llama.config import PRESETS, LlamaConfig, preset
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax, tree_from_flat
 from llm_training_tpu_torch.models.llama.model import Llama
@@ -229,11 +234,8 @@ def _serving_model(args) -> tuple[Llama, Trainer | None, object | None, dict | N
     device = resolve_device(args.device)
     if (args.preset is None) == (args.model_config is None):
         raise SystemExit("give exactly one of --config / --preset / --model-config")
-    config = (
-        preset(args.preset) if args.preset is not None
-        else LlamaConfig.from_json(args.model_config)
-    )
-    model = Llama(config, device=device)
+    config = _serving_config(args.preset, args.model_config)
+    model = (Gemma if isinstance(config, GemmaConfig) else Llama)(config, device=device)
     if args.weights is not None:
         with np.load(args.weights) as flat:
             state = state_dict_from_jax(tree_from_flat(flat), config)
@@ -243,6 +245,21 @@ def _serving_model(args) -> tuple[Llama, Trainer | None, object | None, dict | N
         generator.manual_seed(args.seed)
         model.init_weights(generator)
     return model.eval(), None, None, None
+
+
+def _serving_config(name: str | None, path: str | None) -> LlamaConfig | GemmaConfig:
+    """The config of `--preset` or `--model-config`: a Gemma preset, or a
+    file with Gemma's `version` field, in the looped layout (JAX refuses to
+    decode Gemma-2's scanned pairs, so a serving config loops them)."""
+    if name in gemma_config.PRESETS:
+        return gemma_config.preset(name, scan_layers=False)
+    if name is not None:
+        return preset(name)
+    with open(path) as f:
+        data = json.load(f)
+    if "version" in data:
+        return GemmaConfig.from_dict({"scan_layers": False, **data}, path)
+    return LlamaConfig.from_dict(data, path)
 
 
 def _scalar_eos(config: LlamaConfig) -> int | None:
@@ -945,8 +962,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     serve.add_argument("--config", default=None,
                        help="JSON config of a run: serve its checkpoint's weights")
-    serve.add_argument("--preset", choices=sorted(PRESETS), default=None)
-    serve.add_argument("--model-config", default=None, help="JSON file of LlamaConfig fields")
+    serve.add_argument("--preset", choices=sorted({*PRESETS, *gemma_config.PRESETS}),
+                       default=None)
+    serve.add_argument("--model-config", default=None,
+                       help="JSON file of LlamaConfig fields (or GemmaConfig's, with 'version')")
     serve.add_argument(
         "--weights", default=None,
         help=".npz of the JAX parameter tree, keys joined by '/' (default: random from --seed)",

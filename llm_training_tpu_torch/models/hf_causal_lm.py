@@ -2,7 +2,8 @@
 
 Counterpart of `llm_training_tpu/models/hf_causal_lm.py`: an architecture
 router, not a wrapper. `config.json`'s `model_type` selects the family
-(`hf_io.model_class_for_hf`: every Llama-graph type -> Llama, phi3 -> Phi3; a
+(`hf_io.model_class_for_hf`: every Llama-graph type -> Llama, phi3 -> Phi3,
+gemma / gemma2 / gemma3_text -> Gemma; a
 family the port lacks raises naming ROADMAP A.8), the family's
 `config_from_hf` merges the hparams with any extra field of the node as
 an override, and with `load_hf_weights` (the default) the family config's
@@ -21,6 +22,7 @@ from typing import Any
 
 import torch
 
+from llm_training_tpu_torch.models.gemma import Gemma
 from llm_training_tpu_torch.models.hf_io import load_hf_config, model_class_for_hf
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
@@ -30,6 +32,7 @@ from llm_training_tpu_torch.models.phi3 import Phi3
 _FAMILY_CLASSES: dict[str, tuple[type, str]] = {
     "llm_training_tpu.models.Llama": (Llama, "llm_training_tpu_torch.models.llama.hf_conversion"),
     "llm_training_tpu.models.Phi3": (Phi3, "llm_training_tpu_torch.models.phi3.hf_conversion"),
+    "llm_training_tpu.models.Gemma": (Gemma, "llm_training_tpu_torch.models.gemma.hf_conversion"),
 }
 
 

@@ -58,6 +58,7 @@ _WORDS = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 _FAMILIES: dict[str, str] = {
     "LlamaConfig": "llm_training_tpu_torch.models.llama.hf_conversion",
     "Phi3Config": "llm_training_tpu_torch.models.phi3.hf_conversion",
+    "GemmaConfig": "llm_training_tpu_torch.models.gemma.hf_conversion",
 }
 
 
@@ -278,7 +279,7 @@ _ARCH_TO_FAMILY = {
     "gemma3_text": "llm_training_tpu.models.Gemma",
 }
 # the families of that table the port has
-PORTED_FAMILIES = (_LLAMA, "llm_training_tpu.models.Phi3")
+PORTED_FAMILIES = (_LLAMA, "llm_training_tpu.models.Phi3", "llm_training_tpu.models.Gemma")
 
 
 def model_class_for_hf(hf_config: dict, assume_llama_layout: bool = False) -> str:

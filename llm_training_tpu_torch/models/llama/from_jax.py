@@ -1,10 +1,13 @@
-"""Carry a JAX `Llama` parameter tree -- or a whole JAX `TrainState` --
-across into the port.
+"""Carry a JAX `Llama` or `Gemma` parameter tree -- or a whole JAX
+`TrainState` -- across into the port.
 
 The trees are nested dicts of numpy arrays (the caller unboxes and fetches
-them from the device first). Both JAX layouts are read: scanned
-(`layers/layer/...` with a leading `[L, ...]` axis) and looped
-(`layers_{i}/...`). Flax `Dense.kernel [in, out]` becomes torch
+them from the device first). Every JAX layout is read: scanned
+(`layers/layer/...` with a leading `[L, ...]` axis), looped
+(`layers_{i}/...`) and Gemma-2's scanned (sliding, full) pairs
+(`layers/sliding/...` holding the even layers, `layers/full/...` the odd
+ones, each `[L/2, ...]`). The port's names are the same for both families
+(HF's); `parameter_names` builds the config's own model to list them. Flax `Dense.kernel [in, out]` becomes torch
 `weight [out, in]`. `train_state_dict_from_jax` maps a training state
 (params, optax's moments and count -- adam's, lion's and adafactor's, as
 stored by an offloaded run too -- `MultiSteps`' accumulator, the key and
@@ -34,7 +37,7 @@ _DENSE = {
     "mlp": ("gate_proj", "up_proj", "down_proj", "c_fc", "c_proj"),
 }
 _NORMS = ("input_layernorm", "post_attention_layernorm", "post_feedforward_layernorm",
-          "post_self_attn_layernorm", "post_mlp_layernorm")
+          "post_self_attn_layernorm", "post_mlp_layernorm", "pre_feedforward_layernorm")
 _QK_NORMS = ("q_norm", "k_norm")
 _XIELU = ("xielu_alpha_p", "xielu_alpha_n")
 # outside the layers: the port's name -> the keys below `params`
@@ -61,11 +64,13 @@ def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
 
 
 def parameter_names(config: LlamaConfig) -> list[str]:
-    """The port's `Llama` parameter names (HF's spelling of JAX's tree) for
-    `config`, in the model's order."""
+    """The port's parameter names (HF's spelling of JAX's tree) for
+    `config` (a `LlamaConfig` or a `GemmaConfig`), in the model's order."""
+    from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
     from llm_training_tpu_torch.models.llama.model import Llama
 
-    return [name for name, _ in Llama(config, device="meta").named_parameters()]
+    model_cls = Gemma if isinstance(config, GemmaConfig) else Llama
+    return [name for name, _ in model_cls(config, device="meta").named_parameters()]
 
 
 def _layer_keys(keys: list[str]) -> tuple[str, ...] | None:
@@ -100,11 +105,16 @@ PAIR = ("policy", "ref")
 ADAFACTOR_FIELDS = ("v_row", "v_col", "v", "ema")
 
 
-def jax_path(name: str, scan_layers: bool = True) -> str | None:
+PAIRS = "pairs"  # the `scan_layers` value of Gemma-2's scanned (sliding, full) pairs
+
+
+def jax_path(name: str, scan_layers: bool | str = True) -> str | None:
     """The '/'-joined path of the port's parameter `name` in the JAX
-    `Llama` tree of one layout: `params/...` outside the layers; a layer's
+    tree of one layout: `params/...` outside the layers; a layer's
     parameter in the scanned tree (`params/layers/layer/...`, one leaf for
-    all layers) or the looped one (`params/layers_{i}/...`). A name of a
+    all layers), the looped one (`params/layers_{i}/...`) or, with
+    `scan_layers=PAIRS`, Gemma-2's pairs (`params/layers/sliding/...` for
+    an even layer, `params/layers/full/...` for an odd one). A name of a
     policy and reference pair (`policy.<name>`, `ref.<name>`) is prefixed
     as the JAX DPO and GRPO trees nest it (`policy/params/...`). None for
     any other name."""
@@ -119,6 +129,8 @@ def jax_path(name: str, scan_layers: bool = True) -> str | None:
     tail = "/".join(keys)
     if layer is None:
         return f"params/{tail}"
+    if scan_layers == PAIRS:
+        return f"params/layers/{'full' if layer % 2 else 'sliding'}/{tail}"
     return f"params/layers/layer/{tail}" if scan_layers else f"params/layers_{layer}/{tail}"
 
 
@@ -151,10 +163,10 @@ def _masked(node: Any) -> bool:
 
 
 def _leaf(params: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> np.ndarray | None:
-    node, scanned = _node(params, layer, keys)
+    node, index = _node(params, layer, keys)
     if _masked(node):
         return None
-    return np.asarray(node[layer] if scanned else node)
+    return np.asarray(node if index is None else node[index])
 
 
 def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[str, torch.Tensor]:
@@ -197,16 +209,25 @@ def _stored(array: Any) -> torch.Tensor:
     return torch.tensor(a)
 
 
-def _node(tree: Mapping[str, Any], layer: int | None, keys: tuple[str, ...]) -> tuple[Any, bool]:
-    """The leaf below `keys` and whether it is the scanned `[L, ...]` one."""
-    scanned = layer is not None and "layers" in tree
+def _node(tree: Mapping[str, Any], layer: int | None,
+          keys: tuple[str, ...]) -> tuple[Any, int | None]:
+    """The leaf below `keys` and, for a stacked leaf, the layer's index in
+    it: `layer` in the scanned `[L, ...]` one, `layer // 2` in a Gemma-2
+    pair's `[L/2, ...]` branch; None for a looped or top-level leaf."""
+    index = None
     if layer is None:
         node = tree
+    elif "layers" not in tree:
+        node = tree[f"layers_{layer}"]
+    elif "sliding" in tree["layers"]:
+        node = tree["layers"]["full" if layer % 2 else "sliding"]
+        index = layer // 2
     else:
-        node = tree["layers"]["layer"] if scanned else tree[f"layers_{layer}"]
+        node = tree["layers"]["layer"]
+        index = layer
     for key in keys:
         node = node[key]
-    return node, scanned
+    return node, index
 
 
 def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field: str,
@@ -219,8 +240,9 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
     Dense kernel's arrays are transposed, codes and scales alike.
     `per_leaf` (Adafactor's `v_row`, `v_col`, `v`, `ema`): one entry per
     JAX leaf (`jax_layout`), copied as it is, optax's (1,) placeholders
-    included; the looped JAX layout raises, as the port keeps Adafactor's
-    state per scanned leaf. Masked (frozen) leaves are left out."""
+    included; the looped JAX layout and Gemma-2's pairs raise, as the port
+    keeps Adafactor's state per scanned `layers/layer` leaf (ROADMAP C).
+    Masked (frozen) leaves are left out."""
     if set(tree) == set(PAIR):
         out = {}
         for part in PAIR:
@@ -232,20 +254,21 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
     out = {}
     for name in parameter_names(config):
         layer, keys = jax_leaf(name)
-        node, scanned = _node(tree, layer, keys)
+        node, index = _node(tree, layer, keys)
         if _masked(node):
             continue
         parts = {"q": node.q, "scale": node.scale} if _is_quant(node) else {"": node}
         if per_leaf:
-            if layer is not None and not scanned:
+            if layer is not None and index != layer:
                 raise ValueError(
-                    "Adafactor state of the looped JAX layout (scan_layers=False) has no "
-                    "counterpart in the port, which keeps it per scanned leaf"
+                    "Adafactor state of the looped JAX layout (scan_layers=False) or of "
+                    "Gemma-2's scanned pairs has no counterpart in the port, which keeps "
+                    "it per scanned layers/layer leaf"
                 )
             key = f"{field}.{jax_layout(name)[0]}"
         else:
             key = f"{field}.{name}"
-            parts = {s: np.asarray(a)[layer] if scanned else a for s, a in parts.items()}
+            parts = {s: a if index is None else np.asarray(a)[index] for s, a in parts.items()}
             if keys[-1] == "kernel":
                 parts = {s: np.asarray(a).T for s, a in parts.items()}
         for suffix, array in parts.items():

@@ -212,6 +212,20 @@ def training_case(seq: int = 8192) -> list[dict]:
             for seed in range(copies)]
 
 
+def gemma2_case(seq: int = 8192) -> list[dict]:
+    """Gemma-2-9B's training shape: Hq 16, Hkv 8, D 256, one packed row of
+    `seq` tokens (documents of 256-8000 tokens, so that its 4096 window
+    cuts the long ones, and a padding tail), bf16, in enough copies to run
+    cold in L2."""
+    hq, hkv, head_dim = 16, 8, 256
+    tail = seq // 64
+    row = packed_row(np.random.default_rng(22), seq, 256, min(8000, seq - tail), tail=tail)
+    per_copy = 2 * seq * (hq + 2 * hkv) * head_dim * 2  # q, k, v and dout
+    copies = max(2, math.ceil(2 * L2_BYTES / per_copy) + 1)
+    return [flash_case(seq, hq, hkv, head_dim, torch.bfloat16, [row], seed)
+            for seed in range(copies)]
+
+
 def case_io(case: dict) -> dict:
     """A case's own tensors under `io_bytes`' names (no padding)."""
     return dict(q=case["q"], k=case["k"], seg_q=case["q_segment_ids"],
@@ -275,10 +289,10 @@ def backward_twice_identical(case: dict) -> bool:
     return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def time_kernels(cases: list[dict], window: int = 0) -> dict:
+def time_kernels(cases: list[dict], window: int = 0, cap: float = 0.0) -> dict:
     """Device ms of K1, K2 and K3 on the cases' flat inputs (causal, with
-    the window given)."""
-    hyper = {**HYPER, "window": window}
+    the window and soft cap given)."""
+    hyper = {**HYPER, "window": window, "cap": cap}
     inputs = [kernel_inputs(c, hyper) for c in cases]
     fwd_ms = device_ms([lambda f=f, r=r: fa.flash_fwd_kernel(**f, sinks=None,
                                                           q_blocks=r["q_blocks"], **hyper)
@@ -303,7 +317,7 @@ def _fwd_bwd_ms(forward, cases: list[dict], reps: int) -> dict:
     return dict(fwd_ms=fwd, bwd_ms=both - fwd)
 
 
-def time_plain(cases: list[dict], reps: int = 3, window: int = 0) -> dict:
+def time_plain(cases: list[dict], reps: int = 3, window: int = 0, cap: float = 0.0) -> dict:
     """The plain versions: K1's (`flash_fwd_torch`, O and LSE) and the
     backward's (autograd through it, dq, dk and dv together), one kv head
     at a time as `run_plain_by_kv_head` runs them."""
@@ -313,7 +327,7 @@ def time_plain(cases: list[dict], reps: int = 3, window: int = 0) -> dict:
             fa.flash_fwd_torch(
                 q[:, :, h * group:(h + 1) * group], k[:, :, h:h + 1], v[:, :, h:h + 1],
                 case["q_segment_ids"], case["segment_ids"], causal=True, window=window,
-                q_offset=case["q_offset"],
+                cap=cap, q_offset=case["q_offset"],
             )[0]
             for h in range(k.shape[2])
         ], 2)
@@ -347,18 +361,19 @@ def time_sdpa(cases: list[dict], reps: int = 10, window: int = 0) -> dict:
 
 
 def kernel_record(seq: int | None = None, cases: list[dict] | None = None,
-                  window: int = 0) -> dict:
+                  window: int = 0, cap: float = 0.0) -> dict:
     """Times and bounds of K1-K3 on `cases` (default: the training shape
-    cut to `seq` tokens), causal with `window`. The bound counts the
-    case's own head_dim and bytes: a head_dim the kernels pad (96 to 128)
-    shows as the padding's cost."""
+    cut to `seq` tokens), causal with `window` and soft cap `cap`. The
+    bound counts the case's own head_dim and bytes: a head_dim the kernels
+    pad (96 to 128) shows as the padding's cost; the cap's tanh is not
+    counted (no tensor-core work)."""
     cases = training_case(seq) if cases is None else cases
     case = cases[0]
     pairs = visible_pairs(case["q_segment_ids"], case["segment_ids"], window=window or None)
-    times = time_kernels(cases, window)
+    times = time_kernels(cases, window, cap)
     batch, seq, hq, head_dim = case["q"].shape
     record = {"card": card_line(), "batch": batch, "seq": seq, "hq": hq,
-              "hkv": case["k"].shape[2], "head_dim": head_dim, "window": window,
+              "hkv": case["k"].shape[2], "head_dim": head_dim, "window": window, "cap": cap,
               "dtype": "bfloat16", "visible_pairs_per_head": pairs}
     for kind in ("fwd", "dq", "dkv"):
         bound, by = bound_ms(kind, pairs, hq, head_dim, io_bytes(case_io(case), kind))

@@ -89,9 +89,12 @@ def _compile_and_link(sources: list[Path], lib_path: Path) -> None:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
-    logs, failed = [], []
+    logs, failed, seconds = [], [], {}
     for src, _, proc in procs:
         out, _ = proc.communicate()
+        # the sources finish in any order: the first one waited on may
+        # hold the others' times up, so each reads "done by"
+        seconds[src.name] = time.perf_counter() - t0
         logs.append(f"== {src.name}\n{out}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}")
@@ -110,7 +113,8 @@ def _compile_and_link(sources: list[Path], lib_path: Path) -> None:
     finally:
         for obj in objects:
             obj.unlink(missing_ok=True)
-    build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs))
+    build_info.update(seconds=time.perf_counter() - t0, log="\n".join(logs),
+                      done_by=seconds)
 
 
 def load() -> ctypes.CDLL:

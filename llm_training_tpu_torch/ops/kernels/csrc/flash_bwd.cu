@@ -51,9 +51,17 @@
 //  - Blocks are numbered so that the heaviest start first under a causal
 //    mask: low kv tiles for dK/dV, high q tiles for dQ, heads fastest.
 //
+//  - At D 256 (Gemma) each head's dQ, dK and dV are two 128-wide halves,
+//    each computed by a block of its own over the scores of the whole D,
+//    with one stage of 64-row streamed tiles (flash_wgmma.cuh, `OutSplit`).
+//
 // The fp32 kernels (parity and the CPU tests' type, not the training path)
 // are 256 threads of fp32 FMA from shared memory over 64 x 64 tiles, P and
-// dS kept in fp32.
+// dS kept in fp32. At D 256 the streamed pair (K and V for dQ, Q and dO for
+// dK/dV) comes in 128-column chunks beside the whole resident pair (230 KB
+// of shared memory): the products over D add the chunks, and the products
+// into the accumulators take one chunk of columns at a time, the last
+// chunk first, while it is still loaded.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -61,6 +69,12 @@
 namespace {
 
 using namespace flash;
+
+// columns of a streamed chunk of the fp32 kernels: all of D up to 128
+template <int D>
+__host__ __device__ constexpr int fma_chunk() {
+  return D > 128 ? 128 : D;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -72,12 +86,14 @@ flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     float* __restrict__ dq, int sq, int skv, int hq, int hkv, int causal,
                     int window, float cap, int q_offset) {
   constexpr int kCols = D / 16;
+  constexpr int kC = fma_chunk<D>(), kChunks = D / kC;
+  constexpr int kLd = TileLd<D>::value, kLdC = TileLd<kC>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = reinterpret_cast<float*>(smem + tile_bytes<D>());
   float* ks = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>());
-  float* vs = reinterpret_cast<float*>(smem + 3 * tile_bytes<D>());
-  float* dss = reinterpret_cast<float*>(smem + 4 * tile_bytes<D>());
+  float* vs = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>() + tile_bytes<kC>());
+  float* dss = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>() + 2 * tile_bytes<kC>());
   int* qseg = reinterpret_cast<int*>(dss + kTile * kScoreLd);
   int* kseg = qseg + kTile;
 
@@ -99,23 +115,27 @@ flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t r = ((size_t)b * hq + h) * sq + q0 + ty + 16 * i;
     row_lse[i] = lse[r];
     row_delta[i] = delta[r];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
   }
+  zero_tile(acc);
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     if (!tile_visible(q0 + q_offset, k0, causal, window, q_range, k_ranges[(size_t)b * nk + kt]))
       continue;  // uniform across the block
-    __syncthreads();  // the previous tile's readers are done with ks, vs, dss
-    load_tile<D>(ks, k + ((size_t)b * skv + k0) * kv_stride + (size_t)hk * D, kv_stride);
-    load_tile<D>(vs, v + ((size_t)b * skv + k0) * kv_stride + (size_t)hk * D, kv_stride);
-    if (tid < kTile) kseg[tid] = seg_kv[(size_t)b * skv + k0 + tid];
-    __syncthreads();
-
+    const size_t kv_head = ((size_t)b * skv + k0) * kv_stride + (size_t)hk * D;
     float s[4][4], dp[4][4];
-    gemm_abt<D>(qs, ks, ty, tx, s);
-    gemm_abt<D>(dos, vs, ty, tx, dp);
+    zero_tile(s);
+    zero_tile(dp);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      __syncthreads();  // the previous readers are done with ks, vs, dss
+      load_tile<kC>(ks, k + kv_head + c * kC, kv_stride);
+      load_tile<kC>(vs, v + kv_head + c * kC, kv_stride);
+      if (c == 0 && tid < kTile) kseg[tid] = seg_kv[(size_t)b * skv + k0 + tid];
+      __syncthreads();
+      gemm_abt_add<kC, kLd, kLdC>(qs + c * kC, ks, ty, tx, s);
+      gemm_abt_add<kC, kLd, kLdC>(dos + c * kC, vs, ty, tx, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = ty + 16 * i;
@@ -131,7 +151,14 @@ flash_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    gemm_pv<D>(dss, ks, ty, tx, acc);
+    // dQ += dS K, the last chunk of K (still in ks) first
+    gemm_pv_into<kC, kLdC, (kChunks - 1) * kC / 16>(dss, ks, ty, tx, acc);
+    if constexpr (kChunks == 2) {
+      __syncthreads();
+      load_tile<kC>(ks, k + kv_head, kv_stride);
+      __syncthreads();
+      gemm_pv_into<kC, kLdC, 0>(dss, ks, ty, tx, acc);
+    }
   }
 
 #pragma unroll
@@ -152,12 +179,14 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dk, float* __restrict__ dv, int sq, int skv, int hq,
                      int hkv, int causal, int window, float cap, int q_offset) {
   constexpr int kCols = D / 16;
+  constexpr int kC = fma_chunk<D>(), kChunks = D / kC;
+  constexpr int kLd = TileLd<D>::value, kLdC = TileLd<kC>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = reinterpret_cast<float*>(smem + tile_bytes<D>());
   float* qs = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>());
-  float* dos = reinterpret_cast<float*>(smem + 3 * tile_bytes<D>());
-  float* pts = reinterpret_cast<float*>(smem + 4 * tile_bytes<D>());
+  float* dos = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>() + tile_bytes<kC>());
+  float* pts = reinterpret_cast<float*>(smem + 2 * tile_bytes<D>() + 2 * tile_bytes<kC>());
   float* dsts = pts + kTile * kScoreLd;
   int* kseg = reinterpret_cast<int*>(dsts + kTile * kScoreLd);
   int* qseg = kseg + kTile;
@@ -177,10 +206,8 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (tid < kTile) kseg[tid] = seg_kv[(size_t)b * skv + k0 + tid];
   const int2 k_range = k_ranges[(size_t)b * nk + kt];
   float dk_acc[4][kCols], dv_acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  zero_tile(dk_acc);
+  zero_tile(dv_acc);
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
@@ -188,23 +215,29 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int q0 = qt * kTile;
       if (!tile_visible(q0 + q_offset, k0, causal, window, q_ranges[(size_t)b * nq + qt], k_range))
         continue;  // uniform across the block
-      __syncthreads();  // the previous tile's readers are done with qs, dos, pts, dsts
       const size_t q_head = ((size_t)b * sq + q0) * q_stride + (size_t)h * D;
-      load_tile<D>(qs, q + q_head, q_stride);
-      load_tile<D>(dos, dout + q_head, q_stride);
-      if (tid < kTile) {
-        qseg[tid] = seg_q[(size_t)b * sq + q0 + tid];
-      } else if (tid < 2 * kTile) {
-        const size_t r = ((size_t)b * hq + h) * sq + q0 + tid - kTile;
-        lse_s[tid - kTile] = lse[r];
-        delta_s[tid - kTile] = delta[r];
-      }
-      __syncthreads();
-
       // transposed tiles: the block's rows are kv rows, its columns q rows
       float st[4][4], dpt[4][4];
-      gemm_abt<D>(ks, qs, ty, tx, st);
-      gemm_abt<D>(vs, dos, ty, tx, dpt);
+      zero_tile(st);
+      zero_tile(dpt);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        __syncthreads();  // the previous readers are done with qs, dos, pts, dsts
+        load_tile<kC>(qs, q + q_head + c * kC, q_stride);
+        load_tile<kC>(dos, dout + q_head + c * kC, q_stride);
+        if (c == 0) {
+          if (tid < kTile) {
+            qseg[tid] = seg_q[(size_t)b * sq + q0 + tid];
+          } else if (tid < 2 * kTile) {
+            const size_t r = ((size_t)b * hq + h) * sq + q0 + tid - kTile;
+            lse_s[tid - kTile] = lse[r];
+            delta_s[tid - kTile] = delta[r];
+          }
+        }
+        __syncthreads();
+        gemm_abt_add<kC, kLd, kLdC>(ks + c * kC, qs, ty, tx, st);
+        gemm_abt_add<kC, kLd, kLdC>(vs + c * kC, dos, ty, tx, dpt);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int ki = ty + 16 * i;
@@ -222,8 +255,17 @@ flash_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      gemm_pv<D>(pts, dos, ty, tx, dv_acc);
-      gemm_pv<D>(dsts, qs, ty, tx, dk_acc);
+      // dV += P^T dO and dK += dS^T Q, the last chunk of dO and Q first
+      gemm_pv_into<kC, kLdC, (kChunks - 1) * kC / 16>(pts, dos, ty, tx, dv_acc);
+      gemm_pv_into<kC, kLdC, (kChunks - 1) * kC / 16>(dsts, qs, ty, tx, dk_acc);
+      if constexpr (kChunks == 2) {
+        __syncthreads();
+        load_tile<kC>(qs, q + q_head, q_stride);
+        load_tile<kC>(dos, dout + q_head, q_stride);
+        __syncthreads();
+        gemm_pv_into<kC, kLdC, 0>(pts, dos, ty, tx, dv_acc);
+        gemm_pv_into<kC, kLdC, 0>(dsts, qs, ty, tx, dk_acc);
+      }
     }
   }
 
@@ -252,8 +294,8 @@ struct BwdArgs {
 
 template <int D>
 int launch_dq_fma(const BwdArgs& a, void* dq) {
-  const size_t smem = 4 * tile_bytes<D>() + kTile * kScoreLd * sizeof(float) +
-                      2 * kTile * sizeof(int);
+  const size_t smem = 2 * tile_bytes<D>() + 2 * tile_bytes<fma_chunk<D>()>() +
+                      kTile * kScoreLd * sizeof(float) + 2 * kTile * sizeof(int);
   auto kernel = flash_dq_fma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -268,8 +310,8 @@ int launch_dq_fma(const BwdArgs& a, void* dq) {
 
 template <int D>
 int launch_dkv_fma(const BwdArgs& a, void* dk, void* dv) {
-  const size_t smem = 4 * tile_bytes<D>() + 2 * kTile * kScoreLd * sizeof(float) +
-                      4 * kTile * sizeof(int);
+  const size_t smem = 2 * tile_bytes<D>() + 2 * tile_bytes<fma_chunk<D>()>() +
+                      2 * kTile * kScoreLd * sizeof(float) + 4 * kTile * sizeof(int);
   auto kernel = flash_dkv_fma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -401,6 +443,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const float* __restrict__ delta, bf16* __restrict__ out, int sq, int skv,
                        int hq, int hkv, int causal, int window, SoftCap cap, int q_offset) {
   using P = BwdPlan<D>;
+  using Split = OutSplit<D>;
+  using Ring = RingOf<P::kRingStages>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
@@ -408,7 +452,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int* kseg = reinterpret_cast<const int*>(smem + P::kBlockSegAt);
   int2* q_range_of = reinterpret_cast<int2*>(smem + P::kRangesAt);
 
-  const int hk = blockIdx.x, kt = blockIdx.y, b = blockIdx.z;  // low kv tiles first
+  // low kv tiles first; the halves of a head's output (D 256) neighbour
+  const int hk = blockIdx.x / Split::kParts, part = blockIdx.x % Split::kParts;
+  const int kt = blockIdx.y, b = blockIdx.z;
   const int nq = sq / kTile;
   const int group = hq / hkv;
   const int k0 = kt * kBlockRows;
@@ -437,7 +483,7 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     b);
     }
     bulk_load(base + P::kBlockSegAt, seg_kv + (size_t)b * skv + k0, kBlockRows * 4, resident);
-    RingAt at;
+    Ring at;
     for (int gi = 0; gi < group; ++gi) {
       const int h = hk * group + gi;
       for (int qt = first_qt; qt < nq; ++qt) {
@@ -478,8 +524,8 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     const uint64_t k_desc = k_major_descriptor(base + wg * kTile * kRowBytes);
     const uint64_t v_desc = k_major_descriptor(base + P::kResident + wg * kTile * kRowBytes);
-    RingAt at;
-    float acc[D / 2];
+    Ring at;
+    float acc[Split::kDim / 2];
     zero(acc);
     for (int gi = 0; gi < group; ++gi) {
       for (int qt = first_qt; qt < nq; ++qt) {
@@ -522,8 +568,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           accumulator_as_a<kTile>(a, st);
           fence_registers(acc);
           wgmma_fence();
-          // dV += P^T dO, or dK += dS^T Q
-          product_over_rows<D, kTile>(acc, a, kValues ? stage + P::kStreamed : stage);
+          // dV += P^T dO, or dK += dS^T Q, over this block's columns
+          product_over_rows<Split::kDim, kTile>(
+              acc, a, (kValues ? stage + P::kStreamed : stage) + part * Split::kBoxes * kStreamBox);
           wgmma_commit();
           wgmma_wait<0>();
           fence_registers(acc);
@@ -533,8 +580,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
     const size_t kv_stride = (size_t)hkv * D;
-    store_rows<D>(out + ((size_t)b * skv + k0) * kv_stride + (size_t)hk * D, kv_stride, acc, row0,
-                  t);
+    store_rows<Split::kDim>(
+        out + ((size_t)b * skv + k0) * kv_stride + (size_t)hk * D + part * Split::kDim, kv_stride,
+        acc, row0, t);
   }
 }
 
@@ -550,14 +598,18 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int skv,
                       int hq, int hkv, int causal, int window, SoftCap cap, int q_offset) {
   using P = BwdPlan<D>;
+  using Split = OutSplit<D>;
+  using Ring = RingOf<P::kRingStages>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + P::kBarriersAt;
   int2* k_range_of = reinterpret_cast<int2*>(smem + P::kRangesAt);
 
-  // high q tiles first: under a causal mask they see the most kv tiles
-  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  // high q tiles first: under a causal mask they see the most kv tiles;
+  // the halves of a head's dQ (D 256) neighbour
+  const int h = blockIdx.x / Split::kParts, part = blockIdx.x % Split::kParts;
+  const int qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
   const int nk = skv / kTile;
   const int hk = h / (hq / hkv);
   const int q0 = qt * kBlockRows;
@@ -582,7 +634,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_load_4d(base + box * kResidentBox, &map_q, resident, 64 * box, h, q0, b);
       tma_load_4d(base + P::kResident + box * kResidentBox, &map_do, resident, 64 * box, h, q0, b);
     }
-    RingAt at;
+    Ring at;
     for (int kt = 0; kt < end_kt; ++kt) {
       const int k0 = kt * kTile;
       if (!span_visible(q0 + q_offset, kBlockRows, k0, kTile, causal, window, block_range,
@@ -616,12 +668,12 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       row_lse2[r] = lse[((size_t)b * hq + h) * sq + row] * kLog2e;
       row_delta[r] = delta[((size_t)b * hq + h) * sq + row];
     }
-    float acc[D / 2];
+    float acc[Split::kDim / 2];
     zero(acc);
     mbar_wait(resident_barrier(bars), 0);
     const uint64_t q_desc = k_major_descriptor(base + wg * kTile * kRowBytes);
     const uint64_t do_desc = k_major_descriptor(base + P::kResident + wg * kTile * kRowBytes);
-    RingAt at;
+    Ring at;
     for (int kt = 0; kt < end_kt; ++kt) {
       const int k0 = kt * kTile;
       const int2 k_range = k_range_of[kt];
@@ -670,7 +722,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         accumulator_as_a<kTile>(dsa, s);
         fence_registers(acc);
         wgmma_fence();
-        product_over_rows<D, kTile>(acc, dsa, stage);  // dQ += dS K
+        // dQ += dS K over this block's columns of K
+        product_over_rows<Split::kDim, kTile>(acc, dsa, stage + part * Split::kBoxes * kStreamBox);
         wgmma_commit();
         wgmma_wait<0>();
         fence_registers(acc);
@@ -679,7 +732,9 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       at.advance();
     }
     const size_t q_stride = (size_t)hq * D;
-    store_rows<D>(dq + ((size_t)b * sq + q0) * q_stride + (size_t)h * D, q_stride, acc, row0, t);
+    store_rows<Split::kDim>(
+        dq + ((size_t)b * sq + q0) * q_stride + (size_t)h * D + part * Split::kDim, q_stride, acc,
+        row0, t);
   }
 }
 
@@ -706,7 +761,7 @@ int launch_dq_wgmma(const BwdArgs& a, void* dq) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.hq, a.sq / kBlockRows, a.batch);
+  const dim3 grid(a.hq * OutSplit<D>::kParts, a.sq / kBlockRows, a.batch);
   kernel<<<grid, kBlockThreads, smem, a.stream>>>(
       maps.q, maps.k, maps.v, maps.dout, a.seg_q, a.seg_kv, (const int2*)a.q_ranges,
       (const int2*)a.k_ranges, (const int2*)a.block_ranges, a.lse, a.delta, (bf16*)dq, a.sq, a.skv,
@@ -721,7 +776,7 @@ int launch_dkv_wgmma(const BwdArgs& a, void* dk, void* dv) {
   if (smem > kMaxBlockSmem) return (int)cudaErrorInvalidValue;
   TileMaps maps;
   if (const int err = encode_bwd_maps<D>(a, &maps, kTile, kBlockRows)) return err;
-  const dim3 grid(a.hkv, a.skv / kBlockRows, a.batch);
+  const dim3 grid(a.hkv * OutSplit<D>::kParts, a.skv / kBlockRows, a.batch);
   // one launch for dV, one for dK (flash_dkv_wgmma_kernel)
   auto values = flash_dkv_wgmma_kernel<D, true>;
   auto keys = flash_dkv_wgmma_kernel<D, false>;
@@ -769,6 +824,8 @@ extern "C" int flash_dq_launch(int dtype, int head_dim, const void* q, const voi
   if (dtype == 0 && head_dim == 128) return launch_dq_fma<128>(a, dq);
   if (dtype == 1 && head_dim == 64) return launch_dq_wgmma<64>(a, dq);
   if (dtype == 1 && head_dim == 128) return launch_dq_wgmma<128>(a, dq);
+  if (dtype == 0 && head_dim == 256) return launch_dq_fma<256>(a, dq);
+  if (dtype == 1 && head_dim == 256) return launch_dq_wgmma<256>(a, dq);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -787,5 +844,7 @@ extern "C" int flash_dkv_launch(int dtype, int head_dim, const void* q, const vo
   if (dtype == 0 && head_dim == 128) return launch_dkv_fma<128>(a, dk, dv);
   if (dtype == 1 && head_dim == 64) return launch_dkv_wgmma<64>(a, dk, dv);
   if (dtype == 1 && head_dim == 128) return launch_dkv_wgmma<128>(a, dk, dv);
+  if (dtype == 0 && head_dim == 256) return launch_dkv_fma<256>(a, dk, dv);
+  if (dtype == 1 && head_dim == 256) return launch_dkv_wgmma<256>(a, dk, dv);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,7 @@
 // int32 (0 = padding); lse, delta: [B, Hq, Sq] fp32. q heads are kv-major:
 // q head h reads kv head h / (Hq / Hkv). Sq and Skv are multiples of the
 // 64-row tile, and of the 128-row block for the bf16 kernels (the
-// wrapper pads to 128 with segment id 0). D is 64 or 128.
+// wrapper pads to 128 with segment id 0). D is 64, 128 or 256.
 //
 // Work split of the fp32 kernels (the bf16 ones, forward and backward, are
 // built on wgmma and TMA: flash_wgmma.cuh). A block of
@@ -17,6 +17,10 @@
 // one 4-byte word of padding per row, so the column reads of 16 rows and
 // the row reads of 2 rows that the products below make hit distinct banks.
 // All arithmetic is fp32 FMA: a first version that is right, not fast.
+// At D 256 four 64 x D tiles do not fit in shared memory: the backward
+// kernels keep their resident pair whole and stream the other pair in
+// 128-column chunks (the products over D add the chunks; the products
+// into a D-wide accumulator take one chunk of columns at a time).
 
 #pragma once
 
@@ -65,27 +69,59 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] for two 64 x D shared
-// tiles: the A B^T products (scores, dP, and their transposes in dK/dV).
-template <int D>
-__device__ __forceinline__ void gemm_abt(const float* A, const float* B, int ty, int tx,
-                                         float (&acc)[4][4]) {
-  constexpr int kLd = TileLd<D>::value;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// acc[i][j] += sum_{d < kK} A[ty + 16 i][d] * B[tx + 16 j][d] for two
+// 64-row shared tiles of row strides kLdA and kLdB: the A B^T products
+// (scores, dP, and their transposes in dK/dV), or a chunk of one.
+template <int kK, int kLdA, int kLdB>
+__device__ __forceinline__ void gemm_abt_add(const float* A, const float* B, int ty, int tx,
+                                             float (&acc)[4][4]) {
 #pragma unroll 4
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < kK; ++d) {
     float a[4], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * kLd + d];
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * kLdA + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * kLd + d];
+    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * kLdB + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_tile(float (&acc)[4][N]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
+}
+
+// acc = A B^T over head_dim D for two 64 x D shared tiles
+template <int D>
+__device__ __forceinline__ void gemm_abt(const float* A, const float* B, int ty, int tx,
+                                         float (&acc)[4][4]) {
+  zero_tile(acc);
+  gemm_abt_add<D, TileLd<D>::value, TileLd<D>::value>(A, B, ty, tx, acc);
+}
+
+// acc[i][kCol0 + j] += sum_c P[ty + 16 i][c] * V[c][tx + 16 j] (j < kN / 16)
+// for a 64 x 64 fp32 tile P and a 64 x kN shared tile V of row stride kLdV:
+// P V, and P^T dO, dS K, dS^T Q, into columns kCol0 * 16 .. of acc.
+template <int kN, int kLdV, int kCol0, int kAccCols>
+__device__ __forceinline__ void gemm_pv_into(const float* P, const float* V, int ty, int tx,
+                                             float (&acc)[4][kAccCols]) {
+#pragma unroll 4
+  for (int c = 0; c < kTile; ++c) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * kScoreLd + c];
+#pragma unroll
+    for (int j = 0; j < kN / 16; ++j) {
+      const float x = V[c * kLdV + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][kCol0 + j] = fmaf(p[i], x, acc[i][kCol0 + j]);
+    }
   }
 }
 
@@ -94,19 +130,7 @@ __device__ __forceinline__ void gemm_abt(const float* A, const float* B, int ty,
 template <int D>
 __device__ __forceinline__ void gemm_pv(const float* P, const float* V, int ty, int tx,
                                         float (&acc)[4][D / 16]) {
-  constexpr int kLd = TileLd<D>::value;
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * kScoreLd + c];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float x = V[c * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
-    }
-  }
+  gemm_pv_into<D, TileLd<D>::value, 0, D / 16>(P, V, ty, tx, acc);
 }
 
 // max / sum over the 16 lanes (tx) that hold one row's columns

@@ -46,9 +46,14 @@
 //    finite and ends with l = 0.
 //  - Blocks run heaviest first under a causal mask (high q blocks first).
 //  - Every block writes its own rows once: the same bits on every run.
+//  - At D 256 (Gemma) a head's O is two 128-wide halves, each a block that
+//    computes S over the whole D and streams 64-row kv tiles
+//    (flash_wgmma.cuh, `OutSplit`); both halves write the same LSE, the
+//    first stores it.
 // The fp32 kernel (parity and the CPU tests' type, not the training path)
 // is 256 threads of fp32 FMA from shared memory over 64-row tiles
-// (flash_common.cuh), P kept in fp32.
+// (flash_common.cuh), P kept in fp32; at D 256 its three 64 x 256 tiles
+// and the score tile take 210 KB.
 
 #include "flash_common.cuh"
 #include "flash_wgmma.cuh"
@@ -175,21 +180,31 @@ int launch_fma(const void* q, const void* k, const void* v, const int* seg_q, co
 
 using bf16 = __nv_bfloat16;
 
-// kv rows a streamed tile holds: 128, where the backward kernels stream
-// 64. Each tile pays the same waits and hand-offs whatever its width, and
-// at 64 rows those weighed as much as the products (PERF.md: 0.61 ms at 64
-// rows, 0.54 at 128). Two stages of 128-row K and V tiles (130 KB) fit
-// beside the resident Q (32 KB); a third does not.
-constexpr int kKvRows = 2 * kTile;
+// kv rows a streamed tile holds: 128 up to D 128, where the backward
+// kernels stream 64. Each tile pays the same waits and hand-offs whatever
+// its width, and at 64 rows those weighed as much as the products
+// (PERF.md: 0.61 ms at 64 rows, 0.54 at 128). Two stages of 128-row K and V
+// tiles (130 KB) fit beside the resident Q (32 KB); a third does not. At D
+// 256 Q alone is 64 KB: two stages of 64-row tiles (130 KB) fit beside it.
+template <int D>
+__host__ __device__ constexpr int fwd_kv_rows() {
+  return D > 128 ? kTile : 2 * kTile;
+}
 constexpr int kFwdRing = 2;
 
 template <int D>
-using FwdPlan = BlockPlan<D, 1, kKvRows, kFwdRing>;
+using FwdPlan = BlockPlan<D, 1, fwd_kv_rows<D>(), kFwdRing>;
 
-// the segment-id range of 128-row kv tile kt from the 64-row tiles' ranges
+// the segment-id range of kRows-row kv tile kt from the 64-row tiles' ranges
+template <int kRows>
 __device__ __forceinline__ int2 kv_tile_range(const int2* range_of, int kt) {
-  const int2 a = range_of[2 * kt], b = range_of[2 * kt + 1];
-  return make_int2(min(a.x, b.x), max(a.y, b.y));
+  int2 range = range_of[kRows / kTile * kt];
+#pragma unroll
+  for (int i = 1; i < kRows / kTile; ++i) {
+    const int2 other = range_of[kRows / kTile * kt + i];
+    range = make_int2(min(range.x, other.x), max(range.y, other.y));
+  }
+  return range;
 }
 
 // O *= alpha by row (lane rows r = 0, 1), skipped where every row of the
@@ -201,7 +216,7 @@ __device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha
   for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
-// The online softmax on one 64 x kKvRows score tile in a lane's registers:
+// The online softmax on one 64 x kRows score tile in a lane's registers:
 // scores s in, P out as the bf16 register-A fragments of P V (each pair of
 // probabilities rounded as it is made, so the fp32 ones never all live at
 // once); m (the row max, natural units), m2 (the same times log2(e), never
@@ -209,16 +224,16 @@ __device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha
 // probabilities) updated, alpha the factor that rescales the row's earlier
 // sums. A lane holds rows r = 0, 1 and columns 8 j + 2 t, + 1 (kv rows
 // k0 + column). kMasked false: every element visible.
-template <bool kMasked, bool kCapped>
-__device__ __forceinline__ void fwd_tile_math(float (&s)[kKvRows / 2],
-                                              uint32_t (&pa)[kKvRows / 16][4], const int* kseg,
+template <int kRows, bool kMasked, bool kCapped>
+__device__ __forceinline__ void fwd_tile_math(float (&s)[kRows / 2],
+                                              uint32_t (&pa)[kRows / 16][4], const int* kseg,
                                               int k0, int t, const int (&q_pos)[2],
                                               const int (&q_id)[2], int causal, int window,
                                               SoftCap cap, float (&m)[2], float (&m2)[2],
                                               float (&l)[2], float (&alpha)[2]) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kKvRows / 8; ++j) {
+  for (int j = 0; j < kRows / 8; ++j) {
     const int col = 8 * j + 2 * t;
     int2 col_id = make_int2(0, 0);
     if (kMasked) col_id = *reinterpret_cast<const int2*>(kseg + col);
@@ -246,7 +261,7 @@ __device__ __forceinline__ void fwd_tile_math(float (&s)[kKvRows / 2],
   // chunks j = 2 kk and 2 kk + 1 are k step kk of P V: a[i] holds the
   // pair of elements 8 kk + 2 i, + 1 of the accumulator layout
 #pragma unroll
-  for (int kk = 0; kk < kKvRows / 16; ++kk)
+  for (int kk = 0; kk < kRows / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float p[2];
@@ -261,8 +276,9 @@ __device__ __forceinline__ void fwd_tile_math(float (&s)[kKvRows / 2],
 }
 
 // the mask and the soft cap chosen once per tile (both the same in a warp)
-__device__ __forceinline__ void fwd_tile_math(bool open, float (&s)[kKvRows / 2],
-                                              uint32_t (&pa)[kKvRows / 16][4], const int* kseg,
+template <int kRows>
+__device__ __forceinline__ void fwd_tile_math(bool open, float (&s)[kRows / 2],
+                                              uint32_t (&pa)[kRows / 16][4], const int* kseg,
                                               int k0, int t, const int (&q_pos)[2],
                                               const int (&q_id)[2], int causal, int window,
                                               SoftCap cap, float (&m)[2], float (&m2)[2],
@@ -270,14 +286,14 @@ __device__ __forceinline__ void fwd_tile_math(bool open, float (&s)[kKvRows / 2]
 #define FWD_TILE_MATH_ARGS s, pa, kseg, k0, t, q_pos, q_id, causal, window, cap, m, m2, l, alpha
   if (open) {
     if (cap.cap > 0.f)
-      fwd_tile_math<false, true>(FWD_TILE_MATH_ARGS);
+      fwd_tile_math<kRows, false, true>(FWD_TILE_MATH_ARGS);
     else
-      fwd_tile_math<false, false>(FWD_TILE_MATH_ARGS);
+      fwd_tile_math<kRows, false, false>(FWD_TILE_MATH_ARGS);
   } else {
     if (cap.cap > 0.f)
-      fwd_tile_math<true, true>(FWD_TILE_MATH_ARGS);
+      fwd_tile_math<kRows, true, true>(FWD_TILE_MATH_ARGS);
     else
-      fwd_tile_math<true, false>(FWD_TILE_MATH_ARGS);
+      fwd_tile_math<kRows, true, false>(FWD_TILE_MATH_ARGS);
   }
 #undef FWD_TILE_MATH_ARGS
 }
@@ -293,14 +309,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        OutT* __restrict__ out, float* __restrict__ lse, int sq, int skv, int hq,
                        int hkv, int causal, int window, SoftCap cap, int q_offset) {
   using P = FwdPlan<D>;
+  using Split = OutSplit<D>;
+  constexpr int kKvRows = fwd_kv_rows<D>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t base = smem_u32(smem);
   const uint32_t bars = base + P::kBarriersAt;
   int2* k_range_of = reinterpret_cast<int2*>(smem + P::kRangesAt);  // per 64 kv rows
 
-  // high q blocks first: under a causal mask they see the most kv tiles
-  const int h = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  // high q blocks first: under a causal mask they see the most kv tiles;
+  // the halves of a head's O (at D 256) are neighbouring blocks
+  const int h = blockIdx.x / Split::kParts, part = blockIdx.x % Split::kParts;
+  const int qt = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
   const int nk = skv / kKvRows;
   const int hk = h / (hq / hkv);
   const int q0 = qt * kBlockRows;
@@ -328,7 +348,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kt = 0; kt < end_kt; ++kt) {
       const int k0 = kt * kKvRows;
       if (!span_visible(q0 + q_offset, kBlockRows, k0, kKvRows, causal, window, block_range,
-                        kv_tile_range(k_range_of, kt)))
+                        kv_tile_range<kKvRows>(k_range_of, kt)))
         continue;
       const uint32_t stage = base + P::kStagesAt + at.stage * P::kStage;
       const uint32_t full = full_barrier(bars, at.stage);
@@ -361,14 +381,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     float m[2] = {m_start, m_start};
     float m2[2] = {fmaxf(m_start * kLog2e, kMaskValue), fmaxf(m_start * kLog2e, kMaskValue)};
     float l[2] = {sinks != nullptr && t == 0 ? 1.f : 0.f, sinks != nullptr && t == 0 ? 1.f : 0.f};
-    float acc[D / 2];
+    float acc[Split::kDim / 2];
     zero(acc);
     mbar_wait(resident_barrier(bars), 0);
     const uint64_t q_desc = k_major_descriptor(base + wg * kTile * kRowBytes);
     RingOf<kFwdRing> at;
     for (int kt = 0; kt < end_kt; ++kt) {
       const int k0 = kt * kKvRows;
-      const int2 k_range = kv_tile_range(k_range_of, kt);
+      const int2 k_range = kv_tile_range<kKvRows>(k_range_of, kt);
       if (!span_visible(q0 + q_offset, kBlockRows, k0, kKvRows, causal, window, block_range,
                         k_range))
         continue;
@@ -395,11 +415,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         open = __all_sync(0xffffffffu, open);
         float alpha[2];
         uint32_t pa[kKvRows / 16][4];
-        fwd_tile_math(open, s, pa, kseg, k0, t, q_pos, q_id, causal, window, cap, m, m2, l, alpha);
-        rescale<D>(acc, alpha);
+        fwd_tile_math<kKvRows>(open, s, pa, kseg, k0, t, q_pos, q_id, causal, window, cap, m, m2,
+                               l, alpha);
+        rescale<Split::kDim>(acc, alpha);
         fence_registers(acc);
         wgmma_fence();
-        product_over_rows<D, kKvRows, kKvRows>(acc, pa, stage + P::kStreamed);  // O += P V
+        // O += P V over this block's columns of V
+        product_over_rows<Split::kDim, kKvRows, kKvRows>(
+            acc, pa, stage + P::kStreamed + part * Split::kBoxes * P::kBox);
         wgmma_commit();
         wgmma_wait<0>();
         fence_registers(acc);
@@ -414,14 +437,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < 2; ++r) {
       const float l_row = quad_sum(l[r]);
       scale[r] = l_row > 0.f ? __fdividef(1.f, l_row) : 0.f;
-      if (t == 0)
+      if (t == 0 && part == 0)
         lse[((size_t)b * hq + h) * sq + q0 + row0 + 8 * r] =
             l_row > 0.f ? m[r] + logf(l_row) : -INFINITY;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= scale[(i >> 1) & 1];
+    for (int i = 0; i < Split::kDim / 2; ++i) acc[i] *= scale[(i >> 1) & 1];
     const size_t q_stride = (size_t)hq * D;
-    store_rows<D>(out + ((size_t)b * sq + q0) * q_stride + (size_t)h * D, q_stride, acc, row0, t);
+    store_rows<Split::kDim>(
+        out + ((size_t)b * sq + q0) * q_stride + (size_t)h * D + part * Split::kDim, q_stride, acc,
+        row0, t);
   }
 }
 
@@ -430,19 +455,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* seg_q, 
                  const int* q_ranges, const int* k_ranges, const int* q_block_ranges,
                  const float* sinks, void* out, float* lse, int batch, int sq, int skv, int hq,
                  int hkv, int causal, int window, float cap, int q_offset, cudaStream_t stream) {
-  if (sq % kBlockRows || skv % kKvRows || q_block_ranges == nullptr || !aligned16(seg_kv))
+  if (sq % kBlockRows || skv % fwd_kv_rows<D>() || q_block_ranges == nullptr ||
+      !aligned16(seg_kv))
     return (int)cudaErrorInvalidValue;
   const size_t smem = FwdPlan<D>::kFixedBytes + (size_t)(skv / kTile) * sizeof(int2);
   if (smem > kMaxBlockSmem) return (int)cudaErrorInvalidValue;
   TileMaps maps;
   if (const int err = encode_maps<D>(&maps, q, k, v, nullptr, batch, sq, skv, hq, hkv,
-                                     kBlockRows, kKvRows))
+                                     kBlockRows, fwd_kv_rows<D>()))
     return err;
   auto kernel = flash_fwd_wgmma_kernel<D, OutT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(hq, sq / kBlockRows, batch);
+  const dim3 grid(hq * OutSplit<D>::kParts, sq / kBlockRows, batch);
   kernel<<<grid, kBlockThreads, smem, stream>>>(
       maps.q, maps.k, maps.v, seg_q, seg_kv, (const int2*)q_ranges, (const int2*)k_ranges,
       (const int2*)q_block_ranges, sinks, (OutT*)out, lse, sq, skv, hq, hkv, causal, window,
@@ -476,14 +502,17 @@ extern "C" int flash_fwd_launch(int dtype, int head_dim, const void* q, const vo
       window, cap, q_offset, s
   if (dtype == 0 && head_dim == 64) return launch_fma<64>(FLASH_FWD_ARGS);
   if (dtype == 0 && head_dim == 128) return launch_fma<128>(FLASH_FWD_ARGS);
+  if (dtype == 0 && head_dim == 256) return launch_fma<256>(FLASH_FWD_ARGS);
 #undef FLASH_FWD_ARGS
 #define FLASH_FWD_ARGS                                                                         \
   q, k, v, seg_q, seg_kv, q_ranges, k_ranges, q_block_ranges, sinks, out, lse, batch, sq, skv, \
       hq, hkv, causal, window, cap, q_offset, s
   if (dtype == 1 && head_dim == 64 && !out_f32) return launch_wgmma<64, bf16>(FLASH_FWD_ARGS);
   if (dtype == 1 && head_dim == 128 && !out_f32) return launch_wgmma<128, bf16>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 256 && !out_f32) return launch_wgmma<256, bf16>(FLASH_FWD_ARGS);
   if (dtype == 1 && head_dim == 64) return launch_wgmma<64, float>(FLASH_FWD_ARGS);
   if (dtype == 1 && head_dim == 128) return launch_wgmma<128, float>(FLASH_FWD_ARGS);
+  if (dtype == 1 && head_dim == 256) return launch_wgmma<256, float>(FLASH_FWD_ARGS);
 #undef FLASH_FWD_ARGS
   return (int)cudaErrorInvalidValue;
 }

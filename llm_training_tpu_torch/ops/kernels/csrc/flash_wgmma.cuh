@@ -10,7 +10,23 @@
 // `rows` rows of 64 elements of one head: in shared memory each row is 128
 // bytes, one swizzle atom, rows back to back, 16-byte chunks XOR-ed with the
 // row index modulo 8 (CU_TENSOR_MAP_SWIZZLE_128B; the box starts on a
-// 1024-byte boundary). D = 128 is two such boxes, d 0..63 and d 64..127.
+// 1024-byte boundary). D = 128 is two such boxes, d 0..63 and d 64..127;
+// D = 256 four.
+//
+// Head_dim 256. An accumulator over D (O, dQ, dK, dV) of 64 x 256 fp32 is
+// 128 registers a lane, which with the score tiles beside it does not fit
+// what the consumers get (below). So at D 256 a head's output is split in
+// two 128-wide halves, each a block of its own (`OutSplit`): both blocks
+// compute the scores (and dP) over the whole D from the same tiles and
+// accumulate only their half, reading their half of the streamed tile
+// MN-major. The scores are computed twice, the output once: 1.5x the
+// forward's products and ~1.4x the backward's, on the tensor cores. The
+// resident 128-row tensors are 64 KB each at D 256, so the forward streams
+// 64-row kv tiles (two stages: 64 + 2 x 65 KB) and the backward, whose two
+// resident tensors take 128 KB, keeps one stage of 64-row tiles (65 KB):
+// its copies do not overlap its products. A simple design that is right;
+// a faster one (a deeper ring of 32-row tiles, or a producer that streams
+// only the half a block reads of V, Q or dO) is later work (ROADMAP B).
 //
 // The same bytes serve both kinds of product:
 //  - K-major (the contraction runs along d, as in S = Q K^T): descriptor
@@ -88,10 +104,23 @@ struct BlockPlan {
   static constexpr int kRangesAt = kBarriersAt + 64;
   // plus 1024 to reach the boundary and 8 bytes per range
   static constexpr int kFixedBytes = kRangesAt + 1024;
+  static constexpr int kRingStages = kRing;
 };
 
+// at D 256 the backward's two resident tensors leave room for one stage
 template <int D>
-using BwdPlan = BlockPlan<D, 2>;
+using BwdPlan = BlockPlan<D, 2, kTile, (D > 128 ? 1 : kStages)>;
+
+// The head_dim a block's accumulator covers (kDim) and the blocks a head's
+// output is split across (kParts): D itself up to 128; at 256 two halves
+// of 128. Part `part` of a head writes columns part * kDim .., and reads
+// them from a streamed tile kDim / 64 boxes after its start.
+template <int D>
+struct OutSplit {
+  static constexpr int kDim = D > 128 ? 128 : D;
+  static constexpr int kParts = D / kDim;
+  static constexpr int kBoxes = kDim / 64;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -427,7 +456,6 @@ struct RingOf {
     }
   }
 };
-using RingAt = RingOf<kStages>;
 
 template <int N>
 __device__ __forceinline__ void zero(float (&x)[N]) {

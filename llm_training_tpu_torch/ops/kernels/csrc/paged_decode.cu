@@ -46,19 +46,28 @@
 //    writes exactly 0.
 // Scores are kept in log2 units (scale * log2(e) folded in) for ex2.
 //
-// head_dim 64, 96 or 128 (96: Phi-3). At 96 a K/V row is 192
-// bytes, 12 16-byte pieces: the swizzle keeps a piece inside its aligned
-// group of 4 (see `swizzle`), a lane accumulates D / 32 = 3 dims of V, read
-// as three 2-byte words because 6 bytes may straddle two pieces, and the
-// stage is 6 KB. The GQA group picks the instantiation: kG 1, 2, 4 or 8
-// heads as the mma's columns (group 3 runs kG 4 with one column masked).
-// The mma is 8 columns wide, so an MHA model (group 1, Phi-3) uses 1 of its
-// 8 columns: the scores cost 8x the tensor-core work they need, which
-// is far below the HBM bound either way (ROADMAP B).
+// head_dim 64, 80, 96, 128 or 256 (80: Phi-2 and Pythia-2.8B; 96: Phi-3;
+// 256: Gemma and Pythia-1B). At 96 a K/V row is 192 bytes, 12 16-byte
+// pieces: the swizzle keeps a piece inside its aligned group of 4 (see
+// `swizzle`), a lane accumulates D / 32 = 3 dims of V, read as three
+// 2-byte words because 6 bytes may straddle two pieces, and the stage is
+// 6 KB. At 80 a row is 160 bytes, 10 pieces, and 80 / 32 is no whole
+// count: the pool stays at 80 a row in HBM and in shared memory, the
+// swizzle XORs a piece with bit 2 of the row (inside its aligned pair),
+// and a lane accumulates the dim pair 2 lane, + 1 and, in lanes 0-7, the
+// pair 64 + 2 lane, + 1 (`SplitDims`). At 256 a lane takes 8 dims (one
+// 16-byte read) and the stage is 16 KB. The GQA group picks the
+// instantiation: kG 1, 2, 4, 8 or 16 heads as the mma's columns (group 3
+// runs kG 4 with one column masked, groups 9-15 run kG 16); above 8 the
+// scores are two n8 column tiles over the same ldmatrix'ed K. The mma is
+// 8 columns wide, so an MHA model (group 1, Phi-3) uses 1 of its 8
+// columns: the scores cost 8x the tensor-core work they need, which is far
+// below the HBM bound either way (ROADMAP B).
 //
 // The other dtype pairs (fp32 q or pools: parity and the CPU tests' types)
-// keep the first kernel below: one block per (row, kv head), 8 warps over
-// 8-slot chunks, a lane per D/32 dims, a score a warp-shuffle sum.
+// keep the first kernel, in paged_decode_fp32.cuh (one source a pair): one
+// block per (row, kv head), 8 warps over 8-slot chunks, a lane per D/32
+// dims, a score a warp-shuffle sum.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -66,242 +75,20 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+// the first kernel's launchers, one source a dtype pair
+// (paged_decode_fp32.cuh)
+#define PAGED_FIRST_PARAMS                                                                   \
+  int head_dim, const void *q, const void *k_pool, const void *v_pool, const int *tables,    \
+      const int *lens, void *out, int batch, int num_kv_heads, int group, int page,          \
+      int pages_per_row, float scale, float cap, int window, cudaStream_t s
+int paged_decode_fp32_fp32(PAGED_FIRST_PARAMS);
+int paged_decode_fp32_bf16(PAGED_FIRST_PARAMS);
+int paged_decode_bf16_fp32(PAGED_FIRST_PARAMS);
+#undef PAGED_FIRST_PARAMS
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxGroup = 8;   // q heads per kv head
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// the largest power of two that divides `bytes`
-constexpr int pow2_divisor(int bytes) { return bytes & -bytes; }
-
-// E contiguous elements, loaded or stored as one vector: aligned to its
-// size when that is a power of two, else to the largest power of two
-// dividing it (D 96: 3 elements a lane, 12 or 6 bytes, loaded as 3 words)
-template <typename T, int E>
-struct alignas(pow2_divisor(sizeof(T) * E)) Vec {
-  T v[E];
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Start the loads of the K and V rows of slots c0 .. c0+T-1 of one row
-// (this lane's E dims). Slots at or past `len` read slot len-1 again: a
-// real slot, so every load is unconditional, and the caller masks them.
-template <typename TKV, int E, int T>
-__device__ __forceinline__ void load_chunk(const TKV* k_head, const TKV* v_head,
-                                           const int* table_row, int c0, int len, int page,
-                                           int pages_per_row, size_t row_stride,
-                                           Vec<TKV, E> (&k)[T], Vec<TKV, E> (&v)[T]) {
-  size_t slot[T];
-#pragma unroll
-  for (int u = 0; u < T; ++u) {
-    const int pos = min(c0 + u, len - 1);
-    slot[u] = (size_t)table_row[min(pos / page, pages_per_row - 1)] * page + pos % page;
-  }
-#pragma unroll
-  for (int u = 0; u < T; ++u) {
-    k[u] = *reinterpret_cast<const Vec<TKV, E>*>(k_head + slot[u] * row_stride);
-    v[u] = *reinterpret_cast<const Vec<TKV, E>*>(v_head + slot[u] * row_stride);
-  }
-}
-
-// grid (num_kv_heads, batch), kThreads threads.
-// q, out: [B, Hkv * group, D]; pools: [N, page, Hkv, D]; tables: [B, P];
-// lens: [B] tokens written including this step's. window <= 0 means no
-// window, cap <= 0 means no soft cap.
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
-                    const TKV* __restrict__ v_pool, const int* __restrict__ tables,
-                    const int* __restrict__ lens, TQ* __restrict__ out,
-                    int num_kv_heads, int group, int page, int pages_per_row,
-                    float scale, float cap, int window) {
-  constexpr int E = D / 32;                      // dims per lane
-  constexpr int T = 64 / (E * (int)sizeof(TKV));  // kv slots per warp chunk
-  constexpr int kStride = kWarps * T;             // slots between a warp's chunks
-  using KV = Vec<TKV, E>;
-  __shared__ float m_sh[kWarps][kMaxGroup];
-  __shared__ float l_sh[kWarps][kMaxGroup];
-  __shared__ float acc_sh[kWarps][kMaxGroup][D];
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int len = lens[b];
-  const int q_pos = len - 1;
-  const size_t row_stride = (size_t)num_kv_heads * D;  // one pool slot, all heads
-
-  const TQ* q_row = q + ((size_t)b * num_kv_heads + h) * group * D;
-  float qf[kMaxGroup][E];
-  float m[kMaxGroup], l[kMaxGroup], acc[kMaxGroup][E];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qf[g][e] = 0.f;
-      acc[g][e] = 0.f;
-    }
-    if (g < group) {
-      const Vec<TQ, E> qv = *reinterpret_cast<const Vec<TQ, E>*>(q_row + g * D + lane * E);
-#pragma unroll
-      for (int e = 0; e < E; ++e) qf[g][e] = to_float(qv.v[e]);
-    }
-  }
-
-  // every slot in [start, len) is visible: slot <= q_pos, and inside the window
-  const int start = (window > 0 && q_pos - window + 1 > 0) ? q_pos - window + 1 : 0;
-  const int* table_row = tables + (size_t)b * pages_per_row;
-  const TKV* k_head = k_pool + (size_t)h * D + lane * E;
-  const TKV* v_head = v_pool + (size_t)h * D + lane * E;
-
-  KV kv[T], vv[T];  // this chunk's rows
-  int c0 = start + warp * T;
-  if (c0 < len)
-    load_chunk<TKV, E, T>(k_head, v_head, table_row, c0, len, page, pages_per_row, row_stride,
-                          kv, vv);
-  for (; c0 < len; c0 += kStride) {
-    KV kn[T], vn[T];  // the next chunk's rows, in flight during this one's arithmetic
-    const bool more = c0 + kStride < len;
-    if (more)
-      load_chunk<TKV, E, T>(k_head, v_head, table_row, c0 + kStride, len, page, pages_per_row,
-                            row_stride, kn, vn);
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      if (g >= group) break;
-      float s[T];
-      float s_max = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < T; ++u) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot += qf[g][e] * to_float(kv[u].v[e]);
-        float sc = warp_sum(dot) * scale;
-        if (cap > 0.f) sc = cap * tanhf(sc / cap);
-        s[u] = c0 + u < len ? sc : -INFINITY;
-        s_max = fmaxf(s_max, s[u]);
-      }
-      // slot c0 < len is visible, so s_max and m_new are finite
-      const float m_new = fmaxf(m[g], s_max);
-      const float alpha = expf(m[g] - m_new);  // 0 while m[g] is -inf
-      float p_sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < T; ++u) {
-        const float p = expf(s[u] - m_new);  // 0 for a masked slot
-        p_sum += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] += p * to_float(vv[u].v[e]);
-      }
-      l[g] = l[g] * alpha + p_sum;
-      m[g] = m_new;
-    }
-    if (more) {
-#pragma unroll
-      for (int u = 0; u < T; ++u) {
-        kv[u] = kn[u];
-        vv[u] = vn[u];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g >= group) break;
-    if (lane == 0) {
-      m_sh[warp][g] = m[g];
-      l_sh[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc_sh[warp][g][lane * E + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  TQ* out_row = out + ((size_t)b * num_kv_heads + h) * group * D;
-  for (int i = tid; i < group * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float m_all = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, m_sh[w][g]);
-    float l_all = 0.f, o = 0.f;
-    if (m_all != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float wt = expf(m_sh[w][g] - m_all);  // 0 for a warp that saw nothing
-        l_all += l_sh[w][g] * wt;
-        o += acc_sh[w][g][d] * wt;
-      }
-    }
-    out_row[i] = from_float<TQ>(l_all == 0.f ? 0.f : o / l_all);
-  }
-}
-
-template <typename TQ, typename TKV>
-int launch_typed(int head_dim, const void* q, const void* k_pool, const void* v_pool,
-                 const int* tables, const int* lens, void* out, int batch,
-                 int num_kv_heads, int group, int page, int pages_per_row, float scale,
-                 float cap, int window, cudaStream_t stream) {
-  const dim3 grid(num_kv_heads, batch);
-  if (head_dim == 64) {
-    paged_decode_kernel<TQ, TKV, 64><<<grid, kThreads, 0, stream>>>(
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
-        num_kv_heads, group, page, pages_per_row, scale, cap, window);
-  } else if (head_dim == 96) {
-    paged_decode_kernel<TQ, TKV, 96><<<grid, kThreads, 0, stream>>>(
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
-        num_kv_heads, group, page, pages_per_row, scale, cap, window);
-  } else if (head_dim == 128) {
-    paged_decode_kernel<TQ, TKV, 128><<<grid, kThreads, 0, stream>>>(
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, tables, lens, (TQ*)out,
-        num_kv_heads, group, page, pages_per_row, scale, cap, window);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename TQ>
-int launch_kv(int kv_dtype, int head_dim, const void* q, const void* k_pool,
-              const void* v_pool, const int* tables, const int* lens, void* out, int batch,
-              int num_kv_heads, int group, int page, int pages_per_row, float scale,
-              float cap, int window, cudaStream_t stream) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_typed<TQ, float>(head_dim, q, k_pool, v_pool, tables, lens, out, batch,
-                                     num_kv_heads, group, page, pages_per_row, scale, cap,
-                                     window, stream);
-    case 1:
-      // bf16 q with bf16 pools is the split kernel's
-      if constexpr (!std::is_same_v<TQ, __nv_bfloat16>)
-        return launch_typed<TQ, __nv_bfloat16>(head_dim, q, k_pool, v_pool, tables, lens, out,
-                                               batch, num_kv_heads, group, page, pages_per_row,
-                                               scale, cap, window, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// --------------------------------------------------- the bf16 split kernel
+constexpr int kMaxGroup = 16;  // q heads per kv head
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
@@ -349,18 +136,37 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 // The 16-byte piece of a stage row where piece `piece` of that row's K (or
 // V) is stored: swizzled by the row so that ldmatrix's 8 rows of one
 // piece land in 8 distinct 16-byte bank groups (offsets mod 128 bytes).
-// Rows of 128 or 256 bytes (D 64, 128) XOR the piece with row & 7. A
-// 192-byte row (D 96: 12 pieces) already sits 64 bytes further mod 128
-// every other row, so the piece is XORed with (row >> 1) & 3: that keeps
-// it inside its aligned group of 4 (inside the row), and with the row's
-// own offset gives 8 distinct groups.
+// Rows of 128, 256 or 512 bytes (D 64, 128, 256) XOR the piece with
+// row & 7. A 192-byte row (D 96: 12 pieces) already sits 64 bytes further
+// mod 128 every other row, so the piece is XORed with (row >> 1) & 3: that
+// keeps it inside its aligned group of 4 (inside the row), and with the
+// row's own offset gives 8 distinct groups. A 160-byte row (D 80: 10
+// pieces) sits 32 bytes further each row, so rows r and r + 4 share an
+// offset: the piece is XORed with (row >> 2) & 1, inside its aligned pair.
 template <int D>
 __device__ __forceinline__ int swizzle(int row, int piece) {
   if constexpr (D == 96)
     return piece ^ ((row >> 1) & 3);
+  else if constexpr (D == 80)
+    return piece ^ ((row >> 2) & 1);
   else
     return piece ^ (row & 7);
 }
+
+// The dims of V a lane of the split kernel accumulates: E = D / 32
+// contiguous ones (E lane ..) where 32 divides D; at D 80, E = 4 slots
+// for the pair 2 lane, + 1 and, in lanes 0-7, the pair 64 + 2 lane, + 1
+// (dim -1: a slot the lane does not hold).
+template <int D>
+struct SplitDims {
+  static constexpr int E = D == 80 ? 4 : D / 32;
+  __device__ static __forceinline__ int dim(int lane, int e) {
+    if constexpr (D == 80)
+      return e < 2 ? 2 * lane + e : (lane < 8 ? 64 + 2 * lane + e - 2 : -1);
+    else
+      return E * lane + e;
+  }
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -386,6 +192,7 @@ __device__ __forceinline__ float part_weight(float m, float top) {
 // q, out: [B, Hkv * group, D]; pools: [N, page, Hkv, D]; tables: [B, P];
 // lens: [B] tokens written including this step's. scale2 is the softmax
 // scale times log2(e); window <= 0 means no window, cap <= 0 no soft cap.
+// kG heads (up to 16) are kNT n8 column tiles of the score mma.
 template <int D, int kG>
 __global__ void __launch_bounds__(kSplitThreads)
 paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
@@ -393,17 +200,20 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const int* __restrict__ lens, bf16* __restrict__ out, int num_kv_heads,
                           int group, int page, int pages_per_row, float scale2, float cap,
                           int window) {
+  constexpr int kNT = (kG + 7) / 8;            // n8 column tiles of the scores
+  constexpr int kCols = 8 * kNT;               // the heads those tiles hold
   constexpr int kRowBytes = D * 2;             // one slot's K (or V) row of one head
   constexpr int kPieces = kRowBytes / 16;      // its 16-byte pieces
   constexpr int kStageBytes = 2 * kChunk * kRowBytes;  // K rows, then V rows
-  constexpr int E = D / 32;                    // dims a lane accumulates
+  using Dims = SplitDims<D>;
+  constexpr int E = Dims::E;                   // dims a lane accumulates
   using State = SplitState<D, kG>;
   extern __shared__ __align__(128) unsigned char smem[];
   // the rings; after the loop, the warps' states
   unsigned char* rings = smem;
   float* probs = reinterpret_cast<float*>(smem + kSplitWarps * kRing * kStageBytes);
-  // per warp: p of its chunk [kChunk][8 heads], then alpha [8]
-  constexpr int kProbFloats = kChunk * 8 + 8;
+  // per warp: p of its chunk [kChunk][kCols heads], then alpha [kCols]
+  constexpr int kProbFloats = kChunk * kCols + kCols;
   State* block_state = reinterpret_cast<State*>(probs + kSplitWarps * kProbFloats);
   int* table_sh = reinterpret_cast<int*>(block_state + 1);
 
@@ -423,16 +233,20 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int hi = min(len, lo + per);
   const int n_chunks = hi > lo ? (hi - lo + kChunk - 1) / kChunk : 0;
 
-  // q as the B operand: head g of the group (0 past it), dims 16 kk + 2 t
-  // and + 8
+  // q as the B operand: head 8 nt + g of the group (0 past it), dims
+  // 16 kk + 2 t and + 8
   const bf16* q_row = q + ((size_t)b * num_kv_heads + h) * group * D;
-  uint32_t qb[D / 16][2];
+  uint32_t qb[kNT][D / 16][2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qb[kk][0] = qb[kk][1] = 0u;
-    if (g < group) {
-      qb[kk][0] = *reinterpret_cast<const uint32_t*>(q_row + g * D + 16 * kk + 2 * t);
-      qb[kk][1] = *reinterpret_cast<const uint32_t*>(q_row + g * D + 16 * kk + 2 * t + 8);
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int head = 8 * nt + g;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qb[nt][kk][0] = qb[nt][kk][1] = 0u;
+      if (head < group) {
+        qb[nt][kk][0] = *reinterpret_cast<const uint32_t*>(q_row + head * D + 16 * kk + 2 * t);
+        qb[nt][kk][1] = *reinterpret_cast<const uint32_t*>(q_row + head * D + 16 * kk + 2 * t + 8);
+      }
     }
   }
   __syncthreads();  // the table
@@ -459,16 +273,21 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   };
 
-  // a lane's state: heads 2 t and 2 t + 1 (m in log2 units, l its share
-  // over its slots), and acc for dims E lane .. of every head
-  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  // a lane's state: heads 8 nt + 2 t and + 1 (m in log2 units, l its share
+  // over its slots), and acc for its dims (SplitDims) of every head
+  float m[kNT][2], l[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    m[nt][0] = m[nt][1] = -1e30f;
+    l[nt][0] = l[nt][1] = 0.f;
+  }
   float acc[kG][E];
 #pragma unroll
   for (int hh = 0; hh < kG; ++hh)
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[hh][e] = 0.f;
   float* p_sh = probs + warp * kProbFloats;
-  float* alpha_sh = p_sh + kChunk * 8;
+  float* alpha_sh = p_sh + kChunk * kCols;
   // the soft cap in log2 units: cap2 tanh(x / cap2) with cap2 = cap log2(e)
   const float cap2 = cap * kLog2e, inverse_cap2 = cap > 0.f ? 1.f / cap2 : 0.f;
 
@@ -485,42 +304,49 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const unsigned char* stage = ring + (i % kRing) * kStageBytes;
     const int s0 = lo + (warp + i * kSplitWarps) * kChunk;
 
-    // scores of slots s0 + g, s0 + g + 8 for heads 2 t, 2 t + 1
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    // scores of slots s0 + g, s0 + g + 8 for heads 8 nt + 2 t, + 1
+    float c[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
     const int a_row = lane & 15;
     const uint32_t a_base = smem_addr(stage) + a_row * kRowBytes;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
       ldmatrix_x4(a, a_base + (swizzle<D>(a_row, 2 * kk + (lane >> 4)) << 4));
-      mma_16816(c, a, qb[kk]);
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = c[e] * scale2;
-      if (cap > 0.f) x = cap2 * tanhf(x * inverse_cap2);
-      if (s0 + g + 8 * (e >> 1) >= hi) x = -INFINITY;
-      c[e] = x;
-      mx[e & 1] = fmaxf(mx[e & 1], x);
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: m starts finite
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
+      for (int nt = 0; nt < kNT; ++nt) mma_16816(c[nt], a, qb[nt][kk]);
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[e] = ex2(c[e] - m[e & 1]);
-    l[0] = l[0] * alpha[0] + c[0] + c[2];
-    l[1] = l[1] * alpha[1] + c[1] + c[3];
-    if (2 * t < kG) {
-      *reinterpret_cast<float2*>(p_sh + g * 8 + 2 * t) = make_float2(c[0], c[1]);
-      *reinterpret_cast<float2*>(p_sh + (g + 8) * 8 + 2 * t) = make_float2(c[2], c[3]);
-      if (g == 0) *reinterpret_cast<float2*>(alpha_sh + 2 * t) = make_float2(alpha[0], alpha[1]);
+    for (int nt = 0; nt < kNT; ++nt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = c[nt][e] * scale2;
+        if (cap > 0.f) x = cap2 * tanhf(x * inverse_cap2);
+        if (s0 + g + 8 * (e >> 1) >= hi) x = -INFINITY;
+        c[nt][e] = x;
+        mx[e & 1] = fmaxf(mx[e & 1], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+        const float m_new = fmaxf(m[nt][r], mx[r]);  // finite: m starts finite
+        alpha[r] = ex2(m[nt][r] - m_new);
+        m[nt][r] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] = ex2(c[nt][e] - m[nt][e & 1]);
+      l[nt][0] = l[nt][0] * alpha[0] + c[nt][0] + c[nt][2];
+      l[nt][1] = l[nt][1] * alpha[1] + c[nt][1] + c[nt][3];
+      const int col = 8 * nt + 2 * t;
+      if (col < kG) {
+        *reinterpret_cast<float2*>(p_sh + g * kCols + col) = make_float2(c[nt][0], c[nt][1]);
+        *reinterpret_cast<float2*>(p_sh + (g + 8) * kCols + col) = make_float2(c[nt][2], c[nt][3]);
+        if (g == 0) *reinterpret_cast<float2*>(alpha_sh + col) = make_float2(alpha[0], alpha[1]);
+      }
     }
     __syncwarp();
 
@@ -538,12 +364,34 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       // the address of byte `byte` of V row j
       auto v_at = [&](int byte) { return v_stage + (swizzle<D>(j, byte >> 4) << 4) + (byte & 15); };
       float v[E];
-      if constexpr (E == 3) {
+      if constexpr (D == 80) {
+        // the pair 2 lane, + 1, and in lanes 0-7 the pair 64 + 2 lane, + 1:
+        // 4-byte reads, each inside one piece
+        const __nv_bfloat162 w = *reinterpret_cast<const __nv_bfloat162*>(v_at(4 * lane));
+        v[0] = __low2float(w);
+        v[1] = __high2float(w);
+        v[2] = v[3] = 0.f;
+        if (lane < 8) {
+          const __nv_bfloat162 w2 = *reinterpret_cast<const __nv_bfloat162*>(v_at(128 + 4 * lane));
+          v[2] = __low2float(w2);
+          v[3] = __high2float(w2);
+        }
+      } else if constexpr (E == 3) {
         // a lane's 3 dims (6 bytes) may straddle two swizzled pieces: one
         // 2-byte read each
 #pragma unroll
         for (int e = 0; e < 3; ++e)
           v[e] = __bfloat162float(*reinterpret_cast<const bf16*>(v_at(v_byte + 2 * e)));
+      } else if constexpr (E == 8) {
+        // a lane's 8 dims are one whole piece
+        const uint4 w = *reinterpret_cast<const uint4*>(v_at(v_byte));
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i2 = 0; i2 < 4; ++i2) {
+          const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&words[i2]);
+          v[2 * i2] = __low2float(pair);
+          v[2 * i2 + 1] = __high2float(pair);
+        }
       } else if constexpr (E == 4) {
         const uint2 w = *reinterpret_cast<const uint2*>(v_at(v_byte));
         const __nv_bfloat162 lo2 = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
@@ -561,7 +409,7 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       if constexpr (kG >= 4) {
 #pragma unroll
         for (int q4 = 0; q4 < kG / 4; ++q4) {
-          const float4 w = *reinterpret_cast<const float4*>(p_sh + j * 8 + 4 * q4);
+          const float4 w = *reinterpret_cast<const float4*>(p_sh + j * kCols + 4 * q4);
           p[4 * q4] = w.x;
           p[4 * q4 + 1] = w.y;
           p[4 * q4 + 2] = w.z;
@@ -569,7 +417,7 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         }
       } else {
 #pragma unroll
-        for (int hh = 0; hh < kG; ++hh) p[hh] = p_sh[j * 8 + hh];
+        for (int hh = 0; hh < kG; ++hh) p[hh] = p_sh[j * kCols + hh];
       }
 #pragma unroll
       for (int hh = 0; hh < kG; ++hh)
@@ -582,25 +430,33 @@ paged_decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   // a warp's l per head: its lanes' shares over g
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-    for (int o = 4; o < 32; o <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) l[nt][r] += __shfl_xor_sync(0xffffffffu, l[nt][r], o);
   __syncthreads();  // every warp is done with its ring: the states go there
   State* warp_state = reinterpret_cast<State*>(rings);
   State& mine_state = warp_state[warp];
-  if (g == 0 && 2 * t < kG) {
+  if (g == 0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (2 * t + r < kG) {
-        mine_state.m[2 * t + r] = l[r] > 0.f ? m[r] : -INFINITY;
-        mine_state.l[2 * t + r] = l[r];
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int head = 8 * nt + 2 * t + r;
+        if (head < kG) {
+          mine_state.m[head] = l[nt][r] > 0.f ? m[nt][r] : -INFINITY;
+          mine_state.l[head] = l[nt][r];
+        }
       }
-    }
   }
 #pragma unroll
   for (int hh = 0; hh < kG; ++hh)
 #pragma unroll
-    for (int e = 0; e < E; ++e) mine_state.acc[hh][E * lane + e] = acc[hh][e];
+    for (int e = 0; e < E; ++e) {
+      const int d = Dims::dim(lane, e);
+      if (d >= 0) mine_state.acc[hh][d] = acc[hh][e];
+    }
   __syncthreads();
 
   // the block's state: its warps merged in order
@@ -653,10 +509,11 @@ int launch_split_typed(const void* q, const void* k_pool, const void* v_pool, co
                        int page, int pages_per_row, float scale, float cap, int window,
                        int splits, cudaStream_t stream) {
   constexpr int kStageBytes = 2 * kChunk * D * 2;
+  constexpr int kCols = 8 * ((kG + 7) / 8);
   const size_t rings = (size_t)kSplitWarps * kRing * kStageBytes;
   static_assert(kSplitWarps * sizeof(SplitState<D, kG>) <= kSplitWarps * kRing * kStageBytes,
                 "the warps' states must fit where their rings were");
-  const size_t smem = rings + kSplitWarps * (kChunk * 8 + 8) * sizeof(float) +
+  const size_t smem = rings + kSplitWarps * (kChunk * kCols + kCols) * sizeof(float) +
                       sizeof(SplitState<D, kG>) + (size_t)pages_per_row * sizeof(int);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   auto kernel = paged_decode_split_kernel<D, kG>;
@@ -695,7 +552,8 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool, const in
   if (group == 1) return launch_split_typed<D, 1>(PAGED_SPLIT_ARGS);
   if (group == 2) return launch_split_typed<D, 2>(PAGED_SPLIT_ARGS);
   if (group <= 4) return launch_split_typed<D, 4>(PAGED_SPLIT_ARGS);
-  return launch_split_typed<D, 8>(PAGED_SPLIT_ARGS);
+  if (group <= 8) return launch_split_typed<D, 8>(PAGED_SPLIT_ARGS);
+  return launch_split_typed<D, 16>(PAGED_SPLIT_ARGS);
 #undef PAGED_SPLIT_ARGS
 }
 
@@ -721,22 +579,21 @@ extern "C" int paged_decode_launch(int q_dtype, int kv_dtype, int head_dim, cons
   q, k_pool, v_pool, tables, lens, out, batch, num_kv_heads, group, page, pages_per_row, scale, \
       cap, window, splits, s
     if (head_dim == 64) return launch_split<64>(PAGED_SPLIT_ARGS);
+    if (head_dim == 80) return launch_split<80>(PAGED_SPLIT_ARGS);
     if (head_dim == 96) return launch_split<96>(PAGED_SPLIT_ARGS);
     if (head_dim == 128) return launch_split<128>(PAGED_SPLIT_ARGS);
+    if (head_dim == 256) return launch_split<256>(PAGED_SPLIT_ARGS);
 #undef PAGED_SPLIT_ARGS
     return (int)cudaErrorInvalidValue;
   }
   if (splits != 1) return (int)cudaErrorInvalidValue;
-  switch (q_dtype) {
-    case 0:
-      return launch_kv<float>(kv_dtype, head_dim, q, k_pool, v_pool, tables, lens, out,
-                              batch, num_kv_heads, group, page, pages_per_row, scale, cap,
-                              window, s);
-    case 1:
-      return launch_kv<__nv_bfloat16>(kv_dtype, head_dim, q, k_pool, v_pool, tables, lens,
-                                      out, batch, num_kv_heads, group, page, pages_per_row,
-                                      scale, cap, window, s);
-  }
+#define PAGED_FIRST_ARGS                                                                        \
+  head_dim, q, k_pool, v_pool, tables, lens, out, batch, num_kv_heads, group, page, pages_per_row, \
+      scale, cap, window, s
+  if (q_dtype == 0 && kv_dtype == 0) return paged_decode_fp32_fp32(PAGED_FIRST_ARGS);
+  if (q_dtype == 0 && kv_dtype == 1) return paged_decode_fp32_bf16(PAGED_FIRST_ARGS);
+  if (q_dtype == 1 && kv_dtype == 0) return paged_decode_bf16_fp32(PAGED_FIRST_ARGS);
+#undef PAGED_FIRST_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,7 +7,7 @@ Replaces the three Pallas TPU kernels of
 `csrc/flash_bwd.cu`), with the glue of its `jax.custom_vjp`: delta =
 rowsum(dO * O) in fp32 and the sink gradient. `flash_attention` is the
 counterpart of the JAX wrapper of the same name: it folds the softmax scale
-into q (rounded to q's type, as there), pads head_dim to 64 or 128 and the
+into q (rounded to q's type, as there), pads head_dim to 64, 128 or 256 and the
 sequences to the 128-row block with segment id 0, and slices the outputs
 back.
 
@@ -41,7 +41,7 @@ from llm_training_tpu_torch.ops.kernels import build
 TILE = 64  # rows of a q or kv tile: what the kernels stream and skip by
 BLOCK = 128  # rows a bf16 kernel block owns; the wrapper pads sequences to it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _NO_SEGMENT = 2**30  # a tile range's smallest id when the tile is all padding
 
 _declared = False
@@ -98,7 +98,8 @@ def _check_flat(q, k, v, seg_q, seg_kv) -> None:
     if k.shape[0] != batch or k.shape[3] != head_dim or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
     if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not supported by the kernels ({_HEAD_DIMS})")
+        raise ValueError(f"head_dim {head_dim} not supported by the kernels ({_HEAD_DIMS}; "
+                         "ROADMAP B, kernel limits)")
     if sq % TILE or skv % TILE:
         raise ValueError(f"sequence lengths ({sq}, {skv}) must be multiples of {TILE}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -327,7 +328,8 @@ def flash_attention(
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if head_dim > max(_HEAD_DIMS):
-        raise ValueError(f"head_dim {head_dim} not supported by the kernels (at most 128)")
+        raise ValueError(f"head_dim {head_dim} not supported by the kernels (at most "
+                         f"{max(_HEAD_DIMS)}; ROADMAP B, kernel limits)")
     if sinks is not None and sinks.shape != (num_q_heads,):
         raise ValueError(f"sinks must be [{num_q_heads}], got {tuple(sinks.shape)}")
     return _through_kernels(
@@ -366,8 +368,9 @@ def _through_kernels(q, k, v, segment_ids, q_segment_ids, causal, window, cap, s
 def pad_inputs(q, k, v, seg_q, seg_kv):
     """What the kernels take: the sequences padded to the 128-row block
     (padding gets segment id 0, so it is masked, not attended) and head_dim
-    to 64 or 128 (zeros change no score), all contiguous."""
-    d_pad = 64 if q.shape[3] <= 64 else 128
+    to the next of 64, 128 and 256 (zeros change no score; JAX pads to its
+    128 lanes and leaves 64 and any multiple of 128 alone), all contiguous."""
+    d_pad = next(d for d in _HEAD_DIMS if q.shape[3] <= d)
     sq, skv = _round_up(q.shape[1], BLOCK), _round_up(k.shape[1], BLOCK)
     q = _pad_to(_pad_to(q, 1, sq), 3, d_pad).contiguous()
     k = _pad_to(_pad_to(k, 1, skv), 3, d_pad).contiguous()

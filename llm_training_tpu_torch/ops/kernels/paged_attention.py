@@ -43,8 +43,8 @@ from llm_training_tpu_torch.ops.attention import _xla_attention
 from llm_training_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 96, 128)
-_MAX_GROUP = 8
+_HEAD_DIMS = (64, 80, 96, 128, 256)
+_MAX_GROUP = 16
 MAX_SPLITS = 16  # blocks of a cluster (above 8 with the non-portable attribute)
 MIN_SPLIT_SLOTS = 64  # no split shorter than this many of the kv slots a row can hold
 
@@ -89,7 +89,8 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> int:
         raise ValueError(f"head_dim {head_dim} not supported (expected one of {_HEAD_DIMS}; "
                          "ROADMAP B, kernel limits)")
     if group > _MAX_GROUP:
-        raise ValueError(f"GQA group {group} (Hq {num_q_heads} / Hkv {num_kv_heads}) exceeds {_MAX_GROUP}")
+        raise ValueError(f"GQA group {group} (Hq {num_q_heads} / Hkv {num_kv_heads}) exceeds "
+                         f"{_MAX_GROUP} (ROADMAP B, kernel limits)")
     if block_tables.dim() != 2 or block_tables.shape[0] != batch or lengths.shape != (batch,):
         raise ValueError(
             f"block_tables {tuple(block_tables.shape)} / lengths {tuple(lengths.shape)} "

@@ -131,11 +131,12 @@ def build_lr_schedule(config: OptimConfig, num_total_steps: int) -> Callable[[in
     return lambda count: warmup(count) if count < boundary else inner(count - boundary)
 
 
-def _frozen(name: str, patterns: list[re.Pattern], scan_layers: bool = True) -> bool:
+def _frozen(name: str, patterns: list[re.Pattern], scan_layers: bool | str = True) -> bool:
     """A parameter is frozen when a pattern matches the path `_freeze_mask`
     sees in the JAX package: the parameter's path in the JAX tree of the
     model's layout (`params/layers/layer/mlp/up_proj/kernel` when
-    `scan_layers`, else `params/layers_0/mlp/up_proj/kernel`; a pair's
+    `scan_layers`, else `params/layers_0/mlp/up_proj/kernel`, or Gemma-2's
+    `params/layers/sliding/...` with `from_jax.PAIRS`; a pair's
     `policy/` or `ref/` before it), never the port's dotted name. A name
     with no JAX counterpart (not a `Llama` parameter) matches as the tree
     of the same nesting would name it, joined by '/'."""
@@ -169,7 +170,7 @@ class Optimizer:
         offload: bool = False,
         state_dtype: str = "float32",
         quant_block: int = DEFAULT_BLOCK,
-        scan_layers: bool = True,
+        scan_layers: bool | str = True,
     ):
         if config.optimizer not in _KWARGS:
             raise ValueError(

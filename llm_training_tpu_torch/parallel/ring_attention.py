@@ -126,7 +126,7 @@ def _pad_rows(x: torch.Tensor, length: int) -> torch.Tensor:
 def chunk_fwd_kernel(q, k, v, seg_q, seg_kv, *, causal, cap=None, sliding_window=None,
                      q_offset=0):
     """`chunk_fwd_torch` through K1: the chunk padded as the flash wrapper
-    pads it (segment id 0 rows, head_dim to 64/128), the offset static, O
+    pads it (segment id 0 rows, head_dim to 64/128/256), the offset static, O
     written in fp32."""
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 

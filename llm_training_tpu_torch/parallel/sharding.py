@@ -7,7 +7,7 @@ for replicated) with their `AxisDrop` warnings and strict
 `UnknownLogicalAxisError`, and `logical_to_sharding` / `shard_pytree`,
 which place tensors with `distribute_tensor`.
 
-`PARAM_LOGICAL_AXES` is the one table of the Llama and Phi-3 parameters'
+`PARAM_LOGICAL_AXES` is the one table of the Llama, Phi-3 and Gemma parameters'
 logical names, in the JAX array's orientation (a Dense kernel is the
 transpose of the port's `nn.Linear` weight). `parallelize` derives
 everything from it and the rules:
@@ -239,7 +239,7 @@ PARAM_LOGICAL_AXES: dict[str, tuple[str, ...]] = {
     "model.layers.*.mlp.xielu_alpha_n": (None,),
     **{f"model.layers.*.{norm}.{leaf}": ("norm",)
        for norm in ("input_layernorm", "post_attention_layernorm", "post_feedforward_layernorm",
-                    "post_self_attn_layernorm", "post_mlp_layernorm")
+                    "post_self_attn_layernorm", "post_mlp_layernorm", "pre_feedforward_layernorm")
        for leaf in ("weight", "bias")},
     "model.norm.weight": ("norm",),
     "model.norm.bias": ("norm",),

@@ -106,6 +106,7 @@ import torch.distributed as dist
 from llm_training_tpu_torch import prng, resolve_device
 from llm_training_tpu_torch.callbacks.nan_guard import LossSpikeError, NonFiniteLossError
 from llm_training_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from llm_training_tpu_torch.models.llama.from_jax import PAIRS
 from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm, local_tensor
 from llm_training_tpu_torch.optim.offload import check_offload_keys
 from llm_training_tpu_torch.parallel import batch as batching
@@ -256,12 +257,14 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _scan_layers(module: torch.nn.Module) -> bool:
+def _scan_layers(module: torch.nn.Module) -> bool | str:
     """The JAX layout of the objective's model config (`scan_layers`, JAX's
-    default True): the tree `frozen_modules` patterns are matched against.
-    A policy and reference pair takes the policy's."""
-    model = getattr(module, "policy", module)
-    return bool(getattr(getattr(model, "config", None), "scan_layers", True))
+    default True; `from_jax.PAIRS` for Gemma-2's scanned (sliding, full)
+    pairs): the tree `frozen_modules` patterns are matched against. A
+    policy and reference pair takes the policy's."""
+    config = getattr(getattr(module, "policy", module), "config", None)
+    scan = bool(getattr(config, "scan_layers", True))
+    return PAIRS if scan and getattr(config, "paired", False) else scan
 
 
 class Trainer:

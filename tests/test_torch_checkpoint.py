@@ -39,6 +39,7 @@ from llm_training_tpu_torch.models.llama.model import Llama
 from llm_training_tpu_torch.optim.builder import OptimConfig
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the tiny Llama of tests/test_checkpoint_cli.py, on the plain attention path
 TINY = dict(
@@ -186,12 +187,25 @@ def deterministic():
         torch.use_deterministic_algorithms(before)
 
 
+@pytest.fixture(scope="module")
+def uninterrupted():
+    """The uninterrupted 6-step run under torch's deterministic kernels (its
+    losses and final state), computed once for both save modes' resume
+    tests."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _fit(_trainer(None), _objective())
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
 @pytest.mark.parametrize("async_save", [True, False], ids=["async", "sync"])
-def test_resume_is_bit_exact(tmp_path, async_save, deterministic):
+def test_resume_is_bit_exact(tmp_path, async_save, deterministic, uninterrupted):
     """3 steps, a checkpoint, then a fresh Trainer resumes to step 6: its
     losses, parameters, optimizer state, counters and data cursor equal the
     uninterrupted 6-step run's bit for bit (accumulation 2, NEFTune on)."""
-    full, full_state = _fit(_trainer(None), _objective())
+    full, full_state = uninterrupted
     first, _ = _fit(_trainer(tmp_path, max_steps=3, async_save=async_save), _objective())
     trainer = _trainer(tmp_path, async_save=async_save)
     resumed, state = _fit(trainer, _objective())

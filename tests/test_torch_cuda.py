@@ -45,7 +45,9 @@ def _case(dtype, head_dim, group, page, lengths, device):
     (torch.float32, 0.0, 1e-4), (torch.bfloat16, 2.0**-8, 1e-5),
 ])
 @pytest.mark.parametrize("head_dim,group,page", [(64, 1, 8), (128, 4, 16), (128, 8, 32),
-                                                 (96, 1, 16), (96, 4, 16)])
+                                                 (96, 1, 16), (96, 4, 16), (80, 1, 16),
+                                                 (80, 4, 16), (256, 2, 16), (256, 8, 16),
+                                                 (128, 16, 16), (128, 12, 16)])
 @pytest.mark.parametrize("window,cap", [(None, None), (20, 5.0)])
 def test_kernel_matches_plain(cuda, dtype, rtol, atol, head_dim, group, page, window, cap):
     case = _case(dtype, head_dim, group, page, [1, page, 50, 300, 1100], cuda)
@@ -113,6 +115,39 @@ def test_split_kernel_at_head_dim_96(cuda, group, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,kv_heads,group", [
+    (80, 32, 1),  # Phi-2: MHA, 160-byte K/V rows
+    (256, 8, 2),  # Gemma-2-9B
+    (256, 1, 8),  # gemma-2b
+    (128, 2, 16),  # GLM-4-9B: two n8 column tiles
+    (128, 8, 12),  # Command-R+: group 12 on kG 16, columns masked
+    (256, 4, 16),  # D 256 and group 16 together
+])
+@pytest.mark.parametrize("window,cap", [(None, None), (700, 50.0)])
+def test_split_kernel_at_new_shapes(cuda, head_dim, kv_heads, group, window, cap):
+    """The split kernel at the head shapes added for Phi-2, Gemma and the
+    groups above 8, with a window and Gemma's soft cap: within one bf16
+    rounding of the plain version in fp32 and of the split algebra's."""
+    from llm_training_tpu_torch.ops.kernels.bench_paged_decode import decode_case
+
+    case = decode_case([1, 16, 530, 2100, 1], 16, kv_heads, group, head_dim, torch.bfloat16,
+                       seed=head_dim + group)
+    case["block_tables"][-1] = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = kernels.plan_splits(case["block_tables"].shape[1] * 16, kv_heads * 5, sms)
+    opts = dict(sliding_window=window, logits_soft_cap=cap)
+    before = kernels.paged_decode_attention.launches
+    out = kernels.paged_decode_attention(**case, **opts).float()
+    assert kernels.paged_decode_attention.launches == before + 1
+    as_fp32 = {k: (v.float() if v.is_floating_point() else v) for k, v in case.items()}
+    ref = kernels.paged_decode_attention_torch(**as_fp32, **opts)
+    split_ref = kernels.paged_decode_split_torch(**as_fp32, splits=planned, **opts)
+    torch.cuda.synchronize()
+    for expected in (ref, split_ref):
+        torch.testing.assert_close(out, expected, rtol=2.0**-8, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_split_kernel_is_deterministic(cuda):
     """Two launches on one input give the same bits: the blocks of a
     cluster merge in a fixed order, no atomics."""
@@ -132,25 +167,41 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-def test_a_phi2_decode_step_raises_naming_roadmap_b(cuda):
-    """A Llama-graph type whose head_dim K4 does not take (Phi-2's 80)
-    raises on the card naming ROADMAP B: no plain fallback."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_a_phi2_decode_step_runs_through_k4(cuda, dtype):
+    """A Llama-graph type at Phi-2's head_dim 80 decodes through K4 on the
+    card (no plain fallback): one launch per layer, logits within the
+    dtype's limit of the same step through the plain gather path."""
     from llm_training_tpu_torch.models.base import PagedDecodeState
     from llm_training_tpu_torch.models.llama.hf_conversion import config_from_hf
     from llm_training_tpu_torch.models.llama.model import Llama
 
+    name = "float32" if dtype == torch.float32 else "bfloat16"
     config = config_from_hf({
         "model_type": "phi", "vocab_size": 64, "hidden_size": 160, "intermediate_size": 64,
-        "num_hidden_layers": 1, "num_attention_heads": 2, "max_position_embeddings": 64},
-        compute_dtype="bfloat16", param_dtype="bfloat16")
+        "num_hidden_layers": 2, "num_attention_heads": 2, "max_position_embeddings": 64},
+        compute_dtype=name, param_dtype=name)
     assert config.resolved_head_dim == 80
     model = Llama(config, device=cuda)
-    pool = torch.zeros((1, 2, 16, 2, 80), dtype=torch.bfloat16, device=cuda)
-    state = PagedDecodeState(k=pool, v=pool.clone(),
-                             block_tables=torch.ones((1, 1), dtype=torch.int32, device=cuda),
-                             lengths=torch.zeros(1, dtype=torch.int32, device=cuda))
-    with torch.no_grad(), pytest.raises(ValueError, match="head_dim 80.*ROADMAP B"):
-        model(torch.zeros((1, 1), dtype=torch.long, device=cuda), decode_state=state)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model.init_weights(gen)
+    tokens = torch.randint(0, 64, (1, 6), generator=gen, device=cuda)
+    logits = {}
+    for impl in ("kernel", "torch"):
+        pool = torch.zeros((2, 2, 16, 2, 80), dtype=dtype, device=cuda)
+        state = PagedDecodeState(k=pool, v=pool.clone(),
+                                 block_tables=torch.ones((1, 1), dtype=torch.int32, device=cuda),
+                                 lengths=torch.zeros(1, dtype=torch.int32, device=cuda))
+        with torch.no_grad():
+            state = model(tokens[:, :5], decode_state=state, paged_impl="torch").decode_state
+            before = kernels.paged_decode_attention.launches
+            out = model(tokens[:, 5:], decode_state=state, paged_impl=impl)
+        launched = kernels.paged_decode_attention.launches - before
+        assert launched == (2 if impl == "kernel" else 0)
+        logits[impl] = out.logits.float()
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = float(logits["torch"].abs().max())
+    assert float((logits["kernel"] - logits["torch"]).abs().max()) <= limit * scale
 
 
 # ---------------------------------------------------------------- flash attention (K1-K3)
@@ -185,7 +236,7 @@ def _assert_flash_matches_plain(got, ref, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,group", [(64, 1), (128, 4), (128, 8)])
+@pytest.mark.parametrize("head_dim,group", [(64, 1), (128, 4), (128, 8), (256, 2), (256, 8)])
 @pytest.mark.parametrize("variant", ["causal", "window", "cap", "sinks", "q_offset"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flash_kernels_match_plain(cuda, dtype, head_dim, group, variant):
@@ -211,7 +262,7 @@ def test_flash_kernels_match_plain(cuda, dtype, head_dim, group, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seq,q_len", [(64, None), (257, None), (300, 170), (300, 70)],
                          ids=["s64", "s257", "chunk170", "chunk70"])
-@pytest.mark.parametrize("head_dim,group", [(64, 1), (64, 8), (128, 4), (128, 8)])
+@pytest.mark.parametrize("head_dim,group", [(64, 1), (64, 8), (128, 4), (128, 8), (256, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_flash_kernels_across_the_block(cuda, dtype, head_dim, group, seq, q_len):
     """Lengths that cross the backward kernels' 128-row block: half a block,
@@ -245,7 +296,8 @@ def test_flash_kernels_without_causal_mask(cuda, dtype, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,group,seq", [(64, 1, 257), (128, 4, 300), (128, 8, 1024)])
+@pytest.mark.parametrize("head_dim,group,seq", [(64, 1, 257), (128, 4, 300), (128, 8, 1024),
+                                               (256, 2, 1024)])
 def test_flash_forward_is_deterministic(cuda, head_dim, group, seq):
     """K1 launched twice on one input gives bit-identical O and LSE."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
@@ -255,7 +307,8 @@ def test_flash_forward_is_deterministic(cuda, head_dim, group, seq):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim,group,seq", [(64, 1, 257), (128, 4, 300), (128, 8, 1024)])
+@pytest.mark.parametrize("head_dim,group,seq", [(64, 1, 257), (128, 4, 300), (128, 8, 1024),
+                                               (256, 2, 1024)])
 def test_flash_backward_is_deterministic(cuda, head_dim, group, seq):
     """K2 and K3 launched twice on one input give bit-identical dq, dk, dv:
     every block sums its own rows in a fixed order, no atomics."""
@@ -297,8 +350,8 @@ def test_fused_cross_entropy_bf16_on_the_card(cuda):
 def test_flash_wrapper_rejects_what_it_cannot_take(cuda):
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 
-    q = torch.zeros((1, 64, 2, 256), device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros((1, 64, 2, 320), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 320.*ROADMAP B"):
         fa.flash_attention(q, q, q)
     q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtypes"):

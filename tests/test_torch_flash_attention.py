@@ -286,6 +286,21 @@ def test_dispatcher_routes_and_raises():
         attention.dot_product_attention(*map(_t, (q, k, v)), impl="flash")
 
 
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_check_flat_takes_gemma_s_head_dim_and_refuses_what_is_left(head_dim):
+    """The kernels take head_dim 64, 128 and 256 as they are (a CPU tensor
+    then fails only the device check); 320 and an unpadded 96 raise naming
+    ROADMAP B."""
+    seg = torch.ones((1, 64), dtype=torch.int32)
+    q = torch.zeros((1, 64, 2, head_dim))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._check_flat(q, q, q, seg, seg)
+    for other in (96, 320):
+        q = torch.zeros((1, 64, 2, other))
+        with pytest.raises(ValueError, match=f"head_dim {other}.*ROADMAP B"):
+            fa._check_flat(q, q, q, seg, seg)
+
+
 def test_kernel_launchers_refuse_cpu_tensors():
     """The launchers take CUDA tensors only: a CPU tensor raises before
     anything is built."""
@@ -345,12 +360,12 @@ def test_block_ranges_merge_tile_ranges(kind, seq):
     assert blocks.dtype == torch.int32 and blocks.is_contiguous()
 
 
-@pytest.mark.parametrize("head_dim", [16, 64, 100, 128])
+@pytest.mark.parametrize("head_dim", [16, 64, 100, 128, 200, 256])
 @pytest.mark.parametrize("q_len,kv_len", [(64, 64), (257, 257), (300, 300), (100, 300)])
 def test_pad_inputs_pads_to_the_block(q_len, kv_len, head_dim):
-    """Sequences go to the next multiple of 128 and head_dim to 64 or 128;
-    the caller's values stay where they were, padded rows carry segment id 0
-    and zeros."""
+    """Sequences go to the next multiple of 128 and head_dim to 64, 128 or
+    256 (Gemma's 256 unpadded); the caller's values stay where they were,
+    padded rows carry segment id 0 and zeros."""
     rng = np.random.default_rng(q_len + head_dim)
     q = _t(rng.standard_normal((2, q_len, 4, head_dim)).astype(np.float32))
     k = _t(rng.standard_normal((2, kv_len, 2, head_dim)).astype(np.float32))
@@ -358,7 +373,7 @@ def test_pad_inputs_pads_to_the_block(q_len, kv_len, head_dim):
     seg_kv = _ids("packed", kv_len, kv_len).clamp_min(1)
     seg_q = seg_kv[:, kv_len - q_len:]
     pq, pk, pv, psq, pskv = fa.pad_inputs(q, k, v, seg_q, seg_kv)
-    d_pad = 64 if head_dim <= 64 else 128
+    d_pad = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
     for padded, orig, ids, n in ((pq, q, psq, q_len), (pk, k, pskv, kv_len), (pv, v, pskv, kv_len)):
         assert padded.shape[1] % fa.BLOCK == 0 and 0 <= padded.shape[1] - n < fa.BLOCK
         assert padded.shape[3] == d_pad and padded.is_contiguous() and ids.is_contiguous()
@@ -369,7 +384,7 @@ def test_pad_inputs_pads_to_the_block(q_len, kv_len, head_dim):
 
 
 @pytest.mark.parametrize("q_len,kv_len", [(64, 64), (257, 257), (300, 300), (100, 300)])
-@pytest.mark.parametrize("head_dim", [32, 128])
+@pytest.mark.parametrize("head_dim", [32, 128, 256])
 def test_kernel_route_pads_and_slices_back(q_len, kv_len, head_dim):
     """The wrapper's CUDA route with the plain version standing in for the
     kernels: what reaches them is padded to the block with segment id 0,
@@ -399,7 +414,8 @@ def test_kernel_route_pads_and_slices_back(q_len, kv_len, head_dim):
     expected = run(lambda q, k, v: fa.flash_attention_torch(
         q, k, v, seg_kv, seg_q, causal=True, sliding_window=50, q_offset=q_offset))
     assert seen["q"][1] % fa.BLOCK == 0 and seen["k"][1] % fa.BLOCK == 0
-    assert seen["q"][3] == seen["k"][3] == (64 if head_dim <= 64 else 128)
+    assert seen["q"][3] == seen["k"][3] == (64 if head_dim <= 64 else 128 if head_dim <= 128
+                                            else 256)
     assert not seen["seg_q"][:, q_len:].any() and not seen["seg_kv"][:, kv_len:].any()
     assert got[0].shape == (2, q_len, 4, head_dim)
     for a, b in zip(got, expected):

@@ -43,6 +43,7 @@ from llm_training_tpu_torch.telemetry.health import (
     layer_health_metrics,
 )
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEYS_FILE = (Path(__file__).resolve().parent.parent
              / "llm_training_tpu_torch" / "telemetry" / "health_keys.json")

@@ -50,6 +50,7 @@ from llm_training_tpu_torch.models.llama.from_jax import (
 from llm_training_tpu_torch.optim.builder import OptimConfig
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 from tests.test_torch_train import TINY, _Batches, _jax_llama, _Losses, _packed_batch, _port_llama
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 4
 OPTIM = dict(learning_rate=2e-3, warmup_steps=2, min_lr_ratio=0.1, grad_clip_norm=1.0,

@@ -179,11 +179,11 @@ def test_decode_bound_counts_the_window_only():
 
 def test_wrapper_rejects_unsupported_shapes():
     """The kernel's shape checks run before any build or launch."""
-    q = torch.zeros((2, 18, 64))
+    q = torch.zeros((2, 34, 64))
     pool = torch.zeros((4, 16, 2, 64))
     tables = torch.zeros((2, 2), dtype=torch.int32)
     lengths = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="GQA group 9"):
+    with pytest.raises(ValueError, match="GQA group 17"):
         kernels._check(q, pool, pool, tables, lengths)
     with pytest.raises(ValueError, match="head_dim 32"):
         kernels._check(torch.zeros((2, 4, 32)), pool[..., :32], pool[..., :32], tables, lengths)
@@ -256,14 +256,45 @@ def test_split_merge_matches_pallas_kernel_at_head_dim_96(splits, window, group)
     np.testing.assert_allclose(gather.numpy(), theirs, **TOL)
 
 
+@pytest.mark.parametrize("head_dim,kv_heads,group", [
+    (80, 2, 1), (256, 2, 2), (256, 1, 8), (128, 2, 16), (128, 1, 12),
+], ids=["phi2_d80", "gemma2_9b_d256", "gemma_2b_d256_g8", "glm4_g16", "command_r_plus_g12"])
+def test_split_merge_matches_pallas_kernel_at_new_shapes(head_dim, kv_heads, group):
+    """The head shapes K4 takes since Gemma (head_dim 80 and 256, GQA groups
+    above 8), with Gemma-2's attention soft cap and a window: the split
+    algebra and the gather path against the Pallas kernel (interpreted),
+    fp32, within 2e-5."""
+    q, pool_k, pool_v, tables, lengths = _split_inputs(group, seed=head_dim + group,
+                                                       head_dim=head_dim)
+    q, pool_k, pool_v = q[:, :kv_heads * group], pool_k[:, :, :kv_heads], pool_v[:, :, :kv_heads]
+    args = (_t(q), _t(pool_k), _t(pool_v), _t(tables), _t(lengths))
+    opts = dict(sliding_window=40, logits_soft_cap=50.0)
+    theirs = np.asarray(jax_kernel.paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, pool_k, pool_v, tables, lengths)), interpret=True, **opts,
+    ))
+    split = kernels.paged_decode_split_torch(*args, 3, **opts)
+    np.testing.assert_allclose(split.numpy(), theirs, **TOL)
+    gather = kernels.paged_decode_attention(*args, **opts)  # CPU: the plain version
+    np.testing.assert_allclose(gather.numpy(), theirs, **TOL)
+
+
 def test_wrapper_takes_head_dim_96_and_refuses_what_it_lacks():
-    """96 joins 64 and 128 in what the kernel takes; 80 still raises."""
+    """The kernel takes head_dim 64, 80, 96, 128 and 256 and GQA groups up
+    to 16; what is left (head_dim 72, 320, group 32) raises naming ROADMAP
+    B."""
     tables = torch.zeros((2, 2), dtype=torch.int32)
     lengths = torch.ones(2, dtype=torch.int32)
-    pool = torch.zeros((4, 16, 32, 96))
-    assert kernels._check(torch.zeros((2, 32, 96)), pool, pool, tables, lengths) == 1
-    with pytest.raises(ValueError, match="head_dim 80"):
-        kernels._check(torch.zeros((2, 32, 80)), pool[..., :80], pool[..., :80], tables, lengths)
+    for head_dim in (64, 80, 96, 128, 256):
+        pool = torch.zeros((4, 16, 2, head_dim))
+        assert kernels._check(torch.zeros((2, 32, head_dim)), pool, pool, tables, lengths) == 16
+        assert kernels._check(torch.zeros((2, 2, head_dim)), pool, pool, tables, lengths) == 1
+    for head_dim in (72, 320):
+        pool = torch.zeros((4, 16, 2, head_dim))
+        with pytest.raises(ValueError, match=f"head_dim {head_dim}.*ROADMAP B"):
+            kernels._check(torch.zeros((2, 4, head_dim)), pool, pool, tables, lengths)
+    pool = torch.zeros((4, 16, 1, 128))
+    with pytest.raises(ValueError, match="group 32.*ROADMAP B"):
+        kernels._check(torch.zeros((2, 32, 128)), pool, pool, tables, lengths)
 
 
 @pytest.mark.parametrize("length,window,splits", [

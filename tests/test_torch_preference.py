@@ -43,6 +43,7 @@ from llm_training_tpu_torch.ops import cross_entropy as ce
 from llm_training_tpu_torch.optim.builder import OptimConfig
 from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpointer
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig, _batch_counts
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_ce = importlib.import_module("llm_training_tpu.ops.cross_entropy")
 VOCAB = 512
@@ -373,7 +374,9 @@ def test_preference_fit_matches_jax(kind, accumulate):
     jax_model, params = _jax_model(seed=1)
     config = LlamaConfig(**TINY)
     rng = np.random.default_rng(9)
-    distinct = [_collate(_examples(rng, 2)) for _ in range(4)]
+    # padded to one width (pairs are at most 16 tokens): JAX compiles its
+    # step once, not once per batch width
+    distinct = [_collate(_examples(rng, 2), multiple=16) for _ in range(4)]
     batches = [distinct[i % 4] for i in range(STEPS * accumulate)]
     model = Llama(config, device="cpu")
     model.load_state_dict(state_dict_from_jax(params, config))

@@ -19,6 +19,7 @@ from llm_training_tpu_torch.trainer.checkpoint import CheckpointConfig, Checkpoi
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 from tests.test_torch_checkpoint import _data, _jax_objective, _objective, _Losses
 from tests.test_torch_train import CONFIG_FILE
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFFLOAD_KEYS = ("prefetch_batches", "offload_optimizer_state", "offload_state_dtype",
                 "offload_quant_block")

@@ -4,6 +4,7 @@ pipeline pieces, and a 20-step fit of a tiny Llama against the JAX CLM
 with its optax chain. The same numpy inputs go to both packages (fp32).
 """
 
+import functools
 import importlib
 import json
 import types
@@ -42,6 +43,7 @@ from llm_training_tpu_torch.models.llama.model import Llama
 from llm_training_tpu_torch.ops import cross_entropy as ce
 from llm_training_tpu_torch.optim.builder import OptimConfig, build_lr_schedule, build_optimizer
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the JAX package exports the function `cross_entropy` over its module's name
 jax_ce = importlib.import_module("llm_training_tpu.ops.cross_entropy")
@@ -681,16 +683,29 @@ def _jax_fit(jax_model, params, batches, accumulate, neftune_alpha=None, seed=42
     return losses[accumulate - 1::accumulate]
 
 
+def _fit_batches(accumulate: int) -> list[dict]:
+    """Four packed batches, repeated (so the loss falls), for STEPS steps."""
+    rng = np.random.default_rng(9)
+    distinct = [_packed_batch(rng, 2, 32) for _ in range(4)]
+    return [distinct[i % 4] for i in range(STEPS * accumulate)]
+
+
+@functools.cache
+def _plain_jax_fit(accumulate: int) -> tuple[float, ...]:
+    """JAX's fit of `test_fit_matches_jax` (no NEFTune), computed once per
+    accumulation: the NEFTune test's baseline is the same run."""
+    jax_model, params = _jax_llama(seed=1)
+    return tuple(_jax_fit(jax_model, params, _fit_batches(accumulate), accumulate))
+
+
 @pytest.mark.parametrize("accumulate", [1, 2])
 def test_fit_matches_jax(accumulate):
     """20 optimizer steps of a tiny Llama on the same packed batches from
     the same params: step-0 loss within 1e-5, the trajectory within rtol
     1e-4."""
-    jax_model, params = _jax_llama(seed=1)
-    rng = np.random.default_rng(9)
-    distinct = [_packed_batch(rng, 2, 32) for _ in range(4)]  # repeated, so the loss falls
-    batches = [distinct[i % 4] for i in range(STEPS * accumulate)]
-    expected = _jax_fit(jax_model, params, batches, accumulate)
+    _, params = _jax_llama(seed=1)
+    batches = _fit_batches(accumulate)
+    expected = list(_plain_jax_fit(accumulate))
     recorder = _Losses()
     trainer = Trainer(
         TrainerConfig(max_steps=STEPS, accumulate_grad_batches=accumulate, log_every_n_steps=1),
@@ -711,9 +726,7 @@ def test_fit_with_neftune_matches_jax(accumulate):
     JAX's, with and without accumulation (a different noise stream would
     move it by far more)."""
     jax_model, params = _jax_llama(seed=1)
-    rng = np.random.default_rng(9)
-    distinct = [_packed_batch(rng, 2, 32) for _ in range(4)]
-    batches = [distinct[i % 4] for i in range(STEPS * accumulate)]
+    batches = _fit_batches(accumulate)
     expected = _jax_fit(jax_model, params, batches, accumulate, neftune_alpha=5.0, seed=7)
     recorder = _Losses()
     trainer = Trainer(
@@ -726,7 +739,7 @@ def test_fit_with_neftune_matches_jax(accumulate):
     trainer.fit(objective, _Batches(batches))
     assert abs(recorder.losses[0] - expected[0]) < 1e-5
     np.testing.assert_allclose(recorder.losses, expected, rtol=1e-4)
-    plain = _jax_fit(jax_model, params, batches, accumulate)
+    plain = _plain_jax_fit(accumulate)
     assert max(abs(a - b) for a, b in zip(expected, plain)) > 1e-3  # the noise moves it
 
 
