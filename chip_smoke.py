@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure exits non-zero), in the
 order 1, 2, then 12 in a process of its own beside 3, 4, 6, 9, 13, 14 and
-phase 17's legs in this process, then 5, 7, 8, 15-20, 22, 10, 11, 21:
+phase 17's legs in this process, then 5, 7, 8, 15-20, 22, 23, 10, 11, 21:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `csrc/` with nvcc, one
@@ -387,6 +387,34 @@ imported) for phase 14's full-depth runs.
    four new head shapes (B 8, rows of 256-2112; Gemma-2-9B's with its cap
    and window), K1-K3 at Gemma-2-9B's training shape (with cap and window;
    and without them beside SDPA). Each leg prints its seconds.
+23. the MoE stack (after phase 22): (a) G1, the grouped GEMM of
+   `ops/kernels/grouped_gemm.py`, against its plain version in bf16 and
+   fp32, forward, dgrad and wgrad, over one group, empty first, middle and
+   last groups, ragged sizes that are no tile multiples, Qwen3-30B-A3B's
+   decode (64 rows over 128 groups) and training (32768 rows over 128,
+   gate and down projections) layouts, sparsemixer's (top-2 over 16
+   experts at Phi-3.5-MoE's widths) and the bucketed path's (128 equal
+   groups): the per-element limits of `bench_grouped_gemm.check`, two
+   launches bit-equal, an empty group's weight gradient zero; (b)
+   Qwen3-30B-A3B from its preset (hidden 2048, 32 q and 4 kv heads of 128
+   with qk-norms, 128 experts of 768, 8 a token; random bf16 weights from
+   seed 0): serving at 8 layers (16 greedy requests of 256-2048 + 64; K4 8
+   times a decode step, G1's forward 24 times a model call, the plain
+   decode path, G1's plain version and the dense impl never); at 2 layers
+   one decode step and the loss and gradients of one packed 2048-token row
+   through K4 / K1-K3 and G1 in bf16 against the plain path (G1's plain
+   version) in bf16 and the exact dense impl in fp32 (phase 6's and phase
+   9's rules), the plain and fp32 paths routed as the kernel path routed
+   (the tokens whose own top-k differed are printed); a 3-step CLM fit at
+   4 layers of one packed 4096-token row (fp32 parameters, bf16 compute,
+   selective recompute, AdamW, the aux loss on, health on the last step:
+   `health/moe/*` finite; K1-K3 once a layer a step, G1's forward twice
+   (the recompute), dgrad and wgrad once, three a layer a step; step p50,
+   MFU over the active parameters beside the estimator's over all of
+   them, peak memory); (c) G1 timed (cold L2) at Qwen3-30B-A3B's training
+   and decode shapes and Mixtral-8x7B's beside its bound, the plain
+   version and `torch._grouped_mm` (the yardstick; the port never calls
+   it). Each leg prints its seconds.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
@@ -394,7 +422,9 @@ lines of their own, at Gemma-2-9B's (phase 22), then one `{"kernels":
 [...]}` line for the port's path (K1-K3 times at phase 20's shape,
 launches of phases 19e, 20, 21 and 22; K4 launched by 19e's and 22's
 serving and phase 18d's replicas, timed at phase 7's Llama-3.1-8B serving
-shape, whose heads are Qwen3-8B's), the card's name
+shape, whose heads are Qwen3-8B's; phase 23's K1-K3 and K4 launches added;
+G1's three directions launched by phase 23's serving and fit, timed at
+Qwen3-30B-A3B's training shape), the card's name
 and power limit, and as its last line `{"ok": true, "device": {...}}`.
 Phase 19e and what it costs were bought back, with room for slower hosts,
 by cutting depths (phase 13 from 8 to 4 layers, phase 14's runs beside
@@ -1061,9 +1091,15 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     from llm_training_tpu_torch.models.base import PagedDecodeState
     from llm_training_tpu_torch.ops import paged_attention as ops_pa
 
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
     kw = {"num_hidden_layers": 2, **fields}
     model_cls, config = preset_model(name, **kw)
     layers = config.num_hidden_layers
+    # an MoE model: G1 on the kernel path, its plain version on the plain
+    # path, the exact dense impl in fp32
+    moe_layers = layers if getattr(config, "num_experts", None) else 0
+    truth = {"moe_impl": "dense"} if moe_layers else {}
     model = model_cls(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     model.eval()
@@ -1084,7 +1120,7 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     pool_v = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     tokens = torch.randint(0, config.vocab_size, (8, 1), generator=gen, device="cuda")
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    logits, calls = {}, []
+    logits, calls, routes = {}, [], {}
     real = ops_pa.paged_decode_attention
 
     def recorded(*args, **kwargs):
@@ -1100,20 +1136,30 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
                 if path == "fp32":
                     weights = model.state_dict()
                     model = model_cls(preset_model(name, **kw, compute_dtype="float32",
-                                                   param_dtype="float32")[1], device="cuda")
+                                                   param_dtype="float32", **truth)[1],
+                                      device="cuda")
                     model.load_state_dict(weights)
                     del weights
                 dtype = next(model.parameters()).dtype
                 before = kernels.paged_decode_attention.launches
+                g1_before = gg.grouped_gemm_fwd.launches
                 state = PagedDecodeState(
                     k=pool_k.to(dtype), v=pool_v.to(dtype), block_tables=tables.cuda(),
                     lengths=lens,
                 )
-                out = model(tokens, position_ids=lens[:, None].long(), decode_state=state,
-                            paged_impl=impl)
+                plain_g1 = plain_grouped_gemm() if path == "plain" else contextlib.nullcontext()
+                routing = (moe_routing(routes.get("kernel")) if moe_layers
+                           else contextlib.nullcontext({}))
+                with plain_g1, routing as routed:
+                    out = model(tokens, position_ids=lens[:, None].long(), decode_state=state,
+                                paged_impl=impl)
+                routes[path] = routed.get("record") or routed.get("flips")
                 logits[path] = out.logits.float()
                 ran = kernels.paged_decode_attention.launches - before
                 check(ran == (layers if impl == "auto" else 0), f"{label}: {path} ran {ran} kernels")
+                g1 = gg.grouped_gemm_fwd.launches - g1_before
+                check(g1 == (3 * moe_layers if impl == "auto" else 0),
+                      f"{label}: {path} launched G1 {g1} times")
     finally:
         ops_pa.paged_decode_attention = real
     torch.cuda.synchronize()
@@ -1132,12 +1178,15 @@ def decode_parity(kernels, label: str, name: str, **fields) -> dict:
     check(kernel_vs_fp32 <= 1.5 * plain_vs_fp32,
           f"{label}: kernel is further from fp32 ({kernel_vs_fp32}) than the "
           f"plain bf16 path ({plain_vs_fp32})")
+    flips = ({path: routes[path] for path in ("plain", "fp32")} if moe_layers else {})
     print(f"{label}: {layers}-layer {name} decode step, bf16 logits max abs err kernel vs "
           f"plain {err:.3e} (tolerance {ENGINE_LOGITS_RTOL} x |logits| {scale:.3f}); vs fp32: "
-          f"kernel {kernel_vs_fp32:.3e}, plain {plain_vs_fp32:.3e}", flush=True)
+          f"kernel {kernel_vs_fp32:.3e}, plain {plain_vs_fp32:.3e}"
+          + (f"; routed as the kernel path (tokens whose own top-k differed over the layers: "
+             f"{flips})" if moe_layers else ""), flush=True)
     del model, pool_k, pool_v
     return dict(kernel_vs_plain=err, kernel_vs_fp32=kernel_vs_fp32, plain_vs_fp32=plain_vs_fp32,
-                logit_scale=scale, k4_calls=calls)
+                logit_scale=scale, k4_calls=calls, routing_flips=flips)
 
 
 def phase_timing(kernels, card: str) -> dict:
@@ -1562,14 +1611,20 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
     from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
     from llm_training_tpu_torch.ops.kernels import flash_attention as fa
 
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
     kw = {"num_hidden_layers": 2, "param_dtype": "float32", **fields}
     model_cls, config = preset_model(name, **kw)
     layers = config.num_hidden_layers
+    # an MoE model: G1 on the kernel path, its plain version on the plain
+    # path, the exact dense impl in fp32
+    moe_layers = layers if getattr(config, "num_experts", None) else 0
+    truth = {"moe_impl": "dense"} if moe_layers else {}
     model = model_cls(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
-    results, calls = {}, []
+    results, calls, routes = {}, [], {}
     real = fa.flash_attention
 
     def recorded(*args, **kwargs):
@@ -1581,19 +1636,28 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
         for path, impl in (("kernel", "auto"), ("plain", "torch"), ("fp32", "torch")):
             if path == "fp32":
                 weights = model.state_dict()
-                model = model_cls(preset_model(name, compute_dtype="float32", **kw)[1],
+                model = model_cls(preset_model(name, compute_dtype="float32", **kw, **truth)[1],
                                   device="cuda")
                 model.load_state_dict(weights)
                 del weights
             model.config.attention_impl = impl
             before = sum(launcher.launches for launcher in launchers)
+            g1_before = [launcher.launches for launcher in gg.LAUNCHERS]
             model.zero_grad(set_to_none=True)
-            loss = CLM(CLMConfig(), model=model).loss_and_metrics(batch, train=False)[0]
-            loss.backward()
+            routing = (moe_routing(routes.get("kernel")) if moe_layers
+                       else contextlib.nullcontext({}))
+            with plain_grouped_gemm() if path == "plain" else contextlib.nullcontext(), \
+                    routing as routed:
+                loss = CLM(CLMConfig(), model=model).loss_and_metrics(batch, train=False)[0]
+                loss.backward()
+            routes[path] = routed.get("record") or routed.get("flips")
             torch.cuda.synchronize()
             ran = sum(launcher.launches for launcher in launchers) - before
             check(ran == (3 * layers if path == "kernel" else 0),
                   f"{label}: {path} ran {ran} flash kernels")
+            g1 = [launcher.launches - b for launcher, b in zip(gg.LAUNCHERS, g1_before)]
+            want = [3 * moe_layers if path == "kernel" else 0] * 3
+            check(g1 == want, f"{label}: {path} launched G1 {g1}, expected {want}")
             params = dict(model.named_parameters())
             results[path] = dict(loss=float(loss.detach()),
                                  **{n: params[n].grad.float() for n in names})
@@ -1617,10 +1681,14 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
     print(f"{label}: {layers}-layer {name}, {width[0]} x {width[1]} packed tokens, vs fp32 (loss: "
           "|error|, grads: max error over max|fp32|): " + "; ".join(
               f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
-              f"{errors['plain'][key]:.3e}" for key in errors["kernel"]), flush=True)
+              f"{errors['plain'][key]:.3e}" for key in errors["kernel"])
+          + (f"; routed as the kernel path (tokens whose own top-k differed over the layers: "
+             f"{ {p: routes[p] for p in ('plain', 'fp32')} })" if moe_layers else ""),
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(errors=errors, k1_calls=calls, loss=truth["loss"])
+    return dict(errors=errors, k1_calls=calls, loss=truth["loss"],
+                routing_flips={p: routes[p] for p in ("plain", "fp32")} if moe_layers else {})
 
 
 def phase_flash_timing(card: str) -> dict:
@@ -5583,6 +5651,92 @@ def count_plain_decode():
         ops_pa._gather_attention = real
 
 
+@contextlib.contextmanager
+def count_plain_moe():
+    """Count calls of the MoE block's plain paths on the card: G1's plain
+    version (any of its three directions) and the dense impl."""
+    from llm_training_tpu_torch.models import moe
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    calls = [0, 0]
+    names = ("grouped_gemm_fwd_torch", "grouped_gemm_dgrad_torch", "grouped_gemm_wgrad_torch")
+    real = {name: getattr(gg, name) for name in names}
+    real_apply = moe.dropless_moe_apply
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def apply(x, topk_idx, topk_weights, num_experts, impl, *args, **kwargs):
+        calls[1] += impl == "dense" or (impl == "auto" and x.device.type != "cuda")
+        return real_apply(x, topk_idx, topk_weights, num_experts, impl, *args, **kwargs)
+
+    for name in names:
+        setattr(gg, name, counted(real[name]))
+    moe.dropless_moe_apply = apply
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(gg, name, real[name])
+        moe.dropless_moe_apply = real_apply
+
+
+@contextlib.contextmanager
+def moe_routing(replay: list | None = None):
+    """Record the MoE layers' top-k choices in call order (`replay` None),
+    or replay recorded ones: each layer still computes its own top-k, which
+    is counted where its set differs from the recorded one (`flips`, in
+    tokens), then takes the recorded experts with its own probabilities.
+    The parity legs route the plain and fp32 paths as the kernel path
+    routed: a near-tie between a token's 8th and 9th expert flips on bf16
+    noise, which moves that token's output by a whole expert and is no
+    kernel's error."""
+    from llm_training_tpu_torch.models import moe
+
+    real = moe.torch
+    state = {"record": [], "flips": 0, "calls": 0}
+
+    class Routed:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def topk(probs, k, dim=-1):
+            values, idx = real.topk(probs, k, dim)
+            if replay is None:
+                state["record"].append(idx)
+                return values, idx
+            want = replay[state["calls"]]
+            state["calls"] += 1
+            same = (idx.sort(-1).values == want.sort(-1).values).all(-1)
+            state["flips"] += int((~same).sum())
+            return probs.gather(dim, want), want
+
+    moe.torch = Routed()
+    try:
+        yield state
+    finally:
+        moe.torch = real
+
+
+@contextlib.contextmanager
+def plain_grouped_gemm():
+    """The MoE block's ragged impl through G1's plain version (autograd
+    through the slices' matmuls) instead of the kernel: the plain path of
+    the parity legs."""
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    real = gg.grouped_gemm
+    gg.grouped_gemm = gg.grouped_gemm_fwd_torch
+    try:
+        yield
+    finally:
+        gg.grouped_gemm = real
+
+
 def hf_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.glob("*.safetensors"))
 
@@ -5677,6 +5831,7 @@ def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: i
     `rng`): all complete, the pool ends leak-free, the logits finite, K4 one
     launch a layer a decode step and the plain decode path never; then the
     decode profile."""
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
     from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
     from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 
@@ -5700,8 +5855,10 @@ def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: i
     requests = [{"id": f"h{i}", "prompt": rng.integers(0, vocab, n).tolist(),
                  "max_new_tokens": new} for i, n in enumerate(lens)]
     events: list[dict] = []
-    with count_plain_decode() as plain:
+    with count_plain_decode() as plain, count_plain_moe() as plain_moe:
         kernels.paged_decode_attention.launches = 0
+        for launcher in gg.LAUNCHERS:
+            launcher.launches = 0
         t_run = time.perf_counter()
         for request in requests:
             events.extend(engine.submit(**request))
@@ -5711,6 +5868,7 @@ def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: i
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_run
         launches = kernels.paged_decode_attention.launches
+        g1 = [launcher.launches for launcher in gg.LAUNCHERS]
     done = {e["id"]: e for e in events if e["type"] == "done"}
     stats = engine.stats()
     layers = model.config.num_hidden_layers
@@ -5723,8 +5881,15 @@ def serve_leg(card: str, label: str, what: str, model, serve: dict, lens, new: i
     check(launches == layers * engine.decode_steps and launches > 0 and plain[0] == 0,
           f"{label}: {launches} K4 launches for {engine.decode_steps} decode steps x {layers} "
           f"layers; {plain[0]} plain decode calls")
+    # an MoE model: G1 three times a layer every model call (decode steps
+    # and prefill chunks), never its plain version or the dense impl
+    moe_layers = layers if getattr(model.config, "num_experts", None) else 0
+    calls = engine.decode_steps + engine.prefill_chunks
+    check(g1 == [3 * moe_layers * calls, 0, 0] and plain_moe == [0, 0],
+          f"{label}: G1 launched {g1} (expected {[3 * moe_layers * calls, 0, 0]}); plain "
+          f"grouped GEMM / dense MoE calls {plain_moe}")
     out = dict(
-        launches=launches,
+        launches=launches, g1_launches=dict(zip(("fwd", "dgrad", "wgrad"), g1)),
         decode_steps=engine.decode_steps, launches_per_step=launches / engine.decode_steps,
         plain_decode_calls=plain[0], prefill_chunks=engine.prefill_chunks, wall_s=wall,
         tokens_per_s=stats["serve/tokens_generated"] / wall,
@@ -7371,6 +7536,269 @@ def silu_turns(card: str) -> dict:
     return dict(p50_ms=p50, share=share, times=turns.times)
 
 
+MOE_PRESET = "qwen3-30b-a3b"
+MOE_SERVE_LAYERS = 8  # the 48 layers cut to 8 (5.6 B parameters, 11.2 GB in bf16)
+MOE_SERVE = dict(max_batch=8, max_model_len=2048 + 64, block_size=16, prefill_chunk=512)
+MOE_REQUESTS = 16
+MOE_PROMPTS = (256, 2048)  # prompt lengths, inclusive
+MOE_NEW = 64
+MOE_PARITY_SEQ = 2048  # the fp32 dense truth holds [T, E, H] expert outputs
+MOE_FIT_LAYERS = 4  # 3.1 B parameters: ~50 GB of fp32 parameters, gradients and AdamW state
+MOE_FIT_STEPS = 3
+MOE_FIT_ROWS = 1
+MOE_FIT_SEQ = 4096
+MOE_MAX_DOC = 4000
+MOE_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=0)
+MOE_PARITY_NAMES = ("model.layers.0.mlp.experts_gate_proj", "model.layers.1.mlp.experts_down_proj",
+                    "model.layers.0.mlp.gate.weight", "model.layers.1.self_attn.k_proj.weight",
+                    "model.embed_tokens.weight")
+G1_NAMES = ("grouped_gemm_fwd", "grouped_gemm_dgrad", "grouped_gemm_wgrad")
+G1_SOURCE = CSRC + "grouped_gemm.cu"
+# not a TPU kernel: XLA's ragged_dot, which the MoE block calls there
+G1_REPLACES = "llm_training_tpu/models/moe.py:429"
+
+
+def moe_kernel_parity(card: str) -> dict:
+    """23a: G1's forward, dgrad and wgrad against their plain versions in
+    bf16 and fp32 over `bench_grouped_gemm.layouts()` (one group; empty
+    first, middle and last groups; ragged sizes; the decode, training,
+    sparsemixer and bucketed shapes), each twice for identical bits."""
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    out = {}
+    for name, (sizes, k, n) in bench.layouts().items():
+        for dtype in (torch.bfloat16, torch.float32):
+            case = bench.make_case(sizes, k, n, dtype, seed=23)
+            for op in bench.OPS:
+                err = bench.check(case, op)
+                check(err["ok"], f"G1 parity {name} {dtype} {op}: {err}")
+                out[f"{name} {str(dtype)[6:]} {op}"] = err
+            del case
+    worst = max(v["vs_fp32_share"] for v in out.values())
+    print(f"moe kernel parity [{card}]: G1 fwd/dgrad/wgrad against the plain version in bf16 and "
+          f"fp32 over {len(bench.layouts())} layouts ({', '.join(bench.layouts())}): all within "
+          f"their limits (largest share of the limit {worst:.3f}), every pair of launches "
+          "bit-equal, empty groups' weight gradients zero", flush=True)
+    release()
+    return out
+
+
+def moe_serve(card: str) -> dict:
+    """23b serving: Qwen3-30B-A3B at 8 layers, random bf16 weights from seed
+    0, 16 greedy requests of 256-2048 + 64 tokens through K4 (8 a decode
+    step) and G1 (24 a model call), the plain and dense paths never."""
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.models.llama.model import Llama
+
+    config = preset(MOE_PRESET, num_hidden_layers=MOE_SERVE_LAYERS)
+    model = Llama(config, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(230)
+    lens = rng.integers(MOE_PROMPTS[0], MOE_PROMPTS[1] + 1, size=MOE_REQUESTS)
+    out = serve_leg(card, "moe serve", f"{MOE_PRESET} x {MOE_SERVE_LAYERS} layers", model.eval(),
+                    MOE_SERVE, lens, MOE_NEW, rng)
+    del model
+    release()
+    return out
+
+
+def moe_fit(card: str) -> dict:
+    """23b fit: the CLM `Trainer` on Qwen3-30B-A3B at 4 layers (fp32
+    parameters, bf16 compute, selective recompute, AdamW), 3 steps of one
+    packed 4096-token row, the aux loss on and health on the last step:
+    K1-K3 once a layer a step, G1's forward twice (the recompute) and its
+    dgrad and wgrad once, three a layer a step, the plain and dense paths
+    never. MFU counts 6 x the active matmul parameters a token (the router
+    and 8 of the 128 experts, attention, the head) and 12 D a visible
+    pair a head a layer; beside it the estimator's (JAX's
+    `transformer_step_flops`: every parameter)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.callbacks.time_estimator import transformer_step_flops
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.llama.config import preset
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.telemetry import HealthConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = preset(MOE_PRESET, num_hidden_layers=MOE_FIT_LAYERS, param_dtype="float32",
+                    enable_gradient_checkpointing=True, recompute_granularity="selective")
+    rows = packed_batches(23, MOE_FIT_SEQ, MOE_FIT_ROWS * MOE_FIT_STEPS, config.vocab_size,
+                          max_doc=MOE_MAX_DOC)
+    batches = [{k: np.concatenate([r[k] for r in rows[i:i + MOE_FIT_ROWS]])
+                for k in rows[0]} for i in range(0, len(rows), MOE_FIT_ROWS)]
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.aux, self.t = [], [], [], None
+
+        def on_fit_start(self, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+            self.aux.append(metrics["aux_loss"])
+
+    clock = Clock()
+    trainer = Trainer(TrainerConfig(max_steps=MOE_FIT_STEPS, seed=0, log_every_n_steps=1,
+                                    health=HealthConfig(every_n_steps=MOE_FIT_STEPS)),
+                      callbacks=[clock], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("Llama", asdict(config)),
+                              optim=OptimConfig(**MOE_OPTIM)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain, count_plain_moe() as plain_moe:
+        for launcher in launchers + gg.LAUNCHERS:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+        g1 = [launcher.launches for launcher in gg.LAUNCHERS]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, aux = clock.losses, clock.aux
+    ln_v = math.log(config.vocab_size)
+    check(len(losses) == MOE_FIT_STEPS and all(math.isfinite(x) for x in losses + aux)
+          and abs(losses[0] - config.router_aux_loss_coef * aux[0] - ln_v) <= OPT_LN_V_ATOL,
+          f"moe fit: losses {losses}, aux {aux} (step 1's cross entropy near ln V {ln_v:.4f})")
+    want = [MOE_FIT_LAYERS * MOE_FIT_STEPS] * 3
+    want_g1 = [6 * MOE_FIT_LAYERS * MOE_FIT_STEPS] + [3 * MOE_FIT_LAYERS * MOE_FIT_STEPS] * 2
+    check(launches == want and plain[0] == 0 and g1 == want_g1 and plain_moe == [0, 0],
+          f"moe fit: K1/K2/K3 launched {launches} (expected {want}), G1 {g1} (expected "
+          f"{want_g1}); plain attention {plain[0]}, plain grouped GEMM / dense {plain_moe}")
+    health = {k: v for k, v in (trainer.last_health or {}).items() if k.startswith("health/moe/")}
+    check(len(health) == 4 * MOE_FIT_LAYERS + 2 and all(math.isfinite(v) for v in health.values()),
+          f"moe fit: health/moe keys {sorted(health)}")
+    model = state.model
+    n_all = sum(p.numel() for p in model.parameters())
+    embed = model.model.embed_tokens.weight.numel()
+    experts = sum(p.numel() for n, p in model.named_parameters() if "experts_" in n)
+    active = n_all - embed - experts + experts * config.num_experts_per_tok // config.num_experts
+    flops, est_flops, tokens = [], [], []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        tokens.append(int((batch["segment_ids"] > 0).sum()))
+        flops.append(6 * active * tokens[-1] + 12 * config.resolved_head_dim
+                     * config.num_attention_heads * MOE_FIT_LAYERS
+                     * bench_flash.visible_pairs(seg, seg))
+        est_flops.append(transformer_step_flops(n_all, batch["input_ids"].size, MOE_FIT_LAYERS,
+                                                config.hidden_size, MOE_FIT_SEQ))
+    timed_s = clock.step_s[1:]  # step 1 carries the warm-up
+    out = dict(layers=MOE_FIT_LAYERS, steps=MOE_FIT_STEPS, losses=losses, aux_loss=aux,
+               tokens=tokens, params=n_all, active_matmul_params=active,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               g1_launches=dict(zip(("fwd", "dgrad", "wgrad"), g1)), plain_calls=plain[0],
+               health=health, step_ms=[1e3 * t for t in clock.step_s],
+               step_ms_p50=1e3 * percentile(timed_s, 50),
+               tokens_per_s=sum(tokens[1:]) / sum(timed_s),
+               mfu=sum(flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               estimator_mfu=sum(est_flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=peak_gb)
+    print(f"moe fit [{card}]: {MOE_PRESET} x {MOE_FIT_LAYERS} layers ({n_all} params, {active} "
+          f"active matmul a token), {MOE_FIT_STEPS} steps of {MOE_FIT_ROWS} x {MOE_FIT_SEQ} "
+          "packed tokens (AdamW, selective recompute, aux loss coef "
+          f"{config.router_aux_loss_coef}); losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; aux_loss " + ", ".join(f"{x:.4f}" for x in aux)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, G1 fwd {g1[0]} dgrad {g1[1]} "
+          f"wgrad {g1[2]}, plain paths {plain[0]} / {plain_moe}; router entropy layer 0 "
+          f"{health['health/moe/router_entropy/layer_00']:.4f}; step p50 "
+          f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.2f}% of 989 TFLOPS (6 x active params a token, 12 D a visible "
+          f"pair a head a layer; the estimator's, every parameter: "
+          f"{100 * out['estimator_mfu']:.2f}%), peak memory {peak_gb:.2f} GB", flush=True)
+    check(peak_gb <= 75, f"moe fit: peak memory {peak_gb:.2f} GB")
+
+    # where a step's time goes: one more step twice untraced (wall), then
+    # once traced
+    def step():
+        trainer.train_micro_step(objective, state, batches[0])
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    wall_ms = percentile(walls, 50)
+    busy_ms, kernels, by_name = device_profile(step, 1)
+    check_busy("moe fit profile", busy_ms, wall_ms)
+    g1_ms = sum(t for t, _, key in by_name if "row_tiled_kernel" in key or "wgrad_kernel" in key)
+    out.update(profile_busy_ms=busy_ms, profile_step_wall_ms=wall_ms, profile_kernels=kernels,
+               profile_idle_share=1 - busy_ms / wall_ms, profile_g1_ms=g1_ms / 1e3,
+               profile_top=[(key[:80], t / 1e3, n) for t, n, key in by_name[:10]])
+    print(f"moe fit profile [{card}]: one step: device busy {busy_ms:.1f} ms in {kernels:.0f} "
+          f"kernels; untraced wall p50 {wall_ms:.1f} ms; device idle share "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%; G1 {g1_ms / 1e3:.1f} ms; top: "
+          f"{top_kernels(by_name, 1, 10)}", flush=True)
+    del objective, state, trainer, model
+    release()
+    return out
+
+
+def moe_kernel_timing(card: str) -> dict:
+    """23c: G1 timed with CUDA events, cold L2, beside its bound, the plain
+    version and `torch._grouped_mm` (the yardstick) at Qwen3-30B-A3B's
+    training (fwd, dgrad, wgrad) and decode (fwd) shapes and Mixtral-8x7B's
+    (fwd, dgrad, wgrad)."""
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    out = {}
+    for name, (sizes, k, n, ops) in bench.timed_shapes().items():
+        for op in ops:
+            row = bench.time_case(sizes, k, n, op)
+            check(row["ok"], f"G1 timing {name} {op}: the kernel disagrees with its plain version")
+            out[f"{name} {op}"] = row
+            library = ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+            print(f"moe kernel timing [{card}]: {name} {op} ({row['rows']} rows over "
+                  f"{row['touched']} of {row['groups']} groups, K {k} N {n}, bf16): "
+                  f"{row['ms']:.4f} ms against a {row['bound_by']} bound of "
+                  f"{row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}%), plain "
+                  f"{row['plain_ms']:.4f} ms, torch._grouped_mm {library}"
+                  + (f" ({row['library_note']})" if row["library_note"] else ""), flush=True)
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """23: the MoE stack on Qwen3-30B-A3B (see the header), each leg timed."""
+    out = {}
+    for name, leg in (("kernels", moe_kernel_parity), ("serve", moe_serve)):
+        t0 = time.perf_counter()
+        out[name] = leg(card)
+        out[name + "_s"] = time.perf_counter() - t0
+    from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
+
+    t0 = time.perf_counter()
+    out["decode_parity"] = decode_parity(kernels, "moe decode parity", MOE_PRESET)
+    host = packed_batches(231, MOE_PARITY_SEQ, 1, 151936, max_doc=MOE_MAX_DOC // 2)[0]
+    out["parity"] = loss_grad_parity("moe train parity", MOE_PRESET, host, MOE_PARITY_NAMES)
+    out["parity_s"] = time.perf_counter() - t0
+    release()
+    for name, leg in (("fit", moe_fit), ("timing", moe_kernel_timing)):
+        t0 = time.perf_counter()
+        out[name] = leg(card)
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
 def start_pack_child() -> None:
     """Start phase 20's packers' process (stopped at exit if still running)."""
     import subprocess
@@ -7446,6 +7874,7 @@ def main() -> int:
     hf["round_trip"] = durability.pop("hf_round_trip")
     it = timed("20 instruction tuning", phase_instruction_tuning, card)
     gemma = timed("22 gemma", phase_gemma, card)
+    moe = timed("23 moe", phase_moe, card)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
     # last: its one-rank process group changes the checkpointer's path
@@ -7464,6 +7893,8 @@ def main() -> int:
     print(f"instruction tuning summary [{card}]: " + json.dumps(it))
     print(f"mesh summary [{card}]: " + json.dumps(mesh))
     print(f"gemma summary [{card}]: " + json.dumps(gemma))
+    # phase 23a's per-layout checks are summarised by its own line
+    print(f"moe summary [{card}]: " + json.dumps({k: v for k, v in moe.items() if k != "kernels"}))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"],
@@ -7501,12 +7932,26 @@ def main() -> int:
     print("kernels at Gemma-2-9B shapes (launches: phase 22): " + json.dumps(kernel_rows(
         gemma["kernels"]["k4"], gemma["serve"]["launches"], gemma["kernels"],
         gemma["fit"]["launches"])))
+    # phase 23's Qwen3-30B-A3B: G1 in its serving (8 layers) and its fit (4
+    # layers), timed at its training shape; K1-K3 in the fit, K4 serving
+    g1_launches = {op: moe["serve"]["g1_launches"][op] + moe["fit"]["g1_launches"][op]
+                   for op in ("fwd", "dgrad", "wgrad")}
+    g1_rows = [{"name": name, "route": "cuda", "source": G1_SOURCE, "replaces": G1_REPLACES,
+                "launches": g1_launches[op], **{
+                    key: moe["timing"][f"qwen3-30b-a3b training {op}"][key]
+                    for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}}
+               for name, op in zip(G1_NAMES, ("fwd", "dgrad", "wgrad"))]
+    print("phase 23 launches: " + json.dumps({
+        "k4": moe["serve"]["launches"], **moe["fit"]["launches"], "g1": g1_launches}))
     flash_launches = {kind: it["launches"][kind] + mesh["launches"][kind]
                       + qwen3["fit"]["launches"][kind] + gemma["fit"]["launches"][kind]
+                      + moe["fit"]["launches"][kind]
                       for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
         timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"]
-        + gemma["serve"]["launches"], it["kernels"], flash_launches)}))
+        + gemma["serve"]["launches"] + moe["serve"]["launches"], it["kernels"],
+        flash_launches) + g1_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

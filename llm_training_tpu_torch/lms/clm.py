@@ -4,8 +4,12 @@ Counterpart of `llm_training_tpu/lms/clm.py`: the label shift, masking of
 labels that would cross a packed document boundary or land on padding,
 NEFTune noise on the input embeddings during training, the fused-linear
 cross-entropy (full logits never materialise), and the metrics `loss`,
-`target_tokens` and `perplexity`; `head_and_bias`, the head of the fused
-objectives (CLM, DPO, ORPO).
+`target_tokens` and `perplexity`; for an MoE model the load-balancing loss
+(`router_aux_loss_coef * aux_loss` added to the loss, `aux_loss` and
+`ep_dropped_rows` reported, and with `with_health` the router's
+`health/moe/*` metrics; on a mesh the router statistics are pooled over
+the batch's ranks first, as JAX's are global); `head_and_bias`, the head of the fused objectives
+(CLM, DPO, ORPO).
 
 NEFTune draws its noise with `prng.uniform` under the key it is given, in
 the compute dtype, as the JAX CLM draws `jax.random.uniform`: the same key
@@ -21,8 +25,10 @@ import torch
 
 from llm_training_tpu_torch import prng
 from llm_training_tpu_torch.lms.base import BaseLMConfig, ModelProvider, SingleModelObjective
+from llm_training_tpu_torch.models.base import RouterStats
 from llm_training_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy, shift_labels
-from llm_training_tpu_torch.parallel.batch import batch_sum
+from llm_training_tpu_torch.parallel.batch import batch_group, batch_sum
+from llm_training_tpu_torch.telemetry.health import moe_router_health
 
 
 def head_and_bias(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -67,10 +73,12 @@ class CLM(SingleModelObjective):
         batch: dict[str, torch.Tensor],
         rng: prng.Key | None = None,
         train: bool = True,
+        with_health: bool = False,
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """batch: input_ids [B, S]; optional labels (pre-shift), segment_ids,
-        position_ids. `rng` is the step's key (NEFTune). Returns (mean loss
-        fp32, metrics)."""
+        position_ids. `rng` is the step's key (NEFTune). `with_health` (the
+        trainer's health steps) adds an MoE model's `health/moe/*` metrics.
+        Returns (mean loss fp32, metrics)."""
         cfg = self.config
         model = self.model
         input_ids = batch["input_ids"].long()
@@ -121,5 +129,38 @@ class CLM(SingleModelObjective):
         loss = batch_sum(total) / count.clamp_min(1).float()
         metrics = {"loss": loss.detach(), "target_tokens": count}
         if cfg.log_perplexity:
+            # the token-level cross entropy's only, never the MoE penalty's
             metrics["perplexity"] = torch.exp(loss.detach())
+        router, aux_loss = out.router_stats, out.aux_loss
+        if router is not None and batch_group() is not None:
+            router, aux_loss = _global_router_stats(router, segment_ids, input_ids,
+                                                    model.config.num_experts)
+        if aux_loss is not None:
+            # the model returns it unscaled; the coefficient is the config's
+            loss = loss + model.config.router_aux_loss_coef * aux_loss
+            metrics["aux_loss"] = aux_loss.detach()
+            metrics["loss"] = loss.detach()
+        if out.ep_dropped_rows is not None:
+            metrics["ep_dropped_rows"] = out.ep_dropped_rows.detach()
+        if with_health and router is not None:
+            health = moe_router_health(router, n_tokens=labels.shape[0] * labels.shape[1])
+            metrics.update({k: v.detach() for k, v in health.items()})
         return loss, metrics
+
+
+def _global_router_stats(router: RouterStats, segment_ids, input_ids,
+                         num_experts: int) -> tuple[RouterStats, torch.Tensor]:
+    """A mesh rank's router statistics pooled over the batch's ranks, each
+    weighted by its counted tokens (the model's pad mask: segment id > 0),
+    and the aux loss of the pooled ones: JAX computes both over the global
+    batch, and a mean of per-rank products would be another loss."""
+    if segment_ids is None:
+        counted = torch.tensor(float(input_ids.numel()), device=router.sel_frac.device)
+    else:
+        counted = (torch.as_tensor(segment_ids) > 0).sum().float().to(router.sel_frac.device)
+    total = batch_sum(counted).clamp_min(1.0)
+    sel_frac = batch_sum(router.sel_frac * counted) / total
+    mean_prob = batch_sum(router.mean_prob * counted) / total
+    aux_loss = num_experts * (sel_frac.mean(0) * mean_prob.mean(0)).sum()
+    return RouterStats(sel_frac=sel_frac, mean_prob=mean_prob,
+                       dropped=batch_sum(router.dropped), layer_ids=router.layer_ids), aux_loss

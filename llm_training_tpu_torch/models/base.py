@@ -2,8 +2,9 @@
 
 Counterpart of `llm_training_tpu/models/base.py`: `resolve_dtype`,
 `DecodeState` (the dense cache of `generate`), `PagedDecodeState` (the
-serving pool) and `CausalLMOutput`, with only the fields the inference,
-serving and training paths read.
+serving pool), `RouterStats` (an MoE model's per-layer router statistics)
+and `CausalLMOutput`, with the fields the inference, serving and training
+paths read.
 """
 
 from __future__ import annotations
@@ -91,10 +92,33 @@ class PagedDecodeState:
 
 
 @dataclass
+class RouterStats:
+    """Per-MoE-layer router statistics for the model-health layer
+    (`telemetry/health.py:moe_router_health`): `sel_frac [L, E]` (the share
+    of (token, slot) assignments each expert got, rows summing to ~top_k),
+    `mean_prob [L, E]` (the mean fp32 routing probability), `dropped` (the
+    scalar total of assignments lost to capacity buffers) and `layer_ids`,
+    the decoder-layer index of each row."""
+
+    sel_frac: torch.Tensor
+    mean_prob: torch.Tensor
+    dropped: torch.Tensor
+    layer_ids: tuple[int, ...] = ()
+
+
+@dataclass
 class CausalLMOutput:
     """`logits` is None when the caller asks for the hidden states only
-    (the fused-linear cross-entropy consumes the pre-head activations)."""
+    (the fused-linear cross-entropy consumes the pre-head activations).
+    `aux_loss` is an MoE model's unscaled load-balancing loss (the
+    objective applies `router_aux_loss_coef`), `ep_dropped_rows` the
+    (token, expert) assignments lost to capacity buffers, summed over
+    layers, and `router_stats` the per-layer statistics before pooling;
+    all three are None for a dense model."""
 
     logits: torch.Tensor | None = None
     last_hidden_states: torch.Tensor | None = None
+    aux_loss: torch.Tensor | None = None
+    ep_dropped_rows: torch.Tensor | None = None
+    router_stats: RouterStats | None = None
     decode_state: DecodeState | PagedDecodeState | None = None

@@ -5,9 +5,11 @@ the JAX package's (which are HF's), and every JAX field is accepted. The
 Llama graph's variants are ported: norm schemes and types, qk-norm, biases,
 partial and interleaved rotary, learned positions, per-layer windows and
 NoPE layers, the Granite multipliers and the non-gated MLPs (with Phi-3
-over the same stack, `models/phi3/`). The fields of the MoE stack (and of
-a mesh's pipeline) raise `NotImplementedError` when set to anything but
-the dense value, naming the ROADMAP queue that brings them.
+over the same stack, `models/phi3/`), and so is the MoE stack
+(`num_experts` and its fields, validated as JAX validates them: a config
+is all-MoE or all-dense). The fields of a mesh's pipeline raise
+`NotImplementedError` when set to anything but the one-device value,
+naming ROADMAP A.9b.
 `bos_token_id` and `pre_trained_weights` are carried as JAX carries them
 (`lms/base.py` loads the HF directory the latter names), and
 `attention_dropout` raises unless 0.0, as JAX's does.
@@ -24,23 +26,6 @@ import torch
 from llm_training_tpu_torch.models.base import resolve_dtype
 from llm_training_tpu_torch.ops.rope_utils import RoPEConfig, rope_config_from_hf
 
-# field -> the only value the port implements (JAX's default), for the
-# fields of the MoE stack (ROADMAP A.8)
-_DENSE_ONLY = {
-    "num_experts": None,
-    "num_experts_per_tok": 2,
-    "moe_intermediate_size": None,
-    "shared_expert_intermediate_size": None,
-    "shared_expert_gated": True,
-    "norm_topk_prob": True,
-    "moe_style": "qwen",
-    "moe_impl": "auto",
-    "moe_router_impl": "softmax",
-    "moe_capacity_factor": 1.25,
-    "ep_capacity_factor": 2.0,
-    "router_aux_loss_coef": 0.001,
-    "router_jitter_eps": 0.01,
-}
 # the choices of JAX's Literal fields
 _CHOICES = {
     "norm_scheme": ("pre", "post", "parallel", "parallel2", "sandwich"),
@@ -50,6 +35,9 @@ _CHOICES = {
     "qk_norm_scope": ("head", "full"),
     "qk_norm_position": ("pre_rope", "post_rope"),
     "position_embedding_type": ("rope", "learned"),
+    "moe_style": ("qwen", "mixtral", "granite"),
+    "moe_router_impl": ("softmax", "sparsemixer"),
+    "moe_impl": ("auto", "dense", "ragged", "bucketed"),
 }
 # the same for pipeline parallelism (ROADMAP A.9b)
 _ONE_DEVICE_ONLY = {
@@ -146,7 +134,9 @@ class LlamaConfig:
     fused_gate_up: bool = False
     # tanh-approximate gelu (exact for GPT-NeoX's 'gelu')
     gelu_approximate: bool = True
-    # the MoE stack (ROADMAP A.8): only the dense values
+    # the MoE stack (models/moe.py); None is dense. `moe_style` names the
+    # HF expert layout (qwen, mixtral, granite), `moe_impl` the dispatch
+    # ('auto': grouped GEMMs on CUDA, the exact dense path on the CPU)
     num_experts: int | None = None
     num_experts_per_tok: int = 2
     moe_intermediate_size: int | None = None
@@ -167,13 +157,12 @@ class LlamaConfig:
     def __post_init__(self):
         if self.attention_out_bias is None:
             self.attention_out_bias = self.attention_bias
-        for queue, only in (("A.8", _DENSE_ONLY), ("A.9b", _ONE_DEVICE_ONLY)):
-            for name, value in only.items():
-                if getattr(self, name) != value:
-                    raise NotImplementedError(
-                        f"{name}={getattr(self, name)!r} is not ported (only {value!r}; "
-                        f"ROADMAP {queue})"
-                    )
+        for name, value in _ONE_DEVICE_ONLY.items():
+            if getattr(self, name) != value:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported (only {value!r}; "
+                    "ROADMAP A.9b)"
+                )
         for name, choices in _CHOICES.items():
             if getattr(self, name) not in choices:
                 raise ValueError(f"{name} must be one of {choices}, got {getattr(self, name)!r}")
@@ -185,6 +174,24 @@ class LlamaConfig:
                 f"num_attention_heads ({self.num_attention_heads}) must be divisible "
                 f"by num_key_value_heads ({self.num_key_value_heads})"
             )
+        if self.num_experts is not None:
+            if self.mlp_type != "swiglu":
+                raise ValueError("MoE layers only support the swiglu mlp_type")
+            if (self.moe_style == "granite" and self.shared_expert_intermediate_size
+                    and self.shared_expert_gated):
+                # the granite layout has no gate tensor: export would drop it
+                raise ValueError(
+                    "moe_style='granite' shared experts are always-on; set "
+                    "shared_expert_gated=False (granitemoeshared has no "
+                    "shared gate parameter)"
+                )
+            if self.moe_intermediate_size is None:
+                raise ValueError("num_experts requires moe_intermediate_size")
+            if not 0 < self.num_experts_per_tok <= self.num_experts:
+                raise ValueError(
+                    f"num_experts_per_tok ({self.num_experts_per_tok}) must be "
+                    f"in [1, num_experts={self.num_experts}]"
+                )
         if self.recompute_granularity not in ("full", "selective"):
             raise ValueError(
                 f"recompute_granularity must be 'full' or 'selective', got "
@@ -335,6 +342,34 @@ PRESETS: dict[str, dict[str, Any]] = {
         qk_norm=True,
         qk_norm_scope="head",
         attention_bias=False,
+        bos_token_id=151643,
+        eos_token_id=151645,
+        tie_word_embeddings=False,
+        compute_dtype="bfloat16",
+        param_dtype="bfloat16",
+    ),
+    # the config.json of huggingface.co/Qwen/Qwen3-30B-A3B: 128 experts of
+    # width 768, 8 a token (renormalised), per-head qk-norm, untied
+    "qwen3-30b-a3b": dict(
+        vocab_size=151936,
+        hidden_size=2048,
+        intermediate_size=6144,
+        num_hidden_layers=48,
+        num_attention_heads=32,
+        num_key_value_heads=4,
+        head_dim=128,
+        max_position_embeddings=40960,
+        rms_norm_eps=1e-6,
+        rope_theta=1000000.0,
+        rope_scaling=None,
+        qk_norm=True,
+        qk_norm_scope="head",
+        attention_bias=False,
+        num_experts=128,
+        num_experts_per_tok=8,
+        moe_intermediate_size=768,
+        norm_topk_prob=True,
+        router_aux_loss_coef=0.001,
         bos_token_id=151643,
         eos_token_id=151645,
         tie_word_embeddings=False,

@@ -8,7 +8,8 @@ them from the device first). Every JAX layout is read: scanned
 (`layers/sliding/...` holding the even layers, `layers/full/...` the odd
 ones, each `[L/2, ...]`). The port's names are the same for both families
 (HF's); `parameter_names` builds the config's own model to list them. Flax `Dense.kernel [in, out]` becomes torch
-`weight [out, in]`. `train_state_dict_from_jax` maps a training state
+`weight [out, in]` (an MoE block's router `mlp/gate` too); the expert
+stacks and the shared expert keep JAX's layout. `train_state_dict_from_jax` maps a training state
 (params, optax's moments and count -- adam's, lion's and adafactor's, as
 stored by an offloaded run too -- `MultiSteps`' accumulator, the key and
 the step) onto the port's `TrainState.state_dict()`, so a run started in
@@ -34,12 +35,17 @@ from llm_training_tpu_torch.models.llama.config import LlamaConfig
 # and the attention's qk-norms), by their parent module
 _DENSE = {
     "self_attn": ("q_proj", "k_proj", "v_proj", "o_proj"),
-    "mlp": ("gate_proj", "up_proj", "down_proj", "c_fc", "c_proj"),
+    # `gate` is an MoE block's router
+    "mlp": ("gate_proj", "up_proj", "down_proj", "c_fc", "c_proj", "gate"),
 }
 _NORMS = ("input_layernorm", "post_attention_layernorm", "post_feedforward_layernorm",
           "post_self_attn_layernorm", "post_mlp_layernorm", "pre_feedforward_layernorm")
 _QK_NORMS = ("q_norm", "k_norm")
 _XIELU = ("xielu_alpha_p", "xielu_alpha_n")
+# an MoE block's raw parameters, in JAX's layout (not transposed): the
+# expert stacks and the shared expert
+_MOE_PARAMS = ("experts_gate_proj", "experts_up_proj", "experts_down_proj", "shared_gate_proj",
+              "shared_up_proj", "shared_down_proj", "shared_expert_gate")
 # outside the layers: the port's name -> the keys below `params`
 _TOP = {
     "model.embed_tokens.weight": ("embed_tokens", "embedding"),
@@ -81,7 +87,7 @@ def _layer_keys(keys: list[str]) -> tuple[str, ...] | None:
     if len(keys) == 3 and keys[0] == "self_attn" and keys[1] in _QK_NORMS and keys[2] == "weight":
         return tuple(keys)
     if len(keys) == 2 and (keys[0] in _NORMS and keys[1] in ("weight", "bias")
-                           or keys[0] == "mlp" and keys[1] in _XIELU):
+                           or keys[0] == "mlp" and keys[1] in _XIELU + _MOE_PARAMS):
         return tuple(keys)
     return None
 

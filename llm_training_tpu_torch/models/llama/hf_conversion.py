@@ -17,17 +17,23 @@ translated as JAX translates them:
 - `params_from_hf` reads layers `0..num_hidden_layers-1` (a deeper
   checkpoint gives its first layers, as in JAX) and hands each tensor to
   `leaf_fn` before it reads the next; `params_to_hf` writes JAX's key set
-  in JAX's order.
+  in JAX's order;
+- the MoE types' experts: per-expert matrices (qwen's `mlp.experts.{e}.
+  gate_proj`, mixtral's `block_sparse_moe.experts.{e}.w1/w3/w2`) stacked
+  into the port's `[E, H, I]` / `[E, I, H]` parameters, granite's
+  pre-stacked, gate|up-fused `input_linear` split, and the shared expert
+  (qwen2_moe's gated `shared_expert`, granitemoeshared's `shared_mlp`).
 
 `config_from_hf` maps every HF `model_type` to the field values JAX's does
 (`config_fields_from_hf`, the whole mapping; the port's `LlamaConfig`
-refuses the MoE types, naming ROADMAP A.8). `config_to_hf` refuses what no
+runs all of them). `config_to_hf` refuses what no
 HF architecture represents (`_check_exportable`, JAX's refusals) and
 writes JAX's overlays: `llama`, `mistral`, `qwen2`, `qwen3`, `olmo`,
 `olmo2`, `olmo3`, `exaone4`, `glm`, `glm4`, `ernie4_5`, `cohere`,
 `cohere2`, `phi`, `hunyuan_v1_dense`, `nemotron`, `arcee`, `ministral`,
 `starcoder2`, `gpt_neox`, `apertus`, `stablelm`, `smollm3`, `granite` and
-`gpt2` (JAX's MoE overlays come with the MoE stack).
+`gpt2`, and the MoE overlays (`mixtral`, `phimoe`, `granitemoe`,
+`granitemoeshared`, `qwen2_moe`, `qwen3_moe`, `olmoe`, `flex_olmo`).
 """
 
 from __future__ import annotations
@@ -81,7 +87,10 @@ def _layer_params(config: LlamaConfig) -> list[tuple[str, str]]:
     matmuls = list(_MATMULS)
     if config.fused_gate_up:
         matmuls = [p for p in matmuls if "gate_proj" not in p[0] and "up_proj" not in p[0]]
-    if config.mlp_type == "gelu":
+    if config.num_experts:
+        # MoE layers have no dense MLP: `_moe_from_hf` / `_moe_to_hf_keys`
+        matmuls = [p for p in matmuls if not p[0].startswith("mlp.")]
+    elif config.mlp_type == "gelu":
         matmuls = [p for p in matmuls if not p[0].startswith("mlp.")] + _GELU_MLP
     elif config.mlp_type == "relu2":
         matmuls = [p for p in matmuls if "gate_proj" not in p[0]]
@@ -107,7 +116,7 @@ def _layer_params(config: LlamaConfig) -> list[tuple[str, str]]:
         extra += _O_BIAS
     if config.qk_norm:
         extra += _QK_NORMS_HUNYUAN if config.qk_norm_position == "post_rope" else _QK_NORMS
-    if config.mlp_bias:
+    if config.mlp_bias and not config.num_experts:
         # JAX's conversion lists the gelu MLP's only (ROADMAP C.41)
         projections = {"gelu": ("c_fc", "c_proj"),
                        "swiglu": ("gate_proj", "up_proj", "down_proj")}.get(
@@ -229,6 +238,80 @@ def _gpt2_from_hf(state_dict: Mapping[str, Any], config: LlamaConfig, put) -> No
             put(f"{p}{ours}.bias", get(f"{h}{hf}.bias"))
 
 
+# the port's expert stack -> HF's per-expert module name, by moe_style
+_MOE_EXPERT_NAMES = {
+    "qwen": ("mlp", {"gate_proj": "gate_proj", "up_proj": "up_proj", "down_proj": "down_proj"}),
+    "mixtral": ("block_sparse_moe", {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}),
+}
+_MOE_SHARED = ("gate_proj", "up_proj", "down_proj")
+
+
+def _moe_from_hf(sd: Mapping[str, Any], config: LlamaConfig, i: int, put) -> None:
+    """Layer i's MoE block from HF's keys (canonical, no `model.`): the
+    router, the expert stacks (`[E, in, out]`: each HF `[out, in]` matrix
+    transposed and stacked) and the shared expert (JAX's `[in, out]`)."""
+    p = f"model.layers.{i}.mlp."
+    inter = config.moe_intermediate_size
+    si = config.shared_expert_intermediate_size
+    if config.moe_style == "granite":
+        # granite stacks its experts already and fuses gate|up (gate rows first)
+        moe = f"layers.{i}.block_sparse_moe."
+        put(p + "gate.weight", sd[moe + "router.layer.weight"])
+        fused = sd[moe + "input_linear.weight"]  # [E, 2I, H]
+        put(p + "experts_gate_proj", fused[:, :inter].transpose(1, 2).contiguous())
+        put(p + "experts_up_proj", fused[:, inter:].transpose(1, 2).contiguous())
+        del fused
+        put(p + "experts_down_proj",
+            sd[moe + "output_linear.weight"].transpose(1, 2).contiguous())  # [E, H, I]
+        if si:
+            shared = sd[f"layers.{i}.shared_mlp.input_linear.weight"]  # [2si, H]
+            put(p + "shared_gate_proj", shared[:si].t().contiguous())
+            put(p + "shared_up_proj", shared[si:].t().contiguous())
+            put(p + "shared_down_proj",
+                sd[f"layers.{i}.shared_mlp.output_linear.weight"].t().contiguous())
+        return
+    prefix, names = _MOE_EXPERT_NAMES[config.moe_style]
+    put(p + "gate.weight", sd[f"layers.{i}.{prefix}.gate.weight"])
+    for ours, hf in names.items():
+        put(p + f"experts_{ours}", torch.stack([
+            sd[f"layers.{i}.{prefix}.experts.{e}.{hf}.weight"].t()
+            for e in range(config.num_experts)]))
+    if si:
+        for ours in _MOE_SHARED:
+            put(p + f"shared_{ours}",
+                sd[f"layers.{i}.mlp.shared_expert.{ours}.weight"].t().contiguous())
+        put(p + "shared_expert_gate", sd[f"layers.{i}.mlp.shared_expert_gate.weight"].t().contiguous())
+
+
+def _moe_to_hf_keys(params: Mapping[str, torch.Tensor], config: LlamaConfig, i: int,
+                    out: dict) -> None:
+    """The inverse of `_moe_from_hf` for layer i, in JAX's key order."""
+    p, h = f"model.layers.{i}.mlp.", f"model.layers.{i}."
+    si = config.shared_expert_intermediate_size
+    if config.moe_style == "granite":
+        out[h + "block_sparse_moe.router.layer.weight"] = params[p + "gate.weight"]
+        out[h + "block_sparse_moe.input_linear.weight"] = torch.cat(
+            [params[p + "experts_gate_proj"].transpose(1, 2),
+             params[p + "experts_up_proj"].transpose(1, 2)], 1)
+        out[h + "block_sparse_moe.output_linear.weight"] = (
+            params[p + "experts_down_proj"].transpose(1, 2))
+        if si:
+            out[h + "shared_mlp.input_linear.weight"] = torch.cat(
+                [params[p + "shared_gate_proj"].t(), params[p + "shared_up_proj"].t()])
+            out[h + "shared_mlp.output_linear.weight"] = params[p + "shared_down_proj"].t()
+        return
+    prefix, names = _MOE_EXPERT_NAMES[config.moe_style]
+    out[f"{h}{prefix}.gate.weight"] = params[p + "gate.weight"]
+    for ours, hf in names.items():
+        stacked = params[p + f"experts_{ours}"]
+        for e in range(config.num_experts):
+            out[f"{h}{prefix}.experts.{e}.{hf}.weight"] = stacked[e].t()
+    if si:
+        for ours in _MOE_SHARED:
+            out[f"{h}mlp.shared_expert.{ours}.weight"] = params[p + f"shared_{ours}"].t()
+        out[f"{h}mlp.shared_expert_gate.weight"] = params[p + "shared_expert_gate"].t()
+
+
 def params_from_hf(
     state_dict: Mapping[str, Any], config: LlamaConfig, leaf_fn: LeafFn | None = None
 ) -> dict[str, torch.Tensor]:
@@ -258,6 +341,8 @@ def params_from_hf(
     for i in range(config.num_hidden_layers):
         for ours, hf in layer_params:
             put(f"model.layers.{i}.{ours}", sd[f"layers.{i}.{hf}"])
+        if config.num_experts:
+            _moe_from_hf(sd, config, i, put)
         if config.fused_gate_up:
             # GLM stores gate|up as one [2I, H] tensor (gate rows first)
             fused = sd[f"layers.{i}.mlp.gate_up_proj.weight"]
@@ -346,6 +431,9 @@ def params_to_hf(params: Mapping[str, torch.Tensor], config: LlamaConfig) -> dic
         for i in range(config.num_hidden_layers):
             out[f"model.layers.{i}.mlp.act_fn.beta"] = torch.tensor([0.5], dtype=torch.bfloat16)
             out[f"model.layers.{i}.mlp.act_fn.eps"] = torch.tensor([-1e-6], dtype=torch.bfloat16)
+    if config.num_experts:
+        for i in range(config.num_hidden_layers):
+            _moe_to_hf_keys(params, config, i, out)
     if config.fused_gate_up:
         for i in range(config.num_hidden_layers):
             p = f"model.layers.{i}.mlp."
@@ -1112,6 +1200,7 @@ def _overlays(config: LlamaConfig, torch_dtype: str) -> dict[str, Any]:
                 or config.logits_scaling != 1.0)
             else {}
         ),
+        **_moe_to_hf(config),
     }
 
 
@@ -1128,6 +1217,118 @@ def _granite_multipliers(config: LlamaConfig) -> dict[str, Any]:
         ),
         "residual_multiplier": config.residual_multiplier,
         "logits_scaling": config.logits_scaling,
+    }
+
+
+def _moe_to_hf(config: LlamaConfig) -> dict[str, Any]:
+    """JAX's MoE overlay: the HF type whose expert layout, routing and
+    norms the fields select, with JAX's refusals."""
+    if not config.num_experts:
+        return {}
+    common = {
+        "num_experts_per_tok": config.num_experts_per_tok,
+        "router_aux_loss_coef": config.router_aux_loss_coef,
+        "output_router_logits": False,
+    }
+    if config.moe_style == "granite":
+        if not config.norm_topk_prob:
+            raise ValueError(
+                "GraniteMoe's softmax-after-topk routing implies "
+                "norm_topk_prob=True; an unrenormalized config cannot be "
+                "exported as granitemoe"
+            )
+        shared = config.shared_expert_intermediate_size
+        return {
+            "model_type": "granitemoeshared" if shared else "granitemoe",
+            "architectures": ["GraniteMoeSharedForCausalLM" if shared
+                              else "GraniteMoeForCausalLM"],
+            "num_local_experts": config.num_experts,
+            "intermediate_size": config.moe_intermediate_size,
+            **_granite_multipliers(config),
+            **({"shared_intermediate_size": shared} if shared else {}),
+            **common,
+        }
+    if config.shared_expert_intermediate_size and not config.shared_expert_gated:
+        raise ValueError(
+            "an UNGATED shared expert only exists as granitemoeshared in "
+            "HF; set moe_style='granite' to export it"
+        )
+    if config.moe_style == "mixtral":
+        if config.moe_router_impl == "sparsemixer":
+            # SparseMixer routing + biased LayerNorms = Phi-3.5-MoE
+            if config.norm_type != "layernorm":
+                raise ValueError(
+                    "sparsemixer routing only exists in HF as Phimoe "
+                    "(biased LayerNorm blocks); this combination cannot "
+                    "be exported"
+                )
+            return {
+                "model_type": "phimoe",
+                "architectures": ["PhimoeForCausalLM"],
+                "num_local_experts": config.num_experts,
+                "intermediate_size": config.moe_intermediate_size,
+                "router_jitter_noise": config.router_jitter_eps,
+                "input_jitter_noise": 0.0,
+                "lm_head_bias": config.lm_head_bias,
+                "attention_bias": config.attention_bias,
+                "sliding_window": config.sliding_window,
+                **common,
+            }
+        return {
+            "model_type": "mixtral",
+            "architectures": ["MixtralForCausalLM"],
+            "num_local_experts": config.num_experts,
+            # HF Mixtral's intermediate_size is the per-expert width
+            "intermediate_size": config.moe_intermediate_size,
+            **common,
+        }
+    if config.qk_norm and config.qk_norm_scope == "full":
+        # full-width qk-norm + qwen-style experts: OLMoE (pre-norm) or
+        # FlexOlmo (post-norm blocks)
+        if config.norm_scheme == "post":
+            if config.clip_qkv is not None:
+                raise ValueError(
+                    "HF FlexOlmo has no clip_qkv; exporting would silently "
+                    "drop the clamp (OLMoE, the pre-norm variant, has it)"
+                )
+            if config.layer_types is not None:
+                raise ValueError(
+                    "HF FlexOlmo has no per-layer sliding pattern; exporting "
+                    "would silently drop layer_types"
+                )
+            return {
+                "model_type": "flex_olmo",
+                "architectures": ["FlexOlmoForCausalLM"],
+                "num_experts": config.num_experts,
+                "intermediate_size": config.moe_intermediate_size,
+                "norm_topk_prob": config.norm_topk_prob,
+                **common,
+            }
+        return {
+            "model_type": "olmoe",
+            "architectures": ["OlmoeForCausalLM"],
+            "num_experts": config.num_experts,
+            "intermediate_size": config.moe_intermediate_size,
+            "norm_topk_prob": config.norm_topk_prob,
+            "clip_qkv": config.clip_qkv,
+            **common,
+        }
+    qwen3 = config.qk_norm  # qwen3_moe; else qwen2_moe (shared expert)
+    return {
+        "model_type": "qwen3_moe" if qwen3 else "qwen2_moe",
+        "architectures": ["Qwen3MoeForCausalLM" if qwen3 else "Qwen2MoeForCausalLM"],
+        "num_experts": config.num_experts,
+        "moe_intermediate_size": config.moe_intermediate_size,
+        "norm_topk_prob": config.norm_topk_prob,
+        "decoder_sparse_step": 1,
+        "mlp_only_layers": [],
+        **common,
+        **(
+            {"shared_expert_intermediate_size": config.shared_expert_intermediate_size,
+             "attention_bias": None}
+            if not qwen3
+            else {"head_dim": config.resolved_head_dim}
+        ),
     }
 
 
@@ -1431,6 +1632,5 @@ def config_fields_from_hf(hf_config: Any, **overrides: Any) -> dict[str, Any]:
 
 
 def config_from_hf(hf_config: Any, **overrides: Any) -> LlamaConfig:
-    """HF config (object or dict) -> the port's LlamaConfig; a model_type
-    whose fields the port cannot run raises naming ROADMAP A.8."""
+    """HF config (object or dict) -> the port's LlamaConfig."""
     return LlamaConfig(**config_fields_from_hf(hf_config, **overrides))

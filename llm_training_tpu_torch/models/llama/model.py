@@ -35,9 +35,11 @@ from llm_training_tpu_torch.models.base import (
     CausalLMOutput,
     DecodeState,
     PagedDecodeState,
+    RouterStats,
     resolve_dtype,
 )
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
+from llm_training_tpu_torch.models.moe import MoEMLP
 from llm_training_tpu_torch.models.remat import remat_policy, run_layer
 from llm_training_tpu_torch.ops.attention import dot_product_attention
 from llm_training_tpu_torch.ops.paged_attention import paged_cached_attention
@@ -328,7 +330,9 @@ SCHEME_NORMS = {
 class LlamaDecoderLayer(nn.Module):
     """One block of `config.norm_scheme` (see `SCHEME_NORMS`), each block
     output scaled by Granite's `residual_multiplier` before it joins the
-    residual stream."""
+    residual stream. An MoE config's layer returns `(hidden, stats)`: the
+    block's router statistics (sel_frac, mean_prob, dropped), with padding
+    (`segment_ids` 0) left out; a dense one returns `hidden`."""
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
@@ -340,9 +344,15 @@ class LlamaDecoderLayer(nn.Module):
         self.self_attn = LlamaAttention(config, device)
         for name in rest:
             setattr(self, name, make_norm(config, config.hidden_size, device))
-        self.mlp = LlamaMLP(config, device)
+        # a config is all-MoE or all-dense, as in JAX
+        self.mlp = MoEMLP(config, device) if config.num_experts else LlamaMLP(config, device)
 
-    def forward(self, hidden, segment_ids, cos, sin, window, **cache) -> torch.Tensor:
+    def forward(self, hidden, segment_ids, cos, sin, window, **cache):
+        stats = []
+        out = self._blocks(hidden, segment_ids, cos, sin, window, stats, **cache)
+        return (out, stats[0]) if stats else out
+
+    def _blocks(self, hidden, segment_ids, cos, sin, window, stats, **cache) -> torch.Tensor:
         cfg = self.config
         rm = cfg.residual_multiplier
         join = (lambda x: x) if rm == 1.0 else (lambda x: x * torch.tensor(rm, dtype=x.dtype))
@@ -350,27 +360,34 @@ class LlamaDecoderLayer(nn.Module):
         def attention(x):
             return self.self_attn(x, segment_ids, cos, sin, window, **cache)
 
+        def mlp(x):
+            if not cfg.num_experts:
+                return self.mlp(x)
+            out, layer_stats = self.mlp(x, None if segment_ids is None else segment_ids > 0)
+            stats.append(layer_stats)
+            return out
+
         scheme = cfg.norm_scheme
         if scheme == "parallel":
             # Cohere/Phi: one input norm feeds both blocks, one residual add
             normed = self.input_layernorm(hidden)
-            return hidden + join(attention(normed)) + join(self.mlp(normed))
+            return hidden + join(attention(normed)) + join(mlp(normed))
         if scheme == "parallel2":
             # GPT-NeoX: two norms over the same block input
             attn = attention(self.input_layernorm(hidden))
-            return hidden + join(attn) + join(self.mlp(self.post_attention_layernorm(hidden)))
+            return hidden + join(attn) + join(mlp(self.post_attention_layernorm(hidden)))
         if scheme == "sandwich":
             # GLM-4: input and output norms around both blocks
             attn = attention(self.input_layernorm(hidden))
             hidden = hidden + join(self.post_self_attn_layernorm(attn))
-            out = self.mlp(self.post_attention_layernorm(hidden))
+            out = mlp(self.post_attention_layernorm(hidden))
             return hidden + join(self.post_mlp_layernorm(out))
         if scheme == "post":
             # OLMo-2: no input norms; each block's output is normed
             hidden = hidden + join(self.post_attention_layernorm(attention(hidden)))
-            return hidden + join(self.post_feedforward_layernorm(self.mlp(hidden)))
+            return hidden + join(self.post_feedforward_layernorm(mlp(hidden)))
         hidden = hidden + join(attention(self.input_layernorm(hidden)))
-        return hidden + join(self.mlp(self.post_attention_layernorm(hidden)))
+        return hidden + join(mlp(self.post_attention_layernorm(hidden)))
 
 
 class LlamaModel(nn.Module):
@@ -555,13 +572,17 @@ class Llama(nn.Module):
                          paged_impl=paged_impl)
         # activation checkpointing applies to the training forward only
         wrap = remat_policy(cfg) if decode_state is None else None
+        stats = []
         for i, layer in enumerate(self.model.layers):
             cos, sin, window = tables[i]
             if decode_state is None:
                 hidden = run_layer(wrap, layer, hidden, segment_ids, cos, sin, window)
-                continue
-            hidden = layer(hidden, segment_ids, cos, sin, window,
-                           layer_kv=(decode_state.k[i], decode_state.v[i]), **cache)
+            else:
+                hidden = layer(hidden, segment_ids, cos, sin, window,
+                               layer_kv=(decode_state.k[i], decode_state.v[i]), **cache)
+            if cfg.num_experts:
+                hidden, layer_stats = hidden
+                stats.append(layer_stats)
 
         new_state = None
         if decode_state is not None and not paged:
@@ -589,9 +610,21 @@ class Llama(nn.Module):
         logits = None
         if compute_logits:
             logits = _linear(hidden, self.output_embeddings())
+        aux_loss = dropped = router_stats = None
+        if cfg.num_experts:
+            # pooled across depth BEFORE the E * sum(f * P) product, as HF's
+            # load_balancing_loss_func concatenates every layer's logits
+            sel_frac, mean_prob, layer_dropped = (torch.stack(x) for x in zip(*stats))
+            aux_loss = cfg.num_experts * (sel_frac.mean(0) * mean_prob.mean(0)).sum()
+            dropped = layer_dropped.sum()
+            router_stats = RouterStats(sel_frac=sel_frac, mean_prob=mean_prob, dropped=dropped,
+                                       layer_ids=tuple(range(cfg.num_hidden_layers)))
         return CausalLMOutput(
             logits=logits,
             last_hidden_states=hidden if return_last_hidden_states else None,
+            aux_loss=aux_loss,
+            ep_dropped_rows=dropped,
+            router_stats=router_stats,
             decode_state=new_state,
         )
 

@@ -6,7 +6,8 @@ Counterpart of `llm_training_tpu/parallel/`. Axes, in JAX's order:
   data     -- data parallelism (replicated parameters)
   pipe     -- pipeline stages (refused: ROADMAP A.9b)
   fsdp     -- data parallelism with sharded parameters (FSDP2)
-  expert   -- extra data parallelism on a dense model (MoE: ROADMAP A.8)
+  expert   -- extra data parallelism on a dense model (expert parallelism
+              of an MoE model: ROADMAP A.9b)
   tensor   -- tensor parallelism (the DTensor plan)
   sequence -- context parallelism over the sequence (ring attention)
 """

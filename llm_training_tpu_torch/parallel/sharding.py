@@ -25,8 +25,11 @@ everything from it and the rules:
   the batch axes: `fsdp` and `sequence` shard (the sequence ranks hold
   other tokens of the same rows, so their gradients sum like FSDP's),
   `data` and `expert` replicate (HSDP when either is above 1). FSDP2
-  shards dim 0 of each parameter where JAX shards its `embed` dimension:
-  the bytes per rank are the same, and DCP reshards on load.
+  shards dim 0 of each parameter where JAX shards its `embed` dimension
+  (an MoE expert stack's dim 0 is its `expert` dimension): the bytes per
+  rank are the same, and DCP reshards on load. An MoE model raises naming
+  ROADMAP A.9b where `tensor` or `expert` is above 1 (JAX shards the
+  experts' `mlp` and `expert` dims there).
 """
 
 from __future__ import annotations
@@ -235,6 +238,16 @@ PARAM_LOGICAL_AXES: dict[str, tuple[str, ...]] = {
     "model.layers.*.mlp.down_proj.bias": ("embed",),
     "model.layers.*.mlp.c_fc.bias": ("mlp",),
     "model.layers.*.mlp.c_proj.bias": ("embed",),
+    # an MoE block: the router, the expert stacks (FSDP2 shards their
+    # leading `expert` dim) and the shared expert
+    "model.layers.*.mlp.gate.weight": ("embed", "expert"),
+    "model.layers.*.mlp.experts_gate_proj": ("expert", "embed", "mlp"),
+    "model.layers.*.mlp.experts_up_proj": ("expert", "embed", "mlp"),
+    "model.layers.*.mlp.experts_down_proj": ("expert", "mlp", "embed"),
+    "model.layers.*.mlp.shared_gate_proj": ("embed", "mlp"),
+    "model.layers.*.mlp.shared_up_proj": ("embed", "mlp"),
+    "model.layers.*.mlp.shared_down_proj": ("mlp", "embed"),
+    "model.layers.*.mlp.shared_expert_gate": ("embed", None),
     "model.layers.*.mlp.xielu_alpha_p": (None,),
     "model.layers.*.mlp.xielu_alpha_n": (None,),
     **{f"model.layers.*.{norm}.{leaf}": ("norm",)
@@ -339,6 +352,13 @@ def parallelize(model: torch.nn.Module, mesh, dp_mesh=None,
         param_logical_axes(name, rules, param.dim())  # strict: every parameter has its names
     config = model.config
     tp_mesh = mesh[TENSOR_AXIS]
+    if getattr(config, "num_experts", None) and (tp_mesh.size() > 1
+                                                 or mesh[EXPERT_AXIS].size() > 1):
+        # JAX shards the experts' `mlp` dim over `tensor` and their stacks
+        # over `expert` (expert parallelism): neither is ported
+        raise NotImplementedError(
+            "an MoE model on a mesh whose `tensor` or `expert` axis is above 1 is not "
+            "ported (ROADMAP A.9b)")
     if tp_mesh.size() > 1:
         _check_divisible(config, tp_mesh.size())
         parallelize_module(model, tp_mesh, tensor_parallel_plan(model, rules))

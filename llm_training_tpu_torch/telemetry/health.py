@@ -29,13 +29,17 @@ reference pair prefixes `policy/` and `ref/`. A parameter that is not one
 of the Llama's groups by the JAX rule on its dotted path (`<stem>.<i>`
 components are blocks).
 
-JAX's `moe_router_health` has no counterpart yet: it waits for the MoE
-stack (ROADMAP A.8), and the trainer raises when an objective reports
-router statistics.
+An MoE model's router health (`moe_router_health`, JAX's), from the
+objective on the same health steps (its `with_health` flag), per MoE layer
+`health/moe/{router_entropy,max_expert_share,min_expert_share,aux_loss}/
+layer_<i:02d>`, per expert `health/moe/load_frac/expert_<e:02d>` (at most
+MAX_EXPERT_KEYS experts), and `health/moe/dropped_rows` /
+`health/moe/dropped_frac`.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 
@@ -45,6 +49,7 @@ from llm_training_tpu_torch.models.llama.from_jax import PAIR, jax_leaf
 
 _BLOCK = re.compile(r"^\d+$")
 METRICS = ("param_norm", "grad_norm", "update_norm", "update_ratio")
+MAX_EXPERT_KEYS = 32  # per-expert load keys only up to this many experts
 
 
 @dataclass
@@ -133,4 +138,35 @@ def layer_health_metrics(groups: ParamGroups, values, prefix: str = "health") ->
     for g, name in enumerate(groups.names):
         for m, metric in enumerate(METRICS):
             out[f"{prefix}/{metric}/{name}"] = float(values[m][g])
+    return out
+
+
+def moe_router_health(router_stats, n_tokens: int) -> dict[str, torch.Tensor]:
+    """Per-MoE-layer router health from `CausalLMOutput.router_stats`
+    (sel_frac [L, E], mean_prob [L, E], dropped, layer_ids), on the device.
+    A layer's load is its sel_frac row normalised to 1; its entropy is
+    normalised by log(E) (1.0 when balanced); dropped_frac takes the token
+    count as `n_tokens`."""
+    sel = router_stats.sel_frac.float()
+    prob = router_stats.mean_prob.float()
+    n_layers, n_experts = sel.shape
+    ids = router_stats.layer_ids or tuple(range(n_layers))
+    load = sel / sel.sum(-1, keepdim=True).clamp_min(1e-9)
+    entropy = -(load * torch.log(load + 1e-9)).sum(-1) / math.log(max(n_experts, 2))
+    aux = n_experts * (sel * prob).sum(-1)
+    out: dict[str, torch.Tensor] = {}
+    for j, layer_id in enumerate(ids):
+        key = f"layer_{int(layer_id):02d}"
+        out[f"health/moe/router_entropy/{key}"] = entropy[j]
+        out[f"health/moe/max_expert_share/{key}"] = load[j].max()
+        out[f"health/moe/min_expert_share/{key}"] = load[j].min()
+        out[f"health/moe/aux_loss/{key}"] = aux[j]
+    if n_experts <= MAX_EXPERT_KEYS:
+        mean_load = load.mean(0)
+        for e in range(n_experts):
+            out[f"health/moe/load_frac/expert_{e:02d}"] = mean_load[e]
+    dropped = router_stats.dropped.float()
+    total_rows = (sel.sum() * float(n_tokens)).clamp_min(1.0)
+    out["health/moe/dropped_rows"] = dropped
+    out["health/moe/dropped_frac"] = dropped / total_rows
     return out

@@ -222,8 +222,8 @@ def _batch_counts(batch: dict[str, np.ndarray]) -> tuple[int, int]:
 
 
 def _objective_supports_health(objective) -> bool:
-    """Whether the objective reports health extras (MoE router statistics)
-    through a `with_health` flag, as JAX's MoE objectives do."""
+    """Whether the objective reports health extras (an MoE model's router
+    statistics) through a `with_health` flag, as JAX's CLM does."""
     try:
         return "with_health" in inspect.signature(objective.loss_and_metrics).parameters
     except (TypeError, ValueError):
@@ -615,11 +615,6 @@ class Trainer:
             raise NotImplementedError(
                 "health metrics on a mesh of more than one rank are not ported yet (ROADMAP A.9b)")
         if health_every:
-            if _objective_supports_health(objective):
-                raise NotImplementedError(
-                    "the objective reports MoE router statistics; their health metrics "
-                    "(moe_router_health) wait for the MoE stack (ROADMAP A.8)"
-                )
             self._param_groups = build_param_groups(
                 zip(state.optimizer.names, state.optimizer.params))
 
@@ -699,13 +694,18 @@ class Trainer:
                         # request, and this poll starts its capture at once
                         self._profile_trigger.poll(step)
                     health = metrics.pop("health", None)
+                    # the objective's own health metrics (an MoE model's router)
+                    router = {k: metrics.pop(k) for k in list(metrics) if k.startswith("health/")}
                     self.last_metrics = metrics
                     if health is not None:
-                        # one host copy of the [4, groups] tensor; the sync
-                        # drains the launch queue, so it bills to step_compute
+                        # one host copy of the [4, groups] tensor and one of
+                        # the router's; the sync drains the launch queue, so
+                        # it bills to step_compute
                         with self.ledger.measure("step_compute"):
                             host_health = health.cpu().tolist()
-                        self.last_health = layer_health_metrics(self._param_groups, host_health)
+                            self.last_health = _host_metrics(router)
+                        self.last_health.update(
+                            layer_health_metrics(self._param_groups, host_health))
                         for key, value in self.last_health.items():
                             self.telemetry.gauge(key).set(value)
                     self._callbacks("on_train_step", step)
@@ -1041,7 +1041,8 @@ class Trainer:
         batch = self._with_shard(to_device(batch, self.device))
         # micro-step n's key, as JAX's fold_in(state.rng, state.step)
         step_rng = prng.fold_in(state.rng, state.step)
-        loss, metrics = objective.loss_and_metrics(batch, rng=step_rng, train=True)
+        extra = {"with_health": True} if health and _objective_supports_health(objective) else {}
+        loss, metrics = objective.loss_and_metrics(batch, rng=step_rng, train=True, **extra)
         # on a mesh the loss is the global batch's and this rank's backward
         # its rows' share; FSDP2 averages over its mesh, so the share is
         # scaled by that mesh's size to sum instead

@@ -318,8 +318,8 @@ def _example(name):
 def test_example_trainer_and_callback_nodes_are_accepted():
     """cpu-smoke.yaml's trainer node (health, resilience with recovery,
     checkpoint, callbacks, loggers) and llama-3.1-8b_pt.yaml's callbacks and
-    mesh build through the port's config layer; the smoke's model node still
-    names what is not ported (MoE: A.8), the HFCausalLM node reads its HF
+    mesh build through the port's config layer; the smoke's model node (a
+    tiny MoE Llama) builds its config, the HFCausalLM node reads its HF
     directory and the data node its tokenizer (both missing here)."""
     smoke = _example("smoke/cpu-smoke.yaml")
     node = dict(smoke["trainer"])
@@ -338,8 +338,8 @@ def test_example_trainer_and_callback_nodes_are_accepted():
     # the example's mesh node builds JAX's MeshConfig (pure FSDP)
     mesh = build_dataclass(TrainerConfig, {"mesh": pt["trainer"]["mesh"]}, "trainer").mesh
     assert mesh == MeshConfig(fsdp_size=-1)
-    with pytest.raises((ValueError, NotImplementedError), match="num_experts"):
-        instantiate_from_config(smoke["model"]).config.model.get_config()
+    moe = instantiate_from_config(smoke["model"]).config.model.get_config()
+    assert (moe.num_experts, moe.num_experts_per_tok, moe.moe_intermediate_size) == (4, 2, 32)
     hf = instantiate_from_config(pt["model"]).config.model
     assert hf.get_config().hf_path == "/data/models/Llama-3.1-8B"
     assert hf.get_config().overrides["recompute_granularity"] == "selective"

@@ -90,26 +90,28 @@ def test_llama_config_round_trips_every_jax_field():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("num_experts_per_tok", 4, NotImplementedError, "A.8"),
+    ("num_experts_per_tok", 4, None, None),
     ("lm_head_bias", True, None, None),
     ("attention_out_bias", True, None, None),
-    ("moe_style", "granite", NotImplementedError, "A.8"),
+    ("moe_style", "granite", None, None),
+    ("num_experts", 4, ValueError, "num_experts requires moe_intermediate_size"),
     ("ring_attention", True, None, None),
     ("pipeline_stages", 2, NotImplementedError, "A.9b"),
     ("attention_dropout", 0.1, ValueError, "attention_dropout is not supported"),
 ])
 def test_llama_fields_beyond_the_plain_decoder_raise(field, value, error, match):
-    """C.25: a field of the MoE stack or pipeline stages raises at any value
-    but JAX's default, naming the queue that brings it; `attention_dropout`
-    raises unless 0.0, as JAX's config does; `ring_attention` is accepted
-    (the model rings over an active mesh's `sequence` ranks,
-    `parallel/ring_attention.py`), and since the Llama graph's variants
-    are ported so are the head's and o_proj's biases."""
+    """C.25: pipeline stages raise at any value but JAX's default, naming
+    the queue that brings them; `attention_dropout` raises unless 0.0, as
+    JAX's config does; `ring_attention` is accepted (the model rings over
+    an active mesh's `sequence` ranks, `parallel/ring_attention.py`), and
+    since the Llama graph's variants and the MoE stack are ported so are
+    the head's and o_proj's biases and the MoE fields (validated as JAX
+    validates them: experts need their width)."""
     if error is None:
         assert getattr(LlamaConfig(**SMALL, **{field: value}), field) == value
         return
     with pytest.raises(error, match=match):
         LlamaConfig(**SMALL, **{field: value})
-    if field == "attention_dropout":
-        with pytest.raises(ValueError, match="attention_dropout is not supported"):
-            JaxLlamaConfig(**SMALL, attention_dropout=value)
+    if field in ("attention_dropout", "num_experts"):
+        with pytest.raises(ValueError, match=match):
+            JaxLlamaConfig(**SMALL, **{field: value})

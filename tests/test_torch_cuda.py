@@ -636,3 +636,104 @@ def test_ring_kernels_match_the_ring_of_plain_chunks(cuda, p, window, sinks):
                                                  sliding_window=window, impl=impl)
         runs[impl] = dict(out=o, lse=lse, dq=dq, dk=dk, dv=dv)
     _assert_flash_matches_plain(runs["kernel"], runs["torch"], {"q_segment_ids": seg}, bf)
+
+
+# ------------------------------------------------- the grouped GEMM (G1)
+
+GG_LAYOUTS = ("one group", "empty first, middle, last", "ragged (not tile multiples)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", GG_LAYOUTS)
+@pytest.mark.parametrize("op", ["fwd", "dgrad", "wgrad"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_grouped_gemm_matches_plain(cuda, dtype, op, layout):
+    """G1's three directions against their plain versions over layouts with
+    one group, empty first, middle and last groups and ragged sizes (the
+    limits of `bench_grouped_gemm.check`: the output's rounding in bf16,
+    the order of fp32 sums), two launches bit-equal, and an empty group's
+    weight gradient zero."""
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    sizes, k, n = bench.layouts()[layout]
+    err = bench.check(bench.make_case(sizes, k, n, dtype, seed=3), op)
+    assert err["ok"], err
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_rejects_what_it_cannot_take(cuda):
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    x = torch.zeros((6, 12), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((2, 12, 16), dtype=torch.bfloat16, device=cuda)
+    offsets = torch.tensor([0, 2, 6], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gg.grouped_gemm_fwd(x, w, offsets)
+    with pytest.raises(ValueError, match="int32"):
+        gg.grouped_gemm_fwd(x.float(), w.float(), offsets.long())
+    with pytest.raises(ValueError, match="dtypes"):
+        gg.grouped_gemm_fwd(x.half(), w.half(), offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_a_moe_model_runs_through_g1(cuda, dtype):
+    """A 2-layer MoE Llama (8 experts, 2 a token, a gated shared expert):
+    its loss and gradients through G1 (`moe_impl` 'ragged') against the
+    exact dense impl on the card (fp32: 1e-4 relative; bf16: within 1.5x of
+    the plain bf16 path's distance from fp32 dense), and G1 launched 3
+    times a layer forward, 3 dgrad and 3 wgrad."""
+    import dataclasses
+
+    from llm_training_tpu_torch.models import moe
+    from llm_training_tpu_torch.models.llama.config import LlamaConfig
+    from llm_training_tpu_torch.models.llama.model import Llama
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    fields = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                  num_attention_heads=4, num_key_value_heads=2, num_experts=8,
+                  num_experts_per_tok=2, moe_intermediate_size=64,
+                  shared_expert_intermediate_size=96, initializer_range=0.1,
+                  attention_impl="torch", param_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 256, (2, 64), generator=gen, device=cuda)
+
+    def loss_and_grads(config, weights=None, grouped=None):
+        model = Llama(config, device=cuda)
+        if weights is None:
+            model.init_weights(torch.Generator(device=cuda).manual_seed(1))
+        else:
+            model.load_state_dict(weights)
+        real = moe.gg.grouped_gemm
+        if grouped is not None:
+            moe.gg.grouped_gemm = grouped
+        try:
+            loss = model(ids).logits.float().logsumexp(-1).mean()
+            loss.backward()
+        finally:
+            moe.gg.grouped_gemm = real
+        return model.state_dict(), float(loss), {n: p.grad.float() for n, p in
+                                                  model.named_parameters()}
+
+    compute = "float32" if dtype == torch.float32 else "bfloat16"
+    base = LlamaConfig(**fields, compute_dtype="float32", moe_impl="dense")
+    weights, truth, truth_grads = loss_and_grads(base)
+    config = dataclasses.replace(base, compute_dtype=compute, moe_impl="ragged")
+    before = [f.launches for f in gg.LAUNCHERS]
+    _, loss, grads = loss_and_grads(config, weights)
+    torch.cuda.synchronize()
+    ran = [f.launches - b for f, b in zip(gg.LAUNCHERS, before)]
+    assert ran == [6, 6, 6], ran
+    names = [n for n in grads if "experts_" in n or n.endswith("mlp.gate.weight")]
+    if dtype == torch.float32:
+        assert abs(loss - truth) <= 1e-4 * abs(truth)
+        for name in names:
+            err = float((grads[name] - truth_grads[name]).norm() / truth_grads[name].norm())
+            assert err <= 1e-4, (name, err)
+        return
+    _, plain_loss, plain_grads = loss_and_grads(config, weights, gg.grouped_gemm_fwd_torch)
+    assert abs(loss - truth) <= max(1.5 * abs(plain_loss - truth), 2.0**-8 * abs(truth))
+    for name in names:
+        err = float((grads[name] - truth_grads[name]).norm())
+        plain = float((plain_grads[name] - truth_grads[name]).norm())
+        assert err <= 1.5 * plain + 1e-6 * float(truth_grads[name].norm()), (name, err, plain)

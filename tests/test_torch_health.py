@@ -260,19 +260,30 @@ def test_health_does_not_change_the_math(kind, deterministic):
 
 
 def test_objective_with_router_stats_raises():
-    """An objective that reports MoE router statistics (the `with_health`
-    flag) waits for the MoE stack."""
+    """An objective that reports router statistics (the `with_health` flag,
+    as JAX's CLM) is asked for them on the health steps only, and its
+    `health/*` metrics join the layer norms in `last_health` (none for a
+    dense model); a health cadence below 1 raises."""
+    calls = []
 
     class RouterCLM(CLM):
         def loss_and_metrics(self, batch, rng=None, train=True, with_health=False):
-            return super().loss_and_metrics(batch, rng=rng, train=train)
+            calls.append(with_health)
+            loss, metrics = super().loss_and_metrics(batch, rng=rng, train=train,
+                                                     with_health=with_health)
+            if with_health:
+                metrics["health/router/probe"] = torch.tensor(float(len(calls)))
+            return loss, metrics
 
-    trainer = Trainer(TrainerConfig(max_steps=1, health=HealthConfig(every_n_steps=1)),
+    trainer = Trainer(TrainerConfig(max_steps=3, health=HealthConfig(every_n_steps=2)),
                       device="cpu")
     objective = RouterCLM(CLMConfig(optim=OptimConfig(**OPTIM)),
                           model=Llama(LlamaConfig(**TINY), device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        trainer.fit(objective, _Rows(_batches(1)))
+    trainer.fit(objective, _Rows(_batches(3)))
+    assert calls == [False, True, False]
+    assert trainer.last_health["health/router/probe"] == 2.0
+    assert not any(k.startswith("health/moe/") for k in trainer.last_health)
+    assert "health/router/probe" not in trainer.last_metrics
     with pytest.raises(ValueError):
         HealthConfig(every_n_steps=0)
     assert asdict(HealthConfig()) == {"every_n_steps": None}

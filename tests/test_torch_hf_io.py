@@ -198,8 +198,7 @@ HF_FIELDS = dict(
 def test_config_from_hf_matches_jax(model_type, monkeypatch):
     """The fields `config_from_hf` sets equal JAX's (JAX's LlamaConfig
     replaced by a recorder), or both raise JAX's ValueError; the port's
-    config then equals JAX's for every dense type, and raises naming A.8
-    for the 8 MoE types."""
+    config then equals JAX's for every type, the 8 MoE types included."""
     hf = {**HF_FIELDS, "model_type": model_type}
     try:
         jax_config = jax_llama_conv.config_from_hf(hf).model_dump()
@@ -213,10 +212,6 @@ def test_config_from_hf_matches_jax(model_type, monkeypatch):
             llama_conv.config_fields_from_hf(hf)
         return
     assert llama_conv.config_fields_from_hf(hf) == expected
-    if expected.get("num_experts") is not None:
-        with pytest.raises(NotImplementedError, match="A\\.8"):
-            llama_conv.config_from_hf(hf)
-        return
     if isinstance(jax_config, ValueError):
         with pytest.raises(ValueError, match=re.escape(str(jax_config)[:40])):
             llama_conv.config_from_hf(hf)

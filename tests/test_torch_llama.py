@@ -93,13 +93,10 @@ def test_tied_embeddings_and_npz_round_trip(tmp_path):
 def test_unported_architectures_raise(field, value):
     """The fields that once raised: each now builds a config equal to JAX's
     and logits within 1e-4 of JAX's (random parameters, biases and norms
-    included); the MoE stack's `num_experts` still raises naming A.8."""
-    if field == "num_experts":
-        with pytest.raises(NotImplementedError, match="A\\.8"):
-            LlamaConfig(**{**TINY, field: value})
-        return
-    config = LlamaConfig(**{**TINY, field: value}, attention_impl="xla")
-    jax_model, variables, params = jax_model_and_params(False, **{field: value})
+    included); the MoE stack's `num_experts` with its expert width."""
+    extra = {"moe_intermediate_size": 16} if field == "num_experts" else {}
+    config = LlamaConfig(**{**TINY, field: value, **extra}, attention_impl="xla")
+    jax_model, variables, params = jax_model_and_params(False, **{field: value, **extra})
     assert dataclasses.asdict(config) == {**jax_model.config.model_dump(), "scan_layers":
                                           config.scan_layers}
     rng = np.random.default_rng(1)

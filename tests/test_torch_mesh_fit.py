@@ -17,7 +17,11 @@ through the port's CLI, in one process group:
 - a save on `(fsdp 4)` at step 2, resumed on `(fsdp 2, tensor 2)`: the
   uninterrupted run's losses within rtol 1e-4;
 - SIGTERM to rank 2 at step 3: all four ranks exit 75 after step 3, with
-  the emergency checkpoint of step 3 committed.
+  the emergency checkpoint of step 3 committed;
+- an MoE Llama (4 experts, a gated shared expert, the ragged impl) on
+  `(fsdp 4)`, FSDP2 sharding each expert stack's `expert` dim 0: losses
+  within rtol 1e-5 of the same fit in this one process; on `(fsdp 2,
+  tensor 2)` it raises naming A.9b.
 
 Then `validate` and `generate` read the `(fsdp 2, tensor 2)` checkpoint in
 this one process: JAX's `val_loss` (rtol 1e-4) and greedy tokens. The
@@ -55,8 +59,10 @@ from llm_training_tpu.parallel import MeshConfig as JaxMeshConfig
 from llm_training_tpu.trainer import Trainer as JaxTrainer
 from llm_training_tpu.trainer import TrainerConfig as JaxTrainerConfig
 from llm_training_tpu_torch.cli.main import main as cli_main
+from llm_training_tpu_torch.models import hf_io
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax
+from llm_training_tpu_torch.models.llama.model import Llama
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = dict(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
@@ -81,16 +87,19 @@ MESHES = {"tp": dict(fsdp_size=2, tensor_parallel_size=2),
           "dpo": dict(fsdp_size=4)}
 NEFTUNE = {"neftune_alpha": 5.0}
 PROMPTS = [[3, 17, 42], [5, 9]]
+MOE = dict(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=16,
+           shared_expert_intermediate_size=24, moe_impl="ragged")
 WORLD_TIMEOUT_S = 240
 
 
 def _port_config(root: Path, name: str, mesh: dict, *, objective="CLM", model_extra=None,
-                 steps=STEPS, ckpt=None, data=None, optim=None, objective_extra=None) -> Path:
+                 steps=STEPS, ckpt=None, data=None, optim=None, objective_extra=None,
+                 hf="hf") -> Path:
     """A port config (JSON) of one run: JsonlLogger into root/name, the
     checkpoint (`ckpt`, default root/<name>-ckpt) saved at the end; `data`
-    "prefs" is the preference batches' file."""
+    "prefs" is the preference batches' file; weights from root/`hf`."""
     model = {"model_class": "Llama", "model_kwargs": {**TINY, **(model_extra or {})}}
-    init = {"model": model, "pre_trained_weights": str(root / "hf"), "optim": optim or OPTIM,
+    init = {"model": model, "pre_trained_weights": str(root / hf), "optim": optim or OPTIM,
             **(objective_extra or {})}
     if data == "prefs":
         data = {"class_path": "torch_mesh_world.NpzBatches",
@@ -171,6 +180,11 @@ def world(tmp_path_factory, devices):
     params = jax.device_get(nn.meta.unbox(JaxLlama(jax_config).init(
         jax.random.key(0), np.zeros((1, 4), np.int32))))
     jax_hf_io.save_hf_checkpoint(params, jax_config, root / "hf", dtype="float32")
+    # the MoE fits' weights: random, through the port's own export
+    moe_config = LlamaConfig(**TINY, **MOE)
+    moe_model = Llama(moe_config, device="cpu")
+    moe_model.init_weights(torch.Generator().manual_seed(5))
+    hf_io.save_hf_checkpoint(moe_model.state_dict(), moe_config, root / "hf-moe", dtype="float32")
     prefs = _preference_batches(STEPS)
     np.savez(root / "prefs.npz", **{f"{i}/{k}": v for i, b in enumerate(prefs) for k, v in b.items()})
 
@@ -190,6 +204,11 @@ def world(tmp_path_factory, devices):
                                                       ckpt=resume)), *cpu]},
         *({"argv": ["fit", "--config", str(_port_config(root, name, mesh, **kw)), *cpu]}
           for name, mesh, kw in OTHER_FITS),
+        {"argv": ["fit", "--config", str(_port_config(
+            root, "moe", {"fsdp_size": 4}, model_extra=MOE, hf="hf-moe")), *cpu]},
+        {"argv": ["fit", "--config", str(_port_config(
+            root, "moe-tp", MESHES["tp"], model_extra=MOE, hf="hf-moe", steps=1)), *cpu],
+         "expect_error": True},
         {"argv": ["fit", "--config", str(_port_config(
             root, "adafactor", MESHES["tp"], steps=1,
             optim={"optimizer": "adafactor", "learning_rate": 1e-3})), *cpu], "expect_error": True},
@@ -335,6 +354,26 @@ def test_other_optimizers_and_orpo_on_a_mesh_match_one_process(world, one_proces
     assert all(r["rcs"][5:9] == [0, 0, 0, 0] for r in ranks)
     _assert_fit_matches_jax(root, jax_runs, name)
     losses, single = _losses(root, name), _losses(one_process, f"{name}-one")
+    assert sorted(losses) == sorted(single) == list(range(1, STEPS + 1))
+    np.testing.assert_allclose([losses[s] for s in sorted(losses)],
+                               [single[s] for s in sorted(single)], rtol=1e-5)
+
+
+def test_moe_fit_under_fsdp2_matches_one_process(world):
+    """The MoE fit on (fsdp 4), its expert stacks sharded on dim 0, gives
+    the losses of the same fit in this one process (rtol 1e-5); on (fsdp 2,
+    tensor 2) the MoE model raises naming A.9b on every rank."""
+    root, _, ranks = world
+    assert all(r["rcs"][9] == 0 for r in ranks)
+    refusals = [r["rcs"][10] for r in ranks]
+    assert all(isinstance(x, str) and "A.9b" in x and "MoE" in x for x in refusals)
+    config = json.loads((root / "moe.json").read_text())
+    config["trainer"].pop("mesh")
+    config["trainer"].pop("checkpoint")
+    config["trainer"]["loggers"][0]["init_args"]["name"] = "moe-one"
+    (root / "moe-one.json").write_text(json.dumps(config))
+    assert cli_main(["fit", "--config", str(root / "moe-one.json"), "--device", "cpu"]) == 0
+    losses, single = _losses(root, "moe"), _losses(root, "moe-one")
     assert sorted(losses) == sorted(single) == list(range(1, STEPS + 1))
     np.testing.assert_allclose([losses[s] for s in sorted(losses)],
                                [single[s] for s in sorted(single)], rtol=1e-5)
