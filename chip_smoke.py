@@ -364,8 +364,11 @@ imported) for phase 14's full-depth runs.
    turn: O, LSE, dQ, dK, dV (and d_sinks) against one whole-sequence K1-K3
    call within `flash_case_errors`' limits; each chunk pair's launches and
    time, the FLOP bound of the visible pairs at 989 TFLOP/s, the pairs the
-   causal skip and the window saved; then at S 4096 the ring of kernels
-   against the ring of plain chunk functions.
+   causal skip and the window saved; SDPA (the library's flash backend, a
+   yardstick) on the 131k ring's diagonal and full chunk pairs, forward
+   and backward (none at gpt-oss's: no single call computes a window with
+   sinks); then at S 4096 the ring of kernels against the ring of plain
+   chunk functions.
 22. Gemma (after phase 20): (a) the kernels at the shapes this
    slice added, fp32 and bf16, against their plain versions: K4 at Phi-2's
    head_dim 80 (MHA), Gemma-2-9B's 256 (group 2), gemma-2b's 256 (group 8)
@@ -394,8 +397,11 @@ imported) for phase 14's full-depth runs.
    decode (64 rows over 128 groups) and training (32768 rows over 128,
    gate and down projections) layouts, sparsemixer's (top-2 over 16
    experts at Phi-3.5-MoE's widths) and the bucketed path's (128 equal
-   groups): the per-element limits of `bench_grouped_gemm.check`, two
-   launches bit-equal, an empty group's weight gradient zero; (b)
+   groups), and the Hopper kernel's edges (groups starting off multiples
+   of 8, a 1-row group between thousands, K and N tails of the tile, 1024
+   small groups, a group over five bands): the per-element limits of
+   `bench_grouped_gemm.check`, two launches bit-equal, an empty group's
+   weight gradient zero; (b)
    Qwen3-30B-A3B from its preset (hidden 2048, 32 q and 4 kv heads of 128
    with qk-norms, 128 experts of 768, 8 a token; random bf16 weights from
    seed 0): serving at 8 layers (16 greedy requests of 256-2048 + 64; K4 8
@@ -412,9 +418,11 @@ imported) for phase 14's full-depth runs.
    (the recompute), dgrad and wgrad once, three a layer a step; step p50,
    MFU over the active parameters beside the estimator's over all of
    them, peak memory); (c) G1 timed (cold L2) at Qwen3-30B-A3B's training
-   and decode shapes and Mixtral-8x7B's beside its bound, the plain
-   version and `torch._grouped_mm` (the yardstick; the port never calls
-   it). Each leg prints its seconds.
+   shape (gate and down projections; wgrad also on the draw rounded to
+   8-row groups, which `torch._grouped_mm` takes) and decode shape and
+   Mixtral-8x7B's beside its bound, the plain version and
+   `torch._grouped_mm` (the yardstick; the port never calls it). Each leg
+   prints its seconds.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
@@ -7418,7 +7426,11 @@ def ring_leg(card, name, p, seq, hq, hkv, d, window, sinks) -> dict:
     computed = len(pairs) // 2
     causal_skip = p * (p - 1) // 2
     window_skip = p * p - computed - causal_skip
-    del whole, ring, q, k, v, do
+    del whole, ring
+    # the library's time for a diagonal and a full chunk pair, where one
+    # SDPA call computes the pair's function (no window, no sinks)
+    library = None if window or sinks else ring_sdpa_ms(q, k, v, do, chunk)
+    del q, k, v, do
 
     # the ring of kernels against the ring of plain chunk functions at S 4096
     q, k, v, seg, do, s = _ring_inputs(RING_PLAIN_SEQ, hq, hkv, d, sinks, seed=22)
@@ -7444,13 +7456,54 @@ def ring_leg(card, name, p, seq, hq, hkv, d, window, sinks) -> dict:
           "whole-sequence call: "
           + ", ".join(f"{k} {v:.2e}" for k, v in errors.items())
           + f"; kernels against plain chunks at S {RING_PLAIN_SEQ}: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in small_errors.items() if "plain" not in k),
+          + ", ".join(f"{k} {v:.2e}" for k, v in small_errors.items() if "plain" not in k)
+          + ("; SDPA (the library's flash backend, kv heads repeated to Hq; a yardstick): "
+             + ", ".join(f"{pair} fwd {r['fwd_ms']:.2f} ms bwd {r['bwd_ms']:.2f} ms"
+                         for pair, r in library.items()) if library else
+             "; SDPA: none (no single call computes a window with sinks)"),
           flush=True)
     return dict(name=name, ring=p, seq=seq, chunk=chunk, hq=hq, hkv=hkv, head_dim=d,
                 window=window, sinks=sinks, pairs=pair_rows, computed=computed,
                 causal_skip=causal_skip, window_skip=window_skip, launches=launches,
                 ring_ms=ring_ms, whole_ms=whole_ms, bound_ms=bound_ms, errors=errors,
-                plain_errors=small_errors)
+                plain_errors=small_errors, library=library)
+
+
+def ring_sdpa_ms(q, k, v, do, chunk: int) -> dict:
+    """`F.scaled_dot_product_attention` on the ring's diagonal chunk pair
+    (q and kv chunk 0, causal) and a full one (q chunk 1 against kv chunk
+    0, every pair visible), scale 1 (q is pre-scaled), through the flash
+    backend (O(S) memory: the math backend's 65536 x 65536 scores would not
+    fit), the kv heads repeated to q's beforehand: forward and backward ms
+    (CUDA events, after a warm-up). A yardstick only: the port never calls
+    it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    group = q.shape[2] // k.shape[2]
+    heads = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    kv = [heads(x[:, :chunk].repeat_interleave(group, dim=2)) for x in (k, v)]
+    out = {}
+    for pair, rows, causal in (("diagonal", slice(0, chunk), True),
+                               ("full", slice(chunk, 2 * chunk), False)):
+        qc, dc = heads(q[:, rows]).requires_grad_(), heads(do[:, rows])
+        kc, vc = (x.detach().requires_grad_() for x in kv)
+        times = []
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            for _ in range(2):  # a warm-up, then the timed run
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                events[0].record()
+                o = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal, scale=1.0)
+                events[1].record()
+                torch.autograd.grad(o, (qc, kc, vc), dc)
+                events[2].record()
+                torch.cuda.synchronize()
+                times = [events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])]
+        out[pair] = dict(fwd_ms=times[0], bwd_ms=times[1])
+        del qc, dc, kc, vc, o
+    del kv
+    torch.cuda.empty_cache()
+    return out
 
 
 SILU_TURN_STEPS = 12  # after the warm-up step: 6 with each silu_mul, alternating
@@ -7554,6 +7607,8 @@ MOE_PARITY_NAMES = ("model.layers.0.mlp.experts_gate_proj", "model.layers.1.mlp.
                     "model.embed_tokens.weight")
 G1_NAMES = ("grouped_gemm_fwd", "grouped_gemm_dgrad", "grouped_gemm_wgrad")
 G1_SOURCE = CSRC + "grouped_gemm.cu"
+# G1's kernel functions, as a trace names them (bf16 on Hopper, fp32 FMA)
+G1_KERNELS = ("grouped_wgmma_kernel", "row_tiled_f32_kernel", "wgrad_f32_kernel")
 # not a TPU kernel: XLA's ragged_dot, which the MoE block calls there
 G1_REPLACES = "llm_training_tpu/models/moe.py:429"
 
@@ -7562,7 +7617,8 @@ def moe_kernel_parity(card: str) -> dict:
     """23a: G1's forward, dgrad and wgrad against their plain versions in
     bf16 and fp32 over `bench_grouped_gemm.layouts()` (one group; empty
     first, middle and last groups; ragged sizes; the decode, training,
-    sparsemixer and bucketed shapes), each twice for identical bits."""
+    sparsemixer and bucketed shapes; the kernel's edge layouts), each
+    twice for identical bits."""
     from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
 
     out = {}
@@ -7741,7 +7797,7 @@ def moe_fit(card: str) -> dict:
     wall_ms = percentile(walls, 50)
     busy_ms, kernels, by_name = device_profile(step, 1)
     check_busy("moe fit profile", busy_ms, wall_ms)
-    g1_ms = sum(t for t, _, key in by_name if "row_tiled_kernel" in key or "wgrad_kernel" in key)
+    g1_ms = sum(t for t, _, key in by_name if any(k in key for k in G1_KERNELS))
     out.update(profile_busy_ms=busy_ms, profile_step_wall_ms=wall_ms, profile_kernels=kernels,
                profile_idle_share=1 - busy_ms / wall_ms, profile_g1_ms=g1_ms / 1e3,
                profile_top=[(key[:80], t / 1e3, n) for t, n, key in by_name[:10]])
@@ -7756,8 +7812,10 @@ def moe_fit(card: str) -> dict:
 
 def moe_kernel_timing(card: str) -> dict:
     """23c: G1 timed with CUDA events, cold L2, beside its bound, the plain
-    version and `torch._grouped_mm` (the yardstick) at Qwen3-30B-A3B's
-    training (fwd, dgrad, wgrad) and decode (fwd) shapes and Mixtral-8x7B's
+    version and `torch._grouped_mm` (the yardstick) at
+    `bench_grouped_gemm.timed_shapes()`: Qwen3-30B-A3B's training shape
+    (fwd, dgrad, wgrad of the gate and down projections; wgrad on the draw
+    rounded to 8-row groups too) and decode shape (fwd), and Mixtral-8x7B's
     (fwd, dgrad, wgrad)."""
     from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
 

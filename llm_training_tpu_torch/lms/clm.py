@@ -143,7 +143,10 @@ class CLM(SingleModelObjective):
         if out.ep_dropped_rows is not None:
             metrics["ep_dropped_rows"] = out.ep_dropped_rows.detach()
         if with_health and router is not None:
-            health = moe_router_health(router, n_tokens=labels.shape[0] * labels.shape[1])
+            # the global batch's tokens, as JAX's dropped fraction counts them
+            group = batch_group()
+            ways = 1 if group is None else torch.distributed.get_world_size(group)
+            health = moe_router_health(router, n_tokens=labels.numel() * ways)
             metrics.update({k: v.detach() for k, v in health.items()})
         return loss, metrics
 
@@ -162,5 +165,6 @@ def _global_router_stats(router: RouterStats, segment_ids, input_ids,
     sel_frac = batch_sum(router.sel_frac * counted) / total
     mean_prob = batch_sum(router.mean_prob * counted) / total
     aux_loss = num_experts * (sel_frac.mean(0) * mean_prob.mean(0)).sum()
+    # the dropped count is the global batch's already (`moe._bucketed_apply`)
     return RouterStats(sel_frac=sel_frac, mean_prob=mean_prob,
-                       dropped=batch_sum(router.dropped), layer_ids=router.layer_ids), aux_loss
+                       dropped=router.dropped, layer_ids=router.layer_ids), aux_loss

@@ -140,27 +140,36 @@ def jax_path(name: str, scan_layers: bool | str = True) -> str | None:
     return f"params/layers/layer/{tail}" if scan_layers else f"params/layers_{layer}/{tail}"
 
 
-def jax_layout(name: str) -> tuple[str, int | None, bool]:
-    """How the port's parameter `name` sits in the JAX package's default
-    (scanned) tree: the name of its JAX leaf -- a decoder layer's parameter
-    shares one `[L, ...]` leaf with its namesakes in the other layers,
-    named here with `*` for the layer (`model.layers.*.mlp.up_proj.weight`)
-    -- its layer in that leaf (None outside the layers), and whether the
-    JAX array is the transpose of the port's (a Dense `kernel`). A name
-    that is not a `Llama` parameter is a leaf of its own, as the port keeps
-    it."""
+def jax_layout(name: str, scan_layers: bool | str = True) -> tuple[str, int | None, bool]:
+    """How the port's parameter `name` sits in the JAX tree of one layout:
+    the name of its JAX leaf, its index in that leaf (None for a leaf of
+    its own), and whether the JAX array is the transpose of the port's (a
+    Dense `kernel`). In the scanned tree (the JAX package's default) a
+    decoder layer's parameter shares one `[L, ...]` leaf with its
+    namesakes in the other layers, named here with `*` for the layer
+    (`model.layers.*.mlp.up_proj.weight`), its index the layer; in the
+    looped tree (`scan_layers=False`) each layer's parameter is a leaf of
+    its own, named as the port names it; in Gemma-2's pairs
+    (`scan_layers=PAIRS`) the even layers share `model.layers.sliding.<rest>`
+    and the odd ones `model.layers.full.<rest>`, the index layer // 2. A
+    name that is not a `Llama` parameter is a leaf of its own, as the port
+    keeps it."""
     part, _, rest = name.partition(".")
     if part in PAIR:
-        leaf, layer, transposed = jax_layout(rest)
-        return f"{part}.{leaf}", layer, transposed
+        leaf, index, transposed = jax_layout(rest, scan_layers)
+        return f"{part}.{leaf}", index, transposed
     try:
         layer, keys = jax_leaf(name)
     except KeyError:
         return name, None, False
-    if layer is None:
-        return name, None, keys[-1] == "kernel"
+    transposed = keys[-1] == "kernel"
+    if layer is None or not scan_layers:
+        return name, None, transposed
     parts = name.split(".")
-    return ".".join(parts[:2] + ["*"] + parts[3:]), layer, keys[-1] == "kernel"
+    if scan_layers == PAIRS:
+        half = "full" if layer % 2 else "sliding"
+        return ".".join(parts[:2] + [half] + parts[3:]), layer // 2, transposed
+    return ".".join(parts[:2] + ["*"] + parts[3:]), layer, transposed
 
 
 def _masked(node: Any) -> bool:
@@ -245,9 +254,9 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
     (`mu`, `nu`, `trace`, `acc`): a scanned leaf is split by layer and a
     Dense kernel's arrays are transposed, codes and scales alike.
     `per_leaf` (Adafactor's `v_row`, `v_col`, `v`, `ema`): one entry per
-    JAX leaf (`jax_layout`), copied as it is, optax's (1,) placeholders
-    included; the looped JAX layout and Gemma-2's pairs raise, as the port
-    keeps Adafactor's state per scanned `layers/layer` leaf (ROADMAP C).
+    JAX leaf of the tree's own layout (`jax_layout`: scanned, looped or
+    Gemma-2's pairs), copied as it is, optax's (1,) placeholders included,
+    as the port keeps Adafactor's state per JAX leaf of the model's layout.
     Masked (frozen) leaves are left out."""
     if set(tree) == set(PAIR):
         out = {}
@@ -257,6 +266,8 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
         return out
     if set(tree) == {"params"}:
         tree = tree["params"]
+    layout = (False if "layers" not in tree
+              else PAIRS if "sliding" in tree["layers"] else True)
     out = {}
     for name in parameter_names(config):
         layer, keys = jax_leaf(name)
@@ -265,13 +276,7 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
             continue
         parts = {"q": node.q, "scale": node.scale} if _is_quant(node) else {"": node}
         if per_leaf:
-            if layer is not None and index != layer:
-                raise ValueError(
-                    "Adafactor state of the looped JAX layout (scan_layers=False) or of "
-                    "Gemma-2's scanned pairs has no counterpart in the port, which keeps "
-                    "it per scanned layers/layer leaf"
-                )
-            key = f"{field}.{jax_layout(name)[0]}"
+            key = f"{field}.{jax_layout(name, layout)[0]}"
         else:
             key = f"{field}.{name}"
             parts = {s: a if index is None else np.asarray(a)[index] for s, a in parts.items()}

@@ -14,8 +14,10 @@ layouts at the public functions:
   (`ops/kernels/grouped_gemm.py`, G1: the kernel on CUDA, its plain
   version on the CPU); 'dense' runs every expert on every token (exact;
   E/K times the FLOPs); 'bucketed' gathers fixed-capacity buckets and
-  drops the overflow (counted); 'auto' is 'ragged' on CUDA and 'dense' on
-  the CPU, as JAX's is 'ragged' on the TPU only;
+  drops the overflow (counted), each expert's capacity and its drops
+  those of the global batch on a mesh, as JAX's are under GSPMD; 'auto'
+  is 'ragged' on CUDA and 'dense' on the CPU, as JAX's is 'ragged' on the
+  TPU only;
 - the combine: each token's K weighted rows are added into a zero row of
   the compute dtype in ascending expert id, rounded after each add, as
   JAX's scatter-add runs over the expert-sorted rows; no `index_add_`
@@ -34,12 +36,14 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
 from llm_training_tpu_torch.ops.swiglu import silu_mul
-from llm_training_tpu_torch.parallel.mesh import EXPERT_AXIS, active_mesh
+from llm_training_tpu_torch.parallel.batch import batch_group, batch_index
+from llm_training_tpu_torch.parallel.mesh import EXPERT_AXIS, SEQUENCE_AXIS, active_mesh
 
 def router_block_stats(topk_idx: torch.Tensor, probs: torch.Tensor, num_experts: int,
                        pad_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -107,24 +111,55 @@ def _combine(rows: torch.Tensor, topk_idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _rows_before(group_sizes: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Where this rank's expert-sorted rows stand in the global batch's:
+    (each expert's rows on the batch's ranks that hold earlier tokens, each
+    expert's rows over the whole batch, the batch's rows). JAX buckets the
+    global batch, its rows in (batch, sequence, slot) order; a rank holds
+    whole rows of the batch, so its tokens are one contiguous run of that
+    order after the ranks of lower batch index. Off a mesh: (0, the sizes,
+    `rows`). A `sequence` axis above 1 cuts each row across ranks, whose
+    tokens are then not one run: it raises naming ROADMAP A.9b."""
+    group = batch_group()
+    if group is None or dist.get_world_size(group) == 1:
+        return torch.zeros_like(group_sizes), group_sizes, rows
+    mesh = active_mesh()
+    if mesh[SEQUENCE_AXIS].size() > 1:
+        raise NotImplementedError(
+            "moe_impl='bucketed' on a `sequence` mesh axis above 1 is not ported "
+            "(ROADMAP A.9b): the global capacity's row order spans the sequence's ranks")
+    mine = torch.cat([group_sizes.new_tensor([batch_index(mesh)]), group_sizes])
+    everyone = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(everyone, mine, group=group)
+    everyone = torch.stack(everyone)
+    earlier = everyone[:, 0] < mine[0]
+    return (everyone[:, 1:] * earlier[:, None]).sum(0), everyone[:, 1:].sum(0), rows * len(everyone)
+
+
 def _bucketed_apply(x, topk_idx, topk_weights, num_experts: int, bmm_fn: Callable,
                     capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Fixed-capacity buckets: sort the (token, slot) rows by expert, gather
     bucket e's first C rows into `[E, C, H]`, run `bmm_fn`, weight and
-    combine. Rows beyond an expert's capacity are dropped and counted."""
+    combine. Rows beyond an expert's capacity are dropped and counted. On a
+    mesh C and the drops are the global batch's (`_rows_before`): a rank
+    keeps its rows whose place in their expert's global queue is under C,
+    and the dropped count is the whole batch's."""
     n_tokens, top_k = topk_idx.shape
     hidden = x.shape[-1]
     rows = n_tokens * top_k
-    capacity = min(math.ceil(rows / num_experts * capacity_factor), rows)
     _, flat_weight, flat_token, order, gs = _sorted_dispatch(topk_idx, topk_weights, num_experts)
     gs = gs.long()
+    before, global_gs, global_rows = _rows_before(gs, rows)
+    capacity = min(math.ceil(global_rows / num_experts * capacity_factor), global_rows)
+    kept = (capacity - before).clamp(min=0).minimum(gs)  # this rank's rows of each bucket
+    width = min(capacity, rows)  # a bucket's slots on this rank
     start = torch.cumsum(gs, 0) - gs
-    offs = torch.arange(capacity, device=x.device)
+    offs = torch.arange(width, device=x.device)
     src_sorted = (start[:, None] + offs[None, :]).clamp(0, rows - 1)
-    valid = offs[None, :] < gs[:, None]  # [E, C]
+    valid = offs[None, :] < kept[:, None]  # [E, C]
     src = order[src_sorted.reshape(-1)]  # the original (token, slot) rows
     tok = flat_token[src]
-    xb = torch.where(valid.reshape(-1)[:, None], x[tok], 0).reshape(num_experts, capacity, hidden)
+    xb = torch.where(valid.reshape(-1)[:, None], x[tok], 0).reshape(num_experts, width, hidden)
     yb = bmm_fn(xb)
     w = flat_weight[src] * valid.reshape(-1).to(flat_weight.dtype)
     ys = (yb.reshape(-1, hidden) * w.to(yb.dtype)[:, None]).to(x.dtype)
@@ -135,7 +170,7 @@ def _bucketed_apply(x, topk_idx, topk_weights, num_experts: int, bmm_fn: Callabl
     row_of[src[slots]] = torch.arange(slots.numel(), device=x.device)[slots]
     gathered = torch.cat([ys, ys.new_zeros((1, hidden))])[row_of]
     out = _combine(gathered.reshape(n_tokens, top_k, hidden), topk_idx)
-    dropped = (rows - gs.clamp(max=capacity).sum()).float()
+    dropped = (global_rows - global_gs.clamp(max=capacity).sum()).float()
     return out, dropped
 
 

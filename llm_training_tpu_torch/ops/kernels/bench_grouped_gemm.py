@@ -1,15 +1,26 @@
 """Cases, checks, bounds and timing of the grouped GEMM (G1) on the card.
 
-    python -m llm_training_tpu_torch.ops.kernels.bench_grouped_gemm [--timing-only]
+    python -m llm_training_tpu_torch.ops.kernels.bench_grouped_gemm \
+        [--timing-only] [--versus OTHER/grouped_gemm.cu] [--shape NAME]
 
 checks the three entry points against their plain versions over the group
 layouts `chip_smoke.py` holds them to, then times them at Qwen3-30B-A3B's
 training shape (4096 tokens x 8 experts a token over 128 experts, K/N
-2048/768, the gate projection), its decode shape (8 tokens x 8 over 128,
-the forward only) and Mixtral-8x7B's (8192 rows over 8 experts, K/N
-4096/14336), and prints one JSON line for each shape and direction: the
-kernel's time beside its bound, the plain version's and
+2048/768, the gate projection, and 768/2048, the down projection; wgrad
+also on a draw whose group sizes are rounded to multiples of 8 rows, the
+only layout `torch._grouped_mm` takes for it), its decode shape (8 tokens
+x 8 over 128, the forward only) and Mixtral-8x7B's (8192 rows over 8
+experts, K/N 4096/14336), and prints one JSON line for each shape and
+direction: the kernel's time beside its bound, the plain version's and
 `torch._grouped_mm`'s (the yardstick; the port never calls it).
+
+`--versus` builds another version of `csrc/grouped_gemm.cu` (a file with
+the same `grouped_gemm_launch` entry point, such as an earlier commit's)
+into a library of its own, and times it and the tree's kernel in turns in
+this process (other, tree, tree, other) through the same wrappers, each
+turn with the host's microseconds a call (the enqueue, the tensor maps'
+encoding included).
+`--shape` times only the shapes whose name contains NAME.
 
 Device time comes from CUDA events around calls enqueued behind a
 `torch.cuda._sleep` (`bench_paged_decode.device_ms`), cycling over copies
@@ -19,12 +30,19 @@ cold.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import hashlib
 import json
 import math
+import subprocess
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from llm_training_tpu_torch.ops.kernels import build
 from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
 from llm_training_tpu_torch.ops.kernels.bench_paged_decode import (
     FP32_FLOPS_PER_S,
@@ -67,6 +85,26 @@ def layouts() -> dict[str, tuple[list[int], int, int]]:
         "sparsemixer (1024 rows over 16)": (routed_sizes(512, 2, 16, seed=3), 4096, 6400),
         # the bucketed path: every group its capacity, ceil(4096 x 8 / 128 x 1.25)
         "bucketed (128 x 320)": ([320] * 128, 2048, 768),
+        **edge_layouts(),
+    }
+
+
+def edge_layouts() -> dict[str, tuple[list[int], int, int]]:
+    """The layouts that probe the Hopper kernel's edges at small widths
+    (the CPU tests hold each to JAX's `ragged_dot`): TMA boxes starting at
+    rows off a multiple of 8, a 1-row group between groups of thousands,
+    K and N that are tails of the 128-column tile and of the 64-deep
+    slice, more tiles than 4 x 132 over 1024 small groups, and one group
+    over five bands of 8 row tiles. The two layouts of over 4096 rows
+    take 256-column tiles where the output is that wide (fwd and wgrad of
+    the first, dgrad of the second), with a tail of 40."""
+    small = np.random.default_rng(5).integers(0, 6, 1024).tolist()
+    return {
+        "starts off multiples of 8": ([3, 5, 13, 250, 7, 1, 130, 9], 64, 48),
+        "1 row between thousands": ([3000, 1, 4000], 200, 296),
+        "K and N tails (72, 40)": ([100, 37, 0, 200], 72, 40),
+        "1024 small groups": (small, 64, 128),
+        "one group over five bands": ([40, 4100, 90], 296, 72),
     }
 
 
@@ -178,16 +216,72 @@ def _library(case: dict, op: str):
     return calls[op], None
 
 
+def versus_library(source: str) -> ctypes.CDLL:
+    """Another version of the kernel's source, built alone (the tree's
+    flags) into a library of its own beside the tree's, its entry point
+    declared as the tree's is."""
+    src = Path(source).resolve()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(build.COMPILE_FLAGS).encode())
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / f"versus_{digest.hexdigest()[:16]}.so"
+    if not path.exists():
+        out = subprocess.run([build._nvcc(), *build.COMPILE_FLAGS, "-shared", "-I", str(src.parent),
+                              "-I", str(build.CSRC), "-o", str(path), str(src)],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(str(path))
+    lib.grouped_gemm_launch.argtypes = gg._load().grouped_gemm_launch.argtypes
+    lib.grouped_gemm_launch.restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def launching(lib: ctypes.CDLL | None):
+    """The wrappers launch `lib`'s kernel inside (the tree's when None)."""
+    real = gg._load
+    if lib is not None:
+        gg._load = lambda: lib
+    try:
+        yield
+    finally:
+        gg._load = real
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """The host's microseconds a call (the enqueue: the wrapper's checks,
+    the output's allocation, the launch function), the stream left to run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / reps
+
+
 def time_case(sizes: list[int], k: int, n: int, op: str, dtype=torch.bfloat16,
-              reps: int = 20) -> dict:
+              reps: int = 20, versus: ctypes.CDLL | None = None) -> dict:
     """Kernel, plain version and `torch._grouped_mm` at one shape and
-    direction, cold L2, beside the bound."""
+    direction, cold L2, beside the bound; with `versus`, that library's
+    kernel and the tree's in turns (other, tree, tree, other)."""
     first = make_case(sizes, k, n, dtype, seed=0)
     elem = first["x"].element_size()
     copies = max(2, math.ceil(2 * L2_BYTES / work(sizes, k, n, op, elem)[1]) + 1)
     cases = [first] + [make_case(sizes, k, n, dtype, seed=s) for s in range(1, copies)]
     err = check(first, op)
-    ms = device_ms([lambda c=c: run(c, op, True) for c in cases], reps=reps)
+    kernel_calls = [lambda c=c: run(c, op, True) for c in cases]
+    turns = {}
+    if versus is not None:
+        with launching(versus):
+            versus_err = check(first, op)
+        for name in ("versus", "tree", "tree", "versus"):
+            with launching(versus if name == "versus" else None):
+                turns.setdefault(name, []).append(device_ms(kernel_calls, reps=reps))
+                turns.setdefault(f"{name}_host_us", []).append(host_us(kernel_calls[0]))
+        turns["versus_ok"] = versus_err["ok"]
+    ms = turns["tree"][-1] if turns else device_ms(kernel_calls, reps=reps)
     plain_ms = device_ms([lambda c=c: run(c, op, False) for c in cases], reps=max(3, reps // 4))
     library, why = _library(first, op)
     library_ms = None
@@ -201,13 +295,22 @@ def time_case(sizes: list[int], k: int, n: int, op: str, dtype=torch.bfloat16,
                 touched=sum(1 for s in sizes if s), k=k, n=n, dtype=str(dtype).split(".")[-1],
                 max_abs_err=err["max_abs_err"], ok=err["ok"], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
-                library_note=why, share_of_bound=bound / ms)
+                library_note=why, share_of_bound=bound / ms, turns=turns)
+
+
+def round_to_8(sizes: list[int]) -> list[int]:
+    """The same draw with each group's rows rounded to a multiple of 8."""
+    return [8 * round(size / 8) for size in sizes]
 
 
 def timed_shapes() -> dict[str, tuple[list[int], int, int, tuple[str, ...]]]:
     """name -> (rows a group, K, N, directions) of the timed shapes."""
+    training = routed_sizes(4096, 8, 128, seed=2, skew=0.5)
     return {
-        "qwen3-30b-a3b training": (routed_sizes(4096, 8, 128, seed=2, skew=0.5), 2048, 768, OPS),
+        "qwen3-30b-a3b training": (training, 2048, 768, OPS),
+        "qwen3-30b-a3b training, sizes rounded to 8": (round_to_8(training), 2048, 768,
+                                                        ("wgrad",)),
+        "qwen3-30b-a3b training down projection": (training, 768, 2048, OPS),
         "qwen3-30b-a3b decode": (routed_sizes(8, 8, 128, seed=1), 2048, 768, ("fwd",)),
         "mixtral-8x7b": (routed_sizes(4096, 2, 8, seed=4, skew=0.5), 4096, 14336, OPS),
     }
@@ -218,6 +321,7 @@ def main(argv: list[str]) -> int:
         raise SystemExit("bench_grouped_gemm needs a CUDA card")
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
+    versus = versus_library(argv[argv.index("--versus") + 1]) if "--versus" in argv else None
     for name, (sizes, k, n) in ({} if "--timing-only" in argv else layouts()).items():
         for dtype in (torch.bfloat16, torch.float32):
             case = make_case(sizes, k, n, dtype, seed=7)
@@ -225,10 +329,13 @@ def main(argv: list[str]) -> int:
                 print(json.dumps({"card": card, "layout": name, "dtype": str(dtype), "op": op,
                                   **check(case, op)}), flush=True)
             del case
+    only = argv[argv.index("--shape") + 1] if "--shape" in argv else ""
     for name, (sizes, k, n, ops) in timed_shapes().items():
+        if only not in name:
+            continue
         for op in ops:
-            print(json.dumps({"card": card, "shape": name, **time_case(sizes, k, n, op)}),
-                  flush=True)
+            row = time_case(sizes, k, n, op, versus=versus)
+            print(json.dumps({"card": card, "shape": name, **row}), flush=True)
     return 0
 
 

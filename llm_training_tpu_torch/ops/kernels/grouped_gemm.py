@@ -28,11 +28,13 @@ launches.
 What bounds it on an H100, and the design (`csrc/grouped_gemm.cu`): at
 Qwen3-30B-A3B's shapes the bytes (its training shape reads 0.40 GB of
 weights a projection against 0.10 ms of FLOPs; at decode only the touched
-experts' weights are read), at Mixtral-8x7B's the FLOPs. A block finds its
-(group, row tile) from the offsets on the device, no tile crosses a
-group's edge and a group with no rows costs no weight reads; bf16 runs on
-the tensor cores (mma.sync m16n8k16, fp32 accumulation, cp.async), fp32
-on FMA. No atomics: two launches give the same bits.
+experts' weights are read), at Mixtral-8x7B's the FLOPs. bf16 runs on
+Hopper's own path: TMA copies into a ring of swizzled shared-memory
+stages, `wgmma` products with fp32 accumulation, one persistent block an
+SM walking 128 x 128 output tiles; a block finds a tile's (group, row
+tile) from the offsets on the device, no tile crosses a group's edge and
+a group with no rows costs no weight reads. fp32 runs on FMA. No atomics:
+two launches give the same bits.
 
 Build: `build.py` compiles every `csrc/*.cu` for sm_90a into one shared
 library with a plain C interface at the first launch. Nothing is built or
@@ -48,6 +50,7 @@ import torch
 from llm_training_tpu_torch.ops.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_MAX_GROUPS = 2048  # kMaxGroups of the bf16 forward and dgrad
 _OPS = {"fwd": 0, "dgrad": 1, "wgrad": 2}
 
 _declared = False
@@ -87,6 +90,9 @@ def _check(what: str, a: torch.Tensor, b: torch.Tensor, offsets: torch.Tensor,
     if a.dtype == torch.bfloat16:
         if k % 8 or n % 8:
             raise ValueError(f"{what}: bf16 needs K and N multiples of 8, got K {k} N {n}")
+        if what != "grouped_gemm_wgrad" and groups > BF16_MAX_GROUPS:
+            raise ValueError(f"{what}: bf16 takes at most {BF16_MAX_GROUPS} groups (the "
+                             f"kernel's shared prefix of their tiles), got {groups}")
         if any(t.data_ptr() % 16 for t in (a, b)):
             raise ValueError(f"{what}: bf16 operands must be 16-byte aligned")
 

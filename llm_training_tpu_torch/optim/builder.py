@@ -53,7 +53,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from llm_training_tpu_torch.models.llama.from_jax import jax_layout, jax_path
+from llm_training_tpu_torch.models.llama.from_jax import PAIRS, jax_layout, jax_path
 from llm_training_tpu_torch.optim import adafactor
 from llm_training_tpu_torch.optim.offload import StateStore
 from llm_training_tpu_torch.optim.quantized_state import DEFAULT_BLOCK
@@ -157,8 +157,10 @@ class Optimizer:
     elementwise optimizers, one JAX leaf (`adafactor.Group`) for Adafactor
     -- after the global-norm clip, and frees each gradient once its
     parameter is updated. Per-parameter state keys are `<field>.<name>`;
-    Adafactor's are `<field>.<JAX leaf>` in the JAX leaf's orientation
-    (`from_jax.jax_layout`)."""
+    Adafactor's are `<field>.<JAX leaf>` in the JAX leaf's orientation,
+    a leaf of the JAX tree of the model's layout (`scan_layers`: scanned,
+    looped, or Gemma-2's pairs; `from_jax.jax_layout`), so its statistics,
+    RMS and clipping are optax's per leaf."""
 
     def __init__(
         self,
@@ -205,10 +207,15 @@ class Optimizer:
         self.live = [i for i, t in enumerate(self.trainable) if t]
         device = self.local[0].device if self.params else torch.device("cpu")
         self.store = StateStore(device, offload, state_dtype, quant_block)
-        layouts = [jax_layout(n) for n in self.names]
-        # the JAX array's last axis, where the codec's blocks run
+        # each parameter's JAX leaf in the model's layout (Adafactor's
+        # statistics and RMS terms are the leaf's) and the JAX array's last
+        # axis, where the codec's blocks run
+        layouts = [jax_layout(n, scan_layers) for n in self.names]
         self._axis = [0 if transposed and p.ndim == 2 else -1
                       for p, (_, _, transposed) in zip(self.params, layouts)]
+        self.adafactor_layout = (None if self.kind != "adafactor" else
+                                 "pairs" if scan_layers == PAIRS else
+                                 "scanned" if scan_layers else "looped")
         zeros = lambda i: torch.zeros_like(self.local[i])  # noqa: E731
         if accumulate > 1:
             for i, name in enumerate(self.names):
@@ -232,12 +239,14 @@ class Optimizer:
 
     def layout(self) -> dict:
         """What the state's shape depends on: the optimizer, the
-        accumulation factor, the offload placement and codec, and each
+        accumulation factor, Adafactor's JAX layout (its leaves), the
+        offload placement and codec, and each
         parameter's shape, dtype and trainability (the freeze mask). A
         checkpoint restores only into the same layout."""
         return {
             "kind": self.kind,
             "accumulate": self.accumulate,
+            "adafactor_layout": self.adafactor_layout,
             **self.offload,
             "state": sorted({key.split(".", 1)[0] for key in self.store.entries}),
             "params": {
@@ -252,8 +261,10 @@ class Optimizer:
         checkpoint's `layout()` and this optimizer's (a checkpoint written
         before the offload keys existed holds their defaults)."""
         live = self.layout()
-        saved = {**_OFFLOAD_DEFAULTS, **saved}
-        for key in ("kind", "accumulate", *_OFFLOAD_DEFAULTS, "state"):
+        # a checkpoint from before the key kept Adafactor's scanned leaves
+        layout = "scanned" if saved.get("kind") == "adafactor" else None
+        saved = {**_OFFLOAD_DEFAULTS, "adafactor_layout": layout, **saved}
+        for key in ("kind", "accumulate", "adafactor_layout", *_OFFLOAD_DEFAULTS, "state"):
             if saved.get(key) != live[key]:
                 raise ValueError(
                     f"optimizer {key}: checkpoint has {saved.get(key)!r}, this run {live[key]!r}"

@@ -58,6 +58,12 @@ def batch_ways(mesh) -> int:
     return _coordinate(mesh, BATCH_AXES)[1]
 
 
+def batch_index(mesh) -> int:
+    """This rank's index over the batch's rows (`plan_shard` gives it rows
+    index * per_rank ..)."""
+    return _coordinate(mesh, BATCH_AXES)[0]
+
+
 def plan_shard(mesh, rows: int, seq: int) -> BatchShard:
     """This rank's rows and chunk of a [rows, seq] global batch. The batch
     must divide over (data, fsdp, expert), as JAX requires it to divide

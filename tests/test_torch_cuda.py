@@ -640,7 +640,10 @@ def test_ring_kernels_match_the_ring_of_plain_chunks(cuda, p, window, sinks):
 
 # ------------------------------------------------- the grouped GEMM (G1)
 
-GG_LAYOUTS = ("one group", "empty first, middle, last", "ragged (not tile multiples)")
+GG_LAYOUTS = ("one group", "empty first, middle, last", "ragged (not tile multiples)",
+              # the Hopper kernel's edges (`bench_grouped_gemm.edge_layouts`)
+              "starts off multiples of 8", "1 row between thousands", "K and N tails (72, 40)",
+              "1024 small groups", "one group over five bands")
 
 
 @pytest.mark.cuda
@@ -649,10 +652,12 @@ GG_LAYOUTS = ("one group", "empty first, middle, last", "ragged (not tile multip
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_grouped_gemm_matches_plain(cuda, dtype, op, layout):
     """G1's three directions against their plain versions over layouts with
-    one group, empty first, middle and last groups and ragged sizes (the
-    limits of `bench_grouped_gemm.check`: the output's rounding in bf16,
-    the order of fp32 sums), two launches bit-equal, and an empty group's
-    weight gradient zero."""
+    one group, empty first, middle and last groups, ragged sizes and the
+    edge layouts (groups starting off multiples of 8, a 1-row group between
+    thousands, K and N tails, 1024 small groups, a group over five bands)
+    (the limits of `bench_grouped_gemm.check`: the output's rounding in
+    bf16, the order of fp32 sums), two launches bit-equal, and an empty
+    group's weight gradient zero."""
     from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
 
     sizes, k, n = bench.layouts()[layout]
@@ -673,6 +678,13 @@ def test_grouped_gemm_rejects_what_it_cannot_take(cuda):
         gg.grouped_gemm_fwd(x.float(), w.float(), offsets.long())
     with pytest.raises(ValueError, match="dtypes"):
         gg.grouped_gemm_fwd(x.half(), w.half(), offsets)
+    # the bf16 forward's and dgrad's shared prefix holds 2048 groups' tiles
+    many = gg.BF16_MAX_GROUPS + 1
+    wide = torch.zeros((many, 16, 16), dtype=torch.bfloat16, device=cuda)
+    spread = torch.zeros(many + 1, dtype=torch.int32, device=cuda)
+    spread[-1] = 6
+    with pytest.raises(ValueError, match="at most 2048 groups"):
+        gg.grouped_gemm_fwd(torch.zeros((6, 16), dtype=torch.bfloat16, device=cuda), wide, spread)
 
 
 @pytest.mark.cuda

@@ -36,7 +36,7 @@ from llm_training_tpu_torch.data.preference_tuning.collator import PreferenceTun
 from llm_training_tpu_torch.lms import DPO, DPOConfig
 from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
 from llm_training_tpu_torch.models.gemma import Gemma
-from llm_training_tpu_torch.models.llama.from_jax import state_dict_from_jax
+from llm_training_tpu_torch.models.llama.from_jax import optimizer_state_from_jax, state_dict_from_jax
 from llm_training_tpu_torch.optim.builder import OptimConfig
 from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
 from torch_threads import one_torch_thread  # noqa: F401
@@ -70,7 +70,7 @@ class _Losses:
         self.losses.append(metrics["loss"])
 
 
-def _jax_fit(objective, params, batches, frozen=None, optim=OPTIM):
+def _jax_fit(objective, params, batches, frozen=None, optim=OPTIM, with_state=False):
     tx, _ = jax_optimizer(JaxOptimConfig(**optim), STEPS, frozen)
     state = tx.init(params)
 
@@ -85,7 +85,7 @@ def _jax_fit(objective, params, batches, frozen=None, optim=OPTIM):
     for batch in batches:
         params, state, loss = step(params, state, {k: jnp.asarray(v) for k, v in batch.items()})
         losses.append(float(loss))
-    return losses, params
+    return (losses, params, jax.device_get(state)) if with_state else (losses, params)
 
 
 def _clm_batches(seed):
@@ -128,6 +128,51 @@ def test_clm_fit_matches_jax(name, frozen):
         for key in ("model.layers.1.mlp.down_proj.weight", "model.layers.0.mlp.down_proj.weight"):
             np.testing.assert_allclose(after[key].detach().numpy(), want[key].numpy(),
                                        rtol=1e-4, atol=1e-6)
+
+
+# Adafactor whose stacks factor at the tiny widths (the pairs' [2, in, out])
+ADAFACTOR = dict(optimizer="adafactor", learning_rate=1e-2, warmup_steps=2,
+                 optimizer_kwargs={"min_dim_size_to_factor": 8})
+
+
+def test_adafactor_fit_in_the_pairs_layout_matches_optax():
+    """Adafactor over Gemma-2's scanned (sliding, full) pairs: optax clips
+    each leaf's update by that leaf's RMS, so the port's statistics and
+    clipping are per half (`layers/sliding`, `layers/full`). A 5-step fit:
+    losses within rtol 1e-4 of JAX's, the final parameters within rtol
+    1e-4, and JAX's final factored statistics, read by
+    `optimizer_state_from_jax` in the pairs layout, equal to the port's
+    within 1e-5."""
+    jax_config, config = configs("v2_pairs")
+    model = JaxGemma(jax_config)
+    variables = random_params(model, seed=3)
+    batches = _clm_batches(4)
+    expected, final, opt_state = _jax_fit(JaxCLM(JaxCLMConfig(), model=model), variables,
+                                          batches, optim=ADAFACTOR, with_state=True)
+    port = Gemma(config, device="cpu")
+    port.load_state_dict(state_dict_from_jax(variables, config))
+    recorder = _Losses()
+    objective = CLM(CLMConfig(optim=OptimConfig(**ADAFACTOR)), model=port)
+    state = Trainer(TrainerConfig(max_steps=STEPS, log_every_n_steps=1), callbacks=[recorder],
+                    device="cpu").fit(objective, _Batches(batches))
+    np.testing.assert_allclose(recorder.losses, expected, rtol=FIT_RTOL)
+    want = state_dict_from_jax(jax.device_get(final), config)
+    for name, value in state.model.named_parameters():
+        np.testing.assert_allclose(value.detach().numpy(), want[name].numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+    factored = [x for x in jax.tree.leaves(opt_state, is_leaf=lambda x: isinstance(
+        x, optax.FactoredState)) if isinstance(x, optax.FactoredState)]
+    live = state.optimizer.state_dict()
+    assert live["v_row.model.layers.sliding.mlp.up_proj.weight"].shape == (2, 64)
+    compared = 0
+    for field in ("v_row", "v_col", "v"):
+        for key, value in optimizer_state_from_jax(getattr(factored[0], field), config, field,
+                                                   per_leaf=True).items():
+            value = value.numpy()
+            np.testing.assert_allclose(live[key].numpy(), value, rtol=1e-5,
+                                       atol=1e-6 * np.abs(value).max(), err_msg=key)
+            compared += 1
+    assert compared == len([k for k in live if k.split(".")[0] in ("v_row", "v_col", "v")])
 
 
 def _preference_batches(seed):

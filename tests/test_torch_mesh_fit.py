@@ -21,7 +21,11 @@ through the port's CLI, in one process group:
 - an MoE Llama (4 experts, a gated shared expert, the ragged impl) on
   `(fsdp 4)`, FSDP2 sharding each expert stack's `expert` dim 0: losses
   within rtol 1e-5 of the same fit in this one process; on `(fsdp 2,
-  tensor 2)` it raises naming A.9b.
+  tensor 2)` it raises naming A.9b;
+- the same MoE with `moe_impl: bucketed` at capacity factor 1 on `(fsdp
+  4)`: losses within rtol 1e-4 of JAX's and every step's dropped rows
+  equal (the global batch's capacity and drops); on `(fsdp 2, sequence
+  2)` it raises naming A.9b.
 
 Then `validate` and `generate` read the `(fsdp 2, tensor 2)` checkpoint in
 this one process: JAX's `val_loss` (rtol 1e-4) and greedy tokens. The
@@ -89,6 +93,9 @@ NEFTUNE = {"neftune_alpha": 5.0}
 PROMPTS = [[3, 17, 42], [5, 9]]
 MOE = dict(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=16,
            shared_expert_intermediate_size=24, moe_impl="ragged")
+# fixed-capacity buckets at factor 1: the router's own skew overflows some
+# experts' capacity of the global batch (JAX drops 33-70 rows a step here)
+MOE_BUCKETED = dict(MOE, moe_impl="bucketed", moe_capacity_factor=1.0)
 WORLD_TIMEOUT_S = 240
 
 
@@ -121,9 +128,9 @@ def _port_config(root: Path, name: str, mesh: dict, *, objective="CLM", model_ex
     return path
 
 
-def _losses(root: Path, name: str) -> dict[int, float]:
+def _losses(root: Path, name: str, key: str = "loss") -> dict[int, float]:
     rows = [json.loads(line) for line in (root / "p" / name / "metrics.jsonl").read_text().splitlines()]
-    return {r["step"]: r["loss"] for r in rows if "loss" in r}
+    return {r["step"]: r[key] for r in rows if key in r}
 
 
 def _preference_batches(steps: int) -> list[dict]:
@@ -165,9 +172,12 @@ class _ListData:
 class _Track:
     def __init__(self):
         self.losses = {}
+        self.dropped = {}
 
     def on_step_end(self, trainer, step, metrics):
         self.losses[step] = float(metrics["loss"])
+        if "ep_dropped_rows" in metrics:
+            self.dropped[step] = float(metrics["ep_dropped_rows"])
 
 
 @pytest.fixture(scope="module")
@@ -210,6 +220,11 @@ def world(tmp_path_factory, devices):
             root, "moe-tp", MESHES["tp"], model_extra=MOE, hf="hf-moe", steps=1)), *cpu],
          "expect_error": True},
         {"argv": ["fit", "--config", str(_port_config(
+            root, "moe-bucketed", MESHES["dpo"], model_extra=MOE_BUCKETED, hf="hf-moe")), *cpu]},
+        {"argv": ["fit", "--config", str(_port_config(
+            root, "moe-bucketed-sp", MESHES["sp"], hf="hf-moe", steps=1,
+            model_extra={**MOE_BUCKETED, "ring_attention": True})), *cpu], "expect_error": True},
+        {"argv": ["fit", "--config", str(_port_config(
             root, "adafactor", MESHES["tp"], steps=1,
             optim={"optimizer": "adafactor", "learning_rate": 1e-3})), *cpu], "expect_error": True},
         {"argv": ["fit", "--config", str(_port_config(root, "sigterm", {"fsdp_size": 4})), *cpu],
@@ -231,13 +246,13 @@ def world(tmp_path_factory, devices):
                       "ORPO": (JaxORPO, JaxORPOConfig)}
 
     def jax_fit(mesh, objective="CLM", model_extra=None, optim=None, data=None,
-                objective_extra=None):
+                objective_extra=None, hf="hf"):
         objective_cls, config_cls = jax_objectives[objective]
         track = _Track()
         jax_objective = objective_cls(config_cls(
             model=JaxProvider(model_class="llm_training_tpu.models.Llama",
                               model_kwargs={**TINY, **(model_extra or {})}),
-            pre_trained_weights=str(root / "hf"), optim=JaxOptimConfig(**(optim or OPTIM)),
+            pre_trained_weights=str(root / hf), optim=JaxOptimConfig(**(optim or OPTIM)),
             **(objective_extra or {})))
         trainer = JaxTrainer(JaxTrainerConfig(max_steps=STEPS, log_every_n_steps=1,
                                               mesh=JaxMeshConfig(**mesh)),
@@ -245,6 +260,8 @@ def world(tmp_path_factory, devices):
         state = trainer.fit(jax_objective, _ListData(prefs) if data == "prefs"
                             else JaxDummy(JaxDummyConfig(**DATA)))
         params = state.params["policy"] if objective == "DPO" else state.params
+        if track.dropped:
+            return track.losses, jax.device_get(params), track.dropped
         return track.losses, jax.device_get(params), jax_objective
 
     jax_runs = {"tp": jax_fit(MESHES["tp"]),
@@ -253,6 +270,7 @@ def world(tmp_path_factory, devices):
                 "dpo": jax_fit(MESHES["dpo"], "DPO", data="prefs")}
     for name, mesh, kw in OTHER_FITS:
         jax_runs[name] = jax_fit(mesh, **kw)
+    jax_runs["moe-bucketed"] = jax_fit(MESHES["dpo"], model_extra=MOE_BUCKETED, hf="hf-moe")
 
     try:
         out, _ = proc.communicate(timeout=WORLD_TIMEOUT_S)
@@ -377,6 +395,28 @@ def test_moe_fit_under_fsdp2_matches_one_process(world):
     assert sorted(losses) == sorted(single) == list(range(1, STEPS + 1))
     np.testing.assert_allclose([losses[s] for s in sorted(losses)],
                                [single[s] for s in sorted(single)], rtol=1e-5)
+
+
+def test_bucketed_moe_on_a_mesh_keeps_the_global_batch_s_rows(world):
+    """`moe_impl: bucketed` on (fsdp 4) with capacity factor 1: each
+    expert's capacity is the global batch's and a rank keeps the rows whose
+    place in their expert's global queue is under it, as JAX's buckets over
+    the global batch do. The 5-step fit's losses within rtol 1e-4 of JAX's
+    `Trainer` on the same mesh, and the dropped rows of every step equal
+    JAX's (the global count, on every rank). On (fsdp 2, sequence 2), whose
+    ranks hold no contiguous run of the global order, it raises naming
+    A.9b."""
+    root, jax_runs, ranks = world
+    assert all(r["rcs"][11] == 0 for r in ranks)
+    jax_losses, _, jax_dropped = jax_runs["moe-bucketed"]
+    losses, dropped = _losses(root, "moe-bucketed"), _losses(root, "moe-bucketed", "ep_dropped_rows")
+    assert sorted(losses) == sorted(dropped) == list(range(1, STEPS + 1))
+    np.testing.assert_allclose([losses[s] for s in sorted(losses)],
+                               [jax_losses[s] for s in sorted(jax_losses)], rtol=1e-4)
+    assert [dropped[s] for s in sorted(dropped)] == [jax_dropped[s] for s in sorted(jax_dropped)]
+    assert all(d > 0 for d in dropped.values())
+    refusals = [r["rcs"][12] for r in ranks]
+    assert all(isinstance(x, str) and "A.9b" in x and "bucketed" in x for x in refusals)
 
 
 def test_adafactor_on_more_than_one_rank_names_a9b(world):

@@ -4,9 +4,10 @@ same numpy inputs:
 
 - the grouped GEMM's forward against `jax.lax.ragged_dot` and its dgrad /
   wgrad against `jax.grad` of it, over layouts with empty first, middle
-  and last groups (fp32: within 1e-5; a group with no rows has a zero
-  weight gradient), and the autograd function's gradients equal the
-  plain entry points';
+  and last groups and over the Hopper kernel's edge layouts
+  (`bench_grouped_gemm.edge_layouts`) (fp32: within 1e-5; a group with no
+  rows has a zero weight gradient), and the autograd function's gradients
+  equal the plain entry points';
 - `router_block_stats` (padding left out), `sparsemixer_topk`, and
   `dropless_moe_apply`'s dense, ragged and bucketed impls (the bucketed
   path's dropped count equal, its capacity overflowing), each within 1e-5
@@ -32,6 +33,7 @@ from llm_training_tpu.models import moe as jax_moe
 from llm_training_tpu.models.llama.config import LlamaConfig as JaxLlamaConfig
 from llm_training_tpu_torch.models import moe
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
+from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
 from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
 
 TOL = 1e-5
@@ -82,6 +84,32 @@ def test_grouped_gemm_matches_ragged_dot(layout):
     torch.testing.assert_close(px.grad, dx, rtol=TOL, atol=TOL)
     torch.testing.assert_close(pw.grad, dw, rtol=TOL, atol=TOL)
     assert gg.offsets_from_sizes(torch.tensor(sizes)).tolist() == offsets.tolist()
+
+
+@pytest.mark.parametrize("layout", sorted(bench.edge_layouts()))
+def test_grouped_gemm_edge_layouts_match_ragged_dot(layout):
+    """The Hopper kernel's edge layouts (`bench_grouped_gemm.edge_layouts`:
+    groups starting off multiples of 8, a 1-row group between groups of
+    thousands, K and N tails of the tile, 1024 small groups, one group over
+    five bands), which the card holds the kernel to G1's plain version on:
+    here the plain version's three directions against `ragged_dot` and its
+    VJP within 1e-5 (fp32; relative to each output's largest element, as
+    sums of up to 4100 terms in another order differ by that much near
+    zero), an empty group's weight gradient zero."""
+    sizes, k, n = bench.edge_layouts()[layout]
+    x, w, dy, offsets = _operands(sizes, k=k, n=n, seed=4)
+    gs = jnp.asarray(sizes, jnp.int32)
+    fwd = lambda a, b: jax.lax.ragged_dot(a, b, gs)  # noqa: E731
+    want, vjp = jax.vjp(fwd, jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(dy))
+    tx, tw, tdy = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(dy)
+    dw = gg.grouped_gemm_wgrad(tx, tdy, offsets, len(sizes))
+    for got, ref in ((gg.grouped_gemm_fwd(tx, tw, offsets), want),
+                     (gg.grouped_gemm_dgrad(tdy, tw, offsets), want_dx), (dw, want_dw)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL * np.abs(ref).max())
+    empty = [g for g, size in enumerate(sizes) if size == 0]
+    assert not dw[empty].any()
 
 
 def test_grouped_gemm_wrappers_refuse_what_they_cannot_take():

@@ -32,6 +32,8 @@ from llm_training_tpu.lms.clm import CLM as JaxCLM
 from llm_training_tpu.lms.clm import CLMConfig as JaxCLMConfig
 from llm_training_tpu.lms.dpo import DPO as JaxDPO
 from llm_training_tpu.lms.dpo import DPOConfig as JaxDPOConfig
+from llm_training_tpu.models.llama.config import LlamaConfig as JaxLlamaConfig
+from llm_training_tpu.models.llama.model import Llama as JaxLlama
 from llm_training_tpu.optim.builder import OptimConfig as JaxOptimConfig
 from llm_training_tpu.optim.builder import build_optimizer as jax_optimizer
 from llm_training_tpu.optim.quantized_state import QuantArray
@@ -44,6 +46,7 @@ from llm_training_tpu_torch.lms import DPO, DPOConfig
 from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.from_jax import (
+    optimizer_state_from_jax,
     state_dict_from_jax,
     train_state_dict_from_jax,
 )
@@ -257,6 +260,9 @@ FITS = {
     "adafactor": dict(optimizer="adafactor", learning_rate=0.3, warmup_steps=2,
                       optimizer_kwargs={"min_dim_size_to_factor": 32, "momentum": 0.9}),
 }
+# the same Adafactor over JAX's looped tree (`scan_layers: False`): one leaf,
+# so one set of factored statistics and one clipping RMS, a layer
+FITS["adafactor_looped"] = FITS["adafactor"]
 
 
 def _jax_chain_fit(jax_model, params, batches, optim, steps):
@@ -296,29 +302,39 @@ def _optax_state(opt_state) -> dict:
 
 @pytest.mark.parametrize("name", list(FITS))
 def test_fit_matches_jax(name):
-    """8 steps of a tiny Llama (scanned JAX layout): the port's Trainer
-    follows the JAX chain within rtol 1e-4 and the loss falls; then JAX's
-    state after step 7 (Adafactor's per-leaf moments with optax's (1,)
-    placeholders, which the port keeps) carried into the port gives JAX's
-    step 8."""
+    """8 steps of a tiny Llama (scanned JAX layout; looped for
+    `adafactor_looped`): the port's Trainer follows the JAX chain within
+    rtol 1e-4 and the loss falls; then JAX's state after step 7
+    (Adafactor's per-leaf moments with optax's (1,) placeholders, which the
+    port keeps, per leaf of the layout in use) carried into the port gives
+    JAX's step 8, and Adafactor's statistics after it are JAX's within
+    1e-5."""
     steps = 8
-    jax_model, params = _jax_llama(seed=1)
+    looped = name.endswith("_looped")
+    if looped:
+        jax_model = JaxLlama(JaxLlamaConfig(**TINY, scan_layers=False, attention_impl="xla"))
+        params = jax.device_get(nn.meta.unbox(jax_model.init(jax.random.key(1),
+                                                             np.zeros((1, 4), np.int32))))
+    else:
+        jax_model, params = _jax_llama(seed=1)
+    layout = {"scan_layers": False} if looped else {}
     batches = _batches(1, steps)
     expected = _jax_chain_fit(jax_model, params, batches, FITS[name], steps)
     losses, _ = _port_fit(CLM(CLMConfig(optim=OptimConfig(**FITS[name])),
-                              model=_port_llama(params)), batches, 1, "float32", offload=False,
-                          steps=steps)
+                              model=_port_llama(params, **layout)), batches, 1, "float32",
+                          offload=False, steps=steps)
     np.testing.assert_allclose(losses, [loss for loss, _, _ in expected], rtol=FIT_RTOL)
     assert losses[-1] < losses[0]
 
     _, params_before, opt_before = expected[steps - 2]
     fields = _optax_state(opt_before)
-    config = LlamaConfig(**TINY)
+    config = LlamaConfig(**TINY, **layout)
     carried = train_state_dict_from_jax(
         config, params=params_before, step=steps - 1, rng=np.asarray([0, 43], np.uint32),
         count=int(fields.pop("count")), **fields)
     trainer = Trainer(TrainerConfig(max_steps=steps), device="cpu")
-    objective = CLM(CLMConfig(optim=OptimConfig(**FITS[name])), model=_port_llama(params))
+    objective = CLM(CLMConfig(optim=OptimConfig(**FITS[name])),
+                    model=_port_llama(params, **layout))
     state, _ = trainer.init_state(objective)
     assert set(carried) == set(state.state_dict())
     state.load_state_dict(carried)
@@ -328,3 +344,13 @@ def test_fit_matches_jax(name):
     for pname, p in state.model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), final[pname].numpy(), rtol=1e-4,
                                    atol=1e-6, err_msg=pname)
+    if FITS[name]["optimizer"] == "adafactor":
+        after = _optax_state(expected[-1][2])
+        after.pop("count")
+        live = state.optimizer.state_dict()
+        for field, tree in after.items():
+            for key, value in optimizer_state_from_jax(tree, config, field,
+                                                       per_leaf=True).items():
+                value = value.numpy()
+                np.testing.assert_allclose(live[key].numpy(), value, rtol=1e-5,
+                                           atol=1e-6 * np.abs(value).max(), err_msg=key)

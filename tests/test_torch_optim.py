@@ -311,6 +311,148 @@ def test_adafactor_matches_optax(case):
         assert live["v.model.layers.*.input_layernorm.weight"].shape == (L, 16)
 
 
+def _layout_tree(port: dict[str, np.ndarray], layout: str, layers: int) -> dict:
+    """The same values in JAX's looped tree (`layers_{i}`, one leaf a layer)
+    or in Gemma-2's pairs (`layers/sliding` stacks the even layers,
+    `layers/full` the odd ones)."""
+    def layer_tree(select):
+        stack = lambda key: np.stack([port[f"model.layers.{i}.{key}"] for i in select])  # noqa: E731
+        return {
+            "mlp": {"up_proj": {"kernel": stack("mlp.up_proj.weight").transpose(0, 2, 1)}},
+            "self_attn": {"k_proj": {"kernel": stack("self_attn.k_proj.weight").transpose(0, 2, 1)}},
+            "input_layernorm": {"weight": stack("input_layernorm.weight")},
+        }
+
+    tree = {"embed_tokens": {"embedding": port["model.embed_tokens.weight"]},
+            "norm": {"weight": port["model.norm.weight"]},
+            "lm_head": {"kernel": port["lm_head.weight"].T}}
+    if layout == "looped":
+        for i in range(layers):
+            tree[f"layers_{i}"] = jax.tree.map(lambda a: a[0], layer_tree([i]))
+    else:
+        tree["layers"] = {"sliding": layer_tree(range(0, layers, 2)),
+                          "full": layer_tree(range(1, layers, 2))}
+    return {"params": tree}
+
+
+def _layout_leaf(tree: dict, name: str, layout: str) -> np.ndarray:
+    """Parameter `name`'s value (the port's orientation) in a tree of
+    `_layout_tree`'s layout: its layer of a pair's stack, a Dense kernel
+    transposed."""
+    value = _state_leaf(tree, name, layout)
+    if layout == "pairs" and name.startswith("model.layers."):
+        value = value[int(name.split(".")[2]) // 2]
+    return value.T if name.endswith("proj.weight") or name == "lm_head.weight" else value
+
+
+@pytest.mark.parametrize("case", ["factored", "momentum_decay", "stack_axis_factored"])
+@pytest.mark.parametrize("layout", ["looped", "pairs"])
+def test_adafactor_follows_the_jax_layout_in_use(layout, case):
+    """Adafactor over JAX's looped tree (`scan_layers: False`: one leaf a
+    layer) and over Gemma-2's pairs (`layers/sliding`, `layers/full`): the
+    port groups its statistics, RMS and clipping by the same leaves
+    (`scan_layers` given to the builder), so after 5 updates the
+    parameters are within rtol 1e-4 of optax's and each leaf's factored
+    statistics within 1e-5, in optax's shapes. (In the pairs layout with
+    `min_dim_size_to_factor` 2 the stack axis of 2 is factored and couples
+    each half's layers.)"""
+    from llm_training_tpu_torch.models.llama.from_jax import PAIRS
+
+    layers = 4
+    shapes = {n: s for n, s in PORT_SHAPES.items() if not n.startswith("model.layers.")}
+    for i in range(layers):
+        shapes.update({f"model.layers.{i}.mlp.up_proj.weight": (24, 16),
+                       f"model.layers.{i}.self_attn.k_proj.weight": (2, 16),
+                       f"model.layers.{i}.input_layernorm.weight": (16,)})
+    optim = ADAFACTOR[case]
+    rng = np.random.default_rng(12)
+    init = {n: rng.standard_normal(s).astype(np.float32) for n, s in shapes.items()}
+    grads = [{n: (2 * rng.standard_normal(s)).astype(np.float32) for n, s in shapes.items()}
+             for _ in range(5)]
+    named = [(n, torch.nn.Parameter(torch.from_numpy(v.copy()))) for n, v in init.items()]
+    opt, _ = build_optimizer(OptimConfig(**optim), 10, named,
+                             scan_layers=False if layout == "looped" else PAIRS)
+    tx, _ = jax_optimizer(JaxOptimConfig(**optim), 10)
+    params = jax.tree.map(jnp.asarray, _layout_tree(init, layout, layers))
+    state = tx.init(params)
+    for g in grads:
+        for name, p in named:
+            p.grad = torch.from_numpy(g[name].copy())
+        opt.update()
+        updates, state = tx.update(jax.tree.map(jnp.asarray, _layout_tree(g, layout, layers)),
+                                   state, params)
+        params = optax.apply_updates(params, updates)
+    params, state = jax.device_get((params, state))
+    for name, p in named:
+        np.testing.assert_allclose(p.detach().numpy(), _layout_leaf(params, name, layout),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    live = opt.state_dict()
+    expected = {}
+    for field, tree in _adafactor_leaves(state).items():
+        for name in shapes:
+            if layout == "looped" or not name.startswith("model.layers."):
+                leaf = name
+            else:
+                parts = name.split(".")
+                leaf = ".".join(parts[:2] + ["full" if int(parts[2]) % 2 else "sliding"] + parts[3:])
+            expected[f"{field}.{leaf}"] = _state_leaf(tree, name, layout)
+    assert set(expected) == set(live) - {"count", "mini_step"}
+    for key, value in expected.items():
+        assert value.shape == tuple(live[key].shape), key
+        np.testing.assert_allclose(live[key].numpy(), value, rtol=1e-5,
+                                   atol=1e-6 * np.abs(value).max(), err_msg=key)
+    if case == "factored":  # a leaf's statistics are its own: per layer, or per half
+        want = (24,) if layout == "looped" else (layers // 2, 16)
+        key = ("v_col.model.layers.1.mlp.up_proj.weight" if layout == "looped"
+               else "v_row.model.layers.full.mlp.up_proj.weight")
+        assert tuple(live[key].shape) == want
+
+
+def test_adafactor_state_restores_only_into_its_own_layout():
+    """The optimizer's `layout()` names Adafactor's JAX layout, so a
+    checkpoint's state of another layout's leaves refuses to restore; one
+    written before the key existed held the scanned leaves."""
+    from llm_training_tpu_torch.models.llama.from_jax import PAIRS
+
+    def build(scan_layers):
+        named = [(n, torch.nn.Parameter(torch.zeros(s))) for n, s in PORT_SHAPES.items()]
+        return build_optimizer(OptimConfig(**ADAFACTOR["factored"]), 10, named,
+                               scan_layers=scan_layers)[0]
+
+    scanned, looped, pairs = build(True), build(False), build(PAIRS)
+    assert {o.layout()["adafactor_layout"] for o in (scanned, looped, pairs)} == {
+        "scanned", "looped", "pairs"}
+    for saved, live in ((scanned, looped), (looped, scanned), (scanned, pairs)):
+        with pytest.raises(ValueError, match="adafactor_layout"):
+            live.check_layout(saved.layout())
+    older = {k: v for k, v in scanned.layout().items() if k != "adafactor_layout"}
+    scanned.check_layout(older)
+    with pytest.raises(ValueError, match="adafactor_layout"):
+        looped.check_layout(older)
+
+
+def _state_leaf(tree: dict, name: str, layout: str) -> np.ndarray:
+    """The whole JAX state leaf (optax's orientation and shape) that holds
+    parameter `name` in a tree of `_layout_tree`'s layout."""
+    p = tree["params"]
+    top = {"model.embed_tokens.weight": ("embed_tokens", "embedding"),
+           "model.norm.weight": ("norm", "weight"), "lm_head.weight": ("lm_head", "kernel")}
+    if name in top:
+        node = p
+        keys = top[name]
+    else:
+        _, _, layer, *rest = name.split(".")
+        layer = int(layer)
+        keys = {"mlp.up_proj.weight": ("mlp", "up_proj", "kernel"),
+                "self_attn.k_proj.weight": ("self_attn", "k_proj", "kernel"),
+                "input_layernorm.weight": ("input_layernorm", "weight")}[".".join(rest)]
+        node = (p[f"layers_{layer}"] if layout == "looped"
+                else p["layers"]["full" if layer % 2 else "sliding"])
+    for key in keys:
+        node = node[key]
+    return np.asarray(node)
+
+
 def test_adafactor_accumulation_matches_optax_multisteps():
     ours, theirs, _, _ = _run_layouts(ADAFACTOR["momentum_decay"], updates=6, accumulate=3)
     for name in PORT_SHAPES:
