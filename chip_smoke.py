@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure exits non-zero), in the
 order 1, 2, then 12 in a process of its own beside 3, 4, 6, 9, 13, 14 and
-phase 17's legs in this process, then 5, 7, 8, 15-20, 22, 23, 10, 11, 21:
+phase 17's legs in this process, then 5, 7, 8, 15-20, 22-24, 10, 11, 21:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `csrc/` with nvcc, one
@@ -423,6 +423,29 @@ imported) for phase 14's full-depth runs.
    Mixtral-8x7B's beside its bound, the plain version and
    `torch._grouped_mm` (the yardstick; the port never calls it). Each leg
    prints its seconds.
+24. the non-Llama MoE families (after phase 23), from their presets'
+   published widths with random weights: (a) G1's three directions
+   against its plain version in bf16 at each preset's expert shapes
+   (gpt-oss-20b's gate_up N 5760 and down N 2880, DeepSeek-V2-Lite's and
+   GLM-4.5-Air's 1408, ERNIE-4.5-21B-A3B's 1536, Hunyuan-A13B's 3072;
+   1024 tokens routed); gpt-oss-20b, DeepSeek-V2-Lite (MLA at qk 192),
+   GLM-4.5-Air, ERNIE-4.5-21B-A3B at 2 layers (a dense and an MoE layer
+   where the family has a dense prefix) and Hunyuan-A13B at 1: the loss
+   and gradients of one packed 1024-token row through K1-K3 and G1 in
+   bf16 against the plain path in bf16 and the exact dense impl in fp32
+   (phase 9's rule; routing replayed as phase 23 does); (b) gpt-oss-20b at
+   2 layers (one sliding/full period, 2.8 B parameters) fits 3 steps of one
+   packed 8192-token row (fp32 parameters, selective recompute, phase 8's
+   AdamW, the aux loss on): losses finite and falling; K1-K3 once a layer
+   a step with sinks and the window; G1's forward twice a product (the
+   recompute), dgrad and wgrad once, two products a layer; the plain
+   attention, grouped-GEMM and dense paths never; step p50, MFU over the
+   active parameters, peak memory; (c) K1-K3 timed (cold L2) at
+   gpt-oss-20b's sliding layer (Hq 64, Hkv 8, D 64, window 128, sinks) and
+   at DeepSeek-V2-Lite's MLA shape (D 192 padded to 256), beside their
+   bounds, the plain versions and SDPA (without sinks: SDPA has none); G1
+   at gpt-oss-20b's two products on 8192 tokens beside its bound, the
+   plain version and `torch._grouped_mm`. Each leg prints its seconds.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
@@ -432,7 +455,9 @@ launches of phases 19e, 20, 21 and 22; K4 launched by 19e's and 22's
 serving and phase 18d's replicas, timed at phase 7's Llama-3.1-8B serving
 shape, whose heads are Qwen3-8B's; phase 23's K1-K3 and K4 launches added;
 G1's three directions launched by phase 23's serving and fit, timed at
-Qwen3-30B-A3B's training shape), the card's name
+Qwen3-30B-A3B's training shape; phase 24's K1-K3 and G1 launches added),
+the kernels at gpt-oss-20b's shapes and K1-K3 at the MLA shape (phase 24)
+on lines of their own, the card's name
 and power limit, and as its last line `{"ok": true, "device": {...}}`.
 Phase 19e and what it costs were bought back, with room for slower hosts,
 by cutting depths (phase 13 from 8 to 4 layers, phase 14's runs beside
@@ -1072,8 +1097,9 @@ HF_TYPES = {
 
 
 def preset_model(name: str, **fields):
-    """(model class, config) of a published preset (Llama's or Gemma's) or
-    of a published HF config (`HF_TYPES`, in bf16), with `fields` replaced."""
+    """(model class, config) of a published preset (Llama's, Gemma's or a
+    non-Llama MoE family's) or of a published HF config (`HF_TYPES`, in
+    bf16), with `fields` replaced."""
     from llm_training_tpu_torch.models.gemma import Gemma
     from llm_training_tpu_torch.models.gemma import config as gemma_config
     from llm_training_tpu_torch.models.llama.config import preset
@@ -1082,6 +1108,9 @@ def preset_model(name: str, **fields):
 
     if name in gemma_config.PRESETS:
         return Gemma, gemma_config.preset(name, **fields)
+    family = family_preset(name)
+    if family is not None:
+        return family[0], family[1](name, **fields)
     if name in HF_TYPES:
         return Llama, config_from_hf(HF_TYPES[name], **{
             "compute_dtype": "bfloat16", "param_dtype": "bfloat16", **fields})
@@ -1624,11 +1653,12 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
     kw = {"num_hidden_layers": 2, "param_dtype": "float32", **fields}
     model_cls, config = preset_model(name, **kw)
     layers = config.num_hidden_layers
-    # an MoE model: G1 on the kernel path, its plain version on the plain
-    # path, the exact dense impl in fp32
-    moe_layers = layers if getattr(config, "num_experts", None) else 0
-    truth = {"moe_impl": "dense"} if moe_layers else {}
     model = model_cls(config, device="cuda")
+    # an MoE model: G1 on the kernel path (once a direction for each expert
+    # stack a forward multiplies by: three a SwiGLU layer, two a gpt-oss
+    # one), its plain version on the plain path, the exact dense impl in fp32
+    stacks = sum(p.dim() == 3 for n, p in model.named_parameters() if ".experts_" in n)
+    truth = {"moe_impl": "dense"} if stacks else {}
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
@@ -1652,7 +1682,7 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
             before = sum(launcher.launches for launcher in launchers)
             g1_before = [launcher.launches for launcher in gg.LAUNCHERS]
             model.zero_grad(set_to_none=True)
-            routing = (moe_routing(routes.get("kernel")) if moe_layers
+            routing = (moe_routing(routes.get("kernel")) if stacks
                        else contextlib.nullcontext({}))
             with plain_grouped_gemm() if path == "plain" else contextlib.nullcontext(), \
                     routing as routed:
@@ -1664,7 +1694,7 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
             check(ran == (3 * layers if path == "kernel" else 0),
                   f"{label}: {path} ran {ran} flash kernels")
             g1 = [launcher.launches - b for launcher, b in zip(gg.LAUNCHERS, g1_before)]
-            want = [3 * moe_layers if path == "kernel" else 0] * 3
+            want = [stacks if path == "kernel" else 0] * 3
             check(g1 == want, f"{label}: {path} launched G1 {g1}, expected {want}")
             params = dict(model.named_parameters())
             results[path] = dict(loss=float(loss.detach()),
@@ -1691,12 +1721,12 @@ def loss_grad_parity(label: str, name: str, host: dict, names: tuple, **fields) 
               f"{key.removeprefix('model.')} kernel {errors['kernel'][key]:.3e} plain "
               f"{errors['plain'][key]:.3e}" for key in errors["kernel"])
           + (f"; routed as the kernel path (tokens whose own top-k differed over the layers: "
-             f"{ {p: routes[p] for p in ('plain', 'fp32')} })" if moe_layers else ""),
+             f"{ {p: routes[p] for p in ('plain', 'fp32')} })" if stacks else ""),
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return dict(errors=errors, k1_calls=calls, loss=truth["loss"],
-                routing_flips={p: routes[p] for p in ("plain", "fp32")} if moe_layers else {})
+                routing_flips={p: routes[p] for p in ("plain", "fp32")} if stacks else {})
 
 
 def phase_flash_timing(card: str) -> dict:
@@ -5704,30 +5734,27 @@ def moe_routing(replay: list | None = None):
     kernel's error."""
     from llm_training_tpu_torch.models import moe
 
-    real = moe.torch
+    real = moe.top_k
     state = {"record": [], "flips": 0, "calls": 0}
 
-    class Routed:
-        def __getattr__(self, name):
-            return getattr(real, name)
+    def routed(scores, k):
+        # every router of the port selects through `moe.top_k` (a
+        # group-limited one twice more: its groups' top-2 and top groups)
+        values, idx = real(scores, k)
+        if replay is None:
+            state["record"].append(idx)
+            return values, idx
+        want = replay[state["calls"]]
+        state["calls"] += 1
+        same = (idx.sort(-1).values == want.sort(-1).values).all(-1)
+        state["flips"] += int((~same).sum())
+        return scores.gather(-1, want), want
 
-        @staticmethod
-        def topk(probs, k, dim=-1):
-            values, idx = real.topk(probs, k, dim)
-            if replay is None:
-                state["record"].append(idx)
-                return values, idx
-            want = replay[state["calls"]]
-            state["calls"] += 1
-            same = (idx.sort(-1).values == want.sort(-1).values).all(-1)
-            state["flips"] += int((~same).sum())
-            return probs.gather(dim, want), want
-
-    moe.torch = Routed()
+    moe.top_k = routed
     try:
         yield state
     finally:
-        moe.torch = real
+        moe.top_k = real
 
 
 @contextlib.contextmanager
@@ -6072,24 +6099,28 @@ def hf_kernel_timing(card: str) -> dict:
 
 
 def flash_shape_timing(card: str, label: str, cases: list[dict], window: int = 0,
-                       bound_note: str = "", cap: float = 0.0, parity: bool = True) -> dict:
+                       bound_note: str = "", cap: float = 0.0, parity: bool = True,
+                       sinks: torch.Tensor | None = None) -> dict:
     """K1, K2 and K3 on `cases` (copies of one shape, enough to run cold in
     L2): held against their plain versions (one kv head at a time) on the
     first (unless `parity` is off: errors None), then timed beside their
     bounds, the plain versions and SDPA (none with a soft cap: SDPA has
-    none, so no PyTorch call computes that function). Returns per kernel
-    kind ms, plain_ms, library_ms, bound_ms, bound_by and max_abs_err."""
+    none, so no PyTorch call computes that function; SDPA without the
+    `sinks`, which it lacks). Returns per kernel kind ms, plain_ms,
+    library_ms, bound_ms, bound_by and max_abs_err."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
 
     case = cases[0]
     errors, abs_err = {}, {"fwd": None, "dq": None, "dkv": None}
     if parity:
         opts = dict(causal=True, sliding_window=window or None, logits_soft_cap=cap or None)
+        if sinks is not None:
+            opts["sinks"] = sinks
         got = bench_flash.run_case(case, kernel=True, **opts)
         ref = bench_flash.run_plain_by_kv_head(case, **opts)
         ref32 = bench_flash.run_plain_by_kv_head(case, upcast=True, **opts)
         torch.cuda.synchronize()
-        errors, broken = flash_case_errors(got, ref, ref32, case, None)
+        errors, broken = flash_case_errors(got, ref, ref32, case, sinks)
         check(not broken, f"{label}: flash kernels vs plain: {broken}")
         abs_err = {
             "fwd": float((got["out"].float() - ref["out"].float()).abs().max()),
@@ -6098,8 +6129,8 @@ def flash_shape_timing(card: str, label: str, cases: list[dict], window: int = 0
                        for n in ("dk", "dv")),
         }
         del got, ref, ref32
-    record = bench_flash.kernel_record(cases=cases, window=window, cap=cap)
-    plain = bench_flash.time_plain(cases, window=window, cap=cap)
+    record = bench_flash.kernel_record(cases=cases, window=window, cap=cap, sinks=sinks)
+    plain = bench_flash.time_plain(cases, window=window, cap=cap, sinks=sinks)
     library = {"fwd_ms": None, "bwd_ms": None} if cap else bench_flash.time_sdpa(
         cases, window=window)
     out = {}
@@ -7857,6 +7888,262 @@ def phase_moe(card: str) -> dict:
     return out
 
 
+# phase 24: the non-Llama MoE families at their published widths (the
+# presets of `models/{gpt_oss,deepseek,glm4_moe,ernie45_moe,hunyuan_moe}/
+# config.py`), random weights from seeds
+MF_PRESETS = {
+    # preset -> (depth, the gradients held: the MoE layer's expert stack and
+    # router, an attention projection, the embedding)
+    "gpt-oss-20b": (2, ("model.layers.1.mlp.experts_gate_up_proj",
+                        "model.layers.0.mlp.router.weight", "model.layers.0.self_attn.sinks",
+                        "model.layers.1.self_attn.k_proj.weight", "model.embed_tokens.weight")),
+    "deepseek-v2-lite": (2, ("model.layers.1.mlp.experts_down_proj",
+                             "model.layers.1.mlp.gate_kernel",
+                             "model.layers.1.self_attn.kv_a_proj_with_mqa.weight",
+                             "model.layers.0.self_attn.q_proj.weight",
+                             "model.embed_tokens.weight")),
+    "glm-4.5-air": (2, ("model.layers.1.mlp.experts_gate_proj", "model.layers.1.mlp.gate_kernel",
+                        "model.layers.0.self_attn.k_proj.weight",
+                        "model.layers.1.mlp.shared_experts.up_proj.weight",
+                        "model.embed_tokens.weight")),
+    "ernie-4.5-21b-a3b": (2, ("model.layers.1.mlp.experts_up_proj",
+                              "model.layers.1.mlp.gate_kernel",
+                              "model.layers.1.self_attn.q_proj.weight",
+                              "model.embed_tokens.weight")),
+    # one layer: two beside the fp32 truth would not fit
+    "hunyuan-a13b": (1, ("model.layers.0.mlp.experts_down_proj", "model.layers.0.mlp.gate_kernel",
+                         "model.layers.0.self_attn.q_norm.weight",
+                         "model.layers.0.mlp.shared_up_proj.weight",
+                         "model.embed_tokens.weight")),
+}
+MF_PARITY_SEQ = 1024
+MF_FIT_PRESET = "gpt-oss-20b"
+MF_FIT_LAYERS = 2  # one sliding/full period: 2.8 B parameters, ~45 GB with fp32 AdamW state
+MF_FIT_STEPS = 3
+MF_FIT_SEQ = 8192
+MF_MAX_DOC = 8000
+# phase 8's AdamW (warmup, cosine to 0.1, clip 1.0): at the full peak from
+# step 1 gpt-oss's router collapsed onto a few experts (aux loss 4.05 ->
+# 6.97 in 3 steps, the loss rising with it)
+MF_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", warmup_steps=2,
+                min_lr_ratio=0.1, grad_clip_norm=1.0)
+
+
+def family_preset(name: str):
+    """(model class, preset function) of a non-Llama MoE family's preset,
+    or None."""
+    from llm_training_tpu_torch.models.deepseek import Deepseek
+    from llm_training_tpu_torch.models.deepseek import config as deepseek
+    from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe
+    from llm_training_tpu_torch.models.ernie45_moe import config as ernie
+    from llm_training_tpu_torch.models.glm4_moe import Glm4Moe
+    from llm_training_tpu_torch.models.glm4_moe import config as glm
+    from llm_training_tpu_torch.models.gpt_oss import GptOss
+    from llm_training_tpu_torch.models.gpt_oss import config as gpt_oss
+    from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe
+    from llm_training_tpu_torch.models.hunyuan_moe import config as hunyuan
+
+    for cls, module in ((GptOss, gpt_oss), (Deepseek, deepseek), (Glm4Moe, glm),
+                        (Ernie45Moe, ernie), (HunYuanMoe, hunyuan)):
+        if name in module.PRESETS:
+            return cls, module.preset
+    return None
+
+
+def family_g1_parity(card: str) -> dict:
+    """24a: G1's forward, dgrad and wgrad against their plain version in
+    bf16 at each preset's expert shapes (`bench_grouped_gemm.
+    family_shapes()`: the N tails of gpt-oss's 2880 and the 1408-wide
+    experts among them)."""
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    out = {}
+    for name, (sizes, k, n) in bench.family_shapes().items():
+        case = bench.make_case(sizes, k, n, torch.bfloat16, seed=24)
+        for op in bench.OPS:
+            err = bench.check(case, op)
+            check(err["ok"], f"G1 parity {name} (K {k} N {n}) {op}: {err}")
+            out[f"{name} {op}"] = err
+        del case
+    worst = max(v["vs_fp32_share"] for v in out.values())
+    print(f"moe families G1 parity [{card}]: fwd/dgrad/wgrad in bf16 against the plain version "
+          f"at {len(bench.family_shapes())} expert shapes ({', '.join(bench.family_shapes())}; "
+          f"1024 tokens routed): all within their limits (largest share {worst:.3f})", flush=True)
+    release()
+    return out
+
+
+def family_fit(card: str) -> dict:
+    """24b: the CLM `Trainer` on gpt-oss-20b at its published widths, cut
+    to one sliding/full period (fp32 parameters, bf16 compute, selective
+    recompute, phase 8's AdamW), 3 steps of one packed 8192-token row, the
+    aux loss on: losses finite and falling; K1 once a layer a step (sinks, the
+    window on the sliding layer), K2/K3 once a layer a step, G1's forward
+    twice a product (the recompute: gate_up and down, two a layer), dgrad
+    and wgrad once; the plain attention, grouped-GEMM and dense paths
+    never. MFU counts 6 x the active matmul parameters a token (the router,
+    4 of the 32 experts, attention, the head) and 12 D a visible pair a
+    head a layer (each layer's window)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.gpt_oss import config as gpt_oss
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    config = gpt_oss.preset(MF_FIT_PRESET, num_hidden_layers=MF_FIT_LAYERS,
+                            param_dtype="float32", enable_gradient_checkpointing=True,
+                            recompute_granularity="selective")
+    # one row, every step: "the loss falls" compares the same row
+    batches = packed_batches(24, MF_FIT_SEQ, 1, config.vocab_size,
+                             max_doc=MF_MAX_DOC) * MF_FIT_STEPS
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.aux, self.t = [], [], [], None
+
+        def on_fit_start(self, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+            self.aux.append(metrics["aux_loss"])
+
+    clock = Clock()
+    trainer = Trainer(TrainerConfig(max_steps=MF_FIT_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[clock], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("GptOss", asdict(config)),
+                              optim=OptimConfig(**MF_OPTIM)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain, count_plain_moe() as plain_moe:
+        for launcher in launchers + gg.LAUNCHERS:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+        g1 = [launcher.launches for launcher in gg.LAUNCHERS]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, aux = clock.losses, clock.aux
+    check(len(losses) == MF_FIT_STEPS and all(math.isfinite(x) for x in losses + aux)
+          and losses[-1] < losses[0],
+          f"moe families fit: losses {losses} (finite and falling), aux {aux}")
+    want = [MF_FIT_LAYERS * MF_FIT_STEPS] * 3
+    per_step = 2 * MF_FIT_LAYERS * MF_FIT_STEPS  # two products a layer
+    want_g1 = [2 * per_step, per_step, per_step]
+    check(launches == want and plain[0] == 0 and g1 == want_g1 and plain_moe == [0, 0],
+          f"moe families fit: K1/K2/K3 launched {launches} (expected {want}), G1 {g1} "
+          f"(expected {want_g1}); plain attention {plain[0]}, plain grouped GEMM / dense "
+          f"{plain_moe}")
+    model = state.model
+    n_all = sum(p.numel() for p in model.parameters())
+    embed = model.model.embed_tokens.weight.numel()
+    experts = sum(p.numel() for n, p in model.named_parameters() if "experts_" in n)
+    active = (n_all - embed - experts
+              + experts * config.num_experts_per_tok // config.num_local_experts)
+    flops, tokens = [], []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        tokens.append(int((batch["segment_ids"] > 0).sum()))
+        pairs = sum(bench_flash.visible_pairs(seg, seg, window=config.layer_sliding_window(i))
+                    for i in range(MF_FIT_LAYERS))
+        flops.append(6 * active * tokens[-1]
+                     + 12 * config.head_dim * config.num_attention_heads * pairs)
+    timed_s = clock.step_s[1:]  # step 1 carries the warm-up
+    out = dict(layers=MF_FIT_LAYERS, steps=MF_FIT_STEPS, losses=losses, aux_loss=aux,
+               tokens=tokens, params=n_all, active_matmul_params=active,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               g1_launches=dict(zip(("fwd", "dgrad", "wgrad"), g1)), plain_calls=plain[0],
+               step_ms=[1e3 * t for t in clock.step_s],
+               step_ms_p50=1e3 * percentile(timed_s, 50),
+               tokens_per_s=sum(tokens[1:]) / sum(timed_s),
+               mfu=sum(flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=peak_gb)
+    print(f"moe families fit [{card}]: {MF_FIT_PRESET} x {MF_FIT_LAYERS} layers ({n_all} "
+          f"params, {active} active matmul a token), {MF_FIT_STEPS} steps of 1 x {MF_FIT_SEQ} "
+          "packed tokens (AdamW, selective recompute, aux loss coef "
+          f"{config.router_aux_loss_coef}); losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; aux_loss " + ", ".join(f"{x:.4f}" for x in aux)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, G1 fwd {g1[0]} dgrad {g1[1]} "
+          f"wgrad {g1[2]}, plain paths {plain[0]} / {plain_moe}; step p50 "
+          f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.2f}% of 989 TFLOPS (6 x active params a token, 12 D a visible "
+          f"pair a head a layer), peak memory {peak_gb:.2f} GB", flush=True)
+    check(peak_gb <= 75, f"moe families fit: peak memory {peak_gb:.2f} GB")
+    del objective, state, trainer, model
+    release()
+    return out
+
+
+def family_kernel_timing(card: str) -> dict:
+    """24c: K1-K3 at gpt-oss-20b's sliding layer (Hq 64, Hkv 8, D 64,
+    sinks, window 128) and at DeepSeek-V2-Lite's MLA shape (Hq = Hkv 16, D
+    192, padded to 256 by the wrapper), one packed 8192-token row each,
+    beside their bounds, the plain versions and SDPA (without the sinks,
+    which SDPA lacks); G1 at gpt-oss-20b's two expert products on 8192
+    tokens (fwd, dgrad, wgrad) beside its bound, the plain version and
+    `torch._grouped_mm`."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    out = {}
+    sinks = torch.randn(64, generator=torch.Generator().manual_seed(24)).cuda()
+    out["gpt_oss"] = flash_shape_timing(
+        card, "gpt-oss-20b B1 S8192 Hq64 Hkv8 D64 window 128 sinks", bench_flash.gpt_oss_case(),
+        window=128, sinks=sinks)
+    out["mla"] = flash_shape_timing(card, "deepseek-v2-lite MLA B1 S8192 Hq16 Hkv16 D192 "
+                                          "(padded to 256)", bench_flash.mla_case())
+    for name, (sizes, k, n, ops) in bench.gpt_oss_training_shapes().items():
+        for op in ops:
+            row = bench.time_case(sizes, k, n, op)
+            check(row["ok"], f"G1 timing {name} {op}: the kernel disagrees with its plain version")
+            out[f"{name} {op}"] = row
+            library_ms = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            print(f"moe families kernel timing [{card}]: {name} {op} ({row['rows']} rows over "
+                  f"{row['touched']} of {row['groups']} groups, K {k} N {n}, bf16): "
+                  f"{row['ms']:.4f} ms against a {row['bound_by']} bound of "
+                  f"{row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}%), plain "
+                  f"{row['plain_ms']:.4f} ms, torch._grouped_mm {library_ms}", flush=True)
+    return out
+
+
+def phase_moe_families(card: str) -> dict:
+    """24: the non-Llama MoE families (see the header), each leg timed."""
+    out = {}
+    t0 = time.perf_counter()
+    out["g1_parity"] = family_g1_parity(card)
+    out["parity"] = {}
+    for name, (layers, names) in MF_PRESETS.items():
+        host = packed_batches(240, MF_PARITY_SEQ, 1, 100000, max_doc=600)[0]
+        out["parity"][name] = loss_grad_parity(f"moe families train parity [{card}]", name, host,
+                                               names, num_hidden_layers=layers)
+    out["parity_s"] = time.perf_counter() - t0
+    for name, leg in (("fit", family_fit), ("timing", family_kernel_timing)):
+        t0 = time.perf_counter()
+        out[name] = leg(card)
+        out[name + "_s"] = time.perf_counter() - t0
+    return out
+
+
 def start_pack_child() -> None:
     """Start phase 20's packers' process (stopped at exit if still running)."""
     import subprocess
@@ -7933,6 +8220,7 @@ def main() -> int:
     it = timed("20 instruction tuning", phase_instruction_tuning, card)
     gemma = timed("22 gemma", phase_gemma, card)
     moe = timed("23 moe", phase_moe, card)
+    families = timed("24 moe families", phase_moe_families, card)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
     # last: its one-rank process group changes the checkpointer's path
@@ -7953,6 +8241,9 @@ def main() -> int:
     print(f"gemma summary [{card}]: " + json.dumps(gemma))
     # phase 23a's per-layout checks are summarised by its own line
     print(f"moe summary [{card}]: " + json.dumps({k: v for k, v in moe.items() if k != "kernels"}))
+    # phase 24's per-shape G1 checks are summarised by its own line
+    print(f"moe families summary [{card}]: " + json.dumps(
+        {k: v for k, v in families.items() if k != "g1_parity"}))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"],
@@ -8002,9 +8293,30 @@ def main() -> int:
                for name, op in zip(G1_NAMES, ("fwd", "dgrad", "wgrad"))]
     print("phase 23 launches: " + json.dumps({
         "k4": moe["serve"]["launches"], **moe["fit"]["launches"], "g1": g1_launches}))
+    # phase 24's gpt-oss-20b fit: K1-K3 with sinks and the window, G1 at its
+    # two products; the kernels at its shapes (and K1-K3 at
+    # DeepSeek-V2-Lite's MLA shape) timed in 24c
+    fam_fit, fam_timing = families["fit"], families["timing"]
+    print("phase 24 launches: " + json.dumps({**fam_fit["launches"],
+                                               "g1": fam_fit["g1_launches"]}))
+    print("kernels at gpt-oss-20b shapes (launches: phase 24b): " + json.dumps(
+        [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+          "launches": fam_fit["launches"][kind], **fam_timing["gpt_oss"][kind]}
+         for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv"))]
+        + [{"name": name, "route": "cuda", "source": G1_SOURCE, "replaces": G1_REPLACES,
+            "launches": fam_fit["g1_launches"][op], **{
+                key: fam_timing[f"gpt-oss-20b training gate_up {op}"][key]
+                for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}}
+           for name, op in zip(G1_NAMES, ("fwd", "dgrad", "wgrad"))]))
+    print("K1-K3 at DeepSeek-V2-Lite's MLA shape (phase 24c): " + json.dumps(fam_timing["mla"]))
+    g1_launches = {op: g1_launches[op] + fam_fit["g1_launches"][op]
+                   for op in ("fwd", "dgrad", "wgrad")}
+    g1_rows = [{**row, "launches": g1_launches[op]}
+               for row, op in zip(g1_rows, ("fwd", "dgrad", "wgrad"))]
     flash_launches = {kind: it["launches"][kind] + mesh["launches"][kind]
                       + qwen3["fit"]["launches"][kind] + gemma["fit"]["launches"][kind]
-                      + moe["fit"]["launches"][kind]
+                      + moe["fit"]["launches"][kind] + fam_fit["launches"][kind]
                       for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
         timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"]

@@ -23,6 +23,7 @@ there either.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import time
 from dataclasses import dataclass, field
@@ -73,11 +74,29 @@ def _left_pad(prompts: Sequence[Sequence[int]], pad_id: int) -> tuple[np.ndarray
     return ids, np.asarray([width - n for n in lengths], np.int32)
 
 
+def supports_decoding(model: Any) -> bool:
+    """JAX's rule: a model family decodes with a KV cache when its forward
+    takes a `decode_state` (the Llama, Phi-3 and Gemma stacks do; the
+    non-Llama MoE families, whose JAX `__call__` takes none, do not)."""
+    try:
+        return "decode_state" in inspect.signature(model.forward).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 class InferenceEngine:
     """Drives a model (with its weights, on `device`: `cuda` unless the
-    caller asks for the CPU) over prefill and decode steps."""
+    caller asks for the CPU) over prefill and decode steps. A model that
+    cannot decode raises `NotImplementedError` with JAX's message."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device | str | None = None):
+        if not supports_decoding(model):
+            raise NotImplementedError(
+                f"{type(model).__name__} does not support KV-cache decoding "
+                "yet: its __call__ takes no decode_state (non-standard "
+                "sequence mixers need their own cache layout — see "
+                "docs/inference.md)"
+            )
         device = resolve_device(device)
         param_device = next(model.parameters()).device
         if param_device.type != device.type:

@@ -5,7 +5,8 @@ config, frozen-module regexes, the pre-trained source) and
 `ModelProvider`, the `{model_class, model_kwargs}` config node that builds
 a model. The JAX provider imports the class by name from
 `llm_training_tpu.models`; the port maps the names of the model classes it
-has (`Llama`, `Phi3`, `Gemma`, `HFCausalLM`) onto its own classes and imports
+has (`Llama`, `Phi3`, `Gemma`, `Deepseek`, `Glm4Moe`, `GptOss`, `Ernie45Moe`,
+`HunYuanMoe`, `HFCausalLM`) onto its own classes and imports
 nothing of the JAX package. `resolve_pretrained_source` and `init_model`
 are JAX's `resolve_pretrained_source` and `load_single_model_pretrained`:
 the objective's source wins over the model config's.
@@ -32,7 +33,12 @@ from llm_training_tpu_torch.models.hf_causal_lm import (
     HFCausalLMConfig,
     resolve_hf_config,
 )
+from llm_training_tpu_torch.models.deepseek import Deepseek, DeepseekConfig
+from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe, Ernie45MoeConfig
 from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
+from llm_training_tpu_torch.models.glm4_moe import Glm4Moe, Glm4MoeConfig
+from llm_training_tpu_torch.models.gpt_oss import GptOss, GptOssConfig
+from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe, HunYuanMoeConfig
 from llm_training_tpu_torch.models.hf_io import load_pretrained_params
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
@@ -50,6 +56,11 @@ MODEL_CLASSES: dict[str, tuple[type, type]] = {
     "llm_training_tpu.models.Phi3": (Phi3, Phi3Config),
     "Gemma": (Gemma, GemmaConfig),
     "llm_training_tpu.models.Gemma": (Gemma, GemmaConfig),
+    **{f"{prefix}{cls.__name__}": (cls, config_cls)
+       for cls, config_cls in ((Deepseek, DeepseekConfig), (Glm4Moe, Glm4MoeConfig),
+                               (GptOss, GptOssConfig), (Ernie45Moe, Ernie45MoeConfig),
+                               (HunYuanMoe, HunYuanMoeConfig))
+       for prefix in ("", "llm_training_tpu.models.")},
     "HFCausalLM": (HFCausalLM, HFCausalLMConfig),
     "llm_training_tpu.models.HFCausalLM": (HFCausalLM, HFCausalLMConfig),
 }

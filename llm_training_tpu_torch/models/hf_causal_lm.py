@@ -3,8 +3,10 @@
 Counterpart of `llm_training_tpu/models/hf_causal_lm.py`: an architecture
 router, not a wrapper. `config.json`'s `model_type` selects the family
 (`hf_io.model_class_for_hf`: every Llama-graph type -> Llama, phi3 -> Phi3,
-gemma / gemma2 / gemma3_text -> Gemma; a
-family the port lacks raises naming ROADMAP A.8), the family's
+gemma / gemma2 / gemma3_text -> Gemma, deepseek_v2 / deepseek_v3 / kimi_k2
+-> Deepseek, glm4_moe / dots1 -> Glm4Moe, gpt_oss -> GptOss, ernie4_5_moe ->
+Ernie45Moe, hunyuan_v1_moe -> HunYuanMoe; a family the port lacks raises
+naming ROADMAP A.8), the family's
 `config_from_hf` merges the hparams with any extra field of the node as
 an override, and with `load_hf_weights` (the default) the family config's
 `pre_trained_weights` defaults to `hf_path`, so the objective's loader
@@ -22,18 +24,47 @@ from typing import Any
 
 import torch
 
-from llm_training_tpu_torch.models.gemma import Gemma
+from llm_training_tpu_torch.models.deepseek import Deepseek, DeepseekConfig
+from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe, Ernie45MoeConfig
+from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
+from llm_training_tpu_torch.models.glm4_moe import Glm4Moe, Glm4MoeConfig
+from llm_training_tpu_torch.models.gpt_oss import GptOss, GptOssConfig
 from llm_training_tpu_torch.models.hf_io import load_hf_config, model_class_for_hf
+from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe, HunYuanMoeConfig
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
-from llm_training_tpu_torch.models.phi3 import Phi3
+from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
 
 # JAX class path -> (the port's model class, its conversion module)
 _FAMILY_CLASSES: dict[str, tuple[type, str]] = {
     "llm_training_tpu.models.Llama": (Llama, "llm_training_tpu_torch.models.llama.hf_conversion"),
     "llm_training_tpu.models.Phi3": (Phi3, "llm_training_tpu_torch.models.phi3.hf_conversion"),
     "llm_training_tpu.models.Gemma": (Gemma, "llm_training_tpu_torch.models.gemma.hf_conversion"),
+    "llm_training_tpu.models.Deepseek": (
+        Deepseek, "llm_training_tpu_torch.models.deepseek.hf_conversion"),
+    "llm_training_tpu.models.Glm4Moe": (
+        Glm4Moe, "llm_training_tpu_torch.models.glm4_moe.hf_conversion"),
+    "llm_training_tpu.models.GptOss": (
+        GptOss, "llm_training_tpu_torch.models.gpt_oss.hf_conversion"),
+    "llm_training_tpu.models.Ernie45Moe": (
+        Ernie45Moe, "llm_training_tpu_torch.models.ernie45_moe.hf_conversion"),
+    "llm_training_tpu.models.HunYuanMoe": (
+        HunYuanMoe, "llm_training_tpu_torch.models.hunyuan_moe.hf_conversion"),
 }
+# each family config's model class (a Phi3Config is a LlamaConfig: first)
+_CONFIG_MODELS: tuple[tuple[type, type], ...] = (
+    (Phi3Config, Phi3), (LlamaConfig, Llama), (GemmaConfig, Gemma),
+    (DeepseekConfig, Deepseek), (Glm4MoeConfig, Glm4Moe), (GptOssConfig, GptOss),
+    (Ernie45MoeConfig, Ernie45Moe), (HunYuanMoeConfig, HunYuanMoe),
+)
+
+
+def model_class_for_config(config) -> type:
+    """The port's model class of a family config."""
+    for config_cls, model_cls in _CONFIG_MODELS:
+        if isinstance(config, config_cls):
+            return model_cls
+    raise TypeError(f"no model class for {type(config).__name__}")
 
 
 @dataclass

@@ -59,6 +59,11 @@ _FAMILIES: dict[str, str] = {
     "LlamaConfig": "llm_training_tpu_torch.models.llama.hf_conversion",
     "Phi3Config": "llm_training_tpu_torch.models.phi3.hf_conversion",
     "GemmaConfig": "llm_training_tpu_torch.models.gemma.hf_conversion",
+    "DeepseekConfig": "llm_training_tpu_torch.models.deepseek.hf_conversion",
+    "Glm4MoeConfig": "llm_training_tpu_torch.models.glm4_moe.hf_conversion",
+    "GptOssConfig": "llm_training_tpu_torch.models.gpt_oss.hf_conversion",
+    "Ernie45MoeConfig": "llm_training_tpu_torch.models.ernie45_moe.hf_conversion",
+    "HunYuanMoeConfig": "llm_training_tpu_torch.models.hunyuan_moe.hf_conversion",
 }
 
 
@@ -279,7 +284,10 @@ _ARCH_TO_FAMILY = {
     "gemma3_text": "llm_training_tpu.models.Gemma",
 }
 # the families of that table the port has
-PORTED_FAMILIES = (_LLAMA, "llm_training_tpu.models.Phi3", "llm_training_tpu.models.Gemma")
+PORTED_FAMILIES = (_LLAMA, "llm_training_tpu.models.Phi3", "llm_training_tpu.models.Gemma",
+                   "llm_training_tpu.models.Deepseek", "llm_training_tpu.models.Glm4Moe",
+                   "llm_training_tpu.models.GptOss", "llm_training_tpu.models.Ernie45Moe",
+                   "llm_training_tpu.models.HunYuanMoe")
 
 
 def model_class_for_hf(hf_config: dict, assume_llama_layout: bool = False) -> str:

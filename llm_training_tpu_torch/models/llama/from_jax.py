@@ -15,6 +15,14 @@ stored by an offloaded run too -- `MultiSteps`' accumulator, the key and
 the step) onto the port's `TrainState.state_dict()`, so a run started in
 the JAX package resumes in the port.
 
+The non-Llama MoE families (DeepSeek, GLM-4.5, gpt-oss, ERNIE-4.5-MoE,
+HunYuan-MoE) name their parameters as JAX's tree does below a layer
+(`moe_scan_io.jax_keys`); their trees' layouts (looped, a looped prefix with
+a scanned `moe_layers/layer` suffix, a `layers/slot{j}` period, a scanned
+`layers/layer`) are read from the tree's own keys, and a config's
+`jax_layout` (a `moe_scan_io.JaxLayout`) stands where the Llama graph's
+`scan_layers` does in `jax_path` and `jax_layout`.
+
 A preference objective's tree `{"policy": ..., "ref": ...}` (DPO) maps onto
 the names of the port's `PolicyAndReference` module, `policy.<name>` and
 `ref.<name>`. Optimizer-state trees hold `optax.masked`'s placeholder (an
@@ -29,7 +37,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from llm_training_tpu_torch.models import moe_scan_io
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
+from llm_training_tpu_torch.models.moe_scan_io import JaxLayout
 
 # the Dense projections of a decoder layer, and the norms (a layer's own,
 # and the attention's qk-norms), by their parent module
@@ -69,14 +79,39 @@ def tree_from_flat(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return tree
 
 
+def _parameters(config) -> dict[str, torch.dtype]:
+    """{the port's parameter name: its dtype} for `config` (the config of
+    any ported family), in the model's order."""
+    from llm_training_tpu_torch.models.hf_causal_lm import model_class_for_config
+
+    model = model_class_for_config(config)(config, device="meta")
+    return {name: p.dtype for name, p in model.named_parameters()}
+
+
 def parameter_names(config: LlamaConfig) -> list[str]:
     """The port's parameter names (HF's spelling of JAX's tree) for
-    `config` (a `LlamaConfig` or a `GemmaConfig`), in the model's order."""
-    from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
-    from llm_training_tpu_torch.models.llama.model import Llama
+    `config`, in the model's order."""
+    return list(_parameters(config))
 
-    model_cls = Gemma if isinstance(config, GemmaConfig) else Llama
-    return [name for name, _ in model_cls(config, device="meta").named_parameters()]
+
+def _family(config) -> bool:
+    """A config of the non-Llama MoE families (`moe_scan_io` layouts)."""
+    return hasattr(config, "jax_layout")
+
+
+def _family_node(tree: Mapping[str, Any], layout: JaxLayout,
+                 name: str) -> tuple[Any, int | None, bool]:
+    """(the JAX leaf of the port's parameter `name` in a family tree of
+    `layout`, the layer's index in it or None, transposed)."""
+    layer, keys, transposed = moe_scan_io.jax_keys(name)
+    node, index = tree, None
+    if layer is not None:
+        prefix, index = layout.location(layer)
+        for key in prefix:
+            node = node[key]
+    for key in keys:
+        node = node[key]
+    return node, index, transposed
 
 
 def _layer_keys(keys: list[str]) -> tuple[str, ...] | None:
@@ -128,6 +163,8 @@ def jax_path(name: str, scan_layers: bool | str = True) -> str | None:
     if part in PAIR:
         path = jax_path(rest, scan_layers)
         return None if path is None else f"{part}/{path}"
+    if isinstance(scan_layers, JaxLayout):
+        return moe_scan_io.jax_path(name, scan_layers)
     try:
         layer, keys = jax_leaf(name)
     except KeyError:
@@ -158,6 +195,8 @@ def jax_layout(name: str, scan_layers: bool | str = True) -> tuple[str, int | No
     if part in PAIR:
         leaf, index, transposed = jax_layout(rest, scan_layers)
         return f"{part}.{leaf}", index, transposed
+    if isinstance(scan_layers, JaxLayout):
+        return moe_scan_io.jax_leaf_name(name, scan_layers)
     try:
         layer, keys = jax_leaf(name)
     except KeyError:
@@ -197,6 +236,16 @@ def state_dict_from_jax(params: Mapping[str, Any], config: LlamaConfig) -> dict[
         return out
     if set(params) == {"params"}:
         params = params["params"]
+    if _family(config):
+        layout = moe_scan_io.layout_of_tree(params)
+        out = {}
+        for name, dtype in _parameters(config).items():
+            node, index, transposed = _family_node(params, layout, name)
+            if _masked(node):
+                continue
+            array = np.asarray(node if index is None else np.asarray(node)[index], np.float32)
+            out[name] = torch.tensor(array.T if transposed else array, dtype=dtype)
+        return out
     dtype = config.param_torch_dtype
     out = {}
     for name in parameter_names(config):
@@ -266,12 +315,19 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
         return out
     if set(tree) == {"params"}:
         tree = tree["params"]
-    layout = (False if "layers" not in tree
-              else PAIRS if "sliding" in tree["layers"] else True)
+    if _family(config):
+        layout = moe_scan_io.layout_of_tree(tree)
+    else:
+        layout = (False if "layers" not in tree
+                  else PAIRS if "sliding" in tree["layers"] else True)
     out = {}
     for name in parameter_names(config):
-        layer, keys = jax_leaf(name)
-        node, index = _node(tree, layer, keys)
+        if _family(config):
+            node, index, transposed = _family_node(tree, layout, name)
+        else:
+            layer, keys = jax_leaf(name)
+            node, index = _node(tree, layer, keys)
+            transposed = keys[-1] == "kernel"
         if _masked(node):
             continue
         parts = {"q": node.q, "scale": node.scale} if _is_quant(node) else {"": node}
@@ -280,7 +336,7 @@ def optimizer_state_from_jax(tree: Mapping[str, Any], config: LlamaConfig, field
         else:
             key = f"{field}.{name}"
             parts = {s: a if index is None else np.asarray(a)[index] for s, a in parts.items()}
-            if keys[-1] == "kernel":
+            if transposed:
                 parts = {s: np.asarray(a).T for s, a in parts.items()}
         for suffix, array in parts.items():
             out[f"{key}.{suffix}" if suffix else key] = _stored(array)

@@ -5,7 +5,8 @@ layouts at the public functions:
 
 - router: an fp32 softmax over the expert logits of a compute-dtype gate
   product, top-k, optional renormalisation, or Phi-3.5-MoE's SparseMixer
-  (`sparsemixer_topk`);
+  (`sparsemixer_topk`); every router of the port selects through `top_k`,
+  which orders ties as `lax.top_k` does;
 - experts: one stacked parameter a projection (`experts_gate_proj`,
   `experts_up_proj` `[E, H, I]`, `experts_down_proj` `[E, I, H]`, JAX's
   layout), never E separate modules;
@@ -62,6 +63,16 @@ def router_block_stats(topk_idx: torch.Tensor, probs: torch.Tensor, num_experts:
     sel = sel.index_add(0, topk_idx.reshape(-1), valid.repeat_interleave(top_k)) / n_valid
     mean_prob = (probs.float() * valid[:, None]).sum(0) / n_valid
     return sel, mean_prob
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last dim, in JAX's
+    `lax.top_k` order: descending, the lower index first among ties (a
+    stable descending sort cut to k). `torch.topk` leaves the order of
+    ties unspecified, and an upcycled router's duplicated columns or a
+    group-limited router's masked zeros tie exactly."""
+    idx = torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+    return x.gather(-1, idx), idx
 
 
 def sparsemixer_topk(logits: torch.Tensor, jitter_eps: float,
@@ -268,7 +279,7 @@ class MoEMLP(nn.Module):
 
     def forward(self, hidden: torch.Tensor, pad_mask: torch.Tensor | None = None):
         cfg = self.config
-        num_experts, top_k = cfg.num_experts, cfg.num_experts_per_tok
+        num_experts, k = cfg.num_experts, cfg.num_experts_per_tok
         cd = cfg.compute_torch_dtype
         batch, seq, embed = hidden.shape
         x = hidden.reshape(-1, embed).to(cd)
@@ -277,9 +288,9 @@ class MoEMLP(nn.Module):
         logits = F.linear(x, self.gate.weight.to(cd)).float()
         probs = torch.softmax(logits, -1)
         if cfg.moe_router_impl == "sparsemixer":
-            topk_probs, topk_idx = sparsemixer_topk(logits, cfg.router_jitter_eps, top_k)
+            topk_probs, topk_idx = sparsemixer_topk(logits, cfg.router_jitter_eps, k)
         else:
-            topk_probs, topk_idx = torch.topk(probs, top_k, -1)
+            topk_probs, topk_idx = top_k(probs, k)
             if cfg.norm_topk_prob:
                 topk_probs = topk_probs / topk_probs.sum(-1, keepdim=True)
         topk_probs = topk_probs.to(cd)

@@ -152,9 +152,12 @@ def run_plain_by_kv_head(case: dict, upcast: bool = False, **opts) -> dict:
     """`run_case(kernel=False)` one kv head at a time, joined: the plain
     version at the training shape, where its S^2 scores for all heads at
     once would not fit."""
-    parts = [run_case(kv_head_slice(case, h), kernel=False, upcast=upcast, **dict(opts))
+    group = case["q"].shape[2] // case["k"].shape[2]
+    sinks = opts.pop("sinks", None)
+    parts = [run_case(kv_head_slice(case, h), kernel=False, upcast=upcast, **dict(opts),
+                      **({} if sinks is None else {"sinks": sinks[h * group:(h + 1) * group]}))
              for h in range(case["k"].shape[2])]
-    head_dim = {"out": 2, "lse": 1, "dq": 2, "dk": 2, "dv": 2}
+    head_dim = {"out": 2, "lse": 1, "dq": 2, "dk": 2, "dv": 2, "dsinks": 0}
     return {name: torch.cat([p[name] for p in parts], head_dim[name]) for name in parts[0]}
 
 
@@ -217,13 +220,32 @@ def gemma2_case(seq: int = 8192) -> list[dict]:
     `seq` tokens (documents of 256-8000 tokens, so that its 4096 window
     cuts the long ones, and a padding tail), bf16, in enough copies to run
     cold in L2."""
-    hq, hkv, head_dim = 16, 8, 256
+    return _copies(seq, 16, 8, 256, seed=22)
+
+
+def gpt_oss_case(seq: int = 8192) -> list[dict]:
+    """gpt-oss-20b's training shape: Hq 64, Hkv 8, D 64, one packed row of
+    `seq` tokens (documents of 256-8000, a padding tail; the sliding
+    layers' 128-token window cuts every one), bf16, in enough copies to
+    run cold in L2."""
+    return _copies(seq, 64, 8, 64, seed=24)
+
+
+def mla_case(seq: int = 8192) -> list[dict]:
+    """DeepSeek-V2-Lite's MLA shape: Hq = Hkv = 16 at the qk head dim 192
+    (v zero-padded to it by the model; the wrapper pads both to 256), one
+    packed row of `seq` tokens, bf16, in enough copies to run cold in L2."""
+    return _copies(seq, 16, 16, 192, seed=25)
+
+
+def _copies(seq: int, hq: int, hkv: int, head_dim: int, seed: int) -> list[dict]:
+    """One packed row of `seq` tokens (documents of 256-8000, a padding
+    tail) at these heads, bf16, in enough copies to run cold in L2."""
     tail = seq // 64
-    row = packed_row(np.random.default_rng(22), seq, 256, min(8000, seq - tail), tail=tail)
+    row = packed_row(np.random.default_rng(seed), seq, 256, min(8000, seq - tail), tail=tail)
     per_copy = 2 * seq * (hq + 2 * hkv) * head_dim * 2  # q, k, v and dout
     copies = max(2, math.ceil(2 * L2_BYTES / per_copy) + 1)
-    return [flash_case(seq, hq, hkv, head_dim, torch.bfloat16, [row], seed)
-            for seed in range(copies)]
+    return [flash_case(seq, hq, hkv, head_dim, torch.bfloat16, [row], s) for s in range(copies)]
 
 
 def case_io(case: dict) -> dict:
@@ -252,16 +274,19 @@ def dpo_case(seq: int = 2048, rows: int = 8) -> list[dict]:
 HYPER = dict(causal=True, window=0, cap=0.0, q_offset=0)  # the timed calls: causal, packed
 
 
-def kernel_inputs(case: dict, hyper: dict = HYPER) -> tuple[dict, dict, dict]:
+def kernel_inputs(case: dict, hyper: dict = HYPER,
+                  sinks: torch.Tensor | None = None) -> tuple[dict, dict, dict]:
     """The direct inputs of K1 and of K2/K3 for a case at q_offset 0: the
     flat padded tensors with their tile ranges; those plus dO, and LSE and
-    delta from one run of K1; and the launchers' own 128-row block ranges."""
+    delta from one run of K1 (with `sinks` `[Hq]` fp32, if given: they
+    enter LSE, which K2/K3 read); and the launchers' own 128-row block
+    ranges."""
     flat = flat_inputs(case)
     flat["q_ranges"] = fa.tile_ranges(flat["seg_q"])
     flat["k_ranges"] = fa.tile_ranges(flat["seg_kv"])
     blocks = dict(q_blocks=fa.tile_ranges(flat["seg_q"], fa.BLOCK),
                   k_blocks=fa.tile_ranges(flat["seg_kv"], fa.BLOCK))
-    out, lse = fa.flash_fwd_kernel(**flat, sinks=None, q_blocks=blocks["q_blocks"], **hyper)
+    out, lse = fa.flash_fwd_kernel(**flat, sinks=sinks, q_blocks=blocks["q_blocks"], **hyper)
     dout = fa._pad_to(fa._pad_to(case["dout"], 1, flat["q"].shape[1]), 3,
                       flat["q"].shape[3]).contiguous()
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -289,12 +314,13 @@ def backward_twice_identical(case: dict) -> bool:
     return all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-def time_kernels(cases: list[dict], window: int = 0, cap: float = 0.0) -> dict:
+def time_kernels(cases: list[dict], window: int = 0, cap: float = 0.0,
+                 sinks: torch.Tensor | None = None) -> dict:
     """Device ms of K1, K2 and K3 on the cases' flat inputs (causal, with
-    the window and soft cap given)."""
+    the window, soft cap and sinks given)."""
     hyper = {**HYPER, "window": window, "cap": cap}
-    inputs = [kernel_inputs(c, hyper) for c in cases]
-    fwd_ms = device_ms([lambda f=f, r=r: fa.flash_fwd_kernel(**f, sinks=None,
+    inputs = [kernel_inputs(c, hyper, sinks) for c in cases]
+    fwd_ms = device_ms([lambda f=f, r=r: fa.flash_fwd_kernel(**f, sinks=sinks,
                                                           q_blocks=r["q_blocks"], **hyper)
                         for f, _, r in inputs])
     dq_ms = device_ms([lambda b=b, r=r: fa.flash_dq_kernel(**b, q_blocks=r["q_blocks"], **hyper)
@@ -317,7 +343,8 @@ def _fwd_bwd_ms(forward, cases: list[dict], reps: int) -> dict:
     return dict(fwd_ms=fwd, bwd_ms=both - fwd)
 
 
-def time_plain(cases: list[dict], reps: int = 3, window: int = 0, cap: float = 0.0) -> dict:
+def time_plain(cases: list[dict], reps: int = 3, window: int = 0, cap: float = 0.0,
+               sinks: torch.Tensor | None = None) -> dict:
     """The plain versions: K1's (`flash_fwd_torch`, O and LSE) and the
     backward's (autograd through it, dq, dk and dv together), one kv head
     at a time as `run_plain_by_kv_head` runs them."""
@@ -328,6 +355,7 @@ def time_plain(cases: list[dict], reps: int = 3, window: int = 0, cap: float = 0
                 q[:, :, h * group:(h + 1) * group], k[:, :, h:h + 1], v[:, :, h:h + 1],
                 case["q_segment_ids"], case["segment_ids"], causal=True, window=window,
                 cap=cap, q_offset=case["q_offset"],
+                sinks=None if sinks is None else sinks[h * group:(h + 1) * group],
             )[0]
             for h in range(k.shape[2])
         ], 2)
@@ -361,7 +389,7 @@ def time_sdpa(cases: list[dict], reps: int = 10, window: int = 0) -> dict:
 
 
 def kernel_record(seq: int | None = None, cases: list[dict] | None = None,
-                  window: int = 0, cap: float = 0.0) -> dict:
+                  window: int = 0, cap: float = 0.0, sinks: torch.Tensor | None = None) -> dict:
     """Times and bounds of K1-K3 on `cases` (default: the training shape
     cut to `seq` tokens), causal with `window` and soft cap `cap`. The
     bound counts the case's own head_dim and bytes: a head_dim the kernels
@@ -370,7 +398,7 @@ def kernel_record(seq: int | None = None, cases: list[dict] | None = None,
     cases = training_case(seq) if cases is None else cases
     case = cases[0]
     pairs = visible_pairs(case["q_segment_ids"], case["segment_ids"], window=window or None)
-    times = time_kernels(cases, window, cap)
+    times = time_kernels(cases, window, cap, sinks)
     batch, seq, hq, head_dim = case["q"].shape
     record = {"card": card_line(), "batch": batch, "seq": seq, "hq": hq,
               "hkv": case["k"].shape[2], "head_dim": head_dim, "window": window, "cap": cap,

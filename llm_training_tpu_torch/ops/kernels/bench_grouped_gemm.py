@@ -316,6 +316,35 @@ def timed_shapes() -> dict[str, tuple[list[int], int, int, tuple[str, ...]]]:
     }
 
 
+def family_shapes() -> dict[str, tuple[list[int], int, int]]:
+    """name -> (rows a group, K, N) of the non-Llama MoE families' expert
+    products at their published widths, 1024 tokens routed: gpt-oss-20b's
+    fused gate_up (N 5760) and down (N 2880: 22.5 of the 128-column
+    tiles), DeepSeek-V2-Lite's and GLM-4.5-Air's 1408-wide experts (11
+    tiles of 128), ERNIE-4.5-21B-A3B's 1536 and Hunyuan-A13B's 3072, each
+    up and down."""
+    shapes = {}
+    for name, (hidden, inter, experts, top_k, fused) in {
+            "gpt-oss-20b": (2880, 2880, 32, 4, True),
+            "deepseek-v2-lite": (2048, 1408, 64, 6, False),
+            "glm-4.5-air": (4096, 1408, 128, 8, False),
+            "ernie-4.5-21b-a3b": (2560, 1536, 64, 6, False),
+            "hunyuan-a13b": (4096, 3072, 64, 8, False)}.items():
+        sizes = routed_sizes(1024, top_k, experts, seed=24, skew=0.5)
+        shapes[f"{name} {'gate_up' if fused else 'gate'}"] = (
+            sizes, hidden, 2 * inter if fused else inter)
+        shapes[f"{name} down"] = (sizes, inter, hidden)
+    return shapes
+
+
+def gpt_oss_training_shapes() -> dict[str, tuple[list[int], int, int, tuple[str, ...]]]:
+    """name -> (rows a group, K, N, directions) of gpt-oss-20b's expert
+    products on one packed 8192-token row (4 of 32 experts a token)."""
+    sizes = routed_sizes(8192, 4, 32, seed=24, skew=0.5)
+    return {"gpt-oss-20b training gate_up": (sizes, 2880, 5760, OPS),
+            "gpt-oss-20b training down": (sizes, 2880, 2880, OPS)}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_grouped_gemm needs a CUDA card")

@@ -54,6 +54,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from llm_training_tpu_torch.models.llama.from_jax import PAIRS, jax_layout, jax_path
+from llm_training_tpu_torch.models.moe_scan_io import JaxLayout
 from llm_training_tpu_torch.optim import adafactor
 from llm_training_tpu_torch.optim.offload import StateStore
 from llm_training_tpu_torch.optim.quantized_state import DEFAULT_BLOCK
@@ -214,6 +215,7 @@ class Optimizer:
         self._axis = [0 if transposed and p.ndim == 2 else -1
                       for p, (_, _, transposed) in zip(self.params, layouts)]
         self.adafactor_layout = (None if self.kind != "adafactor" else
+                                 str(scan_layers) if isinstance(scan_layers, JaxLayout) else
                                  "pairs" if scan_layers == PAIRS else
                                  "scanned" if scan_layers else "looped")
         zeros = lambda i: torch.zeros_like(self.local[i])  # noqa: E731

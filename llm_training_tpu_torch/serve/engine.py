@@ -124,6 +124,13 @@ class ServingEngine:
         config: ServeConfig | None = None,
         device: torch.device | str | None = None,
     ):
+        from llm_training_tpu_torch.infer.engine import supports_decoding
+
+        if not supports_decoding(model):
+            raise NotImplementedError(
+                f"{type(model).__name__} does not support KV-cache decoding "
+                "(no decode_state in its __call__) — see docs/inference.md"
+            )
         device = resolve_device(device)
         param_device = next(model.parameters()).device
         if param_device.type != device.type:

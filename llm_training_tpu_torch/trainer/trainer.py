@@ -107,6 +107,7 @@ from llm_training_tpu_torch import prng, resolve_device
 from llm_training_tpu_torch.callbacks.nan_guard import LossSpikeError, NonFiniteLossError
 from llm_training_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from llm_training_tpu_torch.models.llama.from_jax import PAIRS
+from llm_training_tpu_torch.models.moe_scan_io import JaxLayout
 from llm_training_tpu_torch.optim.builder import build_optimizer, global_norm, local_tensor
 from llm_training_tpu_torch.optim.offload import check_offload_keys
 from llm_training_tpu_torch.parallel import batch as batching
@@ -257,12 +258,15 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _scan_layers(module: torch.nn.Module) -> bool | str:
+def _scan_layers(module: torch.nn.Module) -> bool | str | JaxLayout:
     """The JAX layout of the objective's model config (`scan_layers`, JAX's
     default True; `from_jax.PAIRS` for Gemma-2's scanned (sliding, full)
-    pairs): the tree `frozen_modules` patterns are matched against. A
-    policy and reference pair takes the policy's."""
+    pairs; a non-Llama MoE family's `jax_layout`): the tree
+    `frozen_modules` patterns are matched against. A policy and reference
+    pair takes the policy's."""
     config = getattr(getattr(module, "policy", module), "config", None)
+    if hasattr(config, "jax_layout"):
+        return config.jax_layout
     scan = bool(getattr(config, "scan_layers", True))
     return PAIRS if scan and getattr(config, "paired", False) else scan
 
@@ -320,6 +324,8 @@ class Trainer:
         self._preempted = False
         self._recovery: RecoveryManager | None = None
         self.rollbacks: list[dict] = []
+        # a recovering fit's handed-in weights at its start (`_rollback_state`)
+        self._handed_start = None
         # the elastic plan this fit ran on (None with resilience.elastic unset)
         self.topology_plan: TopologyPlan | None = None
         # the fit's DeviceMesh (None off a process group) and the mesh
@@ -507,11 +513,9 @@ class Trainer:
                     registry=self.telemetry, action=resil.watchdog_action,
                 ).start()
             # per-card memory timeline: sampled on log steps into the
-            # hbm/* gauges and a logger's <run_dir>/hbm.jsonl (never into the
-            # checkpoint directory, which holds steps only)
-            log_dir = next((cb.run_dir for cb in self.callbacks
-                            if getattr(cb, "run_dir", None)), None) if is_primary() else None
-            self._hbm_timeline = HBMTimeline(run_dir=log_dir, registry=self.telemetry,
+            # hbm/* gauges and <run_dir>/hbm.jsonl: a logger's run directory,
+            # else the checkpoint directory (JAX's `resolve_run_dir`)
+            self._hbm_timeline = HBMTimeline(run_dir=run_dir, registry=self.telemetry,
                                              device=self.device)
             # SLO monitor: armed only by LLMT_SLO_* targets; breaches bump
             # slo/* counters and flight-dump the trace ring into the run dir
@@ -540,12 +544,12 @@ class Trainer:
                     slo=self._slo, profile=self._profile_trigger, role="train",
                     status_fn=lambda: {"step": self.last_step, "segment": segment_attempt()},
                 )
-            # the trace sink: lifecycle events land in a logger's
-            # <run_dir>/trace.jsonl (never in the checkpoint directory, which
-            # holds steps only: ROADMAP C.18), per-step spans only with
-            # LLMT_TRACE_TRAIN=1; False when another owner holds the sink
-            if log_dir is not None:
-                trace_attached = get_tracer().attach_sink(Path(log_dir) / "trace.jsonl")
+            # the trace sink: lifecycle events land in <run_dir>/trace.jsonl
+            # (a logger's run directory, else the checkpoint directory, as
+            # JAX's), per-step spans only with LLMT_TRACE_TRAIN=1; False when
+            # another owner holds the sink
+            if run_dir is not None:
+                trace_attached = get_tracer().attach_sink(run_dir / "trace.jsonl")
             with use_mesh(self.mesh):
                 return self._fit_inner(objective, datamodule, resume_step)
         finally:
@@ -607,6 +611,14 @@ class Trainer:
             recovery = RecoveryManager(cfg.resilience.recovery, registry=self.telemetry,
                                        metadata=(meta or {}).get("recovery"))
             self._recovery = recovery
+        # the weights of models handed in, as the fit starts: a rollback with
+        # nothing committed starts over from them, as JAX re-initializes
+        self._handed_start = None
+        if recovery is not None and meta is None and _world_size() == 1:
+            self._handed_start = {
+                attr: {k: v.detach().to("cpu", copy=True)
+                       for k, v in module.state_dict().items()}
+                for attr, module in built.items() if module is not None}
         schedule = self._wrap_schedule(state, base_schedule)
 
         health_every = cfg.health.every_n_steps
@@ -902,9 +914,10 @@ class Trainer:
         state included: replayed steps must not count twice), loaded in
         place into the diverged state's own tensors, so no second copy is
         ever allocated. With nothing committed, the diverged state is freed
-        first and a fresh one built from the seed, as JAX re-initializes;
-        an objective whose model was handed in cannot be rebuilt that way
-        and escalates. Returns (state, micro-step to resume from, base
+        first and a fresh one built from the seed, as JAX re-initializes, a
+        model handed in reloaded with the weights it had when the fit
+        started (kept on the host for a recovering fit on one rank; on a
+        mesh it escalates). Returns (state, micro-step to resume from, base
         schedule)."""
         if self.checkpointer is not None:
             with self.ledger.measure("checkpoint_save"):
@@ -916,7 +929,11 @@ class Trainer:
                 self._load_callback_state(meta)
                 return state, state.step, base_schedule
         handed = sorted(a for a, module in built.items() if module is not None)
-        if handed:
+        if handed and self._handed_start is not None:
+            with torch.no_grad():
+                for attr in handed:
+                    built[attr].load_state_dict(self._handed_start[attr])
+        elif handed:
             raise RecoveryExhaustedError(
                 f"recovery: no committed checkpoint to roll back to, and the objective's "
                 f"{handed} were handed in, so no fresh init reproduces the fit's start; "

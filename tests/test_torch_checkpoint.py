@@ -298,9 +298,10 @@ def test_max_to_keep_prunes_oldest(tmp_path):
     _fit(trainer, _objective())
     assert trainer.checkpointer.all_steps() == [5, 6]
     assert trainer.checkpointer.last_save["pruned"] == [4]
-    # the pruned steps' manifests go with them
+    # the pruned steps' manifests go with them; the run's memory timeline
+    # and trace sink stay (with no logger they land here, as JAX's do)
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "manifest-5.json", "manifest-6.json", "step_5", "step_6"]
+        "hbm.jsonl", "manifest-5.json", "manifest-6.json", "step_5", "step_6", "trace.jsonl"]
 
 
 def test_restore_for_inference_is_read_only(tmp_path):
@@ -333,7 +334,8 @@ def test_save_of_existing_step_is_a_noop_unless_forced(tmp_path):
     assert _tree_bytes(tmp_path) != before
     restored = _trainer(tmp_path).restore_for_inference(_objective())
     assert torch.equal(restored.model.model.norm.weight, state.model.model.norm.weight)
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["manifest-2.json", "step_2"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "hbm.jsonl", "manifest-2.json", "step_2", "trace.jsonl"]
 
 
 # ---------------------------------------------------------------- no fallback

@@ -36,6 +36,7 @@ from llm_training_tpu.resilience import cooldown_schedule as jax_cooldown
 from llm_training_tpu.resilience import retry_call as jax_retry_call
 from llm_training_tpu.resilience.chaos import Chaos as JaxChaos
 from llm_training_tpu.resilience.chaos import config_from_env as jax_chaos_from_env
+from llm_training_tpu.resilience.durability import committed_steps as jax_committed_steps
 from llm_training_tpu.resilience.watchdog import HangWatchdog as JaxWatchdog
 from llm_training_tpu.telemetry.goodput import GoodputLedger as JaxLedger
 from llm_training_tpu.trainer import Trainer as JaxTrainer
@@ -335,7 +336,8 @@ def jax_recovery(tmp_path_factory, devices):
     import flax.linen as nn
     import jax
 
-    trainer, recorder = _jax_recovery_fit(tmp_path_factory.mktemp("jax"), 10, max_rollbacks=2)
+    directory = tmp_path_factory.mktemp("jax")
+    trainer, recorder = _jax_recovery_fit(directory, 10, max_rollbacks=2)
     trainer.fit(_jax_objective(), JaxDummy(JaxDummyConfig(**DATA)))
     data = JaxDummy(JaxDummyConfig(**DATA))
     data.setup()
@@ -343,17 +345,32 @@ def jax_recovery(tmp_path_factory, devices):
         jax.random.key(JaxTrainerConfig().seed), next(data.train_batches())))
     return dict(recorder=recorder, snapshot=trainer.telemetry.snapshot(),
                 windows=trainer._recovery.skip_list.windows, counters=dict(trainer.counters),
-                init=jax.device_get(init))
+                init=jax.device_get(init), files=_run_files(directory),
+                steps=jax_committed_steps(directory))
 
 
-def test_rollback_and_skip_matches_jax(tmp_path, jax_recovery):
+def _run_files(directory: Path) -> list[str]:
+    """The names of the files a fit left beside the step directories."""
+    return sorted(p.name for p in directory.iterdir() if p.is_file())
+
+
+@pytest.fixture(scope="module")
+def port_recovery(tmp_path_factory, jax_recovery):
+    """The port's fit of `jax_recovery`, from its initial weights, with a
+    checkpointer and no logger."""
+    directory = tmp_path_factory.mktemp("port")
+    trainer, recorder = _port_recovery_fit(directory, 10, max_rollbacks=2)
+    state = trainer.fit(_port_objective(jax_recovery["init"]),
+                        DummyDataModule(DummyDataModuleConfig(**DATA)))
+    return dict(trainer=trainer, recorder=recorder, state=state, directory=directory)
+
+
+def test_rollback_and_skip_matches_jax(jax_recovery, port_recovery):
     """The same chaos NaN (step 4) and spike (step 7): both fits roll back
     to their step-2 and step-6 checkpoints, skip micro-steps 3 and 6, and
     finish; the rollback record and counters are JAX's, the losses within
     rtol 1e-4."""
-    trainer, recorder = _port_recovery_fit(tmp_path, 10, max_rollbacks=2)
-    state = trainer.fit(_port_objective(jax_recovery["init"]),
-                        DummyDataModule(DummyDataModuleConfig(**DATA)))
+    trainer, recorder, state = (port_recovery[k] for k in ("trainer", "recorder", "state"))
     want = jax_recovery["recorder"]
     assert state.step == 10
     assert recorder.rollbacks == want.rollbacks == [2, 6]
@@ -375,6 +392,31 @@ def test_rollback_and_skip_matches_jax(tmp_path, jax_recovery):
     assert meta["recovery"]["skip_list"] == {"windows": [[3, 1], [6, 1]], "reserve": 2}
 
 
+def test_run_artifacts_land_in_the_checkpoint_directory_as_jax(jax_recovery, port_recovery):
+    """With a checkpointer and no logger, the run's files (the trace sink,
+    the memory timeline, the guard's anomaly dumps, the rollbacks' flight
+    dumps) land in the checkpoint directory, JAX's `resolve_run_dir`: the
+    same files as JAX's fit leaves there; the port's step listing,
+    retention and verification see the steps only (ROADMAP C.18)."""
+    from llm_training_tpu_torch.resilience import durability
+
+    directory = port_recovery["directory"]
+    files = _run_files(directory)
+    assert files == jax_recovery["files"]
+    assert "trace.jsonl" in files and any(f.startswith("anomaly-") for f in files)
+    checkpointer = port_recovery["trainer"].checkpointer
+    assert checkpointer.all_steps() == jax_recovery["steps"] == [2, 4, 6, 8, 10]
+    assert durability.verify_step(directory, 10).ok
+    retained = Checkpointer(CheckpointConfig(dirpath=str(directory), max_to_keep=2,
+                                             async_save=False))
+    retained.save(12, port_recovery["state"])
+    retained.wait()
+    # retention removed the old steps and their manifests, nothing else
+    run_files = [f for f in files if not f.startswith("manifest-")]
+    assert retained.all_steps() == [10, 12]
+    assert [f for f in _run_files(directory) if not f.startswith("manifest-")] == run_files
+
+
 def test_recovery_budget_exhaustion_matches_jax(tmp_path, devices):
     """With max_rollbacks 1 the second fault escalates in both."""
     jax_trainer, _ = _jax_recovery_fit(tmp_path / "jax", 8, max_rollbacks=1)
@@ -391,7 +433,8 @@ def test_recovery_budget_exhaustion_matches_jax(tmp_path, devices):
 
 def test_rollback_without_a_checkpoint_rebuilds_from_the_seed():
     """No checkpointer: the diverged state is dropped and a fresh one built
-    from the seed, as JAX re-initializes; a handed-in model escalates."""
+    from the seed, as JAX re-initializes; a handed-in model restarts from
+    the weights it was handed with."""
     recorder = _Recorder()
     trainer = Trainer(TrainerConfig(max_steps=5, log_every_n_steps=1, resilience=ResilienceConfig(
         chaos=ChaosConfig(nan_step=3), recovery=RecoveryConfig(max_rollbacks=1))),
@@ -401,13 +444,26 @@ def test_rollback_without_a_checkpoint_rebuilds_from_the_seed():
     assert recorder.rollbacks == [0] and state.step == 5 and objective.model is state.model
     assert trainer.rollbacks[0]["window"] == [2, 1]
     assert trainer.counters["consumed_samples"] == 5 * 8
-    handed = CLM(CLMConfig(optim=OptimConfig(**OPTIM)), model=Llama(LlamaConfig.from_dict(TINY),
-                                                                    device="cpu"))
+    # a model handed in starts over from the weights it was handed with, as
+    # JAX re-initializes (ROADMAP C.18): its replayed steps are the first
+    # fit's, loss for loss
+    model = Llama(LlamaConfig.from_dict(TINY), device="cpu")
+    model.init_weights(torch.Generator().manual_seed(3))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    handed = CLM(CLMConfig(optim=OptimConfig(**OPTIM)), model=model)
+    recorder = _Recorder()
     trainer = Trainer(TrainerConfig(max_steps=4, log_every_n_steps=1, resilience=ResilienceConfig(
         chaos=ChaosConfig(nan_step=2), recovery=RecoveryConfig())),
-        callbacks=[NanGuard()], device="cpu")
-    with pytest.raises(RecoveryExhaustedError, match="handed in"):
-        trainer.fit(handed, DummyDataModule(DummyDataModuleConfig(**DATA)))
+        callbacks=[recorder, NanGuard()], device="cpu")
+    state = trainer.fit(handed, DummyDataModule(DummyDataModuleConfig(**DATA)))
+    assert recorder.rollbacks == [0] and state.step == 4 and state.model is model
+    clean = Llama(LlamaConfig.from_dict(TINY), device="cpu")
+    clean.load_state_dict(start)
+    baseline = _Recorder()
+    Trainer(TrainerConfig(max_steps=1, log_every_n_steps=1), callbacks=[baseline],
+            device="cpu").fit(CLM(CLMConfig(optim=OptimConfig(**OPTIM)), model=clean),
+                              DummyDataModule(DummyDataModuleConfig(**DATA)))
+    assert recorder.losses[1] == baseline.losses[1]
 
 
 # ---------------------------------------------------------------- preemption, CLI exits
