@@ -5,7 +5,7 @@
 
 Phases, each of which must pass (any failure exits non-zero), in the
 order 1, 2, then 12 in a process of its own beside 3, 4, 6, 9, 13, 14 and
-phase 17's legs in this process, then 5, 7, 8, 15-20, 22-24, 10, 11, 21:
+phase 17's legs in this process, then 5, 7, 8, 15-20, 22-25, 10, 11, 21:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from `csrc/` with nvcc, one
@@ -27,8 +27,8 @@ phase 17's legs in this process, then 5, 7, 8, 15-20, 22-24, 10, 11, 21:
    wrapper) at group 1 with its 2047-token window at S 4096; every case has
    fully masked rows (O = 0, LSE = -inf or the sink, dq = 0); then K1, K2
    and K3 launched twice on one input give the same bits;
-5. serving: `ServingEngine` on a full-width, full-depth Llama-3.1-8B in
-   bf16 (random weights drawn on the card from a seed) answers 16
+5. serving: `ServingEngine` on a full-width Llama-3.1-8B cut to 8 layers
+   in bf16 (random weights drawn on the card from a seed) answers 16
    requests, half of them admitted while decode is running; all complete,
    the pool ends leak-free, all logits are finite, and K4 ran once per
    layer on every decode step;
@@ -287,11 +287,11 @@ phase 17's legs in this process, then 5, 7, 8, 15-20, 22-24, 10, 11, 21:
    at its published widths (the `qwen3-8b` preset: hidden 4096, 32 q and
    8 kv heads of 128 with per-head qk-norms, vocab 151936, rope theta 1e6;
    random bf16 weights from seed 0), once the Phi-3 directory is gone: its
-   36 layers cut to 8, exported (the `config.json` is the `qwen3` overlay)
+   36 layers cut to 4, exported (the `config.json` is the `qwen3` overlay)
    and loaded back through `HFCausalLM` on the card, every tensor equal
    (the directory deleted as soon as it is loaded); a `ServingEngine` (8
    slots, block 16, chunk 512) answers 16 greedy requests of 256-2048
-   prompt tokens and 64 new through K4 (8 launches a decode step, the
+   prompt tokens and 64 new through K4 (4 launches a decode step, the
    plain decode path never; decode step p50, TTFT p50, the decode
    profile's device busy and idle share); at 2 layers one decode step and
    one packed 4096-token row's CLM loss and gradients through K4 / K1-K3
@@ -446,6 +446,33 @@ imported) for phase 14's full-depth runs.
    bounds, the plain versions and SDPA (without sinks: SDPA has none); G1
    at gpt-oss-20b's two products on 8192 tokens beside its bound, the
    plain version and `torch._grouped_mm`. Each leg prints its seconds.
+25. the hybrid families (after phase 24), from their presets' published
+   widths with random weights: (a) Qwen3-Next-80B-A3B at 2 layers (a gated
+   DeltaNet and a gated-attention layer, D 256 with a GQA group of 8, 512
+   experts, `segment_state_reset`), Bamba-9B at 2 (a Mamba-2 and an
+   attention layer, the reset) and MiniMax-Text-01's lightning layer and
+   its softmax layer, each alone at 1 (8.1 B parameters with the 200064-row
+   embedding and head): the loss, the aux loss and every parameter's
+   gradient of one 1024-token row of two packed documents through K1-K3
+   and G1 in bf16 against the plain path in bf16 and in fp32 (the exact
+   dense MoE), in turn on one model, the fp32 gradients staged in pinned
+   host memory as autograd makes them: the kernel path within 1.5x the
+   plain path's error (phase 9's rule; routing replayed as phase 23 does);
+   (b) Qwen3-Next-80B-A3B at 2 layers ([linear, full], 3.9 B parameters)
+   fits 3 steps of one packed 8192-token row (fp32 parameters, selective
+   recompute, phase 8's AdamW, the reset on, the aux loss on): losses
+   finite and falling; K1-K3 once a step (the one softmax layer); G1's
+   forward twice a product, dgrad and wgrad once, three products a layer;
+   the plain attention, grouped-GEMM and dense paths never; step p50, MFU
+   over the active parameters and the estimator's over all, peak memory;
+   (c) K1-K3 timed (cold L2) at Qwen3-Next's gated attention (Hq 16, Hkv
+   2, D 256) and at MiniMax's softmax layer (Hq 64, Hkv 8, D 128) beside
+   their bounds, the plain versions and SDPA; G1 at Qwen3-Next's gate and
+   down products on 8192 tokens beside its bound, the plain version and
+   `torch._grouped_mm`; the three plain scans (the delta rule, lightning
+   attention, the SSD) forward and backward on 8192 tokens at each
+   preset's heads, device and wall ms, the delta rule's share of (b)'s
+   step. Each leg prints its seconds.
 Every phase prints its wall time. It prints the four kernels at the
 earlier slices' Llama-3.1-8B shapes (phases 7 and 10, launches from phase
 17a), at Phi-3-mini's (phase 19), phase 18's and phase 19e's launches on
@@ -455,9 +482,10 @@ launches of phases 19e, 20, 21 and 22; K4 launched by 19e's and 22's
 serving and phase 18d's replicas, timed at phase 7's Llama-3.1-8B serving
 shape, whose heads are Qwen3-8B's; phase 23's K1-K3 and K4 launches added;
 G1's three directions launched by phase 23's serving and fit, timed at
-Qwen3-30B-A3B's training shape; phase 24's K1-K3 and G1 launches added),
-the kernels at gpt-oss-20b's shapes and K1-K3 at the MLA shape (phase 24)
-on lines of their own, the card's name
+Qwen3-30B-A3B's training shape; phases 24's and 25's K1-K3 and G1
+launches added), the kernels at gpt-oss-20b's shapes and K1-K3 at the MLA
+shape (phase 24), at Qwen3-Next-80B-A3B's and K1-K3 at MiniMax's (phase
+25) on lines of their own, the card's name
 and power limit, and as its last line `{"ok": true, "device": {...}}`.
 Phase 19e and what it costs were bought back, with room for slower hosts,
 by cutting depths (phase 13 from 8 to 4 layers, phase 14's runs beside
@@ -477,6 +505,14 @@ beside the round trip and 16c (on the SIGKILL run's root); 18b on phase
 16's kept step (1 layer, no fit), its uninterrupted run beside its
 supervised one, 18b-c right after 18a beside 18d and 17c (which keeps
 one step).
+
+Phase 25 (~90-105 s) was bought back in part by the first cuts ROADMAP
+names: phase 5's serving from 32 layers to 8, 19e's export, load and
+serving from 8 to 4, 22d's rerun without cap and window timing the
+kernels beside SDPA only (the capped run times the plain version), and
+the timing reps of the plain flash versions in every phase from 3 calls a
+run to 1 (`bench_flash.time_plain`); and phase 25's 32.6 GB pinned buffer
+is page-locked on a thread beside its own timing legs.
 
 `python3 chip_smoke.py silu-turns` builds the kernels and runs only
 `silu_turns`: phase 20's fit shape with its steps alternating between
@@ -549,6 +585,7 @@ FLASH_GRAD_VS_FP32 = 4 * 2.0**-8
 # train-step parity: the kernel path's distance from the fp32 truth over the
 # plain bf16 path's
 NO_FURTHER = 1.5
+SERVE_LAYERS = 8  # phase 5: the 32 layers cut to 8 for the smoke's time limit
 TRAIN_LAYERS = 4  # cut from 8 to keep the smoke inside its time limit
 TRAIN_SEQ = 8192
 # the lifecycle phase: its depth, steps, and where its checkpoints go
@@ -901,7 +938,7 @@ def phase_serve(kernels, card: str) -> dict:
     from llm_training_tpu_torch.models.llama.model import Llama
     from llm_training_tpu_torch.serve.engine import ServeConfig, ServingEngine
 
-    config = preset("llama-3.1-8b")
+    config = preset("llama-3.1-8b", num_hidden_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     model = Llama(config, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(0))
@@ -6208,7 +6245,7 @@ def hf_round_trip(card: str, ckpt_dir: Path, out_dir: Path) -> dict:
 # of huggingface.co/Qwen/Qwen3-8B), random bf16 weights from seed 0
 QW_PRESET = "qwen3-8b"
 QW_DIR = ROOT / ".smoke_qwen3"
-QW_LAYERS = 8  # export, load and serve: the 36 layers cut to 8
+QW_LAYERS = 4  # export, load and serve: the 36 layers cut to 4
 QW_SERVE = dict(max_batch=8, max_model_len=2048 + 128, block_size=16, prefill_chunk=512)
 QW_REQUESTS = 16
 QW_PROMPTS = (256, 2048)  # prompt lengths, inclusive
@@ -6353,7 +6390,7 @@ def qwen3_fit(card: str) -> dict:
 
 
 def qwen3_leg(card: str) -> dict:
-    """19e: Qwen3-8B exported at 8 layers and loaded back through
+    """19e: Qwen3-8B exported at 4 layers and loaded back through
     `HFCausalLM` bit-equal, served through K4; its decode step and its loss
     and gradients at 2 layers against the plain path and fp32; a 3-step fit
     at 4 layers through K1-K3; and a synthetic variant at its widths (a
@@ -6708,7 +6745,7 @@ def gemma_kernel_timing(card: str) -> dict:
     Gemma-2-9B's training shape (one
     packed row of 8192, Hq 16, Hkv 8, D 256) with the cap and the window
     of a sliding layer (no PyTorch call computes a capped attention), then
-    without either beside SDPA, the library call at D 256."""
+    the kernels without either beside SDPA, the library call at D 256."""
     from llm_training_tpu_torch.ops.kernels import bench_flash
     from llm_training_tpu_torch.ops.kernels import bench_paged_decode as bench
     from llm_training_tpu_torch.ops.kernels import paged_attention as kernels
@@ -6743,11 +6780,20 @@ def gemma_kernel_timing(card: str) -> dict:
     flash_cases = bench_flash.gemma2_case()
     out.update(flash_shape_timing(card, "gemma-2-9b B1 S8192 Hq16 Hkv8 D256 cap 50 window 4096",
                                   flash_cases, window=4096, cap=50.0))
-    # the same inputs without cap and window, beside SDPA (their parity is
-    # 22a's and the capped run's above)
-    out["plain_sdpa"] = flash_shape_timing(card, "gemma-2-9b B1 S8192 Hq16 Hkv8 D256 (no cap, "
-                                                 "no window: beside SDPA)", flash_cases,
-                                           parity=False)
+    # the same inputs without cap and window: the kernels beside SDPA (their
+    # parity is 22a's and the capped run's above, their plain version's
+    # time the capped one's)
+    record = bench_flash.kernel_record(cases=flash_cases)
+    library = bench_flash.time_sdpa(flash_cases)
+    out["plain_sdpa"] = {kind: dict(ms=record[f"{kind}_ms"], bound_ms=record[f"{kind}_bound_ms"],
+                                    library_ms=library["fwd_ms" if kind == "fwd" else "bwd_ms"])
+                         for kind in ("fwd", "dq", "dkv")}
+    print(f"flash timing [{card}]: gemma-2-9b B1 S8192 Hq16 Hkv8 D256 (no cap, no window) bf16, "
+          "cold L2: " + "; ".join(f"{kind} {v['ms']:.3f} ms ({100 * v['bound_ms'] / v['ms']:.1f}% "
+                                  f"of bound)" for kind, v in out["plain_sdpa"].items())
+          + f"; SDPA fwd {library['fwd_ms']:.3f} ms, bwd {library['bwd_ms']:.3f} ms", flush=True)
+    del flash_cases
+    release()
     return out
 
 
@@ -7930,8 +7976,8 @@ MF_OPTIM = dict(optimizer="adamw", learning_rate=3e-4, lr_scheduler="cosine", wa
 
 
 def family_preset(name: str):
-    """(model class, preset function) of a non-Llama MoE family's preset,
-    or None."""
+    """(model class, preset function) of a non-Llama MoE family's or a
+    hybrid family's preset, or None."""
     from llm_training_tpu_torch.models.deepseek import Deepseek
     from llm_training_tpu_torch.models.deepseek import config as deepseek
     from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe
@@ -7942,9 +7988,16 @@ def family_preset(name: str):
     from llm_training_tpu_torch.models.gpt_oss import config as gpt_oss
     from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe
     from llm_training_tpu_torch.models.hunyuan_moe import config as hunyuan
+    from llm_training_tpu_torch.models.bamba import Bamba
+    from llm_training_tpu_torch.models.bamba import config as bamba
+    from llm_training_tpu_torch.models.minimax import MiniMax
+    from llm_training_tpu_torch.models.minimax import config as minimax
+    from llm_training_tpu_torch.models.qwen3_next import Qwen3Next
+    from llm_training_tpu_torch.models.qwen3_next import config as qwen3_next
 
     for cls, module in ((GptOss, gpt_oss), (Deepseek, deepseek), (Glm4Moe, glm),
-                        (Ernie45Moe, ernie), (HunYuanMoe, hunyuan)):
+                        (Ernie45Moe, ernie), (HunYuanMoe, hunyuan), (Qwen3Next, qwen3_next),
+                        (MiniMax, minimax), (Bamba, bamba)):
         if name in module.PRESETS:
             return cls, module.preset
     return None
@@ -8144,6 +8197,500 @@ def phase_moe_families(card: str) -> dict:
     return out
 
 
+HY_PARITY = {
+    # label -> (preset, the fields that cut its depth; published widths)
+    "qwen3-next-80b-a3b": ("qwen3-next-80b-a3b", dict(
+        num_hidden_layers=2, layer_types=["linear_attention", "full_attention"],
+        segment_state_reset=True)),
+    "bamba-9b": ("bamba-9b", dict(num_hidden_layers=2, attn_layer_indices=[1],
+                                  segment_state_reset=True)),
+    # one layer each: a layer beside its 200064-row embedding and head holds
+    # 8.1 B parameters (32 GB in fp32), so the three paths run in turn
+    "minimax-text-01 lightning": ("minimax-text-01", dict(num_hidden_layers=1,
+                                                          layer_types=["linear_attention"])),
+    "minimax-text-01 softmax": ("minimax-text-01", dict(num_hidden_layers=1,
+                                                        layer_types=["full_attention"])),
+}
+HY_PARITY_SEQ = 1024
+HY_DOCS = (517, 443)  # the parity row's two documents (then padding)
+HY_FIT_PRESET = "qwen3-next-80b-a3b"
+HY_FIT_LAYERS = ["linear_attention", "full_attention"]  # 3.9 B parameters, ~62 GB of fp32 state
+HY_FIT_STEPS = 3
+HY_FIT_SEQ = 8192
+HY_MAX_DOC = 8000
+HY_SCAN_SEQ = 8192
+# the paths of a parity leg, the truth first: (compute dtype, attention impl,
+# MoE impl)
+HY_PATHS = {"fp32": ("float32", "torch", "dense"), "kernel": ("bfloat16", "auto", "auto"),
+            "plain": ("bfloat16", "torch", "auto")}
+
+
+def packed_documents(seed: int, seq: int, vocab: int, docs: tuple[int, ...]) -> dict:
+    """One row of `docs` random documents packed by the port's collator
+    (positions restarting), padded to `seq` (segment id 0)."""
+    import types
+
+    from llm_training_tpu_torch.data.pre_training.collator import PreTrainingDataCollator
+
+    rng = np.random.default_rng(seed)
+    config = types.SimpleNamespace(
+        tokenizer=types.SimpleNamespace(pad_token_id=0, bos_token_id=None), pad_to_multiple_of=seq)
+    return PreTrainingDataCollator(config)([{
+        "input_ids": rng.integers(0, vocab, sum(docs)).tolist(),
+        "segment_ids": [i + 1 for i, n in enumerate(docs) for _ in range(n)]}])
+
+
+class PinnedStage:
+    """One pageable fp32 host buffer page-locked in place
+    (`cudaHostRegister`: its exact size, where the caching host allocator
+    would round a block up to a power of two), viewed as a model's
+    parameters: the parity legs' fp32 gradients cross the link into it at
+    the pinned rate."""
+
+    def __init__(self, numel: int):
+        self.buf = torch.empty(numel, dtype=torch.float32)
+        cudart = torch.cuda.cudart()
+        rc = cudart.cudaHostRegister(self.buf.data_ptr(), numel * 4, 0)
+        check(rc == cudart.cudaError.success, f"cudaHostRegister of {numel * 4} bytes: {rc}")
+
+    def views(self, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+        out, at = {}, 0
+        for name, p in model.named_parameters():
+            out[name] = self.buf[at:at + p.numel()].view(p.shape)
+            at += p.numel()
+        check(at <= self.buf.numel(), f"pinned stage of {self.buf.numel()} for {at} elements")
+        return out
+
+    def close(self) -> None:
+        torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+        del self.buf
+
+
+def softmax_layers(config) -> int:
+    """The hybrid config's softmax-attention layers."""
+    return sum(config.layer_is_attention(i) if hasattr(config, "layer_is_attention")
+               else not config.layer_is_linear(i) for i in range(config.num_hidden_layers))
+
+
+def hybrid_parity(card: str, label: str, stage: PinnedStage) -> dict:
+    """25a: the CLM loss, the aux loss and EVERY parameter's gradient of
+    preset `label` (fp32 parameters, random weights from seed 1) on one
+    1024-token row of two packed documents, through K1-K3 and G1 in bf16
+    (the kernel path), the plain path in bf16 and the plain path in fp32
+    with the exact dense MoE (the truth), one after another on the same
+    model: the fp32 gradients leave the card for host memory as autograd
+    accumulates each one, and the bf16 paths' are held against them
+    there and then (`stage`: pinned host memory), so one path's gradients
+    at a time exist (MiniMax's 8.1 B-parameter layer could not hold more). The MoE routes as a forward
+    of the kernel path alone routed (recorded first); each path's own
+    flips are counted. The kernel path is no further from fp32 than
+    NO_FURTHER x the plain path, for the losses and each gradient (an error
+    below bf16's resolution, 2^-8 of max |fp32|, passes)."""
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+
+    preset_name, fields = HY_PARITY[label]
+    model_cls, config = preset_model(preset_name, param_dtype="float32", **fields)
+    model = model_cls(config, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(1))
+    host = packed_documents(251, HY_PARITY_SEQ, config.vocab_size, HY_DOCS)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    stacks = sum(p.dim() == 3 for n, p in model.named_parameters() if ".experts_" in n)
+    attn = softmax_layers(config)
+    objective = CLM(CLMConfig(), model=model)
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel) + gg.LAUNCHERS
+    with torch.no_grad(), moe_routing() as recorded:
+        objective.loss_and_metrics(batch, train=False)
+    record = recorded["record"]
+    truth, errors, state = stage.views(model), {"kernel": {}, "plain": {}}, {"path": None}
+
+    def settle(name):
+        def hook(param):
+            grad, path = param.grad, state["path"]
+            if path == "fp32":
+                truth[name].copy_(grad)
+            else:
+                want = truth[name].to("cuda", non_blocking=True)
+                errors[path][name] = float((grad - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                del want
+            param.grad = None
+        return hook
+
+    handles = [p.register_post_accumulate_grad_hook(settle(n)) for n, p in model.named_parameters()]
+    results, flips = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for path, (dtype, attention, moe_impl) in HY_PATHS.items():
+            state["path"] = path
+            config.compute_dtype, config.attention_impl = dtype, attention
+            if hasattr(config, "moe_impl"):
+                config.moe_impl = moe_impl
+            before = [launcher.launches for launcher in launchers]
+            with plain_grouped_gemm() if path == "plain" else contextlib.nullcontext(), \
+                    moe_routing(record) if stacks else contextlib.nullcontext({}) as routed, \
+                    count_plain_attention() as plain, count_plain_moe() as plain_moe:
+                loss, metrics = objective.loss_and_metrics(batch, train=False)
+                loss.backward()
+            torch.cuda.synchronize()
+            ran = [launcher.launches - b for launcher, b in zip(launchers, before)]
+            want = [attn] * 3 + [stacks] * 3 if path == "kernel" else [0] * 6
+            check(ran == want, f"{label}: the {path} path launched K1-K3 and G1 {ran}, "
+                               f"expected {want}")
+            if path == "kernel":
+                check(plain[0] == 0 and plain_moe == [0, 0],
+                      f"{label}: the kernel path called the plain attention {plain[0]} and "
+                      f"plain MoE paths {plain_moe} times")
+            flips[path] = routed.get("flips", 0)
+            results[path] = {"loss": float(loss.detach())}
+            if "aux_loss" in metrics:
+                results[path]["aux_loss"] = float(metrics["aux_loss"])
+            del loss, metrics
+    finally:
+        for handle in handles:
+            handle.remove()
+    seconds = time.perf_counter() - t0
+    truth_losses = results["fp32"]
+    for path in ("kernel", "plain"):
+        for key, value in results[path].items():
+            errors[path][key] = abs(value - truth_losses[key])
+    check(set(errors["kernel"]) == set(errors["plain"])
+          == {n for n, _ in model.named_parameters()} | set(truth_losses),
+          f"{label}: a gradient was not held against fp32")
+    worse = {}
+    for key, err in errors["kernel"].items():
+        # a loss's plain error can vanish by chance, and an error under
+        # bf16's resolution is rounding: floors of 2^-8 there
+        floor = 2.0**-8 * (abs(truth_losses[key]) if key in truth_losses else 1.0)
+        if err > max(NO_FURTHER * errors["plain"][key], floor):
+            worse[key] = (err, errors["plain"][key])
+    check(not worse, f"{label}: the kernel path is further from fp32 than {NO_FURTHER} x the "
+                     f"plain bf16 path: {worse}")
+    grads = [n for n, _ in model.named_parameters()]
+    top = max(grads, key=lambda n: errors["kernel"][n])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"hybrid train parity [{card}]: {label} ({preset_name} x {config.num_hidden_layers}: "
+          f"{n_params} params, {attn} softmax layer(s), {stacks} expert stacks), "
+          f"{HY_PARITY_SEQ} tokens ({'+'.join(map(str, HY_DOCS))} packed"
+          f"{', segment_state_reset' if getattr(config, 'segment_state_reset', False) else ''}),"
+          f" vs fp32: " + "; ".join(f"{k} kernel {errors['kernel'][k]:.3e} plain "
+                                    f"{errors['plain'][k]:.3e}" for k in truth_losses)
+          + f"; {len(grads)} gradients, largest kernel error {top.removeprefix('model.')} "
+          f"{errors['kernel'][top]:.3e} (plain {errors['plain'][top]:.3e}); worst ratio "
+          f"{max(errors['kernel'][n] / max(errors['plain'][n], 1e-30) for n in grads):.2f}; "
+          f"routing flips {flips} (replayed); {seconds:.1f} s", flush=True)
+    del model, objective, truth, batch
+    release()
+    return dict(errors=errors, losses=truth_losses, flips=flips, params=n_params,
+                softmax_layers=attn, expert_stacks=stacks, seconds=seconds)
+
+
+def hybrid_fit(card: str) -> dict:
+    """25b: the CLM `Trainer` on Qwen3-Next-80B-A3B at its published widths
+    cut to one [linear, full] pair (fp32 parameters, bf16 compute,
+    selective recompute, phase 8's AdamW, `segment_state_reset` as JAX's
+    example sets it), 3 steps of one packed 8192-token row, the aux loss
+    on: losses finite and falling; K1-K3 once a softmax layer a step, G1's
+    forward twice a product (the recompute), dgrad and wgrad once, three
+    products a layer; the plain attention, grouped-GEMM and dense paths
+    never. MFU counts 6 x the active matmul parameters a token (the
+    router, 10 of the 512 experts, the shared expert, the mixers'
+    projections, the head) and 12 D a visible pair a head of the softmax
+    layer (the delta rule's own FLOPs are not counted); beside it the
+    estimator's (every parameter, C.47)."""
+    from dataclasses import asdict
+
+    from llm_training_tpu_torch.callbacks.time_estimator import transformer_step_flops
+    from llm_training_tpu_torch.data.base import BaseDataModule, BaseDataModuleConfig
+    from llm_training_tpu_torch.lms.base import ModelProvider
+    from llm_training_tpu_torch.lms.clm import CLM, CLMConfig
+    from llm_training_tpu_torch.models.qwen3_next import config as qwen3_next
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_training_tpu_torch.ops.kernels import grouped_gemm as gg
+    from llm_training_tpu_torch.optim.builder import OptimConfig
+    from llm_training_tpu_torch.trainer.trainer import Trainer, TrainerConfig
+
+    layers = len(HY_FIT_LAYERS)
+    config = qwen3_next.preset(HY_FIT_PRESET, num_hidden_layers=layers,
+                               layer_types=HY_FIT_LAYERS, param_dtype="float32",
+                               segment_state_reset=True, enable_gradient_checkpointing=True,
+                               recompute_granularity="selective")
+    # one row, every step: "the loss falls" compares the same row
+    batches = packed_batches(25, HY_FIT_SEQ, 1, config.vocab_size,
+                             max_doc=HY_MAX_DOC) * HY_FIT_STEPS
+
+    class Batches(BaseDataModule):
+        def setup(self):
+            pass
+
+        def train_batches(self, start_step=0):
+            yield from batches[start_step:]
+
+    class Clock:
+        def __init__(self):
+            self.step_s, self.losses, self.aux, self.t = [], [], [], None
+
+        def on_fit_start(self, *args):
+            torch.cuda.synchronize()
+            self.t = time.perf_counter()
+
+        def on_train_step(self, trainer, step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.step_s.append(now - self.t)
+            self.t = now
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+            self.aux.append(metrics["aux_loss"])
+
+    clock = Clock()
+    trainer = Trainer(TrainerConfig(max_steps=HY_FIT_STEPS, seed=0, log_every_n_steps=1),
+                      callbacks=[clock], device="cuda")
+    objective = CLM(CLMConfig(model=ModelProvider("Qwen3Next", asdict(config)),
+                              optim=OptimConfig(**MF_OPTIM)))
+    launchers = (fa.flash_fwd_kernel, fa.flash_dq_kernel, fa.flash_dkv_kernel)
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_attention() as plain, count_plain_moe() as plain_moe:
+        for launcher in launchers + gg.LAUNCHERS:
+            launcher.launches = 0
+        state = trainer.fit(objective, Batches(BaseDataModuleConfig()))
+        torch.cuda.synchronize()
+        launches = [launcher.launches for launcher in launchers]
+        g1 = [launcher.launches for launcher in gg.LAUNCHERS]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, aux = clock.losses, clock.aux
+    check(len(losses) == HY_FIT_STEPS and all(math.isfinite(x) for x in losses + aux)
+          and losses[-1] < losses[0],
+          f"hybrid fit: losses {losses} (finite and falling), aux {aux}")
+    attn = softmax_layers(config)
+    want = [attn * HY_FIT_STEPS] * 3
+    products = 3 * layers * HY_FIT_STEPS  # gate, up and down a layer
+    want_g1 = [2 * products, products, products]
+    check(launches == want and plain[0] == 0 and g1 == want_g1 and plain_moe == [0, 0],
+          f"hybrid fit: K1/K2/K3 launched {launches} (expected {want}), G1 {g1} (expected "
+          f"{want_g1}); plain attention {plain[0]}, plain grouped GEMM / dense {plain_moe}")
+    model = state.model
+    n_all = sum(p.numel() for p in model.parameters())
+    matmul = sum(p.numel() for n, p in model.named_parameters()
+                 if p.dim() >= 2 and "embed_tokens" not in n and "conv_kernel" not in n)
+    experts = sum(p.numel() for n, p in model.named_parameters() if "experts_" in n)
+    active = matmul - experts + experts * config.num_experts_per_tok // config.num_experts
+    head = config.vocab_size * config.hidden_size
+    flops, est_flops, tokens = [], [], []
+    for batch in batches:
+        seg = torch.as_tensor(batch["segment_ids"], device="cuda")
+        tokens.append(int((batch["segment_ids"] > 0).sum()))
+        flops.append(6 * active * tokens[-1] + 12 * config.head_dim * config.num_attention_heads
+                     * attn * bench_flash.visible_pairs(seg, seg))
+        est_flops.append(transformer_step_flops(n_all, batch["input_ids"].size, layers,
+                                                config.hidden_size, HY_FIT_SEQ))
+    timed_s = clock.step_s[1:]  # step 1 carries the warm-up
+    out = dict(layers=layers, steps=HY_FIT_STEPS, losses=losses, aux_loss=aux, tokens=tokens,
+               params=n_all, active_matmul_params=active, head_params=head,
+               launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               g1_launches=dict(zip(("fwd", "dgrad", "wgrad"), g1)), plain_calls=plain[0],
+               step_ms=[1e3 * t for t in clock.step_s],
+               step_ms_p50=1e3 * percentile(timed_s, 50),
+               tokens_per_s=sum(tokens[1:]) / sum(timed_s),
+               mfu=sum(flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               estimator_mfu=sum(est_flops[1:]) / sum(timed_s) / bench_flash.BF16_FLOPS_PER_S,
+               peak_memory_gb=peak_gb)
+    print(f"hybrid fit [{card}]: {HY_FIT_PRESET} x {layers} layers {HY_FIT_LAYERS} ({n_all} "
+          f"params, {active} active matmul a token, {head} of them the head), {HY_FIT_STEPS} "
+          f"steps of 1 x {HY_FIT_SEQ} packed tokens (AdamW, selective recompute, "
+          f"segment_state_reset, aux loss coef {config.router_aux_loss_coef}); losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; aux_loss " + ", ".join(
+              f"{x:.4f}" for x in aux)
+          + f"; K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, G1 fwd {g1[0]} dgrad {g1[1]} "
+          f"wgrad {g1[2]}, plain paths {plain[0]} / {plain_moe}; step p50 "
+          f"{out['step_ms_p50']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.2f}% of 989 TFLOPS (6 x active matmul params a token, 12 D a "
+          f"visible pair a head of the softmax layer; the estimator's, every parameter: "
+          f"{100 * out['estimator_mfu']:.2f}%), peak memory {peak_gb:.2f} GB", flush=True)
+    check(peak_gb <= 80, f"hybrid fit: peak memory {peak_gb:.2f} GB")
+    del objective, state, trainer, model
+    release()
+    return out
+
+
+def scan_ms(fn, leaves: list, cotangent: torch.Tensor, reps: int = 3) -> dict:
+    """A plain scan's forward and backward (autograd, less the forward):
+    device ms (CUDA events, the host ahead: `bench_paged_decode.device_ms`,
+    one call a run) and wall ms (host clock around synchronized calls, the
+    median of `reps`: these scans launch hundreds of small kernels, so the
+    host's enqueueing is their cost)."""
+    from llm_training_tpu_torch.ops.kernels.bench_paged_decode import device_ms
+
+    forward = lambda: fn(*leaves)  # noqa: E731
+    both = lambda: torch.autograd.grad(fn(*leaves), leaves, cotangent)  # noqa: E731
+    out = {}
+    for name, call in (("fwd", forward), ("fwd_bwd", both)):
+        out[f"{name}_device_ms"] = device_ms([call], reps=1)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[f"{name}_wall_ms"] = percentile(walls, 50)
+    return {"fwd_device_ms": out["fwd_device_ms"], "fwd_wall_ms": out["fwd_wall_ms"],
+            "bwd_device_ms": out["fwd_bwd_device_ms"] - out["fwd_device_ms"],
+            "bwd_wall_ms": out["fwd_bwd_wall_ms"] - out["fwd_wall_ms"]}
+
+
+def hybrid_scan_timing(card: str, fit: dict) -> dict:
+    """25c (scans): the three plain scans, forward and backward, on one
+    packed 8192-token row at each preset's heads, bf16 inputs as the models
+    give them: the delta rule (32 value heads of 128, chunks of 64, the
+    segment reset on), lightning attention (64 heads of 128, blocks of 256)
+    and the SSD (128 heads of 64, d_state 128, chunks of 256, the reset
+    on); the delta rule's share of 25b's step (two forwards, the recompute,
+    and a backward a step: the fit's one linear layer)."""
+    from llm_training_tpu_torch.models.bamba.model import mamba2_ssd
+    from llm_training_tpu_torch.models.minimax.model import lightning_attention, slope_rate
+    from llm_training_tpu_torch.models.qwen3_next.model import (
+        chunk_gated_delta_rule,
+        segment_reset_decay,
+    )
+
+    seq, gen = HY_SCAN_SEQ, torch.Generator(device="cuda").manual_seed(25)
+    seg = torch.as_tensor(packed_batches(25, seq, 1, 1000, max_doc=HY_MAX_DOC)[0]["segment_ids"],
+                          device="cuda")
+    reset = segment_reset_decay(seg)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    def leaf(x):
+        return x.requires_grad_()
+
+    cases = {
+        "delta rule (Qwen3-Next: 32 heads of 128, chunk 64, reset)": (
+            lambda q, k, v, g, b: chunk_gated_delta_rule(q, k, v, g, b, 64, reset),
+            [leaf(randn(1, seq, 32, 128)), leaf(randn(1, seq, 32, 128)),
+             leaf(randn(1, seq, 32, 128)),
+             leaf(-torch.rand(1, seq, 32, generator=gen, device="cuda")),
+             leaf(torch.rand(1, seq, 32, generator=gen, device="cuda"))]),
+        "lightning (MiniMax-Text-01: 64 heads of 128, block 256)": (
+            lambda q, k, v: lightning_attention(
+                q, k, v, torch.as_tensor(slope_rate(64, 0, 80), device="cuda"), 256),
+            [leaf(randn(1, seq, 64, 128, scale=0.1)), leaf(randn(1, seq, 64, 128, scale=0.1)),
+             leaf(randn(1, seq, 64, 128))]),
+        "SSD (Bamba-9B: 128 heads of 64, d_state 128, chunk 256, reset)": (
+            lambda x, dt, b, c: mamba2_ssd(x, dt, -torch.linspace(0.5, 4.0, 128, device="cuda"),
+                                           b, c, 256, reset),
+            [leaf(randn(1, seq, 128, 64)),
+             leaf(0.1 * torch.rand(1, seq, 128, generator=gen, device="cuda")),
+             leaf(randn(1, seq, 128, 128, scale=0.1)), leaf(randn(1, seq, 128, 128, scale=0.1))]),
+    }
+    out = {}
+    for name, (fn, leaves) in cases.items():
+        out[name] = row = scan_ms(fn, leaves, torch.randn_like(fn(*leaves)))
+        del leaves
+        release()
+        if name.startswith("delta"):
+            step = 2 * row["fwd_wall_ms"] + row["bwd_wall_ms"]
+            row["share_of_fit_step"] = step / fit["step_ms_p50"]
+        print(f"hybrid scan timing [{card}]: {name}, 1 x {seq} tokens (plain PyTorch, fp32 "
+              f"inside): forward {row['fwd_wall_ms']:.2f} ms wall ({row['fwd_device_ms']:.2f} "
+              f"ms device), backward {row['bwd_wall_ms']:.2f} ms wall "
+              f"({row['bwd_device_ms']:.2f} ms device)"
+              + (f"; 2 forwards and a backward are {100 * row['share_of_fit_step']:.1f}% of 25b's "
+                 f"{fit['step_ms_p50']:.1f} ms step" if "share_of_fit_step" in row else ""),
+              flush=True)
+    return out
+
+
+def hybrid_kernel_timing(card: str) -> dict:
+    """25c (kernels): K1-K3 at Qwen3-Next's gated attention (Hq 16, Hkv 2,
+    D 256: a group of 8) and at MiniMax-Text-01's softmax layers (Hq 64,
+    Hkv 8, D 128), one packed 8192-token row each, held against their
+    plain versions and timed beside their bounds, the plain versions and
+    SDPA (MiniMax's without the kernel-level parity, which 25a's MiniMax
+    leg holds at these heads); G1 at Qwen3-Next's gate and down products
+    on 8192 tokens (10 of 512 experts a token; fwd, dgrad, wgrad) beside
+    its bound, the plain version and `torch._grouped_mm`."""
+    from llm_training_tpu_torch.ops.kernels import bench_flash
+    from llm_training_tpu_torch.ops.kernels import bench_grouped_gemm as bench
+
+    t0 = time.perf_counter()
+    out = {"qwen3_next": flash_shape_timing(card, "qwen3-next-80b-a3b B1 S8192 Hq16 Hkv2 D256",
+                                            bench_flash.qwen3_next_case()),
+           # held against the plain path at this layer's heads by 25a's
+           # MiniMax leg, on 1024 tokens
+           "minimax": flash_shape_timing(card, "minimax-text-01 B1 S8192 Hq64 Hkv8 D128",
+                                         bench_flash.minimax_case(), parity=False)}
+    print(f"hybrid kernel timing [{card}]: K1-K3 at both shapes {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    for name, (sizes, k, n, ops) in bench.qwen3_next_training_shapes().items():
+        for op in ops:
+            row = bench.time_case(sizes, k, n, op)
+            check(row["ok"], f"G1 timing {name} {op}: the kernel disagrees with its plain version")
+            out[f"{name} {op}"] = row
+            library_ms = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            print(f"hybrid kernel timing [{card}]: {name} {op} ({row['rows']} rows over "
+                  f"{row['touched']} of {row['groups']} groups, K {k} N {n}, bf16): "
+                  f"{row['ms']:.4f} ms against a {row['bound_by']} bound of "
+                  f"{row['bound_ms']:.4f} ms ({100 * row['share_of_bound']:.1f}%), plain "
+                  f"{row['plain_ms']:.4f} ms, torch._grouped_mm {library_ms}", flush=True)
+    print(f"hybrid kernel timing [{card}]: G1 at both products {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
+def phase_hybrids(card: str) -> dict:
+    """25: the hybrid families (see the header), each leg timed. The parity
+    legs' pinned host buffer (32.6 GB: ~17 s to page-lock) is made on a
+    thread beside the kernel timing and the fit (`cudaHostRegister` runs
+    without the interpreter lock); the scans' share needs the fit's step,
+    and the parity legs run last."""
+    import threading
+
+    out = {"parity": {}}
+    sizes = []
+    for preset_name, fields in HY_PARITY.values():
+        model_cls, config = preset_model(preset_name, **fields)
+        sizes.append(sum(p.numel() for p in model_cls(config, device="meta").parameters()))
+    staged: dict = {}
+
+    def pin():
+        t0 = time.perf_counter()
+        try:
+            staged["stage"] = PinnedStage(max(sizes))
+        except BaseException as error:  # joined and raised below
+            staged["error"] = error
+        staged["seconds"] = time.perf_counter() - t0
+
+    pinning = threading.Thread(target=pin, name="pin-stage")
+    pinning.start()
+    try:
+        for name, leg in (("timing", hybrid_kernel_timing), ("fit", hybrid_fit)):
+            t0 = time.perf_counter()
+            out[name] = leg(card)
+            out[name + "_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["scans"] = hybrid_scan_timing(card, out["fit"])
+        out["scans_s"] = time.perf_counter() - t0
+    finally:
+        pinning.join()
+    if "error" in staged:
+        raise staged["error"]
+    out["pinned_s"] = staged["seconds"]
+    t0 = time.perf_counter()
+    try:
+        for label in HY_PARITY:
+            out["parity"][label] = hybrid_parity(card, label, staged["stage"])
+    finally:
+        staged["stage"].close()
+    out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
 def start_pack_child() -> None:
     """Start phase 20's packers' process (stopped at exit if still running)."""
     import subprocess
@@ -8221,6 +8768,7 @@ def main() -> int:
     gemma = timed("22 gemma", phase_gemma, card)
     moe = timed("23 moe", phase_moe, card)
     families = timed("24 moe families", phase_moe_families, card)
+    hybrids = timed("25 hybrids", phase_hybrids, card)
     flash = timed("10 flash timing", phase_flash_timing, card)
     timed("11 random streams", phase_random_streams, card)
     # last: its one-rank process group changes the checkpointer's path
@@ -8244,6 +8792,13 @@ def main() -> int:
     # phase 24's per-shape G1 checks are summarised by its own line
     print(f"moe families summary [{card}]: " + json.dumps(
         {k: v for k, v in families.items() if k != "g1_parity"}))
+    # phase 25's per-gradient errors are summarised by its parity lines
+    print(f"hybrids summary [{card}]: " + json.dumps({
+        **{k: v for k, v in hybrids.items() if k not in ("parity", "timing")},
+        "parity": {label: {k: leg[k] for k in ("losses", "flips", "params", "seconds")}
+                   for label, leg in hybrids["parity"].items()},
+        "timing": {k: {key: v[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                   if "ms" in v else v for k, v in hybrids["timing"].items()}}))
     print("phase 18 K4 launches: " + json.dumps({
         "a": {name: serving["a"][name]["launches"] for name in ("plain", "shed")},
         "b": serving["b"]["launches"], "c": serving["c"]["launches"],
@@ -8310,14 +8865,31 @@ def main() -> int:
                             "library_ms")}}
            for name, op in zip(G1_NAMES, ("fwd", "dgrad", "wgrad"))]))
     print("K1-K3 at DeepSeek-V2-Lite's MLA shape (phase 24c): " + json.dumps(fam_timing["mla"]))
-    g1_launches = {op: g1_launches[op] + fam_fit["g1_launches"][op]
+    # phase 25's Qwen3-Next-80B-A3B fit: K1-K3 at D 256 with a group of 8,
+    # G1 at 512 experts; the kernels at its shapes (and K1-K3 at
+    # MiniMax-Text-01's softmax layer) timed in 25c
+    hy_fit, hy_timing = hybrids["fit"], hybrids["timing"]
+    print("phase 25 launches: " + json.dumps({**hy_fit["launches"], "g1": hy_fit["g1_launches"]}))
+    print("kernels at Qwen3-Next-80B-A3B shapes (launches: phase 25b): " + json.dumps(
+        [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+          "launches": hy_fit["launches"][kind], **hy_timing["qwen3_next"][kind]}
+         for (name, source, replaces), kind in zip(FLASH_KERNELS, ("fwd", "dq", "dkv"))]
+        + [{"name": name, "route": "cuda", "source": G1_SOURCE, "replaces": G1_REPLACES,
+            "launches": hy_fit["g1_launches"][op], **{
+                key: hy_timing[f"qwen3-next-80b-a3b training gate {op}"][key]
+                for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}}
+           for name, op in zip(G1_NAMES, ("fwd", "dgrad", "wgrad"))]))
+    print("K1-K3 at MiniMax-Text-01's softmax layer (phase 25c): "
+          + json.dumps(hy_timing["minimax"]))
+    g1_launches = {op: g1_launches[op] + fam_fit["g1_launches"][op] + hy_fit["g1_launches"][op]
                    for op in ("fwd", "dgrad", "wgrad")}
     g1_rows = [{**row, "launches": g1_launches[op]}
                for row, op in zip(g1_rows, ("fwd", "dgrad", "wgrad"))]
     flash_launches = {kind: it["launches"][kind] + mesh["launches"][kind]
                       + qwen3["fit"]["launches"][kind] + gemma["fit"]["launches"][kind]
                       + moe["fit"]["launches"][kind] + fam_fit["launches"][kind]
-                      for kind in ("fwd", "dq", "dkv")}
+                      + hy_fit["launches"][kind] for kind in ("fwd", "dq", "dkv")}
     print(json.dumps({"kernels": kernel_rows(
         timing, sum(serving["d"]["launches"]) + qwen3["serve"]["launches"]
         + gemma["serve"]["launches"] + moe["serve"]["launches"], it["kernels"],

@@ -6,7 +6,8 @@ config, frozen-module regexes, the pre-trained source) and
 a model. The JAX provider imports the class by name from
 `llm_training_tpu.models`; the port maps the names of the model classes it
 has (`Llama`, `Phi3`, `Gemma`, `Deepseek`, `Glm4Moe`, `GptOss`, `Ernie45Moe`,
-`HunYuanMoe`, `HFCausalLM`) onto its own classes and imports
+`HunYuanMoe`, `Qwen3Next`, `MiniMax`, `Bamba`, `HFCausalLM`) onto its own
+classes and imports
 nothing of the JAX package. `resolve_pretrained_source` and `init_model`
 are JAX's `resolve_pretrained_source` and `load_single_model_pretrained`:
 the objective's source wins over the model config's.
@@ -33,6 +34,7 @@ from llm_training_tpu_torch.models.hf_causal_lm import (
     HFCausalLMConfig,
     resolve_hf_config,
 )
+from llm_training_tpu_torch.models.bamba import Bamba, BambaConfig
 from llm_training_tpu_torch.models.deepseek import Deepseek, DeepseekConfig
 from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe, Ernie45MoeConfig
 from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
@@ -42,7 +44,9 @@ from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe, HunYuanMoeConf
 from llm_training_tpu_torch.models.hf_io import load_pretrained_params
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
+from llm_training_tpu_torch.models.minimax import MiniMax, MiniMaxConfig
 from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
+from llm_training_tpu_torch.models.qwen3_next import Qwen3Next, Qwen3NextConfig
 from llm_training_tpu_torch.optim.builder import OptimConfig
 
 logger = logging.getLogger(__name__)
@@ -59,7 +63,8 @@ MODEL_CLASSES: dict[str, tuple[type, type]] = {
     **{f"{prefix}{cls.__name__}": (cls, config_cls)
        for cls, config_cls in ((Deepseek, DeepseekConfig), (Glm4Moe, Glm4MoeConfig),
                                (GptOss, GptOssConfig), (Ernie45Moe, Ernie45MoeConfig),
-                               (HunYuanMoe, HunYuanMoeConfig))
+                               (HunYuanMoe, HunYuanMoeConfig), (Qwen3Next, Qwen3NextConfig),
+                               (MiniMax, MiniMaxConfig), (Bamba, BambaConfig))
        for prefix in ("", "llm_training_tpu.models.")},
     "HFCausalLM": (HFCausalLM, HFCausalLMConfig),
     "llm_training_tpu.models.HFCausalLM": (HFCausalLM, HFCausalLMConfig),

@@ -5,8 +5,8 @@ router, not a wrapper. `config.json`'s `model_type` selects the family
 (`hf_io.model_class_for_hf`: every Llama-graph type -> Llama, phi3 -> Phi3,
 gemma / gemma2 / gemma3_text -> Gemma, deepseek_v2 / deepseek_v3 / kimi_k2
 -> Deepseek, glm4_moe / dots1 -> Glm4Moe, gpt_oss -> GptOss, ernie4_5_moe ->
-Ernie45Moe, hunyuan_v1_moe -> HunYuanMoe; a family the port lacks raises
-naming ROADMAP A.8), the family's
+Ernie45Moe, hunyuan_v1_moe -> HunYuanMoe, qwen3_next -> Qwen3Next, minimax ->
+MiniMax, bamba -> Bamba: every family of JAX's table), the family's
 `config_from_hf` merges the hparams with any extra field of the node as
 an override, and with `load_hf_weights` (the default) the family config's
 `pre_trained_weights` defaults to `hf_path`, so the objective's loader
@@ -24,6 +24,7 @@ from typing import Any
 
 import torch
 
+from llm_training_tpu_torch.models.bamba import Bamba, BambaConfig
 from llm_training_tpu_torch.models.deepseek import Deepseek, DeepseekConfig
 from llm_training_tpu_torch.models.ernie45_moe import Ernie45Moe, Ernie45MoeConfig
 from llm_training_tpu_torch.models.gemma import Gemma, GemmaConfig
@@ -33,7 +34,9 @@ from llm_training_tpu_torch.models.hf_io import load_hf_config, model_class_for_
 from llm_training_tpu_torch.models.hunyuan_moe import HunYuanMoe, HunYuanMoeConfig
 from llm_training_tpu_torch.models.llama.config import LlamaConfig
 from llm_training_tpu_torch.models.llama.model import Llama
+from llm_training_tpu_torch.models.minimax import MiniMax, MiniMaxConfig
 from llm_training_tpu_torch.models.phi3 import Phi3, Phi3Config
+from llm_training_tpu_torch.models.qwen3_next import Qwen3Next, Qwen3NextConfig
 
 # JAX class path -> (the port's model class, its conversion module)
 _FAMILY_CLASSES: dict[str, tuple[type, str]] = {
@@ -50,12 +53,18 @@ _FAMILY_CLASSES: dict[str, tuple[type, str]] = {
         Ernie45Moe, "llm_training_tpu_torch.models.ernie45_moe.hf_conversion"),
     "llm_training_tpu.models.HunYuanMoe": (
         HunYuanMoe, "llm_training_tpu_torch.models.hunyuan_moe.hf_conversion"),
+    "llm_training_tpu.models.Qwen3Next": (
+        Qwen3Next, "llm_training_tpu_torch.models.qwen3_next.hf_conversion"),
+    "llm_training_tpu.models.MiniMax": (
+        MiniMax, "llm_training_tpu_torch.models.minimax.hf_conversion"),
+    "llm_training_tpu.models.Bamba": (Bamba, "llm_training_tpu_torch.models.bamba.hf_conversion"),
 }
 # each family config's model class (a Phi3Config is a LlamaConfig: first)
 _CONFIG_MODELS: tuple[tuple[type, type], ...] = (
     (Phi3Config, Phi3), (LlamaConfig, Llama), (GemmaConfig, Gemma),
     (DeepseekConfig, Deepseek), (Glm4MoeConfig, Glm4Moe), (GptOssConfig, GptOss),
     (Ernie45MoeConfig, Ernie45Moe), (HunYuanMoeConfig, HunYuanMoe),
+    (Qwen3NextConfig, Qwen3Next), (MiniMaxConfig, MiniMax), (BambaConfig, Bamba),
 )
 
 

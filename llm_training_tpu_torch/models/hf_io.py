@@ -64,6 +64,9 @@ _FAMILIES: dict[str, str] = {
     "GptOssConfig": "llm_training_tpu_torch.models.gpt_oss.hf_conversion",
     "Ernie45MoeConfig": "llm_training_tpu_torch.models.ernie45_moe.hf_conversion",
     "HunYuanMoeConfig": "llm_training_tpu_torch.models.hunyuan_moe.hf_conversion",
+    "Qwen3NextConfig": "llm_training_tpu_torch.models.qwen3_next.hf_conversion",
+    "MiniMaxConfig": "llm_training_tpu_torch.models.minimax.hf_conversion",
+    "BambaConfig": "llm_training_tpu_torch.models.bamba.hf_conversion",
 }
 
 
@@ -283,11 +286,12 @@ _ARCH_TO_FAMILY = {
     "gemma2": "llm_training_tpu.models.Gemma",
     "gemma3_text": "llm_training_tpu.models.Gemma",
 }
-# the families of that table the port has
+# the families of that table the port has: all of them
 PORTED_FAMILIES = (_LLAMA, "llm_training_tpu.models.Phi3", "llm_training_tpu.models.Gemma",
                    "llm_training_tpu.models.Deepseek", "llm_training_tpu.models.Glm4Moe",
                    "llm_training_tpu.models.GptOss", "llm_training_tpu.models.Ernie45Moe",
-                   "llm_training_tpu.models.HunYuanMoe")
+                   "llm_training_tpu.models.HunYuanMoe", "llm_training_tpu.models.Qwen3Next",
+                   "llm_training_tpu.models.MiniMax", "llm_training_tpu.models.Bamba")
 
 
 def model_class_for_hf(hf_config: dict, assume_llama_layout: bool = False) -> str:

@@ -18,6 +18,10 @@ The port writes that shape once:
   router statistics in layer order and, for a family with an aux loss
   (gpt-oss), the unscaled load-balancing loss.
 
+The hybrid families (`qwen3_next/`, `minimax/`, `bamba/`) build on the same
+LM with layers of their own (a recurrent mixer or `Attention`, then an MoE
+or `SwiGLU`) and, where theirs differs, their own final norm.
+
 None of these families decodes in JAX (their `__call__` takes no
 `decode_state`), so the port's forward takes none either:
 `infer.engine.supports_decoding` refuses them in `generate`, `serve` and
@@ -69,8 +73,9 @@ class FamilyConfig:
                 f"{self.recompute_granularity!r}")
         if self.attention_impl not in ("auto", "xla", "pallas", "torch", "kernel"):
             raise ValueError(f"unknown attention_impl {self.attention_impl!r}")
-        if self.moe_impl not in MOE_IMPLS:
-            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got {self.moe_impl!r}")
+        moe_impl = getattr(self, "moe_impl", "auto")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got {moe_impl!r}")
         if getattr(self, "attention_dropout", 0.0) != 0.0:
             raise ValueError("attention_dropout is not supported; set it to 0.0")
 
@@ -197,24 +202,34 @@ class DecoderLayer(nn.Module):
 
 
 class DecoderStack(nn.Module):
-    """HF's `model.` prefix: the embedding, the layers and the final norm."""
+    """HF's `model.` prefix: the embedding, the layers and the final norm
+    (`norm`, or the name a family gives it: Bamba's `final_layernorm`)."""
 
-    def __init__(self, config, layers: list[nn.Module], device=None):
+    def __init__(self, config, layers: list[nn.Module], device=None, norm: nn.Module | None = None,
+                 norm_name: str = "norm"):
         super().__init__()
         dtype = config.param_torch_dtype
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size, dtype=dtype,
                                          device=device)
         self.layers = nn.ModuleList(layers)
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype, device)
+        self.norm_name = norm_name
+        setattr(self, norm_name,
+                norm or RMSNorm(config.hidden_size, config.rms_norm_eps, dtype, device))
+
+    def final_norm(self, hidden: torch.Tensor) -> torch.Tensor:
+        return getattr(self, self.norm_name)(hidden)
 
 
 class MoEFamilyLM(nn.Module):
     """A family's causal LM. Subclasses define `layer(i, device)` (the i-th
     decoder layer), `rope_setup()` and `num_routed_experts`, and set
-    `has_aux_loss` (gpt-oss) and `head_bias` (ERNIE's `lm_head_bias`)."""
+    `has_aux_loss` (gpt-oss), `head_bias` (ERNIE's `lm_head_bias`) and,
+    where the family's final norm is not the Llama graph's `norm`,
+    `build_final_norm(device)` and `final_norm_name` (the hybrids)."""
 
     has_aux_loss = False
     head_bias = False
+    final_norm_name = "norm"
     # the mesh's FSDP2 and tensor-parallel plans know the Llama graph's
     # parameters only (parallel/sharding.py): these families refuse a mesh
     mesh_ported = False
@@ -223,7 +238,8 @@ class MoEFamilyLM(nn.Module):
         super().__init__()
         self.config = config
         self.model = DecoderStack(
-            config, [self.layer(i, device) for i in range(config.num_hidden_layers)], device)
+            config, [self.layer(i, device) for i in range(config.num_hidden_layers)], device,
+            self.build_final_norm(device), self.final_norm_name)
         self.lm_head = None
         if not config.tie_word_embeddings:
             self.lm_head = linear(config, config.hidden_size, config.vocab_size, False, device)
@@ -242,6 +258,10 @@ class MoEFamilyLM(nn.Module):
     @property
     def num_routed_experts(self) -> int:
         raise NotImplementedError
+
+    def build_final_norm(self, device) -> nn.Module | None:
+        """The final norm (None: the Llama graph's RMSNorm)."""
+        return None
 
     # -- the shared forward
     def rope_tables(self, position_ids: torch.Tensor, rope_len: int):
@@ -264,13 +284,17 @@ class MoEFamilyLM(nn.Module):
         """Random weights as JAX's initializers draw them: a normal of std
         `initializer_range` for projections, embeddings, routers, expert
         stacks (their biases too) and sinks; zeros for a Dense's bias, a
-        router's bias and the selection-correction bias; ones for norms."""
+        router's bias and the selection-correction bias; ones for norms; a
+        module's `init_fill` ({leaf: value}) where JAX draws a constant (a
+        zero-centred norm's zeros, a mixer's decay rates)."""
         std = self.config.initializer_range
         modules = dict(self.named_modules())
         for name, value in self.named_parameters():
             owner_name, _, leaf = name.rpartition(".")
             owner = modules[owner_name]
-            if isinstance(owner, RMSNorm):
+            if leaf in getattr(owner, "init_fill", {}):
+                value.fill_(owner.init_fill[leaf])
+            elif isinstance(owner, RMSNorm):
                 value.fill_(1.0)
             elif leaf in ("bias", "e_score_correction_bias", "lm_head_bias"):
                 value.zero_()
@@ -320,12 +344,11 @@ class MoEFamilyLM(nn.Module):
                 hidden, layer_stats = hidden
                 stats.append(layer_stats)
                 moe_ids.append(i)
-        hidden = self.model.norm(hidden)
-        dropped = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        router_stats = aux_loss = None
+        hidden = self.model.final_norm(hidden)
+        dropped = router_stats = aux_loss = None
         if stats:
             sel_frac, mean_prob, layer_dropped = (torch.stack(x) for x in zip(*stats))
-            dropped = dropped + layer_dropped.sum()
+            dropped = layer_dropped.float().sum()
             router_stats = RouterStats(sel_frac=sel_frac, mean_prob=mean_prob, dropped=dropped,
                                        layer_ids=tuple(moe_ids))
             if self.has_aux_loss:

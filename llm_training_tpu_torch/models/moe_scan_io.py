@@ -149,9 +149,11 @@ def export_order(layout: JaxLayout, num_layers: int,
 # A family's per-layer HF table: (the port's in-layer name, HF's, how the
 # tensor crosses): None as it is, "T" transposed (a raw JAX-layout matrix,
 # such as a router's `gate_kernel [H, E]`), "row" HF's `[1, E]` as the
-# port's `[E]` (ERNIE's correction bias). Its expert table has HF names with
-# `{e}`, one tensor an expert, stacked into the port's `[E, ...]` (each
-# transposed with "T").
+# port's `[E]` (ERNIE's correction bias), "conv" HF's depthwise conv weight
+# `[C, 1, K]` as the port's (JAX's) `[K, C]`. A second, per-layer table
+# (the experts', the hybrids' extras) is exported layer by layer after the
+# stacked names; its HF names with `{e}` are one tensor an expert, stacked
+# into the port's `[E, ...]` (each transposed with "T").
 Table = list[tuple[str, str, str | None]]
 
 
@@ -160,6 +162,8 @@ def _into_port(value, how: str | None):
         return value.T
     if how == "row":
         return value.reshape(-1)
+    if how == "conv":
+        return value[:, 0, :].T
     return value
 
 
@@ -168,7 +172,14 @@ def _into_hf(value, how: str | None):
         return value.T
     if how == "row":
         return value.reshape(1, -1)
+    if how == "conv":
+        return value.T[:, None, :]
     return value
+
+
+def _per_expert(hf: str, num_experts: int) -> list[int | None]:
+    """The experts an entry of the per-layer table spans (None: one tensor)."""
+    return list(range(num_experts)) if "{e}" in hf else [None]
 
 
 def layers_from_hf(config, put: Callable, read: Callable,
@@ -181,6 +192,9 @@ def layers_from_hf(config, put: Callable, read: Callable,
         for ours, hf, how in layer_table(i):
             put(f"model.layers.{i}.{ours}", _into_port(read(f"layers.{i}.{hf}"), how))
         for ours, hf, how in expert_table(i):
+            if "{e}" not in hf:
+                put(f"model.layers.{i}.{ours}", _into_port(read(f"layers.{i}.{hf}"), how))
+                continue
             put(f"model.layers.{i}.{ours}", torch.stack([
                 _into_port(read(f"layers.{i}.{hf.format(e=e)}"), how)
                 for e in range(num_experts)]))
@@ -189,21 +203,23 @@ def layers_from_hf(config, put: Callable, read: Callable,
 def layers_to_hf(params, out: dict, layout: JaxLayout, num_layers: int,
                  layer_table: Callable[[int], Table],
                  expert_table: Callable[[int], Table], num_experts: int) -> None:
-    """Write every layer's HF keys into `out` in JAX's order for `layout`."""
+    """Write every layer's HF keys into `out` in JAX's order for `layout`:
+    `layer_table`'s names stacked as JAX stacks them, then each layer's
+    `expert_table` entries in table order (an entry with `{e}` expert by
+    expert)."""
     tables = {i: {hf: (ours, how) for ours, hf, how in layer_table(i)}
               for i in range(num_layers)}
     experts = {i: expert_table(i) for i in range(num_layers)}
 
-    def extras(i: int) -> list[str]:
-        return [hf.format(e=e) for _, hf, _ in experts[i] for e in range(num_experts)]
-
     expert_of = {i: {hf.format(e=e): (ours, how, e) for ours, hf, how in experts[i]
-                     for e in range(num_experts)} for i in range(num_layers)}
-    for i, hf in export_order(layout, num_layers, lambda i: list(tables[i]), extras):
+                     for e in _per_expert(hf, num_experts)} for i in range(num_layers)}
+    for i, hf in export_order(layout, num_layers, lambda i: list(tables[i]),
+                              lambda i: list(expert_of[i])):
         if hf in tables[i]:
             ours, how = tables[i][hf]
             value = params[f"model.layers.{i}.{ours}"]
         else:
             ours, how, e = expert_of[i][hf]
-            value = params[f"model.layers.{i}.{ours}"][e]
+            value = params[f"model.layers.{i}.{ours}"]
+            value = value if e is None else value[e]
         out[f"model.layers.{i}.{hf}"] = _into_hf(value, how)

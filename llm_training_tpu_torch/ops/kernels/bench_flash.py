@@ -238,6 +238,19 @@ def mla_case(seq: int = 8192) -> list[dict]:
     return _copies(seq, 16, 16, 192, seed=25)
 
 
+def qwen3_next_case(seq: int = 8192) -> list[dict]:
+    """Qwen3-Next-80B-A3B's gated attention: Hq 16, Hkv 2 (a GQA group of
+    8) at D 256, one packed row of `seq` tokens, bf16, in enough copies to
+    run cold in L2."""
+    return _copies(seq, 16, 2, 256, seed=26)
+
+
+def minimax_case(seq: int = 8192) -> list[dict]:
+    """MiniMax-Text-01's softmax layers: Hq 64, Hkv 8, D 128, one packed row
+    of `seq` tokens, bf16, in enough copies to run cold in L2."""
+    return _copies(seq, 64, 8, 128, seed=27)
+
+
 def _copies(seq: int, hq: int, hkv: int, head_dim: int, seed: int) -> list[dict]:
     """One packed row of `seq` tokens (documents of 256-8000, a padding
     tail) at these heads, bf16, in enough copies to run cold in L2."""
@@ -343,11 +356,13 @@ def _fwd_bwd_ms(forward, cases: list[dict], reps: int) -> dict:
     return dict(fwd_ms=fwd, bwd_ms=both - fwd)
 
 
-def time_plain(cases: list[dict], reps: int = 3, window: int = 0, cap: float = 0.0,
+def time_plain(cases: list[dict], reps: int = 1, window: int = 0, cap: float = 0.0,
                sinks: torch.Tensor | None = None) -> dict:
     """The plain versions: K1's (`flash_fwd_torch`, O and LSE) and the
     backward's (autograd through it, dq, dk and dv together), one kv head
-    at a time as `run_plain_by_kv_head` runs them."""
+    at a time as `run_plain_by_kv_head` runs them. One call a run by
+    default: a call takes 50-500 ms, and `device_ms` sleeps the stream for
+    twice a run's host time before each of its three timed runs."""
     def forward(case, q, k, v):
         group = q.shape[2] // k.shape[2]
         return torch.cat([

@@ -345,6 +345,15 @@ def gpt_oss_training_shapes() -> dict[str, tuple[list[int], int, int, tuple[str,
             "gpt-oss-20b training down": (sizes, 2880, 2880, OPS)}
 
 
+def qwen3_next_training_shapes() -> dict[str, tuple[list[int], int, int, tuple[str, ...]]]:
+    """name -> (rows a group, K, N, directions) of Qwen3-Next-80B-A3B's
+    expert products on one packed 8192-token row (10 of 512 experts a
+    token): the gate projection (up's is the same product) and down."""
+    sizes = routed_sizes(8192, 10, 512, seed=25, skew=0.5)
+    return {"qwen3-next-80b-a3b training gate": (sizes, 2048, 512, OPS),
+            "qwen3-next-80b-a3b training down": (sizes, 512, 2048, OPS)}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_grouped_gemm needs a CUDA card")

@@ -349,8 +349,8 @@ def parallelize(model: torch.nn.Module, mesh, dp_mesh=None,
     from torch.distributed.tensor.parallel import parallelize_module
 
     if not getattr(model, "mesh_ported", True):
-        # the non-Llama MoE families: their parameters have no logical names
-        # in the table above, so neither plan is derived for them
+        # the non-Llama MoE families and the hybrids: their parameters have
+        # no logical names in the table above, so neither plan is derived
         raise NotImplementedError(
             f"{type(model).__name__} on a mesh is not ported (ROADMAP A.9b): the FSDP2 and "
             "tensor-parallel plans cover the Llama, Phi-3 and Gemma parameters")
